@@ -1,0 +1,305 @@
+"""Engine metrics registry: counters, gauges, histograms with labels.
+
+A copy of the reference's ``obs/metrics.py`` (the port imports nothing of
+the reference package); the series names and semantics are the same, so
+a drive's metrics compare series by series.
+
+One :class:`MetricsRegistry` per engine is the canonical read surface
+for serving telemetry.  Two write styles coexist:
+
+* **direct** — hot-loop code calls ``counter.inc()`` /
+  ``histogram.observe()`` (TTFT/TPOT/queue-wait observations, the
+  decode-loop device stats read at the block-boundary sync);
+* **fn-backed** — existing host-side accumulators (``SchedStats``
+  fields, ``PrefixCache`` counters, ``PageAllocator`` occupancy,
+  ``sync_count`` / phase wall-clocks) register a zero-arg callable that
+  is evaluated at snapshot time.  The legacy attributes keep working —
+  they ARE the storage — and the registry is a view over them, which is
+  what makes ``SchedEngine.telemetry()`` a thin compatibility shim.
+
+Reads are lock-free by construction: the engine host loop is the single
+writer, ``snapshot()`` only copies plain-int/float dicts (atomic under
+the GIL), and nothing ever blocks the decode path.  ``delta(since)``
+subtracts a previous snapshot from the current one — counters and
+histograms difference, gauges pass through — so a warmed-up engine can
+report per-drive numbers instead of lifetime totals.
+
+Exporters: :meth:`MetricsRegistry.to_json` (structured snapshot) and
+:meth:`MetricsRegistry.to_prometheus_text` (text exposition format).
+"""
+from __future__ import annotations
+
+import json
+from typing import Callable, Dict, Optional, Sequence, Tuple
+
+# Prometheus-style default buckets, widened for CPU-interpret smoke runs
+# (seconds; +Inf is implicit)
+DEFAULT_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
+                   0.5, 1.0, 2.5, 5.0, 10.0, 30.0)
+
+
+def histogram_quantile(q: float, cum_counts: Sequence[int],
+                       bounds: Sequence[float] = DEFAULT_BUCKETS) -> float:
+    """Bucket-interpolated quantile from cumulative bucket counts
+    (``histogram_quantile`` semantics: linear interpolation inside the
+    covering bucket; ranks landing in +Inf clamp to the largest finite
+    bound).  ``cum_counts`` is the snapshot/delta ``buckets`` list —
+    ``len(bounds) + 1`` entries with the +Inf total last."""
+    total = cum_counts[-1]
+    if total <= 0:
+        return 0.0
+    rank = q * total
+    prev_bound, prev_cum = 0.0, 0
+    for le, c in zip(bounds, cum_counts):
+        if c >= rank:
+            if c == prev_cum:
+                return float(le)
+            return prev_bound + (le - prev_bound) * (rank - prev_cum) \
+                / (c - prev_cum)
+        prev_bound, prev_cum = float(le), c
+    return float(bounds[-1]) if len(bounds) else 0.0
+
+
+def histogram_quantiles(hist: dict, qs: Sequence[float] = (0.5, 0.95, 0.99),
+                        bounds: Sequence[float] = DEFAULT_BUCKETS) -> dict:
+    """Quantiles from one snapshot/delta histogram entry (the
+    ``{"buckets": [...], "sum": s, "count": n}`` shape) — the shared
+    percentile path for benchmarks and exporters."""
+    return {f"p{q * 100:g}": histogram_quantile(q, hist["buckets"], bounds)
+            for q in qs}
+
+
+def histogram_fraction_le(hist: dict, bound: float,
+                          bounds: Sequence[float] = DEFAULT_BUCKETS) -> float:
+    """Fraction of a histogram's observations <= ``bound``
+    (bucket-interpolated; the inverse direction of
+    :func:`histogram_quantile`).  Applied to a ``delta()`` entry this is
+    the recent SLO-attainment estimate the degradation ladder
+    (the reference's resilience layer) reads as a pressure signal: e.g. the share
+    of TTFT observations inside the target since the last update."""
+    counts = hist["buckets"]
+    total = counts[-1]
+    if total <= 0:
+        return 1.0
+    prev_bound, prev_cum = 0.0, 0
+    for le, c in zip(bounds, counts):
+        if bound <= le:
+            if le == prev_bound:
+                return c / total
+            frac = (bound - prev_bound) / (le - prev_bound)
+            return min((prev_cum + frac * (c - prev_cum)) / total, 1.0)
+        prev_bound, prev_cum = float(le), c
+    return 1.0
+
+
+def series_key(name: str, labels: Optional[dict] = None) -> str:
+    """Canonical series id: ``name`` or ``name{k="v",...}`` (keys
+    sorted, so the same label set always maps to the same series)."""
+    if not labels:
+        return name
+    inner = ",".join(f'{k}="{labels[k]}"' for k in sorted(labels))
+    return f"{name}{{{inner}}}"
+
+
+class _Metric:
+    kind = "untyped"
+
+    def __init__(self, name: str, help: str = ""):
+        self.name = name
+        self.help = help
+        self._values: Dict[str, float] = {}
+        self._fns: Dict[str, Callable[[], float]] = {}
+
+    def attach(self, fn: Callable[[], float], **labels) -> None:
+        """Register a zero-arg callable evaluated at snapshot time (the
+        fn-backed style; replaces any previous fn for the series)."""
+        self._fns[series_key(self.name, labels)] = fn
+
+    def collect(self) -> Dict[str, float]:
+        out = dict(self._values)
+        for key, fn in self._fns.items():
+            out[key] = float(fn())
+        return out or {series_key(self.name): 0.0}
+
+
+class Counter(_Metric):
+    """Monotone counter.  ``inc`` for direct writes, ``attach`` for
+    fn-backed bridging of an existing accumulator."""
+    kind = "counter"
+
+    def inc(self, n: float = 1.0, **labels) -> None:
+        key = series_key(self.name, labels)
+        self._values[key] = self._values.get(key, 0.0) + n
+
+
+class Gauge(_Metric):
+    """Point-in-time value (pool occupancy, config info)."""
+    kind = "gauge"
+
+    def set(self, v: float, **labels) -> None:
+        self._values[series_key(self.name, labels)] = float(v)
+
+
+class Histogram:
+    """Cumulative-bucket histogram (Prometheus semantics): ``observe``
+    increments every bucket whose upper bound covers the value, plus
+    ``sum`` and ``count``."""
+    kind = "histogram"
+
+    def __init__(self, name: str, help: str = "",
+                 buckets: Sequence[float] = DEFAULT_BUCKETS):
+        self.name = name
+        self.help = help
+        self.buckets: Tuple[float, ...] = tuple(buckets)
+        # series -> [bucket counts..., +Inf count], sum
+        self._counts: Dict[str, list] = {}
+        self._sums: Dict[str, float] = {}
+
+    def observe(self, v: float, **labels) -> None:
+        key = series_key(self.name, labels)
+        counts = self._counts.setdefault(key, [0] * (len(self.buckets) + 1))
+        for i, le in enumerate(self.buckets):
+            if v <= le:
+                counts[i] += 1
+        counts[-1] += 1                       # +Inf
+        self._sums[key] = self._sums.get(key, 0.0) + float(v)
+
+    def collect(self) -> Dict[str, dict]:
+        out = {}
+        for key, counts in self._counts.items():
+            out[key] = {"buckets": list(counts), "sum": self._sums[key],
+                        "count": counts[-1]}
+        return out or {series_key(self.name): {
+            "buckets": [0] * (len(self.buckets) + 1), "sum": 0.0,
+            "count": 0}}
+
+
+class MetricsRegistry:
+    """Named metric families + lock-free snapshot/delta reads."""
+
+    def __init__(self):
+        self._metrics: Dict[str, object] = {}
+
+    # ------------------------------------------------------------------
+    # registration
+
+    def _register(self, cls, name, help, **kw):
+        m = self._metrics.get(name)
+        if m is not None:
+            if m.kind != cls.kind:
+                raise ValueError(
+                    f"metric {name!r} already registered as {m.kind}")
+            return m
+        m = cls(name, help, **kw)
+        self._metrics[name] = m
+        return m
+
+    def counter(self, name: str, help: str = "",
+                fn: Optional[Callable[[], float]] = None,
+                **labels) -> Counter:
+        c = self._register(Counter, name, help)
+        if fn is not None:
+            c.attach(fn, **labels)
+        return c
+
+    def gauge(self, name: str, help: str = "",
+              fn: Optional[Callable[[], float]] = None, **labels) -> Gauge:
+        g = self._register(Gauge, name, help)
+        if fn is not None:
+            g.attach(fn, **labels)
+        return g
+
+    def histogram(self, name: str, help: str = "",
+                  buckets: Sequence[float] = DEFAULT_BUCKETS) -> Histogram:
+        return self._register(Histogram, name, help, buckets=buckets)
+
+    def set_gauges(self, mapping: Dict[str, float], help: str = "",
+                   **labels) -> None:
+        """Bulk-set scalar gauges from a flat dict (the fold-in path for
+        roofline collective stats and cost-model byte splits)."""
+        for name, v in mapping.items():
+            if isinstance(v, (int, float)):
+                self.gauge(name, help).set(float(v), **labels)
+
+    # ------------------------------------------------------------------
+    # reads
+
+    def snapshot(self) -> dict:
+        """Consistent point-in-time copy: ``{"counters": {series: v},
+        "gauges": {...}, "histograms": {series: {buckets,sum,count}}}``.
+        Never blocks the writer (plain dict copies; fn-backed series
+        call their callable)."""
+        out = {"counters": {}, "gauges": {}, "histograms": {}}
+        for m in self._metrics.values():
+            out[m.kind + "s"].update(m.collect())
+        return out
+
+    def delta(self, since: dict) -> dict:
+        """Current snapshot minus ``since``: counters and histograms
+        subtract series-wise (new series keep their full value), gauges
+        pass through current."""
+        cur = self.snapshot()
+        out = {"counters": {}, "gauges": dict(cur["gauges"]),
+               "histograms": {}}
+        prev_c = since.get("counters", {})
+        for k, v in cur["counters"].items():
+            out["counters"][k] = v - prev_c.get(k, 0.0)
+        prev_h = since.get("histograms", {})
+        for k, h in cur["histograms"].items():
+            p = prev_h.get(k)
+            if p is None:
+                out["histograms"][k] = h
+            else:
+                out["histograms"][k] = {
+                    "buckets": [a - b for a, b in zip(h["buckets"],
+                                                      p["buckets"])],
+                    "sum": h["sum"] - p["sum"],
+                    "count": h["count"] - p["count"],
+                }
+        return out
+
+    # ------------------------------------------------------------------
+    # exporters
+
+    def to_json(self, snapshot: Optional[dict] = None, **meta) -> str:
+        snap = self.snapshot() if snapshot is None else snapshot
+        return json.dumps({**meta, **snap}, indent=1, sort_keys=True)
+
+    def to_prometheus_text(self) -> str:
+        """Prometheus text exposition format (one engine's registry =
+        one scrape body)."""
+        lines = []
+        for name in sorted(self._metrics):
+            m = self._metrics[name]
+            if m.help:
+                lines.append(f"# HELP {name} {m.help}")
+            lines.append(f"# TYPE {name} {m.kind}")
+            if m.kind == "histogram":
+                for key, h in sorted(m.collect().items()):
+                    base, labels = _split_key(key)
+                    for le, n in zip(list(m.buckets) + ["+Inf"],
+                                     h["buckets"]):
+                        lab = _merge_labels(labels, f'le="{le}"')
+                        lines.append(f"{base}_bucket{{{lab}}} {n}")
+                    suffix = f"{{{labels}}}" if labels else ""
+                    lines.append(f"{base}_sum{suffix} {h['sum']}")
+                    lines.append(f"{base}_count{suffix} {h['count']}")
+                    for q in (0.5, 0.95, 0.99):
+                        v = histogram_quantile(q, h["buckets"], m.buckets)
+                        lab = _merge_labels(labels, f'quantile="{q}"')
+                        lines.append(f"{base}{{{lab}}} {v}")
+            else:
+                for key, v in sorted(m.collect().items()):
+                    lines.append(f"{key} {v}")
+        return "\n".join(lines) + "\n"
+
+
+def _split_key(key: str) -> Tuple[str, str]:
+    if "{" not in key:
+        return key, ""
+    base, rest = key.split("{", 1)
+    return base, rest.rstrip("}")
+
+
+def _merge_labels(existing: str, extra: str) -> str:
+    return f"{existing},{extra}" if existing else extra
