@@ -18,11 +18,24 @@ Phases (each prints one line; any failure raises and exits non-zero):
                  a seed) served by the port's PagedEngine; checks token
                  counts, host syncs and both kernels' launch counts, and
                  one decode step's logits with kernels vs plain versions
-Then one JSON line of kernel numbers, and last the result line
-``{"ok": true, "device": {...}}``.
+  6. extend    — prefix-extend kernel vs its plain version (4 slots x 512
+                 chunk rows over prefixes of 512-3072 tokens, timed;
+                 fp32 / int8 / fp8 pools, W 1 and 5 with fp32 q over a
+                 bf16 chunk, the other configs' head shapes)
+  7. sched     — the same model through the port's SchedEngine (FCFS,
+                 prefix cache, chunked prefill of 600-3000-token prompts,
+                 half behind a shared 1,024-token system prompt); checks
+                 token counts, host syncs, all three kernels' launch
+                 counts, prefix hits, a repeated prompt's tokens and
+                 cached suffix, and one continuation chunk's logits with
+                 kernels vs plain versions
+Launch counts are zeroed just before each drive (phases 5 and 7) and read
+just after it.  Then one JSON line of kernel numbers, and last the result
+line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -133,9 +146,10 @@ def _max_regs(regs: dict) -> dict:
     return out
 
 
-def _paged_inputs(dtype_name: str, g, device, lengths, h=12, kh=2, d=128):
+def _paged_inputs(dtype_name: str, g, device, lengths, h=12, kh=2, d=128,
+                  pps=4):
     torch = _torch()
-    s_n, page, pps = len(lengths), 256, 4
+    s_n, page = len(lengths), 256
     n = s_n * pps + 1
     qdt = torch.float32 if dtype_name == "float32" else torch.bfloat16
     q = torch.randn((s_n, h, d), generator=g, device=device).to(qdt)
@@ -335,6 +349,136 @@ def phase_flash(records: list) -> None:
     print("[4 flash] " + "; ".join(line))
 
 
+def _extend_inputs(pool: str, g, device, prefix, widths, w, h=12, kh=2,
+                   d=128, q_dt=None, c_dt=None, pps=4):
+    """Prefix-extend operands: pools of ``pool`` type with page 256 and
+    ``pps`` pages a slot, prefix lengths and chunk widths per slot."""
+    torch = _torch()
+    q_dt = q_dt or (torch.float32 if pool == "float32" else torch.bfloat16)
+    c_dt = c_dt or q_dt
+    s_n = len(prefix)
+    _, kp, vp, bt, _, ks, vs = _paged_inputs(pool, g, device, [0] * s_n,
+                                             h, kh, d, pps=pps)
+    q = torch.randn((s_n, w, h, d), generator=g, device=device).to(q_dt)
+    ck = torch.randn((s_n, w, kh, d), generator=g, device=device).to(c_dt)
+    cv = torch.randn((s_n, w, kh, d), generator=g, device=device).to(c_dt)
+    i32 = dict(dtype=torch.int32, device=device)
+    return (q, kp, vp, bt, torch.tensor(prefix, **i32), ck, cv,
+            torch.tensor(widths, **i32), ks, vs)
+
+
+def extend_bytes_flops(args):
+    """Bytes each operand must move once and the operations the masks let
+    through, for one prefix-extend call on these inputs."""
+    q, kp, _, bt, pre, ck, _, wid, ks, _ = args
+    s_n, w_n, h, d = q.shape
+    page, kh = kp.shape[1], kp.shape[2]
+    lens = [min(int(x), bt.shape[1] * page) for x in pre.tolist()]
+    live_pages = sum(-(-n // page) for n in lens)
+    kv = 2 * sum(lens) * kh * d * kp.element_size()
+    scales = 2 * live_pages * kh * 4 if ks is not None else 0
+    io = 2 * q.numel() * q.element_size() + 2 * ck.numel() * ck.element_size()
+    meta = (bt.numel() + 2 * s_n) * 4
+    pairs = sum(w_n * n + sum(min(i + 1, int(wd)) for i in range(w_n))
+                for n, wd in zip(lens, wid.tolist()))
+    return kv + scales + io + meta, 4.0 * pairs * h * d
+
+
+def _extend_sdpa_inputs(args):
+    """The library yardstick's operands: the gathered prefix and the chunk
+    as one contiguous context, with the prefix and causal masks as one
+    explicit boolean mask (gathered outside the timed call)."""
+    torch = _torch()
+    q, kp, vp, bt, pre, ck, cv, wid, _, _ = args
+    s_n, w_n, h, d = q.shape
+    page, kh = kp.shape[1], kp.shape[2]
+    t = bt.shape[1] * page
+    kc = torch.cat([kp[bt.long()].reshape(s_n, t, kh, d), ck.to(kp.dtype)], 1)
+    vc = torch.cat([vp[bt.long()].reshape(s_n, t, kh, d), cv.to(vp.dtype)], 1)
+    dev = q.device
+    ctx_ok = torch.arange(t, device=dev)[None, None, :] < pre[:, None, None]
+    jj = torch.arange(w_n, device=dev)
+    chk_ok = ((jj[None, :] <= jj[:, None])[None]
+              & (jj[None, None, :] < wid[:, None, None]))
+    mask = torch.cat([ctx_ok.expand(s_n, w_n, t), chk_ok], -1)[:, None]
+    return (q.transpose(1, 2).contiguous(), kc.transpose(1, 2).contiguous(),
+            vc.transpose(1, 2).contiguous(), mask)
+
+
+def phase_extend(records: list) -> None:
+    """Prefix-extend kernel vs its plain version, element by element."""
+    torch = _torch()
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention import ops
+    from repro_torch.kernels.paged_attention.ref import paged_prefix_extend_ref
+    device = torch.device("cuda")
+    g = torch.Generator(device=device).manual_seed(SEED + 2)
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (pool, W, (H, KH, D), q dtype, chunk dtype): the scheduler's shape at
+    # every pool type; one and five queries (speculative verify's widths)
+    # with fp32 q over a bf16 chunk; the other configs' head shapes
+    cases = [(pool, 512, (12, 2, 128), None, None)
+             for pool in ("bfloat16", "float32", "int8", "float8_e4m3fn")]
+    cases += [("bfloat16", w, (12, 2, 128), f32, bf16) for w in (1, 5)]
+    cases += [(pool, 100, shape, None, None) for shape in EXTRA_SHAPES
+              for pool in ("bfloat16", "float32")]
+    line = []
+    for pool, w, (h, kh, d), q_dt, c_dt in cases:
+        # a chunk with no prefix, a page-aligned prefix, a partial last
+        # page, the full horizon with width 0, and an empty row
+        prefix = [0, 256, 300, 4 * 256, 0]
+        widths = [w, max(w // 2, 1), w, 0, 0]
+        args = _extend_inputs(pool, g, device, prefix, widths, w, h, kh, d,
+                              q_dt, c_dt)
+        out = ops.paged_prefix_extend_attention(*args)
+        ref = paged_prefix_extend_ref(*args)
+        torch.cuda.synchronize()
+        _, _, vp, _, _, _, cv, _, _, vs = args
+        v = vp.float() if vs is None else vp.float() * vs[:, None, :, None]
+        v_rms = max(v.pow(2).mean().sqrt().item(),
+                    cv.float().pow(2).mean().sqrt().item())
+        tag = (f"{pool} W{w} H{h}/{kh} D{d}"
+               + (f" q {str(q_dt)[6:]} chunk {str(c_dt)[6:]}" if q_dt else ""))
+        line.append(check_close(tag, out, ref, v_rms))
+        if not (out[4].float() == 0).all():
+            raise AssertionError("extend: a row with no prefix and no chunk "
+                                 "must give zeros")
+
+    # the timed case: the scheduler's continuation chunks
+    def timed():
+        return _extend_inputs("bfloat16", g, device, [512, 1024, 2048, 3072],
+                              [512] * 4, 512, pps=16)
+
+    args = timed()
+    out = ops.paged_prefix_extend_attention(*args)
+    ref = paged_prefix_extend_ref(*args)
+    torch.cuda.synchronize()
+    line.append(check_close("timed bfloat16 W512 prefix 512-3072", out, ref,
+                            1.0))
+    err = (out.float() - ref.float()).abs().max().item()
+    nbytes, flops = extend_bytes_flops(args)
+    copies = [args] + [timed() for _ in range(3)]
+    ms = time_ms(ops.paged_prefix_extend_attention, copies, reps=10)
+    plain_ms = time_ms(paged_prefix_extend_ref, copies[:2], reps=3, rounds=3)
+    lib_in = [_extend_sdpa_inputs(a) for a in copies[:2]]
+    lib_ms = time_ms(lambda qq, kk, vv, mm: F.scaled_dot_product_attention(
+        qq, kk, vv, attn_mask=mm, enable_gqa=True), lib_in, reps=10)
+    t_bytes, _ = bound(nbytes, 0.0, "bfloat16")
+    t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    b_ms, b_by = bound(nbytes, flops, "bfloat16")
+    records.append({"name": "paged_prefix_extend", "route": "cuda",
+                    "source": "src/repro_torch/csrc/paged_prefix_extend.cu",
+                    "replaces": "src/repro/kernels/paged_attention/"
+                                "paged_attention.py:209",
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": lib_ms, "launches": 0})
+    line.append(f"ms {ms:.4f} plain {plain_ms:.4f} sdpa {lib_ms:.4f} bound "
+                f"{b_ms:.4f} ({b_by}; bytes {t_bytes:.4f}, operations "
+                f"{t_ops:.4f})")
+    print("[6 extend] " + "; ".join(line))
+
+
 E2E_LAYERS = 28            # qwen2-1.5b's full depth
 #: per-slot relative L2 error allowed between the logits with the kernels
 #: and with their plain versions
@@ -343,19 +487,43 @@ LOGIT_REL_L2 = 2e-2
 
 def _swap_plain(fn):
     """Run ``fn()`` with the attention ops bound to their plain versions
-    (the comparison arm of phase 5; the port itself never does this)."""
+    (the comparison arm of phases 5 and 7; the port itself never does
+    this)."""
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.paged_attention import ops as pops
-    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
-    saved = fops.flash_attention, pops.paged_attention
+    from repro_torch.kernels.paged_attention.ref import (
+        paged_attention_ref, paged_prefix_extend_ref)
+    saved = (fops.flash_attention, pops.paged_attention,
+             pops.paged_prefix_extend_attention)
     fops.flash_attention = lambda q, k, v, causal=True, window=None: \
         attention_ref(q, k, v, causal=causal, window=window)
     pops.paged_attention = paged_attention_ref
+    pops.paged_prefix_extend_attention = paged_prefix_extend_ref
     try:
         return fn()
     finally:
-        fops.flash_attention, pops.paged_attention = saved
+        (fops.flash_attention, pops.paged_attention,
+         pops.paged_prefix_extend_attention) = saved
+
+
+def _worst_slot_rel_l2(tag: str, a, b, shape) -> tuple:
+    """Hold one batch of logits with the kernels (a) to the plain
+    versions (b): finite, of ``shape``, and every slot's relative L2 error
+    within LOGIT_REL_L2.  bf16 activations round the two arms' attention
+    outputs apart by up to an ulp (2^-8 relative) in each of 28 layers; a
+    kernel that drops or misweights keys moves a slot's attention output
+    by far more than that."""
+    torch = _torch()
+    if not (torch.isfinite(a).all() and tuple(a.shape) == shape):
+        raise AssertionError(f"{tag} logits not finite / wrong shape")
+    rel = ((a - b).norm(dim=-1) / b.norm(dim=-1)).max().item()
+    err = (a - b).abs().max().item()
+    if not rel <= LOGIT_REL_L2:
+        raise AssertionError(f"{tag} logits kernel vs plain: a slot's "
+                             f"relative L2 error {rel:.3e} > "
+                             f"{LOGIT_REL_L2} (max abs err {err:.3e})")
+    return rel, err
 
 
 def phase_e2e(records: list) -> dict:
@@ -458,21 +626,9 @@ def phase_e2e(records: list) -> dict:
     dec_k = decode()
     dec_p = _swap_plain(decode)
     torch.cuda.synchronize()
-    errs = {}
-    for tag, a, b in (("prefill", pre_k, pre_p), ("decode", dec_k, dec_p)):
-        if not (torch.isfinite(a).all() and a.shape == (n_s, cfg.vocab_size)):
-            raise AssertionError(f"{tag} logits not finite / wrong shape")
-        # each slot's logits, as a vector: bf16 activations round the two
-        # arms' attention outputs apart by up to an ulp (2^-8 relative) in
-        # each of 28 layers; a kernel that drops or misweights keys moves
-        # a slot's attention output by far more than that
-        rel = ((a - b).norm(dim=-1) / b.norm(dim=-1)).max().item()
-        err = (a - b).abs().max().item()
-        if not rel <= LOGIT_REL_L2:
-            raise AssertionError(f"{tag} logits kernel vs plain: a slot's "
-                                 f"relative L2 error {rel:.3e} > "
-                                 f"{LOGIT_REL_L2} (max abs err {err:.3e})")
-        errs[tag] = (rel, err)
+    errs = {tag: _worst_slot_rel_l2(tag, a, b, (n_s, cfg.vocab_size))
+            for tag, a, b in (("prefill", pre_k, pre_p),
+                              ("decode", dec_k, dec_p))}
     out = {"tokens_per_s": n_tok / wall, "ttft_p50_s": statistics.median(ttft),
            "wall_s": wall, "tokens": n_tok, "requests": n_req,
            "admissions": admits, "decode_blocks": blocks,
@@ -489,10 +645,192 @@ def phase_e2e(records: list) -> dict:
           f"{errs['prefill'][0]:.3e}/{errs['prefill'][1]:.3e} decode "
           f"{errs['decode'][0]:.3e}/{errs['decode'][1]:.3e}, setup "
           f"{t_setup:.1f}s")
-    out_dir = ROOT / "chiprun_out"
-    if out_dir.is_dir():
-        (out_dir / "chip_smoke_e2e.json").write_text(json.dumps(
-            {"e2e": out, "kernels": records}, indent=1))
+    return out
+
+
+SYS_PROMPT = 1024          # shared system prompt of phase 7, tokens
+SCHED_REQUESTS = 16
+
+
+def _counts(eng, tracer, since_events: int) -> dict:
+    """Dispatch counts of a scheduler drive: continuation vs fresh chunk
+    dispatches from the engine's own trace spans, decode blocks and steps
+    from its counters."""
+    spans = [e for e in tracer.events[since_events:]
+             if e["name"] == "prefill_dispatch" and e["ph"] == "X"]
+    return {"cont": sum(bool(e["args"]["cont"]) for e in spans),
+            "fresh": sum(not e["args"]["cont"] for e in spans),
+            "syncs": eng.sync_count, "steps": eng.steps_run,
+            "blocks": int(eng.metrics.snapshot()["counters"][
+                "serve_decode_dispatches_total"]),
+            "prefill_tokens": eng.stats.prefill_tokens}
+
+
+def phase_sched(records: list) -> dict:
+    """qwen2-1.5b at full width through the port's SchedEngine: FCFS,
+    prefix cache, chunked prefill of long prompts."""
+    torch = _torch()
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.paged_attention import ops as pops
+    from repro_torch.models.model import LM
+    from repro_torch.obs import Tracer
+    from repro_torch.sched import SchedEngine
+    from repro_torch.serve.paged import PageAllocator, set_block_table_rows
+    cfg = get_config("qwen2-1.5b").with_(num_layers=E2E_LAYERS)
+    # phase 5's engine is held by reference cycles (its metrics close over
+    # it): collect it so that the peak below is this drive's own
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lm = LM(cfg, device="cuda")
+    params = lm.init(SEED)
+    tracer = Tracer(enabled=True)
+    page = 256
+    eng = SchedEngine(lm, params, policy="fcfs", prefix_cache=True,
+                      n_slots=8, max_len=4096, page_size=page,
+                      prefill_chunk=512, decode_block=8, seed=SEED,
+                      tracer=tracer)
+    rng = np.random.default_rng(SEED + 7)
+    vocab = cfg.vocab_size
+    sys_prompt = rng.integers(0, vocab, SYS_PROMPT)
+    # the system prompt, served once first: warms the prefix cache (and
+    # the first launches)
+    eng.submit(np.concatenate([sys_prompt, rng.integers(0, vocab, 100)]),
+               max_new_tokens=8)
+    eng.run_to_completion()
+    torch.cuda.synchronize()
+    plens = rng.integers(600, 3001, SCHED_REQUESTS)
+    max_new = rng.integers(32, 65, SCHED_REQUESTS)
+    prompts = []
+    for i, n in enumerate(plens):
+        if i % 2 == 0:                       # half share the system prompt
+            n = max(int(n), SYS_PROMPT + 1)
+            prompts.append(np.concatenate(
+                [sys_prompt, rng.integers(0, vocab, n - SYS_PROMPT)]))
+        else:
+            prompts.append(rng.integers(0, vocab, int(n)))
+    base = _counts(eng, tracer, 0)
+    n_ev, hit0 = len(tracer.events), eng.stats.prefix_hit_tokens
+    phase0 = (eng.t_prefill_s, eng.t_decode_s)
+    fops.launches = pops.launches = pops.extend_launches = 0
+    t0 = time.perf_counter()
+    ids = [eng.submit(p, max_new_tokens=int(m))
+           for p, m in zip(prompts, max_new)]
+    done = eng.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"paged_attention": pops.launches,
+                "flash_attention": fops.launches,
+                "paged_prefix_extend": pops.extend_launches}
+    now = _counts(eng, tracer, n_ev)
+    d = {k: now[k] - base[k] for k in ("syncs", "steps", "blocks",
+                                        "prefill_tokens")}
+    d["cont"], d["fresh"] = now["cont"], now["fresh"]
+    hit = eng.stats.prefix_hit_tokens - hit0
+    # host wall of the chunk dispatches and of the decode blocks, each
+    # ending in its one sync
+    t_pre, t_dec = (eng.t_prefill_s - phase0[0], eng.t_decode_s - phase0[1])
+    n_tok = 0
+    for i, m in zip(ids, max_new):
+        got = done[i].out_tokens
+        if len(got) != int(m):
+            raise AssertionError(f"request {i}: {len(got)} tokens, want {m}")
+        if not all(0 <= t < vocab for t in got):
+            raise AssertionError(f"request {i}: token out of vocab")
+        n_tok += len(got)
+    if d["syncs"] != d["cont"] + d["fresh"] + d["blocks"]:
+        raise AssertionError(f"{d['syncs']} host syncs != {d['cont']} + "
+                             f"{d['fresh']} chunk dispatches + "
+                             f"{d['blocks']} decode blocks")
+    want = {"paged_prefix_extend": cfg.num_layers * d["cont"],
+            "flash_attention": cfg.num_layers * d["fresh"],
+            "paged_attention": cfg.num_layers * d["steps"]}
+    if launches != want or min(launches.values()) == 0:
+        raise AssertionError(f"launches {launches} != {want} (28 x "
+                             "continuation dispatches / fresh dispatches / "
+                             "decode steps), or a kernel never launched")
+    if hit <= 0:
+        raise AssertionError("no prompt token was served from the prefix "
+                             "cache")
+    ttft = sorted(done[i].t_first - done[i].t_submit for i in ids)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for r in records:
+        if r["name"] == "paged_prefix_extend":
+            r["launches"] = launches[r["name"]]
+
+    # one prompt served alone twice: identical tokens, and the second
+    # time only the suffix past the cached pages is computed.  1,200
+    # tokens: both runs' last chunk starts at 1,024, so it is the same
+    # computation on the same pages
+    repeat = rng.integers(0, vocab, 1200)
+    runs = []
+    for _ in range(2):
+        before = eng.stats.prefill_tokens
+        rid = eng.submit(repeat, max_new_tokens=16)
+        req = eng.run_to_completion()[rid]
+        runs.append((req.out_tokens, eng.stats.prefill_tokens - before,
+                     req.prefix_hit_tokens))
+    (tok_a, comp_a, _), (tok_b, comp_b, hit_b) = runs
+    if tok_a != tok_b or comp_a != len(repeat) or hit_b != 1024 \
+            or comp_b != len(repeat) - hit_b:
+        raise AssertionError(f"repeat: tokens equal {tok_a == tok_b}, "
+                             f"computed {comp_a} then {comp_b} with "
+                             f"{hit_b} cached tokens")
+
+    # one continuation chunk, kernels vs plain versions: prefixes written
+    # by a first chunk, then a ragged chunk over them
+    n_s, pps = 4, 16
+    alloc = PageAllocator(n_s * pps + 1, pps, n_s)
+    cache = lm.init_paged_cache(n_s, n_s * pps + 1, pps, page_size=page)
+    for s in range(n_s):
+        alloc.alloc(s, pps)
+    set_block_table_rows(cache, np.arange(n_s), alloc.table)
+    dev = torch.device("cuda")
+    i32 = dict(dtype=torch.int32, device=dev)
+    slots = torch.arange(n_s, device=dev)
+    starts = torch.tensor([512, 768, 1024, 256], **i32)
+    first = torch.as_tensor(rng.integers(0, vocab, (n_s, 1024)), device=dev)
+    lm.prefill_paged(eng.params, first, cache, slots,
+                     torch.zeros(n_s, **i32), starts)
+    chunk = torch.as_tensor(rng.integers(0, vocab, (n_s, 512)), device=dev)
+    lens = torch.tensor([512, 300, 512, 100], **i32)
+
+    def cont():
+        return lm.prefill_paged(eng.params, chunk, cache, slots, starts,
+                                lens, max_pages=4)[0]
+
+    ext_k = cont()
+    ext_p = _swap_plain(cont)
+    torch.cuda.synchronize()
+    rel, err = _worst_slot_rel_l2("continuation chunk", ext_k, ext_p,
+                                  (n_s, vocab))
+    out = {"tokens_per_s": n_tok / wall, "ttft_p50_s": statistics.median(ttft),
+           "wall_s": wall, "tokens": n_tok, "requests": SCHED_REQUESTS,
+           "prompt_tokens": int(sum(len(p) for p in prompts)),
+           "prefix_hit_tokens": hit, "computed_prefill_tokens":
+           d["prefill_tokens"], "cont_dispatches": d["cont"],
+           "fresh_dispatches": d["fresh"], "decode_blocks": d["blocks"],
+           "decode_steps": d["steps"], "syncs": d["syncs"],
+           "preemptions": eng.stats.preemptions, "peak_mem_gb": peak_gb,
+           "prefill_wall_s": t_pre, "decode_wall_s": t_dec,
+           "launches": launches, "repeat_computed": [comp_a, comp_b],
+           "logit_err": (rel, err)}
+    print(f"[7 sched] {cfg.name} {cfg.num_layers}L bf16 SchedEngine fcfs, "
+          f"prefix cache, chunk 512: {SCHED_REQUESTS} req "
+          f"({out['prompt_tokens']} prompt tokens, {hit} from the prefix "
+          f"cache), {n_tok} tokens in {wall:.3f}s ({n_tok / wall:.1f} "
+          f"tok/s), TTFT p50 {out['ttft_p50_s']:.4f}s, wall in chunk "
+          f"dispatches {t_pre:.3f}s / decode blocks {t_dec:.3f}s, "
+          f"{d['fresh']} fresh + "
+          f"{d['cont']} continuation dispatches + {d['blocks']} blocks = "
+          f"{d['syncs']} syncs, {d['steps']} decode steps, "
+          f"{eng.stats.preemptions} preemptions, launches {launches}, peak "
+          f"mem {peak_gb:.2f} GB; repeat prompt computed {comp_a} then "
+          f"{comp_b} tokens, same tokens; continuation logits kernel vs "
+          f"plain (worst slot's relative L2 / max abs, limit "
+          f"{LOGIT_REL_L2}): {rel:.3e}/{err:.3e}")
     return out
 
 
@@ -502,7 +840,13 @@ def main() -> int:
     records: list = []
     phase_paged(records)
     phase_flash(records)
-    phase_e2e(records)
+    e2e = phase_e2e(records)
+    phase_extend(records)
+    sched = phase_sched(records)
+    out_dir = ROOT / "chiprun_out"
+    if out_dir.is_dir():
+        (out_dir / "chip_smoke_e2e.json").write_text(json.dumps(
+            {"e2e": e2e, "sched": sched, "kernels": records}, indent=1))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": dev["kind"],

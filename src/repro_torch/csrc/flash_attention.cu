@@ -24,40 +24,27 @@
 //  * K (transposed) and V tiles live in shared memory as fp32; each of
 //    the 256 threads holds a 4x4 block of scores and a 4 x D/16 block of
 //    the output accumulator in registers.  Row max and row sum reduce
-//    across the 16 threads of a row with shuffles.
+//    across the 16 threads of a row with shuffles (the tile step,
+//    attn_tile.cuh, is shared with the prefix-extend kernel).
 //  * Ragged S and T are masked inside the kernel (rows past S are not
 //    written, keys past T are masked), so any length works: the engine's
 //    power-of-two buckets need no padding to a tile multiple.
-#include "common.cuh"
+#include "attn_tile.cuh"
 
 namespace repro {
 namespace {
 
-constexpr int kBQ = 64, kBK = 64;       // q rows / kv rows per tile
-constexpr int kTX = 16, kTY = 16;       // 256 threads
-constexpr int kThreads = kTX * kTY;
-constexpr int kRQ = kBQ / kTY;          // score rows per thread
-constexpr int kRK = kBK / kTX;          // score cols per thread (= 4)
-constexpr int kPad = 4;                 // keeps float4 alignment, spreads banks
-
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * ((size_t)kBQ * (D + kPad) + (size_t)D * (kBK + kPad)
-                          + (size_t)kBK * D + (size_t)kBQ * (kBK + kPad));
-}
+using namespace tile;
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, T* __restrict__ o, int S, int Tk, int H,
           int KH, int causal, int window, float scale) {
-  constexpr int QS = D + kPad, KTS = kBK + kPad, PS = kBK + kPad;
-  constexpr int DC = D / kTX;           // output cols per thread
+  constexpr int QS = Smem<D>::QS, KTS = Smem<D>::KTS;
+  constexpr int DC = State<D>::DC;
   extern __shared__ float smem[];
-  float* Qs = smem;                      // [kBQ][QS]
-  float* Kt = Qs + kBQ * QS;             // [D][KTS]   (K transposed)
-  float* Vs = Kt + D * KTS;              // [kBK][D]
-  float* Ps = Vs + kBK * D;              // [kBQ][PS]
+  const Smem<D> sm(smem);
 
   const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
   const int G = H / KH, kh = h / G;
@@ -65,7 +52,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int idx = tid; idx < kBQ * D; idx += kThreads) {
     const int i = idx / D, d = idx % D, qi = q0 + i;
-    Qs[i * QS + d] =
+    sm.Qs[i * QS + d] =
         qi < S ? to_f32<T>(q[(((size_t)b * S + qi) * H + h) * D + d]) : 0.f;
   }
 
@@ -75,15 +62,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   if (window > 0) kv_lo = max(0, q0 - window + 1);  // keys j > i - window
   kv_lo = (kv_lo / kBK) * kBK;
 
-  float m[kRQ], l[kRQ], acc[kRQ][DC];
-#pragma unroll
-  for (int a = 0; a < kRQ; ++a) {
-    m[a] = kNegInf;
-    l[a] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[a][c] = 0.f;
-  }
-
+  State<D> st;
+  st.init();
   for (int k0 = kv_lo; k0 < kv_hi; k0 += kBK) {
     __syncthreads();   // the previous tile's readers are done
     for (int idx = tid; idx < kBK * D; idx += kThreads) {
@@ -94,88 +74,27 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
         kv = to_f32<T>(k[off]);
         vv = to_f32<T>(v[off]);
       }
-      Kt[d * KTS + j] = kv;
-      Vs[j * D + d] = vv;
+      sm.Kt[d * KTS + j] = kv;
+      sm.Vs[j * D + d] = vv;
     }
     __syncthreads();
-
-    float sc[kRQ][kRK];
-#pragma unroll
-    for (int a = 0; a < kRQ; ++a)
-#pragma unroll
-      for (int c = 0; c < kRK; ++c) sc[a][c] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float4 k4 = *reinterpret_cast<const float4*>(&Kt[d * KTS + tx * kRK]);
-#pragma unroll
-      for (int a = 0; a < kRQ; ++a) {
-        const float qv = Qs[(ty * kRQ + a) * QS + d];
-        sc[a][0] = fmaf(qv, k4.x, sc[a][0]);
-        sc[a][1] = fmaf(qv, k4.y, sc[a][1]);
-        sc[a][2] = fmaf(qv, k4.z, sc[a][2]);
-        sc[a][3] = fmaf(qv, k4.w, sc[a][3]);
-      }
-    }
-
-#pragma unroll
-    for (int a = 0; a < kRQ; ++a) {
-      const int qi = q0 + ty * kRQ + a;
-      bool ok[kRK];
-      float rmax = kNegInf;
-#pragma unroll
-      for (int c = 0; c < kRK; ++c) {
-        const int kj = k0 + tx * kRK + c;
-        bool valid = kj < Tk && qi < S;
-        if (causal) valid = valid && kj <= qi;
-        if (window > 0) valid = valid && kj > qi - window;
-        ok[c] = valid;
-        sc[a][c] = valid ? sc[a][c] * scale : kNegInf;
-        if (valid) rmax = fmaxf(rmax, sc[a][c]);
-      }
-#pragma unroll
-      for (int off = kTX / 2; off > 0; off >>= 1)
-        rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, off));
-      const float m_new = fmaxf(m[a], rmax);
-      const float corr = expf(m[a] - m_new);
-      float rsum = 0.f;
-#pragma unroll
-      for (int c = 0; c < kRK; ++c) {
-        const float p = ok[c] ? expf(sc[a][c] - m_new) : 0.f;
-        rsum += p;
-        Ps[(ty * kRQ + a) * PS + tx * kRK + c] = p;
-      }
-#pragma unroll
-      for (int off = kTX / 2; off > 0; off >>= 1)
-        rsum += __shfl_xor_sync(0xffffffffu, rsum, off);
-      l[a] = l[a] * corr + rsum;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[a][c] *= corr;
-      m[a] = m_new;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < kBK; ++j) {
-      float pv[kRQ];
-#pragma unroll
-      for (int a = 0; a < kRQ; ++a) pv[a] = Ps[(ty * kRQ + a) * PS + j];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const float vv = Vs[j * D + tx + c * kTX];
-#pragma unroll
-        for (int a = 0; a < kRQ; ++a) acc[a][c] = fmaf(pv[a], vv, acc[a][c]);
-      }
-    }
+    step<D>(sm, st, tx, ty, scale, [&](int a, int c) {
+      const int qi = q0 + ty * kRQ + a, kj = k0 + tx * kRK + c;
+      bool valid = kj < Tk && qi < S;
+      if (causal) valid = valid && kj <= qi;
+      if (window > 0) valid = valid && kj > qi - window;
+      return valid;
+    });
   }
 
 #pragma unroll
   for (int a = 0; a < kRQ; ++a) {
     const int qi = q0 + ty * kRQ + a;
     if (qi >= S) continue;
-    const float denom = fmaxf(l[a], 1e-30f);
+    const float denom = fmaxf(st.l[a], 1e-30f);
     T* orow = o + (((size_t)b * S + qi) * H + h) * D;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) orow[tx + c * kTX] = from_f32<T>(acc[a][c] / denom);
+    for (int c = 0; c < DC; ++c) orow[tx + c * kTX] = from_f32<T>(st.acc[a][c] / denom);
   }
 }
 
@@ -183,7 +102,7 @@ template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int S, int Tk, int H, int KH, int causal, int window, float scale,
            cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>();
+  const size_t smem = Smem<D>::bytes();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));

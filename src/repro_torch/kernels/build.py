@@ -29,7 +29,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: kernel library name -> source file under csrc/
 SOURCES = {"paged_attention": "paged_attention.cu",
-           "flash_attention": "flash_attention.cu"}
+           "flash_attention": "flash_attention.cu",
+           "paged_prefix_extend": "paged_prefix_extend.cu"}
 
 #: torch dtype -> dtype code of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
@@ -43,6 +44,8 @@ SIGNATURES = {
                         [_P] * 11 + [_I] * 8 + [_F, _I, _I, _P]),
     "flash_attention": ("flash_attention_fwd",
                         [_P] * 4 + [_I] * 8 + [_F, _I, _P]),
+    "paged_prefix_extend": ("paged_prefix_extend_fwd",
+                            [_P] * 11 + [_I] * 7 + [_F] + [_I] * 3 + [_P]),
 }
 
 

@@ -1,9 +1,12 @@
-"""Public op: paged decode attention, dispatched on the tensors' device.
+"""Public ops: paged decode attention and multi-query prefix-extend
+attention, dispatched on the tensors' device.
 
-CPU tensors take the plain version (``ref.py``).  CUDA tensors launch the
-hand-written kernel (``csrc/paged_attention.cu``) or raise; there is no
-fallback.  ``launches`` counts kernel launches (one per call on a CUDA
-tensor), so a run can show that its decode steps went through the kernel.
+CPU tensors take the plain versions (``ref.py``).  CUDA tensors launch the
+hand-written kernels (``csrc/paged_attention.cu``,
+``csrc/paged_prefix_extend.cu``) or raise; there is no fallback.
+``launches`` and ``extend_launches`` count kernel launches (one per call on
+a CUDA tensor), so a run can show that its decode steps and its chunked
+prefill continuations went through the kernels.
 """
 from __future__ import annotations
 
@@ -12,10 +15,12 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+from repro_torch.kernels.paged_attention.ref import (paged_attention_ref,
+                                                     paged_prefix_extend_ref)
 
-#: kernel launches since the last reset (plain integer; reset by callers)
-launches = 0
+#: kernel launches since the last reset (plain integers; reset by callers)
+launches = 0            # paged decode
+extend_launches = 0     # prefix extend
 
 _Q_DTYPES = (torch.float32, torch.bfloat16)
 _KV_DTYPES = (torch.float32, torch.bfloat16, torch.int8, torch.float8_e4m3fn)
@@ -53,46 +58,62 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                    v_scales)
 
 
-def _check(cond: bool, msg: str) -> None:
-    if not cond:
-        raise ValueError(f"paged_attention: {msg}")
+def _checker(name: str):
+    def check(cond: bool, msg: str) -> None:
+        if not cond:
+            raise ValueError(f"{name}: {msg}")
+    return check
+
+
+def _check_pools(check, k_pages, v_pages, k_scales, v_scales) -> bool:
+    """Pool dtype, shape and scale checks shared by both kernels; returns
+    whether the pools are quantized."""
+    n_pages, _, kh, _ = k_pages.shape
+    quantized = k_pages.dtype in (torch.int8, torch.float8_e4m3fn)
+    if quantized:
+        check(k_scales is not None and v_scales is not None,
+              "int8/fp8 pools need k_scales and v_scales")
+        check(k_scales.dtype == torch.float32
+              and v_scales.dtype == torch.float32, "scales must be fp32")
+        check(tuple(k_scales.shape) == (n_pages, kh)
+              and tuple(v_scales.shape) == (n_pages, kh),
+              f"scales must be {(n_pages, kh)}")
+    else:
+        check(k_scales is None and v_scales is None,
+              "scales are only taken with int8/fp8 pools")
+    check(k_pages.dtype in _KV_DTYPES and v_pages.dtype == k_pages.dtype,
+          f"pool dtype {k_pages.dtype}/{v_pages.dtype}")
+    check(v_pages.shape == k_pages.shape, "k/v pools differ in shape")
+    return quantized
+
+
+def _check_tensors(check, tensors, device) -> None:
+    for t in tensors:
+        check(t.device == device, "all tensors must be on one device")
+        check(t.is_contiguous(), "tensors must be contiguous")
 
 
 def _launch(q, k_pages, v_pages, block_table, lengths, k_scales, v_scales):
     global launches
+    check = _checker("paged_attention")
     s_n, h, d = q.shape
     n_pages, page, kh, d_kv = k_pages.shape
     p_n = block_table.shape[1]
-    quantized = k_pages.dtype in (torch.int8, torch.float8_e4m3fn)
+    quantized = _check_pools(check, k_pages, v_pages, k_scales, v_scales)
     tensors = [q, k_pages, v_pages, block_table, lengths]
     if quantized:
-        _check(k_scales is not None and v_scales is not None,
-               "int8/fp8 pools need k_scales and v_scales")
-        _check(k_scales.dtype == torch.float32
-               and v_scales.dtype == torch.float32, "scales must be fp32")
-        _check(tuple(k_scales.shape) == (n_pages, kh)
-               and tuple(v_scales.shape) == (n_pages, kh),
-               f"scales must be {(n_pages, kh)}")
         tensors += [k_scales, v_scales]
-    else:
-        _check(k_scales is None and v_scales is None,
-               "scales are only taken with int8/fp8 pools")
-    for t in tensors:
-        _check(t.device == q.device, "all tensors must be on one device")
-        _check(t.is_contiguous(), "tensors must be contiguous")
-    _check(q.dtype in _Q_DTYPES, f"q dtype {q.dtype}")
-    _check(k_pages.dtype in _KV_DTYPES and v_pages.dtype == k_pages.dtype,
-           f"pool dtype {k_pages.dtype}/{v_pages.dtype}")
-    _check(v_pages.shape == k_pages.shape, "k/v pools differ in shape")
-    _check(all(t.data_ptr() % 16 == 0 for t in (q, k_pages, v_pages)),
-           "q and pools must be 16-byte aligned (vector loads)")
-    _check(d == d_kv and d in _HEAD_DIMS, f"head dim {d} (pools {d_kv})")
-    _check(h % kh == 0 and h // kh <= _MAX_GROUP,
-           f"{h} heads over {kh} kv heads")
-    _check(block_table.dtype == torch.int32
-           and tuple(block_table.shape) == (s_n, p_n), "block_table")
-    _check(lengths.dtype == torch.int32 and tuple(lengths.shape) == (s_n,),
-           "lengths")
+    _check_tensors(check, tensors, q.device)
+    check(q.dtype in _Q_DTYPES, f"q dtype {q.dtype}")
+    check(all(t.data_ptr() % 16 == 0 for t in (q, k_pages, v_pages)),
+          "q and pools must be 16-byte aligned (vector loads)")
+    check(d == d_kv and d in _HEAD_DIMS, f"head dim {d} (pools {d_kv})")
+    check(h % kh == 0 and h // kh <= _MAX_GROUP,
+          f"{h} heads over {kh} kv heads")
+    check(block_table.dtype == torch.int32
+          and tuple(block_table.shape) == (s_n, p_n), "block_table")
+    check(lengths.dtype == torch.int32 and tuple(lengths.shape) == (s_n,),
+          "lengths")
     fn, err = build.load("paged_attention")
     n_split, tps = split_plan(s_n, kh, p_n * page)
     g = h // kh
@@ -112,4 +133,73 @@ def _launch(q, k_pages, v_pages, block_table, lengths, k_scales, v_scales):
             build.DTYPE_CODES[k_pages.dtype], build.stream_handle(q.device))
     build.check_status("paged_attention", rc, err)
     launches += 1
+    return out
+
+
+def paged_prefix_extend_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                                  v_pages: torch.Tensor,
+                                  block_table: torch.Tensor,
+                                  prefix_lens: torch.Tensor,
+                                  chunk_k: torch.Tensor,
+                                  chunk_v: torch.Tensor,
+                                  widths: torch.Tensor,
+                                  k_scales: Optional[torch.Tensor] = None,
+                                  v_scales: Optional[torch.Tensor] = None
+                                  ) -> torch.Tensor:
+    """q: (S,W,H,D) queries at logical positions ``prefix_lens[s] +
+    [0, W)``; k_pages/v_pages: (N,page,KH,D); block_table: (S,P) int32;
+    prefix_lens, widths: (S,) int32; chunk_k/chunk_v: (S,W,KH,D) fresh K/V
+    attended causally up to ``widths[s]``; k_scales/v_scales: (N,KH) fp32
+    for int8 / fp8 pools -> (S,W,H,D) in q's dtype.  q and the chunk are
+    each fp32 or bf16."""
+    if q.device.type == "cpu":
+        return paged_prefix_extend_ref(q, k_pages, v_pages, block_table,
+                                       prefix_lens, chunk_k, chunk_v, widths,
+                                       k_scales, v_scales)
+    if q.device.type != "cuda":
+        raise ValueError(
+            f"paged_prefix_extend_attention: unsupported device {q.device}")
+    return _launch_extend(q, k_pages, v_pages, block_table, prefix_lens,
+                          chunk_k, chunk_v, widths, k_scales, v_scales)
+
+
+def _launch_extend(q, k_pages, v_pages, block_table, prefix_lens, chunk_k,
+                   chunk_v, widths, k_scales, v_scales):
+    global extend_launches
+    check = _checker("paged_prefix_extend_attention")
+    s_n, w_n, h, d = q.shape
+    _, page, kh, d_kv = k_pages.shape
+    p_n = block_table.shape[1]
+    quantized = _check_pools(check, k_pages, v_pages, k_scales, v_scales)
+    tensors = [q, k_pages, v_pages, block_table, prefix_lens, chunk_k,
+               chunk_v, widths]
+    if quantized:
+        tensors += [k_scales, v_scales]
+    _check_tensors(check, tensors, q.device)
+    check(q.dtype in _Q_DTYPES, f"q dtype {q.dtype}")
+    check(chunk_k.dtype in _Q_DTYPES and chunk_v.dtype == chunk_k.dtype,
+          f"chunk dtype {chunk_k.dtype}/{chunk_v.dtype}")
+    check(tuple(chunk_k.shape) == (s_n, w_n, kh, d)
+          and chunk_v.shape == chunk_k.shape,
+          f"chunk shapes {tuple(chunk_k.shape)}/{tuple(chunk_v.shape)}")
+    check(d == d_kv and d in _HEAD_DIMS, f"head dim {d} (pools {d_kv})")
+    check(h % kh == 0, f"{h} heads over {kh} kv heads")
+    check(block_table.dtype == torch.int32
+          and tuple(block_table.shape) == (s_n, p_n), "block_table")
+    for name, t in (("prefix_lens", prefix_lens), ("widths", widths)):
+        check(t.dtype == torch.int32 and tuple(t.shape) == (s_n,), name)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    fn, err = build.load("paged_prefix_extend")
+    rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            block_table.data_ptr(), prefix_lens.data_ptr(),
+            chunk_k.data_ptr(), chunk_v.data_ptr(), widths.data_ptr(),
+            k_scales.data_ptr() if quantized else None,
+            v_scales.data_ptr() if quantized else None,
+            out.data_ptr(), s_n, w_n, h, kh, d, page, p_n, 1.0 / (d ** 0.5),
+            build.DTYPE_CODES[q.dtype], build.DTYPE_CODES[chunk_k.dtype],
+            build.DTYPE_CODES[k_pages.dtype], build.stream_handle(q.device))
+    build.check_status("paged_prefix_extend", rc, err)
+    extend_launches += 1
     return out

@@ -1,12 +1,14 @@
-"""Plain PyTorch version of paged decode attention (GQA, per-slot lengths).
+"""Plain PyTorch versions of paged decode attention and of multi-query
+prefix-extend attention (GQA, per-slot lengths).
 
-The counterpart of ``repro/kernels/paged_attention/ref.py``
-``paged_attention_ref``: gather every slot's pages into a contiguous copy
-and run a masked fp32 softmax.  Fully masked slots (length 0, a free
-engine slot) return zeros, as the kernel does.  Quantized pools (int8 /
-fp8 e4m3) are dequantized up front with their per-(page, kv head) fp32
-scales.  Wrappers take this version for CPU tensors; ``chip_smoke.py``
-holds the CUDA kernel against it on the card.
+The counterparts of ``repro/kernels/paged_attention/ref.py``
+``paged_attention_ref`` and ``paged_prefix_extend_ref``: gather every
+slot's pages into a contiguous copy and run a masked fp32 softmax.  Fully
+masked rows (a free engine slot; an empty chunk row) return zeros, as the
+kernels do.  Quantized pools (int8 / fp8 e4m3) are dequantized up front
+with their per-(page, kv head) fp32 scales.  Wrappers take these versions
+for CPU tensors; ``chip_smoke.py`` holds the CUDA kernels against them on
+the card.
 """
 from __future__ import annotations
 
@@ -15,6 +17,21 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e30
+
+
+def _gather_pages(k_pages, v_pages, block_table, k_scales, v_scales):
+    """Every slot's pages as contiguous fp32 (S, P·page, KH, D) K and V,
+    dequantized with their per-(page, kv head) scales when given."""
+    s_n, p_n = block_table.shape
+    _, page, kh, d = k_pages.shape
+    bt = block_table.long()
+    k = k_pages[bt].float()                              # (S,P,page,KH,D)
+    v = v_pages[bt].float()
+    if k_scales is not None:
+        k = k * k_scales[bt][:, :, None, :, None]
+        v = v * v_scales[bt][:, :, None, :, None]
+    return (k.reshape(s_n, p_n * page, kh, d),
+            v.reshape(s_n, p_n * page, kh, d))
 
 
 def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
@@ -30,14 +47,8 @@ def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     _, page, kh, _ = k_pages.shape
     p_n = block_table.shape[1]
     g = h // kh
-    bt = block_table.long()
-    k = k_pages[bt].float()                              # (S,P,page,KH,D)
-    v = v_pages[bt].float()
-    if k_scales is not None:
-        k = k * k_scales[bt][:, :, None, :, None]
-        v = v * v_scales[bt][:, :, None, :, None]
-    k = k.reshape(s_n, p_n * page, kh, d)                # (S,T,KH,D)
-    v = v.reshape(s_n, p_n * page, kh, d)
+    k, v = _gather_pages(k_pages, v_pages, block_table, k_scales,
+                         v_scales)                       # (S,T,KH,D)
     qg = q.reshape(s_n, kh, g, d).float()
     scale = 1.0 / torch.sqrt(torch.tensor(d, dtype=torch.float32))
     scores = torch.einsum("skgd,stkd->skgt", qg, k) * scale
@@ -50,3 +61,49 @@ def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     l = p.sum(dim=-1, keepdim=True)
     o = torch.einsum("skgt,stkd->skgd", p / torch.clamp(l, min=1e-30), v)
     return o.reshape(s_n, h, d).to(q.dtype)
+
+
+def paged_prefix_extend_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                            v_pages: torch.Tensor, block_table: torch.Tensor,
+                            prefix_lens: torch.Tensor, chunk_k: torch.Tensor,
+                            chunk_v: torch.Tensor, widths: torch.Tensor,
+                            k_scales: Optional[torch.Tensor] = None,
+                            v_scales: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """Multi-query prefix-extend attention.
+
+    q: (S,W,H,D) — query ``w`` of slot ``s`` sits at logical position
+    ``prefix_lens[s] + w``.  Every query attends the slot's paged prefix
+    (positions < prefix_lens[s]; whatever the pages hold at or past it —
+    a prefill chunk's own just-scattered rows — is masked in favour of the
+    fresh chunk) and the chunk's own K/V ``chunk_k``/``chunk_v``
+    (S,W,KH,D) causally: key ``j <= w`` with ``j < widths[s]``.  Rows at
+    ``w >= widths[s]`` are padding, computed under the same masks.
+    -> (S,W,H,D) in q's dtype."""
+    s_n, w_n, h, d = q.shape
+    _, page, kh, _ = k_pages.shape
+    t = block_table.shape[1] * page
+    g = h // kh
+    k, v = _gather_pages(k_pages, v_pages, block_table, k_scales, v_scales)
+    qg = q.reshape(s_n, w_n, kh, g, d).float()
+    scale = 1.0 / torch.sqrt(torch.tensor(d, dtype=torch.float32))
+    neg = torch.tensor(NEG_INF, device=q.device)
+    s_ctx = torch.einsum("swkgd,stkd->skgwt", qg, k) * scale
+    ctx_ok = (torch.arange(t, device=q.device)[None, :]
+              < prefix_lens[:, None])                             # (S,T)
+    s_ctx = torch.where(ctx_ok[:, None, None, None, :], s_ctx, neg)
+    s_chk = torch.einsum("swkgd,sjkd->skgwj", qg, chunk_k.float()) * scale
+    jj = torch.arange(w_n, device=q.device)
+    chk_ok = ((jj[None, :] <= jj[:, None])[None]
+              & (jj[None, None, :] < widths[:, None, None]))      # (S,W,W)
+    s_chk = torch.where(chk_ok[:, None, None], s_chk, neg)
+    s_all = torch.cat([s_ctx, s_chk], dim=-1)
+    ok_all = torch.cat([ctx_ok[:, None, :].expand(s_n, w_n, t), chk_ok],
+                       dim=-1)                                    # (S,W,T+W)
+    m = s_all.amax(dim=-1, keepdim=True)
+    p = torch.exp(s_all - m) * ok_all[:, None, None]
+    l = p.sum(dim=-1, keepdim=True)
+    p = p / torch.clamp(l, min=1e-30)
+    o = (torch.einsum("skgwt,stkd->swkgd", p[..., :t], v)
+         + torch.einsum("skgwj,sjkd->swkgd", p[..., t:], chunk_v.float()))
+    return o.reshape(s_n, w_n, h, d).to(q.dtype)

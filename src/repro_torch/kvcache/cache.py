@@ -111,23 +111,26 @@ def paged_write_batch(cache: dict, positions: torch.Tensor,
 
 def paged_scatter_prefill(cache: dict, slot_ids: torch.Tensor,
                           lengths: torch.Tensor, k_rows: torch.Tensor,
-                          v_rows: torch.Tensor) -> dict:
+                          v_rows: torch.Tensor,
+                          starts: Optional[torch.Tensor] = None) -> dict:
     """Scatter a batched prefill's contiguous K/V into pages (in place).
 
     k_rows/v_rows: (B, T, KVH, D) — row b's tokens [0, lengths[b]) go to
-    slot ``slot_ids[b]``'s pages at logical positions [0, lengths[b]);
-    padding tokens and rows with length 0 are routed to the null page.
-    One scatter per array.  (The reference's ``starts`` offset serves
-    chunked prefill, a later slice.)"""
+    slot ``slot_ids[b]``'s pages at logical positions ``starts[b] +
+    [0, lengths[b])`` (``starts`` defaults to 0: whole-prompt admission;
+    chunked prefill passes each chunk's page-aligned start); padding
+    tokens and rows with length 0 are routed to the null page.  One
+    scatter per array."""
     kp, vp, _, _, bt = paged_views(cache)
     t = k_rows.shape[1]
     page = kp.shape[1]
     tpos = torch.arange(t, device=kp.device)[None, :]               # (1,T)
     valid = tpos < lengths[:, None].long()                          # (B,T)
-    lpage = torch.clamp(tpos // page, max=bt.shape[1] - 1)          # pad-safe
+    apos = tpos if starts is None else starts[:, None].long() + tpos
+    lpage = torch.clamp(apos // page, max=bt.shape[1] - 1)          # pad-safe
     pidx = bt[slot_ids[:, None].long(), lpage].long()
     pidx = torch.where(valid, pidx, 0)
-    off = torch.where(valid, tpos % page, 0)
+    off = torch.where(valid, apos % page, 0)
     # padding rows all alias (null page, offset 0): the winner among the
     # duplicates is arbitrary on CUDA and never read
     kp.index_put_((pidx, off), k_rows.to(kp.dtype))

@@ -5,8 +5,11 @@
 Builds qwen2-1.5b at full width (random weights from seed 0) on the main
 path's engine settings (8 slots, page 256, ``decode_block`` 8), admits
 8 requests of 512 tokens in one batched prefill, then runs 4 fused
-decode blocks — each phase once untraced (host wall clock) and
-once under ``torch.profiler`` (device time of every kernel).  Prints,
+decode blocks, then one continuation-chunk dispatch of the scheduler
+(``LM.prefill_paged``: 8 rows of 512 tokens over prefixes of 512-3072
+tokens, the shapes of ``chip_smoke.py`` phase 7) — each phase once
+untraced (host wall clock) and once under ``torch.profiler`` (device
+time of every kernel).  Prints,
 per phase, wall time, device busy time (the sum of kernel times: one
 stream, so kernels do not overlap), the device's idle share, and the
 kernels that take the most device time; the last line is the same as
@@ -26,6 +29,8 @@ from repro_torch.models.model import LM
 from repro_torch.serve.engine import PagedEngine
 
 SLOTS, PROMPT, BLOCKS, DECODE_BLOCK, SEED, TOP = 8, 512, 4, 8, 0, 8
+#: the continuation chunk's prefixes, one per row (page-aligned)
+CONT_STARTS = (512, 1024, 1536, 2048, 2560, 3072, 1024, 2048)
 
 
 def _device_kernels(prof) -> dict:
@@ -93,10 +98,31 @@ def main() -> int:
         e = engines.pop()
         e._dispatch_admit(e._try_admit(), [])
 
+    # a continuation chunk over a paged cache of 16 pages a slot: the
+    # time does not depend on the values, so the pools stay as allocated
+    page, pps = 256, 16
+    cache = lm.init_paged_cache(SLOTS, SLOTS * pps + 1, pps, page_size=page)
+    cache[0]["blk0"]["kv"]["block_table"].copy_(
+        torch.arange(1, SLOTS * pps + 1, dtype=torch.int32).reshape(SLOTS,
+                                                                    pps))
+    dev = torch.device("cuda")
+    chunk = (torch.as_tensor(rng.integers(0, cfg.vocab_size, (SLOTS, PROMPT)),
+                             device=dev),
+             cache, torch.arange(SLOTS, device=dev),
+             torch.tensor(CONT_STARTS, dtype=torch.int32, device=dev),
+             torch.full((SLOTS,), PROMPT, dtype=torch.int32, device=dev))
+    prepared = warm.params
+
+    def cont():
+        lm.prefill_paged(prepared, *chunk, max_pages=pps)
+
+    cont()                                     # first launch, build
     results = [
         _phase(f"admit {SLOTS}x{PROMPT}", admit),
         _phase(f"decode {BLOCKS}x{DECODE_BLOCK} steps, {SLOTS} slots",
-               lambda: [warm._dispatch_decode([]) for _ in range(BLOCKS)])]
+               lambda: [warm._dispatch_decode([]) for _ in range(BLOCKS)]),
+        _phase(f"continuation chunk {SLOTS}x{PROMPT}, prefixes "
+               f"{min(CONT_STARTS)}-{max(CONT_STARTS)}", cont)]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()

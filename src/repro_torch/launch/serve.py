@@ -1,15 +1,18 @@
-"""Serving driver of the port: the paged continuous-batching engine.
+"""Serving entry point of the port: the paged continuous-batching engine and
+the scheduler over it.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
         --paged [--smoke] [--requests 8 --prompt-len 32 --max-new 32 \
         --slots 4 --max-len 256 --page-size 64 --decode-block 8] \
-        [--device cpu]
+        [--policy fcfs|edf --prefill-chunk 512 --no-prefix-cache \
+         --slo-ttft 2000 --slo-tpot 50] [--device cpu]
 
 Runs on the GPU unless ``--device cpu`` is given; on the GPU the
-admission prefill goes through the flash-attention kernel and every
-decode step through the paged-attention kernel.  Flags and defaults are
-the reference's (``repro.launch.serve``) for this path; only the paged
-engine is ported so far.
+admission prefill goes through the flash-attention kernel, every decode
+step through the paged-attention kernel and, with ``--policy``, every
+continuation chunk of a chunked prefill through the prefix-extend kernel.
+Flags and defaults are the reference's (``repro.launch.serve``) for these
+paths.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import numpy as np
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models.model import LM, resolve_device
+from repro_torch.sched import SchedEngine
 from repro_torch.serve.engine import PagedEngine
 
 
@@ -39,22 +43,47 @@ def main(argv=None):
                     help="tokens per host sync in the paged engine")
     ap.add_argument("--page-size", type=int, default=64,
                     help="KV page size for --paged (tokens per page)")
+    ap.add_argument("--policy", default=None, choices=["fcfs", "edf"],
+                    help="serve through the scheduler (SchedEngine) with "
+                         "this admission policy; implies the paged engine")
+    ap.add_argument("--prefix-cache", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="refcounted prefix caching over the paged pools "
+                         "(--policy only)")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="scheduler prefill chunk in tokens (multiple of "
+                         "--page-size; default 8 pages)")
+    ap.add_argument("--slo-ttft", type=float, default=None,
+                    help="TTFT SLO target in ms (EDF deadlines + "
+                         "telemetry)")
+    ap.add_argument("--slo-tpot", type=float, default=None,
+                    help="TPOT SLO target in ms (telemetry)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the "
                          "kernels' plain versions)")
     args = ap.parse_args(argv)
-    if not args.paged:
-        ap.error("only the paged engine is ported: pass --paged")
+    if not (args.paged or args.policy):
+        ap.error("only the paged engine and the scheduler are ported: pass "
+                 "--paged or --policy")
 
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     lm = LM(cfg, device=device)
     params = lm.init(args.seed)
-    eng = PagedEngine(lm, params, n_slots=args.slots, max_len=args.max_len,
-                      seed=args.seed, page_size=args.page_size,
-                      decode_block=args.decode_block)
+    kw = dict(n_slots=args.slots, max_len=args.max_len, seed=args.seed,
+              page_size=args.page_size, decode_block=args.decode_block)
+    if args.policy:
+        eng = SchedEngine(lm, params, policy=args.policy,
+                          prefix_cache=args.prefix_cache,
+                          prefill_chunk=args.prefill_chunk,
+                          slo_ttft=None if args.slo_ttft is None
+                          else args.slo_ttft / 1e3,
+                          slo_tpot=None if args.slo_tpot is None
+                          else args.slo_tpot / 1e3, **kw)
+    else:
+        eng = PagedEngine(lm, params, **kw)
     rng = np.random.default_rng(args.seed)
     prompts = [rng.integers(0, cfg.vocab_size, (args.prompt_len,)).tolist()
                for _ in range(args.requests)]
@@ -64,9 +93,12 @@ def main(argv=None):
     done = eng.run_to_completion()
     dt = time.perf_counter() - t0
     n_tok = sum(len(done[i].out_tokens) for i in ids)
+    label = f"sched/{args.policy}" if args.policy else "paged"
     print(f"[serve] {cfg.name}: {len(ids)} requests, {n_tok} tokens in "
           f"{dt:.1f}s ({n_tok/dt:.1f} tok/s, continuous batching over "
-          f"{args.slots} slots, paged, {eng.sync_count} host syncs)")
+          f"{args.slots} slots, {label}, {eng.sync_count} host syncs)")
+    if args.policy:
+        print(f"[serve] sched telemetry: {eng.telemetry()}")
     for i in ids[:3]:
         print(f"  req {i}: {len(done[i].out_tokens)} tokens "
               f"{done[i].out_tokens[:8]}…")

@@ -3,13 +3,17 @@
 Entry points per layer, as in ``repro/models/attention.py``:
   * ``attention_forward``      — full-sequence causal attention
   * ``attention_prefill``      — the same, filling a contiguous cache
+  * ``attention_prefill_paged`` — one prompt chunk per row straight
+    into a paged cache, attended through the prefix-extend op
+    (``kernels/paged_attention``)
   * ``attention_decode_paged`` — one token per slot, all slots in one
     paged-attention launch (``kernels/paged_attention``)
 
 On CUDA tensors the full-sequence products always go through the flash
 kernel (``kernels/flash_attention``).  On the CPU ``use_flash`` chooses
 between the flash op's plain version and a plain grouped ``sdpa``, as
-the reference's flag chooses between its Pallas kernel and jnp.  Cache allocation and writes live in ``repro_torch.kvcache``.
+the reference's flag chooses between its Pallas kernel and jnp.  Cache
+allocation and writes live in ``repro_torch.kvcache``.
 """
 from __future__ import annotations
 
@@ -164,6 +168,56 @@ def attention_prefill(p: dict, x: torch.Tensor, a: AttentionConfig,
     kvh_store = cache["k"].shape[2]
     cache = kvcache.prefill_write(cache, {"k": _merge_heads(k, kvh_store),
                                           "v": _merge_heads(v, kvh_store)})
+    return y, cache
+
+
+# ---------------------------------------------------------------------------
+# Paged prefill (chunked prefill continuation)
+
+
+def attention_prefill_paged(p: dict, x: torch.Tensor, a: AttentionConfig,
+                            cache: dict, spos) -> tuple[torch.Tensor, dict]:
+    """Chunked / continuation prefill directly against a paged KV cache.
+
+    x: (B,c,d) — one prompt chunk per row; ``spos`` is ``(slot_ids (B,),
+    starts (B,), lengths (B,)[, max_pages])``: row b's chunk covers logical
+    positions ``starts[b] .. starts[b]+lengths[b]-1`` of slot
+    ``slot_ids[b]`` (rows right-padded to c).  The optional ``max_pages``
+    (a Python int) narrows the block table handed to the kernel to its
+    first ``max_pages`` columns; the result is the same, the kernel never
+    reads a page past a row's prefix.
+
+    The chunk's K/V is written into the slot's pages (in place) and its
+    queries attend the cached prefix (positions < starts[b], read page by
+    page) plus the chunk's own fresh K/V causally, in one prefix-extend
+    launch.  A prefix-cache warm start and a cold chunked run execute the
+    same computation for any continuation chunk."""
+    from repro_torch import kvcache
+    from repro_torch.kernels.paged_attention.ops import (
+        paged_prefix_extend_attention)
+    if a.window is not None:
+        raise NotImplementedError("paged prefill: sliding window unsupported")
+    slot_ids, starts, lengths, *rest = spos
+    max_pages = rest[0] if rest else None
+    b, c, _ = x.shape
+    kvh_store = cache["k_pages"].shape[2]
+    apos = starts[:, None].long() + torch.arange(c, device=x.device)[None, :]
+    q, k_new, v_new = _project(p, x, a, apos)
+    k_new = _merge_heads(k_new, kvh_store).contiguous()
+    v_new = _merge_heads(v_new, kvh_store).contiguous()
+    cache = kvcache.paged_scatter_prefill(cache, slot_ids, lengths, k_new,
+                                          v_new, starts)
+    # the prefix < starts[b] is read from the pages; the chunk's own
+    # just-scattered rows are masked there in favour of the fresh values
+    kp, vp, k_sc, v_sc, bt = kvcache.paged_views(cache)
+    rows = bt[slot_ids.long()]                                   # (B,P)
+    if max_pages is not None and max_pages < rows.shape[1]:
+        rows = rows[:, :max_pages]
+    o = paged_prefix_extend_attention(
+        q.contiguous(), kp, vp, rows.contiguous(), starts.to(torch.int32),
+        k_new, v_new, lengths.to(torch.int32), k_sc, v_sc)
+    o = o.reshape(b, c, a.heads_padded * a.head_dim)
+    y = linear_apply(p["wo"], _mask_pad_heads(o.to(x.dtype), a))
     return y, cache
 
 

@@ -133,13 +133,32 @@ class LM:
         position ``lengths[b]-1`` (right-padded batched admission)."""
         x, cache = self.backbone(params, tokens, mode="prefill", cache=cache)
         if lengths is None:
-            last = x[:, -1]
-        else:
-            # clamp explicitly, as the reference does: a torch gather
-            # raises where XLA would clamp
-            idx = torch.clamp(lengths.long() - 1, 0, x.shape[1] - 1)
-            last = x[torch.arange(x.shape[0], device=x.device), idx]
-        return self._logits(params, last), cache
+            return self._logits(params, x[:, -1]), cache
+        return self._logits(params, self._last(x, lengths)), cache
+
+    @staticmethod
+    def _last(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+        """Row b's hidden state at position ``lengths[b] - 1``, clamped
+        explicitly as the reference does (a torch gather raises where XLA
+        would clamp; a length-0 pad row takes position 0)."""
+        idx = torch.clamp(lengths.long() - 1, 0, x.shape[1] - 1)
+        return x[torch.arange(x.shape[0], device=x.device), idx]
+
+    @torch.no_grad()
+    def prefill_paged(self, params, tokens, cache, slot_ids, starts, lengths,
+                      max_pages: Optional[int] = None):
+        """Chunked prefill continuation straight into the paged cache:
+        ``tokens`` (B,c) right-padded chunks land at absolute positions
+        ``starts[b] + [0, lengths[b])`` of slot ``slot_ids[b]`` (in place);
+        each chunk's queries attend the slot's cached prefix plus the chunk
+        itself (``attention_prefill_paged``).  Returns the logits at each
+        row's last chunk token and the cache.  ``max_pages`` narrows the
+        block table to the batch's prefix span."""
+        pos = (slot_ids, starts, lengths) if max_pages is None \
+            else (slot_ids, starts, lengths, max_pages)
+        x, cache = self.backbone(params, tokens, mode="prefill", cache=cache,
+                                 pos=pos)
+        return self._logits(params, self._last(x, lengths)), cache
 
     @torch.no_grad()
     def decode_step(self, params, token, cache, pos):

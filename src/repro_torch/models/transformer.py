@@ -75,8 +75,10 @@ def group_forward(gp: dict, x: torch.Tensor, cfg: ModelConfig, *,
                   mode: str, cache: Optional[dict],
                   pos: Optional[torch.Tensor]):
     """One group.  ``mode`` is "prefill" (full sequence; fills a
-    contiguous cache when given) or "decode" (one token per slot against
-    a paged cache, ``pos`` the (S,) write positions)."""
+    contiguous cache when given, or — on a paged cache — one chunk per row
+    at ``pos = (slot_ids, starts, lengths[, max_pages])``) or "decode"
+    (one token per slot against a paged cache, ``pos`` the (S,) write
+    positions)."""
     a = cfg.attention
     new_cache: Dict[str, Any] = {}
     for i, _ in enumerate(block_kinds(cfg)):
@@ -87,6 +89,10 @@ def group_forward(gp: dict, x: torch.Tensor, cfg: ModelConfig, *,
             if c is None:
                 y = attn_mod.attention_forward(blk["attn"], h, a,
                                                use_flash=cfg.use_kernels)
+            elif "k_pages" in c["kv"]:
+                y, kv = attn_mod.attention_prefill_paged(blk["attn"], h, a,
+                                                         c["kv"], pos)
+                new_cache[f"blk{i}"] = {"kv": kv}
             else:
                 y, kv = attn_mod.attention_prefill(
                     blk["attn"], h, a, c["kv"], use_flash=cfg.use_kernels)

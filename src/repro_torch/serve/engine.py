@@ -43,7 +43,12 @@ class Request:
     t_admit: Optional[float] = None    # first slot grant (queue wait end)
     t_first: Optional[float] = None
     t_done: Optional[float] = None
+    # --- scheduler surface (repro_torch.sched; inert under PagedEngine) ---
+    slo_ttft: Optional[float] = None   # per-request TTFT target, seconds
+    slo_tpot: Optional[float] = None   # per-request TPOT target, seconds
+    prefix_hit_tokens: int = 0         # prompt tokens served from cache
     preemptions: int = 0
+    progress: int = 0                  # prefill tokens already cached
     rejected: bool = False
     outcome: Optional[str] = None      # one of OUTCOMES, set at retire
 

@@ -35,10 +35,10 @@ class PageAllocator:
     Pages carry a reference count so one physical page can back several
     block-table rows at once: full pages are immutable (writes only ever
     land past a slot's length), so a shared prompt prefix can be mapped
-    into every slot that carries it (``assign`` with ``shared``), and a
-    prefix cache (the scheduler's, a later slice) can keep pages alive
-    after their slot retires.  A page returns to the free list exactly
-    when its last reference drops (``unref``).
+    into every slot that carries it (``assign`` with ``shared``), and the
+    scheduler's prefix cache can keep pages alive after their slot
+    retires (``ref``).  A page returns to the free list exactly when its
+    last reference drops (``unref``).
     """
 
     def __init__(self, n_pages: int, max_pages_per_slot: int, n_slots: int):
@@ -114,8 +114,32 @@ class PageAllocator:
         self._owned[slot] = pages
         return pages
 
+    def extend(self, slot: int, extra: int) -> List[int]:
+        """Lazily grow ``slot``'s allocation by ``extra`` fresh pages
+        (appended to its block-table row).  Atomic."""
+        owned = self._owned.get(slot)
+        if owned is None:
+            raise OutOfPagesError(f"slot {slot} owns no pages")
+        n0 = len(owned)
+        if n0 + extra > self.max_pages_per_slot:
+            raise OutOfPagesError(
+                f"{n0}+{extra} pages > {self.max_pages_per_slot} per slot; "
+                f"{self.occupancy_summary()}")
+        fresh = self._take(extra)
+        for p in fresh:
+            self.refs[p] = 1
+        self.table[slot, n0:n0 + extra] = fresh
+        owned.extend(fresh)
+        return fresh
+
     def owned(self, slot: int) -> List[int]:
         return list(self._owned.get(slot, ()))
+
+    def ref(self, page: int) -> None:
+        """Take an extra reference on an allocated page (prefix cache)."""
+        if self.refs[page] <= 0:
+            raise ValueError(f"ref on unallocated page {page}")
+        self.refs[page] += 1
 
     def unref(self, page: int) -> None:
         """Drop a reference; the page frees when the count hits zero."""
@@ -141,15 +165,17 @@ def _attn_nodes(cache):
     return [blk["kv"] for group in cache for blk in group.values()]
 
 
-def scatter_prefill_cache(paged_cache, contig_cache, slot_ids, lengths):
+def scatter_prefill_cache(paged_cache, contig_cache, slot_ids, lengths,
+                          starts=None):
     """Scatter a whole model's batched-prefill cache into the paged cache,
     layer by layer (in place): every paged node receives the matching
-    contiguous node's rows via ``kvcache.paged_scatter_prefill``.  The
+    contiguous node's rows via ``kvcache.paged_scatter_prefill``, offset
+    by ``starts`` (B,) when given (page-aligned chunk starts).  The
     staging cache is bf16, as the pools are."""
     for node, contig in zip(_attn_nodes(paged_cache),
                             _attn_nodes(contig_cache)):
         paged_scatter_prefill(node, slot_ids, lengths, contig["k"],
-                              contig["v"])
+                              contig["v"], starts)
     return paged_cache
 
 

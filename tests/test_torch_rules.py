@@ -40,9 +40,24 @@ def test_port_imports_no_jax_and_no_reference():
     assert not {k: v for k, v in bad.items() if v}
 
 
+def test_scan_covers_the_scheduler_and_every_kernel_module():
+    """The import rule above reaches the scheduler and every kernel
+    wrapper, the prefix-extend one included."""
+    scanned = {str(f.relative_to(ROOT)) for f in _port_files()}
+    for rel in ("sched/__init__.py", "sched/policy.py", "sched/prefix.py",
+                "sched/scheduler.py", "kernels/paged_attention/ops.py",
+                "kernels/paged_attention/ref.py", "kernels/build.py"):
+        assert f"src/repro_torch/{rel}" in scanned, rel
+    from repro_torch.kernels import build
+    for src in build.SOURCES.values():
+        assert (build.CSRC / src).is_file(), src
+    assert "paged_prefix_extend" in build.SOURCES
+
+
 def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
-    """Without a GPU and without device='cpu', LM, PagedEngine (through
-    its LM) and launch.serve raise instead of running on the CPU."""
+    """Without a GPU and without device='cpu', LM, PagedEngine and
+    SchedEngine (through their LM) and launch.serve raise instead of
+    running on the CPU."""
     from repro_torch.launch.serve import main
     from repro_torch.models.model import LM
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -51,6 +66,8 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
         LM(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--smoke", "--paged", "--requests", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--smoke", "--policy", "fcfs", "--requests", "1"])
     lm = LM(cfg, device="cpu")            # an explicit request is honoured
     assert lm.device.type == "cpu"
 
