@@ -29,9 +29,28 @@ Phases (each prints one line; any failure raises and exits non-zero):
                  counts, prefix hits, a repeated prompt's tokens and
                  cached suffix, and one continuation chunk's logits with
                  kernels vs plain versions
-Launch counts are zeroed just before each drive (phases 5 and 7) and read
-just after it.  Then one JSON line of kernel numbers, and last the result
-line ``{"ok": true, "device": {...}}``.
+  8. qmm       — the quantized-matmul kernels vs their plain versions at
+                 qwen2-1.5b's linears: tiled W8A8 (B4, M 129 / 4,096 and a
+                 ragged shape) and W8A8 decode (B5, M 1 / 8 / 128) bit for
+                 bit against the plain version on the CPU copy, fp8
+                 decode (B6) element by element; times; then the trap-4
+                 line: the port's torch-op quantization on the card vs
+                 the CPU, bit for bit
+  9. qsched    — phase 7's scheduler drive with int8 weights and int8 KV
+                 pools (8 requests, 4 behind the system prompt): launches
+                 of B4 / B5 = 196 x the dispatches with M > 128 / <= 128
+                 rows (decode steps included) and of B1-B3 as in phase 7,
+                 requant events, a repeated prompt; one continuation
+                 chunk's and one decode step's logits with B4 / B5 equal
+                 to the plain matmuls', and every B2 / B1 call of those
+                 forwards on the int8 pools vs its plain version, element
+                 by element
+ 10. fp8       — phase 5's PagedEngine drive with fp8 weights and fp8 KV
+                 pools: B6 = 196 x the dispatches with M <= 128 rows
+Launch counts are zeroed just before each drive (phases 5, 7, 9, 10) and
+read just after it; peak memory is read for the set-up and, restarted,
+for the drive.  Then one JSON line of kernel numbers, and last the
+result line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -187,6 +206,12 @@ def check_close(tag: str, out, ref, v_rms: float) -> str:
     """Hold ``out`` to ``ref`` element by element; raise on any element
     past its limit.  Returns the case's line: the max error, the limit
     used and the worst element's share of its limit."""
+    return check_close_share(tag, out, ref, v_rms)[0]
+
+
+def check_close_share(tag: str, out, ref, v_rms: float) -> tuple:
+    """``check_close``'s line and the worst element's share of its
+    limit."""
     torch = _torch()
     kind = "float32" if ref.dtype == torch.float32 else "bfloat16"
     atol, rtol = ATOL[kind] * v_rms, RTOL[kind]
@@ -200,7 +225,7 @@ def check_close(tag: str, out, ref, v_rms: float) -> str:
             f"{rtol:.1e}|ref|, worst {worst:.2f} of it)")
     if not worst <= 1.0:
         raise AssertionError(f"{tag}: an element is past its limit: {line}")
-    return line
+    return line, worst
 
 
 def paged_bytes_flops(q, kp, bt, lens, ks):
@@ -479,32 +504,293 @@ def phase_extend(records: list) -> None:
     print("[6 extend] " + "; ".join(line))
 
 
+#: qwen2-1.5b's linears (K, N): wq / wo, wk / wv, gate / up, down
+QMM_SHAPES = [(1536, 1536), (1536, 256), (1536, 8960), (8960, 1536)]
+#: linears of one layer at each (K, N) of QMM_SHAPES
+QMM_PER_LAYER = {(1536, 1536): 2, (1536, 256): 2, (1536, 8960): 2,
+                 (8960, 1536): 1}
+#: the quantized-matmul kernels' records: name, source, TPU kernel
+QMM_KERNELS = {
+    "B4": ("int8_matmul", "src/repro_torch/csrc/int8_matmul.cu",
+           "src/repro/kernels/int8_matmul/int8_matmul.py:68"),
+    "B5": ("w8a8_decode_matmul", "src/repro_torch/csrc/w8a8_decode.cu",
+           "src/repro/kernels/int8_matmul/int8_matmul.py:186"),
+    "B6": ("fp8_decode_matmul", "src/repro_torch/csrc/fp8_decode.cu",
+           "src/repro/kernels/int8_matmul/int8_matmul.py:248"),
+}
+
+
+def _qlinear(g, device, k, n, quant):
+    """A quantized (K, N) linear from random weights, and a bf16 bias."""
+    torch = _torch()
+    from repro_torch.quant.qops import quantize_linear
+    w = torch.randn((k, n), generator=g, device=device) * 0.02
+    p = quantize_linear({"w": w}, quant=quant)
+    bias = (torch.randn((n,), generator=g, device=device) * 0.1).bfloat16()
+    return p["qw"], p["scale"], bias
+
+
+def _cpu(t):
+    return None if t is None else t.cpu()
+
+
+def _qmm_check(g, device) -> str:
+    """Every case of the phase: B5 / B6 at M 1, 8, 128 and B4 at M 129,
+    4,096 over qwen2-1.5b's linears, bf16 x, with and without a bias (B5,
+    B6), plus B4 at a ragged 257 x 513 x 129 in both out types."""
+    torch = _torch()
+    from repro_torch.kernels.int8_matmul import ops
+    from repro_torch.kernels.int8_matmul.ref import (fp8_decode_ref,
+                                                     int8_matmul_ref,
+                                                     quantize_rowwise,
+                                                     w8a8_decode_ref)
+    bf16 = torch.bfloat16
+
+    errs = {"B4": 0.0, "B5": 0.0, "B6": 0.0}
+
+    def equal(tag, out, ref):
+        out = out.cpu()
+        kind = tag[:2]
+        errs[kind] = max(errs[kind],
+                         (out.float() - ref.float()).abs().max().item())
+        if not torch.equal(out, ref):
+            bad = int((out != ref).sum())
+            raise AssertionError(f"{tag}: {bad} elements differ from the "
+                                 "plain version on the CPU copy")
+
+    n_cases, worst = 0, 0.0
+    for k, n in QMM_SHAPES:
+        qw, ws, bias = _qlinear(g, device, k, n, "int8")
+        fw, fs, _ = _qlinear(g, device, k, n, "fp8")
+        for m in (1, 8, 128):
+            x = torch.randn((m, k), generator=g, device=device).to(bf16)
+            for b in (None, bias):
+                tag = f"M{m} K{k} N{n} bias {b is not None}"
+                equal(f"B5 {tag}", ops.w8a8_matmul_decode(x, qw, ws, bias=b),
+                      w8a8_decode_ref(_cpu(x), _cpu(qw), _cpu(ws), _cpu(b)))
+                out = ops.fp8_matmul_decode(x, fw, fs, bias=b).cpu()
+                ref = fp8_decode_ref(_cpu(x), _cpu(fw), _cpu(fs), _cpu(b))
+                line = check_close(f"B6 {tag}", out, ref,
+                                   ref.float().pow(2).mean().sqrt().item())
+                errs["B6"] = max(errs["B6"], (out.float() - ref.float())
+                                 .abs().max().item())
+                worst = max(worst, float(line.split("worst ")[1].split()[0]))
+                n_cases += 2
+        for m in (129, 4096):
+            xq, xs = quantize_rowwise(
+                torch.randn((m, k), generator=g, device=device).to(bf16))
+            equal(f"B4 M{m} K{k} N{n}",
+                  ops.int8_matmul(xq, qw, xs, ws, out_dtype=bf16),
+                  int8_matmul_ref(_cpu(xq), _cpu(qw), _cpu(xs), _cpu(ws),
+                                  bf16))
+            n_cases += 1
+    m, k, n = 257, 513, 129
+    qw, ws, _ = _qlinear(g, device, k, n, "int8")
+    xq, xs = quantize_rowwise(torch.randn((m, k), generator=g, device=device))
+    for dt in (bf16, torch.float32):
+        equal(f"B4 ragged {m}x{k}x{n} {dt}",
+              ops.int8_matmul(xq, qw, xs, ws, out_dtype=dt),
+              int8_matmul_ref(_cpu(xq), _cpu(qw), _cpu(xs), _cpu(ws), dt))
+        n_cases += 1
+    return (f"{n_cases} cases: B4 and B5 bit-equal to the plain version on "
+            f"the CPU copy; B6 worst element {worst:.2f} of its limit, max "
+            f"abs err {errs['B6']:.3e}"), errs
+
+
+def _qmm_times(kind: str, m: int, k: int, n: int, g, device) -> dict:
+    """One call's device time of a quantized-matmul kernel, its plain
+    version, its library call and a bf16 product over the dequantized
+    weight, on cycled copies of the operands; and its bound."""
+    torch = _torch()
+    import torch.nn.functional as F
+    from repro_torch.kernels.int8_matmul import ops
+    from repro_torch.kernels.int8_matmul.ref import (fp8_decode_ref,
+                                                     int8_matmul_ref,
+                                                     quantize_rowwise,
+                                                     w8a8_decode_ref)
+    bf16 = torch.bfloat16
+    quant = "fp8" if kind == "B6" else "int8"
+    ops_n = 2.0 * m * k * n
+    copies, bf_in = [], []
+    for _ in range(n_copies(k * n + m * k * 2)):
+        qw, ws, b = _qlinear(g, device, k, n, quant)
+        x = torch.randn((m, k), generator=g, device=device).to(bf16)
+        copies.append((x, qw, ws, b))
+        bf_in.append((x, (qw.float() * ws).to(bf16)))
+    if kind == "B4":
+        ins = [(*quantize_rowwise(x), qw, ws) for x, qw, ws, _ in copies]
+        ins = [(xq, qw, xs, ws) for xq, xs, qw, ws in ins]
+        fn = lambda xq, qw, xs, ws: ops.int8_matmul(   # noqa: E731
+            xq, qw, xs, ws, out_dtype=bf16)
+        plain = lambda xq, qw, xs, ws: int8_matmul_ref(  # noqa: E731
+            xq, qw, xs, ws, bf16)
+        lib_in = [(xq, qw) for xq, qw, _, _ in ins]
+        nbytes = m * k + k * n + 4 * m + 4 * n + 2 * m * n
+    else:
+        ins = copies
+        fn = ((lambda x, qw, ws, b: ops.w8a8_matmul_decode(x, qw, ws, bias=b))
+              if kind == "B5" else
+              (lambda x, qw, ws, b: ops.fp8_matmul_decode(x, qw, ws, bias=b)))
+        plain = w8a8_decode_ref if kind == "B5" else fp8_decode_ref
+        # cuBLASLt's int8 product wants more than 16 rows: M padded to 32
+        lib_in = [(F.pad(quantize_rowwise(x)[0], (0, 0, 0, 32 - m)), qw)
+                  for x, qw, _, _ in copies]
+        nbytes = m * k * 2 + k * n + 4 * n + 2 * n + 2 * m * n
+    reps = 20 if kind != "B4" else 5
+    ms = time_ms(fn, ins, reps=reps)
+    plain_ms = time_ms(plain, ins[:2], reps=3, rounds=3)
+    bf16_ms = time_ms(lambda x, w: x @ w, bf_in, reps=reps)
+    lib_ms = (bf16_ms if kind == "B6"
+              else time_ms(lambda a, w: torch._int_mm(a, w), lib_in,
+                           reps=reps))
+    b_ms, b_by = bound(nbytes, ops_n,
+                       "float8_e4m3fn" if kind == "B6" else "int8")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bf16_ms": bf16_ms, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def phase_qmm(records: list) -> None:
+    """B4 / B5 / B6 vs their plain versions at qwen2-1.5b's linears: B4
+    and B5 bit for bit against the plain version computed on the CPU copy
+    of the operands, B6 element by element (the phase 3-4 rule, atol
+    relative to the output's rms); then each kernel's times at every
+    linear shape (decode kernels at M 8, B4 at a 4,096-row chunk)."""
+    torch = _torch()
+    device = torch.device("cuda")
+    g = torch.Generator(device=device).manual_seed(SEED + 3)
+    text, errs = _qmm_check(g, device)
+    line = [text]
+    for kind, m in (("B5", 8), ("B6", 8), ("B4", 4096)):
+        per_shape = {(k, n): _qmm_times(kind, m, k, n, g, device)
+                     for k, n in QMM_SHAPES}
+        layer = {key: sum(QMM_PER_LAYER[s] * t[key]
+                          for s, t in per_shape.items())
+                 for key in ("ms", "plain_ms", "library_ms", "bf16_ms",
+                             "bound_ms")}
+        name, src, repl = QMM_KERNELS[kind]
+        rec = per_shape[(1536, 8960)]
+        records.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": repl, "max_abs_err": errs[kind], **rec,
+                        "shape": [m, 1536, 8960], "launches": 0,
+                        "layer_ms": layer})
+        line.append(f"{kind} M{m}: " + ", ".join(
+            f"K{k}xN{n} ms {t['ms']:.4f} plain {t['plain_ms']:.4f} lib "
+            f"{t['library_ms']:.4f} bf16 {t['bf16_ms']:.4f} bound "
+            f"{t['bound_ms']:.4f} ({t['bound_by']})"
+            for (k, n), t in per_shape.items())
+            + f"; one layer's 7 linears: ms {layer['ms']:.4f} bound "
+            f"{layer['bound_ms']:.4f}")
+    print("[8 qmm] " + "; ".join(line))
+
+
 E2E_LAYERS = 28            # qwen2-1.5b's full depth
 #: per-slot relative L2 error allowed between the logits with the kernels
 #: and with their plain versions
 LOGIT_REL_L2 = 2e-2
 
 
-def _swap_plain(fn):
-    """Run ``fn()`` with the attention ops bound to their plain versions
-    (the comparison arm of phases 5 and 7; the port itself never does
-    this)."""
+def _setup_peak_gb() -> float:
+    """The peak device memory of a drive's set-up so far, in GB; the peak
+    is then restarted, so that what is read after the drive is what its
+    weights, pools and activations held (not the set-up's transients,
+    such as the bf16 weights a quantized tree is made from)."""
+    torch = _torch()
+    gc.collect()
+    torch.cuda.synchronize()
+    gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    return gb
+
+
+def _swap_plain(fn, groups=("attention", "matmul")):
+    """Run ``fn()`` with the ops of ``groups`` bound to their plain
+    versions: the attention ops (B1-B3) and / or the quantized matmuls
+    (B4-B6).  The comparison arm of the drives' logit checks; the port
+    itself never does this."""
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.int8_matmul import ops as qmm
+    from repro_torch.kernels.int8_matmul.ref import (fp8_decode_ref,
+                                                     int8_matmul_ref,
+                                                     w8a8_decode_ref)
     from repro_torch.kernels.paged_attention import ops as pops
     from repro_torch.kernels.paged_attention.ref import (
         paged_attention_ref, paged_prefix_extend_ref)
-    saved = (fops.flash_attention, pops.paged_attention,
-             pops.paged_prefix_extend_attention)
-    fops.flash_attention = lambda q, k, v, causal=True, window=None: \
-        attention_ref(q, k, v, causal=causal, window=window)
-    pops.paged_attention = paged_attention_ref
-    pops.paged_prefix_extend_attention = paged_prefix_extend_ref
+    from repro_torch.quant import qops
+    plain = {"attention": [
+        (fops, "flash_attention",
+         lambda q, k, v, causal=True, window=None: attention_ref(
+             q, k, v, causal=causal, window=window)),
+        (pops, "paged_attention", paged_attention_ref),
+        (pops, "paged_prefix_extend_attention", paged_prefix_extend_ref)],
+        "matmul": [(qmm, "int8_matmul", int8_matmul_ref),
+                   (qops, "w8a8_matmul_decode", w8a8_decode_ref),
+                   (qops, "fp8_matmul_decode", fp8_decode_ref)]}
+    slots = [slot for g in groups for slot in plain[g]]
+    saved = [getattr(mod, name) for mod, name, _ in slots]
+    for mod, name, f in slots:
+        setattr(mod, name, f)
     try:
         return fn()
     finally:
-        (fops.flash_attention, pops.paged_attention,
-         pops.paged_prefix_extend_attention) = saved
+        for (mod, name, _), f in zip(slots, saved):
+            setattr(mod, name, f)
+
+
+def _live_v_rms(v_pages, v_scales, table, lens, fresh=()) -> float:
+    """Root mean square of the (dequantized) V rows an attention call
+    averages: each slot's first ``lens[s]`` positions through its
+    block-table row, plus ``fresh`` rows (a chunk's own V)."""
+    torch = _torch()
+    page = v_pages.shape[1]
+    rows = list(fresh)
+    for row, n in zip(table.tolist(), lens.tolist()):
+        if n <= 0:
+            continue
+        idx = torch.tensor(row[:-(-n // page)], device=v_pages.device).long()
+        v = v_pages[idx].float()
+        if v_scales is not None:
+            v = v * v_scales[idx][:, None, :, None]
+        rows.append(v.reshape(-1, *v.shape[2:])[:n])
+    return torch.cat([r.float().reshape(-1) for r in rows]).pow(2).mean(
+        ).sqrt().item()
+
+
+def _attention_calls_vs_plain(fn) -> tuple:
+    """Run ``fn()`` with every paged decode (B1) and prefix-extend (B2)
+    launch also computed by its plain version on the same inputs and held
+    to it element by element, by phases 3 and 6's rule; the forward goes
+    on with the kernel's output.  Returns (fn's result, calls checked,
+    the worst element's share of its limit over them)."""
+    from repro_torch.kernels.paged_attention import ops as pops
+    from repro_torch.kernels.paged_attention.ref import (
+        paged_attention_ref, paged_prefix_extend_ref)
+    shares = []
+    b1, b2 = pops.paged_attention, pops.paged_prefix_extend_attention
+
+    def decode(q, kp, vp, bt, lens, ks, vs):
+        out = b1(q, kp, vp, bt, lens, ks, vs)
+        shares.append(check_close_share(
+            f"paged decode call {len(shares)}", out,
+            paged_attention_ref(q, kp, vp, bt, lens, ks, vs),
+            _live_v_rms(vp, vs, bt, lens))[1])
+        return out
+
+    def extend(q, kp, vp, bt, starts, k_new, v_new, lens, ks, vs):
+        args = (q, kp, vp, bt, starts, k_new, v_new, lens, ks, vs)
+        out = b2(*args)
+        chunk = [v_new[i, :n] for i, n in enumerate(lens.tolist())]
+        shares.append(check_close_share(
+            f"prefix extend call {len(shares)}", out,
+            paged_prefix_extend_ref(*args),
+            _live_v_rms(vp, vs, bt, starts, chunk))[1])
+        return out
+
+    pops.paged_attention, pops.paged_prefix_extend_attention = decode, extend
+    try:
+        return fn(), len(shares), max(shares)
+    finally:
+        pops.paged_attention, pops.paged_prefix_extend_attention = b1, b2
 
 
 def _worst_slot_rel_l2(tag: str, a, b, shape) -> tuple:
@@ -543,6 +829,7 @@ def phase_e2e(records: list) -> dict:
     t0 = time.perf_counter()
     lm = LM(cfg, device="cuda")
     params = lm.init(SEED)
+    setup_gb = _setup_peak_gb()
     eng = PagedEngine(lm, params, n_slots=8, max_len=1024, page_size=256,
                       decode_block=8, seed=SEED)
     torch.cuda.synchronize()
@@ -633,14 +920,14 @@ def phase_e2e(records: list) -> dict:
            "wall_s": wall, "tokens": n_tok, "requests": n_req,
            "admissions": admits, "decode_blocks": blocks,
            "decode_steps": steps, "syncs": syncs, "peak_mem_gb": peak_gb,
-           "setup_s": t_setup, "launches": launches,
+           "setup_peak_gb": setup_gb, "setup_s": t_setup, "launches": launches,
            "logit_err": errs}
     print(f"[5 e2e] {cfg.name} {cfg.num_layers}L d{cfg.d_model} bf16 "
           f"kernels: {n_req} req, {n_tok} tokens in {wall:.3f}s "
           f"({n_tok / wall:.1f} tok/s), TTFT p50 {out['ttft_p50_s']:.4f}s, "
           f"{admits} admissions + {blocks} blocks = {syncs} syncs, "
           f"{steps} decode steps, launches {launches}, peak mem "
-          f"{peak_gb:.2f} GB, logits kernel vs plain (worst slot's relative "
+          f"{peak_gb:.2f} GB (set-up {setup_gb:.2f} GB), logits kernel vs plain (worst slot's relative "
           f"L2 / max abs, limit {LOGIT_REL_L2}): prefill "
           f"{errs['prefill'][0]:.3e}/{errs['prefill'][1]:.3e} decode "
           f"{errs['decode'][0]:.3e}/{errs['decode'][1]:.3e}, setup "
@@ -686,6 +973,7 @@ def phase_sched(records: list) -> dict:
     torch.cuda.reset_peak_memory_stats()
     lm = LM(cfg, device="cuda")
     params = lm.init(SEED)
+    setup_gb = _setup_peak_gb()
     tracer = Tracer(enabled=True)
     page = 256
     eng = SchedEngine(lm, params, policy="fcfs", prefix_cache=True,
@@ -814,6 +1102,7 @@ def phase_sched(records: list) -> dict:
            "fresh_dispatches": d["fresh"], "decode_blocks": d["blocks"],
            "decode_steps": d["steps"], "syncs": d["syncs"],
            "preemptions": eng.stats.preemptions, "peak_mem_gb": peak_gb,
+           "setup_peak_gb": setup_gb,
            "prefill_wall_s": t_pre, "decode_wall_s": t_dec,
            "launches": launches, "repeat_computed": [comp_a, comp_b],
            "logit_err": (rel, err)}
@@ -827,11 +1116,362 @@ def phase_sched(records: list) -> dict:
           f"{d['cont']} continuation dispatches + {d['blocks']} blocks = "
           f"{d['syncs']} syncs, {d['steps']} decode steps, "
           f"{eng.stats.preemptions} preemptions, launches {launches}, peak "
-          f"mem {peak_gb:.2f} GB; repeat prompt computed {comp_a} then "
+          f"mem {peak_gb:.2f} GB (set-up {setup_gb:.2f} GB); repeat prompt computed {comp_a} then "
           f"{comp_b} tokens, same tokens; continuation logits kernel vs "
           f"plain (worst slot's relative L2 / max abs, limit "
           f"{LOGIT_REL_L2}): {rel:.3e}/{err:.3e}")
     return out
+
+
+QSCHED_REQUESTS = 8
+#: quantized linears of one forward dispatch: 28 layers x 7
+QLINEARS = E2E_LAYERS * 7
+
+
+def _quantized_lm(quant: str, kv: str):
+    """qwen2-1.5b at full width with ``quant`` weights (quantized from a
+    seed's random bf16 weights, which are then freed) and ``kv`` pools."""
+    torch = _torch()
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+    from repro_torch.quant import quantize_tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("qwen2-1.5b").with_(num_layers=E2E_LAYERS, quant=quant,
+                                         kv_cache_dtype=kv)
+    lm = LM(cfg, device="cuda")
+    params = quantize_tree(lm.init(SEED), quant=quant)
+    return cfg, lm, params, _setup_peak_gb()
+
+
+def _record_dispatch_rows(eng) -> list:
+    """The padded rows (M of every linear) of each prefill dispatch the
+    engine makes from now on, read off the token batch it hands its
+    device programs."""
+    rows = []
+    for name in ("_admit_impl", "_chunk_impl"):
+        fn = getattr(eng, name, None)
+        if fn is None:
+            continue
+
+        def spy(tokens, *a, _fn=fn, **k):
+            rows.append(int(tokens.shape[0] * tokens.shape[1]))
+            return _fn(tokens, *a, **k)
+        setattr(eng, name, spy)
+    return rows
+
+
+def _reset_launches() -> None:
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.int8_matmul import ops as qmm
+    from repro_torch.kernels.paged_attention import ops as pops
+    fops.launches = pops.launches = pops.extend_launches = 0
+    qmm.launches = qmm.decode_launches = qmm.fp8_launches = 0
+
+
+def _read_launches() -> dict:
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.int8_matmul import ops as qmm
+    from repro_torch.kernels.paged_attention import ops as pops
+    return {"paged_attention": pops.launches,
+            "flash_attention": fops.launches,
+            "paged_prefix_extend": pops.extend_launches,
+            "int8_matmul": qmm.launches,
+            "w8a8_decode_matmul": qmm.decode_launches,
+            "fp8_decode_matmul": qmm.fp8_launches}
+
+
+def phase_qsched(records: list) -> dict:
+    """qwen2-1.5b at full width, int8 weights (W8A8) and int8 KV pools,
+    through the port's SchedEngine with phase 7's settings: B4 on every
+    linear of a dispatch with M > 128 rows, B5 on every other (decode
+    steps included), B1 / B2 / B3 as in phase 7."""
+    torch = _torch()
+    import numpy as np
+    from repro_torch.obs import Tracer
+    from repro_torch.sched import SchedEngine
+    from repro_torch.serve.paged import PageAllocator, set_block_table_rows
+    cfg, lm, params, setup_gb = _quantized_lm("int8", "int8")
+    tracer = Tracer(enabled=True)
+    page = 256
+    eng = SchedEngine(lm, params, policy="fcfs", prefix_cache=True,
+                      n_slots=8, max_len=4096, page_size=page,
+                      prefill_chunk=512, decode_block=8, seed=SEED,
+                      tracer=tracer)
+    rng = np.random.default_rng(SEED + 7)            # phase 7's generator
+    vocab = cfg.vocab_size
+    sys_prompt = rng.integers(0, vocab, SYS_PROMPT)
+    eng.submit(np.concatenate([sys_prompt, rng.integers(0, vocab, 100)]),
+               max_new_tokens=8)
+    eng.run_to_completion()
+    torch.cuda.synchronize()
+    plens = rng.integers(600, 3001, QSCHED_REQUESTS)
+    max_new = rng.integers(32, 65, QSCHED_REQUESTS)
+    prompts = []
+    for i, n in enumerate(plens):
+        if i % 2 == 0:                       # half share the system prompt
+            n = max(int(n), SYS_PROMPT + 1)
+            prompts.append(np.concatenate(
+                [sys_prompt, rng.integers(0, vocab, n - SYS_PROMPT)]))
+        else:
+            prompts.append(rng.integers(0, vocab, int(n)))
+    base = _counts(eng, tracer, 0)
+    n_ev, hit0 = len(tracer.events), eng.stats.prefix_hit_tokens
+    rq0 = eng.metrics.snapshot()["counters"]["serve_kv_requant_events_total"]
+    seen = _record_dispatch_rows(eng)
+    _reset_launches()
+    t0 = time.perf_counter()
+    ids = [eng.submit(p, max_new_tokens=int(m))
+           for p, m in zip(prompts, max_new)]
+    done = eng.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    rows = list(seen)
+    now = _counts(eng, tracer, n_ev)
+    d = {k: now[k] - base[k] for k in ("syncs", "steps", "blocks",
+                                        "prefill_tokens")}
+    d["cont"], d["fresh"] = now["cont"], now["fresh"]
+    hit = eng.stats.prefix_hit_tokens - hit0
+    requant = eng.metrics.snapshot()["counters"][
+        "serve_kv_requant_events_total"] - rq0
+    n_tok = 0
+    for i, m in zip(ids, max_new):
+        got = done[i].out_tokens
+        if len(got) != int(m) or not all(0 <= t < vocab for t in got):
+            raise AssertionError(f"request {i}: {len(got)} tokens (want "
+                                 f"{m}) or a token out of vocab")
+        n_tok += len(got)
+    big = sum(m > 128 for m in rows)
+    want = {"paged_prefix_extend": cfg.num_layers * d["cont"],
+            "flash_attention": cfg.num_layers * d["fresh"],
+            "paged_attention": cfg.num_layers * d["steps"],
+            "int8_matmul": QLINEARS * big,
+            "w8a8_decode_matmul": QLINEARS * (len(rows) - big + d["steps"]),
+            "fp8_decode_matmul": 0}
+    if launches != want or min(v for k, v in launches.items()
+                               if k != "fp8_decode_matmul") == 0:
+        raise AssertionError(f"launches {launches} != {want} (dispatch "
+                             f"rows {rows}, {d['steps']} decode steps), or a "
+                             "kernel of the path never launched")
+    if d["syncs"] != d["cont"] + d["fresh"] + d["blocks"]:
+        raise AssertionError(f"{d['syncs']} host syncs != chunk dispatches "
+                             "+ decode blocks")
+    if hit <= 0 or requant <= 0:
+        raise AssertionError(f"prefix hits {hit}, requant events {requant}: "
+                             "both must be > 0")
+    ttft = sorted(done[i].t_first - done[i].t_submit for i in ids)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for r in records:
+        if r["name"] in ("int8_matmul", "w8a8_decode_matmul"):
+            r["launches"] = launches[r["name"]]
+
+    repeat = rng.integers(0, vocab, 1200)
+    runs = []
+    for _ in range(2):
+        before = eng.stats.prefill_tokens
+        rid = eng.submit(repeat, max_new_tokens=16)
+        req = eng.run_to_completion()[rid]
+        runs.append((req.out_tokens, eng.stats.prefill_tokens - before,
+                     req.prefix_hit_tokens))
+    (tok_a, comp_a, _), (tok_b, comp_b, hit_b) = runs
+    if tok_a != tok_b or hit_b != 1024 or comp_b != len(repeat) - hit_b:
+        raise AssertionError(f"repeat: tokens equal {tok_a == tok_b}, "
+                             f"computed {comp_a} then {comp_b} with "
+                             f"{hit_b} cached tokens")
+
+    # one decode step and one continuation chunk, kernels vs plain
+    # versions, on int8 pools written by a first chunk
+    n_s, pps = 4, 16
+    alloc = PageAllocator(n_s * pps + 1, pps, n_s)
+    cache = lm.init_paged_cache(n_s, n_s * pps + 1, pps, page_size=page)
+    for s in range(n_s):
+        alloc.alloc(s, pps)
+    set_block_table_rows(cache, np.arange(n_s), alloc.table)
+    dev = torch.device("cuda")
+    i32 = dict(dtype=torch.int32, device=dev)
+    slots = torch.arange(n_s, device=dev)
+    starts = torch.tensor([512, 768, 1024, 256], **i32)
+    first = torch.as_tensor(rng.integers(0, vocab, (n_s, 1024)), device=dev)
+    lm.prefill_paged(eng.params, first, cache, slots,
+                     torch.zeros(n_s, **i32), starts)
+    chunk = torch.as_tensor(rng.integers(0, vocab, (n_s, 512)), device=dev)
+    lens = torch.tensor([512, 300, 512, 100], **i32)
+
+    def cont():
+        return lm.prefill_paged(eng.params, chunk, cache, slots, starts,
+                                lens, max_pages=4)[0]
+
+    # the quantized matmuls alone swapped: B4 / B5 give their plain
+    # versions' bits, so the logits must be equal.  Then B1 / B2 on the
+    # int8 pools, call by call (int8 activations would turn their rounding
+    # differences into whole steps downstream, so logits cannot hold them)
+    ext_k = cont()
+    ext_m = _swap_plain(cont, ("matmul",))
+    _, ext_calls, ext_share = _attention_calls_vs_plain(cont)
+    nxt = torch.argmax(ext_k, -1).to(torch.int32)
+    pos = (starts + lens).to(torch.int32)
+
+    def decode():
+        return lm.decode_step(eng.params, nxt, cache, pos)[0]
+
+    dec_k = decode()
+    dec_m = _swap_plain(decode, ("matmul",))
+    _, dec_calls, dec_share = _attention_calls_vs_plain(decode)
+    torch.cuda.synchronize()
+    for tag, a, b in (("continuation", ext_k, ext_m),
+                      ("decode", dec_k, dec_m)):
+        if not (torch.isfinite(a).all() and tuple(a.shape) == (n_s, vocab)):
+            raise AssertionError(f"{tag} logits not finite / wrong shape")
+        if not torch.equal(a, b):
+            raise AssertionError(
+                f"{tag} logits with B4 / B5 differ from the plain matmuls' "
+                f"(max abs {(a - b).abs().max().item():.3e})")
+    errs = {"matmul_logits_equal": True,
+            "attention_calls": [ext_calls, dec_calls],
+            "attention_worst_share": [ext_share, dec_share]}
+    out = {"tokens_per_s": n_tok / wall, "ttft_p50_s": statistics.median(ttft),
+           "wall_s": wall, "tokens": n_tok, "requests": QSCHED_REQUESTS,
+           "prompt_tokens": int(sum(len(p) for p in prompts)),
+           "prefix_hit_tokens": hit, "cont_dispatches": d["cont"],
+           "fresh_dispatches": d["fresh"], "decode_blocks": d["blocks"],
+           "decode_steps": d["steps"], "syncs": d["syncs"],
+           "dispatch_rows": rows, "requant_events": requant,
+           "peak_mem_gb": peak_gb, "setup_peak_gb": setup_gb,
+           "launches": launches, "repeat_computed": [comp_a, comp_b],
+           "logit_check": errs}
+    print(f"[9 qsched] {cfg.name} {cfg.num_layers}L int8 weights + int8 KV "
+          f"SchedEngine fcfs, prefix cache, chunk 512: {QSCHED_REQUESTS} req "
+          f"({out['prompt_tokens']} prompt tokens, {hit} from the prefix "
+          f"cache), {n_tok} tokens in {wall:.3f}s ({n_tok / wall:.1f} "
+          f"tok/s), TTFT p50 {out['ttft_p50_s']:.4f}s, {d['fresh']} fresh + "
+          f"{d['cont']} continuation dispatches (rows {rows}) + "
+          f"{d['blocks']} blocks = {d['syncs']} syncs, {d['steps']} decode "
+          f"steps, {requant:.0f} requant events, launches {launches}, peak "
+          f"mem {peak_gb:.2f} GB (set-up {setup_gb:.2f} GB); repeat prompt computed {comp_a} then "
+          f"{comp_b} tokens, same tokens; continuation and decode logits "
+          f"with B4 / B5 equal to the plain matmuls'; B2 / B1 on the int8 "
+          f"pools vs plain, element by element: {ext_calls} / {dec_calls} "
+          f"calls, worst element {ext_share:.2f} / {dec_share:.2f} of its "
+          f"limit")
+    return out
+
+
+def phase_fp8(records: list) -> dict:
+    """qwen2-1.5b at full width, fp8 weights and fp8 KV pools, through the
+    port's PagedEngine on phase 5's traffic: B6 on every linear of a
+    dispatch with M <= 128 rows (decode steps; plain torch above, as in
+    the reference), B1 on decode, B3 on admission."""
+    torch = _torch()
+    import numpy as np
+    from repro_torch.serve.engine import PagedEngine
+    cfg, lm, params, setup_gb = _quantized_lm("fp8", "fp8")
+    eng = PagedEngine(lm, params, n_slots=8, max_len=1024, page_size=256,
+                      decode_block=8, seed=SEED)
+    rng = np.random.default_rng(SEED)                  # phase 5's traffic
+    eng.submit(rng.integers(0, cfg.vocab_size, (64,)), max_new_tokens=8)
+    eng.run_to_completion()
+    n_req = 12
+    plens = rng.integers(64, 513, n_req)
+    max_new = rng.integers(32, 65, n_req)
+    prompts = [rng.integers(0, cfg.vocab_size, (int(n),)) for n in plens]
+    steps0, syncs0 = eng.steps_run, eng.sync_count
+    cnt0 = eng.metrics.snapshot()["counters"]
+    rq0 = cnt0["serve_kv_requant_events_total"]
+    blocks0 = int(cnt0["serve_decode_dispatches_total"])
+    rows = _record_dispatch_rows(eng)
+    _reset_launches()
+    t0 = time.perf_counter()
+    ids = [eng.submit(p, max_new_tokens=int(m))
+           for p, m in zip(prompts, max_new)]
+    done = eng.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    steps = eng.steps_run - steps0
+    requant = eng.metrics.snapshot()["counters"][
+        "serve_kv_requant_events_total"] - rq0
+    n_tok = 0
+    for i, m in zip(ids, max_new):
+        got = done[i].out_tokens
+        if len(got) != int(m) or not all(0 <= t < cfg.vocab_size
+                                         for t in got):
+            raise AssertionError(f"request {i}: {len(got)} tokens (want "
+                                 f"{m}) or a token out of vocab")
+        n_tok += len(got)
+    small = sum(m <= 128 for m in rows)
+    want = {"paged_attention": cfg.num_layers * steps,
+            "flash_attention": cfg.num_layers * len(rows),
+            "paged_prefix_extend": 0, "int8_matmul": 0,
+            "w8a8_decode_matmul": 0,
+            "fp8_decode_matmul": QLINEARS * (steps + small)}
+    if launches != want or launches["fp8_decode_matmul"] == 0:
+        raise AssertionError(f"launches {launches} != {want} (admission "
+                             f"rows {rows}, {steps} decode steps)")
+    blocks = int(eng.metrics.snapshot()["counters"][
+        "serve_decode_dispatches_total"]) - blocks0
+    if eng.sync_count - syncs0 != len(rows) + blocks:
+        raise AssertionError(f"{eng.sync_count - syncs0} host syncs != "
+                             f"{len(rows)} admissions + {blocks} blocks")
+    if requant <= 0:
+        raise AssertionError("no fp8 page scale changed in the drive")
+    ttft = sorted(done[i].t_first - done[i].t_submit for i in ids)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for r in records:
+        if r["name"] == "fp8_decode_matmul":
+            r["launches"] = launches[r["name"]]
+    out = {"tokens_per_s": n_tok / wall, "ttft_p50_s": statistics.median(ttft),
+           "wall_s": wall, "tokens": n_tok, "requests": n_req,
+           "admission_rows": rows, "decode_steps": steps,
+           "requant_events": requant, "peak_mem_gb": peak_gb,
+           "setup_peak_gb": setup_gb, "launches": launches}
+    print(f"[10 fp8] {cfg.name} {cfg.num_layers}L fp8 weights + fp8 KV "
+          f"PagedEngine: {n_req} req, {n_tok} tokens in {wall:.3f}s "
+          f"({n_tok / wall:.1f} tok/s), TTFT p50 {out['ttft_p50_s']:.4f}s, "
+          f"{len(rows)} admissions (rows {rows}) + {blocks} blocks = "
+          f"{len(rows) + blocks} syncs, {steps} decode steps, "
+          f"{requant:.0f} requant events, launches {launches}, peak mem "
+          f"{peak_gb:.2f} GB (set-up {setup_gb:.2f} GB)")
+    return out
+
+
+def phase_trap4() -> None:
+    """Whether the torch-op parts of the quantized path give the CPU's
+    bits on the card: the row quantization before B4, the weight
+    quantization and the KV quantize writes divide by a tensor; the same
+    divisions by a Python scalar are shown beside them (PyTorch's CUDA
+    kernel multiplies by the reciprocal there).  Fails if a port op drifts."""
+    torch = _torch()
+    from repro_torch.kernels.int8_matmul.ref import quantize_rowwise
+    from repro_torch.kvcache.quant import quantize
+    from repro_torch.quant.qops import quantize_linear
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    x = torch.randn((4096, 1536), generator=g, device="cuda").bfloat16()
+    kv = torch.randn((4096, 2, 128), generator=g, device="cuda") * 3
+    w = torch.randn((1536, 8960), generator=g, device="cuda") * 0.02
+    bad = {}
+    for tag, fn, arg in (
+            ("rowwise", lambda t: quantize_rowwise(t), x),
+            ("kv int8", lambda t: quantize(t, torch.int8), kv),
+            ("kv fp8", lambda t: quantize(t, torch.float8_e4m3fn), kv),
+            ("weights int8", lambda t: tuple(quantize_linear(
+                {"w": t}, quant="int8").values()), w),
+            ("weights fp8", lambda t: tuple(quantize_linear(
+                {"w": t}, quant="fp8").values()), w)):
+        bad[tag] = sum(int((a.cpu().view(torch.uint8)
+                            != b.view(torch.uint8)).sum())
+                       for a, b in zip(fn(arg), fn(arg.cpu())))
+    naive = {}
+    for tag, t, c in (("amax/127 rows", x.float().abs().amax(-1), 127.0),
+                      ("amax/448 kv", kv.abs().amax(-1), 448.0)):
+        naive[tag] = int((torch.clamp(t, min=1e-8) / c).cpu().ne(
+            torch.clamp(t.cpu(), min=1e-8) / c).sum())
+    print(f"[trap4] port ops, bytes that differ card vs CPU: {bad}; "
+          f"division by a Python scalar on the card, scales that differ: "
+          f"{naive}")
+    if any(bad.values()):
+        raise AssertionError(f"port quantization drifts on the card: {bad}")
 
 
 def main() -> int:
@@ -843,10 +1483,15 @@ def main() -> int:
     e2e = phase_e2e(records)
     phase_extend(records)
     sched = phase_sched(records)
+    phase_qmm(records)
+    phase_trap4()
+    qsched = phase_qsched(records)
+    fp8 = phase_fp8(records)
     out_dir = ROOT / "chiprun_out"
     if out_dir.is_dir():
         (out_dir / "chip_smoke_e2e.json").write_text(json.dumps(
-            {"e2e": e2e, "sched": sched, "kernels": records}, indent=1))
+            {"e2e": e2e, "sched": sched, "qsched": qsched, "fp8": fp8,
+             "kernels": records}, indent=1))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": dev["kind"],

@@ -4,10 +4,11 @@ arrays, into the port's parameters.
 The reference keeps its layer stack either stacked on a leading group
 axis (``scan_layers=True``) or as ``g{i}`` keys; the port keeps a list of
 groups.  Linears keep the ``(d_in, d_out)`` layout on both sides, and a
-tied head is the embedding on both sides.  bf16 arrays arrive with an
-``ml_dtypes`` dtype, which numpy cannot hand to torch directly: they are
-recognised by ``dtype.name == "bfloat16"`` and cross bit for bit through
-a 16-bit integer view.
+tied head is the embedding on both sides.  bf16 and fp8 e4m3 arrays
+arrive with an ``ml_dtypes`` dtype, which numpy cannot hand to torch
+directly: they are recognised by ``dtype.name`` and cross bit for bit
+through a 16- or 8-bit integer view.  Quantized trees (``{"qw", "scale"}``
+linears: int8, packed-int4 uint8 or fp8 ``qw``) cross the same way.
 """
 from __future__ import annotations
 
@@ -20,11 +21,15 @@ from repro_torch.configs.base import ModelConfig
 
 
 def tensor_from_numpy(a: Any, device=None) -> torch.Tensor:
-    """One numpy array (bf16 included) as a tensor on ``device``."""
+    """One numpy array (bf16 and fp8 e4m3 included) as a tensor on
+    ``device``."""
     a = np.array(a)                  # a writable, contiguous copy
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(
             device)
+    if a.dtype.name == "float8_e4m3fn":
+        return torch.from_numpy(a.view(np.uint8)).view(
+            torch.float8_e4m3fn).to(device)
     return torch.from_numpy(a).to(device)
 
 

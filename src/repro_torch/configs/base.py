@@ -66,8 +66,13 @@ class ModelConfig:
     # instead of the plain sdpa (the reference's Pallas switch).  CUDA
     # tensors always take the hand-written kernels, whatever it says.
     use_kernels: bool = False
-    kv_cache_dtype: str = "bfloat16"  # bfloat16 (int8 | fp8: later slice)
+    kv_cache_dtype: str = "bfloat16"  # bfloat16 | int8 | fp8 (paged pools)
     kv_cache_style: str = "full"      # full | gqa | mqa
+    quant: str = "bf16"               # bf16 | fp8 | int8 | int4  (weights)
+    # quantized-weight matmuls of the forwards: on the CPU "fused" runs the
+    # plain versions of the CUDA kernels and "ref" the oracles; CUDA
+    # tensors always take the kernels, whatever it says
+    quant_matmul_impl: str = "fused"  # fused | ref
 
     def with_(self, **kw) -> "ModelConfig":
         return replace(self, **kw)

@@ -30,7 +30,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: kernel library name -> source file under csrc/
 SOURCES = {"paged_attention": "paged_attention.cu",
            "flash_attention": "flash_attention.cu",
-           "paged_prefix_extend": "paged_prefix_extend.cu"}
+           "paged_prefix_extend": "paged_prefix_extend.cu",
+           "int8_matmul": "int8_matmul.cu",
+           "w8a8_decode": "w8a8_decode.cu",
+           "fp8_decode": "fp8_decode.cu"}
 
 #: torch dtype -> dtype code of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
@@ -46,6 +49,9 @@ SIGNATURES = {
                         [_P] * 4 + [_I] * 8 + [_F, _I, _P]),
     "paged_prefix_extend": ("paged_prefix_extend_fwd",
                             [_P] * 11 + [_I] * 7 + [_F] + [_I] * 3 + [_P]),
+    "int8_matmul": ("int8_matmul", [_P] * 5 + [_I] * 5 + [_P]),
+    "w8a8_decode": ("w8a8_decode_matmul", [_P] * 7 + [_I] * 10 + [_P]),
+    "fp8_decode": ("fp8_decode_matmul", [_P] * 7 + [_I] * 9 + [_P]),
 }
 
 

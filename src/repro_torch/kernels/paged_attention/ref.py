@@ -6,7 +6,12 @@ The counterparts of ``repro/kernels/paged_attention/ref.py``
 slot's pages into a contiguous copy and run a masked fp32 softmax.  Fully
 masked rows (a free engine slot; an empty chunk row) return zeros, as the
 kernels do.  Quantized pools (int8 / fp8 e4m3) are dequantized up front
-with their per-(page, kv head) fp32 scales.  Wrappers take these versions
+with their per-(page, kv head) fp32 scales.  Pages wholly past a
+slot's length are zeroed in V before the product: the reference kernels
+never visit them (their contents are another slot's, or garbage, and an
+fp8 page may hold NaN where the reference's conversion overflowed).  The
+masked rows of a partly filled page are multiplied by zero probability,
+as the reference kernels do.  Wrappers take these versions
 for CPU tensors; ``chip_smoke.py`` holds the CUDA kernels against them on
 the card.
 """
@@ -34,6 +39,13 @@ def _gather_pages(k_pages, v_pages, block_table, k_scales, v_scales):
             v.reshape(s_n, p_n * page, kh, d))
 
 
+def _visited(p_n: int, page: int, lengths: torch.Tensor) -> torch.Tensor:
+    """(S, P·page) bool: positions on a page that starts below the slot's
+    length, the pages the reference kernels visit."""
+    start = torch.arange(p_n * page, device=lengths.device) // page * page
+    return start[None, :] < lengths[:, None]
+
+
 def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
                         v_pages: torch.Tensor, block_table: torch.Tensor,
                         lengths: torch.Tensor,
@@ -56,6 +68,7 @@ def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
              < lengths[:, None])                         # (S,T)
     scores = torch.where(valid[:, None, None, :], scores,
                          torch.tensor(NEG_INF, device=q.device))
+    v = torch.where(_visited(p_n, page, lengths)[:, :, None, None], v, 0.0)
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.exp(scores - m) * valid[:, None, None, :]
     l = p.sum(dim=-1, keepdim=True)
@@ -92,6 +105,8 @@ def paged_prefix_extend_ref(q: torch.Tensor, k_pages: torch.Tensor,
     ctx_ok = (torch.arange(t, device=q.device)[None, :]
               < prefix_lens[:, None])                             # (S,T)
     s_ctx = torch.where(ctx_ok[:, None, None, None, :], s_ctx, neg)
+    v = torch.where(_visited(block_table.shape[1], page,
+                             prefix_lens)[:, :, None, None], v, 0.0)
     s_chk = torch.einsum("swkgd,sjkd->skgwj", qg, chunk_k.float()) * scale
     jj = torch.arange(w_n, device=q.device)
     chk_ok = ((jj[None, :] <= jj[:, None])[None]

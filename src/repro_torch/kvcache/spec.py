@@ -4,8 +4,8 @@ The port's copy of ``repro/kvcache/spec.py``:
 
   layout ∈ {contiguous, paged}   — (B, S, KH, D) slabs vs page pools +
                                    block tables (serve/paged.py)
-  dtype  ∈ {bf16, int8, fp8}     — quantized caches carry fp32 amax scales
-                                   (their writes arrive in a later slice)
+  dtype  ∈ {bf16, int8, fp8}     — quantized page pools carry fp32 amax
+                                   scales per (page, kv head)
   style  ∈ {full, gqa, mqa}      — stored-head narrowing (heads are
                                    mean-merged before the write)
 """

@@ -1,6 +1,7 @@
 """Where the time of the port's paged serving goes, on the GPU.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_serve
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+        [--quant int8|fp8|int4] [--kv-dtype int8|fp8]
 
 Builds qwen2-1.5b at full width (random weights from seed 0) on the main
 path's engine settings (8 slots, page 256, ``decode_block`` 8), admits
@@ -11,12 +12,17 @@ tokens, the shapes of ``chip_smoke.py`` phase 7) — each phase once
 untraced (host wall clock) and once under ``torch.profiler`` (device
 time of every kernel).  Prints,
 per phase, wall time, device busy time (the sum of kernel times: one
-stream, so kernels do not overlap), the device's idle share, and the
-kernels that take the most device time; the last line is the same as
-JSON, with the card's name and power limit.
+stream, so kernels do not overlap), the device's idle share, the number
+of kernels the device ran, and the kernels that take the most device
+time; the last line is the same as
+JSON, with the card's name and power limit.  ``--quant`` quantizes the
+weights after ``LM.init`` and ``--kv-dtype`` stores the page pools in
+int8 / fp8 (the quantized serving drive of ``chip_smoke.py``); without
+them the drive is bf16 throughout.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import time
@@ -25,7 +31,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.kvcache import normalize_dtype
 from repro_torch.models.model import LM
+from repro_torch.quant import quantize_tree
 from repro_torch.serve.engine import PagedEngine
 
 SLOTS, PROMPT, BLOCKS, DECODE_BLOCK, SEED, TOP = 8, 512, 4, 8, 0, 8
@@ -33,16 +41,19 @@ SLOTS, PROMPT, BLOCKS, DECODE_BLOCK, SEED, TOP = 8, 512, 4, 8, 0, 8
 CONT_STARTS = (512, 1024, 1536, 2048, 2560, 3072, 1024, 2048)
 
 
-def _device_kernels(prof) -> dict:
-    """{kernel name: total device ms} over the profiled window."""
+def _device_kernels(prof) -> tuple[dict, int]:
+    """({kernel name: total device ms}, number of kernel runs) over the
+    profiled window."""
     out: dict = {}
+    runs = 0
     for ev in prof.key_averages():
         t = getattr(ev, "self_device_time_total", None)
         if t is None:
             t = getattr(ev, "self_cuda_time_total", 0.0)
         if t and ev.device_type == torch.autograd.DeviceType.CUDA:
             out[ev.key] = out.get(ev.key, 0.0) + t / 1e3
-    return out
+            runs += ev.count
+    return out, runs
 
 
 def _phase(name: str, run) -> dict:
@@ -56,28 +67,37 @@ def _phase(name: str, run) -> dict:
     with torch.profiler.profile(activities=acts) as prof:
         run()
         torch.cuda.synchronize()
-    kernels = _device_kernels(prof)
+    kernels, runs = _device_kernels(prof)
     busy = sum(kernels.values())
     if busy <= 0:
         raise RuntimeError(f"{name}: the profiler saw no device time")
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1])[:TOP]
     res = {"phase": name, "wall_ms": wall, "device_busy_ms": busy,
            "idle_share": max(0.0, 1.0 - busy / wall),
+           "kernel_runs": runs,
            "top_kernels_ms": {k[:80]: v for k, v in ranked}}
     print(f"[{name}] wall {wall:.3f} ms (untraced), device busy "
-          f"{busy:.3f} ms, idle share {res['idle_share']:.3f}")
+          f"{busy:.3f} ms, idle share {res['idle_share']:.3f}, "
+          f"{runs} kernel runs")
     for k, v in ranked:
         print(f"    {v:9.3f} ms  {k[:100]}")
     return res
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--quant", default="bf16",
+                    choices=["bf16", "fp8", "int8", "int4"])
+    ap.add_argument("--kv-dtype", default="bf16",
+                    choices=["bf16", "bfloat16", "int8", "fp8"])
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config("qwen2-1.5b")
+    cfg = get_config("qwen2-1.5b").with_(
+        quant=args.quant, kv_cache_dtype=normalize_dtype(args.kv_dtype))
     lm = LM(cfg, device="cuda")
-    params = lm.init(SEED)
+    params = quantize_tree(lm.init(SEED), quant=args.quant)
     rng = np.random.default_rng(SEED)
     budget = DECODE_BLOCK * BLOCKS * 3 + 2      # covers 2 x BLOCKS + 1 blocks
 
@@ -127,6 +147,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(json.dumps({"device": smi, "config": cfg.name,
+                      "quant": cfg.quant, "kv_dtype": cfg.kv_cache_dtype,
                       "phases": results}))
     return 0
 

@@ -5,14 +5,19 @@ the scheduler over it.
         --paged [--smoke] [--requests 8 --prompt-len 32 --max-new 32 \
         --slots 4 --max-len 256 --page-size 64 --decode-block 8] \
         [--policy fcfs|edf --prefill-chunk 512 --no-prefix-cache \
-         --slo-ttft 2000 --slo-tpot 50] [--device cpu]
+         --slo-ttft 2000 --slo-tpot 50] [--quant int8|fp8|int4 \
+        --quant-impl fused|ref --kv-dtype int8|fp8] [--device cpu]
 
 Runs on the GPU unless ``--device cpu`` is given; on the GPU the
 admission prefill goes through the flash-attention kernel, every decode
 step through the paged-attention kernel and, with ``--policy``, every
 continuation chunk of a chunked prefill through the prefix-extend kernel.
-Flags and defaults are the reference's (``repro.launch.serve``) for these
-paths.
+``--quant`` quantizes the weights after ``LM.init``: int8 linears run the
+W8A8 decode kernel at M <= 128 rows and the tiled W8A8 kernel above,
+fp8 linears the fp8 decode kernel at M <= 128 (plain torch above, as in
+the reference), int4 plain torch.  ``--kv-dtype`` stores the page pools
+in int8 or fp8 with per-page scales.  Flags and defaults are the
+reference's (``repro.launch.serve``) for these paths.
 """
 from __future__ import annotations
 
@@ -22,7 +27,9 @@ import time
 import numpy as np
 
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.kvcache import normalize_dtype
 from repro_torch.models.model import LM, resolve_device
+from repro_torch.quant import quantize_tree
 from repro_torch.sched import SchedEngine
 from repro_torch.serve.engine import PagedEngine
 
@@ -58,6 +65,19 @@ def main(argv=None):
                          "telemetry)")
     ap.add_argument("--slo-tpot", type=float, default=None,
                     help="TPOT SLO target in ms (telemetry)")
+    ap.add_argument("--kv-dtype", default="bf16",
+                    choices=["bf16", "bfloat16", "int8", "fp8"],
+                    help="KV page-pool storage dtype: int8/fp8 pools carry "
+                         "per-page amax scales")
+    ap.add_argument("--quant", default="bf16",
+                    choices=["bf16", "fp8", "int8", "int4"],
+                    help="weight quantization of every linear "
+                         "(quant.qops.quantize_tree)")
+    ap.add_argument("--quant-impl", default="fused",
+                    choices=["fused", "ref"],
+                    help="quantized-matmul execution on the CPU: 'fused' "
+                         "runs the kernels' plain versions, 'ref' the "
+                         "oracles; on the GPU the kernels always run")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
@@ -70,8 +90,14 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    cfg = cfg.with_(kv_cache_dtype=normalize_dtype(args.kv_dtype),
+                    quant=args.quant, quant_matmul_impl=args.quant_impl)
     lm = LM(cfg, device=device)
     params = lm.init(args.seed)
+    if args.quant != "bf16":
+        params = quantize_tree(params, quant=args.quant)
+        print(f"[serve] weights quantized to {args.quant} "
+              f"({args.quant_impl} matmuls), kv {cfg.kv_cache_dtype}")
     kw = dict(n_slots=args.slots, max_len=args.max_len, seed=args.seed,
               page_size=args.page_size, decode_block=args.decode_block)
     if args.policy:

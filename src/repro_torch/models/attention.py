@@ -115,18 +115,20 @@ def _scale(a: AttentionConfig) -> torch.Tensor:
 
 
 def _project(p: dict, x: torch.Tensor, a: AttentionConfig,
-             positions: torch.Tensor):
+             positions: torch.Tensor, impl: str = "ref"):
     """q (B,S,Hp,D), rotated k (B,S,KH,D) and v from one projection."""
     b, s, _ = x.shape
     kvh = a.kv_heads_effective()
-    q = linear_apply(p["wq"], x).reshape(b, s, a.heads_padded, a.head_dim)
-    k = linear_apply(p["wk"], x).reshape(b, s, kvh, a.head_dim)
-    v = linear_apply(p["wv"], x).reshape(b, s, kvh, a.head_dim)
+    q = linear_apply(p["wq"], x, impl).reshape(b, s, a.heads_padded,
+                                               a.head_dim)
+    k = linear_apply(p["wk"], x, impl).reshape(b, s, kvh, a.head_dim)
+    v = linear_apply(p["wv"], x, impl).reshape(b, s, kvh, a.head_dim)
     return (apply_rope(q, positions, a.rope_theta),
             apply_rope(k, positions, a.rope_theta), v)
 
 
-def _attend(p: dict, q, k, v, a: AttentionConfig, use_flash: bool):
+def _attend(p: dict, q, k, v, a: AttentionConfig, use_flash: bool,
+            impl: str = "ref"):
     b, s = q.shape[:2]
     kvh = a.kv_heads_effective()
     # CUDA tensors always take the flash kernel; ``use_flash`` picks the
@@ -143,28 +145,30 @@ def _attend(p: dict, q, k, v, a: AttentionConfig, use_flash: bool):
         qg = q.reshape(b, s, kvh, a.heads_padded // kvh, a.head_dim)
         o = sdpa(qg, k, v, mask, _scale(a).to(q.device))
     o = o.reshape(b, s, a.heads_padded * a.head_dim)
-    return linear_apply(p["wo"], _mask_pad_heads(o, a))
+    return linear_apply(p["wo"], _mask_pad_heads(o, a), impl)
 
 
 def attention_forward(p: dict, x: torch.Tensor, a: AttentionConfig, *,
-                      use_flash: bool = False) -> torch.Tensor:
-    """Full-sequence attention at positions [0, S).  x: (B,S,d) -> (B,S,d)."""
+                      use_flash: bool = False,
+                      impl: str = "ref") -> torch.Tensor:
+    """Full-sequence attention at positions [0, S).  x: (B,S,d) -> (B,S,d).
+    ``impl`` is the quantized linears' ``quant_matmul_impl``."""
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    q, k, v = _project(p, x, a, positions)
-    return _attend(p, q, k, v, a, use_flash)
+    q, k, v = _project(p, x, a, positions, impl)
+    return _attend(p, q, k, v, a, use_flash, impl)
 
 
 def attention_prefill(p: dict, x: torch.Tensor, a: AttentionConfig,
-                      cache: dict, *, use_flash: bool = False
-                      ) -> tuple[torch.Tensor, dict]:
+                      cache: dict, *, use_flash: bool = False,
+                      impl: str = "ref") -> tuple[torch.Tensor, dict]:
     """Full-seq attention AND fill the contiguous cache for positions
     [0, s).  K/V are projected once and shared by both (the reference
     projects them twice; the values are identical)."""
     from repro_torch import kvcache
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
-    q, k, v = _project(p, x, a, positions)
-    y = _attend(p, q, k, v, a, use_flash)
+    q, k, v = _project(p, x, a, positions, impl)
+    y = _attend(p, q, k, v, a, use_flash, impl)
     kvh_store = cache["k"].shape[2]
     cache = kvcache.prefill_write(cache, {"k": _merge_heads(k, kvh_store),
                                           "v": _merge_heads(v, kvh_store)})
@@ -176,7 +180,8 @@ def attention_prefill(p: dict, x: torch.Tensor, a: AttentionConfig,
 
 
 def attention_prefill_paged(p: dict, x: torch.Tensor, a: AttentionConfig,
-                            cache: dict, spos) -> tuple[torch.Tensor, dict]:
+                            cache: dict, spos, impl: str = "ref"
+                            ) -> tuple[torch.Tensor, dict]:
     """Chunked / continuation prefill directly against a paged KV cache.
 
     x: (B,c,d) — one prompt chunk per row; ``spos`` is ``(slot_ids (B,),
@@ -202,7 +207,7 @@ def attention_prefill_paged(p: dict, x: torch.Tensor, a: AttentionConfig,
     b, c, _ = x.shape
     kvh_store = cache["k_pages"].shape[2]
     apos = starts[:, None].long() + torch.arange(c, device=x.device)[None, :]
-    q, k_new, v_new = _project(p, x, a, apos)
+    q, k_new, v_new = _project(p, x, a, apos, impl)
     k_new = _merge_heads(k_new, kvh_store).contiguous()
     v_new = _merge_heads(v_new, kvh_store).contiguous()
     cache = kvcache.paged_scatter_prefill(cache, slot_ids, lengths, k_new,
@@ -217,7 +222,7 @@ def attention_prefill_paged(p: dict, x: torch.Tensor, a: AttentionConfig,
         q.contiguous(), kp, vp, rows.contiguous(), starts.to(torch.int32),
         k_new, v_new, lengths.to(torch.int32), k_sc, v_sc)
     o = o.reshape(b, c, a.heads_padded * a.head_dim)
-    y = linear_apply(p["wo"], _mask_pad_heads(o.to(x.dtype), a))
+    y = linear_apply(p["wo"], _mask_pad_heads(o.to(x.dtype), a), impl)
     return y, cache
 
 
@@ -226,7 +231,7 @@ def attention_prefill_paged(p: dict, x: torch.Tensor, a: AttentionConfig,
 
 
 def attention_decode_paged(p: dict, x: torch.Tensor, a: AttentionConfig,
-                           cache: dict, pos: torch.Tensor
+                           cache: dict, pos: torch.Tensor, impl: str = "ref"
                            ) -> tuple[torch.Tensor, dict]:
     """One-token decode against a paged KV cache, all slots in one
     paged-attention launch.
@@ -244,9 +249,10 @@ def attention_decode_paged(p: dict, x: torch.Tensor, a: AttentionConfig,
     kvh = a.kv_heads_effective()
     kvh_store = cache["k_pages"].shape[2]
     posv = pos[:, None]
-    q = linear_apply(p["wq"], x).reshape(b, 1, a.heads_padded, a.head_dim)
-    k_new = linear_apply(p["wk"], x).reshape(b, 1, kvh, a.head_dim)
-    v_new = linear_apply(p["wv"], x).reshape(b, 1, kvh, a.head_dim)
+    q = linear_apply(p["wq"], x, impl).reshape(b, 1, a.heads_padded,
+                                               a.head_dim)
+    k_new = linear_apply(p["wk"], x, impl).reshape(b, 1, kvh, a.head_dim)
+    v_new = linear_apply(p["wv"], x, impl).reshape(b, 1, kvh, a.head_dim)
     q = apply_rope(q, posv, a.rope_theta)[:, 0]                  # (S,H,D)
     k_new = _merge_heads(apply_rope(k_new, posv, a.rope_theta),
                          kvh_store)[:, 0]                        # (S,KH,D)
@@ -256,5 +262,5 @@ def attention_decode_paged(p: dict, x: torch.Tensor, a: AttentionConfig,
     o = paged_attention(q.contiguous(), k_pages, v_pages, bt,
                         (pos + 1).to(torch.int32), k_sc, v_sc)   # (S,H,D)
     o = o.reshape(b, 1, a.heads_padded * a.head_dim)
-    y = linear_apply(p["wo"], _mask_pad_heads(o.to(x.dtype), a))
+    y = linear_apply(p["wo"], _mask_pad_heads(o.to(x.dtype), a), impl)
     return y, cache

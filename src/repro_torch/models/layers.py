@@ -1,7 +1,8 @@
 """Core layers: norms, embeddings, rotary, SwiGLU MLP, linear.
 
 Parameters are plain nested dicts of tensors, in the reference's layout
-(``repro/models/layers.py``): a linear is ``{"w": (d_in, d_out)[, "b"]}``.
+(``repro/models/layers.py``): a linear is ``{"w": (d_in, d_out)[, "b"]}``,
+or ``{"qw", "scale"[, "b"]}`` once quantized (``repro_torch.quant``).
 Each layer is a pair ``init_*(generator, ...) -> params`` and
 ``*_apply(params, x) -> y``.  The fp32 crossing points and the rounding
 order are the reference's, so a float32 forward matches it to rounding.
@@ -35,7 +36,14 @@ def init_linear(gen: torch.Generator, d_in: int, d_out: int, *,
     return p
 
 
-def linear_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
+def linear_apply(p: dict, x: torch.Tensor, impl: str = "ref") -> torch.Tensor:
+    """Dense or quantized linear.  Quantized params carry ``{"qw",
+    "scale"}``; their bias goes to ``quantized_matmul`` (which folds it
+    into the decode kernels' epilogue) and ``impl`` is the model's
+    ``quant_matmul_impl``."""
+    if "qw" in p:
+        from repro_torch.quant.qops import quantized_matmul
+        return quantized_matmul(x, p, bias=p.get("b"), impl=impl)
     y = x @ p["w"].to(x.dtype)
     if "b" in p:
         y = y + p["b"].to(y.dtype)
@@ -136,8 +144,8 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, *,
             "down": init_linear(gen, d_ff, d_model, **kw)}
 
 
-def mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
-    g = linear_apply(p["gate"], x)
-    u = linear_apply(p["up"], x)
+def mlp_apply(p: dict, x: torch.Tensor, impl: str = "ref") -> torch.Tensor:
+    g = linear_apply(p["gate"], x, impl)
+    u = linear_apply(p["up"], x, impl)
     h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
-    return linear_apply(p["down"], h)
+    return linear_apply(p["down"], h, impl)

@@ -80,6 +80,9 @@ def group_forward(gp: dict, x: torch.Tensor, cfg: ModelConfig, *,
     (one token per slot against a paged cache, ``pos`` the (S,) write
     positions)."""
     a = cfg.attention
+    # the quantized linears' execution choice (every forward of the port
+    # is an inference forward: the reference's training "ref" never applies)
+    impl = cfg.quant_matmul_impl
     new_cache: Dict[str, Any] = {}
     for i, _ in enumerate(block_kinds(cfg)):
         blk = gp[f"blk{i}"]
@@ -88,27 +91,29 @@ def group_forward(gp: dict, x: torch.Tensor, cfg: ModelConfig, *,
         if mode == "prefill":
             if c is None:
                 y = attn_mod.attention_forward(blk["attn"], h, a,
-                                               use_flash=cfg.use_kernels)
+                                               use_flash=cfg.use_kernels,
+                                               impl=impl)
             elif "k_pages" in c["kv"]:
                 y, kv = attn_mod.attention_prefill_paged(blk["attn"], h, a,
-                                                         c["kv"], pos)
+                                                         c["kv"], pos, impl)
                 new_cache[f"blk{i}"] = {"kv": kv}
             else:
                 y, kv = attn_mod.attention_prefill(
-                    blk["attn"], h, a, c["kv"], use_flash=cfg.use_kernels)
+                    blk["attn"], h, a, c["kv"], use_flash=cfg.use_kernels,
+                    impl=impl)
                 new_cache[f"blk{i}"] = {"kv": kv}
         elif mode == "decode":
             if c is None or "k_pages" not in c["kv"]:
                 raise NotImplementedError(
                     "decode runs against a paged cache only")
             y, kv = attn_mod.attention_decode_paged(blk["attn"], h, a,
-                                                    c["kv"], pos)
+                                                    c["kv"], pos, impl)
             new_cache[f"blk{i}"] = {"kv": kv}
         else:
             raise ValueError(f"mode {mode!r}")
         x = x + y
         h = norm_apply(cfg.norm, blk["norm2"], x, cfg.norm_eps)
-        x = x + mlp_apply(blk["mlp"], h)
+        x = x + mlp_apply(blk["mlp"], h, impl)
     return x, (new_cache if cache is not None else None)
 
 

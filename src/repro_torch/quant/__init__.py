@@ -1,0 +1,8 @@
+"""Weight quantization of the port: quantized linears and tree
+quantization (``qops.py``)."""
+from repro_torch.quant.qops import (QUANT_TARGETS, memory_bytes,
+                                    quantize_linear, quantize_tree,
+                                    quantized_matmul)
+
+__all__ = ["QUANT_TARGETS", "memory_bytes", "quantize_linear",
+           "quantize_tree", "quantized_matmul"]

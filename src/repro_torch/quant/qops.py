@@ -1,0 +1,141 @@
+"""Quantized linear execution and weight-tree quantization.
+
+The port's copy of ``repro/quant/qops.py``, AE-LLM's ``c_inf`` weight
+arm: {bf16, fp8, int8, int4} applied to the parameter tree after
+``LM.init``.  A quantized linear carries ``{"qw", "scale"[, "b"]}`` and
+``models.layers.linear_apply`` sends it here.
+
+int8 = W8A8 (dynamic per-row activation quantization).
+int4 = W4A16 weight-only, packed two per byte (uint8).
+fp8  = e4m3 weights, wide activations.
+
+The execution choice is an argument, not a module-level context as in
+the reference: ``impl`` is ``cfg.quant_matmul_impl``, passed down by the
+model's forwards.  On CUDA tensors the kernels always run, whatever it
+says.  On the CPU ``"fused"`` runs the kernels' plain versions and
+``"ref"`` the oracles, as the reference's switch picks between its
+Pallas kernels and jnp.
+"""
+from __future__ import annotations
+
+import re
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.int8_matmul.ops import (DECODE_M_MAX,
+                                                 fp8_matmul_decode,
+                                                 int4_matmul,
+                                                 int8_matmul_dynamic,
+                                                 w8a8_matmul_decode)
+from repro_torch.kernels.int8_matmul.ref import (_div, quantize_colwise,
+                                                 quantize_int4_colwise)
+
+FP8 = torch.float8_e4m3fn
+IMPLS = ("fused", "ref")
+
+QUANT_TARGETS = (r"/(wq|wk|wv|wo|gate|up|down|q_up|kv_up_k|kv_up_v|"
+                 r"kv_down|in_proj|out_proj|wr|wg|wout)$")
+
+
+def quantized_matmul(x: torch.Tensor, p: dict, *,
+                     bias: Optional[torch.Tensor] = None,
+                     impl: str = "ref") -> torch.Tensor:
+    """Dispatch on ``qw``'s dtype: int8 = W8A8, uint8 = packed int4
+    (W4A16), float8_e4m3fn = fp8 weights.  M is the product of
+    ``x.shape[:-1]`` (the padded shape the caller passes): M <= 128 takes
+    the decode kernels, larger M the tiled one.  ``bias`` (if given) is
+    ALWAYS applied here — folded into the fp32 epilogue on the decode
+    paths, added after the cast in the out type otherwise — so callers
+    must not add it again."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown quant impl {impl!r}")
+    qw = p["qw"]
+    kernels = x.is_cuda or impl == "fused"
+    m = 1
+    for d in x.shape[:-1]:
+        m *= d
+
+    def _plus_bias(y):
+        return y if bias is None else y + bias.to(y.dtype)
+
+    def _decode(fn):
+        x2 = x.reshape(-1, x.shape[-1]).contiguous()
+        y = fn(x2, qw, p["scale"], bias=bias, out_dtype=x.dtype)
+        return y.reshape(*x.shape[:-1], qw.shape[1])
+
+    if qw.dtype == torch.int8:
+        if kernels and m <= DECODE_M_MAX:
+            return _decode(w8a8_matmul_decode)
+        return _plus_bias(int8_matmul_dynamic(x, qw, p["scale"]))
+    if qw.dtype == torch.uint8:
+        return _plus_bias(int4_matmul(x, qw, p["scale"]))
+    if qw.dtype == FP8:
+        if kernels and m <= DECODE_M_MAX:
+            return _decode(fp8_matmul_decode)
+        # the per-column scale commutes with the contraction: applied to
+        # the (smaller) output; the reference computes this outside any
+        # Pallas kernel too
+        y = x.float() @ qw.float()
+        return _plus_bias((y * p["scale"]).to(x.dtype))
+    raise ValueError(f"unrecognized quantized dtype {qw.dtype}")
+
+
+def quantize_linear(p: dict, *, quant: str,
+                    scales: Optional[torch.Tensor] = None) -> dict:
+    """One linear's params quantized (a new dict); ``scales`` is an
+    optional per-input-channel equalization vector folded into w."""
+    w = p["w"].float()
+    if scales is not None:
+        w = w * scales[:, None]
+    out = {k: v for k, v in p.items() if k != "w"}
+    if quant == "int8":
+        qw, s = quantize_colwise(w)
+    elif quant == "int4":
+        qw, s = quantize_int4_colwise(w)
+    elif quant == "fp8":
+        amax = w.abs().amax(dim=0)
+        s = _div(torch.clamp(amax, min=1e-8), 448.0)   # e4m3 max normal
+        qw = (w / s[None, :]).to(FP8)
+    else:
+        raise ValueError(quant)
+    out.update(qw=qw, scale=s)
+    return out
+
+
+def quantize_tree(params, *, quant: str = "int8",
+                  targets: str = QUANT_TARGETS):
+    """Quantize every matching linear of a parameter tree (nested dicts
+    and lists, paths joined with "/"; the port's layer stack is a list of
+    groups, so every weight is 2-D).  bf16 / none / fp16 return the tree
+    as it is."""
+    if quant in ("bf16", "none", "fp16"):
+        return params
+
+    def visit(node, prefix=""):
+        if isinstance(node, list):
+            return [visit(sub, f"{prefix}/{i}") for i, sub in enumerate(node)]
+        if not isinstance(node, dict):
+            return node
+        new = {}
+        for name, sub in node.items():
+            path = f"{prefix}/{name}"
+            if (isinstance(sub, dict) and "w" in sub and sub["w"].ndim == 2
+                    and re.search(targets, path)):
+                new[name] = quantize_linear(sub, quant=quant)
+            else:
+                new[name] = visit(sub, path)
+        return new
+
+    return visit(params)
+
+
+def memory_bytes(params) -> int:
+    """Bytes of every tensor in a parameter tree."""
+    if isinstance(params, dict):
+        return sum(memory_bytes(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(memory_bytes(v) for v in params)
+    if isinstance(params, torch.Tensor):
+        return params.numel() * params.element_size()
+    return 0

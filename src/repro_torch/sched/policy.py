@@ -17,7 +17,7 @@ request with the most slack.
 The reference's ``SJF`` and EDF's cost-model admission check price a job
 through ``core.costmodel.service_estimate``, whose peaks are a TPU's; the
 port carries no TPU numbers, so both wait for an H100 tier of the cost
-model (ROADMAP A7) and raise ``NotImplementedError`` until then.
+model (ROADMAP A5) and raise ``NotImplementedError`` until then.
 """
 from __future__ import annotations
 
@@ -27,7 +27,7 @@ from typing import Optional
 #: engine supplies a TTFT target
 DEFAULT_TTFT_S = 0.5
 
-COST_MODEL_TODO = ("needs the cost model's H100 tier (ROADMAP A7); the "
+COST_MODEL_TODO = ("needs the cost model's H100 tier (ROADMAP A5); the "
                    "reference prices jobs with TPU peaks")
 
 

@@ -29,7 +29,7 @@ around them:
 
 The reference's request-level isolation and recovery (fault injection,
 the degradation ladder, per-request deadlines, retries with backoff) is
-not ported yet (ROADMAP A5): this engine runs the reference's tick with
+not ported yet (ROADMAP A3): this engine runs the reference's tick with
 all of those knobs off, dispatch for dispatch and sync for sync.
 
 Telemetry (``stats``/``telemetry()``): admitted / preempted counts,
@@ -78,11 +78,15 @@ class SchedEngine(PagedEngine):
         super().__init__(lm, params, **kw)
         if prefill_chunk is None:
             prefill_chunk = 8 * self.page_size
+        # page-aligned chunks are what keep quantized chunk scatters
+        # right: a scatter resets every page it touches to its own amax,
+        # so a chunk that started mid-page would overwrite the scale that
+        # the previous chunk's rows on that page were quantized against
         if prefill_chunk % self.page_size or prefill_chunk <= 0:
             raise ValueError(
                 f"prefill_chunk={prefill_chunk} must be a positive multiple "
                 f"of page_size={self.page_size} (page-aligned chunks keep "
-                "every chunk's writes on pages of its own)")
+                "quantized page scales single-writer)")
         self.prefill_chunk = prefill_chunk
         self.policy: Policy = (policy if isinstance(policy, Policy)
                                else make_policy(policy, slo_ttft=slo_ttft))

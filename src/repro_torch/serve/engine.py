@@ -25,7 +25,7 @@ from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import PID_ENGINE, Tracer
 from repro_torch.resil.errors import OUTCOMES
 from repro_torch.serve.paged import (PAGE, OutOfPagesError, PageAllocator,
-                                     scatter_prefill_cache,
+                                     _attn_nodes, scatter_prefill_cache,
                                      set_block_table_rows)
 
 
@@ -183,6 +183,16 @@ def _sample_batch(logits: torch.Tensor, temps: torch.Tensor,
     return torch.where(temps > 0, sampled, greedy)
 
 
+def _scale_snapshot(cache) -> Optional[torch.Tensor]:
+    """Every quantized page-scale entry of a model cache's real pages,
+    flattened into one new tensor (None for bf16 pools, which carry no
+    scales).  The null page (row 0) is left out: free slots' duplicate
+    writes set its scale in no fixed order on CUDA, and nothing reads it."""
+    scales = [node[name][1:].reshape(-1) for node in _attn_nodes(cache)
+              for name in ("k_scales", "v_scales") if name in node]
+    return torch.cat(scales) if scales else None
+
+
 def _pow2_bucket(n: int, lo: int = 8) -> int:
     b = lo
     while b < n:
@@ -244,7 +254,8 @@ class PagedEngine(_EngineBase):
             "(device-counted)")
         self._c_requant = m.counter(
             "serve_kv_requant_events_total",
-            "quantized page-scale entries changed by device KV writes")
+            "quantized page-scale entries of real pages (not the null "
+            "page) changed by device KV writes")
         self._c_prefill_disp = m.counter(
             "serve_prefill_dispatches_total",
             "batched prefill / chunk dispatches")
@@ -280,21 +291,26 @@ class PagedEngine(_EngineBase):
         remaining rows of the block are filled as the skipped steps
         would have left them.  A step after every slot hit EOS still runs:
         it only writes K/V past each slot's length, where no read
-        reaches."""
+        reaches.  ``stats`` counts [tokens emitted, EOS fires, quantized
+        page-scale entries of real pages the block changed] on the device
+        (the reference's ``_kv_scale_change_count``, which also counts the
+        null page's)."""
         eos, max_len = self.eos, self.max_len
         s_n = tokens.shape[0]
         toks = torch.empty((self.decode_block, s_n), dtype=torch.int32,
                            device=self.device)
         emits = torch.zeros((self.decode_block, s_n), dtype=torch.bool,
                             device=self.device)
-        stats = torch.zeros((2,), dtype=torch.int32, device=self.device)
+        stats = torch.zeros((3,), dtype=torch.int32, device=self.device)
+        scales0 = _scale_snapshot(self.cache)
         for i in range(n_steps):
             logits, self.cache = self.lm.decode_step(self.params, tokens,
                                                      self.cache, lengths)
             nxt = _sample_batch(logits, temps, gen)
             nxt = torch.where(active, nxt, tokens)
-            stats += torch.stack([active.sum(), (active & (nxt == eos)).sum()
-                                  ]).to(torch.int32)
+            stats[:2] += torch.stack([active.sum(),
+                                      (active & (nxt == eos)).sum()
+                                      ]).to(torch.int32)
             emits[i] = active
             lengths = torch.where(active, lengths + 1, lengths)
             remaining = torch.where(active, remaining - 1, remaining)
@@ -303,6 +319,8 @@ class PagedEngine(_EngineBase):
             tokens = nxt
             toks[i] = tokens
         toks[n_steps:] = tokens
+        if scales0 is not None:
+            stats[2] = (_scale_snapshot(self.cache) != scales0).sum()
         return toks, emits, tokens, lengths, active, remaining, stats
 
     # ------------------------------------------------------------------
@@ -429,7 +447,7 @@ class PagedEngine(_EngineBase):
         self._c_decode_tokens.inc(int(dstats[0]))
         self._c_tokens.inc(int(dstats[0]))
         self._c_eos.inc(int(dstats[1]))
-        self._c_requant.inc(0)                   # bf16 pools: no scales
+        self._c_requant.inc(int(dstats[2]))
         tr = self.tracer
         if tr.enabled:
             tr.complete("decode_block", 0, t0, now, pid=PID_ENGINE,

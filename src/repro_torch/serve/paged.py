@@ -171,7 +171,8 @@ def scatter_prefill_cache(paged_cache, contig_cache, slot_ids, lengths,
     layer by layer (in place): every paged node receives the matching
     contiguous node's rows via ``kvcache.paged_scatter_prefill``, offset
     by ``starts`` (B,) when given (page-aligned chunk starts).  The
-    staging cache is bf16, as the pools are."""
+    staging cache is bf16 whatever the pools hold: int8 / fp8 pools are
+    quantized once, here, with each touched page's exact amax scale."""
     for node, contig in zip(_attn_nodes(paged_cache),
                             _attn_nodes(contig_cache)):
         paged_scatter_prefill(node, slot_ids, lengths, contig["k"],

@@ -41,17 +41,77 @@ def test_port_imports_no_jax_and_no_reference():
 
 
 def test_scan_covers_the_scheduler_and_every_kernel_module():
-    """The import rule above reaches the scheduler and every kernel
-    wrapper, the prefix-extend one included."""
+    """The import rule above reaches the scheduler, the quantization
+    modules and every kernel wrapper."""
     scanned = {str(f.relative_to(ROOT)) for f in _port_files()}
     for rel in ("sched/__init__.py", "sched/policy.py", "sched/prefix.py",
                 "sched/scheduler.py", "kernels/paged_attention/ops.py",
-                "kernels/paged_attention/ref.py", "kernels/build.py"):
+                "kernels/paged_attention/ref.py", "kernels/build.py",
+                "quant/__init__.py", "quant/qops.py",
+                "kernels/int8_matmul/ops.py", "kernels/int8_matmul/ref.py",
+                "kvcache/quant.py"):
         assert f"src/repro_torch/{rel}" in scanned, rel
     from repro_torch.kernels import build
     for src in build.SOURCES.values():
         assert (build.CSRC / src).is_file(), src
-    assert "paged_prefix_extend" in build.SOURCES
+    for name in ("paged_prefix_extend", "int8_matmul", "w8a8_decode",
+                 "fp8_decode"):
+        assert name in build.SOURCES and name in build.SIGNATURES, name
+
+
+#: each wrapper module -> the plain versions its CPU branch returns
+WRAPPERS = {"kernels/int8_matmul/ops.py": ("int8_matmul_ref",
+                                           "w8a8_decode_ref",
+                                           "fp8_decode_ref"),
+            "kernels/paged_attention/ops.py": ("paged_attention_ref",
+                                               "paged_prefix_extend_ref"),
+            "kernels/flash_attention/ops.py": ("attention_ref",)}
+
+
+@pytest.mark.parametrize("rel", sorted(WRAPPERS))
+def test_wrappers_dispatch_on_the_device_without_fallback(rel):
+    """Every kernel wrapper picks its plain version only on a CPU tensor's
+    device (an ``if <tensor>.device.type == "cpu"`` branch), raises for
+    any other device than CUDA, and has no ``try`` anywhere: a failed
+    build or launch on the card raises instead of falling back."""
+    path = ROOT / "src" / "repro_torch" / rel
+    tree = ast.parse(path.read_text())
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], rel
+    plain_returns = set()
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.If):
+            continue
+        test = ast.unparse(node.test)
+        if test.endswith('.device.type == "cpu"') or \
+                test.endswith(".device.type == 'cpu'"):
+            for stmt in node.body:
+                if isinstance(stmt, ast.Return) and \
+                        isinstance(stmt.value, ast.Call):
+                    plain_returns.add(ast.unparse(stmt.value.func))
+    assert set(WRAPPERS[rel]) <= plain_returns, (rel, plain_returns)
+    source = path.read_text()
+    assert 'device.type != "cuda"' in source and "raise ValueError" in source
+
+
+def test_chip_smoke_names_every_ported_kernel():
+    """chip_smoke.py's kernel records name all six ported kernels, each
+    with the TPU kernel it replaces and its source in the repository."""
+    text = (ROOT / "chip_smoke.py").read_text()
+    for name, src, tpu in (
+            ("paged_attention", "csrc/paged_attention.cu",
+             "paged_attention.py:270"),
+            ("paged_prefix_extend", "csrc/paged_prefix_extend.cu",
+             "paged_attention.py:209"),
+            ("flash_attention", "csrc/flash_attention.cu",
+             "flash_attention.py:94"),
+            ("int8_matmul", "csrc/int8_matmul.cu", "int8_matmul.py:68"),
+            ("w8a8_decode_matmul", "csrc/w8a8_decode.cu",
+             "int8_matmul.py:186"),
+            ("fp8_decode_matmul", "csrc/fp8_decode.cu",
+             "int8_matmul.py:248")):
+        assert f'"{name}"' in text, name
+        assert src in text and tpu in text, name
+        assert (ROOT / "src" / "repro_torch" / src).is_file(), src
 
 
 def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):

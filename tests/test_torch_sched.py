@@ -296,12 +296,12 @@ def test_policy_order_matches_jax(name):
 
 def test_cost_model_parts_raise_until_ported(models):
     """SJF and EDF's admission control need the cost model's H100 tier
-    (ROADMAP A7): the port refuses them instead of pricing with TPU
+    (ROADMAP A5): the port refuses them instead of pricing with TPU
     numbers."""
     _, _, tlm, tp = models
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
         t_policy("sjf")
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
         TSched(tlm, tp, n_slots=1, max_len=32, page_size=8,
                admission_control=True)
     with pytest.raises(ValueError, match="multiple of page_size"):
