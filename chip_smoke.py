@@ -16,7 +16,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
                  then the other head shapes
   5. e2e       — qwen2-1.5b at full width (28 layers, random weights from
                  a seed) served by the port's PagedEngine; checks token
-                 counts, host syncs and both kernels' launch counts, and
+                 counts, host syncs and the kernels' launch counts, and
                  one decode step's logits with kernels vs plain versions
   6. extend    — prefix-extend kernel vs its plain version (4 slots x 512
                  chunk rows over prefixes of 512-3072 tokens, timed;
@@ -47,10 +47,25 @@ Phases (each prints one line; any failure raises and exits non-zero):
                  by element
  10. fp8       — phase 5's PagedEngine drive with fp8 weights and fp8 KV
                  pools: B6 = 196 x the dispatches with M <= 128 rows
-Launch counts are zeroed just before each drive (phases 5, 7, 9, 10) and
-read just after it; peak memory is read for the set-up and, restarted,
-for the drive.  Then one JSON line of kernel numbers, and last the
-result line ``{"ok": true, "device": {...}}``.
+ 11. wkv6      — the WKV-6 kernel (B8) vs its plain version on CPU copies
+                 of the operands, o and the final state element by element
+                 (B 1, H 32, D 64, S in {1, 64, 100, 3,000}; B 4, S 512;
+                 zero and non-zero s0; bf16 and fp32 r/k/v), timed at one
+                 2,048-token admission
+ 12. rmsnorm   — the RMSNorm kernel (B7) vs its plain version within one
+                 bf16 ulp (the reference's test_rmsnorm shapes, qwen2-1.5b's
+                 4,096 and 8 rows), timed beside F.rms_norm
+ 13. rwkv      — rwkv6-1.6b at full width (24 layers) through the port's
+                 eager Engine, 8 slots: 16 requests of 200-3,000 prompt
+                 tokens; token counts, syncs = admissions + decode steps, B8
+                 = 24 x admissions, a prompt in a reused slot gives the
+                 fresh slot's tokens, one admission's logits with B8 vs
+                 its plain version
+B7 takes every RMSNorm of the qwen2-1.5b drives: 57 launches a forward
+(phases 5, 7, 9, 10).  Launch counts are zeroed just before each drive
+(phases 5, 7, 9, 10, 13) and read just after it; peak memory is read for
+the set-up and, restarted, for the drive.  Then one JSON line of kernel
+numbers, and last the result line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -702,11 +717,13 @@ def _setup_peak_gb() -> float:
     return gb
 
 
-def _swap_plain(fn, groups=("attention", "matmul")):
+def _swap_plain(fn, groups=("attention", "matmul", "norm")):
     """Run ``fn()`` with the ops of ``groups`` bound to their plain
-    versions: the attention ops (B1-B3) and / or the quantized matmuls
-    (B4-B6).  The comparison arm of the drives' logit checks; the port
-    itself never does this."""
+    versions: the attention ops (B1-B3), the quantized matmuls (B4-B6),
+    RMSNorm (B7) and / or the WKV-6 recurrence (B8; "wkv_nudged" scales
+    logw by 1 + 1e-6 first, a probe of how far rounding-level changes
+    move the logits).  The comparison arm of the drives' logit checks;
+    the port itself never does this."""
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.int8_matmul import ops as qmm
@@ -716,6 +733,10 @@ def _swap_plain(fn, groups=("attention", "matmul")):
     from repro_torch.kernels.paged_attention import ops as pops
     from repro_torch.kernels.paged_attention.ref import (
         paged_attention_ref, paged_prefix_extend_ref)
+    from repro_torch.kernels.rmsnorm import ops as rops
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    from repro_torch.kernels.wkv6 import ops as wops
+    from repro_torch.kernels.wkv6.ref import wkv6_chunked_ref
     from repro_torch.quant import qops
     plain = {"attention": [
         (fops, "flash_attention",
@@ -725,7 +746,13 @@ def _swap_plain(fn, groups=("attention", "matmul")):
         (pops, "paged_prefix_extend_attention", paged_prefix_extend_ref)],
         "matmul": [(qmm, "int8_matmul", int8_matmul_ref),
                    (qops, "w8a8_matmul_decode", w8a8_decode_ref),
-                   (qops, "fp8_matmul_decode", fp8_decode_ref)]}
+                   (qops, "fp8_matmul_decode", fp8_decode_ref)],
+        "norm": [(rops, "rmsnorm", rmsnorm_ref)],
+        "wkv": [(wops, "wkv6", lambda r, k, v, lw, u, s0: wkv6_chunked_ref(
+            r.float(), k.float(), v.float(), lw, u, s0))],
+        "wkv_nudged": [(wops, "wkv6", lambda r, k, v, lw, u, s0:
+                        wkv6_chunked_ref(r.float(), k.float(), v.float(),
+                                         lw * (1 + 1e-6), u, s0))]}
     slots = [slot for g in groups for slot in plain[g]]
     saved = [getattr(mod, name) for mod, name, _ in slots]
     for mod, name, f in slots:
@@ -817,8 +844,6 @@ def phase_e2e(records: list) -> dict:
     torch = _torch()
     import numpy as np
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import ops as fops
-    from repro_torch.kernels.paged_attention import ops as pops
     from repro_torch.models.model import LM
     from repro_torch.serve.engine import PagedEngine
     from repro_torch.serve.paged import (PageAllocator,
@@ -844,15 +869,15 @@ def phase_e2e(records: list) -> dict:
     prompts = [rng.integers(0, cfg.vocab_size, (int(n),)) for n in plens]
     base = (eng.sync_count, eng.steps_run,
             eng.metrics.snapshot()["counters"])
-    fops.launches = pops.launches = 0
+    _reset_launches()
     t0 = time.perf_counter()
     ids = [eng.submit(p, max_new_tokens=int(m))
            for p, m in zip(prompts, max_new)]
     done = eng.run_to_completion()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"paged_attention": pops.launches,
-                "flash_attention": fops.launches}
+    launches = {k: v for k, v in _read_launches().items()
+                if k in ("paged_attention", "flash_attention", "rmsnorm")}
     cnt = eng.metrics.snapshot()["counters"]
     admits = int(cnt["serve_prefill_dispatches_total"]
                  - base[2]["serve_prefill_dispatches_total"])
@@ -877,10 +902,15 @@ def phase_e2e(records: list) -> dict:
     if launches["flash_attention"] != cfg.num_layers * admits:
         raise AssertionError(f"flash launches {launches} != "
                              f"{cfg.num_layers} x {admits} prefills")
+    if launches["rmsnorm"] != NORMS_PER_FORWARD * (admits + steps):
+        raise AssertionError(f"rmsnorm launches {launches} != "
+                             f"{NORMS_PER_FORWARD} x {admits + steps} "
+                             "forwards")
     ttft = sorted(done[i].t_first - done[i].t_submit for i in ids)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for r in records:
-        r["launches"] = launches[r["name"]]
+        if r["name"] in launches:
+            r["launches"] = launches[r["name"]]
 
     # one admission prefill and one decode step, kernels vs plain versions,
     # on the same cache (the decode step rewrites the same K/V both times)
@@ -959,8 +989,6 @@ def phase_sched(records: list) -> dict:
     torch = _torch()
     import numpy as np
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import ops as fops
-    from repro_torch.kernels.paged_attention import ops as pops
     from repro_torch.models.model import LM
     from repro_torch.obs import Tracer
     from repro_torch.sched import SchedEngine
@@ -1002,16 +1030,16 @@ def phase_sched(records: list) -> dict:
     base = _counts(eng, tracer, 0)
     n_ev, hit0 = len(tracer.events), eng.stats.prefix_hit_tokens
     phase0 = (eng.t_prefill_s, eng.t_decode_s)
-    fops.launches = pops.launches = pops.extend_launches = 0
+    _reset_launches()
     t0 = time.perf_counter()
     ids = [eng.submit(p, max_new_tokens=int(m))
            for p, m in zip(prompts, max_new)]
     done = eng.run_to_completion()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"paged_attention": pops.launches,
-                "flash_attention": fops.launches,
-                "paged_prefix_extend": pops.extend_launches}
+    launches = {k: v for k, v in _read_launches().items()
+                if k in ("paged_attention", "flash_attention",
+                         "paged_prefix_extend", "rmsnorm")}
     now = _counts(eng, tracer, n_ev)
     d = {k: now[k] - base[k] for k in ("syncs", "steps", "blocks",
                                         "prefill_tokens")}
@@ -1034,11 +1062,14 @@ def phase_sched(records: list) -> dict:
                              f"{d['blocks']} decode blocks")
     want = {"paged_prefix_extend": cfg.num_layers * d["cont"],
             "flash_attention": cfg.num_layers * d["fresh"],
-            "paged_attention": cfg.num_layers * d["steps"]}
+            "paged_attention": cfg.num_layers * d["steps"],
+            "rmsnorm": NORMS_PER_FORWARD * (d["cont"] + d["fresh"]
+                                            + d["steps"])}
     if launches != want or min(launches.values()) == 0:
         raise AssertionError(f"launches {launches} != {want} (28 x "
                              "continuation dispatches / fresh dispatches / "
-                             "decode steps), or a kernel never launched")
+                             "decode steps, 57 x forwards), or a kernel "
+                             "never launched")
     if hit <= 0:
         raise AssertionError("no prompt token was served from the prefix "
                              "cache")
@@ -1166,20 +1197,31 @@ def _reset_launches() -> None:
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.int8_matmul import ops as qmm
     from repro_torch.kernels.paged_attention import ops as pops
+    from repro_torch.kernels.rmsnorm import ops as rops
+    from repro_torch.kernels.wkv6 import ops as wops
     fops.launches = pops.launches = pops.extend_launches = 0
     qmm.launches = qmm.decode_launches = qmm.fp8_launches = 0
+    rops.launches = wops.launches = 0
 
 
 def _read_launches() -> dict:
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.int8_matmul import ops as qmm
     from repro_torch.kernels.paged_attention import ops as pops
+    from repro_torch.kernels.rmsnorm import ops as rops
+    from repro_torch.kernels.wkv6 import ops as wops
     return {"paged_attention": pops.launches,
             "flash_attention": fops.launches,
             "paged_prefix_extend": pops.extend_launches,
             "int8_matmul": qmm.launches,
             "w8a8_decode_matmul": qmm.decode_launches,
-            "fp8_decode_matmul": qmm.fp8_launches}
+            "fp8_decode_matmul": qmm.fp8_launches,
+            "rmsnorm": rops.launches,
+            "wkv6": wops.launches}
+
+
+#: RMSNorm launches of one qwen2-1.5b forward: two a layer and the final
+NORMS_PER_FORWARD = 2 * 28 + 1
 
 
 def phase_qsched(records: list) -> dict:
@@ -1249,9 +1291,12 @@ def phase_qsched(records: list) -> dict:
             "paged_attention": cfg.num_layers * d["steps"],
             "int8_matmul": QLINEARS * big,
             "w8a8_decode_matmul": QLINEARS * (len(rows) - big + d["steps"]),
-            "fp8_decode_matmul": 0}
+            "fp8_decode_matmul": 0,
+            "rmsnorm": NORMS_PER_FORWARD * (len(rows) + d["steps"]),
+            "wkv6": 0}
     if launches != want or min(v for k, v in launches.items()
-                               if k != "fp8_decode_matmul") == 0:
+                               if k not in ("fp8_decode_matmul",
+                                            "wkv6")) == 0:
         raise AssertionError(f"launches {launches} != {want} (dispatch "
                              f"rows {rows}, {d['steps']} decode steps), or a "
                              "kernel of the path never launched")
@@ -1405,7 +1450,8 @@ def phase_fp8(records: list) -> dict:
             "flash_attention": cfg.num_layers * len(rows),
             "paged_prefix_extend": 0, "int8_matmul": 0,
             "w8a8_decode_matmul": 0,
-            "fp8_decode_matmul": QLINEARS * (steps + small)}
+            "fp8_decode_matmul": QLINEARS * (steps + small),
+            "rmsnorm": NORMS_PER_FORWARD * (len(rows) + steps), "wkv6": 0}
     if launches != want or launches["fp8_decode_matmul"] == 0:
         raise AssertionError(f"launches {launches} != {want} (admission "
                              f"rows {rows}, {steps} decode steps)")
@@ -1474,6 +1520,377 @@ def phase_trap4() -> None:
         raise AssertionError(f"port quantization drifts on the card: {bad}")
 
 
+#: WKV-6 chunk and head dim of rwkv6-1.6b (the kernel's only head dim)
+WKV_CHUNK, WKV_D, WKV_H = 64, 64, 32
+#: element-wise limit of B8, relative to the root mean square of the
+#: plain version's output: the reference's chunked-vs-scan tolerance
+WKV_ATOL = 1e-4
+
+
+def _wkv6_inputs(g, device, b, s, dt, s0_scale, strong=False):
+    """WKV-6 operands with the reference tests' distributions
+    (``test_kernels.py``): r, v ~ N(0, 1), k ~ 0.3 N, logw = -0.1|N| - 0.01,
+    u ~ 0.1 N; ``strong`` decays instead as -exp(N), down to about -50."""
+    torch = _torch()
+    shape = (b, s, WKV_H, WKV_D)
+    r = torch.randn(shape, generator=g, device=device).to(dt)
+    k = (torch.randn(shape, generator=g, device=device) * 0.3).to(dt)
+    v = torch.randn(shape, generator=g, device=device).to(dt)
+    n = torch.randn(shape, generator=g, device=device)
+    lw = -torch.exp(n) if strong else -n.abs() * 0.1 - 0.01
+    u = torch.randn((WKV_H, WKV_D), generator=g, device=device) * 0.1
+    s0 = torch.randn((b, WKV_H, WKV_D, WKV_D), generator=g,
+                     device=device) * s0_scale
+    return r, k, v, lw, u, s0
+
+
+def wkv6_bytes_ops(args) -> tuple:
+    """Bytes the call must move (r/k/v in their type, logw and o in fp32,
+    u, s0 and s_final once) and the fp32 operations of the chunked form
+    for these inputs' real tokens: per chunk of n tokens and head, the
+    n(n+1)/2 scored pairs x D channels at 4 operations (exponential, two
+    products, a sum), their n(n+1)/2 x D products with v at 2, the state's
+    n x D x D read and update at 2 each, and the per-channel decays."""
+    r, _, _, lw, u, s0 = args
+    b, s, h, d = r.shape
+    nbytes = (3 * r.numel() * r.element_size() + 2 * lw.numel() * 4
+              + u.numel() * 4 + 2 * s0.numel() * 4)
+    ops = 0.0
+    for c0 in range(0, s, WKV_CHUNK):
+        n = min(WKV_CHUNK, s - c0)
+        pairs = n * (n + 1) / 2
+        ops += pairs * d * 6 + 4 * n * d * d + 2 * d * d + 6 * n * d
+    return nbytes, ops * b * h
+
+
+def _check_rms(tag: str, out, ref, atol_rel: float) -> float:
+    """Hold ``out`` to ``ref`` element by element within ``atol_rel`` x
+    the root mean square of ``ref``; returns the worst element's share."""
+    torch = _torch()
+    o, r = out.float().cpu(), ref.float().cpu()
+    if out.shape != ref.shape or not torch.isfinite(o).all():
+        raise AssertionError(f"{tag}: output {tuple(out.shape)} not finite "
+                             f"or not of shape {tuple(ref.shape)}")
+    lim = atol_rel * max(r.pow(2).mean().sqrt().item(), 1e-30)
+    worst = (o - r).abs().max().item() / lim
+    if not worst <= 1.0:
+        raise AssertionError(f"{tag}: an element is {worst:.2f} x its limit "
+                             f"{lim:.2e}")
+    return worst
+
+
+def phase_wkv6(records: list) -> None:
+    """B8 vs its plain version on CPU copies of the operands, element by
+    element (o and s_final within 1e-4 x their rms): B 1, H 32, D 64, S in
+    {1, 64, 100, 3,000}, and B 4, S 512; zero and non-zero s0, bf16 and
+    fp32 r/k/v, one case with strong decays.  Then its time at one
+    admission of phase 13 (B 1, S 2,048, bf16)."""
+    torch = _torch()
+    from repro_torch.kernels.wkv6 import ops
+    from repro_torch.kernels.wkv6.ref import wkv6_chunked_ref
+    device = torch.device("cuda")
+    g = torch.Generator(device=device).manual_seed(SEED + 11)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(1, s, dt, s0, False) for s in (1, 64, 100, 3000)
+             for dt in (bf16, f32) for s0 in (0.0, 0.2)]
+    cases += [(4, 512, dt, s0, False) for dt in (bf16, f32)
+              for s0 in (0.0, 0.2)]
+    cases.append((1, 100, f32, 0.2, True))
+    worst, err = 0.0, 0.0
+    for b, s, dt, s0_scale, strong in cases:
+        args = _wkv6_inputs(g, device, b, s, dt, s0_scale, strong)
+        o, s_fin = ops.wkv6(*args)
+        torch.cuda.synchronize()
+        r, k, v, lw, u, s0 = (x.float().cpu() for x in args)
+        o_ref, s_ref = wkv6_chunked_ref(r, k, v, lw, u, s0)
+        tag = (f"B{b} S{s} {str(dt)[6:]} s0 {s0_scale}"
+               + (" strong decay" if strong else ""))
+        worst = max(worst, _check_rms(f"wkv6 o {tag}", o, o_ref, WKV_ATOL),
+                    _check_rms(f"wkv6 s_final {tag}", s_fin, s_ref,
+                               WKV_ATOL))
+        err = max(err, (o.cpu() - o_ref).abs().max().item())
+    n_cases = len(cases)
+
+    def timed():
+        return _wkv6_inputs(g, device, 1, 2048, bf16, 0.0)
+
+    copies = [timed() for _ in range(4)]
+    ms = time_ms(ops.wkv6, copies, reps=10)
+    plain_ms = time_ms(lambda r, k, v, lw, u, s0: wkv6_chunked_ref(
+        r.float(), k.float(), v.float(), lw, u, s0), copies[:2], reps=3,
+        rounds=3)
+    nbytes, n_ops = wkv6_bytes_ops(copies[0])
+    b_ms, b_by = bound(nbytes, n_ops, "float32")
+    records.append({"name": "wkv6", "route": "cuda",
+                    "source": "src/repro_torch/csrc/wkv6.cu",
+                    "replaces": "src/repro/kernels/wkv6/wkv6.py:70",
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                    "shape": [1, 2048, WKV_H, WKV_D], "launches": 0})
+    print(f"[11 wkv6] {n_cases} cases vs the plain version on CPU copies: "
+          f"worst element {worst:.3f} of its limit ({WKV_ATOL} x rms), max "
+          f"abs err of o {err:.3e}; B1 S2048 H32 D64 bf16: ms {ms:.4f} "
+          f"plain {plain_ms:.4f} bound {b_ms:.4f} ({b_by}; no PyTorch call "
+          "computes WKV-6)")
+
+
+#: (shape, dtype) of phase 12: the reference's test_rmsnorm sweep, then
+#: qwen2-1.5b's rows of a 4,096-row chunk and of an 8-slot decode step
+RMSNORM_CASES = [(shape, dt) for shape in ((4, 64, 256), (2, 128, 512),
+                                           (1, 8, 128))
+                 for dt in ("float32", "bfloat16")]
+RMSNORM_CASES += [((4096, 1536), "bfloat16"), ((8, 1536), "bfloat16")]
+
+
+def _within_one_ulp(tag: str, out, ref) -> float:
+    """bf16: every element within one unit in the last place of the plain
+    version's value; fp32: within 1e-6 of it, relative.  Returns the worst
+    element's share of its limit."""
+    torch = _torch()
+    o, r = out.cpu().float(), ref.float()
+    if out.shape != ref.shape or not torch.isfinite(o).all():
+        raise AssertionError(f"{tag}: not finite or wrong shape")
+    if ref.dtype == torch.bfloat16:
+        _, e = torch.frexp(r)                    # |r| = m 2^e, m in [.5, 1)
+        lim = torch.ldexp(torch.ones_like(r), e - 8)
+    else:
+        lim = 1e-6 * r.abs()
+    worst = ((o - r).abs() / lim.clamp(min=1e-30)).max().item()
+    if not worst <= 1.0:
+        raise AssertionError(f"{tag}: an element is {worst:.2f} x its limit")
+    return worst
+
+
+def phase_rmsnorm(records: list, drive_launches: dict) -> None:
+    """B7 vs its plain version on CPU copies: the reference's test_rmsnorm
+    shapes in fp32 and bf16 and qwen2-1.5b's (4,096, 1,536) and (8, 1,536)
+    rows in bf16, within one bf16 ulp (fp32: 1e-6 relative); the same call
+    twice gives the same bits.  Times at the 4,096-row chunk, beside
+    ``F.rms_norm``.  ``drive_launches``: B7's launches in each drive that
+    ran it (phases 5, 7, 9, 10), for its record."""
+    torch = _torch()
+    import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm import ops
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    device = torch.device("cuda")
+    g = torch.Generator(device=device).manual_seed(SEED + 12)
+    worst, err = 0.0, 0.0
+    for shape, dt_name in RMSNORM_CASES:
+        dt = getattr(torch, dt_name)
+        x = torch.randn(shape, generator=g, device=device).to(dt)
+        w = torch.randn(shape[-1:], generator=g, device=device).to(dt)
+        out = ops.rmsnorm(x, w)
+        again = ops.rmsnorm(x, w)
+        torch.cuda.synchronize()
+        if not torch.equal(out, again):
+            raise AssertionError(f"rmsnorm {shape} {dt_name}: two calls on "
+                                 "the same row differ")
+        ref = rmsnorm_ref(x.cpu(), w.cpu())
+        worst = max(worst, _within_one_ulp(f"rmsnorm {shape} {dt_name}",
+                                           out, ref))
+        err = max(err, (out.cpu().float() - ref.float()).abs().max().item())
+
+    def timed(rows):
+        x = torch.randn((rows, 1536), generator=g, device=device).bfloat16()
+        return x, torch.ones((1536,), device=device, dtype=torch.bfloat16)
+
+    times = {}
+    for rows in (4096, 8):
+        copies = [timed(rows) for _ in range(n_copies(rows * 1536 * 4))]
+        times[rows] = (
+            time_ms(ops.rmsnorm, copies),
+            time_ms(rmsnorm_ref, copies, reps=5, rounds=3),
+            time_ms(lambda x, w: F.rms_norm(x, (1536,), w, 1e-5), copies),
+            bound(rows * 1536 * 4 + 1536 * 2, 4.0 * rows * 1536,
+                  "float32"))
+    ms, plain_ms, lib_ms, (b_ms, b_by) = times[4096]
+    records.append({"name": "rmsnorm", "route": "cuda",
+                    "source": "src/repro_torch/csrc/rmsnorm.cu",
+                    "replaces": "src/repro/kernels/rmsnorm/rmsnorm.py:24",
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                    "shape": [4096, 1536],
+                    "launches": sum(drive_launches.values()),
+                    "launches_by_drive": drive_launches,
+                    "decode_rows_ms": {"ms": times[8][0],
+                                       "plain_ms": times[8][1],
+                                       "library_ms": times[8][2],
+                                       "bound_ms": times[8][3][0]}})
+    print(f"[12 rmsnorm] {len(RMSNORM_CASES)} cases vs the plain version on "
+          f"CPU copies: worst element {worst:.3f} of one bf16 ulp (fp32: "
+          f"1e-6 relative), max abs err {err:.3e}, repeat calls bit-equal; "
+          + "; ".join(f"({rows}, 1536) bf16: ms {t[0]:.4f} plain {t[1]:.4f} "
+                      f"F.rms_norm {t[2]:.4f} bound {t[3][0]:.6f} "
+                      f"({t[3][1]})" for rows, t in times.items())
+          + f"; launches in the drives {drive_launches}")
+
+
+def _wkv6_calls_vs_plain(fn) -> tuple:
+    """Run ``fn()`` with every B8 launch also computed by its plain
+    version on the same inputs and held to it element by element, o and
+    the final state within WKV_ATOL x their rms (phase 11's rule); the
+    forward goes on with the kernel's output.  Returns (fn's result,
+    calls checked, the worst element's share of its limit)."""
+    from repro_torch.kernels.wkv6 import ops as wops
+    from repro_torch.kernels.wkv6.ref import wkv6_chunked_ref
+    shares = []
+    b8 = wops.wkv6
+
+    def checked(r, k, v, lw, u, s0):
+        o, s_fin = b8(r, k, v, lw, u, s0)
+        o_ref, s_ref = wkv6_chunked_ref(r.float(), k.float(), v.float(), lw,
+                                        u, s0)
+        tag = f"wkv6 call {len(shares)}"
+        shares.append(max(_check_rms(f"{tag} o", o, o_ref, WKV_ATOL),
+                          _check_rms(f"{tag} s_final", s_fin, s_ref,
+                                     WKV_ATOL)))
+        return o, s_fin
+
+    wops.wkv6 = checked
+    try:
+        return fn(), len(shares), max(shares)
+    finally:
+        wops.wkv6 = b8
+
+
+RWKV_LAYERS = 24           # rwkv6-1.6b's full depth
+RWKV_REQUESTS = 16
+
+
+def phase_rwkv(records: list) -> dict:
+    """rwkv6-1.6b at full width through the port's eager ``Engine``: 8
+    slots, ``max_len`` 4096, greedy; 16 requests of 200-3,000 prompt
+    tokens and 32-64 new tokens.  B8 in every layer of every admission."""
+    torch = _torch()
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+    from repro_torch.obs import Tracer
+    from repro_torch.obs.trace import PID_ENGINE
+    from repro_torch.serve.engine import Engine
+    cfg = get_config("rwkv6-1.6b").with_(num_layers=RWKV_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = LM(cfg, device="cuda")
+    params = lm.init(SEED)
+    setup_gb = _setup_peak_gb()
+    tracer = Tracer(enabled=True)
+    eng = Engine(lm, params, n_slots=8, max_len=4096, seed=SEED,
+                 tracer=tracer)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 13)
+    vocab = cfg.vocab_size
+    # warm-up and the fresh-slot arm of the reuse check: one prompt served
+    # alone in a slot no request has used
+    repeat = rng.integers(0, vocab, 777)
+    rid = eng.submit(repeat, max_new_tokens=16)
+    fresh = eng.run_to_completion()[rid].out_tokens
+    torch.cuda.synchronize()
+    plens = rng.integers(200, 3001, RWKV_REQUESTS)
+    max_new = rng.integers(32, 65, RWKV_REQUESTS)
+    prompts = [rng.integers(0, vocab, (int(n),)) for n in plens]
+
+    def engine_spans(since: int) -> tuple:
+        ev = tracer.events[since:]
+        return (sum(e["name"] == "prefill" and e["ph"] == "X" for e in ev),
+                sum(e["name"] == "decode_step" and e["ph"] == "X"
+                    and e["pid"] == PID_ENGINE for e in ev))
+
+    n_ev, syncs0 = len(tracer.events), eng.sync_count
+    phase0 = (eng.t_prefill_s, eng.t_decode_s)
+    _reset_launches()
+    t0 = time.perf_counter()
+    ids = [eng.submit(p, max_new_tokens=int(m))
+           for p, m in zip(prompts, max_new)]
+    done = eng.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    admits, steps = engine_spans(n_ev)
+    syncs = eng.sync_count - syncs0
+    n_tok = 0
+    for i, m in zip(ids, max_new):
+        got = done[i].out_tokens
+        if len(got) != int(m) or not all(0 <= t < vocab for t in got):
+            raise AssertionError(f"request {i}: {len(got)} tokens (want "
+                                 f"{m}) or a token out of vocab")
+        n_tok += len(got)
+    if admits != RWKV_REQUESTS or syncs != admits + steps:
+        raise AssertionError(f"{syncs} host syncs != {admits} admissions + "
+                             f"{steps} decode steps (want {RWKV_REQUESTS} "
+                             "admissions)")
+    want = {k: 0 for k in launches}
+    want["wkv6"] = cfg.num_layers * admits
+    if launches != want:
+        raise AssertionError(f"launches {launches} != {want} (24 x "
+                             "admissions of B8, no other kernel)")
+    ttft = sorted(done[i].t_first - done[i].t_submit for i in ids)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    t_pre, t_dec = (eng.t_prefill_s - phase0[0], eng.t_decode_s - phase0[1])
+    for r in records:
+        if r["name"] == "wkv6":
+            r["launches"] = launches["wkv6"]
+
+    # the warm-up prompt again, now in a slot other requests have used:
+    # the same tokens (the state is zeroed at admission)
+    rid = eng.submit(repeat, max_new_tokens=16)
+    reused = eng.run_to_completion()[rid].out_tokens
+    if reused != fresh:
+        raise AssertionError(f"a reused slot changed the stream: {fresh} "
+                             f"then {reused}")
+
+    # one admission, the drive's longest prompt: every B8 call held to its
+    # plain version element by element (phase 11's rule).  Its logits are
+    # read against the plain version's, beside what a 1e-6 relative nudge
+    # of logw moves them: a random-weight RWKV-6 at full width turns
+    # rounding-level differences into several percent of its logits, so
+    # logits cannot hold B8 to anything tighter than the nudge does
+    longest = prompts[int(np.argmax(plens))]
+    lk, calls, share = _wkv6_calls_vs_plain(
+        lambda: eng._prefill_slot(longest, 0))
+    if calls != cfg.num_layers or not (torch.isfinite(lk).all()
+                                       and tuple(lk.shape) == (vocab,)):
+        raise AssertionError(f"rwkv admission: {calls} B8 calls checked, "
+                             f"logits finite {bool(torch.isfinite(lk).all())}"
+                             f" of shape {tuple(lk.shape)}")
+    lp = _swap_plain(lambda: eng._prefill_slot(longest, 0), ("wkv",))
+    ln = _swap_plain(lambda: eng._prefill_slot(longest, 0), ("wkv_nudged",))
+    torch.cuda.synchronize()
+
+    def rel_l2(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    spread = {"kernel_vs_plain": rel_l2(lk, lp),
+              "plain_vs_nudged_plain": rel_l2(ln, lp)}
+    out = {"tokens_per_s": n_tok / wall, "ttft_p50_s": statistics.median(ttft),
+           "wall_s": wall, "tokens": n_tok, "requests": RWKV_REQUESTS,
+           "prompt_tokens": int(plens.sum()), "admissions": admits,
+           "decode_steps": steps, "syncs": syncs, "peak_mem_gb": peak_gb,
+           "setup_peak_gb": setup_gb, "setup_s": t_setup,
+           "prefill_wall_s": t_pre, "decode_wall_s": t_dec,
+           "launches": launches, "wkv6_calls_checked": calls,
+           "wkv6_worst_share": share, "logit_rel_l2": spread,
+           "logit_prompt_tokens": len(longest)}
+    print(f"[13 rwkv] {cfg.name} {cfg.num_layers}L d{cfg.d_model} bf16 "
+          f"Engine, 8 slots: {RWKV_REQUESTS} req ({out['prompt_tokens']} "
+          f"prompt tokens, {int((plens % 64 != 0).sum())} not a multiple of "
+          f"64), {n_tok} tokens in {wall:.3f}s ({n_tok / wall:.1f} tok/s), "
+          f"TTFT p50 {out['ttft_p50_s']:.4f}s, {admits} admissions + {steps} "
+          f"decode steps = {syncs} syncs, wall in admissions {t_pre:.3f}s / "
+          f"decode steps {t_dec:.3f}s, launches {launches['wkv6']} B8, "
+          f"peak mem {peak_gb:.2f} GB (set-up {setup_gb:.2f} GB); a prompt "
+          f"in a reused slot gave the fresh slot's {len(fresh)} tokens; a "
+          f"{len(longest)}-token admission: {calls} B8 calls vs plain, "
+          f"worst element {share:.3f} of its limit; its logits' relative "
+          f"L2, B8 vs plain {spread['kernel_vs_plain']:.3e}, plain vs plain "
+          f"with logw x (1 + 1e-6) {spread['plain_vs_nudged_plain']:.3e}; "
+          f"setup {t_setup:.1f}s")
+    return out
+
+
 def main() -> int:
     dev = phase_device()
     phase_build()
@@ -1487,11 +1904,17 @@ def main() -> int:
     phase_trap4()
     qsched = phase_qsched(records)
     fp8 = phase_fp8(records)
+    phase_wkv6(records)
+    phase_rmsnorm(records, {name: drive["launches"]["rmsnorm"]
+                            for name, drive in (("e2e", e2e), ("sched", sched),
+                                                ("qsched", qsched),
+                                                ("fp8", fp8))})
+    rwkv = phase_rwkv(records)
     out_dir = ROOT / "chiprun_out"
     if out_dir.is_dir():
         (out_dir / "chip_smoke_e2e.json").write_text(json.dumps(
             {"e2e": e2e, "sched": sched, "qsched": qsched, "fp8": fp8,
-             "kernels": records}, indent=1))
+             "rwkv": rwkv, "kernels": records}, indent=1))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": dev["kind"],

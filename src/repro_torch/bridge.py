@@ -8,7 +8,9 @@ tied head is the embedding on both sides.  bf16 and fp8 e4m3 arrays
 arrive with an ``ml_dtypes`` dtype, which numpy cannot hand to torch
 directly: they are recognised by ``dtype.name`` and cross bit for bit
 through a 16- or 8-bit integer view.  Quantized trees (``{"qw", "scale"}``
-linears: int8, packed-int4 uint8 or fp8 ``qw``) cross the same way.
+linears: int8, packed-int4 uint8 or fp8 ``qw``) cross the same way, and so
+do RWKV-6 blocks (``rwkv``: ``tmix``, ``wdecay``, ``u``, ``ln_x`` and the
+five linears) and their recurrent states (:func:`state_from_numpy`).
 """
 from __future__ import annotations
 
@@ -40,17 +42,27 @@ def _tree(node: Any, device, index=None):
     return tensor_from_numpy(a if index is None else a[index], device)
 
 
+def _groups(stack: dict, cfg: ModelConfig, device) -> list:
+    """A reference layer stack (``g{i}`` keys, or stacked on a leading
+    group axis) -> the port's list of groups."""
+    if "g0" in stack:
+        return [_tree(stack[f"g{i}"], device) for i in range(cfg.num_groups)]
+    return [_tree(stack, device, i) for i in range(cfg.num_groups)]
+
+
 def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
     """Reference parameter tree (nested dicts of numpy arrays) -> the
     port's parameters on ``device``."""
-    layers = tree["layers"]
-    if "g0" in layers:
-        groups = [_tree(layers[f"g{i}"], device)
-                  for i in range(cfg.num_groups)]
-    else:
-        groups = [_tree(layers, device, i) for i in range(cfg.num_groups)]
+    groups = _groups(tree["layers"], cfg, device)
     out = {"embed": _tree(tree["embed"], device), "layers": groups,
            "final_norm": _tree(tree["final_norm"], device)}
     if not cfg.tie_embeddings:
         out["lm_head"] = _tree(tree["lm_head"], device)
     return out
+
+
+def state_from_numpy(cache: dict, cfg: ModelConfig, device=None) -> list:
+    """Reference cache of an attention-free model (``init_cache``: per
+    block ``{"state": {"wkv", "x_prev"}}``, in either layout, as numpy
+    arrays) -> the port's cache on ``device``."""
+    return _groups(cache, cfg, device)

@@ -1,6 +1,6 @@
 """Model configuration dataclasses for the PyTorch port.
 
-The port keeps its own copy of the fields the paged serving path reads
+The port keeps its own copy of the fields its serving paths read
 (``repro.configs.base`` is the reference); field names, defaults and the
 derived properties are the reference's, so a config built on either side
 describes the same model.
@@ -44,15 +44,28 @@ class AttentionConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    kind: str = "rwkv6"               # rwkv6 | mamba
+    d_state: int = 16                 # mamba state dim
+    d_conv: int = 4                   # mamba conv width
+    expand: int = 2                   # mamba expansion
+    head_dim: int = 64                # rwkv6 head size
+    dt_rank: int = 0                  # 0 -> d_model//16
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
+    family: str = "dense"             # dense | moe | ssm | hybrid | audio | vlm
     num_layers: int = 16
     d_model: int = 2048
     d_ff: int = 8192                  # dense-MLP hidden (SwiGLU)
     vocab_size: int = 128_256
     attention: Optional[AttentionConfig] = field(
-        default_factory=AttentionConfig)
-    # Layer pattern within a repeating group; the port runs "attn" only.
+        default_factory=AttentionConfig)   # None for attention-free models
+    ssm: Optional[SSMConfig] = None
+    # Layer pattern within a repeating group: "attn" | "rwkv6" blocks
+    # ("mamba" is not ported).
     block_pattern: Tuple[str, ...] = ("attn",)
     norm: str = "rmsnorm"             # rmsnorm | layernorm
     norm_eps: float = 1e-5

@@ -33,7 +33,9 @@ SOURCES = {"paged_attention": "paged_attention.cu",
            "paged_prefix_extend": "paged_prefix_extend.cu",
            "int8_matmul": "int8_matmul.cu",
            "w8a8_decode": "w8a8_decode.cu",
-           "fp8_decode": "fp8_decode.cu"}
+           "fp8_decode": "fp8_decode.cu",
+           "wkv6": "wkv6.cu",
+           "rmsnorm": "rmsnorm.cu"}
 
 #: torch dtype -> dtype code of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
@@ -52,6 +54,8 @@ SIGNATURES = {
     "int8_matmul": ("int8_matmul", [_P] * 5 + [_I] * 5 + [_P]),
     "w8a8_decode": ("w8a8_decode_matmul", [_P] * 7 + [_I] * 10 + [_P]),
     "fp8_decode": ("fp8_decode_matmul", [_P] * 7 + [_I] * 9 + [_P]),
+    "wkv6": ("wkv6_fwd", [_P] * 8 + [_I] * 5 + [_P]),
+    "rmsnorm": ("rmsnorm_fwd", [_P] * 3 + [_I] * 2 + [_F, _I, _I, _P]),
 }
 
 

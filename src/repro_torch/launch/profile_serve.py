@@ -1,7 +1,9 @@
-"""Where the time of the port's paged serving goes, on the GPU.
+"""Where the time of the port's serving goes, on the GPU.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         [--quant int8|fp8|int4] [--kv-dtype int8|fp8]
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+        --arch rwkv6-1.6b
 
 Builds qwen2-1.5b at full width (random weights from seed 0) on the main
 path's engine settings (8 slots, page 256, ``decode_block`` 8), admits
@@ -19,6 +21,11 @@ JSON, with the card's name and power limit.  ``--quant`` quantizes the
 weights after ``LM.init`` and ``--kv-dtype`` stores the page pools in
 int8 / fp8 (the quantized serving drive of ``chip_smoke.py``); without
 them the drive is bf16 throughout.
+
+``--arch rwkv6-1.6b`` profiles the eager ``Engine`` on rwkv6-1.6b at full
+width instead (24 layers, random weights from seed 0; ``chip_smoke.py``
+phase 13's settings, 8 slots): one admission of 2,048 tokens (the WKV-6
+kernel in every layer), then 32 decode steps with that request active.
 """
 from __future__ import annotations
 
@@ -34,9 +41,10 @@ from repro_torch.configs import get_config
 from repro_torch.kvcache import normalize_dtype
 from repro_torch.models.model import LM
 from repro_torch.quant import quantize_tree
-from repro_torch.serve.engine import PagedEngine
+from repro_torch.serve.engine import Engine, PagedEngine
 
 SLOTS, PROMPT, BLOCKS, DECODE_BLOCK, SEED, TOP = 8, 512, 4, 8, 0, 8
+RWKV_PROMPT, RWKV_STEPS = 2048, 32
 #: the continuation chunk's prefixes, one per row (page-aligned)
 CONT_STARTS = (512, 1024, 1536, 2048, 2560, 3072, 1024, 2048)
 
@@ -84,16 +92,45 @@ def _phase(name: str, run) -> dict:
     return res
 
 
+def _rwkv_phases() -> tuple:
+    """rwkv6-1.6b through the eager ``Engine``: one admission of
+    RWKV_PROMPT tokens, then RWKV_STEPS decode steps."""
+    cfg = get_config("rwkv6-1.6b")
+    lm = LM(cfg, device="cuda")
+    rng = np.random.default_rng(SEED)
+    eng = Engine(lm, lm.init(SEED), n_slots=SLOTS, max_len=4096, seed=SEED)
+    prompt = rng.integers(0, cfg.vocab_size, (RWKV_PROMPT,))
+    # warm-up (first launches, cuBLAS), and one request that stays active
+    # through every decode step below
+    eng.submit(prompt, max_new_tokens=4 * RWKV_STEPS)
+    eng.step()
+    results = [
+        _phase(f"admit 1x{RWKV_PROMPT}",
+               lambda: eng._prefill_slot(prompt, SLOTS - 1).cpu()),
+        _phase(f"decode {RWKV_STEPS} steps, {SLOTS} slots (1 active)",
+               lambda: [eng.step() for _ in range(RWKV_STEPS)])]
+    return cfg, results
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", default="qwen2-1.5b",
+                    choices=["qwen2-1.5b", "rwkv6-1.6b"])
     ap.add_argument("--quant", default="bf16",
                     choices=["bf16", "fp8", "int8", "int4"])
     ap.add_argument("--kv-dtype", default="bf16",
                     choices=["bf16", "bfloat16", "int8", "fp8"])
     args = ap.parse_args(argv)
+    if args.arch == "rwkv6-1.6b" and (args.quant != "bf16"
+                                      or args.kv_dtype != "bf16"):
+        ap.error("--quant and --kv-dtype apply to qwen2-1.5b only")
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.arch == "rwkv6-1.6b":
+        cfg, results = _rwkv_phases()
+        _report(cfg, results)
+        return 0
     cfg = get_config("qwen2-1.5b").with_(
         quant=args.quant, kv_cache_dtype=normalize_dtype(args.kv_dtype))
     lm = LM(cfg, device="cuda")
@@ -143,13 +180,19 @@ def main(argv=None) -> int:
                lambda: [warm._dispatch_decode([]) for _ in range(BLOCKS)]),
         _phase(f"continuation chunk {SLOTS}x{PROMPT}, prefixes "
                f"{min(CONT_STARTS)}-{max(CONT_STARTS)}", cont)]
+    _report(cfg, results)
+    return 0
+
+
+def _report(cfg, results: list) -> None:
+    """The last line: the phases as JSON, with the card's name and power
+    limit."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(json.dumps({"device": smi, "config": cfg.name,
                       "quant": cfg.quant, "kv_dtype": cfg.kv_cache_dtype,
                       "phases": results}))
-    return 0
 
 
 if __name__ == "__main__":

@@ -1,6 +1,9 @@
-"""Serving entry point of the port: the paged continuous-batching engine and
-the scheduler over it.
+"""Serving entry point of the port: the paged continuous-batching engine,
+the scheduler over it, and the eager engine for attention-free models.
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
+        [--smoke] [--requests 8 --prompt-len 32 --max-new 32 --slots 4] \
+        [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
         --paged [--smoke] [--requests 8 --prompt-len 32 --max-new 32 \
         --slots 4 --max-len 256 --page-size 64 --decode-block 8] \
@@ -8,7 +11,12 @@ the scheduler over it.
          --slo-ttft 2000 --slo-tpot 50] [--quant int8|fp8|int4 \
         --quant-impl fused|ref --kv-dtype int8|fp8] [--device cpu]
 
-Runs on the GPU unless ``--device cpu`` is given; on the GPU the
+Runs on the GPU unless ``--device cpu`` is given.  Without ``--paged`` or
+``--policy`` an attention-free arch (rwkv6-1.6b) is served by the eager
+``Engine``: on the GPU every admission's prefill runs the WKV-6 kernel in
+each layer, and decode runs the reference's one-token recurrence in plain
+torch.  Attention archs need ``--paged`` or ``--policy`` (their eager
+engine over contiguous caches waits for ROADMAP A1).  On the GPU the
 admission prefill goes through the flash-attention kernel, every decode
 step through the paged-attention kernel and, with ``--policy``, every
 continuation chunk of a chunked prefill through the prefix-extend kernel.
@@ -31,7 +39,7 @@ from repro_torch.kvcache import normalize_dtype
 from repro_torch.models.model import LM, resolve_device
 from repro_torch.quant import quantize_tree
 from repro_torch.sched import SchedEngine
-from repro_torch.serve.engine import PagedEngine
+from repro_torch.serve.engine import Engine, PagedEngine
 
 
 def main(argv=None):
@@ -84,12 +92,14 @@ def main(argv=None):
                     help="torch device (default: cuda; 'cpu' runs the "
                          "kernels' plain versions)")
     args = ap.parse_args(argv)
-    if not (args.paged or args.policy):
-        ap.error("only the paged engine and the scheduler are ported: pass "
-                 "--paged or --policy")
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    eager = not (args.paged or args.policy)
+    if eager and cfg.attention is not None:
+        ap.error("attention archs are served by the paged engine or the "
+                 "scheduler: pass --paged or --policy (the eager engine over "
+                 "contiguous caches waits for ROADMAP A1)")
 
     device = resolve_device(args.device)
-    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cfg = cfg.with_(kv_cache_dtype=normalize_dtype(args.kv_dtype),
                     quant=args.quant, quant_matmul_impl=args.quant_impl)
     lm = LM(cfg, device=device)
@@ -100,7 +110,10 @@ def main(argv=None):
               f"({args.quant_impl} matmuls), kv {cfg.kv_cache_dtype}")
     kw = dict(n_slots=args.slots, max_len=args.max_len, seed=args.seed,
               page_size=args.page_size, decode_block=args.decode_block)
-    if args.policy:
+    if eager:
+        eng = Engine(lm, params, n_slots=args.slots, max_len=args.max_len,
+                     seed=args.seed)
+    elif args.policy:
         eng = SchedEngine(lm, params, policy=args.policy,
                           prefix_cache=args.prefix_cache,
                           prefill_chunk=args.prefill_chunk,
@@ -119,7 +132,8 @@ def main(argv=None):
     done = eng.run_to_completion()
     dt = time.perf_counter() - t0
     n_tok = sum(len(done[i].out_tokens) for i in ids)
-    label = f"sched/{args.policy}" if args.policy else "paged"
+    label = ("eager" if eager else
+             f"sched/{args.policy}" if args.policy else "paged")
     print(f"[serve] {cfg.name}: {len(ids)} requests, {n_tok} tokens in "
           f"{dt:.1f}s ({n_tok/dt:.1f} tok/s, continuous batching over "
           f"{args.slots} slots, {label}, {eng.sync_count} host syncs)")

@@ -11,6 +11,9 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
 _DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
            "float32": torch.float32, "fp32": torch.float32,
            "float16": torch.float16}
@@ -59,10 +62,9 @@ def init_rmsnorm(d: int, dtype=torch.bfloat16, device=None) -> dict:
 
 
 def rmsnorm_apply(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps)
-    return (y * p["scale"].float()).to(x.dtype)
+    """The plain RMSNorm (the reference's ``rmsnorm_apply``) on any
+    device; the model's norms go through :func:`norm_apply`."""
+    return rmsnorm_ref(x, p["scale"], eps)
 
 
 def init_layernorm(d: int, dtype=torch.bfloat16, device=None) -> dict:
@@ -87,8 +89,10 @@ def init_norm(kind: str, d: int, dtype=torch.bfloat16, device=None) -> dict:
 
 def norm_apply(kind: str, p: dict, x: torch.Tensor,
                eps: float) -> torch.Tensor:
+    """RMSNorm through the B7 op (its kernel on CUDA tensors, the plain
+    version on the CPU); layernorm stays plain, as in the reference."""
     if kind == "rmsnorm":
-        return rmsnorm_apply(p, x, eps)
+        return rmsnorm_ops.rmsnorm(x, p["scale"], eps)
     return layernorm_apply(p, x, eps)
 
 

@@ -106,8 +106,9 @@ class LM:
     # ------------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, *,
                    kv_dtype: Optional[str] = None) -> list:
-        """Contiguous prefill cache; ``kv_dtype`` overrides the config
-        (the paged engine's bf16 staging cache)."""
+        """Contiguous prefill cache (attention blocks) and recurrent
+        states (RWKV-6 blocks); ``kv_dtype`` overrides the config (the
+        paged engine's bf16 staging cache)."""
         return init_stack_cache(self.cfg, batch, max_len, kv_dtype=kv_dtype,
                                 device=self.device)
 
@@ -163,7 +164,8 @@ class LM:
     @torch.no_grad()
     def decode_step(self, params, token, cache, pos):
         """token: (S,) int; pos: (S,) write positions -> (logits (S,V),
-        cache updated in place)."""
+        cache).  Paged K/V is updated in place; RWKV-6 blocks return new
+        state tensors and ignore ``pos``."""
         x, cache = self.backbone(params, token[:, None], mode="decode",
                                  cache=cache, pos=pos)
         return self._logits(params, x[:, 0]), cache

@@ -1,14 +1,14 @@
-"""Block / group / stack assembly (attention-only decoders).
+"""Block / group / stack assembly.
 
 A *group* is one repeat of ``cfg.block_pattern``.  The reference scans
 over group-stacked parameters; the port keeps a Python list of groups and
 loops over it.  Block layout (pre-norm residual):
 
-    x = x + attn(norm1(x))
+    x = x + mixer(norm1(x))            mixer ∈ {attn, rwkv6}
     x = x + mlp(norm2(x))
 
-Only attention blocks with a dense SwiGLU MLP are ported; other block
-kinds raise.
+Attention and RWKV-6 blocks with a dense SwiGLU MLP are ported; Mamba
+(ROADMAP A6) and other block kinds raise.
 """
 from __future__ import annotations
 
@@ -18,16 +18,21 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import init_mlp, init_norm, mlp_apply, norm_apply
 
 
 def block_kinds(cfg: ModelConfig) -> list[dict]:
-    """Per-block metadata for one group (attention blocks only)."""
+    """Per-block metadata for one group (attention and RWKV-6 blocks)."""
     out = []
     for kind in cfg.block_pattern:
-        if kind != "attn":
+        if kind == "mamba":
             raise NotImplementedError(
-                f"block kind {kind!r}: only attention blocks are ported")
+                "block kind 'mamba' is not ported yet (ROADMAP A6)")
+        if kind not in ("attn", "rwkv6"):
+            raise NotImplementedError(
+                f"block kind {kind!r}: only attention and RWKV-6 blocks "
+                "are ported")
         out.append({"kind": kind})
     return out
 
@@ -35,15 +40,19 @@ def block_kinds(cfg: ModelConfig) -> list[dict]:
 def init_group(gen: torch.Generator, cfg: ModelConfig, dtype=torch.bfloat16,
                device=None) -> dict:
     group = {}
-    for i, _ in enumerate(block_kinds(cfg)):
-        group[f"blk{i}"] = {
-            "norm1": init_norm(cfg.norm, cfg.d_model, dtype, device),
-            "attn": attn_mod.init_attention(gen, cfg.d_model, cfg.attention,
-                                            dtype, device),
-            "norm2": init_norm(cfg.norm, cfg.d_model, dtype, device),
-            "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, bias=cfg.mlp_bias,
-                            dtype=dtype, device=device),
-        }
+    for i, bk in enumerate(block_kinds(cfg)):
+        blk = {"norm1": init_norm(cfg.norm, cfg.d_model, dtype, device)}
+        if bk["kind"] == "attn":
+            blk["attn"] = attn_mod.init_attention(gen, cfg.d_model,
+                                                  cfg.attention, dtype,
+                                                  device)
+        else:
+            blk["rwkv"] = ssm_mod.init_rwkv6(gen, cfg.d_model, cfg.ssm,
+                                             dtype, device)
+        blk["norm2"] = init_norm(cfg.norm, cfg.d_model, dtype, device)
+        blk["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, bias=cfg.mlp_bias,
+                              dtype=dtype, device=device)
+        group[f"blk{i}"] = blk
     return group
 
 
@@ -52,16 +61,22 @@ def init_group_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                      pages_per_slot: int = 0, page_size: int = 256,
                      kv_dtype: Optional[str] = None, device=None,
                      block_table: Optional[torch.Tensor] = None) -> dict:
-    """KV caches for one group: contiguous (B, S, KH, D) slabs, or page
-    pools + a block table when ``paged`` (``block_table`` shares one table
-    tensor across layers).  ``kv_dtype`` overrides ``cfg.kv_cache_dtype``
-    (the paged engine prefills into a bf16 staging cache)."""
+    """Caches for one group.  Attention blocks: contiguous (B, S, KH, D)
+    slabs, or page pools + a block table when ``paged`` (``block_table``
+    shares one table tensor across layers); ``kv_dtype`` overrides
+    ``cfg.kv_cache_dtype`` (the paged engine prefills into a bf16 staging
+    cache).  RWKV-6 blocks: ``{"state": {"wkv": (B,H,D,D), "x_prev":
+    (B,d)}}`` in fp32, position-free."""
     from repro_torch.kvcache import CacheSpec, alloc_contiguous, alloc_paged
     spec = CacheSpec(layout="paged" if paged else "contiguous",
                      dtype=kv_dtype or cfg.kv_cache_dtype,
                      style=cfg.kv_cache_style, page_size=page_size)
     cache = {}
-    for i, _ in enumerate(block_kinds(cfg)):
+    for i, bk in enumerate(block_kinds(cfg)):
+        if bk["kind"] == "rwkv6":
+            cache[f"blk{i}"] = {"state": ssm_mod.init_rwkv6_state(
+                batch, cfg.d_model, cfg.ssm, device)}
+            continue
         if paged:
             kv = alloc_paged(spec, cfg.attention, batch, n_pages,
                              pages_per_slot, device, block_table)
@@ -78,17 +93,28 @@ def group_forward(gp: dict, x: torch.Tensor, cfg: ModelConfig, *,
     contiguous cache when given, or — on a paged cache — one chunk per row
     at ``pos = (slot_ids, starts, lengths[, max_pages])``) or "decode"
     (one token per slot against a paged cache, ``pos`` the (S,) write
-    positions)."""
+    positions).  RWKV-6 blocks run their recurrence from the cache's state
+    (zeros without a cache) and ignore ``pos``."""
     a = cfg.attention
     # the quantized linears' execution choice (every forward of the port
     # is an inference forward: the reference's training "ref" never applies)
     impl = cfg.quant_matmul_impl
     new_cache: Dict[str, Any] = {}
-    for i, _ in enumerate(block_kinds(cfg)):
+    for i, bk in enumerate(block_kinds(cfg)):
         blk = gp[f"blk{i}"]
         c = cache[f"blk{i}"] if cache is not None else None
         h = norm_apply(cfg.norm, blk["norm1"], x, cfg.norm_eps)
-        if mode == "prefill":
+        if mode not in ("prefill", "decode"):
+            raise ValueError(f"mode {mode!r}")
+        if bk["kind"] == "rwkv6":
+            st = c["state"] if c is not None else ssm_mod.init_rwkv6_state(
+                x.shape[0], cfg.d_model, cfg.ssm, x.device)
+            step = (ssm_mod.rwkv6_decode if mode == "decode"
+                    else ssm_mod.rwkv6_forward)
+            y, st2 = step(blk["rwkv"], h, cfg.ssm, st, impl=impl)
+            if c is not None:
+                new_cache[f"blk{i}"] = {"state": st2}
+        elif mode == "prefill":
             if c is None:
                 y = attn_mod.attention_forward(blk["attn"], h, a,
                                                use_flash=cfg.use_kernels,
@@ -102,15 +128,14 @@ def group_forward(gp: dict, x: torch.Tensor, cfg: ModelConfig, *,
                     blk["attn"], h, a, c["kv"], use_flash=cfg.use_kernels,
                     impl=impl)
                 new_cache[f"blk{i}"] = {"kv": kv}
-        elif mode == "decode":
+        else:
             if c is None or "k_pages" not in c["kv"]:
                 raise NotImplementedError(
-                    "decode runs against a paged cache only")
+                    "attention decode runs against a paged cache only; "
+                    "contiguous decode waits for ROADMAP A1")
             y, kv = attn_mod.attention_decode_paged(blk["attn"], h, a,
                                                     c["kv"], pos, impl)
             new_cache[f"blk{i}"] = {"kv": kv}
-        else:
-            raise ValueError(f"mode {mode!r}")
         x = x + y
         h = norm_apply(cfg.norm, blk["norm2"], x, cfg.norm_eps)
         x = x + mlp_apply(blk["mlp"], h, impl)

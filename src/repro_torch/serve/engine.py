@@ -1,7 +1,16 @@
-"""Continuous-batching serving over a paged KV cache.
+"""Continuous-batching serving engines.
 
-The port of ``repro/serve/engine.py``'s ``PagedEngine``: a fixed decode
-batch of ``n_slots``; queued requests are admitted in ONE right-padded,
+Slot-based: a fixed decode batch of ``n_slots``; each request is prefilled
+into a free slot, then all active slots decode in lock-step, and finished
+slots free at once.  The port of ``repro/serve/engine.py``'s two engines:
+
+``Engine`` — the eager engine: batch-1 prefill of each admitted request
+into its slot, one batched decode step per tick, host-side sampling, and
+one device->host sync per generated token.  The port serves attention-free
+(RWKV-6) decoders with it, whose per-slot cache is a constant-size
+recurrent state.
+
+``PagedEngine`` — queued requests are admitted in ONE right-padded,
 power-of-two-bucketed prefill whose K/V is scattered into the page pools;
 then every active slot decodes in lock-step through the paged-attention
 kernel.  Sampling happens on the device (greedy, or temperature through a
@@ -161,6 +170,145 @@ class _EngineBase:
         while self.queue or self.active:
             self.step()
         return dict(self.registry)
+
+
+# ---------------------------------------------------------------------------
+# Eager engine
+
+
+class Engine(_EngineBase):
+    """The reference's eager ``Engine`` for attention-free decoders: each
+    admission prefills its prompt alone (batch 1) into its slot, then one
+    decode step runs every slot, and the host reads the logits and samples
+    (greedy, or from ``np.random.default_rng(seed)`` at a temperature) —
+    one host sync per admission and one per decode step (``sync_count``).
+
+    Differences from the reference, both deliberate: the slot's recurrent
+    state is zeroed at admission (the reference prefills from whatever the
+    slot's previous occupant left, so a reused slot changes the stream),
+    and the ``DispatchProfiler`` hooks wait for ROADMAP A3.  Attention
+    blocks over contiguous caches wait for ROADMAP A1."""
+
+    def __init__(self, lm, params, *, n_slots: int = 4, max_len: int = 512,
+                 eos_id: int = -1, seed: int = 0, metrics=None, tracer=None):
+        cfg = lm.cfg
+        if cfg.attention is not None or any(k != "rwkv6"
+                                            for k in cfg.block_pattern):
+            raise ValueError("Engine serves attention-free (RWKV-6) "
+                             "decoders only; attention blocks over "
+                             "contiguous caches wait for ROADMAP A1")
+        super().__init__(lm, lm.prepare(params), n_slots=n_slots,
+                         max_len=max_len, eos_id=eos_id, metrics=metrics,
+                         tracer=tracer)
+        self.device = lm.device
+        self.rng = np.random.default_rng(seed)
+        self.cache = lm.init_cache(n_slots, max_len)
+        self.sync_count = 0                      # device->host transitions
+        self.metrics.counter("serve_host_syncs_total",
+                             "device->host sync points",
+                             fn=lambda: self.sync_count)
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def _prefill_slot(self, prompt: np.ndarray, slot: int) -> torch.Tensor:
+        """Batch-1 prefill of ``prompt`` from a zero state, written into
+        slot ``slot`` of the engine cache (in place); returns its
+        last-token logits (V,) on the device."""
+        tokens = torch.as_tensor(prompt, device=self.device).long()[None]
+        logits, sub = self.lm.prefill(self.params, tokens,
+                                      self.lm.init_cache(1, len(prompt)))
+        for group, new in zip(self.cache, sub):
+            for blk, node in group.items():
+                for name, leaf in node["state"].items():
+                    leaf[slot:slot + 1].copy_(new[blk]["state"][name])
+        return logits[0]
+
+    def _sample(self, logits: np.ndarray, temp: float) -> int:
+        if temp <= 0:
+            return int(np.argmax(logits))
+        p = np.exp((logits - logits.max()) / temp)
+        p /= p.sum()
+        return int(self.rng.choice(len(p), p=p))
+
+    def _retire(self, req: Request, slot: int) -> None:
+        req.done = True
+        self.free.append(slot)
+        self._obs_retire(req)
+
+    # ------------------------------------------------------------------
+    def step(self) -> List[tuple]:
+        """One engine tick: admit waiting requests into free slots
+        (prefill), then one batched decode step.  Returns [(rid, token),
+        ...] emitted this tick."""
+        emitted = []
+        while self.queue and self.free:
+            req = self.queue.popleft()
+            slot = self.free.popleft()
+            req.slot = slot
+            req.t_admit = time.perf_counter()
+            plen = len(req.prompt)
+            logits = self._prefill_slot(req.prompt, slot).cpu().numpy()
+            self.sync_count += 1                 # <- sync (1 per admission)
+            self.t_prefill_s += time.perf_counter() - req.t_admit
+            self._obs_admit(req, req.t_admit, first=True)
+            tok = self._sample(logits, req.temperature)
+            req.out_tokens.append(tok)
+            req.pos = plen
+            req.t_first = time.perf_counter()
+            self.tracer.complete("prefill", req.rid, req.t_admit,
+                                 req.t_first, args={"tokens": plen,
+                                                    "emitted": 1})
+            self._obs_first(req)
+            self._c_tokens.inc()
+            emitted.append((req.rid, tok))
+            if (tok == self.eos or req.max_new_tokens <= 1
+                    or req.pos >= self.max_len - 1):
+                req.t_done = req.t_first  # EOS / budget hit on first token
+                self._retire(req, slot)
+            else:
+                self.active[slot] = req
+
+        if not self.active:
+            return emitted
+
+        # batched decode: every slot steps; free slots step garbage in
+        # their own state, which the next admission overwrites
+        tokens = np.zeros((self.n_slots,), np.int64)
+        pos_by_slot = np.zeros((self.n_slots,), np.int32)
+        for slot, req in self.active.items():
+            tokens[slot] = req.out_tokens[-1]
+            pos_by_slot[slot] = req.pos
+        t0 = time.perf_counter()
+        logits, self.cache = self.lm.decode_step(
+            self.params, torch.as_tensor(tokens, device=self.device),
+            self.cache, torch.as_tensor(pos_by_slot, device=self.device))
+        logits = logits.cpu().numpy()            # <- sync (1 per step)
+        self.sync_count += 1
+        t1 = time.perf_counter()
+        self.t_decode_s += t1 - t0
+        tr = self.tracer
+        if tr.enabled:
+            tr.complete("decode_step", 0, t0, t1, pid=PID_ENGINE,
+                        args={"rows": len(self.active)})
+            tr.counter("utilization", {"queue_depth": len(self.queue),
+                                       "slots_active": len(self.active)},
+                       ts=t1)
+        for slot, req in list(self.active.items()):
+            tok = self._sample(logits[slot], req.temperature)
+            req.out_tokens.append(tok)
+            req.pos += 1
+            self._c_tokens.inc()
+            if tr.enabled:
+                tr.complete("decode_step", req.rid, t0, t1,
+                            args={"tokens": 1})
+            emitted.append((req.rid, tok))
+            if (tok == self.eos or
+                    len(req.out_tokens) >= req.max_new_tokens or
+                    req.pos >= self.max_len - 1):
+                req.t_done = time.perf_counter()
+                del self.active[slot]
+                self._retire(req, slot)
+        return emitted
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,75 @@
+"""Port parity: the plain RMSNorm (B7's plain version, what
+``kernels/rmsnorm/ops.py`` runs on CPU tensors) against the reference's
+Pallas kernel in interpret mode and its oracle, on ``test_kernels.py``'s
+``test_rmsnorm`` sweep at the reference's tolerances (fp32 1e-5, bf16
+2e-2), and the model's ``norm_apply("rmsnorm")`` against
+``rmsnorm_apply``."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.rmsnorm.ref import rmsnorm_ref as j_ref  # noqa: E402
+from repro.kernels.rmsnorm.rmsnorm import rmsnorm_pallas  # noqa: E402
+from repro.models import layers as jl  # noqa: E402
+from repro_torch.bridge import tensor_from_numpy  # noqa: E402
+from repro_torch.kernels.rmsnorm import ops  # noqa: E402
+from repro_torch.models import layers as tl  # noqa: E402
+
+SHAPES = [(4, 64, 256), (2, 128, 512), (1, 8, 128)]
+TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+def _inputs(shape, dtype, seed=0):
+    """x and scale in ``dtype`` on both sides, from the same numpy draw."""
+    rng = np.random.default_rng(seed)
+    x = jnp.asarray(rng.normal(size=shape).astype(np.float32), dtype)
+    w = jnp.asarray(rng.normal(size=shape[-1:]).astype(np.float32), dtype)
+    return (x, w), (tensor_from_numpy(np.asarray(x)),
+                    tensor_from_numpy(np.asarray(w)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_plain_rmsnorm_matches_pallas_kernel_and_oracle(shape, dtype):
+    (jx, jw), (tx, tw) = _inputs(shape, getattr(jnp, dtype))
+    out = ops.rmsnorm(tx, tw)
+    assert out.dtype == tx.dtype and out.shape == tx.shape
+    rows = int(np.prod(shape[:-1]))
+    kern = rmsnorm_pallas(jx, jw, block_rows=256 if rows % 256 == 0
+                          else rows, interpret=True)
+    tol = TOL[dtype]
+    for ref in (kern, j_ref(jx, jw)):
+        np.testing.assert_allclose(out.float().numpy(),
+                                   np.asarray(ref, np.float32),
+                                   atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_norm_apply_rmsnorm_on_the_cpu_is_rmsnorm_apply(dtype):
+    """The model's RMSNorm goes through the B7 op; on CPU tensors that is
+    the plain version, which is the reference's ``rmsnorm_apply``."""
+    (jx, jw), (tx, tw) = _inputs((3, 5, 64), getattr(jnp, dtype), seed=1)
+    got = tl.norm_apply("rmsnorm", {"scale": tw}, tx, 1e-5)
+    assert torch.equal(got, tl.rmsnorm_apply({"scale": tw}, tx, 1e-5))
+    np.testing.assert_allclose(
+        got.float().numpy(),
+        np.asarray(jl.rmsnorm_apply({"scale": jw}, jx), np.float32),
+        atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def test_norm_apply_counts_no_launch_on_the_cpu():
+    ops.launches = 0
+    x = torch.ones((2, 8))
+    tl.norm_apply("rmsnorm", {"scale": torch.ones(8)}, x, 1e-5)
+    tl.norm_apply("layernorm", {"scale": torch.ones(8),
+                                "bias": torch.zeros(8)}, x, 1e-5)
+    assert ops.launches == 0
+
+
+def test_rmsnorm_refuses_other_devices():
+    x = torch.ones((2, 8), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.rmsnorm(x, torch.ones(8, device="meta"))

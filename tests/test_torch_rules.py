@@ -42,20 +42,24 @@ def test_port_imports_no_jax_and_no_reference():
 
 def test_scan_covers_the_scheduler_and_every_kernel_module():
     """The import rule above reaches the scheduler, the quantization
-    modules and every kernel wrapper."""
+    modules, the RWKV-6 mixer and every kernel wrapper."""
     scanned = {str(f.relative_to(ROOT)) for f in _port_files()}
     for rel in ("sched/__init__.py", "sched/policy.py", "sched/prefix.py",
                 "sched/scheduler.py", "kernels/paged_attention/ops.py",
                 "kernels/paged_attention/ref.py", "kernels/build.py",
                 "quant/__init__.py", "quant/qops.py",
                 "kernels/int8_matmul/ops.py", "kernels/int8_matmul/ref.py",
-                "kvcache/quant.py"):
+                "kvcache/quant.py", "models/ssm.py",
+                "kernels/wkv6/__init__.py", "kernels/wkv6/ops.py",
+                "kernels/wkv6/ref.py", "kernels/rmsnorm/__init__.py",
+                "kernels/rmsnorm/ops.py", "kernels/rmsnorm/ref.py",
+                "configs/rwkv6_1_6b.py"):
         assert f"src/repro_torch/{rel}" in scanned, rel
     from repro_torch.kernels import build
     for src in build.SOURCES.values():
         assert (build.CSRC / src).is_file(), src
     for name in ("paged_prefix_extend", "int8_matmul", "w8a8_decode",
-                 "fp8_decode"):
+                 "fp8_decode", "wkv6", "rmsnorm"):
         assert name in build.SOURCES and name in build.SIGNATURES, name
 
 
@@ -65,7 +69,9 @@ WRAPPERS = {"kernels/int8_matmul/ops.py": ("int8_matmul_ref",
                                            "fp8_decode_ref"),
             "kernels/paged_attention/ops.py": ("paged_attention_ref",
                                                "paged_prefix_extend_ref"),
-            "kernels/flash_attention/ops.py": ("attention_ref",)}
+            "kernels/flash_attention/ops.py": ("attention_ref",),
+            "kernels/wkv6/ops.py": ("wkv6_chunked_ref",),
+            "kernels/rmsnorm/ops.py": ("rmsnorm_ref",)}
 
 
 @pytest.mark.parametrize("rel", sorted(WRAPPERS))
@@ -94,7 +100,7 @@ def test_wrappers_dispatch_on_the_device_without_fallback(rel):
 
 
 def test_chip_smoke_names_every_ported_kernel():
-    """chip_smoke.py's kernel records name all six ported kernels, each
+    """chip_smoke.py's kernel records name all eight ported kernels, each
     with the TPU kernel it replaces and its source in the repository."""
     text = (ROOT / "chip_smoke.py").read_text()
     for name, src, tpu in (
@@ -108,16 +114,18 @@ def test_chip_smoke_names_every_ported_kernel():
             ("w8a8_decode_matmul", "csrc/w8a8_decode.cu",
              "int8_matmul.py:186"),
             ("fp8_decode_matmul", "csrc/fp8_decode.cu",
-             "int8_matmul.py:248")):
+             "int8_matmul.py:248"),
+            ("wkv6", "csrc/wkv6.cu", "wkv6/wkv6.py:70"),
+            ("rmsnorm", "csrc/rmsnorm.cu", "rmsnorm/rmsnorm.py:24")):
         assert f'"{name}"' in text, name
         assert src in text and tpu in text, name
         assert (ROOT / "src" / "repro_torch" / src).is_file(), src
 
 
 def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
-    """Without a GPU and without device='cpu', LM, PagedEngine and
-    SchedEngine (through their LM) and launch.serve raise instead of
-    running on the CPU."""
+    """Without a GPU and without device='cpu', LM, the engines (through
+    their LM) and launch.serve raise instead of running on the CPU,
+    the eager Engine's path without --paged included."""
     from repro_torch.launch.serve import main
     from repro_torch.models.model import LM
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -125,14 +133,20 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         LM(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        LM(tconfigs.get_smoke_config("rwkv6-1.6b"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--smoke", "--paged", "--requests", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--smoke", "--policy", "fcfs", "--requests", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--arch", "rwkv6-1.6b", "--smoke", "--requests", "1"])
     lm = LM(cfg, device="cpu")            # an explicit request is honoured
     assert lm.device.type == "cpu"
 
 
 def test_launch_serve_requires_paged():
+    """An attention arch without --paged or --policy is refused: its eager
+    engine over contiguous caches is not ported (ROADMAP A1)."""
     from repro_torch.launch.serve import main
     with pytest.raises(SystemExit):
         main(["--smoke", "--device", "cpu"])
@@ -150,17 +164,21 @@ def test_engine_refuses_non_attention_decoders():
 
 @pytest.mark.parametrize("arch", sorted(tconfigs.ARCH_IDS))
 def test_copied_configs_agree_with_reference(arch):
+    """Every field of the port's config equals the reference's; the
+    attention and SSM sub-configs field by field (either may be None)."""
     for getter in ("get_config", "get_smoke_config"):
         t = getattr(tconfigs, getter)(arch)
         j = getattr(jconfigs, getter)(arch)
         for f in dataclasses.fields(t):
-            if f.name == "attention":
-                for g in dataclasses.fields(t.attention):
-                    assert getattr(t.attention, g.name) == \
-                        getattr(j.attention, g.name), (arch, g.name)
+            tv, jv = getattr(t, f.name), getattr(j, f.name)
+            if f.name in ("attention", "ssm") and tv is not None:
+                assert jv is not None, (arch, f.name)
+                for g in dataclasses.fields(tv):
+                    assert getattr(tv, g.name) == getattr(jv, g.name), \
+                        (arch, f.name, g.name)
             else:
-                assert getattr(t, f.name) == getattr(j, f.name), \
-                    (arch, f.name)
+                assert tv == jv, (arch, f.name)
         assert t.padded_vocab == j.padded_vocab
         assert t.num_groups == j.num_groups
-        assert t.attention.heads_padded == j.attention.heads_padded
+        if t.attention is not None:
+            assert t.attention.heads_padded == j.attention.heads_padded
