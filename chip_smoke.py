@@ -13,7 +13,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
                  shapes of the port's configs (EXTRA_SHAPES)
   4. flash     — flash prefill kernel vs its plain version (B 8,
                  S in {8, 100, 512}, causal, bf16 / fp32, one windowed),
-                 then the other head shapes
+                 then the other head shapes; each case names the tile
+                 step it took (tensor cores for bf16, FMA for fp32)
   5. e2e       — qwen2-1.5b at full width (28 layers, random weights from
                  a seed) served by the port's PagedEngine; checks token
                  counts, host syncs and the kernels' launch counts, and
@@ -21,7 +22,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
   6. extend    — prefix-extend kernel vs its plain version (4 slots x 512
                  chunk rows over prefixes of 512-3072 tokens, timed;
                  fp32 / int8 / fp8 pools, W 1 and 5 with fp32 q over a
-                 bf16 chunk, the other configs' head shapes)
+                 bf16 chunk, the other configs' head shapes, pages of
+                 16 on bf16 / int8 / fp8 pools); each case names its
+                 tile step (tensor cores for bf16 q and chunk
+                 over bf16 / int8 / fp8 pools, FMA otherwise)
   7. sched     — the same model through the port's SchedEngine (FCFS,
                  prefix cache, chunked prefill of 600-3000-token prompts,
                  half behind a shared 1,024-token system prompt); checks
@@ -62,7 +66,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
                  fresh slot's tokens, one admission's logits with B8 vs
                  its plain version
 B7 takes every RMSNorm of the qwen2-1.5b drives: 57 launches a forward
-(phases 5, 7, 9, 10).  Launch counts are zeroed just before each drive
+(phases 5, 7, 9, 10).  Every B3 / B2 launch of those drives (bf16
+activations) must take the tensor-core tile step: their tensor-core
+launch counts are printed beside the launch counts and must equal them.  Launch counts are zeroed just before each drive
 (phases 5, 7, 9, 10, 13) and read just after it; peak memory is read for
 the set-up and, restarted, for the drive.  Then one JSON line of kernel
 numbers, and last the result line ``{"ok": true, "device": {...}}``.
@@ -161,14 +167,36 @@ def phase_build() -> dict:
     for name, info in built.items():
         regs[name] = [ln.strip() for ln in info["log"].splitlines()
                       if "registers" in ln or "spill" in ln]
+    tc = {n: _tc_ptxas(i["log"]) for n, i in built.items()}
+    spills = {n: sp for n, (_, sp) in tc.items() if sp}
+    if spills:
+        raise AssertionError(f"tensor-core tile step spills: {spills}")
     out_dir = ROOT / "chiprun_out"
     if built and out_dir.is_dir():
         (out_dir / "ptxas.txt").write_text(
             "\n\n".join(f"== {n}\n{i['log']}" for n, i in built.items()))
     print(f"[2 build] {sorted(build.SOURCES)} in {dt:.1f}s "
           f"(compiled now: {sorted(built)}; "
-          f"max registers: {_max_regs(regs)})")
+          f"max registers: {_max_regs(regs)}; tensor-core instantiations "
+          f"without spills: {sum(n for n, _ in tc.values())})")
     return {"seconds": dt}
+
+
+def _tc_ptxas(log: str) -> tuple:
+    """(tensor-core tile-step instantiations, those that spill) in an
+    ``nvcc -Xptxas=-v`` log: the entries of namespace ``tc_step`` and
+    their ptxas spill lines."""
+    entries, spilled, entry = 0, [], None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1] if "tc_step" in ln else None
+        elif entry and "spill stores" in ln:
+            entries += 1
+            if not ln.strip().startswith("0 bytes stack frame, 0 bytes "
+                                         "spill stores, 0 bytes spill loads"):
+                spilled.append(entry)
+            entry = None
+    return entries, spilled
 
 
 def _max_regs(regs: dict) -> dict:
@@ -181,9 +209,9 @@ def _max_regs(regs: dict) -> dict:
 
 
 def _paged_inputs(dtype_name: str, g, device, lengths, h=12, kh=2, d=128,
-                  pps=4):
+                  pps=4, page=256):
     torch = _torch()
-    s_n, page = len(lengths), 256
+    s_n = len(lengths)
     n = s_n * pps + 1
     qdt = torch.float32 if dtype_name == "float32" else torch.bfloat16
     q = torch.randn((s_n, h, d), generator=g, device=device).to(qdt)
@@ -358,11 +386,13 @@ def phase_flash(records: list) -> None:
     b = 8
     for s, dt, window, (h, kh, d) in cases:
         q, k, v = _flash_inputs(b, s, dt, g, device, h, kh, d)
+        tc0 = ops.tc_launches
         out = ops.flash_attention(q, k, v, causal=True, window=window)
         ref = attention_ref(q, k, v, causal=True, window=window)
         torch.cuda.synchronize()
         tag = (f"S{s} {str(dt)[6:]} H{h}/{kh} D{d}"
-               + (f" w{window}" if window else ""))
+               + (f" w{window}" if window else "")
+               + _step_tag(ops.tc_launches - tc0, dt == bf16))
         line.append(check_close(tag, out, ref, 1.0))   # v ~ N(0, 1)
         if not (s == 512 and dt == bf16 and window is None and h == 12):
             continue
@@ -389,16 +419,28 @@ def phase_flash(records: list) -> None:
     print("[4 flash] " + "; ".join(line))
 
 
+def _step_tag(tc_launched: int, want_tc: bool) -> str:
+    """The tile step one launch took, as a case's tag; raises if it is
+    not the one its dtypes call for (tensor cores for bf16 operands, the
+    FMA step for fp32)."""
+    step = "tensor cores" if tc_launched == 1 else "FMA"
+    if tc_launched not in (0, 1) or (tc_launched == 1) != want_tc:
+        raise AssertionError(f"{tc_launched} tensor-core launches, want "
+                             f"{int(want_tc)}")
+    return f" [{step}]"
+
+
 def _extend_inputs(pool: str, g, device, prefix, widths, w, h=12, kh=2,
-                   d=128, q_dt=None, c_dt=None, pps=4):
-    """Prefix-extend operands: pools of ``pool`` type with page 256 and
-    ``pps`` pages a slot, prefix lengths and chunk widths per slot."""
+                   d=128, q_dt=None, c_dt=None, pps=4, page=256):
+    """Prefix-extend operands: pools of ``pool`` type with ``page``-token
+    pages and ``pps`` pages a slot, prefix lengths and chunk widths per
+    slot."""
     torch = _torch()
     q_dt = q_dt or (torch.float32 if pool == "float32" else torch.bfloat16)
     c_dt = c_dt or q_dt
     s_n = len(prefix)
     _, kp, vp, bt, _, ks, vs = _paged_inputs(pool, g, device, [0] * s_n,
-                                             h, kh, d, pps=pps)
+                                             h, kh, d, pps=pps, page=page)
     q = torch.randn((s_n, w, h, d), generator=g, device=device).to(q_dt)
     ck = torch.randn((s_n, w, kh, d), generator=g, device=device).to(c_dt)
     cv = torch.randn((s_n, w, kh, d), generator=g, device=device).to(c_dt)
@@ -454,22 +496,27 @@ def phase_extend(records: list) -> None:
     device = torch.device("cuda")
     g = torch.Generator(device=device).manual_seed(SEED + 2)
     bf16, f32 = torch.bfloat16, torch.float32
-    # (pool, W, (H, KH, D), q dtype, chunk dtype): the scheduler's shape at
-    # every pool type; one and five queries (speculative verify's widths)
-    # with fp32 q over a bf16 chunk; the other configs' head shapes
-    cases = [(pool, 512, (12, 2, 128), None, None)
+    # (pool, W, (H, KH, D), q dtype, chunk dtype, page): the scheduler's
+    # shape at every pool type; one and five queries (speculative verify's
+    # widths) with fp32 q over a bf16 chunk; the other configs' head
+    # shapes; pages of 16, where a 64-key tile spans four pages, each with
+    # its own scales
+    cases = [(pool, 512, (12, 2, 128), None, None, 256)
              for pool in ("bfloat16", "float32", "int8", "float8_e4m3fn")]
-    cases += [("bfloat16", w, (12, 2, 128), f32, bf16) for w in (1, 5)]
-    cases += [(pool, 100, shape, None, None) for shape in EXTRA_SHAPES
+    cases += [("bfloat16", w, (12, 2, 128), f32, bf16, 256) for w in (1, 5)]
+    cases += [(pool, 100, shape, None, None, 256) for shape in EXTRA_SHAPES
               for pool in ("bfloat16", "float32")]
+    cases += [(pool, 100, (12, 2, 128), None, None, 16)
+              for pool in ("bfloat16", "int8", "float8_e4m3fn")]
     line = []
-    for pool, w, (h, kh, d), q_dt, c_dt in cases:
+    for pool, w, (h, kh, d), q_dt, c_dt, page in cases:
         # a chunk with no prefix, a page-aligned prefix, a partial last
         # page, the full horizon with width 0, and an empty row
         prefix = [0, 256, 300, 4 * 256, 0]
         widths = [w, max(w // 2, 1), w, 0, 0]
         args = _extend_inputs(pool, g, device, prefix, widths, w, h, kh, d,
-                              q_dt, c_dt)
+                              q_dt, c_dt, pps=4 * 256 // page, page=page)
+        tc0 = ops.extend_tc_launches
         out = ops.paged_prefix_extend_attention(*args)
         ref = paged_prefix_extend_ref(*args)
         torch.cuda.synchronize()
@@ -478,7 +525,10 @@ def phase_extend(records: list) -> None:
         v_rms = max(v.pow(2).mean().sqrt().item(),
                     cv.float().pow(2).mean().sqrt().item())
         tag = (f"{pool} W{w} H{h}/{kh} D{d}"
-               + (f" q {str(q_dt)[6:]} chunk {str(c_dt)[6:]}" if q_dt else ""))
+               + (f" q {str(q_dt)[6:]} chunk {str(c_dt)[6:]}" if q_dt else "")
+               + (f" page {page}" if page != 256 else "")
+               + _step_tag(ops.extend_tc_launches - tc0,
+                           pool != "float32" and q_dt is None))
         line.append(check_close(tag, out, ref, v_rms))
         if not (out[4].float() == 0).all():
             raise AssertionError("extend: a row with no prefix and no chunk "
@@ -490,11 +540,13 @@ def phase_extend(records: list) -> None:
                               [512] * 4, 512, pps=16)
 
     args = timed()
+    tc0 = ops.extend_tc_launches
     out = ops.paged_prefix_extend_attention(*args)
     ref = paged_prefix_extend_ref(*args)
     torch.cuda.synchronize()
-    line.append(check_close("timed bfloat16 W512 prefix 512-3072", out, ref,
-                            1.0))
+    line.append(check_close("timed bfloat16 W512 prefix 512-3072"
+                            + _step_tag(ops.extend_tc_launches - tc0, True),
+                            out, ref, 1.0))
     err = (out.float() - ref.float()).abs().max().item()
     nbytes, flops = extend_bytes_flops(args)
     copies = [args] + [timed() for _ in range(3)]
@@ -878,6 +930,7 @@ def phase_e2e(records: list) -> dict:
     wall = time.perf_counter() - t0
     launches = {k: v for k, v in _read_launches().items()
                 if k in ("paged_attention", "flash_attention", "rmsnorm")}
+    tc = _tc_launches("e2e")
     cnt = eng.metrics.snapshot()["counters"]
     admits = int(cnt["serve_prefill_dispatches_total"]
                  - base[2]["serve_prefill_dispatches_total"])
@@ -911,6 +964,8 @@ def phase_e2e(records: list) -> dict:
     for r in records:
         if r["name"] in launches:
             r["launches"] = launches[r["name"]]
+        if r["name"] == "flash_attention":
+            r["tc_launches"] = tc["flash_attention"]
 
     # one admission prefill and one decode step, kernels vs plain versions,
     # on the same cache (the decode step rewrites the same K/V both times)
@@ -951,12 +1006,13 @@ def phase_e2e(records: list) -> dict:
            "admissions": admits, "decode_blocks": blocks,
            "decode_steps": steps, "syncs": syncs, "peak_mem_gb": peak_gb,
            "setup_peak_gb": setup_gb, "setup_s": t_setup, "launches": launches,
-           "logit_err": errs}
+           "tc_launches": tc, "logit_err": errs}
     print(f"[5 e2e] {cfg.name} {cfg.num_layers}L d{cfg.d_model} bf16 "
           f"kernels: {n_req} req, {n_tok} tokens in {wall:.3f}s "
           f"({n_tok / wall:.1f} tok/s), TTFT p50 {out['ttft_p50_s']:.4f}s, "
           f"{admits} admissions + {blocks} blocks = {syncs} syncs, "
-          f"{steps} decode steps, launches {launches}, peak mem "
+          f"{steps} decode steps, launches {launches}, tensor-core "
+          f"launches {tc}, peak mem "
           f"{peak_gb:.2f} GB (set-up {setup_gb:.2f} GB), logits kernel vs plain (worst slot's relative "
           f"L2 / max abs, limit {LOGIT_REL_L2}): prefill "
           f"{errs['prefill'][0]:.3e}/{errs['prefill'][1]:.3e} decode "
@@ -1040,6 +1096,7 @@ def phase_sched(records: list) -> dict:
     launches = {k: v for k, v in _read_launches().items()
                 if k in ("paged_attention", "flash_attention",
                          "paged_prefix_extend", "rmsnorm")}
+    tc = _tc_launches("sched")
     now = _counts(eng, tracer, n_ev)
     d = {k: now[k] - base[k] for k in ("syncs", "steps", "blocks",
                                         "prefill_tokens")}
@@ -1078,6 +1135,7 @@ def phase_sched(records: list) -> dict:
     for r in records:
         if r["name"] == "paged_prefix_extend":
             r["launches"] = launches[r["name"]]
+            r["tc_launches"] = tc[r["name"]]
 
     # one prompt served alone twice: identical tokens, and the second
     # time only the suffix past the cached pages is computed.  1,200
@@ -1135,8 +1193,8 @@ def phase_sched(records: list) -> dict:
            "preemptions": eng.stats.preemptions, "peak_mem_gb": peak_gb,
            "setup_peak_gb": setup_gb,
            "prefill_wall_s": t_pre, "decode_wall_s": t_dec,
-           "launches": launches, "repeat_computed": [comp_a, comp_b],
-           "logit_err": (rel, err)}
+           "launches": launches, "tc_launches": tc,
+           "repeat_computed": [comp_a, comp_b], "logit_err": (rel, err)}
     print(f"[7 sched] {cfg.name} {cfg.num_layers}L bf16 SchedEngine fcfs, "
           f"prefix cache, chunk 512: {SCHED_REQUESTS} req "
           f"({out['prompt_tokens']} prompt tokens, {hit} from the prefix "
@@ -1146,7 +1204,8 @@ def phase_sched(records: list) -> dict:
           f"{d['fresh']} fresh + "
           f"{d['cont']} continuation dispatches + {d['blocks']} blocks = "
           f"{d['syncs']} syncs, {d['steps']} decode steps, "
-          f"{eng.stats.preemptions} preemptions, launches {launches}, peak "
+          f"{eng.stats.preemptions} preemptions, launches {launches}, "
+          f"tensor-core launches {tc}, peak "
           f"mem {peak_gb:.2f} GB (set-up {setup_gb:.2f} GB); repeat prompt computed {comp_a} then "
           f"{comp_b} tokens, same tokens; continuation logits kernel vs "
           f"plain (worst slot's relative L2 / max abs, limit "
@@ -1200,6 +1259,7 @@ def _reset_launches() -> None:
     from repro_torch.kernels.rmsnorm import ops as rops
     from repro_torch.kernels.wkv6 import ops as wops
     fops.launches = pops.launches = pops.extend_launches = 0
+    fops.tc_launches = pops.extend_tc_launches = 0
     qmm.launches = qmm.decode_launches = qmm.fp8_launches = 0
     rops.launches = wops.launches = 0
 
@@ -1218,6 +1278,21 @@ def _read_launches() -> dict:
             "fp8_decode_matmul": qmm.fp8_launches,
             "rmsnorm": rops.launches,
             "wkv6": wops.launches}
+
+
+def _tc_launches(tag: str) -> dict:
+    """B3 / B2 launches of a bf16 drive that took the tensor-core tile
+    step; raises unless every launch since the last reset took it."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.paged_attention import ops as pops
+    launches = _read_launches()
+    tc = {"flash_attention": fops.tc_launches,
+          "paged_prefix_extend": pops.extend_tc_launches}
+    for name, n in tc.items():
+        if n != launches[name]:
+            raise AssertionError(f"{tag}: {name} took the tensor-core step "
+                                 f"in {n} of {launches[name]} launches")
+    return tc
 
 
 #: RMSNorm launches of one qwen2-1.5b forward: two a layer and the final
@@ -1270,6 +1345,7 @@ def phase_qsched(records: list) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _read_launches()
+    tc = _tc_launches("qsched")
     rows = list(seen)
     now = _counts(eng, tracer, n_ev)
     d = {k: now[k] - base[k] for k in ("syncs", "steps", "blocks",
@@ -1384,8 +1460,8 @@ def phase_qsched(records: list) -> dict:
            "decode_steps": d["steps"], "syncs": d["syncs"],
            "dispatch_rows": rows, "requant_events": requant,
            "peak_mem_gb": peak_gb, "setup_peak_gb": setup_gb,
-           "launches": launches, "repeat_computed": [comp_a, comp_b],
-           "logit_check": errs}
+           "launches": launches, "tc_launches": tc,
+           "repeat_computed": [comp_a, comp_b], "logit_check": errs}
     print(f"[9 qsched] {cfg.name} {cfg.num_layers}L int8 weights + int8 KV "
           f"SchedEngine fcfs, prefix cache, chunk 512: {QSCHED_REQUESTS} req "
           f"({out['prompt_tokens']} prompt tokens, {hit} from the prefix "
@@ -1393,7 +1469,8 @@ def phase_qsched(records: list) -> dict:
           f"tok/s), TTFT p50 {out['ttft_p50_s']:.4f}s, {d['fresh']} fresh + "
           f"{d['cont']} continuation dispatches (rows {rows}) + "
           f"{d['blocks']} blocks = {d['syncs']} syncs, {d['steps']} decode "
-          f"steps, {requant:.0f} requant events, launches {launches}, peak "
+          f"steps, {requant:.0f} requant events, launches {launches}, "
+          f"tensor-core launches {tc}, peak "
           f"mem {peak_gb:.2f} GB (set-up {setup_gb:.2f} GB); repeat prompt computed {comp_a} then "
           f"{comp_b} tokens, same tokens; continuation and decode logits "
           f"with B4 / B5 equal to the plain matmuls'; B2 / B1 on the int8 "
@@ -1434,6 +1511,7 @@ def phase_fp8(records: list) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _read_launches()
+    tc = _tc_launches("fp8")
     steps = eng.steps_run - steps0
     requant = eng.metrics.snapshot()["counters"][
         "serve_kv_requant_events_total"] - rq0
@@ -1471,13 +1549,15 @@ def phase_fp8(records: list) -> dict:
            "wall_s": wall, "tokens": n_tok, "requests": n_req,
            "admission_rows": rows, "decode_steps": steps,
            "requant_events": requant, "peak_mem_gb": peak_gb,
-           "setup_peak_gb": setup_gb, "launches": launches}
+           "setup_peak_gb": setup_gb, "launches": launches,
+           "tc_launches": tc}
     print(f"[10 fp8] {cfg.name} {cfg.num_layers}L fp8 weights + fp8 KV "
           f"PagedEngine: {n_req} req, {n_tok} tokens in {wall:.3f}s "
           f"({n_tok / wall:.1f} tok/s), TTFT p50 {out['ttft_p50_s']:.4f}s, "
           f"{len(rows)} admissions (rows {rows}) + {blocks} blocks = "
           f"{len(rows) + blocks} syncs, {steps} decode steps, "
-          f"{requant:.0f} requant events, launches {launches}, peak mem "
+          f"{requant:.0f} requant events, launches {launches}, tensor-core "
+          f"launches {tc}, peak mem "
           f"{peak_gb:.2f} GB (set-up {setup_gb:.2f} GB)")
     return out
 

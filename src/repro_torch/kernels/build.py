@@ -58,6 +58,10 @@ SIGNATURES = {
     "rmsnorm": ("rmsnorm_fwd", [_P] * 3 + [_I] * 2 + [_F, _I, _I, _P]),
 }
 
+#: kernels with two tile steps -> (step query, number of dtype arguments)
+TC_STEP = {"flash_attention": ("flash_attention_tc_step", 1),
+           "paged_prefix_extend": ("paged_prefix_extend_tc_step", 3)}
+
 
 def nvcc_path() -> str:
     """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else
@@ -126,6 +130,19 @@ def load(name: str):
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
     return fn, err
+
+
+@functools.lru_cache(maxsize=None)
+def tc_step_query(name: str):
+    """The library's ``<entry>_tc_step`` function (flash prefill and prefix
+    extend): given the launch's dtype codes, 1 if the kernel takes its
+    tensor-core tile step, 0 if its FMA step.  The entry point dispatches
+    on the same function."""
+    load(name)
+    fn = getattr(ctypes.CDLL(str(lib_path(name))), TC_STEP[name][0])
+    fn.argtypes = [_I] * TC_STEP[name][1]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def check_status(name: str, rc: int, err_fn) -> None:

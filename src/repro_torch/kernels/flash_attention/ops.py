@@ -3,7 +3,8 @@
 CPU tensors take the plain version (``ref.py``).  CUDA tensors launch the
 hand-written kernel (``csrc/flash_attention.cu``) or raise; there is no
 fallback.  ``launches`` counts kernel launches (one per call on a CUDA
-tensor).  Unlike the TPU kernel, any S and T are taken: the kernel masks
+tensor); ``tc_launches`` counts those that took the kernel's tensor-core
+tile step (bf16; fp32 takes the FMA step).  Unlike the TPU kernel, any S and T are taken: the kernel masks
 the ragged edge itself.
 """
 from __future__ import annotations
@@ -17,6 +18,8 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 
 #: kernel launches since the last reset (plain integer; reset by callers)
 launches = 0
+#: of those, launches that took the tensor-core tile step
+tc_launches = 0
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _HEAD_DIMS = (16, 64, 128)      # the port's configs (held by chip_smoke.py)
@@ -39,7 +42,7 @@ def _check(cond: bool, msg: str) -> None:
 
 
 def _launch(q, k, v, causal, window):
-    global launches
+    global launches, tc_launches
     b, s, h, d = q.shape
     t, kh = k.shape[1], k.shape[2]
     for x in (q, k, v):
@@ -55,10 +58,16 @@ def _launch(q, k, v, causal, window):
     out = torch.empty_like(q)
     if out.numel() == 0 or t == 0:
         return out.zero_()
+    dt = build.DTYPE_CODES[q.dtype]
+    tc = build.tc_step_query("flash_attention")(dt)
+    if tc:
+        _check(all(x.data_ptr() % 16 == 0 for x in (q, k, v)),
+               "bf16 tensors must be 16-byte aligned (asynchronous copies)")
     fn, err = build.load("flash_attention")
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, s, t, h, kh, d, int(causal), window or 0, 1.0 / (d ** 0.5),
-            build.DTYPE_CODES[q.dtype], build.stream_handle(q.device))
+            dt, build.stream_handle(q.device))
     build.check_status("flash_attention", rc, err)
     launches += 1
+    tc_launches += tc
     return out

@@ -6,7 +6,10 @@ hand-written kernels (``csrc/paged_attention.cu``,
 ``csrc/paged_prefix_extend.cu``) or raise; there is no fallback.
 ``launches`` and ``extend_launches`` count kernel launches (one per call on
 a CUDA tensor), so a run can show that its decode steps and its chunked
-prefill continuations went through the kernels.
+prefill continuations went through the kernels; ``extend_tc_launches``
+counts the prefix-extend launches that took the kernel's tensor-core tile
+step (bf16 q and chunk over bf16 / int8 / fp8 pools; other dtypes take
+the FMA step).
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from repro_torch.kernels.paged_attention.ref import (paged_attention_ref,
 #: kernel launches since the last reset (plain integers; reset by callers)
 launches = 0            # paged decode
 extend_launches = 0     # prefix extend
+extend_tc_launches = 0  # of those, on the tensor-core tile step
 
 _Q_DTYPES = (torch.float32, torch.bfloat16)
 _KV_DTYPES = (torch.float32, torch.bfloat16, torch.int8, torch.float8_e4m3fn)
@@ -165,7 +169,7 @@ def paged_prefix_extend_attention(q: torch.Tensor, k_pages: torch.Tensor,
 
 def _launch_extend(q, k_pages, v_pages, block_table, prefix_lens, chunk_k,
                    chunk_v, widths, k_scales, v_scales):
-    global extend_launches
+    global extend_launches, extend_tc_launches
     check = _checker("paged_prefix_extend_attention")
     s_n, w_n, h, d = q.shape
     _, page, kh, d_kv = k_pages.shape
@@ -191,6 +195,13 @@ def _launch_extend(q, k_pages, v_pages, block_table, prefix_lens, chunk_k,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    dts = [build.DTYPE_CODES[t.dtype] for t in (q, chunk_k, k_pages)]
+    tc = build.tc_step_query("paged_prefix_extend")(*dts)
+    if tc:
+        check(all(t.data_ptr() % 16 == 0
+                  for t in (q, k_pages, v_pages, chunk_k, chunk_v)),
+              "q, pools and chunk must be 16-byte aligned (asynchronous "
+              "copies)")
     fn, err = build.load("paged_prefix_extend")
     rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_table.data_ptr(), prefix_lens.data_ptr(),
@@ -198,8 +209,8 @@ def _launch_extend(q, k_pages, v_pages, block_table, prefix_lens, chunk_k,
             k_scales.data_ptr() if quantized else None,
             v_scales.data_ptr() if quantized else None,
             out.data_ptr(), s_n, w_n, h, kh, d, page, p_n, 1.0 / (d ** 0.5),
-            build.DTYPE_CODES[q.dtype], build.DTYPE_CODES[chunk_k.dtype],
-            build.DTYPE_CODES[k_pages.dtype], build.stream_handle(q.device))
+            *dts, build.stream_handle(q.device))
     build.check_status("paged_prefix_extend", rc, err)
     extend_launches += 1
+    extend_tc_launches += tc
     return out

@@ -148,7 +148,7 @@ def test_extend_wrapper_dispatches_on_device_only():
     meta = [a.to("meta") for a in args]
     with pytest.raises(ValueError, match="unsupported device"):
         torch_ops.paged_prefix_extend_attention(*meta)
-    assert torch_ops.extend_launches == 0
+    assert torch_ops.extend_launches == torch_ops.extend_tc_launches == 0
 
 
 # ---------------------------------------------------------------------------
@@ -360,3 +360,125 @@ def test_lm_prefill_paged_logits_match_jax(max_pages):
                                    max_pages=mp)
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4,
                                    rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel's tensor-core arithmetic for bf16 q and chunk, on the CPU
+
+#: chip_smoke.py's element limit for bf16 outputs: |out - ref| <= ATOL x
+#: rms(V) + RTOL x |ref| (V dequantized, the chunk's V included)
+BF16_RTOL, BF16_ATOL = 1.6e-2, 1e-3
+LOG2E = 1.4426950408889634
+
+
+def _tile_step_extend(q, kp, vp, bt, prefix, ck, cv, widths, ks, vs):
+    """The tensor-core tile step of ``csrc/paged_prefix_extend.cu`` in
+    plain torch: for each (slot, kv head), 64-row tiles of the W·G row
+    space; 64-key tiles in order, the prefix's (read through the block
+    table, keys < L) then the chunk's up to the tile's largest w (fully
+    masked tiles never visited); stored int8 / e4m3 values widened to
+    bf16 exactly; scores q.k x (scale x log2 e x k_s of the key's page),
+    running m and l in fp32; p's columns multiplied by v_s of their page,
+    then fed to the second product as two bf16 terms."""
+    s_n, w_n, h, d = q.shape
+    page, kh = kp.shape[1], kp.shape[2]
+    g = h // kh
+    scale = LOG2E / d ** 0.5
+    rows_n = w_n * g
+    out = torch.zeros(s_n, w_n, h, d)
+    for s in range(s_n):
+        big_l = min(int(prefix[s]), bt.shape[1] * page)
+        wid = min(int(widths[s]), w_n)
+        for k in range(kh):
+            q4 = q[s, :, k * g:(k + 1) * g].float().reshape(rows_n, d)
+            for r0 in range(0, rows_n, 64):
+                rr = torch.arange(r0, min(rows_n, r0 + 64))
+                w_of_row = (rr // g)[:, None]
+                j_end = min(wid, min(w_n - 1, (r0 + 63) // g) + 1)
+                tiles = [("prefix", k0) for k0 in range(0, big_l, 64)]
+                tiles += [("chunk", k0) for k0 in range(0, j_end, 64)]
+                m = torch.full((len(rr), 1), -1e30)
+                l = torch.zeros_like(m)
+                acc = torch.zeros(len(rr), d)
+                for kind, k0 in tiles:
+                    if kind == "prefix":
+                        kj = torch.arange(k0, min(big_l, k0 + 64))
+                        pages = bt[s, kj // page].long()
+                        kt = kp[pages, kj % page, k].float()
+                        vt = vp[pages, kj % page, k].float()
+                        ksc = scale * (ks[pages, k] if ks is not None
+                                       else torch.ones(len(kj)))
+                        vsc = (vs[pages, k] if vs is not None
+                               else torch.ones(len(kj)))
+                        ok = torch.ones(len(rr), len(kj), dtype=torch.bool)
+                    else:
+                        kj = torch.arange(k0, min(j_end, k0 + 64))
+                        kt, vt = ck[s, kj, k].float(), cv[s, kj, k].float()
+                        ksc = torch.full((len(kj),), scale)
+                        vsc = torch.ones(len(kj))
+                        ok = (kj[None, :] <= w_of_row) & (kj[None, :] < wid)
+                    sc = (q4[rr] @ kt.T) * ksc[None, :]
+                    sc = torch.where(ok, sc, torch.tensor(float("-inf")))
+                    m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+                    p = torch.exp2(sc - m_new)
+                    corr = torch.exp2(m - m_new)
+                    l = l * corr + p.sum(-1, keepdim=True)
+                    pv = p * vsc[None, :]
+                    hi = pv.bfloat16().float()
+                    lo = (pv - hi).bfloat16().float()
+                    acc = acc * corr + hi @ vt + lo @ vt
+                    m = m_new
+                o = acc / l.clamp(min=1e-30)
+                out[s, (rr // g), k * g + rr % g] = o
+    return out.to(q.dtype)
+
+
+def _tc_inputs(pool, page, w, h, kvh, seed):
+    """bf16 q and chunk over ``pool`` pools of ``page``-token pages, D 64:
+    a chunk with no prefix, a prefix with a partial last page, a full
+    horizon with width 0, and an empty slot (width 0, no prefix)."""
+    rng = np.random.default_rng(seed)
+    s_n, d, p_n = 4, 64, max(2, 160 // page)
+    n = 1 + s_n * p_n
+    q = jnp.asarray(rng.normal(size=(s_n, w, h, d)), jnp.bfloat16)
+    kp, ks = _pool(rng, n, page, kvh, d, pool)
+    vp, vs = _pool(rng, n, page, kvh, d, pool)
+    bt = jnp.asarray(rng.permutation(np.arange(1, n)).reshape(s_n, p_n),
+                     jnp.int32)
+    prefix = jnp.asarray([0, p_n * page - page // 2 - 3, p_n * page, 0],
+                         jnp.int32)
+    widths = jnp.asarray([w, max(w // 2, 1), 0, 0], jnp.int32)
+    ck = jnp.asarray(rng.normal(size=(s_n, w, kvh, d)), jnp.bfloat16)
+    cv = jnp.asarray(rng.normal(size=(s_n, w, kvh, d)), jnp.bfloat16)
+    return q, kp, vp, bt, prefix, ck, cv, widths, ks, vs
+
+
+def _worst_share(out, ref, v_rms):
+    o = torch.as_tensor(np.asarray(out, np.float32))
+    r = torch.as_tensor(np.asarray(ref, np.float32))
+    return float(((o - r).abs() / (BF16_ATOL * v_rms
+                                   + BF16_RTOL * r.abs())).max())
+
+
+@pytest.mark.parametrize("pool", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("page", [16, 256])
+@pytest.mark.parametrize("w", [1, 5, 32])
+def test_tensor_core_rounding_within_chip_limit(pool, page, w):
+    """The kernel's bf16 plan against the Pallas kernel in interpret mode
+    and the port's plain version, within the element limit chip_smoke.py
+    holds the kernel to on the card.  Pages of 16 make a 64-key tile cross
+    pages of different scales; the row with no prefix and no chunk gives
+    zeros."""
+    args = _tc_inputs(pool, page, w, 6, 2, seed=30 + w)
+    t = _torch_args(args)
+    got = _tile_step_extend(*t)
+    assert got.dtype == torch.bfloat16 and got.shape == t[0].shape
+    _, _, vp, _, _, _, cv, _, _, vs = t
+    v = vp.float() if vs is None else vp.float() * vs[:, None, :, None]
+    v_rms = max(float(v.pow(2).mean().sqrt()),
+                float(cv.float().pow(2).mean().sqrt()))
+    pallas = paged_prefix_extend_pallas(*args, interpret=True)
+    plain = paged_prefix_extend_ref(*t)
+    assert _worst_share(got.float(), pallas, v_rms) <= 1.0
+    assert _worst_share(got.float(), plain.float(), v_rms) <= 1.0
+    assert float(got[3].float().abs().max()) == 0.0

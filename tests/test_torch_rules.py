@@ -3,6 +3,7 @@ package, its entry points never fall back to the CPU on their own, and
 its copied configs agree with the reference's."""
 import ast
 import dataclasses
+import re
 from pathlib import Path
 
 import pytest
@@ -120,6 +121,36 @@ def test_chip_smoke_names_every_ported_kernel():
         assert f'"{name}"' in text, name
         assert src in text and tpu in text, name
         assert (ROOT / "src" / "repro_torch" / src).is_file(), src
+
+
+def _with_includes(path: Path) -> str:
+    """A CUDA source and, recursively, the local headers it includes."""
+    text = path.read_text()
+    for inc in re.findall(r'#include "([^"]+)"', text):
+        text += _with_includes(path.parent / inc)
+    return text
+
+
+@pytest.mark.parametrize("src", ["flash_attention.cu",
+                                 "paged_prefix_extend.cu"])
+def test_attention_kernels_use_tensor_cores_and_async_copies(src):
+    """B3 and B2 (with the headers they include) run a tensor-core product
+    and fill their tiles with asynchronous copies."""
+    text = _with_includes(ROOT / "src" / "repro_torch" / "csrc" / src)
+    assert ("wgmma.mma_async" in text
+            or "mma.sync.aligned.m16n8k16" in text), src
+    assert "cp.async" in text, src
+
+
+def test_port_calls_no_library_attention():
+    """No module or CUDA source of the port calls PyTorch's fused
+    attention: SDPA is only chip_smoke.py's yardstick."""
+    pkg = ROOT / "src" / "repro_torch"
+    files = [f for f in pkg.rglob("*")
+             if f.suffix in (".py", ".cu", ".cuh")]
+    assert len(files) > 20
+    assert not [str(f.relative_to(ROOT)) for f in files
+                if "scaled_dot_product_attention" in f.read_text()]
 
 
 def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
