@@ -10,7 +10,12 @@ Phases (each prints one line; any failure raises and exits non-zero):
                  element, at the serving shapes (8 slots, 12 heads over
                  2 kv heads, D 128, page 256), bf16 / fp32 / int8 / fp8
                  pools, with times; then bf16 / fp32 at the other head
-                 shapes of the port's configs (EXTRA_SHAPES)
+                 shapes of the port's configs (EXTRA_SHAPES: groups of
+                 1 to 32 query heads a kv head), int8 at 12 over 1, and
+                 pages of 16 tokens (bf16 / int8 / fp8 pools);
+                 each case names its step (tensor cores for bf16 q over
+                 bf16 / int8 / fp8 pools, FMA for fp32) and is called
+                 twice, bit-equal
   4. flash     — flash prefill kernel vs its plain version (B 8,
                  S in {8, 100, 512}, causal, bf16 / fp32, one windowed),
                  then the other head shapes; each case names the tile
@@ -37,7 +42,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
                  qwen2-1.5b's linears: tiled W8A8 (B4, M 129 / 4,096 and a
                  ragged shape) and W8A8 decode (B5, M 1 / 8 / 128) bit for
                  bit against the plain version on the CPU copy, fp8
-                 decode (B6) element by element; times; then the trap-4
+                 decode (B6) element by element (bf16 x on the tensor
+                 cores, called twice, bit-equal; one fp32-x case on the
+                 FMA step); times; then the trap-4
                  line: the port's torch-op quantization on the card vs
                  the CPU, bit for bit
   9. qsched    — phase 7's scheduler drive with int8 weights and int8 KV
@@ -50,7 +57,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
                  forwards on the int8 pools vs its plain version, element
                  by element
  10. fp8       — phase 5's PagedEngine drive with fp8 weights and fp8 KV
-                 pools: B6 = 196 x the dispatches with M <= 128 rows
+                 pools: B6 = 196 x the dispatches with M <= 128 rows,
+                 every B6 and B1 launch on the tensor-core step
  11. wkv6      — the WKV-6 kernel (B8) vs its plain version on CPU copies
                  of the operands, o and the final state element by element
                  (B 1, H 32, D 64, S in {1, 64, 100, 3,000}; B 4, S 512;
@@ -66,12 +74,14 @@ Phases (each prints one line; any failure raises and exits non-zero):
                  fresh slot's tokens, one admission's logits with B8 vs
                  its plain version
 B7 takes every RMSNorm of the qwen2-1.5b drives: 57 launches a forward
-(phases 5, 7, 9, 10).  Every B3 / B2 launch of those drives (bf16
-activations) must take the tensor-core tile step: their tensor-core
-launch counts are printed beside the launch counts and must equal them.  Launch counts are zeroed just before each drive
-(phases 5, 7, 9, 10, 13) and read just after it; peak memory is read for
-the set-up and, restarted, for the drive.  Then one JSON line of kernel
-numbers, and last the result line ``{"ok": true, "device": {...}}``.
+(phases 5, 7, 9, 10).  Every B1 / B2 / B3 launch of those drives (bf16
+activations), and every B6 launch of phase 10, must take the
+tensor-core step: their tensor-core launch counts are printed beside the
+launch counts and must equal them.  Launch counts are zeroed just before
+each drive (phases 5, 7, 9, 10, 13) and read just after it; peak memory
+is read for the set-up and, restarted, for the drive.  Then one JSON
+line of kernel numbers, and last the result line ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
@@ -169,12 +179,12 @@ def phase_build() -> dict:
                       if "registers" in ln or "spill" in ln]
     tc = {n: _tc_ptxas(i["log"]) for n, i in built.items()}
     spills = {n: sp for n, (_, sp) in tc.items() if sp}
-    if spills:
-        raise AssertionError(f"tensor-core tile step spills: {spills}")
     out_dir = ROOT / "chiprun_out"
     if built and out_dir.is_dir():
         (out_dir / "ptxas.txt").write_text(
             "\n\n".join(f"== {n}\n{i['log']}" for n, i in built.items()))
+    if spills:
+        raise AssertionError(f"tensor-core tile step spills: {spills}")
     print(f"[2 build] {sorted(build.SOURCES)} in {dt:.1f}s "
           f"(compiled now: {sorted(built)}; "
           f"max registers: {_max_regs(regs)}; tensor-core instantiations "
@@ -286,9 +296,10 @@ def paged_bytes_flops(q, kp, bt, lens, ks):
 
 #: (heads, kv heads, head dim) the port's configs give each kernel beyond
 #: the timed qwen2-1.5b shape (12, 2, 128): llama3.2-1b, stablelm-1.6b,
-#: the largest group the paged kernel takes (8), and the smoke configs
-EXTRA_SHAPES = [(32, 8, 64), (32, 32, 64), (16, 2, 128), (4, 2, 16),
-                (4, 1, 16), (4, 4, 16)]
+#: a group of 8, qwen2-1.5b and llama3.2-1b with one stored kv head
+#: (kv_cache_style "mqa": groups of 12 and 32), and the smoke configs
+EXTRA_SHAPES = [(32, 8, 64), (32, 32, 64), (16, 2, 128), (12, 1, 128),
+                (32, 1, 64), (4, 2, 16), (4, 1, 16), (4, 4, 16)]
 
 
 def phase_paged(records: list) -> None:
@@ -300,23 +311,35 @@ def phase_paged(records: list) -> None:
     g = torch.Generator(device=device).manual_seed(SEED)
     # a free slot (0), one token, a partial last page, the full horizon
     lengths = [0, 1, 300, 1024, 517, 256, 77, 900]
-    cases = [(dt, 12, 2, 128) for dt in ("bfloat16", "float32", "int8",
-                                         "float8_e4m3fn")]
-    cases += [(dt, h, kh, d) for h, kh, d in EXTRA_SHAPES
+    cases = [(dt, 12, 2, 128, 256) for dt in ("bfloat16", "float32", "int8",
+                                              "float8_e4m3fn")]
+    cases += [(dt, h, kh, d, 256) for h, kh, d in EXTRA_SHAPES
               for dt in ("bfloat16", "float32")]
+    cases.append(("int8", 12, 1, 128, 256))
+    # pages of 16 tokens: a 64-token tile spans four pages
+    cases += [(dt, 12, kh, 128, 16) for dt, kh in (
+        ("bfloat16", 2), ("int8", 2), ("float8_e4m3fn", 2), ("bfloat16", 1))]
     line = []
-    for dt_name, h, kh, d in cases:
-        args = _paged_inputs(dt_name, g, device, lengths, h, kh, d)
+    for dt_name, h, kh, d, page in cases:
+        args = _paged_inputs(dt_name, g, device, lengths, h, kh, d,
+                             pps=1024 // page, page=page)
+        tc0 = ops.tc_launches
         out = ops.paged_attention(*args)
+        tag = (f"{dt_name} H{h}/{kh} D{d}" + (f" page {page}"
+                                              if page != 256 else "")
+               + _step_tag(ops.tc_launches - tc0, dt_name != "float32"))
+        again = ops.paged_attention(*args)
         ref = paged_attention_ref(*args)
         torch.cuda.synchronize()
+        if not torch.equal(out, again):
+            raise AssertionError(f"paged {tag}: a repeated call differs")
         q, kp, vp, bt, lens, ks, vs = args
         v = vp.float() if vs is None else vp.float() * vs[:, None, :, None]
         v_rms = v.pow(2).mean().sqrt().item()
-        line.append(check_close(f"{dt_name} H{h}/{kh} D{d}", out, ref, v_rms))
+        line.append(check_close(tag, out, ref, v_rms))
         if not (out[0].float() == 0).all():
             raise AssertionError("paged: a length-0 slot must give zeros")
-        if (dt_name, h) != ("bfloat16", 12):
+        if (dt_name, h, kh, page) != ("bfloat16", 12, 2, 256):
             continue
         err = (out.float() - ref.float()).abs().max().item()
         nbytes, flops = paged_bytes_flops(q, kp, bt, lens, ks)
@@ -347,7 +370,8 @@ def phase_paged(records: list) -> None:
                         "library_ms": lib_ms, "launches": 0})
         line.append(f"ms {ms:.4f} plain {plain_ms:.4f} sdpa {lib_ms:.4f} "
                     f"bound {b_ms:.4f} ({b_by})")
-    print("[3 paged] " + "; ".join(line))
+    print(f"[3 paged] {len(cases)} cases, each repeated bit-equal; "
+          + "; ".join(line))
 
 
 def _flash_inputs(b, s, dt, g, device, h=12, kh=2, d=128):
@@ -635,9 +659,16 @@ def _qmm_check(g, device) -> str:
                 tag = f"M{m} K{k} N{n} bias {b is not None}"
                 equal(f"B5 {tag}", ops.w8a8_matmul_decode(x, qw, ws, bias=b),
                       w8a8_decode_ref(_cpu(x), _cpu(qw), _cpu(ws), _cpu(b)))
-                out = ops.fp8_matmul_decode(x, fw, fs, bias=b).cpu()
+                tc0 = ops.fp8_tc_launches
+                out = ops.fp8_matmul_decode(x, fw, fs, bias=b)
+                step = _step_tag(ops.fp8_tc_launches - tc0, True)
+                if not torch.equal(out, ops.fp8_matmul_decode(x, fw, fs,
+                                                              bias=b)):
+                    raise AssertionError(f"B6 {tag}: a repeated call "
+                                         "differs")
+                out = out.cpu()
                 ref = fp8_decode_ref(_cpu(x), _cpu(fw), _cpu(fs), _cpu(b))
-                line = check_close(f"B6 {tag}", out, ref,
+                line = check_close(f"B6 {tag}{step}", out, ref,
                                    ref.float().pow(2).mean().sqrt().item())
                 errs["B6"] = max(errs["B6"], (out.float() - ref.float())
                                  .abs().max().item())
@@ -651,6 +682,17 @@ def _qmm_check(g, device) -> str:
                   int8_matmul_ref(_cpu(xq), _cpu(qw), _cpu(xs), _cpu(ws),
                                   bf16))
             n_cases += 1
+    # fp32 x: B6's FMA step
+    fw, fs, bias = _qlinear(g, device, 1536, 256, "fp8")
+    x = torch.randn((8, 1536), generator=g, device=device)
+    tc0 = ops.fp8_tc_launches
+    out = ops.fp8_matmul_decode(x, fw, fs, bias=bias)
+    step = _step_tag(ops.fp8_tc_launches - tc0, False)
+    ref = fp8_decode_ref(_cpu(x), _cpu(fw), _cpu(fs), _cpu(bias))
+    line = check_close(f"B6 M8 K1536 N256 fp32 x{step}", out.cpu(), ref,
+                       ref.float().pow(2).mean().sqrt().item())
+    worst = max(worst, float(line.split("worst ")[1].split()[0]))
+    n_cases += 1
     m, k, n = 257, 513, 129
     qw, ws, _ = _qlinear(g, device, k, n, "int8")
     xq, xs = quantize_rowwise(torch.randn((m, k), generator=g, device=device))
@@ -660,8 +702,9 @@ def _qmm_check(g, device) -> str:
               int8_matmul_ref(_cpu(xq), _cpu(qw), _cpu(xs), _cpu(ws), dt))
         n_cases += 1
     return (f"{n_cases} cases: B4 and B5 bit-equal to the plain version on "
-            f"the CPU copy; B6 worst element {worst:.2f} of its limit, max "
-            f"abs err {errs['B6']:.3e}"), errs
+            f"the CPU copy; B6 (bf16 x on the tensor cores, each call "
+            f"repeated bit-equal) worst element {worst:.2f} of its limit, "
+            f"max abs err {errs['B6']:.3e}"), errs
 
 
 def _qmm_times(kind: str, m: int, k: int, n: int, g, device) -> dict:
@@ -964,8 +1007,8 @@ def phase_e2e(records: list) -> dict:
     for r in records:
         if r["name"] in launches:
             r["launches"] = launches[r["name"]]
-        if r["name"] == "flash_attention":
-            r["tc_launches"] = tc["flash_attention"]
+        if r["name"] in ("flash_attention", "paged_attention"):
+            r["tc_launches"] = tc[r["name"]]
 
     # one admission prefill and one decode step, kernels vs plain versions,
     # on the same cache (the decode step rewrites the same K/V both times)
@@ -1259,8 +1302,9 @@ def _reset_launches() -> None:
     from repro_torch.kernels.rmsnorm import ops as rops
     from repro_torch.kernels.wkv6 import ops as wops
     fops.launches = pops.launches = pops.extend_launches = 0
-    fops.tc_launches = pops.extend_tc_launches = 0
+    fops.tc_launches = pops.extend_tc_launches = pops.tc_launches = 0
     qmm.launches = qmm.decode_launches = qmm.fp8_launches = 0
+    qmm.fp8_tc_launches = 0
     rops.launches = wops.launches = 0
 
 
@@ -1281,13 +1325,17 @@ def _read_launches() -> dict:
 
 
 def _tc_launches(tag: str) -> dict:
-    """B3 / B2 launches of a bf16 drive that took the tensor-core tile
-    step; raises unless every launch since the last reset took it."""
+    """B1 / B2 / B3 / B6 launches of a bf16 drive that took the
+    tensor-core step; raises unless every launch since the last reset
+    took it."""
     from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.int8_matmul import ops as qmm
     from repro_torch.kernels.paged_attention import ops as pops
     launches = _read_launches()
     tc = {"flash_attention": fops.tc_launches,
-          "paged_prefix_extend": pops.extend_tc_launches}
+          "paged_prefix_extend": pops.extend_tc_launches,
+          "paged_attention": pops.tc_launches,
+          "fp8_decode_matmul": qmm.fp8_tc_launches}
     for name, n in tc.items():
         if n != launches[name]:
             raise AssertionError(f"{tag}: {name} took the tensor-core step "
@@ -1545,6 +1593,7 @@ def phase_fp8(records: list) -> dict:
     for r in records:
         if r["name"] == "fp8_decode_matmul":
             r["launches"] = launches[r["name"]]
+            r["tc_launches"] = tc[r["name"]]
     out = {"tokens_per_s": n_tok / wall, "ttft_p50_s": statistics.median(ttft),
            "wall_s": wall, "tokens": n_tok, "requests": n_req,
            "admission_rows": rows, "decode_steps": steps,

@@ -5,6 +5,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -45,6 +46,28 @@ __device__ __forceinline__ void load_f32(const T* p, float (&out)[N]) {
   const VecT<T, N> v = *reinterpret_cast<const VecT<T, N>*>(p);
 #pragma unroll
   for (int i = 0; i < N; ++i) out[i] = to_f32<T>(v.v[i]);
+}
+
+// Launches ``kernel`` over ``grid`` in thread block clusters of
+// ``cluster`` blocks: the blocks of a cluster run at once on neighbouring
+// SMs and can read each other's shared memory (at most 8 a cluster).
+template <typename... Params, typename... Args>
+cudaError_t launch_clusters(void (*kernel)(Params...), dim3 grid,
+                            dim3 cluster, int threads, size_t smem,
+                            cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster.x;
+  attr[0].val.clusterDim.y = cluster.y;
+  attr[0].val.clusterDim.z = cluster.z;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
 }  // namespace repro

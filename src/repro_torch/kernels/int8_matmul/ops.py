@@ -9,7 +9,9 @@ The kernels mask ragged M, N and K themselves, so nothing is padded to
 tiles here (the reference pads to its Pallas blocks).  ``launches``,
 ``decode_launches`` and ``fp8_launches`` count kernel launches (one per
 call on a CUDA tensor), so a run can show that its linears went through
-the kernels.  ``int4_matmul`` has no kernel in the reference either.
+the kernels; ``fp8_tc_launches`` counts the fp8 launches that took the
+kernel's tensor-core step (bf16 x; fp32 x takes the FMA step).
+``int4_matmul`` has no kernel in the reference either.
 """
 from __future__ import annotations
 
@@ -28,10 +30,15 @@ from repro_torch.kernels.int8_matmul.ref import (fp8_decode_ref,
 launches = 0            # B4 tiled W8A8
 decode_launches = 0     # B5 W8A8 decode
 fp8_launches = 0        # B6 fp8 decode
+fp8_tc_launches = 0     # of those, on the tensor-core step
 
 DECODE_M_MAX = 128      # rows the decode kernels take (the dispatch's split)
 _TILE_N = 128           # columns per decode block (csrc kBN)
+_TC_ROWS = 8            # x rows per tensor-core block (csrc tc_step::kMT)
+_TC_STAGE_K = 64        # k-rows per ring stage (csrc tc_step::kKS)
+_MAX_CLUSTER = 8        # k-ranges of a tensor-core column tile (a cluster)
 _TARGET_BLOCKS = 264    # two blocks per SM on a 132-SM H100
+_TC_TARGET_BLOCKS = 528  # four tensor-core blocks per SM (28 KB rings)
 _MIN_SPLIT_K = 64
 _PARTIAL_BYTES = 8 << 20
 _X_DTYPES = (torch.float32, torch.bfloat16)
@@ -41,17 +48,22 @@ _X_DTYPES = (torch.float32, torch.bfloat16)
 _COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
-def decode_split(m: int, k: int, n: int) -> tuple[int, int]:
+def decode_split(m: int, k: int, n: int, tc: bool = False
+                 ) -> tuple[int, int]:
     """(n_split, k_per_split) of a decode launch: enough K ranges that
-    column tiles x ranges fill the card, each at least 64 deep (a multiple
-    of 4), with the split partials bounded to 8 MB."""
-    tiles = -(-n // _TILE_N)
-    want = -(-_TARGET_BLOCKS // tiles)
+    the blocks (column tiles x ranges, and on the tensor-core step x
+    blocks of 8 rows) fill the card.  FMA step: two blocks an SM, ranges
+    at least 64 deep in multiples of 4, the split partials bounded to 8
+    MB.  Tensor-core step: four blocks an SM, ranges in whole 64-row ring
+    stages, at most 8 (one thread block cluster), summed on chip."""
+    blocks = -(-n // _TILE_N) * (-(-m // _TC_ROWS) if tc else 1)
+    want = -(-(_TC_TARGET_BLOCKS if tc else _TARGET_BLOCKS) // blocks)
     cap_k = max(1, k // _MIN_SPLIT_K)
-    cap_mem = max(1, _PARTIAL_BYTES // (m * n * 4))
-    s = max(1, min(want, cap_k, cap_mem))
+    cap = _MAX_CLUSTER if tc else max(1, _PARTIAL_BYTES // (m * n * 4))
+    s = max(1, min(want, cap_k, cap))
+    step = _TC_STAGE_K if tc else 4
     kps = -(-k // s)
-    kps = -(-kps // 4) * 4
+    kps = -(-kps // step) * step
     return -(-k // kps), kps
 
 
@@ -156,7 +168,7 @@ def _counters(device: torch.device, tiles: int) -> torch.Tensor:
 
 
 def _launch_decode(name, x2, wq, ws, bias, out_dtype):
-    global decode_launches, fp8_launches
+    global decode_launches, fp8_launches, fp8_tc_launches
     int8 = name == "w8a8_decode"
     want_w = torch.int8 if int8 else torch.float8_e4m3fn
     _check(name, x2.ndim == 2 and wq.ndim == 2 and wq.shape[0] == x2.shape[1],
@@ -175,10 +187,15 @@ def _launch_decode(name, x2, wq, ws, bias, out_dtype):
                "bias must be fp32 or bf16 (N,)")
         tensors.append(bias)
     _check_tensors(name, tensors, x2.device)
-    n_split, kps = decode_split(m, k, n)
+    tc = 0
+    if not int8:
+        aligned16 = int(x2.data_ptr() % 16 == 0 and wq.data_ptr() % 16 == 0)
+        tc = build.tc_step_query(name)(build.DTYPE_CODES[x2.dtype], k, n,
+                                       aligned16)
+    n_split, kps = decode_split(m, k, n, tc=bool(tc))
     out = torch.empty((m, n), dtype=out_dtype, device=x2.device)
     partial = counters = None
-    if n_split > 1:
+    if n_split > 1 and not tc:
         partial = torch.empty((n_split, m, n), device=x2.device,
                               dtype=torch.int32 if int8 else torch.float32)
         counters = _counters(x2.device, -(-n // _TILE_N))
@@ -194,12 +211,15 @@ def _launch_decode(name, x2, wq, ws, bias, out_dtype):
     if int8:
         args.append(int((k * x2.element_size()) % 16 == 0
                         and x2.data_ptr() % 16 == 0))
+    else:
+        args.append(aligned16)
     rc = fn(*args, build.stream_handle(x2.device))
     build.check_status(name, rc, err)
     if int8:
         decode_launches += 1
     else:
         fp8_launches += 1
+        fp8_tc_launches += tc
     return out
 
 

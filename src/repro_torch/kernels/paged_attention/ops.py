@@ -6,10 +6,10 @@ hand-written kernels (``csrc/paged_attention.cu``,
 ``csrc/paged_prefix_extend.cu``) or raise; there is no fallback.
 ``launches`` and ``extend_launches`` count kernel launches (one per call on
 a CUDA tensor), so a run can show that its decode steps and its chunked
-prefill continuations went through the kernels; ``extend_tc_launches``
-counts the prefix-extend launches that took the kernel's tensor-core tile
-step (bf16 q and chunk over bf16 / int8 / fp8 pools; other dtypes take
-the FMA step).
+prefill continuations went through the kernels; ``tc_launches`` and
+``extend_tc_launches`` count the launches that took a kernel's
+tensor-core step (bf16 q over bf16 / int8 / fp8 pools, and for prefix
+extend a bf16 chunk; other dtypes take the FMA step).
 """
 from __future__ import annotations
 
@@ -23,25 +23,29 @@ from repro_torch.kernels.paged_attention.ref import (paged_attention_ref,
 
 #: kernel launches since the last reset (plain integers; reset by callers)
 launches = 0            # paged decode
+tc_launches = 0         # of those, on the tensor-core step
 extend_launches = 0     # prefix extend
 extend_tc_launches = 0  # of those, on the tensor-core tile step
 
 _Q_DTYPES = (torch.float32, torch.bfloat16)
 _KV_DTYPES = (torch.float32, torch.bfloat16, torch.int8, torch.float8_e4m3fn)
 _HEAD_DIMS = (16, 64, 128)      # the port's configs (held by chip_smoke.py)
-_MAX_GROUP = 8                 # query heads per kv head (csrc kMaxG)
-_TARGET_BLOCKS = 264           # two blocks per SM on a 132-SM H100
-_MIN_SPLIT_TOKENS = 64
+_TARGET_BLOCKS = 132           # one block per SM on a 132-SM H100
+_MAX_SPLIT = 8                 # splits of a cluster (csrc: at most 8)
+_TILE = 64                     # tokens per key tile (csrc tc::kBK)
+_ROW_GROUP = {True: 16, False: 8}   # query heads per block, by step
 
 
-def split_plan(n_slots: int, kv_heads: int, horizon: int) -> tuple[int, int]:
-    """(n_split, tokens_per_split): cut each slot's token horizon into
-    ranges so that slots x kv heads x splits fills the card, with ranges of
-    at least 64 tokens in multiples of 16 (4 warps x 4 tokens)."""
-    want = -(-_TARGET_BLOCKS // max(n_slots * kv_heads, 1))
-    n_split = max(1, min(want, -(-horizon // _MIN_SPLIT_TOKENS)))
+def split_plan(n_slots: int, kv_heads: int, horizon: int,
+               row_groups: int = 1) -> tuple[int, int]:
+    """(n_split, tokens_per_split): cut each slot's token horizon into at
+    most 8 ranges (a thread block cluster) so that slots x kv heads x row
+    groups x splits fills the card once, with ranges in whole 64-token
+    tiles."""
+    want = -(-_TARGET_BLOCKS // max(n_slots * kv_heads * row_groups, 1))
+    n_split = max(1, min(want, _MAX_SPLIT, -(-horizon // _TILE)))
     tps = -(-horizon // n_split)
-    tps = -(-tps // 16) * 16
+    tps = -(-tps // _TILE) * _TILE
     return -(-horizon // tps), tps
 
 
@@ -98,7 +102,7 @@ def _check_tensors(check, tensors, device) -> None:
 
 
 def _launch(q, k_pages, v_pages, block_table, lengths, k_scales, v_scales):
-    global launches
+    global launches, tc_launches
     check = _checker("paged_attention")
     s_n, h, d = q.shape
     n_pages, page, kh, d_kv = k_pages.shape
@@ -110,33 +114,30 @@ def _launch(q, k_pages, v_pages, block_table, lengths, k_scales, v_scales):
     _check_tensors(check, tensors, q.device)
     check(q.dtype in _Q_DTYPES, f"q dtype {q.dtype}")
     check(all(t.data_ptr() % 16 == 0 for t in (q, k_pages, v_pages)),
-          "q and pools must be 16-byte aligned (vector loads)")
+          "q and pools must be 16-byte aligned (vector loads and "
+          "asynchronous copies)")
     check(d == d_kv and d in _HEAD_DIMS, f"head dim {d} (pools {d_kv})")
-    check(h % kh == 0 and h // kh <= _MAX_GROUP,
-          f"{h} heads over {kh} kv heads")
+    check(h % kh == 0, f"{h} heads over {kh} kv heads")
     check(block_table.dtype == torch.int32
           and tuple(block_table.shape) == (s_n, p_n), "block_table")
     check(lengths.dtype == torch.int32 and tuple(lengths.shape) == (s_n,),
           "lengths")
+    dts = [build.DTYPE_CODES[t.dtype] for t in (q, k_pages)]
+    tc = build.tc_step_query("paged_attention")(*dts)
     fn, err = build.load("paged_attention")
-    n_split, tps = split_plan(s_n, kh, p_n * page)
-    g = h // kh
+    rows = _ROW_GROUP[bool(tc)]
+    groups = -(-(h // kh) // rows)
+    n_split, tps = split_plan(s_n, kh, p_n * page, groups)
     out = torch.empty_like(q)
-    part_m = torch.empty((s_n, kh, n_split, g), device=q.device,
-                         dtype=torch.float32)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((s_n, kh, n_split, g, d), device=q.device,
-                           dtype=torch.float32)
     rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_table.data_ptr(), lengths.data_ptr(),
             k_scales.data_ptr() if quantized else None,
             v_scales.data_ptr() if quantized else None,
-            out.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
-            part_acc.data_ptr(), s_n, h, kh, d, page, p_n, n_split, tps,
-            1.0 / (d ** 0.5), build.DTYPE_CODES[q.dtype],
-            build.DTYPE_CODES[k_pages.dtype], build.stream_handle(q.device))
+            out.data_ptr(), s_n, h, kh, d, page, p_n, n_split, tps,
+            1.0 / (d ** 0.5), *dts, build.stream_handle(q.device))
     build.check_status("paged_attention", rc, err)
     launches += 1
+    tc_launches += tc
     return out
 
 

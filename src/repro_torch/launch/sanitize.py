@@ -1,0 +1,98 @@
+"""Small launches of the kernels that stage tiles through ``cp.async``
+rings (B1 paged decode, B6 fp8 decode, B2 prefix extend, B3 flash
+prefill), for a run under NVIDIA's compute-sanitizer:
+
+    compute-sanitizer --tool racecheck python -m repro_torch.launch.sanitize
+    compute-sanitizer --tool synccheck python -m repro_torch.launch.sanitize
+
+Each case is one launch at a small shape, on the tensor-core step and
+(B1, B6) the FMA step, held to its plain version so that a hazard the
+tool reports can be told from a wrong result.  Prints one line a case
+and exits non-zero if a result is off.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.flash_attention import ops as fops
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.int8_matmul import ops as qmm
+from repro_torch.kernels.int8_matmul.ref import fp8_decode_ref
+from repro_torch.kernels.paged_attention import ops as pops
+from repro_torch.kernels.paged_attention.ref import (paged_attention_ref,
+                                                     paged_prefix_extend_ref)
+from repro_torch.quant.qops import quantize_linear
+
+TOL = 2e-2
+
+
+def _paged(g, dev, dt, h=12, kh=2, d=64, page=16, pps=8):
+    lens = [0, 5, 100, pps * page]
+    n = len(lens) * pps + 1
+    qdt = torch.float32 if dt == torch.float32 else torch.bfloat16
+    q = torch.randn((len(lens), h, d), generator=g, device=dev).to(qdt)
+    ks = vs = None
+    if dt == torch.int8:
+        kp, vp = (torch.randint(-127, 128, (n, page, kh, d), generator=g,
+                                device=dev, dtype=torch.int8)
+                  for _ in range(2))
+        ks, vs = (torch.rand((n, kh), generator=g, device=dev) * 0.05
+                  + 0.01 for _ in range(2))
+    else:
+        kp, vp = (torch.randn((n, page, kh, d), generator=g,
+                              device=dev).to(dt) for _ in range(2))
+    bt = (torch.randperm(n - 1, generator=g, device=dev) + 1)[:len(lens) * pps]
+    bt = bt.reshape(len(lens), pps).to(torch.int32).contiguous()
+    return (q, kp, vp, bt, torch.tensor(lens, dtype=torch.int32, device=dev),
+            ks, vs)
+
+
+def _cases(g, dev):
+    bf16 = torch.bfloat16
+    for dt, h, kh in ((bf16, 12, 2), (bf16, 32, 1), (torch.int8, 12, 1),
+                      (torch.float32, 12, 2)):
+        args = _paged(g, dev, dt, h, kh)
+        yield (f"B1 {str(dt)[6:]} pools H{h}/{kh}", pops.paged_attention,
+               paged_attention_ref, args)
+    for x_dt in (bf16, torch.float32):
+        p = quantize_linear({"w": torch.randn((512, 256), generator=g,
+                                              device=dev) * 0.02},
+                            quant="fp8")
+        x = torch.randn((8, 512), generator=g, device=dev).to(x_dt)
+        yield (f"B6 {str(x_dt)[6:]} x", qmm.fp8_matmul_decode,
+               fp8_decode_ref, (x, p["qw"], p["scale"]))
+    q, kp, vp, bt, _, _, _ = _paged(g, dev, bf16, d=64)
+    w = 16
+    starts = torch.tensor([0, 5, 64, 100], dtype=torch.int32, device=dev)
+    widths = torch.tensor([16, 3, 16, 9], dtype=torch.int32, device=dev)
+    qc = torch.randn((4, w, 12, 64), generator=g, device=dev).to(bf16)
+    kc, vc = (torch.randn((4, w, 2, 64), generator=g, device=dev).to(bf16)
+              for _ in range(2))
+    yield ("B2 bf16", pops.paged_prefix_extend_attention,
+           paged_prefix_extend_ref,
+           (qc, kp, vp, bt, starts, kc, vc, widths))
+    qf, kf, vf = (torch.randn((2, 100, hh, 64), generator=g,
+                              device=dev).to(bf16) for hh in (12, 2, 2))
+    yield "B3 bf16", fops.flash_attention, attention_ref, (qf, kf, vf)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("sanitize: no CUDA device")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    bad = 0
+    for tag, fn, ref, args in _cases(g, dev):
+        out = fn(*args)
+        torch.cuda.synchronize()
+        want = ref(*args)
+        err = ((out.float() - want.float()).abs()
+               / (want.float().abs() + 1.0)).max().item()
+        ok = err <= TOL
+        bad += not ok
+        print(f"{tag}: max err {err:.2e} {'ok' if ok else 'OFF'}")
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

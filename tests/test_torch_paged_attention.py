@@ -76,6 +76,8 @@ def _check(args, tol):
     (3, 4, 2, 64, 8, 4),      # GQA
     (2, 8, 1, 64, 16, 2),     # MQA
     (4, 8, 2, 128, 32, 2),    # bigger head dim / page
+    (2, 12, 1, 32, 8, 3),     # qwen2-1.5b's 12 heads over one (mqa)
+    (2, 32, 1, 16, 8, 3),     # llama3.2-1b's 32 heads over one (mqa)
 ])
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
 def test_paged_plain_matches_jax_kernel_and_ref(s, h, kvh, d, page, pps,
@@ -90,6 +92,7 @@ def test_paged_plain_matches_jax_kernel_and_ref(s, h, kvh, d, page, pps,
 @pytest.mark.parametrize("s,h,kvh,d,page,pps", [
     (3, 4, 2, 64, 8, 4),      # GQA
     (2, 8, 1, 32, 16, 2),     # MQA
+    (2, 12, 1, 32, 8, 3),     # a group of 12 (mqa)
 ])
 def test_paged_plain_matches_jax_quantized_pools(kv, s, h, kvh, d, page,
                                                  pps):
@@ -101,13 +104,15 @@ def test_paged_plain_matches_jax_quantized_pools(kv, s, h, kvh, d, page,
 
 def test_split_plan_covers_horizon():
     """The kernel's token ranges tile every slot's horizon exactly, in
-    multiples of 16 tokens, and fill the card at the serving shape."""
-    for n_slots, kh, horizon in [(8, 2, 1024), (1, 1, 8), (2, 4, 96),
-                                 (64, 8, 4096)]:
-        n_split, tps = torch_ops.split_plan(n_slots, kh, horizon)
-        assert tps % 16 == 0 and n_split * tps >= horizon
+    whole 64-token tiles, and fill the card once at the serving shape
+    (8 slots x 2 kv heads x 8 ranges of 128 tokens)."""
+    for n_slots, kh, horizon, groups in [(8, 2, 1024, 1), (1, 1, 8, 1),
+                                         (2, 4, 96, 1), (64, 8, 4096, 1),
+                                         (8, 1, 1024, 2), (3, 1, 300, 4)]:
+        n_split, tps = torch_ops.split_plan(n_slots, kh, horizon, groups)
+        assert tps % 64 == 0 and n_split * tps >= horizon
         assert (n_split - 1) * tps < horizon
-    assert torch_ops.split_plan(8, 2, 1024) == (16, 64)
+    assert torch_ops.split_plan(8, 2, 1024) == (8, 128)
 
 
 def test_wrapper_dispatches_on_device_only():

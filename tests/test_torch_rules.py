@@ -142,6 +142,27 @@ def test_attention_kernels_use_tensor_cores_and_async_copies(src):
     assert "cp.async" in text, src
 
 
+@pytest.mark.parametrize("src", ["paged_attention.cu", "fp8_decode.cu"])
+def test_decode_kernels_use_tensor_cores_and_async_copies(src):
+    """B1 and B6 (with the headers they include) run a tensor-core
+    product and fill their rings with asynchronous copies."""
+    text = _with_includes(ROOT / "src" / "repro_torch" / "csrc" / src)
+    assert "mma.sync.aligned.m16n8k16" in text, src
+    assert "cp.async" in text, src
+
+
+def test_paged_decode_takes_any_group():
+    """Neither B1's source nor its wrapper caps the query heads a kv head
+    serves: the kernel cuts any group into row groups."""
+    cu = (ROOT / "src" / "repro_torch" / "csrc" /
+          "paged_attention.cu").read_text()
+    ops = (ROOT / "src" / "repro_torch" / "kernels" / "paged_attention" /
+           "ops.py").read_text()
+    assert "kMaxG" not in cu and "_MAX_GROUP" not in ops
+    assert not re.search(r"h\s*//\s*kh\s*<=", ops)
+    assert not re.search(r"H\s*/\s*KH\s*>", cu)
+
+
 def test_port_calls_no_library_attention():
     """No module or CUDA source of the port calls PyTorch's fused
     attention: SDPA is only chip_smoke.py's yardstick."""
