@@ -5,7 +5,9 @@
 Phases (each prints one line; any failure raises and exits non-zero):
   1. device    — require CUDA, print the card's name and power limit,
                  turn TF32 off for fp32 products
-  2. build     — compile the hand-written CUDA kernels from csrc/
+  2. build     — compile the hand-written CUDA kernels from csrc/ (fails
+                 if a tensor-core instantiation spills; prints ptxas's
+                 wgmma serialisation notes)
   3. paged     — paged decode kernel vs its plain version, element by
                  element, at the serving shapes (8 slots, 12 heads over
                  2 kv heads, D 128, page 256), bf16 / fp32 / int8 / fp8
@@ -39,9 +41,12 @@ Phases (each prints one line; any failure raises and exits non-zero):
                  cached suffix, and one continuation chunk's logits with
                  kernels vs plain versions
   8. qmm       — the quantized-matmul kernels vs their plain versions at
-                 qwen2-1.5b's linears: tiled W8A8 (B4, M 129 / 4,096 and a
-                 ragged shape) and W8A8 decode (B5, M 1 / 8 / 128) bit for
-                 bit against the plain version on the CPU copy, fp8
+                 qwen2-1.5b's linears: tiled W8A8 (B4, M 129 / 777 / 4,096,
+                 each case tagged with its step, the wgmma-step cases
+                 called twice, bit-equal; K / N tails on the wgmma step,
+                 64-aligned and unaligned K on the ragged step) and W8A8
+                 decode (B5, M 1 / 8 / 128) bit for bit against the plain
+                 version on the CPU copy, fp8
                  decode (B6) element by element (bf16 x on the tensor
                  cores, called twice, bit-equal; one fp32-x case on the
                  FMA step); times; then the trap-4
@@ -51,6 +56,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
                  pools (8 requests, 4 behind the system prompt): launches
                  of B4 / B5 = 196 x the dispatches with M > 128 / <= 128
                  rows (decode steps included) and of B1-B3 as in phase 7,
+                 every B4 launch on its wgmma step,
                  requant events, a repeated prompt; one continuation
                  chunk's and one decode step's logits with B4 / B5 equal
                  to the plain matmuls', and every B2 / B1 call of those
@@ -61,12 +67,13 @@ Phases (each prints one line; any failure raises and exits non-zero):
                  every B6 and B1 launch on the tensor-core step
  11. wkv6      — the WKV-6 kernel (B8) vs its plain version on CPU copies
                  of the operands, o and the final state element by element
-                 (B 1, H 32, D 64, S in {1, 64, 100, 3,000}; B 4, S 512;
-                 zero and non-zero s0; bf16 and fp32 r/k/v), timed at one
-                 2,048-token admission
+                 (B 1, H 32, D 64, S in {1, 16, 17, 64, 100, 3,000}; B 4,
+                 S 512; zero and non-zero s0; bf16 and fp32 r/k/v), timed
+                 at one 2,048-token admission
  12. rmsnorm   — the RMSNorm kernel (B7) vs its plain version within one
                  bf16 ulp (the reference's test_rmsnorm shapes, qwen2-1.5b's
-                 4,096 and 8 rows), timed beside F.rms_norm
+                 4,096 and 8 rows), timed beside F.rms_norm, then the two
+                 in turns over 8 rounds (median ratio and its spread)
  13. rwkv      — rwkv6-1.6b at full width (24 layers) through the port's
                  eager Engine, 8 slots: 16 requests of 200-3,000 prompt
                  tokens; token counts, syncs = admissions + decode steps, B8
@@ -75,11 +82,12 @@ Phases (each prints one line; any failure raises and exits non-zero):
                  its plain version
 B7 takes every RMSNorm of the qwen2-1.5b drives: 57 launches a forward
 (phases 5, 7, 9, 10).  Every B1 / B2 / B3 launch of those drives (bf16
-activations), and every B6 launch of phase 10, must take the
-tensor-core step: their tensor-core launch counts are printed beside the
-launch counts and must equal them.  Launch counts are zeroed just before
-each drive (phases 5, 7, 9, 10, 13) and read just after it; peak memory
-is read for the set-up and, restarted, for the drive.  Then one JSON
+activations), every B4 launch of phase 9 and every B6 launch of phase 10
+must take the tensor-core step: their tensor-core launch counts are
+printed beside the launch counts and must equal them.  Launch counts are
+zeroed just before each drive (phases 5, 7, 9, 10, 13) and read just
+after it; peak memory is read for the set-up and, restarted, for the
+drive.  Then one JSON
 line of kernel numbers, and last the result line ``{"ok": true,
 "device": {...}}``.
 """
@@ -99,7 +107,7 @@ sys.path.insert(0, str(ROOT / "src"))
 #: H100 SXM published peaks (NVIDIA data sheet; dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float8_e4m3fn": 1979e12,
-              "int8": 1979e12, "float32": 67e12}
+              "int8": 1979e12, "float32": 67e12, "tfloat32": 495e12}
 
 SEED = 0
 
@@ -185,10 +193,15 @@ def phase_build() -> dict:
             "\n\n".join(f"== {n}\n{i['log']}" for n, i in built.items()))
     if spills:
         raise AssertionError(f"tensor-core tile step spills: {spills}")
+    # ptxas notes a kernel whose wgmma instructions it had to serialise
+    serial = {n: sum("wgmma.mma_async instructions are serialized" in ln
+                     for ln in i["log"].splitlines())
+              for n, i in built.items()}
     print(f"[2 build] {sorted(build.SOURCES)} in {dt:.1f}s "
           f"(compiled now: {sorted(built)}; "
           f"max registers: {_max_regs(regs)}; tensor-core instantiations "
-          f"without spills: {sum(n for n, _ in tc.values())})")
+          f"without spills: {sum(n for n, _ in tc.values())}; wgmma "
+          f"serialisation notes: {sum(serial.values())})")
     return {"seconds": dt}
 
 
@@ -627,8 +640,11 @@ def _cpu(t):
 
 def _qmm_check(g, device) -> str:
     """Every case of the phase: B5 / B6 at M 1, 8, 128 and B4 at M 129,
-    4,096 over qwen2-1.5b's linears, bf16 x, with and without a bias (B5,
-    B6), plus B4 at a ragged 257 x 513 x 129 in both out types."""
+    777, 4,096 over qwen2-1.5b's linears, bf16 x, with and without a bias
+    (B5, B6); B4 off those shapes in both out types: 300 x 1040 x 272 on
+    its wgmma step (K and N tails), 257 x 512 x 129 and 257 x 513 x 129 on
+    its ragged step.  Each B4 case names its step and fails on the wrong
+    one; a wgmma-step case is called twice, bit-equal."""
     torch = _torch()
     from repro_torch.kernels.int8_matmul import ops
     from repro_torch.kernels.int8_matmul.ref import (fp8_decode_ref,
@@ -648,6 +664,25 @@ def _qmm_check(g, device) -> str:
             bad = int((out != ref).sum())
             raise AssertionError(f"{tag}: {bad} elements differ from the "
                                  "plain version on the CPU copy")
+
+    steps = {"wgmma": 0, "ragged": 0}
+
+    def b4(tag, xq, qw, xs, ws, dt, want_tc):
+        """B4 against its plain version, tagged with the step it took; a
+        wgmma-step case is called twice, bit-equal."""
+        tc0 = ops.tc_launches
+        out = ops.int8_matmul(xq, qw, xs, ws, out_dtype=dt)
+        tc = ops.tc_launches - tc0
+        if tc != int(want_tc):
+            raise AssertionError(f"B4 {tag}: {tc} wgmma-step launches, want "
+                                 f"{int(want_tc)}")
+        step = "wgmma" if tc else "ragged"
+        steps[step] += 1
+        if tc and not torch.equal(out, ops.int8_matmul(xq, qw, xs, ws,
+                                                       out_dtype=dt)):
+            raise AssertionError(f"B4 {tag}: a repeated call differs")
+        equal(f"B4 {tag} [{step}]", out,
+              int8_matmul_ref(_cpu(xq), _cpu(qw), _cpu(xs), _cpu(ws), dt))
 
     n_cases, worst = 0, 0.0
     for k, n in QMM_SHAPES:
@@ -674,13 +709,10 @@ def _qmm_check(g, device) -> str:
                                  .abs().max().item())
                 worst = max(worst, float(line.split("worst ")[1].split()[0]))
                 n_cases += 2
-        for m in (129, 4096):
+        for m in (129, 777, 4096):
             xq, xs = quantize_rowwise(
                 torch.randn((m, k), generator=g, device=device).to(bf16))
-            equal(f"B4 M{m} K{k} N{n}",
-                  ops.int8_matmul(xq, qw, xs, ws, out_dtype=bf16),
-                  int8_matmul_ref(_cpu(xq), _cpu(qw), _cpu(xs), _cpu(ws),
-                                  bf16))
+            b4(f"M{m} K{k} N{n}", xq, qw, xs, ws, bf16, True)
             n_cases += 1
     # fp32 x: B6's FMA step
     fw, fs, bias = _qlinear(g, device, 1536, 256, "fp8")
@@ -693,18 +725,24 @@ def _qmm_check(g, device) -> str:
                        ref.float().pow(2).mean().sqrt().item())
     worst = max(worst, float(line.split("worst ")[1].split()[0]))
     n_cases += 1
-    m, k, n = 257, 513, 129
-    qw, ws, _ = _qlinear(g, device, k, n, "int8")
-    xq, xs = quantize_rowwise(torch.randn((m, k), generator=g, device=device))
-    for dt in (bf16, torch.float32):
-        equal(f"B4 ragged {m}x{k}x{n} {dt}",
-              ops.int8_matmul(xq, qw, xs, ws, out_dtype=dt),
-              int8_matmul_ref(_cpu(xq), _cpu(qw), _cpu(xs), _cpu(ws), dt))
-        n_cases += 1
-    return (f"{n_cases} cases: B4 and B5 bit-equal to the plain version on "
-            f"the CPU copy; B6 (bf16 x on the tensor cores, each call "
-            f"repeated bit-equal) worst element {worst:.2f} of its limit, "
-            f"max abs err {errs['B6']:.3e}"), errs
+    # B4 off the qwen2 shapes: a K tail and an N tail on the wgmma step
+    # (K, N multiples of 16), then the ragged step at a 64-aligned and an
+    # unaligned K (N 129)
+    for (m, k, n), want_tc in (((300, 1040, 272), True),
+                               ((257, 512, 129), False),
+                               ((257, 513, 129), False)):
+        qw, ws, _ = _qlinear(g, device, k, n, "int8")
+        xq, xs = quantize_rowwise(torch.randn((m, k), generator=g,
+                                              device=device))
+        for dt in (bf16, torch.float32):
+            b4(f"{m}x{k}x{n} {str(dt)[6:]}", xq, qw, xs, ws, dt, want_tc)
+            n_cases += 1
+    return (f"{n_cases} cases: B4 (the {steps['wgmma']} wgmma-step cases "
+            f"each called twice, bit-equal; {steps['ragged']} ragged-step "
+            f"cases) and B5 bit-equal to the plain version on the CPU copy; "
+            f"B6 (bf16 x on the tensor cores, each call repeated bit-equal) "
+            f"worst element {worst:.2f} of its limit, max abs err "
+            f"{errs['B6']:.3e}"), errs
 
 
 def _qmm_times(kind: str, m: int, k: int, n: int, g, device) -> dict:
@@ -1304,7 +1342,7 @@ def _reset_launches() -> None:
     fops.launches = pops.launches = pops.extend_launches = 0
     fops.tc_launches = pops.extend_tc_launches = pops.tc_launches = 0
     qmm.launches = qmm.decode_launches = qmm.fp8_launches = 0
-    qmm.fp8_tc_launches = 0
+    qmm.tc_launches = qmm.fp8_tc_launches = 0
     rops.launches = wops.launches = 0
 
 
@@ -1325,9 +1363,9 @@ def _read_launches() -> dict:
 
 
 def _tc_launches(tag: str) -> dict:
-    """B1 / B2 / B3 / B6 launches of a bf16 drive that took the
-    tensor-core step; raises unless every launch since the last reset
-    took it."""
+    """B1 / B2 / B3 / B4 / B6 launches of a drive that took the
+    tensor-core step (B4: its wgmma step); raises unless every launch
+    since the last reset took it."""
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.int8_matmul import ops as qmm
     from repro_torch.kernels.paged_attention import ops as pops
@@ -1335,6 +1373,7 @@ def _tc_launches(tag: str) -> dict:
     tc = {"flash_attention": fops.tc_launches,
           "paged_prefix_extend": pops.extend_tc_launches,
           "paged_attention": pops.tc_launches,
+          "int8_matmul": qmm.tc_launches,
           "fp8_decode_matmul": qmm.fp8_tc_launches}
     for name, n in tc.items():
         if n != launches[name]:
@@ -1435,6 +1474,8 @@ def phase_qsched(records: list) -> dict:
     for r in records:
         if r["name"] in ("int8_matmul", "w8a8_decode_matmul"):
             r["launches"] = launches[r["name"]]
+        if r["name"] == "int8_matmul":
+            r["wgmma_launches"] = tc["int8_matmul"]
 
     repeat = rng.integers(0, vocab, 1200)
     runs = []
@@ -1518,7 +1559,8 @@ def phase_qsched(records: list) -> dict:
           f"{d['cont']} continuation dispatches (rows {rows}) + "
           f"{d['blocks']} blocks = {d['syncs']} syncs, {d['steps']} decode "
           f"steps, {requant:.0f} requant events, launches {launches}, "
-          f"tensor-core launches {tc}, peak "
+          f"tensor-core launches {tc} (B4: {tc['int8_matmul']} of "
+          f"{launches['int8_matmul']} on the wgmma step), peak "
           f"mem {peak_gb:.2f} GB (set-up {setup_gb:.2f} GB); repeat prompt computed {comp_a} then "
           f"{comp_b} tokens, same tokens; continuation and decode logits "
           f"with B4 / B5 equal to the plain matmuls'; B2 / B1 on the int8 "
@@ -1675,8 +1717,8 @@ def _wkv6_inputs(g, device, b, s, dt, s0_scale, strong=False):
 
 def wkv6_bytes_ops(args) -> tuple:
     """Bytes the call must move (r/k/v in their type, logw and o in fp32,
-    u, s0 and s_final once) and the fp32 operations of the chunked form
-    for these inputs' real tokens: per chunk of n tokens and head, the
+    u, s0 and s_final once) and the operations of the chunked form for
+    these inputs' real tokens: per chunk of n tokens and head, the
     n(n+1)/2 scored pairs x D channels at 4 operations (exponential, two
     products, a sum), their n(n+1)/2 x D products with v at 2, the state's
     n x D x D read and update at 2 each, and the per-channel decays."""
@@ -1711,16 +1753,16 @@ def _check_rms(tag: str, out, ref, atol_rel: float) -> float:
 def phase_wkv6(records: list) -> None:
     """B8 vs its plain version on CPU copies of the operands, element by
     element (o and s_final within 1e-4 x their rms): B 1, H 32, D 64, S in
-    {1, 64, 100, 3,000}, and B 4, S 512; zero and non-zero s0, bf16 and
-    fp32 r/k/v, one case with strong decays.  Then its time at one
-    admission of phase 13 (B 1, S 2,048, bf16)."""
+    {1, 16, 17, 64, 100, 3,000}, and B 4, S 512; zero and non-zero s0,
+    bf16 and fp32 r/k/v, one case with strong decays.  Then its time at
+    one admission of phase 13 (B 1, S 2,048, bf16)."""
     torch = _torch()
     from repro_torch.kernels.wkv6 import ops
     from repro_torch.kernels.wkv6.ref import wkv6_chunked_ref
     device = torch.device("cuda")
     g = torch.Generator(device=device).manual_seed(SEED + 11)
     bf16, f32 = torch.bfloat16, torch.float32
-    cases = [(1, s, dt, s0, False) for s in (1, 64, 100, 3000)
+    cases = [(1, s, dt, s0, False) for s in (1, 16, 17, 64, 100, 3000)
              for dt in (bf16, f32) for s0 in (0.0, 0.2)]
     cases += [(4, 512, dt, s0, False) for dt in (bf16, f32)
               for s0 in (0.0, 0.2)]
@@ -1749,18 +1791,23 @@ def phase_wkv6(records: list) -> None:
         r.float(), k.float(), v.float(), lw, u, s0), copies[:2], reps=3,
         rounds=3)
     nbytes, n_ops = wkv6_bytes_ops(copies[0])
-    b_ms, b_by = bound(nbytes, n_ops, "float32")
+    # the kernel runs its products on the TF32 tensor cores, so that is
+    # the rate of its bound; the fp32 FMA figure is the row's earlier bound
+    b_ms, b_by = bound(nbytes, n_ops, "tfloat32")
+    b_fp32_ms, b_fp32_by = bound(nbytes, n_ops, "float32")
     records.append({"name": "wkv6", "route": "cuda",
                     "source": "src/repro_torch/csrc/wkv6.cu",
                     "replaces": "src/repro/kernels/wkv6/wkv6.py:70",
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                    "bound_fp32_ms": b_fp32_ms, "bound_fp32_by": b_fp32_by,
                     "shape": [1, 2048, WKV_H, WKV_D], "launches": 0})
     print(f"[11 wkv6] {n_cases} cases vs the plain version on CPU copies: "
           f"worst element {worst:.3f} of its limit ({WKV_ATOL} x rms), max "
           f"abs err of o {err:.3e}; B1 S2048 H32 D64 bf16: ms {ms:.4f} "
-          f"plain {plain_ms:.4f} bound {b_ms:.4f} ({b_by}; no PyTorch call "
-          "computes WKV-6)")
+          f"plain {plain_ms:.4f} bound {b_ms:.4f} ({b_by}, TF32 tensor-core "
+          f"rate; at the fp32 FMA rate {b_fp32_ms:.4f}, {b_fp32_by}); no "
+          "PyTorch call computes WKV-6")
 
 
 #: (shape, dtype) of phase 12: the reference's test_rmsnorm sweep, then
@@ -1769,6 +1816,8 @@ RMSNORM_CASES = [(shape, dt) for shape in ((4, 64, 256), (2, 128, 512),
                                            (1, 8, 128))
                  for dt in ("float32", "bfloat16")]
 RMSNORM_CASES += [((4096, 1536), "bfloat16"), ((8, 1536), "bfloat16")]
+#: rounds of B7 against F.rms_norm in turns (phase 12)
+RMSNORM_ROUNDS = 8
 
 
 def _within_one_ulp(tag: str, out, ref) -> float:
@@ -1795,8 +1844,9 @@ def phase_rmsnorm(records: list, drive_launches: dict) -> None:
     shapes in fp32 and bf16 and qwen2-1.5b's (4,096, 1,536) and (8, 1,536)
     rows in bf16, within one bf16 ulp (fp32: 1e-6 relative); the same call
     twice gives the same bits.  Times at the 4,096-row chunk, beside
-    ``F.rms_norm``.  ``drive_launches``: B7's launches in each drive that
-    ran it (phases 5, 7, 9, 10), for its record."""
+    ``F.rms_norm``, then the two in turns over RMSNORM_ROUNDS rounds (the
+    ratio's median and spread).  ``drive_launches``: B7's launches in each
+    drive that ran it (phases 5, 7, 9, 10), for its record."""
     torch = _torch()
     import torch.nn.functional as F
     from repro_torch.kernels.rmsnorm import ops
@@ -1833,6 +1883,18 @@ def phase_rmsnorm(records: list, drive_launches: dict) -> None:
             bound(rows * 1536 * 4 + 1536 * 2, 4.0 * rows * 1536,
                   "float32"))
     ms, plain_ms, lib_ms, (b_ms, b_by) = times[4096]
+    # B7 and F.rms_norm at (4,096, 1,536) bf16 in turns, each round
+    # starting with the other one, on the same cycled copies
+    copies = [timed(4096) for _ in range(n_copies(4096 * 1536 * 4))]
+    lib = lambda x, w: F.rms_norm(x, (1536,), w, 1e-5)  # noqa: E731
+    ratios = []
+    for rnd in range(RMSNORM_ROUNDS):
+        pair = (ops.rmsnorm, lib) if rnd % 2 == 0 else (lib, ops.rmsnorm)
+        t = [time_ms(fn, copies, rounds=3) for fn in pair]
+        ratios.append(t[0] / t[1] if rnd % 2 == 0 else t[1] / t[0])
+    retime = {"rounds": RMSNORM_ROUNDS,
+              "median_ratio": statistics.median(ratios),
+              "min_ratio": min(ratios), "max_ratio": max(ratios)}
     records.append({"name": "rmsnorm", "route": "cuda",
                     "source": "src/repro_torch/csrc/rmsnorm.cu",
                     "replaces": "src/repro/kernels/rmsnorm/rmsnorm.py:24",
@@ -1841,6 +1903,7 @@ def phase_rmsnorm(records: list, drive_launches: dict) -> None:
                     "shape": [4096, 1536],
                     "launches": sum(drive_launches.values()),
                     "launches_by_drive": drive_launches,
+                    "vs_library_in_turns": retime,
                     "decode_rows_ms": {"ms": times[8][0],
                                        "plain_ms": times[8][1],
                                        "library_ms": times[8][2],
@@ -1851,6 +1914,9 @@ def phase_rmsnorm(records: list, drive_launches: dict) -> None:
           + "; ".join(f"({rows}, 1536) bf16: ms {t[0]:.4f} plain {t[1]:.4f} "
                       f"F.rms_norm {t[2]:.4f} bound {t[3][0]:.6f} "
                       f"({t[3][1]})" for rows, t in times.items())
+          + f"; B7 / F.rms_norm at (4096, 1536) bf16 in {RMSNORM_ROUNDS} "
+          f"rounds in turns: median {retime['median_ratio']:.4f}, spread "
+          f"{retime['min_ratio']:.4f}-{retime['max_ratio']:.4f}"
           + f"; launches in the drives {drive_launches}")
 
 

@@ -9,8 +9,10 @@ The kernels mask ragged M, N and K themselves, so nothing is padded to
 tiles here (the reference pads to its Pallas blocks).  ``launches``,
 ``decode_launches`` and ``fp8_launches`` count kernel launches (one per
 call on a CUDA tensor), so a run can show that its linears went through
-the kernels; ``fp8_tc_launches`` counts the fp8 launches that took the
-kernel's tensor-core step (bf16 x; fp32 x takes the FMA step).
+the kernels; ``tc_launches`` counts the tiled launches that took B4's
+wgmma step (K and N multiples of 16, 16-byte aligned operands; other
+shapes take its ragged step), ``fp8_tc_launches`` the fp8 launches that
+took B6's tensor-core step (bf16 x; fp32 x takes the FMA step).
 ``int4_matmul`` has no kernel in the reference either.
 """
 from __future__ import annotations
@@ -28,6 +30,7 @@ from repro_torch.kernels.int8_matmul.ref import (fp8_decode_ref,
 
 #: kernel launches since the last reset (plain integers; reset by callers)
 launches = 0            # B4 tiled W8A8
+tc_launches = 0         # of those, on the wgmma step
 decode_launches = 0     # B5 W8A8 decode
 fp8_launches = 0        # B6 fp8 decode
 fp8_tc_launches = 0     # of those, on the tensor-core step
@@ -91,7 +94,7 @@ def int8_matmul(xq: torch.Tensor, wq: torch.Tensor, x_scale: torch.Tensor,
 
 
 def _launch_tiled(xq, wq, xs, ws, out_dtype):
-    global launches
+    global launches, tc_launches
     name = "int8_matmul"
     m, k = xq.shape
     _check(name, wq.ndim == 2 and wq.shape[0] == k, "wq must be (K, N)")
@@ -108,12 +111,14 @@ def _launch_tiled(xq, wq, xs, ws, out_dtype):
         return out
     vec = int(k % 4 == 0 and n % 4 == 0 and xq.data_ptr() % 4 == 0
               and wq.data_ptr() % 4 == 0)
+    aligned16 = int(all(t.data_ptr() % 16 == 0 for t in (xq, wq, out)))
     fn, err = build.load(name)
     rc = fn(xq.data_ptr(), wq.data_ptr(), xs.data_ptr(), ws.data_ptr(),
             out.data_ptr(), m, k, n, build.DTYPE_CODES[out_dtype], vec,
-            build.stream_handle(xq.device))
+            aligned16, build.stream_handle(xq.device))
     build.check_status(name, rc, err)
     launches += 1
+    tc_launches += build.tc_step_query(name)(k, n, aligned16)
     return out
 
 

@@ -2,9 +2,14 @@
 
 CPU tensors take the plain chunked version (``ref.py``) on fp32 copies,
 as the reference's op does.  CUDA tensors launch the hand-written kernel
-(``csrc/wkv6.cu``) or raise; there is no fallback.  ``launches`` counts
-kernel launches (one per call on a CUDA tensor).  Any sequence length is
-taken: the kernel masks the tail chunk as the plain version pads it.
+(``csrc/wkv6.cu``: a chunk-parallel increment pass, a carry pass along
+the chunks, a chunk-parallel output pass) or raise; there is no
+fallback.  ``launches`` counts calls that launched the kernel on a CUDA
+tensor (one a call, whatever the passes).  Any sequence length is taken:
+the kernel masks the tail chunk as the plain version pads it.  The state
+entering every 64-token chunk goes through a workspace, (B, H,
+ceil(S / 64), 64, 64) fp32 and the chunks' decays (B, H, ceil(S / 64),
+64), allocated here.
 """
 from __future__ import annotations
 
@@ -63,10 +68,15 @@ def _launch(r, k, v, logw, u, s0):
     if b == 0 or h == 0:
         return o, s_final
     _check(s > 0, "empty sequence")
+    _check(all(x.data_ptr() % 16 == 0 for x in (r, k, v, logw)),
+           "r, k, v and logw must be 16-byte aligned (the kernel reads "
+           "token rows 16 bytes at a time)")
+    ws = torch.empty(b * h * -(-s // DEFAULT_CHUNK) * (d * d + d),
+                     dtype=torch.float32, device=r.device)
     fn, err = build.load("wkv6")
     rc = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
             u.data_ptr(), s0.data_ptr(), o.data_ptr(), s_final.data_ptr(),
-            b, s, h, d, build.DTYPE_CODES[r.dtype],
+            ws.data_ptr(), b, s, h, d, build.DTYPE_CODES[r.dtype],
             build.stream_handle(r.device))
     build.check_status("wkv6", rc, err)
     launches += 1

@@ -1,13 +1,16 @@
-"""Device time of each kernel that one call of B1 (paged decode) and B6
-(fp8 decode matmul) launches, on the GPU.
+"""Device time of each kernel that one call of B1 (paged decode), B6 (fp8
+decode matmul), B4 (tiled W8A8 matmul) and B8 (WKV-6) launches, on the
+GPU.
 
     PYTHONPATH=src python -m repro_torch.launch.kernel_profile
 
 B1 at ``chip_smoke.py`` phase 3's timed shape (8 slots of lengths 0-1,024
 summing to 3,075, 12 heads over 2 kv heads, D 128, page 256, bf16), B6 at
-phase 8's (M 8, K 1,536, N 8,960, bf16 x, bf16 bias); then each at a
-size that moves almost no bytes (B1 with every length 0, B6 at K 64),
-the floor a call costs whatever its data.  Each call runs
+phase 8's (M 8, K 1,536, N 8,960, bf16 x, bf16 bias), B4 at phase 8's
+(M 4,096, K 1,536, N 8,960, bf16 out), B8 at phase 11's (B 1, S 2,048, H
+32, D 64, bf16 r/k/v); then each at a size that moves almost no bytes
+(B1 with every length 0, B6 and B4 at K 64, B8 at S 1), the floor a call
+costs whatever its data.  Each call runs
 ``REPS`` times under ``torch.profiler`` on operand copies that together
 exceed the L2; the result is every kernel's name, its runs per call and
 its mean device time per run.  The last line is the same as JSON, with
@@ -21,7 +24,9 @@ import subprocess
 import torch
 
 from repro_torch.kernels.int8_matmul import ops as qmm
+from repro_torch.kernels.int8_matmul.ref import quantize_rowwise
 from repro_torch.kernels.paged_attention import ops as pops
+from repro_torch.kernels.wkv6 import ops as wops
 from repro_torch.quant.qops import quantize_linear
 
 REPS, COPIES, SEED = 50, 8, 0
@@ -47,6 +52,25 @@ def _fp8_args(g, dev, k=1536):
     x = torch.randn((m, k), generator=g, device=dev).bfloat16()
     bias = (torch.randn((n,), generator=g, device=dev) * 0.1).bfloat16()
     return (x, p["qw"], p["scale"], bias)
+
+
+def _int8_args(g, dev, k=1536):
+    m, n = 4096, 8960
+    p = quantize_linear({"w": torch.randn((k, n), generator=g, device=dev)
+                         * 0.02}, quant="int8")
+    xq, xs = quantize_rowwise(
+        torch.randn((m, k), generator=g, device=dev).bfloat16())
+    return (xq, p["qw"], xs, p["scale"])
+
+
+def _wkv6_args(g, dev, s=2048):
+    shape = (1, s, 32, 64)
+    r, k, v = (torch.randn(shape, generator=g, device=dev).bfloat16()
+               for _ in range(3))
+    logw = -torch.randn(shape, generator=g, device=dev).abs() * 0.1 - 0.01
+    u = torch.randn((32, 64), generator=g, device=dev) * 0.1
+    s0 = torch.zeros((1, 32, 64, 64), device=dev)
+    return (r, k, v, logw, u, s0)
 
 
 def _profile(fn, copies) -> dict:
@@ -85,9 +109,15 @@ def main() -> int:
     for name, fn, make in (
             ("B1 paged decode", pops.paged_attention, _paged_args),
             ("B6 fp8 decode", b6, _fp8_args),
+            ("B4 tiled W8A8", qmm.int8_matmul, _int8_args),
+            ("B8 WKV-6", wops.wkv6, _wkv6_args),
             ("B1 floor (lengths 0)", pops.paged_attention,
              lambda g, dev: _paged_args(g, dev, (0,) * len(LENGTHS))),
-            ("B6 floor (K 64)", b6, lambda g, dev: _fp8_args(g, dev, 64))):
+            ("B6 floor (K 64)", b6, lambda g, dev: _fp8_args(g, dev, 64)),
+            ("B4 floor (K 64)", qmm.int8_matmul,
+             lambda g, dev: _int8_args(g, dev, 64)),
+            ("B8 floor (S 1)", wops.wkv6,
+             lambda g, dev: _wkv6_args(g, dev, 1))):
         per = _profile(fn, [make(g, dev) for _ in range(COPIES)])
         res[name] = {k: {"runs_per_call": r, "ms": ms}
                      for k, (r, ms) in per.items()}

@@ -1,6 +1,7 @@
-"""Small launches of the kernels that stage tiles through ``cp.async``
-rings (B1 paged decode, B6 fp8 decode, B2 prefix extend, B3 flash
-prefill), for a run under NVIDIA's compute-sanitizer:
+"""Small launches of the kernels that stage tiles through ``cp.async`` or
+TMA rings (B1 paged decode, B6 fp8 decode, B2 prefix extend, B3 flash
+prefill, B4 tiled W8A8 on its wgmma step, B8 WKV-6), for a run under
+NVIDIA's compute-sanitizer:
 
     compute-sanitizer --tool racecheck python -m repro_torch.launch.sanitize
     compute-sanitizer --tool synccheck python -m repro_torch.launch.sanitize
@@ -17,10 +18,14 @@ import torch
 from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.int8_matmul import ops as qmm
-from repro_torch.kernels.int8_matmul.ref import fp8_decode_ref
+from repro_torch.kernels.int8_matmul.ref import (fp8_decode_ref,
+                                                 int8_matmul_ref,
+                                                 quantize_rowwise)
 from repro_torch.kernels.paged_attention import ops as pops
 from repro_torch.kernels.paged_attention.ref import (paged_attention_ref,
                                                      paged_prefix_extend_ref)
+from repro_torch.kernels.wkv6 import ops as wops
+from repro_torch.kernels.wkv6.ref import wkv6_chunked_ref
 from repro_torch.quant.qops import quantize_linear
 
 TOL = 2e-2
@@ -74,6 +79,26 @@ def _cases(g, dev):
     qf, kf, vf = (torch.randn((2, 100, hh, 64), generator=g,
                               device=dev).to(bf16) for hh in (12, 2, 2))
     yield "B3 bf16", fops.flash_attention, attention_ref, (qf, kf, vf)
+    # B4 on its wgmma step: two tiles of 256 rows, six 128-deep stages,
+    # so the 4-stage ring wraps; ragged M and an N tail
+    p = quantize_linear({"w": torch.randn((768, 144), generator=g,
+                                          device=dev) * 0.02}, quant="int8")
+    xq, xs = quantize_rowwise(torch.randn((300, 768), generator=g,
+                                          device=dev).to(bf16))
+    yield ("B4 wgmma step", qmm.int8_matmul,
+           lambda *a: int8_matmul_ref(*a, out_dtype=bf16),
+           (xq, p["qw"], xs, p["scale"]))
+    # B8: three chunks, the last one ragged
+    shape = (1, 150, 2, 64)
+    r, k, v = (torch.randn(shape, generator=g, device=dev).to(bf16)
+               for _ in range(3))
+    lw = -torch.randn(shape, generator=g, device=dev).abs() * 0.1 - 0.01
+    u = torch.randn((2, 64), generator=g, device=dev) * 0.1
+    s0 = torch.randn((1, 2, 64, 64), generator=g, device=dev) * 0.2
+    yield ("B8 bf16", lambda *a: wops.wkv6(*a)[0],
+           lambda r, k, v, lw, u, s0: wkv6_chunked_ref(
+               r.float(), k.float(), v.float(), lw, u, s0)[0],
+           (r, k, v, lw, u, s0))
 
 
 def main() -> int:

@@ -110,7 +110,7 @@ def test_int8_matmul_bit_equal(m, k, n, dtype):
     wq, ws = jref.quantize_colwise(w)
     jdt, tdt = DTYPES[dtype]
     t = tops.int8_matmul(_t(xq), _t(wq), _t(xs), _t(ws), out_dtype=tdt)
-    assert tops.launches == 0                   # CPU: no kernel launch
+    assert tops.launches == tops.tc_launches == 0   # CPU: no kernel launch
     _assert_bits(t, jref.int8_matmul_ref(xq, wq, xs, ws, out_dtype=jdt))
     _assert_bits(t, jops.int8_matmul(xq, wq, xs, ws, out_dtype=jdt,
                                      use_kernel=True))

@@ -151,6 +151,24 @@ def test_decode_kernels_use_tensor_cores_and_async_copies(src):
     assert "cp.async" in text, src
 
 
+def test_tiled_w8a8_runs_wgmma_from_an_async_ring():
+    """B4's tensor-core step runs Hopper's warpgroup product on s8
+    operands, its tiles landing by asynchronous copies."""
+    text = _with_includes(ROOT / "src" / "repro_torch" / "csrc" /
+                          "int8_matmul.cu")
+    assert re.search(r"wgmma\.mma_async[\w.]*\.s8", text)
+    assert "cp.async" in text
+    assert "mbarrier" in text
+
+
+def test_wkv6_runs_its_products_on_the_tensor_cores():
+    """B8 runs its products as tensor-core mma (not fp32 FMAs alone)."""
+    text = _with_includes(ROOT / "src" / "repro_torch" / "csrc" / "wkv6.cu")
+    assert re.search(r"mma\.sync\.aligned\.m16n8k(8|16)", text) or \
+        "wgmma.mma_async" in text
+    assert "cp.async" in text
+
+
 def test_paged_decode_takes_any_group():
     """Neither B1's source nor its wrapper caps the query heads a kv head
     serves: the kernel cuts any group into row groups."""
