@@ -45,7 +45,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
                  each case tagged with its step, the wgmma-step cases
                  called twice, bit-equal; K / N tails on the wgmma step,
                  64-aligned and unaligned K on the ragged step) and W8A8
-                 decode (B5, M 1 / 8 / 128) bit for bit against the plain
+                 decode (B5, M 1 / 8 / 9 / 127 / 128, bf16 and fp32 x, on
+                 the tensor-core step, each case called twice, bit-equal;
+                 K 1,000 and N 1,000 on the ragged step; each case tagged
+                 with its step) bit for bit against the plain
                  version on the CPU copy, fp8
                  decode (B6) element by element (bf16 x on the tensor
                  cores, called twice, bit-equal; one fp32-x case on the
@@ -56,7 +59,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
                  pools (8 requests, 4 behind the system prompt): launches
                  of B4 / B5 = 196 x the dispatches with M > 128 / <= 128
                  rows (decode steps included) and of B1-B3 as in phase 7,
-                 every B4 launch on its wgmma step,
+                 every B4 launch on its wgmma step and every B5 launch on
+                 its tensor-core step,
                  requant events, a repeated prompt; one continuation
                  chunk's and one decode step's logits with B4 / B5 equal
                  to the plain matmuls', and every B2 / B1 call of those
@@ -72,8 +76,11 @@ Phases (each prints one line; any failure raises and exits non-zero):
                  at one 2,048-token admission
  12. rmsnorm   — the RMSNorm kernel (B7) vs its plain version within one
                  bf16 ulp (the reference's test_rmsnorm shapes, qwen2-1.5b's
-                 4,096 and 8 rows), timed beside F.rms_norm, then the two
-                 in turns over 8 rounds (median ratio and its spread)
+                 4,096 and 8 rows, d 2,048, odd row counts, on the warp
+                 step; d 8,192 and 1,001 on the long-row step; each case
+                 tagged with its step and called twice, bit-equal), timed
+                 beside F.rms_norm at 4,096 and 8 rows, then the two in
+                 turns over 8 rounds (median ratio and its spread)
  13. rwkv      — rwkv6-1.6b at full width (24 layers) through the port's
                  eager Engine, 8 slots: 16 requests of 200-3,000 prompt
                  tokens; token counts, syncs = admissions + decode steps, B8
@@ -81,10 +88,11 @@ Phases (each prints one line; any failure raises and exits non-zero):
                  fresh slot's tokens, one admission's logits with B8 vs
                  its plain version
 B7 takes every RMSNorm of the qwen2-1.5b drives: 57 launches a forward
-(phases 5, 7, 9, 10).  Every B1 / B2 / B3 launch of those drives (bf16
-activations), every B4 launch of phase 9 and every B6 launch of phase 10
-must take the tensor-core step: their tensor-core launch counts are
-printed beside the launch counts and must equal them.  Launch counts are
+(phases 5, 7, 9, 10), every one on its warp step.  Every B1 / B2 / B3
+launch of those drives (bf16 activations), every B4 and B5 launch of
+phase 9 and every B6 launch of phase 10 must take the tensor-core step:
+their tensor-core launch counts are printed beside the launch counts and
+must equal them.  Launch counts are
 zeroed just before each drive (phases 5, 7, 9, 10, 13) and read just
 after it; peak memory is read for the set-up and, restarted, for the
 drive.  Then one JSON
@@ -639,12 +647,15 @@ def _cpu(t):
 
 
 def _qmm_check(g, device) -> str:
-    """Every case of the phase: B5 / B6 at M 1, 8, 128 and B4 at M 129,
-    777, 4,096 over qwen2-1.5b's linears, bf16 x, with and without a bias
-    (B5, B6); B4 off those shapes in both out types: 300 x 1040 x 272 on
-    its wgmma step (K and N tails), 257 x 512 x 129 and 257 x 513 x 129 on
-    its ragged step.  Each B4 case names its step and fails on the wrong
-    one; a wgmma-step case is called twice, bit-equal."""
+    """Every case of the phase: B5 at M 1, 8, 9, 127, 128, B6 at M 1, 8,
+    128 and B4 at M 129, 777, 4,096 over qwen2-1.5b's linears, bf16 x,
+    with and without a bias (B5, B6), and B5 with fp32 x at M 8 and 9;
+    B5 off those shapes at M 8: K 1,000 and N 1,000 on its ragged step; B4
+    off them in both out types: 300 x 1040 x 272 on its wgmma step (K and
+    N tails), 257 x 512 x 129 and 257 x 513 x 129 on its ragged step.
+    Each B4 and B5 case names its step and fails on the wrong one; a case
+    on B4's wgmma step or B5's tensor-core step is called twice,
+    bit-equal."""
     torch = _torch()
     from repro_torch.kernels.int8_matmul import ops
     from repro_torch.kernels.int8_matmul.ref import (fp8_decode_ref,
@@ -666,6 +677,25 @@ def _qmm_check(g, device) -> str:
                                  "plain version on the CPU copy")
 
     steps = {"wgmma": 0, "ragged": 0}
+    b5_steps = {"tensor cores": 0, "ragged": 0}
+
+    def b5(tag, x, qw, ws, b, want_tc):
+        """B5 against its plain version on the CPU copy, tagged with the
+        step it took; a tensor-core-step case is called twice,
+        bit-equal."""
+        tc0 = ops.decode_tc_launches
+        out = ops.w8a8_matmul_decode(x, qw, ws, bias=b)
+        tc = ops.decode_tc_launches - tc0
+        if tc != int(want_tc):
+            raise AssertionError(f"B5 {tag}: {tc} tensor-core-step launches, "
+                                 f"want {int(want_tc)}")
+        step = "tensor cores" if tc else "ragged"
+        b5_steps[step] += 1
+        if tc and not torch.equal(out, ops.w8a8_matmul_decode(x, qw, ws,
+                                                              bias=b)):
+            raise AssertionError(f"B5 {tag}: a repeated call differs")
+        equal(f"B5 {tag} [{step}]", out,
+              w8a8_decode_ref(_cpu(x), _cpu(qw), _cpu(ws), _cpu(b)))
 
     def b4(tag, xq, qw, xs, ws, dt, want_tc):
         """B4 against its plain version, tagged with the step it took; a
@@ -688,12 +718,20 @@ def _qmm_check(g, device) -> str:
     for k, n in QMM_SHAPES:
         qw, ws, bias = _qlinear(g, device, k, n, "int8")
         fw, fs, _ = _qlinear(g, device, k, n, "fp8")
+        for m in (9, 127):
+            x = torch.randn((m, k), generator=g, device=device).to(bf16)
+            for b in (None, bias):
+                b5(f"M{m} K{k} N{n} bias {b is not None}", x, qw, ws, b, True)
+                n_cases += 1
+        for m in (8, 9):
+            x = torch.randn((m, k), generator=g, device=device)
+            b5(f"M{m} K{k} N{n} fp32 x", x, qw, ws, bias, True)
+            n_cases += 1
         for m in (1, 8, 128):
             x = torch.randn((m, k), generator=g, device=device).to(bf16)
             for b in (None, bias):
                 tag = f"M{m} K{k} N{n} bias {b is not None}"
-                equal(f"B5 {tag}", ops.w8a8_matmul_decode(x, qw, ws, bias=b),
-                      w8a8_decode_ref(_cpu(x), _cpu(qw), _cpu(ws), _cpu(b)))
+                b5(tag, x, qw, ws, b, True)
                 tc0 = ops.fp8_tc_launches
                 out = ops.fp8_matmul_decode(x, fw, fs, bias=b)
                 step = _step_tag(ops.fp8_tc_launches - tc0, True)
@@ -725,6 +763,13 @@ def _qmm_check(g, device) -> str:
                        ref.float().pow(2).mean().sqrt().item())
     worst = max(worst, float(line.split("worst ")[1].split()[0]))
     n_cases += 1
+    # B5 off the qwen2 shapes: K and N that rule out its tensor-core step
+    for k, n in ((1000, 1536), (1536, 1000)):
+        qw, ws, bias = _qlinear(g, device, k, n, "int8")
+        x = torch.randn((8, k), generator=g, device=device).to(bf16)
+        for b in (None, bias):
+            b5(f"M8 K{k} N{n} bias {b is not None}", x, qw, ws, b, False)
+            n_cases += 1
     # B4 off the qwen2 shapes: a K tail and an N tail on the wgmma step
     # (K, N multiples of 16), then the ragged step at a 64-aligned and an
     # unaligned K (N 129)
@@ -739,10 +784,12 @@ def _qmm_check(g, device) -> str:
             n_cases += 1
     return (f"{n_cases} cases: B4 (the {steps['wgmma']} wgmma-step cases "
             f"each called twice, bit-equal; {steps['ragged']} ragged-step "
-            f"cases) and B5 bit-equal to the plain version on the CPU copy; "
-            f"B6 (bf16 x on the tensor cores, each call repeated bit-equal) "
-            f"worst element {worst:.2f} of its limit, max abs err "
-            f"{errs['B6']:.3e}"), errs
+            f"cases) and B5 (the {b5_steps['tensor cores']} tensor-core-step "
+            f"cases each called twice, bit-equal; {b5_steps['ragged']} "
+            f"ragged-step cases) bit-equal to the plain version on the CPU "
+            f"copy; B6 (bf16 x on the tensor cores, each call repeated "
+            f"bit-equal) worst element {worst:.2f} of its limit, max abs err "
+            f"{errs['B6']:.3e}"), errs, b5_steps
 
 
 def _qmm_times(kind: str, m: int, k: int, n: int, g, device) -> dict:
@@ -806,7 +853,7 @@ def phase_qmm(records: list) -> None:
     torch = _torch()
     device = torch.device("cuda")
     g = torch.Generator(device=device).manual_seed(SEED + 3)
-    text, errs = _qmm_check(g, device)
+    text, errs, b5_steps = _qmm_check(g, device)
     line = [text]
     for kind, m in (("B5", 8), ("B6", 8), ("B4", 4096)):
         per_shape = {(k, n): _qmm_times(kind, m, k, n, g, device)
@@ -821,6 +868,8 @@ def phase_qmm(records: list) -> None:
                         "replaces": repl, "max_abs_err": errs[kind], **rec,
                         "shape": [m, 1536, 8960], "launches": 0,
                         "layer_ms": layer})
+        if kind == "B5":
+            records[-1]["step_cases"] = b5_steps
         line.append(f"{kind} M{m}: " + ", ".join(
             f"K{k}xN{n} ms {t['ms']:.4f} plain {t['plain_ms']:.4f} lib "
             f"{t['library_ms']:.4f} bf16 {t['bf16_ms']:.4f} bound "
@@ -1342,8 +1391,8 @@ def _reset_launches() -> None:
     fops.launches = pops.launches = pops.extend_launches = 0
     fops.tc_launches = pops.extend_tc_launches = pops.tc_launches = 0
     qmm.launches = qmm.decode_launches = qmm.fp8_launches = 0
-    qmm.tc_launches = qmm.fp8_tc_launches = 0
-    rops.launches = wops.launches = 0
+    qmm.tc_launches = qmm.decode_tc_launches = qmm.fp8_tc_launches = 0
+    rops.launches = rops.warp_launches = wops.launches = 0
 
 
 def _read_launches() -> dict:
@@ -1363,18 +1412,21 @@ def _read_launches() -> dict:
 
 
 def _tc_launches(tag: str) -> dict:
-    """B1 / B2 / B3 / B4 / B6 launches of a drive that took the
-    tensor-core step (B4: its wgmma step); raises unless every launch
-    since the last reset took it."""
+    """B1 / B2 / B3 / B4 / B5 / B6 launches of a drive that took the
+    tensor-core step (B4: its wgmma step), and B7 launches that took its
+    warp step; raises unless every launch since the last reset took it."""
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.int8_matmul import ops as qmm
     from repro_torch.kernels.paged_attention import ops as pops
+    from repro_torch.kernels.rmsnorm import ops as rops
     launches = _read_launches()
     tc = {"flash_attention": fops.tc_launches,
           "paged_prefix_extend": pops.extend_tc_launches,
           "paged_attention": pops.tc_launches,
           "int8_matmul": qmm.tc_launches,
-          "fp8_decode_matmul": qmm.fp8_tc_launches}
+          "w8a8_decode_matmul": qmm.decode_tc_launches,
+          "fp8_decode_matmul": qmm.fp8_tc_launches,
+          "rmsnorm": rops.warp_launches}
     for name, n in tc.items():
         if n != launches[name]:
             raise AssertionError(f"{tag}: {name} took the tensor-core step "
@@ -1476,6 +1528,8 @@ def phase_qsched(records: list) -> dict:
             r["launches"] = launches[r["name"]]
         if r["name"] == "int8_matmul":
             r["wgmma_launches"] = tc["int8_matmul"]
+        if r["name"] == "w8a8_decode_matmul":
+            r["tc_launches"] = tc["w8a8_decode_matmul"]
 
     repeat = rng.integers(0, vocab, 1200)
     runs = []
@@ -1560,7 +1614,9 @@ def phase_qsched(records: list) -> dict:
           f"{d['blocks']} blocks = {d['syncs']} syncs, {d['steps']} decode "
           f"steps, {requant:.0f} requant events, launches {launches}, "
           f"tensor-core launches {tc} (B4: {tc['int8_matmul']} of "
-          f"{launches['int8_matmul']} on the wgmma step), peak "
+          f"{launches['int8_matmul']} on the wgmma step; B5: "
+          f"{tc['w8a8_decode_matmul']} of {launches['w8a8_decode_matmul']} on "
+          f"the tensor-core step), peak "
           f"mem {peak_gb:.2f} GB (set-up {setup_gb:.2f} GB); repeat prompt computed {comp_a} then "
           f"{comp_b} tokens, same tokens; continuation and decode logits "
           f"with B4 / B5 equal to the plain matmuls'; B2 / B1 on the int8 "
@@ -1810,12 +1866,35 @@ def phase_wkv6(records: list) -> None:
           "PyTorch call computes WKV-6")
 
 
-#: (shape, dtype) of phase 12: the reference's test_rmsnorm sweep, then
-#: qwen2-1.5b's rows of a 4,096-row chunk and of an 8-slot decode step
-RMSNORM_CASES = [(shape, dt) for shape in ((4, 64, 256), (2, 128, 512),
-                                           (1, 8, 128))
+#: (shape, x dtype, scale dtype) of phase 12: the reference's test_rmsnorm
+#: sweep; qwen2-1.5b's rows of a 4,096-row chunk and of an 8-slot decode
+#: step, llama3.2-1b's 2,048 (the warp step's longest); row counts that
+#: are not a multiple of a block's 8 warps, an fp32 scale under bf16 x;
+#: then the long-row step: d 8,192 and a d of no whole 16-byte vectors
+#: (1,001).  d 1,000 fills 16-byte vectors in both types (2,000 / 4,000
+#: bytes a row), so it takes the warp step.
+RMSNORM_CASES = [(shape, dt, dt) for shape in ((4, 64, 256), (2, 128, 512),
+                                               (1, 8, 128))
                  for dt in ("float32", "bfloat16")]
-RMSNORM_CASES += [((4096, 1536), "bfloat16"), ((8, 1536), "bfloat16")]
+RMSNORM_CASES += [((4096, 1536), "bfloat16", "bfloat16"),
+                  ((8, 1536), "bfloat16", "bfloat16"),
+                  ((8, 2048), "bfloat16", "bfloat16"),
+                  ((8, 2048), "float32", "float32"),
+                  ((4099, 2048), "float32", "float32"),
+                  ((13, 1536), "bfloat16", "bfloat16"),
+                  ((13, 1536), "bfloat16", "float32"),
+                  ((5, 1000), "bfloat16", "bfloat16"),
+                  ((5, 1000), "float32", "float32"),
+                  ((3, 8192), "bfloat16", "bfloat16"),
+                  ((3, 8192), "float32", "float32"),
+                  ((7, 1001), "bfloat16", "bfloat16"),
+                  ((7, 1001), "float32", "float32")]
+
+
+def _rmsnorm_warp_step(d: int, dt_name: str) -> bool:
+    """Whether B7 takes its warp step on contiguous, fresh tensors: rows
+    of at most 2,048 elements that are a whole number of 16-byte vectors."""
+    return d <= 2048 and d % (8 if dt_name == "bfloat16" else 4) == 0
 #: rounds of B7 against F.rms_norm in turns (phase 12)
 RMSNORM_ROUNDS = 8
 
@@ -1839,14 +1918,16 @@ def _within_one_ulp(tag: str, out, ref) -> float:
     return worst
 
 
-def phase_rmsnorm(records: list, drive_launches: dict) -> None:
-    """B7 vs its plain version on CPU copies: the reference's test_rmsnorm
-    shapes in fp32 and bf16 and qwen2-1.5b's (4,096, 1,536) and (8, 1,536)
-    rows in bf16, within one bf16 ulp (fp32: 1e-6 relative); the same call
-    twice gives the same bits.  Times at the 4,096-row chunk, beside
-    ``F.rms_norm``, then the two in turns over RMSNORM_ROUNDS rounds (the
-    ratio's median and spread).  ``drive_launches``: B7's launches in each
-    drive that ran it (phases 5, 7, 9, 10), for its record."""
+def phase_rmsnorm(records: list, drive_launches: dict,
+                  drive_warp_launches: dict) -> None:
+    """B7 vs its plain version on CPU copies at RMSNORM_CASES, within one
+    bf16 ulp (fp32: 1e-6 relative); each case names its step (warp or
+    long-row) and fails on the wrong one, and the same call twice gives
+    the same bits.  Times at the 4,096-row chunk and the 8-row decode
+    step, beside ``F.rms_norm``, then the two in turns over RMSNORM_ROUNDS
+    rounds at the chunk (the ratio's median and spread).
+    ``drive_launches`` / ``drive_warp_launches``: B7's launches, and those
+    on its warp step, in each drive that ran it (phases 5, 7, 9, 10)."""
     torch = _torch()
     import torch.nn.functional as F
     from repro_torch.kernels.rmsnorm import ops
@@ -1854,19 +1935,27 @@ def phase_rmsnorm(records: list, drive_launches: dict) -> None:
     device = torch.device("cuda")
     g = torch.Generator(device=device).manual_seed(SEED + 12)
     worst, err = 0.0, 0.0
-    for shape, dt_name in RMSNORM_CASES:
+    steps = {"warp": 0, "long-row": 0}
+    for shape, dt_name, w_name in RMSNORM_CASES:
         dt = getattr(torch, dt_name)
         x = torch.randn(shape, generator=g, device=device).to(dt)
-        w = torch.randn(shape[-1:], generator=g, device=device).to(dt)
+        w = torch.randn(shape[-1:], generator=g, device=device).to(
+            getattr(torch, w_name))
+        tag = f"rmsnorm {shape} {dt_name} (scale {w_name})"
+        warp0 = ops.warp_launches
         out = ops.rmsnorm(x, w)
+        warp = ops.warp_launches - warp0
+        want = _rmsnorm_warp_step(shape[-1], dt_name)
+        if warp != int(want):
+            raise AssertionError(f"{tag}: {warp} warp-step launches, want "
+                                 f"{int(want)}")
+        steps["warp" if warp else "long-row"] += 1
         again = ops.rmsnorm(x, w)
         torch.cuda.synchronize()
         if not torch.equal(out, again):
-            raise AssertionError(f"rmsnorm {shape} {dt_name}: two calls on "
-                                 "the same row differ")
+            raise AssertionError(f"{tag}: two calls on the same rows differ")
         ref = rmsnorm_ref(x.cpu(), w.cpu())
-        worst = max(worst, _within_one_ulp(f"rmsnorm {shape} {dt_name}",
-                                           out, ref))
+        worst = max(worst, _within_one_ulp(tag, out, ref))
         err = max(err, (out.cpu().float() - ref.float()).abs().max().item())
 
     def timed(rows):
@@ -1903,21 +1992,26 @@ def phase_rmsnorm(records: list, drive_launches: dict) -> None:
                     "shape": [4096, 1536],
                     "launches": sum(drive_launches.values()),
                     "launches_by_drive": drive_launches,
+                    "warp_launches": sum(drive_warp_launches.values()),
+                    "step_cases": steps,
                     "vs_library_in_turns": retime,
                     "decode_rows_ms": {"ms": times[8][0],
                                        "plain_ms": times[8][1],
                                        "library_ms": times[8][2],
                                        "bound_ms": times[8][3][0]}})
-    print(f"[12 rmsnorm] {len(RMSNORM_CASES)} cases vs the plain version on "
-          f"CPU copies: worst element {worst:.3f} of one bf16 ulp (fp32: "
-          f"1e-6 relative), max abs err {err:.3e}, repeat calls bit-equal; "
+    print(f"[12 rmsnorm] {len(RMSNORM_CASES)} cases ({steps['warp']} on the "
+          f"warp step, {steps['long-row']} on the long-row step, each as "
+          f"expected) vs the plain version on CPU copies: worst element "
+          f"{worst:.3f} of one bf16 ulp (fp32: 1e-6 relative), max abs err "
+          f"{err:.3e}, repeat calls bit-equal; "
           + "; ".join(f"({rows}, 1536) bf16: ms {t[0]:.4f} plain {t[1]:.4f} "
                       f"F.rms_norm {t[2]:.4f} bound {t[3][0]:.6f} "
                       f"({t[3][1]})" for rows, t in times.items())
           + f"; B7 / F.rms_norm at (4096, 1536) bf16 in {RMSNORM_ROUNDS} "
           f"rounds in turns: median {retime['median_ratio']:.4f}, spread "
           f"{retime['min_ratio']:.4f}-{retime['max_ratio']:.4f}"
-          + f"; launches in the drives {drive_launches}")
+          + f"; launches in the drives {drive_launches}, on the warp step "
+          f"{drive_warp_launches}")
 
 
 def _wkv6_calls_vs_plain(fn) -> tuple:
@@ -2100,10 +2194,11 @@ def main() -> int:
     qsched = phase_qsched(records)
     fp8 = phase_fp8(records)
     phase_wkv6(records)
-    phase_rmsnorm(records, {name: drive["launches"]["rmsnorm"]
-                            for name, drive in (("e2e", e2e), ("sched", sched),
-                                                ("qsched", qsched),
-                                                ("fp8", fp8))})
+    drives = (("e2e", e2e), ("sched", sched), ("qsched", qsched),
+              ("fp8", fp8))
+    phase_rmsnorm(records,
+                  {name: d["launches"]["rmsnorm"] for name, d in drives},
+                  {name: d["tc_launches"]["rmsnorm"] for name, d in drives})
     rwkv = phase_rwkv(records)
     out_dir = ROOT / "chiprun_out"
     if out_dir.is_dir():

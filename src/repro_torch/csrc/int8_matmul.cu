@@ -224,6 +224,8 @@ void launch(const int8_t* xq, const int8_t* wq, const float* xs,
 
 namespace tc_step {   // the tensor-core step
 
+using tc::mbar_arrive_tx;
+using tc::mbar_init;
 using tc::smem_u32;
 
 constexpr int kThreads = 288;           // two consumer warpgroups, a producer
@@ -256,11 +258,6 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
          (static_cast<uint64_t>(1) << 62);
 }
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)), "r"(count));
-}
-
 // Waits for the phase of ``bar`` with this parity to complete.  A wait
 // that spins 2^24 times traps (a CUDA error at the next synchronisation)
 // instead of hanging the card: a ring that never fills is a fault.
@@ -282,13 +279,6 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
                    smem_u32(bar))
-               : "memory");
-}
-
-// the producer's arrival: the phase also waits for ``bytes`` of copies
-__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_u32(bar)), "r"(bytes)
                : "memory");
 }
 

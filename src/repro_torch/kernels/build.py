@@ -52,10 +52,10 @@ SIGNATURES = {
     "paged_prefix_extend": ("paged_prefix_extend_fwd",
                             [_P] * 11 + [_I] * 7 + [_F] + [_I] * 3 + [_P]),
     "int8_matmul": ("int8_matmul", [_P] * 5 + [_I] * 6 + [_P]),
-    "w8a8_decode": ("w8a8_decode_matmul", [_P] * 7 + [_I] * 10 + [_P]),
+    "w8a8_decode": ("w8a8_decode_matmul", [_P] * 7 + [_I] * 11 + [_P]),
     "fp8_decode": ("fp8_decode_matmul", [_P] * 7 + [_I] * 10 + [_P]),
     "wkv6": ("wkv6_fwd", [_P] * 9 + [_I] * 5 + [_P]),
-    "rmsnorm": ("rmsnorm_fwd", [_P] * 3 + [_I] * 2 + [_F, _I, _I, _P]),
+    "rmsnorm": ("rmsnorm_fwd", [_P] * 3 + [_I] * 2 + [_F, _I, _I, _I, _P]),
 }
 
 #: kernels with two steps -> (step query, number of int arguments)
@@ -63,7 +63,9 @@ TC_STEP = {"flash_attention": ("flash_attention_tc_step", 1),
            "paged_prefix_extend": ("paged_prefix_extend_tc_step", 3),
            "paged_attention": ("paged_attention_tc_step", 2),
            "fp8_decode": ("fp8_decode_tc_step", 4),
-           "int8_matmul": ("int8_matmul_tc_step", 3)}
+           "w8a8_decode": ("w8a8_decode_tc_step", 4),
+           "int8_matmul": ("int8_matmul_tc_step", 3),
+           "rmsnorm": ("rmsnorm_warp_step", 3)}
 
 
 def nvcc_path() -> str:
@@ -137,12 +139,14 @@ def load(name: str):
 
 @functools.lru_cache(maxsize=None)
 def tc_step_query(name: str):
-    """The library's ``<entry>_tc_step`` function (flash prefill, prefix
-    extend, paged decode, fp8 decode, tiled W8A8): given the launch's
-    dtype codes (for fp8 decode also its K, N and alignment; for the tiled
-    W8A8 its K, N and alignment alone), 1 if the kernel takes its
-    tensor-core step, 0 if its other step.  The entry point dispatches on
-    the same function."""
+    """The library's step query (``<entry>_tc_step`` for flash prefill,
+    prefix extend, paged decode, the fp8 and W8A8 decode matmuls and the
+    tiled W8A8; ``rmsnorm_warp_step``): given the launch's dtype codes
+    (for the decode matmuls also K, N and alignment; for the tiled W8A8
+    its K, N and alignment alone; for RMSNorm x's dtype, d and
+    alignment), 1 if the kernel takes its tensor-core step (RMSNorm: its
+    warp step), 0 if its other step.  The entry point dispatches on the
+    same function."""
     load(name)
     fn = getattr(ctypes.CDLL(str(lib_path(name))), TC_STEP[name][0])
     fn.argtypes = [_I] * TC_STEP[name][1]

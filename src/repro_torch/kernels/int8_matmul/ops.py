@@ -11,8 +11,11 @@ tiles here (the reference pads to its Pallas blocks).  ``launches``,
 call on a CUDA tensor), so a run can show that its linears went through
 the kernels; ``tc_launches`` counts the tiled launches that took B4's
 wgmma step (K and N multiples of 16, 16-byte aligned operands; other
-shapes take its ragged step), ``fp8_tc_launches`` the fp8 launches that
-took B6's tensor-core step (bf16 x; fp32 x takes the FMA step).
+shapes take its ragged step), ``decode_tc_launches`` the W8A8 decode
+launches that took B5's tensor-core step (N % 16 == 0, K % 32 == 0, K
+<= 16,384, 16-byte aligned x / wq / out; bf16 or fp32 x; other shapes
+take its ragged step), ``fp8_tc_launches`` the fp8 launches that took
+B6's tensor-core step (bf16 x; fp32 x takes the FMA step).
 ``int4_matmul`` has no kernel in the reference either.
 """
 from __future__ import annotations
@@ -32,6 +35,7 @@ from repro_torch.kernels.int8_matmul.ref import (fp8_decode_ref,
 launches = 0            # B4 tiled W8A8
 tc_launches = 0         # of those, on the wgmma step
 decode_launches = 0     # B5 W8A8 decode
+decode_tc_launches = 0  # of those, on the tensor-core step
 fp8_launches = 0        # B6 fp8 decode
 fp8_tc_launches = 0     # of those, on the tensor-core step
 
@@ -40,8 +44,11 @@ _TILE_N = 128           # columns per decode block (csrc kBN)
 _TC_ROWS = 8            # x rows per tensor-core block (csrc tc_step::kMT)
 _TC_STAGE_K = 64        # k-rows per ring stage (csrc tc_step::kKS)
 _MAX_CLUSTER = 8        # k-ranges of a tensor-core column tile (a cluster)
+W8A8_TC_MAX_RANGE_K = 2048  # B5's longest tensor-core k-range (its blocks
+                            # keep 8 rows of x on chip, raw and quantized)
 _TARGET_BLOCKS = 264    # two blocks per SM on a 132-SM H100
-_TC_TARGET_BLOCKS = 528  # four tensor-core blocks per SM (28 KB rings)
+_TC_TARGET_BLOCKS = 528  # four tensor-core blocks per SM (B6: 28 KB of
+                         # ring; B5 at qwen2's shapes: 37 KB with its x)
 _MIN_SPLIT_K = 64
 _PARTIAL_BYTES = 8 << 20
 _X_DTYPES = (torch.float32, torch.bfloat16)
@@ -51,19 +58,23 @@ _X_DTYPES = (torch.float32, torch.bfloat16)
 _COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
-def decode_split(m: int, k: int, n: int, tc: bool = False
-                 ) -> tuple[int, int]:
-    """(n_split, k_per_split) of a decode launch: enough K ranges that
-    the blocks (column tiles x ranges, and on the tensor-core step x
-    blocks of 8 rows) fill the card.  FMA step: two blocks an SM, ranges
-    at least 64 deep in multiples of 4, the split partials bounded to 8
-    MB.  Tensor-core step: four blocks an SM, ranges in whole 64-row ring
-    stages, at most 8 (one thread block cluster), summed on chip."""
+def decode_split(m: int, k: int, n: int, tc: bool = False,
+                 max_range_k: Optional[int] = None) -> tuple[int, int]:
+    """(n_split, k_per_split) of a decode launch (B5 or B6): enough K
+    ranges that the blocks (column tiles x ranges, and on the tensor-core
+    step x blocks of 8 rows) fill the card.  Other step (B5 ragged, B6
+    FMA): two blocks an SM, ranges at least 64 deep in multiples of 4, the
+    split partials bounded to 8 MB.  Tensor-core step: four blocks an SM,
+    ranges in whole 64-row ring stages, at most 8 (one thread block
+    cluster), summed on chip; ``max_range_k`` (B5, whose blocks keep their
+    slice of x on chip) bounds a range's depth where 8 ranges allow it."""
     blocks = -(-n // _TILE_N) * (-(-m // _TC_ROWS) if tc else 1)
     want = -(-(_TC_TARGET_BLOCKS if tc else _TARGET_BLOCKS) // blocks)
     cap_k = max(1, k // _MIN_SPLIT_K)
     cap = _MAX_CLUSTER if tc else max(1, _PARTIAL_BYTES // (m * n * 4))
     s = max(1, min(want, cap_k, cap))
+    if max_range_k:
+        s = min(cap, max(s, -(-k // max_range_k)))
     step = _TC_STAGE_K if tc else 4
     kps = -(-k // s)
     kps = -(-kps // step) * step
@@ -173,7 +184,7 @@ def _counters(device: torch.device, tiles: int) -> torch.Tensor:
 
 
 def _launch_decode(name, x2, wq, ws, bias, out_dtype):
-    global decode_launches, fp8_launches, fp8_tc_launches
+    global decode_launches, decode_tc_launches, fp8_launches, fp8_tc_launches
     int8 = name == "w8a8_decode"
     want_w = torch.int8 if int8 else torch.float8_e4m3fn
     _check(name, x2.ndim == 2 and wq.ndim == 2 and wq.shape[0] == x2.shape[1],
@@ -192,13 +203,13 @@ def _launch_decode(name, x2, wq, ws, bias, out_dtype):
                "bias must be fp32 or bf16 (N,)")
         tensors.append(bias)
     _check_tensors(name, tensors, x2.device)
-    tc = 0
-    if not int8:
-        aligned16 = int(x2.data_ptr() % 16 == 0 and wq.data_ptr() % 16 == 0)
-        tc = build.tc_step_query(name)(build.DTYPE_CODES[x2.dtype], k, n,
-                                       aligned16)
-    n_split, kps = decode_split(m, k, n, tc=bool(tc))
     out = torch.empty((m, n), dtype=out_dtype, device=x2.device)
+    aligned16 = int(all(t.data_ptr() % 16 == 0 for t in (x2, wq, out)))
+    tc = build.tc_step_query(name)(build.DTYPE_CODES[x2.dtype], k, n,
+                                   aligned16)
+    n_split, kps = decode_split(
+        m, k, n, tc=bool(tc),
+        max_range_k=W8A8_TC_MAX_RANGE_K if int8 and tc else None)
     partial = counters = None
     if n_split > 1 and not tc:
         partial = torch.empty((n_split, m, n), device=x2.device,
@@ -216,12 +227,12 @@ def _launch_decode(name, x2, wq, ws, bias, out_dtype):
     if int8:
         args.append(int((k * x2.element_size()) % 16 == 0
                         and x2.data_ptr() % 16 == 0))
-    else:
-        args.append(aligned16)
+    args.append(aligned16)
     rc = fn(*args, build.stream_handle(x2.device))
     build.check_status(name, rc, err)
     if int8:
         decode_launches += 1
+        decode_tc_launches += tc
     else:
         fp8_launches += 1
         fp8_tc_launches += tc

@@ -1,16 +1,17 @@
 """Device time of each kernel that one call of B1 (paged decode), B6 (fp8
-decode matmul), B4 (tiled W8A8 matmul) and B8 (WKV-6) launches, on the
-GPU.
+decode matmul), B5 (W8A8 decode matmul), B4 (tiled W8A8 matmul), B8
+(WKV-6) and B7 (RMSNorm) launches, on the GPU.
 
     PYTHONPATH=src python -m repro_torch.launch.kernel_profile
 
 B1 at ``chip_smoke.py`` phase 3's timed shape (8 slots of lengths 0-1,024
-summing to 3,075, 12 heads over 2 kv heads, D 128, page 256, bf16), B6 at
-phase 8's (M 8, K 1,536, N 8,960, bf16 x, bf16 bias), B4 at phase 8's
-(M 4,096, K 1,536, N 8,960, bf16 out), B8 at phase 11's (B 1, S 2,048, H
-32, D 64, bf16 r/k/v); then each at a size that moves almost no bytes
-(B1 with every length 0, B6 and B4 at K 64, B8 at S 1), the floor a call
-costs whatever its data.  Each call runs
+summing to 3,075, 12 heads over 2 kv heads, D 128, page 256, bf16), B6
+and B5 at phase 8's (M 8, K 1,536, N 8,960, bf16 x, bf16 bias), B4 at
+phase 8's (M 4,096, K 1,536, N 8,960, bf16 out), B8 at phase 11's (B 1, S
+2,048, H 32, D 64, bf16 r/k/v), B7 at phase 12's (4,096 rows of 1,536,
+bf16); then each at a size that moves almost no bytes (B1 with every
+length 0, B6, B5 and B4 at K 64, B8 at S 1, B7 at a decode step's 8
+rows), the floor a call costs whatever its data.  Each call runs
 ``REPS`` times under ``torch.profiler`` on operand copies that together
 exceed the L2; the result is every kernel's name, its runs per call and
 its mean device time per run.  The last line is the same as JSON, with
@@ -26,6 +27,7 @@ import torch
 from repro_torch.kernels.int8_matmul import ops as qmm
 from repro_torch.kernels.int8_matmul.ref import quantize_rowwise
 from repro_torch.kernels.paged_attention import ops as pops
+from repro_torch.kernels.rmsnorm import ops as rops
 from repro_torch.kernels.wkv6 import ops as wops
 from repro_torch.quant.qops import quantize_linear
 
@@ -45,10 +47,10 @@ def _paged_args(g, dev, lengths=LENGTHS):
     return (q, kp, vp, bt, lens)
 
 
-def _fp8_args(g, dev, k=1536):
+def _decode_args(g, dev, k=1536, quant="fp8"):
     m, n = 8, 8960
     p = quantize_linear({"w": torch.randn((k, n), generator=g, device=dev)
-                         * 0.02}, quant="fp8")
+                         * 0.02}, quant=quant)
     x = torch.randn((m, k), generator=g, device=dev).bfloat16()
     bias = (torch.randn((n,), generator=g, device=dev) * 0.1).bfloat16()
     return (x, p["qw"], p["scale"], bias)
@@ -61,6 +63,11 @@ def _int8_args(g, dev, k=1536):
     xq, xs = quantize_rowwise(
         torch.randn((m, k), generator=g, device=dev).bfloat16())
     return (xq, p["qw"], xs, p["scale"])
+
+
+def _rmsnorm_args(g, dev, rows=4096):
+    x = torch.randn((rows, 1536), generator=g, device=dev).bfloat16()
+    return (x, torch.randn((1536,), generator=g, device=dev).bfloat16())
 
 
 def _wkv6_args(g, dev, s=2048):
@@ -106,18 +113,27 @@ def main() -> int:
     res = {"card": smi}
     b6 = lambda x, w, s, b: qmm.fp8_matmul_decode(x, w, s,  # noqa: E731
                                                     bias=b)
+    b5 = lambda x, w, s, b: qmm.w8a8_matmul_decode(x, w, s,  # noqa: E731
+                                                     bias=b)
     for name, fn, make in (
             ("B1 paged decode", pops.paged_attention, _paged_args),
-            ("B6 fp8 decode", b6, _fp8_args),
+            ("B6 fp8 decode", b6, _decode_args),
+            ("B5 W8A8 decode", b5,
+             lambda g, dev: _decode_args(g, dev, quant="int8")),
             ("B4 tiled W8A8", qmm.int8_matmul, _int8_args),
             ("B8 WKV-6", wops.wkv6, _wkv6_args),
+            ("B7 RMSNorm", rops.rmsnorm, _rmsnorm_args),
             ("B1 floor (lengths 0)", pops.paged_attention,
              lambda g, dev: _paged_args(g, dev, (0,) * len(LENGTHS))),
-            ("B6 floor (K 64)", b6, lambda g, dev: _fp8_args(g, dev, 64)),
+            ("B6 floor (K 64)", b6, lambda g, dev: _decode_args(g, dev, 64)),
+            ("B5 floor (K 64)", b5,
+             lambda g, dev: _decode_args(g, dev, 64, "int8")),
             ("B4 floor (K 64)", qmm.int8_matmul,
              lambda g, dev: _int8_args(g, dev, 64)),
             ("B8 floor (S 1)", wops.wkv6,
-             lambda g, dev: _wkv6_args(g, dev, 1))):
+             lambda g, dev: _wkv6_args(g, dev, 1)),
+            ("B7 floor (8 rows)", rops.rmsnorm,
+             lambda g, dev: _rmsnorm_args(g, dev, 8))):
         per = _profile(fn, [make(g, dev) for _ in range(COPIES)])
         res[name] = {k: {"runs_per_call": r, "ms": ms}
                      for k, (r, ms) in per.items()}

@@ -1,7 +1,9 @@
 """Small launches of the kernels that stage tiles through ``cp.async`` or
-TMA rings (B1 paged decode, B6 fp8 decode, B2 prefix extend, B3 flash
-prefill, B4 tiled W8A8 on its wgmma step, B8 WKV-6), for a run under
-NVIDIA's compute-sanitizer:
+TMA rings (B1 paged decode, B6 fp8 decode, B5 W8A8 decode on its
+tensor-core step, B2 prefix extend, B3 flash prefill, B4 tiled W8A8 on
+its wgmma step, B8 WKV-6) or share a warp's registers across rows (B7
+RMSNorm, on each of its steps), for a run under NVIDIA's
+compute-sanitizer:
 
     compute-sanitizer --tool racecheck python -m repro_torch.launch.sanitize
     compute-sanitizer --tool synccheck python -m repro_torch.launch.sanitize
@@ -20,10 +22,13 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.int8_matmul import ops as qmm
 from repro_torch.kernels.int8_matmul.ref import (fp8_decode_ref,
                                                  int8_matmul_ref,
-                                                 quantize_rowwise)
+                                                 quantize_rowwise,
+                                                 w8a8_decode_ref)
 from repro_torch.kernels.paged_attention import ops as pops
 from repro_torch.kernels.paged_attention.ref import (paged_attention_ref,
                                                      paged_prefix_extend_ref)
+from repro_torch.kernels.rmsnorm import ops as rops
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 from repro_torch.kernels.wkv6 import ops as wops
 from repro_torch.kernels.wkv6.ref import wkv6_chunked_ref
 from repro_torch.quant.qops import quantize_linear
@@ -66,6 +71,24 @@ def _cases(g, dev):
         x = torch.randn((8, 512), generator=g, device=dev).to(x_dt)
         yield (f"B6 {str(x_dt)[6:]} x", qmm.fp8_matmul_decode,
                fp8_decode_ref, (x, p["qw"], p["scale"]))
+    # B5 on its tensor-core step: K 4,608 over N 128 plans 8 k-ranges (a
+    # cluster of 8) of 9 stages each, so the 8-slot ring wraps; M 9 takes
+    # two row blocks, the second one ragged
+    p = quantize_linear({"w": torch.randn((4608, 128), generator=g,
+                                          device=dev) * 0.02}, quant="int8")
+    assert qmm.decode_split(9, 4608, 128, tc=True,
+                            max_range_k=qmm.W8A8_TC_MAX_RANGE_K) == (8, 576)
+    x = torch.randn((9, 4608), generator=g, device=dev).to(bf16)
+    bias = torch.randn((128,), generator=g, device=dev).to(bf16)
+    yield ("B5 tensor-core step",
+           lambda x, w, s, b: qmm.w8a8_matmul_decode(x, w, s, bias=b),
+           w8a8_decode_ref, (x, p["qw"], p["scale"], bias))
+    # B7 on its warp step (13 rows: not a multiple of a block's 8 warps)
+    # and on its long-row step (d 8,192)
+    for rows, d in ((13, 1536), (3, 8192)):
+        xr = torch.randn((rows, d), generator=g, device=dev).to(bf16)
+        wr = torch.randn((d,), generator=g, device=dev).to(bf16)
+        yield (f"B7 ({rows}, {d})", rops.rmsnorm, rmsnorm_ref, (xr, wr))
     q, kp, vp, bt, _, _, _ = _paged(g, dev, bf16, d=64)
     w = 16
     starts = torch.tensor([0, 5, 64, 100], dtype=torch.int32, device=dev)

@@ -135,6 +135,18 @@ def test_w8a8_decode_bit_equal(m, k, n, with_bias, dtype):
     _assert_bits(t, j)
 
 
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_w8a8_decode_counts_no_launch_on_the_cpu(dtype):
+    """On CPU tensors B5 takes its plain version: neither its launch
+    counter nor its tensor-core step's moves, at a shape that takes the
+    tensor-core step on the card."""
+    _, tx, wq, ws, bias = _operands(8, 1536, 256, dtype=dtype)
+    tops.decode_launches = tops.decode_tc_launches = 0
+    tops.w8a8_matmul_decode(tx, torch.from_numpy(wq), torch.from_numpy(ws),
+                            bias=torch.from_numpy(bias))
+    assert tops.decode_launches == tops.decode_tc_launches == 0
+
+
 def test_bias_epilogue_is_one_fused_multiply_add():
     """Where a separate multiply and add would round twice, the plain
     epilogue rounds once, as XLA's contracted epilogue does."""

@@ -47,6 +47,37 @@ def test_plain_rmsnorm_matches_pallas_kernel_and_oracle(shape, dtype):
                                    atol=tol, rtol=tol)
 
 
+#: row lengths where the kernel's steps split: qwen2-1.5b's 1,536 and
+#: llama3.2-1b's 2,048 (the warp step's longest), 8,192 (the long-row
+#: step's longest) and 1,000 / 1,001 (not a whole number of 8-element
+#: vectors at 1,001)
+SPLIT_LENGTHS = [1536, 2048, 8192, 1000, 1001]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", SPLIT_LENGTHS)
+def test_plain_rmsnorm_at_the_kernel_step_lengths(d, dtype):
+    """The plain version against the Pallas kernel in interpret mode and
+    the oracle at the row lengths where the CUDA kernel's warp step and
+    long-row step divide, 10 rows (not a multiple of the warps a block)."""
+    (jx, jw), (tx, tw) = _inputs((10, d), getattr(jnp, dtype), seed=d)
+    out = ops.rmsnorm(tx, tw)
+    assert out.dtype == tx.dtype and out.shape == tx.shape
+    tol = TOL[dtype]
+    for ref in (rmsnorm_pallas(jx, jw, block_rows=10, interpret=True),
+                j_ref(jx, jw)):
+        np.testing.assert_allclose(out.float().numpy(),
+                                   np.asarray(ref, np.float32),
+                                   atol=tol, rtol=tol)
+
+
+def test_rmsnorm_counts_no_warp_step_launch_on_the_cpu():
+    ops.launches = ops.warp_launches = 0
+    ops.rmsnorm(torch.ones((3, 1536), dtype=torch.bfloat16),
+                torch.ones(1536, dtype=torch.bfloat16))
+    assert ops.launches == ops.warp_launches == 0
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_norm_apply_rmsnorm_on_the_cpu_is_rmsnorm_apply(dtype):
     """The model's RMSNorm goes through the B7 op; on CPU tensors that is

@@ -161,6 +161,28 @@ def test_tiled_w8a8_runs_wgmma_from_an_async_ring():
     assert "mbarrier" in text
 
 
+def test_w8a8_decode_runs_int8_mma_from_an_async_ring_in_a_cluster():
+    """B5's tensor-core step (with the headers it includes) runs int8
+    mma.sync m16n8k32 products, fills its ring with asynchronous copies
+    and combines its k-ranges across a thread block cluster."""
+    text = _with_includes(ROOT / "src" / "repro_torch" / "csrc" /
+                          "w8a8_decode.cu")
+    assert re.search(r"mma\.sync\.aligned\.m16n8k32[\w.]*\.s8", text)
+    assert "cp.async" in text
+    assert "this_cluster()" in text and "map_shared_rank" in text
+    assert re.search(r"(cl|cluster)\.sync\(\)", text)
+
+
+def test_rmsnorm_has_a_warp_per_row_step_reduced_by_shuffles():
+    """B7 has a warp-per-row register step (``warp_step::rmsnorm_warp``)
+    whose reduction is a warp shuffle, with no block barrier in it."""
+    text = (ROOT / "src" / "repro_torch" / "csrc" / "rmsnorm.cu").read_text()
+    start = text.index("namespace warp_step {")
+    body = text[start:text.index("}  // namespace warp_step")]
+    assert "rmsnorm_warp(" in body and "__shfl_xor_sync" in body
+    assert "__syncthreads" not in body and "atomic" not in body
+
+
 def test_wkv6_runs_its_products_on_the_tensor_cores():
     """B8 runs its products as tensor-core mma (not fp32 FMAs alone)."""
     text = _with_includes(ROOT / "src" / "repro_torch" / "csrc" / "wkv6.cu")
