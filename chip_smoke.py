@@ -87,13 +87,33 @@ Phases (each prints one line; any failure raises and exits non-zero):
                  = 24 x admissions, a prompt in a reused slot gives the
                  fresh slot's tokens, one admission's logits with B8 vs
                  its plain version
+ 14. spec      — speculative decoding through the port's SpecEngine on
+                 phase 7's settings: (a) qwen2-1.5b at full width, bf16,
+                 n-gram drafts (k <= 4, adaptive), 8 requests of 600-3,000
+                 tokens of repeated passages, 64 new tokens each: token
+                 counts, syncs = chunk dispatches + verify rounds +
+                 fallback blocks, B2 = 28 x (continuations + verify
+                 rounds), B3 = 28 x fresh chunks, B1 = 28 x fallback decode
+                 steps, B7 = 57 x forwards, all on the tensor cores / warp
+                 step; a repeated prompt; one verify round (8 slots x W 5)
+                 with every B2 call vs its plain version and the logits
+                 vs the plain versions; B2 timed at that shape beside
+                 SDPA and 5 x B1; (b) the draft-LM arm (draft_config_of:
+                 1 layer, d 384, contiguous bf16 cache), 4 requests of
+                 200-600 tokens, its syncs and B7 launches counted; (c)
+                 float32 at 4 layers, full width: the n-gram arm on bf16
+                 and int8 pools, self-speculation, a random shrunk draft
+                 (nearly every draft rejected), and the n-gram and
+                 shrunk-draft arms on int8 weights (the verify on B5, an
+                 int8 draft LM) give the plain scheduler's greedy streams
+                 token for token, and self-speculation accepts every draft
 B7 takes every RMSNorm of the qwen2-1.5b drives: 57 launches a forward
 (phases 5, 7, 9, 10), every one on its warp step.  Every B1 / B2 / B3
 launch of those drives (bf16 activations), every B4 and B5 launch of
 phase 9 and every B6 launch of phase 10 must take the tensor-core step:
 their tensor-core launch counts are printed beside the launch counts and
 must equal them.  Launch counts are
-zeroed just before each drive (phases 5, 7, 9, 10, 13) and read just
+zeroed just before each drive (phases 5, 7, 9, 10, 13, 14) and read just
 after it; peak memory is read for the set-up and, restarted, for the
 drive.  Then one JSON
 line of kernel numbers, and last the result line ``{"ok": true,
@@ -2180,6 +2200,390 @@ def phase_rwkv(records: list) -> dict:
     return out
 
 
+SPEC_REQUESTS = 8           # phase 14 (a): n-gram arm
+SPEC_DRAFT_REQUESTS = 4     # phase 14 (b): draft-LM arm
+SPEC_F32_LAYERS = 4         # phase 14 (c): float32 identity depth
+#: RMSNorm launches of one forward of phase 14's draft LM (1 layer)
+DRAFT_NORMS = 2 * 1 + 1
+
+
+def _spec_counts(eng, tracer, since_events: int) -> dict:
+    """Dispatch counts of a speculative drive: phase 7's chunk and decode
+    counts, the verify rounds and drafts, and the drafter's own syncs and
+    steps (the draft-LM arm)."""
+    c = _counts(eng, tracer, since_events)
+    st = eng.spec_stats
+    c.update(verify=st.verify_steps, proposed=st.drafts_proposed,
+             accepted=st.drafts_accepted, slot_steps=st.slot_steps,
+             spec_tokens=st.spec_tokens, fallback=st.fallback_steps,
+             draft_syncs=getattr(eng.drafter, "syncs", 0),
+             draft_steps=getattr(eng.drafter, "steps", 0))
+    return c
+
+
+def _spec_drive(eng, tracer, prompts, max_new, tag: str,
+                draft_norms: int = 0) -> dict:
+    """Serve ``prompts`` through a speculative engine with the launch
+    counts zeroed just before and read just after; check token counts,
+    host syncs and every kernel's launches against the dispatches run,
+    and that verify rounds ran and drafts were proposed."""
+    torch = _torch()
+    cfg = eng.lm.cfg
+    base = _spec_counts(eng, tracer, 0)
+    n_ev = len(tracer.events)
+    syncs0 = eng.sync_count
+    phase0 = (eng.t_prefill_s, eng.t_decode_s)
+    _reset_launches()
+    t0 = time.perf_counter()
+    ids = [eng.submit(p, max_new_tokens=int(m))
+           for p, m in zip(prompts, max_new)]
+    done = eng.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in _read_launches().items()
+                if k in ("paged_attention", "flash_attention",
+                         "paged_prefix_extend", "rmsnorm")}
+    tc = _tc_launches(tag)
+    now = _spec_counts(eng, tracer, n_ev)
+    d = {k: now[k] - base[k] for k in now if k not in ("cont", "fresh")}
+    d["cont"], d["fresh"] = now["cont"], now["fresh"]
+    d["syncs"] = eng.sync_count - syncs0
+    n_tok = 0
+    for i, m in zip(ids, max_new):
+        got = done[i].out_tokens
+        if len(got) != int(m):
+            raise AssertionError(f"{tag} request {i}: {len(got)} tokens, "
+                                 f"want {m}")
+        if not all(0 <= t < cfg.vocab_size for t in got):
+            raise AssertionError(f"{tag} request {i}: token out of vocab")
+        n_tok += len(got)
+    if d["syncs"] != d["cont"] + d["fresh"] + d["verify"] + d["blocks"]:
+        raise AssertionError(
+            f"{tag}: {d['syncs']} host syncs != {d['cont']} + {d['fresh']} "
+            f"chunk dispatches + {d['verify']} verify rounds + "
+            f"{d['blocks']} fallback decode blocks")
+    layers = cfg.num_layers
+    want = {"paged_prefix_extend": layers * (d["cont"] + d["verify"]),
+            "flash_attention": layers * d["fresh"],
+            "paged_attention": layers * d["steps"],
+            "rmsnorm": NORMS_PER_FORWARD * (d["cont"] + d["fresh"]
+                                            + d["verify"] + d["steps"])
+            + draft_norms * d["draft_steps"]}
+    if launches != want:
+        raise AssertionError(f"{tag}: launches {launches} != {want} (28 x "
+                             "(continuations + verify rounds) / fresh "
+                             "chunks / fallback decode steps, 57 x target "
+                             f"forwards + {draft_norms} x draft steps)")
+    if d["verify"] <= 0 or d["proposed"] <= 0 \
+            or launches["paged_prefix_extend"] <= 0:
+        raise AssertionError(f"{tag}: {d['verify']} verify rounds, "
+                             f"{d['proposed']} drafts proposed")
+    ttft = sorted(done[i].t_first - done[i].t_submit for i in ids)
+    return {"tokens_per_s": n_tok / wall,
+            "ttft_p50_s": statistics.median(ttft), "wall_s": wall,
+            "tokens": n_tok, "requests": len(ids),
+            "prompt_tokens": int(sum(len(p) for p in prompts)),
+            "acceptance_rate": d["accepted"] / max(d["proposed"], 1),
+            "tokens_per_slot_step": d["spec_tokens"] / max(d["slot_steps"],
+                                                          1),
+            "verify_rounds": d["verify"], "drafts_proposed": d["proposed"],
+            "drafts_accepted": d["accepted"],
+            "fallback_blocks": d["blocks"], "fallback_steps": d["steps"],
+            "fresh_dispatches": d["fresh"], "cont_dispatches": d["cont"],
+            "syncs": d["syncs"], "draft_syncs": d["draft_syncs"],
+            "draft_steps": d["draft_steps"],
+            "prefill_wall_s": eng.t_prefill_s - phase0[0],
+            "decode_wall_s": eng.t_decode_s - phase0[1],
+            "launches": launches, "tc_launches": tc,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _verify_round_vs_plain(lm, params, prefixes, rng, page=256):
+    """One verify round of 8 slots at W 5 over ``prefixes`` (written by
+    512-token chunks of ``prefill_paged``): every B2 call held to its plain
+    version element by element, and the logits of every live query row
+    with kernels vs plain versions within LOGIT_REL_L2."""
+    torch = _torch()
+    import numpy as np
+    from repro_torch.serve.engine import _pow2_bucket
+    from repro_torch.serve.paged import PageAllocator, set_block_table_rows
+    n_s, w = len(prefixes), 5
+    pps = -(-max(prefixes) // page)
+    alloc = PageAllocator(n_s * pps + 1, pps, n_s)
+    cache = lm.init_paged_cache(n_s, n_s * pps + 1, pps, page_size=page)
+    for s in range(n_s):
+        alloc.alloc(s, pps)
+    set_block_table_rows(cache, np.arange(n_s), alloc.table)
+    dev = torch.device("cuda")
+    i32 = dict(dtype=torch.int32, device=dev)
+    pre = np.asarray(prefixes, np.int32)
+    vocab = lm.cfg.vocab_size
+    slots = torch.arange(n_s, device=dev)
+    for c0 in range(0, int(pre.max()), 512):
+        toks = torch.as_tensor(rng.integers(0, vocab, (n_s, 512)),
+                               device=dev)
+        lens = torch.as_tensor(np.clip(pre - c0, 0, 512), **i32)
+        lm.prefill_paged(params, toks, cache, slots,
+                         torch.full((n_s,), c0, **i32), lens)
+    fed = torch.as_tensor(rng.integers(0, vocab, (n_s, w)), device=dev)
+    widths = np.asarray([5, 5, 5, 4, 3, 2, 1, 5][:n_s], np.int32)
+    lens_t = torch.as_tensor(pre, **i32)
+    wid_t = torch.as_tensor(widths, **i32)
+    mp = min(_pow2_bucket(pps, lo=1), pps)
+
+    def verify():
+        stage = lm.init_cache(n_s, w, kv_dtype="bfloat16")
+        return lm.verify_paged(params, fed, cache, stage, lens_t, wid_t,
+                               max_pages=mp)[0]
+
+    ver_k, calls, share = _attention_calls_vs_plain(verify)
+    ver_p = _swap_plain(verify)
+    torch.cuda.synchronize()
+    live = torch.arange(w, device=dev)[None, :] < wid_t[:, None]
+    rel, err = _worst_slot_rel_l2("verify round", ver_k[live], ver_p[live],
+                                  (int(widths.sum()), vocab))
+    return {"b2_calls": calls, "b2_worst_share": share,
+            "logit_rel_l2": rel, "logit_max_abs": err}
+
+
+def _verify_shape_times(prefixes, g) -> dict:
+    """B2 at the verify shape (8 slots x W 5 over ``prefixes``, 12 heads
+    over 2, D 128, bf16 pools) timed beside its plain version, its bound,
+    SDPA with an explicit mask, and 5 x B1 over the same prefixes (five
+    decode steps' attention)."""
+    torch = _torch()
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention import ops
+    from repro_torch.kernels.paged_attention.ref import paged_prefix_extend_ref
+    dev = torch.device("cuda")
+    pps = -(-max(prefixes) // 256)
+    w = 5
+
+    def ext():
+        return _extend_inputs("bfloat16", g, dev, list(prefixes),
+                              [w] * len(prefixes), w, pps=pps)
+
+    copies = [ext() for _ in range(4)]
+    tc0 = ops.extend_tc_launches
+    out = ops.paged_prefix_extend_attention(*copies[0])
+    ref = paged_prefix_extend_ref(*copies[0])
+    torch.cuda.synchronize()
+    line = check_close("verify shape bfloat16 W5 x 8 slots"
+                       + _step_tag(ops.extend_tc_launches - tc0, True),
+                       out, ref, 1.0)
+    nbytes, flops = extend_bytes_flops(copies[0])
+    b_ms, b_by = bound(nbytes, flops, "bfloat16")
+    ms = time_ms(ops.paged_prefix_extend_attention, copies, reps=20)
+    plain_ms = time_ms(paged_prefix_extend_ref, copies[:2], reps=3, rounds=3)
+    lib_in = [_extend_sdpa_inputs(a) for a in copies[:2]]
+    lib_ms = time_ms(lambda qq, kk, vv, mm: F.scaled_dot_product_attention(
+        qq, kk, vv, attn_mask=mm, enable_gqa=True), lib_in, reps=20)
+    dec = [_paged_inputs("bfloat16", g, dev, list(prefixes), pps=pps)
+           for _ in range(4)]
+    b1_ms = time_ms(ops.paged_attention, dec, reps=20)
+    return {"shape": [len(prefixes), w, 12, 128], "prefixes": list(prefixes),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms, "b1_ms": b1_ms,
+            "b1_x5_ms": 5 * b1_ms, "check": line}
+
+
+def _identity_arm(lm, params, prompts, max_new, **spec_kw) -> dict:
+    """The float32 identity check of one arm: the speculative engine's
+    greedy streams against the plain scheduler's on the same settings."""
+    from repro_torch.sched import SchedEngine
+    from repro_torch.spec import SpecEngine
+    kw = dict(policy="fcfs", prefix_cache=True, n_slots=8, max_len=2048,
+              page_size=256, prefill_chunk=512, decode_block=8, seed=SEED)
+    streams = []
+    for cls, extra in ((SchedEngine, {}), (SpecEngine, spec_kw)):
+        eng = cls(lm, params, **kw, **extra)
+        ids = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
+        done = eng.run_to_completion()
+        streams.append([done[i].out_tokens for i in ids])
+    same = sum(a == b for a, b in zip(*streams))
+    tele = eng.telemetry()["spec"]
+    return {"equal_streams": same, "streams": len(prompts),
+            "acceptance_rate": tele["acceptance_rate"],
+            "verify_rounds": tele["verify_steps"]}
+
+
+def phase_spec(records: list) -> dict:
+    """Speculative decoding through the port's SpecEngine: (a) qwen2-1.5b
+    at full width, bf16, n-gram drafts over phase 7's scheduler settings;
+    (b) the draft-LM arm (``draft_config_of``: 1 layer, d 384, contiguous
+    bf16 cache); (c) float32 at 4 layers, full width: the n-gram arm on
+    bf16 and int8 pools, self-speculation, a random shrunk draft, and the
+    n-gram and shrunk-draft arms on int8 weights give the plain
+    scheduler's greedy streams token for token."""
+    torch = _torch()
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch.profile_serve import passage_prompt
+    from repro_torch.models.model import LM
+    from repro_torch.obs import Tracer
+    from repro_torch.quant import quantize_tree
+    from repro_torch.spec import SpecEngine, draft_config_of
+    cfg = get_config("qwen2-1.5b").with_(num_layers=E2E_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lm = LM(cfg, device="cuda")
+    params = lm.init(SEED)
+    setup_gb = _setup_peak_gb()
+    vocab = cfg.vocab_size
+    rng = np.random.default_rng(SEED + 14)
+    kw = dict(policy="fcfs", prefix_cache=True, n_slots=8, max_len=4096,
+              page_size=256, prefill_chunk=512, decode_block=8, seed=SEED)
+
+    # (a) n-gram arm, adaptive k up to 4
+    tracer = Tracer(enabled=True)
+    eng = SpecEngine(lm, params, spec="ngram", draft_k=4, adaptive=True,
+                     tracer=tracer, **kw)
+    eng.submit(passage_prompt(rng, vocab, 700), max_new_tokens=16)
+    eng.run_to_completion()                              # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    plens = rng.integers(600, 3001, SPEC_REQUESTS)
+    prompts = [passage_prompt(rng, vocab, int(n)) for n in plens]
+    ngram = _spec_drive(eng, tracer, prompts, [64] * SPEC_REQUESTS,
+                        "spec ngram")
+    ngram["setup_peak_gb"] = setup_gb
+    for r in records:
+        if r["name"] in ngram["launches"]:
+            r.setdefault("launches_by_drive", {})["spec_ngram"] = \
+                ngram["launches"][r["name"]]
+    # a repeated prompt: the same tokens, the second time from the
+    # prefix cache (both runs' last chunk starts at 1,024)
+    repeat = passage_prompt(rng, vocab, 1200)
+    runs = []
+    for _ in range(2):
+        rid = eng.submit(repeat, max_new_tokens=32)
+        runs.append(eng.run_to_completion()[rid].out_tokens)
+    if runs[0] != runs[1]:
+        raise AssertionError("spec: a repeated prompt gave other tokens")
+    check = _verify_round_vs_plain(lm, eng.params, sorted(int(p)
+                                                          for p in plens),
+                                   rng)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    vshape = _verify_shape_times(sorted(int(p) for p in plens), g)
+    for r in records:
+        if r["name"] == "paged_prefix_extend":
+            r["verify_shape"] = {k: v for k, v in vshape.items()
+                                 if k != "check"}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) draft-LM arm: a shrunk random-weight draft drafting every round
+    dcfg = draft_config_of(cfg)
+    draft_lm = LM(dcfg, device="cuda")
+    draft_params = draft_lm.init(SEED + 1)
+    tracer = Tracer(enabled=True)
+    eng = SpecEngine(lm, params, spec="draft", draft_lm=draft_lm,
+                     draft_params=draft_params, draft_k=4, adaptive=False,
+                     tracer=tracer, **kw)
+    torch.cuda.reset_peak_memory_stats()
+    dlens = rng.integers(200, 601, SPEC_DRAFT_REQUESTS)
+    dprompts = [passage_prompt(rng, vocab, int(n)) for n in dlens]
+    draft = _spec_drive(eng, tracer, dprompts, [32] * SPEC_DRAFT_REQUESTS,
+                        "spec draft", draft_norms=DRAFT_NORMS)
+    if draft["draft_syncs"] <= 0 \
+            or draft["draft_syncs"] > draft["verify_rounds"] \
+            + draft["fallback_blocks"]:
+        raise AssertionError(f"spec draft: {draft['draft_syncs']} draft "
+                             "syncs for "
+                             f"{draft['verify_rounds']} verify rounds")
+    del eng, lm, params, draft_lm, draft_params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) float32 identity at 4 layers, full width
+    cfg32 = get_config("qwen2-1.5b").with_(num_layers=SPEC_F32_LAYERS,
+                                           dtype="float32")
+    lm32 = LM(cfg32, device="cuda")
+    params32 = lm32.init(SEED)
+    dlm32 = LM(draft_config_of(cfg32), device="cuda")
+    lm_q = LM(cfg32.with_(quant="int8"), device="cuda")
+    params_q = quantize_tree(params32, quant="int8")
+    dlm_q = LM(draft_config_of(lm_q.cfg), device="cuda")
+    iprompts = [passage_prompt(rng, vocab, int(n))
+                for n in rng.integers(150, 401, 4)]
+    ident = {
+        "ngram_bf16": _identity_arm(lm32, params32, iprompts, 24,
+                                    spec="ngram", draft_k=4),
+        "ngram_int8": _identity_arm(
+            LM(cfg32.with_(kv_cache_dtype="int8"), device="cuda"),
+            params32, iprompts, 24, spec="ngram", draft_k=4),
+        "draft_self": _identity_arm(lm32, params32, iprompts, 24,
+                                    spec="draft", draft_lm=lm32,
+                                    draft_params=params32, draft_k=4,
+                                    adaptive=False),
+        # a random shrunk draft: nearly every draft is rejected, so the
+        # streams hold the rollback (commit of accepted tokens only)
+        "draft_shrunk": _identity_arm(lm32, params32, iprompts, 24,
+                                      spec="draft", draft_lm=dlm32,
+                                      draft_params=dlm32.init(SEED + 1),
+                                      draft_k=4, adaptive=False),
+        # int8 weights (W8A8): the verify's M = 8 slots x 5 rows on B5,
+        # and a random shrunk draft quantized like the target, as
+        # launch/serve.py builds it (adaptive n-gram k waits for A5)
+        "ngram_w8a8": _identity_arm(lm_q, params_q, iprompts, 24,
+                                    spec="ngram", draft_k=4, adaptive=False),
+        "draft_w8a8": _identity_arm(lm_q, params_q, iprompts, 24,
+                                    spec="draft", draft_lm=dlm_q,
+                                    draft_params=quantize_tree(
+                                        dlm_q.init(SEED + 1), quant="int8"),
+                                    draft_k=4, adaptive=False)}
+    for name, arm in ident.items():
+        if arm["equal_streams"] != arm["streams"] \
+                or arm["verify_rounds"] <= 0:
+            raise AssertionError(f"spec float32 {name}: {arm}")
+    if ident["draft_self"]["acceptance_rate"] != 1.0:
+        raise AssertionError(f"spec self-speculation acceptance "
+                             f"{ident['draft_self']['acceptance_rate']}")
+    out = {"ngram": ngram, "draft": draft, "verify_check": check,
+           "verify_shape": vshape, "float32": ident}
+    print(f"[14 spec] (a) {cfg.name} {cfg.num_layers}L bf16 SpecEngine "
+          f"ngram k<=4 adaptive, fcfs, prefix cache, chunk 512: "
+          f"{ngram['requests']} req ({ngram['prompt_tokens']} prompt "
+          f"tokens, repeated passages), {ngram['tokens']} tokens in "
+          f"{ngram['wall_s']:.3f}s ({ngram['tokens_per_s']:.1f} tok/s), "
+          f"TTFT p50 {ngram['ttft_p50_s']:.4f}s, acceptance "
+          f"{ngram['acceptance_rate']:.4f} ({ngram['drafts_accepted']} of "
+          f"{ngram['drafts_proposed']}), {ngram['tokens_per_slot_step']:.3f} "
+          f"tokens a slot-step, {ngram['fresh_dispatches']} fresh + "
+          f"{ngram['cont_dispatches']} continuation dispatches + "
+          f"{ngram['verify_rounds']} verify rounds + "
+          f"{ngram['fallback_blocks']} fallback blocks = {ngram['syncs']} "
+          f"syncs, wall in chunks {ngram['prefill_wall_s']:.3f}s / decode "
+          f"{ngram['decode_wall_s']:.3f}s, launches {ngram['launches']}, "
+          f"tensor-core launches {ngram['tc_launches']}, peak mem "
+          f"{ngram['peak_mem_gb']:.2f} GB (set-up {setup_gb:.2f} GB); "
+          f"repeat prompt same tokens; one verify round (8 slots x W 5): "
+          f"{check['b2_calls']} B2 calls vs plain, worst element "
+          f"{check['b2_worst_share']:.3f} of its limit, logits kernel vs "
+          f"plain (worst row's relative L2 / max abs, limit "
+          f"{LOGIT_REL_L2}) {check['logit_rel_l2']:.3e}/"
+          f"{check['logit_max_abs']:.3e}; B2 at the verify shape: "
+          f"{vshape['check']}; ms {vshape['ms']:.4f} plain "
+          f"{vshape['plain_ms']:.4f} sdpa {vshape['library_ms']:.4f} bound "
+          f"{vshape['bound_ms']:.4f} ({vshape['bound_by']}), 5 x B1 "
+          f"{vshape['b1_x5_ms']:.4f} | (b) draft LM {dcfg.name} "
+          f"{dcfg.num_layers}L d{dcfg.d_model} k 4: {draft['requests']} req, "
+          f"{draft['tokens']} tokens in {draft['wall_s']:.3f}s "
+          f"({draft['tokens_per_s']:.1f} tok/s), TTFT p50 "
+          f"{draft['ttft_p50_s']:.4f}s, acceptance "
+          f"{draft['acceptance_rate']:.4f}, {draft['syncs']} engine syncs + "
+          f"{draft['draft_syncs']} draft syncs, {draft['draft_steps']} "
+          f"draft steps, launches {draft['launches']}, peak mem "
+          f"{draft['peak_mem_gb']:.2f} GB | (c) float32 {SPEC_F32_LAYERS}L "
+          f"identity with the plain scheduler: "
+          + ", ".join(f"{k} {v['equal_streams']}/{v['streams']} streams "
+                      f"equal, acceptance {v['acceptance_rate']}"
+                      for k, v in ident.items()))
+    return out
+
+
 def main() -> int:
     dev = phase_device()
     phase_build()
@@ -2200,11 +2604,12 @@ def main() -> int:
                   {name: d["launches"]["rmsnorm"] for name, d in drives},
                   {name: d["tc_launches"]["rmsnorm"] for name, d in drives})
     rwkv = phase_rwkv(records)
+    spec = phase_spec(records)
     out_dir = ROOT / "chiprun_out"
     if out_dir.is_dir():
         (out_dir / "chip_smoke_e2e.json").write_text(json.dumps(
             {"e2e": e2e, "sched": sched, "qsched": qsched, "fp8": fp8,
-             "rwkv": rwkv, "kernels": records}, indent=1))
+             "rwkv": rwkv, "spec": spec, "kernels": records}, indent=1))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": dev["kind"],

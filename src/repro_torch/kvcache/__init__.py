@@ -1,6 +1,7 @@
 """KV-cache subsystem of the port: CacheSpec plus allocation, writes and
 views (bf16, int8 and fp8 page pools; see ``cache.py``)."""
 from repro_torch.kvcache.cache import (alloc_contiguous, alloc_paged,
+                                       decode_write, kv_views,
                                        paged_scatter_prefill, paged_views,
                                        paged_write_batch, pool_bytes,
                                        prefill_write)
@@ -11,7 +12,8 @@ from repro_torch.kvcache.spec import (FP8, QMAX, STORE_DTYPES, CacheSpec,
                                       paged_pool_shape)
 
 __all__ = ["CacheSpec", "FP8", "QMAX", "STORE_DTYPES", "alloc_contiguous",
-           "alloc_paged", "cache_kv_heads", "dequantize", "normalize_dtype",
+           "alloc_paged", "cache_kv_heads", "decode_write", "dequantize",
+           "kv_views", "normalize_dtype",
            "paged_pool_shape", "paged_scatter_prefill", "paged_views",
            "paged_write_batch", "pool_bytes", "prefill_write", "quantize",
            "quantize_with_scale", "requantize"]

@@ -3,6 +3,8 @@
 The port's copy of ``repro/kvcache/cache.py``:
 
 Contiguous node:  {"k": (B,S,KH,D), "v": (B,S,KH,D)}              (bf16)
+                  (the eager decode of a draft LM, and the staging
+                  caches of admission and speculative verify)
 Paged node:       {"k_pages"/"v_pages": (N,page,KH,D),
                    [, "k_scales"/"v_scales": (N,KH) fp32]
                    "block_table": (n_slots, pages_per_slot) int32}
@@ -20,8 +22,9 @@ and reads are masked by per-slot lengths.
 The reference returns new arrays (its cache is donated to each jitted
 dispatch); here every write updates the cache tensors IN PLACE with
 ``index_put_`` / ``scatter_reduce_`` and returns the same dict, so the page
-pools are never double-resident.  Contiguous quantized caches (the eager
-``Engine``'s) are not ported: ``alloc_contiguous`` refuses them.
+pools are never double-resident.  Contiguous quantized caches (per-position
+scales, the eager ``Engine``'s) are not ported yet (ROADMAP A1):
+``alloc_contiguous`` refuses them.
 """
 from __future__ import annotations
 
@@ -44,7 +47,8 @@ def alloc_contiguous(spec: CacheSpec, a: AttentionConfig, batch: int,
     if spec.quantized:
         raise NotImplementedError(
             f"kv cache dtype {spec.dtype!r}: contiguous quantized caches "
-            "belong to the eager Engine, which is not ported")
+            "belong to the eager Engine's attention path, which is not "
+            "ported yet (ROADMAP A1)")
     kvh = spec.stored_kv_heads(a)
     shape = (batch, max_len, kvh, a.head_dim)
     return {"k": torch.zeros(shape, dtype=spec.store_dtype, device=device),
@@ -85,6 +89,26 @@ def prefill_write(cache: dict, updates: dict) -> dict:
     for name, new in updates.items():
         cache[name][:, :new.shape[1]] = new.to(cache[name].dtype)
     return cache
+
+
+def decode_write(cache: dict, updates: dict, pos: torch.Tensor) -> dict:
+    """One-token write (in place) at per-row positions ``pos`` (B,):
+    ``updates`` maps "k" / "v" to (B, 1, KH, D).  A position past the
+    slab is clamped to its last row, as the reference's
+    ``dynamic_update_slice`` clamps (a draft LM's lock-step steps past
+    the end only ever write there)."""
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    for name, new in updates.items():
+        tgt = cache[name]
+        p = torch.clamp(pos.long(), 0, tgt.shape[1] - 1)
+        tgt[rows, p] = new[:, 0].to(tgt.dtype)
+    return cache
+
+
+def kv_views(cache: dict):
+    """(k, v, k_scale, v_scale) of a contiguous node; the scales are None
+    (quantized contiguous caches wait for ROADMAP A1)."""
+    return cache["k"], cache["v"], cache.get("k_scale"), cache.get("v_scale")
 
 
 # ---------------------------------------------------------------------------
@@ -135,10 +159,14 @@ def _quant_token_write(pools, scales, pidx, off, new) -> None:
 
 
 def paged_write_batch(cache: dict, positions: torch.Tensor,
-                      k_new: torch.Tensor, v_new: torch.Tensor) -> dict:
+                      k_new: torch.Tensor, v_new: torch.Tensor,
+                      mask: Optional[torch.Tensor] = None) -> dict:
     """Write one token per slot (in place): k_new/v_new (S, KH, D) land at
     logical position ``positions[s]`` of each slot's pages.  Unallocated
-    block-table rows resolve to the null page."""
+    block-table rows resolve to the null page.  ``mask`` (S,) bool
+    reroutes masked-out slots' writes to the null page: the speculative
+    commit replays only accepted tokens this way, so a rejected draft
+    never touches a live page or grows a page's scale."""
     kp, vp, ks, vs, bt = paged_views(cache)
     page = kp.shape[1]
     s_n = positions.shape[0]
@@ -148,6 +176,9 @@ def paged_write_batch(cache: dict, positions: torch.Tensor,
     lpage = torch.clamp(positions // page, max=bt.shape[1] - 1)
     pidx = bt[torch.arange(s_n, device=bt.device), lpage].long()   # (S,)
     off = positions % page
+    if mask is not None:
+        pidx = torch.where(mask, pidx, 0)
+        off = torch.where(mask, off, 0)
     if ks is not None:
         _quant_token_write((kp, vp), (ks, vs), pidx, off,
                            torch.stack([k_new, v_new]))

@@ -4,6 +4,8 @@
         [--quant int8|fp8|int4] [--kv-dtype int8|fp8]
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         --arch rwkv6-1.6b
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+        --spec ngram [--kv-dtype int8]
 
 Builds qwen2-1.5b at full width (random weights from seed 0) on the main
 path's engine settings (8 slots, page 256, ``decode_block`` 8), admits
@@ -26,6 +28,17 @@ them the drive is bf16 throughout.
 width instead (24 layers, random weights from seed 0; ``chip_smoke.py``
 phase 13's settings, 8 slots): one admission of 2,048 tokens (the WKV-6
 kernel in every layer), then 32 decode steps with that request active.
+
+``--spec ngram`` profiles one speculative verify round of the
+``SpecEngine`` instead (qwen2-1.5b at full width, ``chip_smoke.py`` phase
+14's settings: 8 slots, page 256, chunk 512, n-gram drafts of k = 4, not
+adaptive), with 8 requests of repeated passages of 512-3,072 tokens all
+decoding: the round's wall, device busy, idle share and kernel runs and
+the share of its device time in the prefix-extend kernel (B2, W = 5);
+then the commit alone (``commit_spec_cache``: its masked page writes
+run whatever was accepted), whose busy time over the round's is the
+commit's share; then one fused decode block of the same slots (8 steps,
+the scheduler's plain decode of phase 7).
 """
 from __future__ import annotations
 
@@ -41,6 +54,7 @@ from repro_torch.configs import get_config
 from repro_torch.kvcache import normalize_dtype
 from repro_torch.models.model import LM
 from repro_torch.quant import quantize_tree
+from repro_torch.sched import SchedEngine
 from repro_torch.serve.engine import Engine, PagedEngine
 
 SLOTS, PROMPT, BLOCKS, DECODE_BLOCK, SEED, TOP = 8, 512, 4, 8, 0, 8
@@ -64,7 +78,9 @@ def _device_kernels(prof) -> tuple[dict, int]:
     return out, runs
 
 
-def _phase(name: str, run) -> dict:
+def _phase(name: str, run, extra=None) -> dict:
+    """Time ``run()`` untraced (host wall), then trace one more run;
+    ``extra(kernels, busy)`` adds keys to the result."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     run()
@@ -84,9 +100,13 @@ def _phase(name: str, run) -> dict:
            "idle_share": max(0.0, 1.0 - busy / wall),
            "kernel_runs": runs,
            "top_kernels_ms": {k[:80]: v for k, v in ranked}}
+    if extra is not None:
+        res.update(extra(kernels, busy))
     print(f"[{name}] wall {wall:.3f} ms (untraced), device busy "
           f"{busy:.3f} ms, idle share {res['idle_share']:.3f}, "
-          f"{runs} kernel runs")
+          f"{runs} kernel runs"
+          + "".join(f", {k} {v:.3f}" for k, v in res.items()
+                    if k.endswith("_share") and k != "idle_share"))
     for k, v in ranked:
         print(f"    {v:9.3f} ms  {k[:100]}")
     return res
@@ -112,6 +132,75 @@ def _rwkv_phases() -> tuple:
     return cfg, results
 
 
+def passage_prompt(rng, vocab: int, n: int):
+    """An ``n``-token prompt of one 64-256-token passage repeated, each
+    copy with 2 tokens changed: what retrieval and code-editing users
+    send, and what prompt-lookup drafting serves (also ``chip_smoke.py``
+    phase 14's prompts)."""
+    passage = rng.integers(0, vocab, int(rng.integers(64, 257)))
+    out = []
+    while sum(len(c) for c in out) < n:
+        c = passage.copy()
+        c[rng.integers(0, len(c), 2)] = rng.integers(0, vocab, 2)
+        out.append(c)
+    return np.concatenate(out)[:n]
+
+
+def _spec_phases(kv_dtype: str) -> tuple:
+    """One verify round of the n-gram ``SpecEngine`` with 8 slots
+    decoding, its commit alone, and one plain decode block of the same
+    slots."""
+    from repro_torch.serve.paged import commit_spec_cache
+    from repro_torch.spec import SpecEngine
+    cfg = get_config("qwen2-1.5b").with_(kv_cache_dtype=kv_dtype)
+    lm = LM(cfg, device="cuda")
+    rng = np.random.default_rng(SEED)
+    eng = SpecEngine(lm, lm.init(SEED), spec="ngram", draft_k=4,
+                     adaptive=False, n_slots=SLOTS, max_len=4096,
+                     page_size=256, prefill_chunk=PROMPT, decode_block=8,
+                     prefix_cache=False, seed=SEED)
+    for n in CONT_STARTS:
+        eng.submit(passage_prompt(rng, cfg.vocab_size, n),
+                   max_new_tokens=512)
+    while eng.queue or eng._prefilling:        # admit, prefill, warm up
+        eng.step()
+    eng.step()
+
+    def b2_share(kernels, busy):
+        b2 = sum(v for k, v in kernels.items() if "prefix_extend" in k)
+        return {"b2_ms": b2, "b2_share": b2 / busy}
+
+    def verify_round():
+        before = eng.spec_stats.verify_steps
+        eng._dispatch_decode([])
+        if eng.spec_stats.verify_steps != before + 1:
+            raise RuntimeError("the round fell back to plain decode "
+                               "(no drafts)")
+
+    rounds = _phase(f"verify round, {SLOTS} slots x W 5 (n-gram, k 4)",
+                    verify_round, b2_share)
+    dev = torch.device("cuda")
+    w = eng.w_max
+    stage = lm.init_cache(SLOTS, w, kv_dtype="bfloat16")
+    for group in stage:                        # values of K/V's magnitude
+        for blk in group.values():
+            for t in blk["kv"].values():
+                t.normal_()
+    lengths = torch.as_tensor(eng.lengths, device=dev)
+    n_write = torch.full((SLOTS,), w, dtype=torch.int32, device=dev)
+    commit = _phase(f"commit alone, {SLOTS} slots x W {w} accepted",
+                    lambda: commit_spec_cache(eng.cache, stage, lengths,
+                                              n_write))
+    rounds["commit_share"] = commit["device_busy_ms"] \
+        / rounds["device_busy_ms"]
+    print(f"[verify round] the commit's share of its device time "
+          f"{rounds['commit_share']:.3f}")
+    return cfg, [rounds, commit,
+                 _phase(f"decode block, {SLOTS} slots x {eng.decode_block} "
+                        "steps (plain decode)",
+                        lambda: SchedEngine._dispatch_decode(eng, []))]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default="qwen2-1.5b",
@@ -120,15 +209,21 @@ def main(argv=None) -> int:
                     choices=["bf16", "fp8", "int8", "int4"])
     ap.add_argument("--kv-dtype", default="bf16",
                     choices=["bf16", "bfloat16", "int8", "fp8"])
+    ap.add_argument("--spec", default="none", choices=["none", "ngram"],
+                    help="profile one speculative verify round instead")
     args = ap.parse_args(argv)
+    if args.spec != "none" and (args.arch != "qwen2-1.5b"
+                                or args.quant != "bf16"):
+        ap.error("--spec profiles qwen2-1.5b with bf16 weights")
     if args.arch == "rwkv6-1.6b" and (args.quant != "bf16"
                                       or args.kv_dtype != "bf16"):
         ap.error("--quant and --kv-dtype apply to qwen2-1.5b only")
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    if args.arch == "rwkv6-1.6b":
-        cfg, results = _rwkv_phases()
+    if args.arch == "rwkv6-1.6b" or args.spec != "none":
+        cfg, results = (_rwkv_phases() if args.spec == "none"
+                        else _spec_phases(normalize_dtype(args.kv_dtype)))
         _report(cfg, results)
         return 0
     cfg = get_config("qwen2-1.5b").with_(

@@ -6,8 +6,14 @@ Entry points per layer, as in ``repro/models/attention.py``:
   * ``attention_prefill_paged`` — one prompt chunk per row straight
     into a paged cache, attended through the prefix-extend op
     (``kernels/paged_attention``)
+  * ``attention_verify_paged`` — a speculative verify chunk (last
+    accepted token + drafts) per slot against its paged prefix, through
+    the same prefix-extend op; the chunk's K/V goes to a bf16 staging
+    cache, not to the pages
   * ``attention_decode_paged`` — one token per slot, all slots in one
     paged-attention launch (``kernels/paged_attention``)
+  * ``attention_decode``       — one token per row over a contiguous
+    bf16 cache (a draft LM's decode), plain torch as in the reference
 
 On CUDA tensors the full-sequence products always go through the flash
 kernel (``kernels/flash_attention``).  On the CPU ``use_flash`` chooses
@@ -223,6 +229,102 @@ def attention_prefill_paged(p: dict, x: torch.Tensor, a: AttentionConfig,
         k_new, v_new, lengths.to(torch.int32), k_sc, v_sc)
     o = o.reshape(b, c, a.heads_padded * a.head_dim)
     y = linear_apply(p["wo"], _mask_pad_heads(o.to(x.dtype), a), impl)
+    return y, cache
+
+
+# ---------------------------------------------------------------------------
+# Speculative verify
+
+
+def attention_verify_paged(p: dict, x: torch.Tensor, a: AttentionConfig,
+                           cache: dict, stage: dict, spos, impl: str = "ref"
+                           ) -> tuple[torch.Tensor, dict]:
+    """Speculative-verify attention: score W chunk positions per slot in
+    one prefix-extend launch against the paged cache (``repro_torch.spec``).
+
+    x: (S, W, d) — the fed chunk (last accepted token + drafts), right-
+    padded; ``spos`` is ``(lengths (S,), widths (S,)[, max_pages])``: slot
+    s's chunk sits at logical positions ``lengths[s] + [0, widths[s])``.
+    Query w attends the cached prefix (positions < lengths[s], read from
+    the pages; int8 / fp8 pools dequantized in the kernel) plus the chunk's
+    own K/V causally (keys j <= w, j < widths[s]).  ``max_pages`` (a
+    Python int) narrows the block table to its first columns: only the
+    prefix is read from the pages, so the deepest slot's prefix bounds it.
+
+    Write-after-accept: the chunk's K/V goes into the contiguous bf16
+    ``stage`` node (in place), NOT the pages; the engine commits only the
+    accepted prefix afterwards (``serve.paged.commit_spec_cache``), so a
+    rejected tail never grows a page's running amax.  The kernel takes
+    the chunk in bf16 whatever q's dtype (fp32 q takes its FMA step)."""
+    from repro_torch import kvcache
+    from repro_torch.kernels.paged_attention.ops import (
+        paged_prefix_extend_attention)
+    if a.window is not None:
+        raise NotImplementedError("paged verify: sliding window unsupported")
+    lengths, widths, *rest = spos
+    max_pages = rest[0] if rest else None
+    b, w, _ = x.shape
+    kvh_store = cache["k_pages"].shape[2]
+    apos = lengths[:, None].long() + torch.arange(w, device=x.device)[None, :]
+    q, k_new, v_new = _project(p, x, a, apos, impl)
+    k_new = _merge_heads(k_new, kvh_store)
+    v_new = _merge_heads(v_new, kvh_store)
+    stage = kvcache.prefill_write(stage, {"k": k_new, "v": v_new})
+    kp, vp, k_sc, v_sc, bt = kvcache.paged_views(cache)
+    if max_pages is not None and max_pages < bt.shape[1]:
+        bt = bt[:, :max_pages]
+    o = paged_prefix_extend_attention(
+        q.contiguous(), kp, vp, bt.contiguous(), lengths.to(torch.int32),
+        stage["k"][:, :w].contiguous(), stage["v"][:, :w].contiguous(),
+        widths.to(torch.int32), k_sc, v_sc)
+    o = o.reshape(b, w, a.heads_padded * a.head_dim)
+    y = linear_apply(p["wo"], _mask_pad_heads(o.to(x.dtype), a), impl)
+    return y, stage
+
+
+# ---------------------------------------------------------------------------
+# Contiguous decode
+
+
+def attention_decode(p: dict, x: torch.Tensor, a: AttentionConfig,
+                     cache: dict, pos: torch.Tensor, impl: str = "ref"
+                     ) -> tuple[torch.Tensor, dict]:
+    """One-token step over a contiguous bf16 cache (in place).  x: (B,1,d);
+    pos: (B,) per-row positions.  Scores accumulate in fp32 from q and the
+    cache in q's dtype; probabilities round to x's dtype before the V
+    product, as the reference's bf16 branch does.  Quantized contiguous
+    caches (its fused-scale branch) wait for ROADMAP A1."""
+    from repro_torch import kvcache
+    b = x.shape[0]
+    kvh = a.kv_heads_effective()
+    kvh_store = cache["k"].shape[2]
+    g = a.heads_padded // kvh_store
+    pos = torch.broadcast_to(torch.as_tensor(pos, device=x.device).long(),
+                             (b,))
+    posv = pos[:, None]
+    q = linear_apply(p["wq"], x, impl).reshape(b, 1, a.heads_padded,
+                                               a.head_dim)
+    k_new = linear_apply(p["wk"], x, impl).reshape(b, 1, kvh, a.head_dim)
+    v_new = linear_apply(p["wv"], x, impl).reshape(b, 1, kvh, a.head_dim)
+    q = apply_rope(q, posv, a.rope_theta)
+    k_new = _merge_heads(apply_rope(k_new, posv, a.rope_theta), kvh_store)
+    v_new = _merge_heads(v_new, kvh_store)
+    cache = kvcache.decode_write(cache, {"k": k_new, "v": v_new}, pos)
+    k_cache, v_cache, _, _ = kvcache.kv_views(cache)
+    kpos = torch.arange(k_cache.shape[1], device=x.device)
+    valid = kpos[None, :] <= posv                                # (B,T)
+    if a.window is not None:
+        valid &= kpos[None, :] > posv - a.window
+    qg = q.reshape(b, 1, kvh_store, g, a.head_dim)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg.float(),
+                          k_cache.to(qg.dtype).float()) * _scale(a).to(
+                              x.device)
+    scores = torch.where(valid[:, None, None, None, :], scores,
+                         torch.tensor(NEG_INF, device=x.device))
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    o = torch.einsum("bkgst,btkd->bskgd", probs, v_cache.to(x.dtype))
+    o = o.reshape(b, 1, a.heads_padded * a.head_dim)
+    y = linear_apply(p["wo"], _mask_pad_heads(o, a), impl)
     return y, cache
 
 

@@ -1,4 +1,5 @@
-"""Public model API: init / prefill / decode_step.
+"""Public model API: init / prefill / prefill_paged / verify_paged /
+decode_step.
 
 ``LM`` holds the config and the device; parameters are explicit nested
 dicts of tensors in the reference's layout (``repro/models/model.py``),
@@ -162,10 +163,51 @@ class LM:
         return self._logits(params, self._last(x, lengths)), cache
 
     @torch.no_grad()
+    def verify_paged(self, params, tokens, cache, stage, lengths, widths,
+                     max_pages: Optional[int] = None):
+        """Speculative verify (``repro_torch.spec``): score ``tokens``
+        (S, W), the last accepted token followed by drafts, right-padded,
+        in one forward.  Row s's chunk sits at logical positions
+        ``lengths[s] + [0, widths[s])`` of its slot; queries attend the
+        slot's paged prefix plus the chunk causally
+        (``attention_verify_paged``).  The chunk's K/V is written into
+        ``stage`` (an (S, W) bf16 cache from :meth:`init_cache`), not the
+        pools, which are only read.  Returns the logits at all W positions
+        ((S, W, V)) and the filled stage cache.  ``max_pages`` narrows the
+        block table to the batch's deepest prefix."""
+        pos = (lengths, widths) if max_pages is None \
+            else (lengths, widths, max_pages)
+        x, out = self.backbone(params, tokens, mode="verify",
+                               cache=_zip_verify_cache(cache, stage),
+                               pos=pos)
+        return self._logits(params, x), _unzip_stage(out)
+
+    @torch.no_grad()
     def decode_step(self, params, token, cache, pos):
-        """token: (S,) int; pos: (S,) write positions -> (logits (S,V),
-        cache).  Paged K/V is updated in place; RWKV-6 blocks return new
-        state tensors and ignore ``pos``."""
+        """token: (S,) int; pos: (S,) write positions (or one position for
+        every row) -> (logits (S,V), cache).  The cache is paged or
+        contiguous (bf16; a draft LM's) and updated in place; RWKV-6
+        blocks return new state tensors and ignore ``pos``."""
         x, cache = self.backbone(params, token[:, None], mode="decode",
                                  cache=cache, pos=pos)
         return self._logits(params, x[:, 0]), cache
+
+
+# ---------------------------------------------------------------------------
+# Speculative-verify cache plumbing (repro_torch.spec)
+
+
+def _zip_verify_cache(paged: list, stage: list) -> list:
+    """Pair a paged cache with a contiguous staging cache of the same
+    block structure into the per-block ``{"kv": <paged node>, "stage":
+    <contiguous node>}`` that ``mode="verify"`` reads."""
+    return [{blk: {"kv": pg[blk]["kv"], "stage": sg[blk]["kv"]}
+             for blk in pg} for pg, sg in zip(paged, stage)]
+
+
+def _unzip_stage(out: list) -> list:
+    """The verify output's staging nodes, renamed back to ``kv`` so that
+    the result mirrors an :meth:`LM.init_cache` cache (what
+    ``commit_spec_cache`` walks)."""
+    return [{blk: {"kv": node["stage"]} for blk, node in group.items()}
+            for group in out]

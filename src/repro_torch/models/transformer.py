@@ -91,9 +91,13 @@ def group_forward(gp: dict, x: torch.Tensor, cfg: ModelConfig, *,
                   pos: Optional[torch.Tensor]):
     """One group.  ``mode`` is "prefill" (full sequence; fills a
     contiguous cache when given, or — on a paged cache — one chunk per row
-    at ``pos = (slot_ids, starts, lengths[, max_pages])``) or "decode"
-    (one token per slot against a paged cache, ``pos`` the (S,) write
-    positions).  RWKV-6 blocks run their recurrence from the cache's state
+    at ``pos = (slot_ids, starts, lengths[, max_pages])``), "decode" (one
+    token per row, ``pos`` the (S,) write positions; the cache's layout
+    picks paged or contiguous attention, where the reference reads
+    ``decode_attn_impl``) or "verify" (a speculative chunk per slot over
+    the paged cache, ``pos = (lengths, widths[, max_pages])``; the cache
+    node is ``{"kv": paged, "stage": contiguous}`` and only the stage is
+    written).  RWKV-6 blocks run their recurrence from the cache's state
     (zeros without a cache) and ignore ``pos``."""
     a = cfg.attention
     # the quantized linears' execution choice (every forward of the port
@@ -104,8 +108,10 @@ def group_forward(gp: dict, x: torch.Tensor, cfg: ModelConfig, *,
         blk = gp[f"blk{i}"]
         c = cache[f"blk{i}"] if cache is not None else None
         h = norm_apply(cfg.norm, blk["norm1"], x, cfg.norm_eps)
-        if mode not in ("prefill", "decode"):
+        if mode not in ("prefill", "decode", "verify"):
             raise ValueError(f"mode {mode!r}")
+        if mode == "verify" and bk["kind"] != "attn":
+            raise NotImplementedError("verify runs attention blocks only")
         if bk["kind"] == "rwkv6":
             st = c["state"] if c is not None else ssm_mod.init_rwkv6_state(
                 x.shape[0], cfg.d_model, cfg.ssm, x.device)
@@ -128,13 +134,16 @@ def group_forward(gp: dict, x: torch.Tensor, cfg: ModelConfig, *,
                     blk["attn"], h, a, c["kv"], use_flash=cfg.use_kernels,
                     impl=impl)
                 new_cache[f"blk{i}"] = {"kv": kv}
+        elif mode == "verify":
+            y, stage = attn_mod.attention_verify_paged(
+                blk["attn"], h, a, c["kv"], c["stage"], pos, impl)
+            new_cache[f"blk{i}"] = {"stage": stage}
         else:
-            if c is None or "k_pages" not in c["kv"]:
-                raise NotImplementedError(
-                    "attention decode runs against a paged cache only; "
-                    "contiguous decode waits for ROADMAP A1")
-            y, kv = attn_mod.attention_decode_paged(blk["attn"], h, a,
-                                                    c["kv"], pos, impl)
+            if c is None:
+                raise ValueError("attention decode needs a cache")
+            step = (attn_mod.attention_decode_paged if "k_pages" in c["kv"]
+                    else attn_mod.attention_decode)
+            y, kv = step(blk["attn"], h, a, c["kv"], pos, impl)
             new_cache[f"blk{i}"] = {"kv": kv}
         x = x + y
         h = norm_apply(cfg.norm, blk["norm2"], x, cfg.norm_eps)

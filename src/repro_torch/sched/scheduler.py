@@ -88,6 +88,9 @@ class SchedEngine(PagedEngine):
                 f"of page_size={self.page_size} (page-aligned chunks keep "
                 "quantized page scales single-writer)")
         self.prefill_chunk = prefill_chunk
+        # tokens past each slot's length that the next decode dispatch may
+        # write (SpecEngine widens it to a verify round's chunk)
+        self.decode_horizon = self.decode_block
         self.policy: Policy = (policy if isinstance(policy, Policy)
                                else make_policy(policy, slo_ttft=slo_ttft))
         self.prefix = (PrefixCache(self.alloc, self.page_size)
@@ -432,7 +435,7 @@ class SchedEngine(PagedEngine):
         for slot in list(self.active):
             if slot not in self.active:      # preempted by an earlier grow
                 continue
-            horizon = min(int(self.lengths[slot]) + self.decode_block,
+            horizon = min(int(self.lengths[slot]) + self.decode_horizon,
                           self.max_len)
             need = self.alloc.pages_needed(horizon, self.page_size) \
                 - len(self.alloc.owned(slot))

@@ -315,6 +315,15 @@ class Engine(_EngineBase):
 # Paged engine
 
 
+def _gumbel_argmax(scores: torch.Tensor,
+                   gen: torch.Generator) -> torch.Tensor:
+    """One sample of softmax(scores) along the last axis by the Gumbel-max
+    trick, noise from ``gen``."""
+    u = torch.rand(scores.shape, generator=gen, device=scores.device)
+    return torch.argmax(scores - torch.log(-torch.log(u)),
+                        dim=-1).to(torch.int32)
+
+
 def _sample_batch(logits: torch.Tensor, temps: torch.Tensor,
                   gen: Optional[torch.Generator]) -> torch.Tensor:
     """Device-side sampling: greedy (argmax, first maximum on ties) where
@@ -325,10 +334,7 @@ def _sample_batch(logits: torch.Tensor, temps: torch.Tensor,
     if gen is None:
         return greedy
     t = torch.clamp(temps, min=1e-6)[:, None]
-    u = torch.rand(logits.shape, generator=gen, device=logits.device)
-    sampled = torch.argmax(logits / t - torch.log(-torch.log(u)),
-                           dim=-1).to(torch.int32)
-    return torch.where(temps > 0, sampled, greedy)
+    return torch.where(temps > 0, _gumbel_argmax(logits / t, gen), greedy)
 
 
 def _scale_snapshot(cache) -> Optional[torch.Tensor]:

@@ -16,7 +16,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from repro_torch.kvcache import paged_scatter_prefill
+from repro_torch.kvcache import paged_scatter_prefill, paged_write_batch
 
 PAGE = 256
 
@@ -149,6 +149,26 @@ class PageAllocator:
         if self.refs[page] == 0:
             self.free.append(page)
 
+    def cow(self, slot: int, index: int) -> int:
+        """Copy-on-write: replace the SHARED page at ``slot``'s block-
+        table position ``index`` with a fresh exclusive page (the caller
+        copies the device contents).  The old page keeps its other
+        references (prefix cache / other rows); this row's reference
+        moves to the fresh page.  Atomic: on OutOfPagesError nothing
+        changed.  Returns the fresh physical page id."""
+        owned = self._owned.get(slot)
+        if owned is None or index >= len(owned):
+            raise ValueError(f"slot {slot} owns no page at index {index}")
+        old = owned[index]
+        if self.refs[old] <= 1:
+            raise ValueError(f"cow of exclusive page {old} (refs <= 1)")
+        (fresh,) = self._take(1)
+        self.refs[fresh] = 1
+        owned[index] = fresh
+        self.table[slot, index] = fresh
+        self.unref(old)
+        return fresh
+
     def release(self, slot: int) -> None:
         for p in self._owned.pop(slot, ()):
             self.unref(p)
@@ -177,6 +197,28 @@ def scatter_prefill_cache(paged_cache, contig_cache, slot_ids, lengths,
                             _attn_nodes(contig_cache)):
         paged_scatter_prefill(node, slot_ids, lengths, contig["k"],
                               contig["v"], starts)
+    return paged_cache
+
+
+def commit_spec_cache(paged_cache, stage_cache, lengths, n_write):
+    """Commit a speculative verify round's ACCEPTED tokens into the paged
+    cache, in place (write-after-accept; ``repro_torch.spec``).
+
+    ``stage_cache`` is the bf16 staging cache ``LM.verify_paged`` filled
+    (per attention node ``{"k"/"v": (S, W, KH, D)}``) and ``n_write`` (S,)
+    how many leading chunk tokens each slot accepted.  The writes replay
+    the decode path: W per-token ``kvcache.paged_write_batch`` calls per
+    layer in chunk order, masked to ``i < n_write[s]`` (masked writes
+    land in the null page), so the pools, int8 / fp8 page scales and
+    their requantizations included, evolve just as W decode steps would
+    have moved them.  Rejected draft K/V is never written: rolling back
+    is a host-side length truncation."""
+    for node, stage in zip(_attn_nodes(paged_cache),
+                           _attn_nodes(stage_cache)):
+        k_rows, v_rows = stage["k"], stage["v"]
+        for i in range(k_rows.shape[1]):
+            paged_write_batch(node, lengths + i, k_rows[:, i], v_rows[:, i],
+                              mask=i < n_write)
     return paged_cache
 
 

@@ -54,7 +54,9 @@ def test_scan_covers_the_scheduler_and_every_kernel_module():
                 "kernels/wkv6/__init__.py", "kernels/wkv6/ops.py",
                 "kernels/wkv6/ref.py", "kernels/rmsnorm/__init__.py",
                 "kernels/rmsnorm/ops.py", "kernels/rmsnorm/ref.py",
-                "configs/rwkv6_1_6b.py"):
+                "configs/rwkv6_1_6b.py", "spec/__init__.py",
+                "spec/engine.py", "spec/drafter.py", "spec/controller.py",
+                "spec/rollback.py", "core/costmodel.py"):
         assert f"src/repro_torch/{rel}" in scanned, rel
     from repro_torch.kernels import build
     for src in build.SOURCES.values():
@@ -98,6 +100,31 @@ def test_wrappers_dispatch_on_the_device_without_fallback(rel):
     assert set(WRAPPERS[rel]) <= plain_returns, (rel, plain_returns)
     source = path.read_text()
     assert 'device.type != "cuda"' in source and "raise ValueError" in source
+
+
+def test_chip_smoke_drives_the_spec_path():
+    """chip_smoke.py has a speculative-decoding phase that its main runs:
+    it serves through the port's SpecEngine (n-gram and draft arms), holds
+    a verify round's logits to the plain versions and the float32 streams
+    to the plain scheduler's, and checks B2's launches on verify rounds."""
+    text = (ROOT / "chip_smoke.py").read_text()
+    tree = ast.parse(text)
+    funcs = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    assert "phase_spec" in funcs
+    main_calls = {ast.unparse(c.func) for c in ast.walk(funcs["main"])
+                  if isinstance(c, ast.Call)}
+    assert "phase_spec" in main_calls
+    # the phase and the helpers it calls
+    called = {ast.unparse(c.func) for c in ast.walk(funcs["phase_spec"])
+              if isinstance(c, ast.Call)}
+    body = "\n".join(ast.unparse(funcs[n]) for n in
+                     sorted(called & set(funcs)) + ["phase_spec"])
+    for needle in ("SpecEngine", "spec='ngram'", "spec='draft'",
+                   "draft_config_of", "verify_paged", "_swap_plain",
+                   "_attention_calls_vs_plain", "paged_prefix_extend",
+                   "acceptance_rate"):
+        assert needle in body, needle
+    assert "[14 spec]" in text
 
 
 def test_chip_smoke_names_every_ported_kernel():
@@ -232,6 +259,8 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
         main(["--smoke", "--policy", "fcfs", "--requests", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--arch", "rwkv6-1.6b", "--smoke", "--requests", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--smoke", "--spec", "ngram", "--requests", "1"])
     lm = LM(cfg, device="cpu")            # an explicit request is honoured
     assert lm.device.type == "cpu"
 
