@@ -107,13 +107,38 @@ Phases (each prints one line; any failure raises and exits non-zero):
                  shrunk-draft arms on int8 weights (the verify on B5, an
                  int8 draft LM) give the plain scheduler's greedy streams
                  token for token, and self-speculation accepts every draft
+ 15. eager     — the port's eager Engine over contiguous caches: (a)
+                 qwen2-1.5b at full width, bf16, 8 slots, max_len 4,096,
+                 16 requests of 200-3,000 tokens (at least 4 past
+                 attn_chunk_min, 2,048), 32-64 new tokens: token counts,
+                 syncs = admissions + decode steps, B3 = 28 x admissions,
+                 B7 = 57 x forwards, all on the tensor-core / warp step,
+                 a repeated prompt, the 2,048-token admission's logits vs
+                 chunked attention and the plain RMSNorm; (b) int8
+                 weights over an int8 cache and fp8 weights over an fp8
+                 cache, 8 requests each: B4 = 196 x admissions past 128
+                 tokens, B5 / B6 = 196 x decode steps; (c) float32 at 4
+                 layers: the Engine's greedy streams equal the
+                 PagedEngine's, and a copy with a 512-token window (B3
+                 windowed) equals its plain versions
+ 16. resil     — resilient serving, float32 at 4 layers, full width,
+                 SchedEngine with pages and chunks of 128: (a) chaos
+                 seed=0,oom=0.05,fault=0.1,shrink=4, every request ok with
+                 the fault-free stream, faults injected and recovered; (b)
+                 0.3 s spikes against a 0.75 s deadline: timed_out; (c) 32
+                 requests with the ladder, down to its shed rung with
+                 retry-after hints; (d) SpecEngine n-gram under
+                 draft=0.3,fault=0.1, the plain scheduler's streams; in
+                 every arm the outcomes sum to the requests, every page is
+                 freed and B1 / B2 / B3 / B7 ran once a layer for each
+                 dispatch that got past the fault hook
 B7 takes every RMSNorm of the qwen2-1.5b drives: 57 launches a forward
 (phases 5, 7, 9, 10), every one on its warp step.  Every B1 / B2 / B3
 launch of those drives (bf16 activations), every B4 and B5 launch of
 phase 9 and every B6 launch of phase 10 must take the tensor-core step:
 their tensor-core launch counts are printed beside the launch counts and
 must equal them.  Launch counts are
-zeroed just before each drive (phases 5, 7, 9, 10, 13, 14) and read just
+zeroed just before each drive (phases 5, 7, 9, 10, 13-16) and read just
 after it; peak memory is read for the set-up and, restarted, for the
 drive.  Then one JSON
 line of kernel numbers, and last the result line ``{"ok": true,
@@ -921,8 +946,9 @@ def _setup_peak_gb() -> float:
 
 def _swap_plain(fn, groups=("attention", "matmul", "norm")):
     """Run ``fn()`` with the ops of ``groups`` bound to their plain
-    versions: the attention ops (B1-B3), the quantized matmuls (B4-B6),
-    RMSNorm (B7) and / or the WKV-6 recurrence (B8; "wkv_nudged" scales
+    versions: the attention ops (B1-B3; "chunked" binds B3 alone to
+    chunked attention), the quantized matmuls (B4-B6), RMSNorm (B7)
+    and / or the WKV-6 recurrence (B8; "wkv_nudged" scales
     logw by 1 + 1e-6 first, a probe of how far rounding-level changes
     move the logits).  The comparison arm of the drives' logit checks;
     the port itself never does this."""
@@ -950,6 +976,7 @@ def _swap_plain(fn, groups=("attention", "matmul", "norm")):
                    (qops, "w8a8_matmul_decode", w8a8_decode_ref),
                    (qops, "fp8_matmul_decode", fp8_decode_ref)],
         "norm": [(rops, "rmsnorm", rmsnorm_ref)],
+        "chunked": [(fops, "flash_attention", _chunked_plain())],
         "wkv": [(wops, "wkv6", lambda r, k, v, lw, u, s0: wkv6_chunked_ref(
             r.float(), k.float(), v.float(), lw, u, s0))],
         "wkv_nudged": [(wops, "wkv6", lambda r, k, v, lw, u, s0:
@@ -2584,6 +2611,467 @@ def phase_spec(records: list) -> dict:
     return out
 
 
+EAGER_REQUESTS = 16         # phase 15 (a)
+EAGER_Q_REQUESTS = 8        # phase 15 (b), each arm
+EAGER_F32_LAYERS = 4        # phase 15 (c) and phase 16
+
+
+def _eager_spans(tracer, since: int) -> tuple:
+    """(admissions, decode steps) of an eager ``Engine`` drive, from its
+    own trace spans."""
+    from repro_torch.obs.trace import PID_ENGINE
+    ev = tracer.events[since:]
+    return (sum(e["name"] == "prefill" and e["ph"] == "X" for e in ev),
+            sum(e["name"] == "decode_step" and e["ph"] == "X"
+                and e["pid"] == PID_ENGINE for e in ev))
+
+
+def _chunked_plain():
+    """The flash op's replacement on the plain side of phase 15's logit
+    check: the port's ``chunked_attention`` (online softmax over blocks
+    of 1,024), as the reference computes a long prefill off the TPU."""
+    torch = _torch()
+    from repro_torch.models.attention import chunked_attention
+
+    def flash(q, k, v, causal=True, window=None):
+        b, s, h, d = q.shape
+        kh = k.shape[2]
+        scale = 1.0 / torch.sqrt(torch.tensor(d, dtype=torch.float32,
+                                              device=q.device))
+        o = chunked_attention(q.reshape(b, s, kh, h // kh, d), k, v,
+                              causal=causal, window=window, scale=scale)
+        return o.reshape(b, s, h, d)
+    return flash
+
+
+def _eager_drive(eng, tracer, prompts, max_new, tag: str,
+                 qlinears: int = 0) -> dict:
+    """Serve ``prompts`` through an eager ``Engine`` with the launch
+    counts zeroed just before and read just after; check token counts,
+    host syncs = admissions + decode steps, and every kernel's launches:
+    B3 28 x admissions, B7 57 x forwards, and with quantized weights B4
+    ``qlinears`` x admissions past 128 tokens (int8) and B5 / B6
+    ``qlinears`` x decode steps; every launch on its tensor-core / warp
+    step."""
+    torch = _torch()
+    cfg = eng.lm.cfg
+    n_ev, syncs0 = len(tracer.events), eng.sync_count
+    phase0 = (eng.t_prefill_s, eng.t_decode_s)
+    _reset_launches()
+    t0 = time.perf_counter()
+    ids = [eng.submit(p, max_new_tokens=int(m))
+           for p, m in zip(prompts, max_new)]
+    done = eng.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    tc = _tc_launches(tag)
+    admits, steps = _eager_spans(tracer, n_ev)
+    syncs = eng.sync_count - syncs0
+    n_tok = 0
+    for i, m in zip(ids, max_new):
+        got = done[i].out_tokens
+        if len(got) != int(m) or not all(0 <= t < cfg.vocab_size
+                                         for t in got):
+            raise AssertionError(f"{tag} request {i}: {len(got)} tokens "
+                                 f"(want {m}) or a token out of vocab")
+        n_tok += len(got)
+    if admits != len(prompts) or syncs != admits + steps:
+        raise AssertionError(f"{tag}: {syncs} host syncs != {admits} "
+                             f"admissions + {steps} decode steps (want "
+                             f"{len(prompts)} admissions)")
+    long_admits = sum(len(p) > 128 for p in prompts)
+    want = {k: 0 for k in launches}
+    want["flash_attention"] = cfg.num_layers * admits
+    want["rmsnorm"] = (2 * cfg.num_layers + 1) * (admits + steps)
+    if cfg.quant == "int8":
+        want["int8_matmul"] = qlinears * long_admits
+        want["w8a8_decode_matmul"] = qlinears * steps
+    elif cfg.quant == "fp8":
+        want["fp8_decode_matmul"] = qlinears * steps
+    if launches != want:
+        raise AssertionError(f"{tag}: launches {launches} != {want}")
+    ttft = sorted(done[i].t_first - done[i].t_submit for i in ids)
+    return {"streams": [done[i].out_tokens for i in ids],
+            "tokens_per_s": n_tok / wall,
+            "ttft_p50_s": statistics.median(ttft), "wall_s": wall,
+            "tokens": n_tok, "requests": len(ids),
+            "prompt_tokens": int(sum(len(p) for p in prompts)),
+            "long_prompts": int(sum(len(p) >= 2048 for p in prompts)),
+            "admissions": admits, "decode_steps": steps, "syncs": syncs,
+            "prefill_wall_s": eng.t_prefill_s - phase0[0],
+            "decode_wall_s": eng.t_decode_s - phase0[1],
+            "launches": {k: v for k, v in launches.items() if v},
+            "tc_launches": {k: v for k, v in tc.items() if v},
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _eager_prompts(rng, vocab: int, n: int) -> list:
+    """``n`` prompts of 200-3,000 tokens, a quarter of them (at least 4
+    of 16) past ``attn_chunk_min`` (2,048), the first exactly 2,048."""
+    import numpy as np
+    plens = rng.integers(200, 3001, n)
+    plens[: max(n // 4, 2)] = rng.integers(2048, 3001, max(n // 4, 2))
+    plens[0] = 2048
+    return [rng.integers(0, vocab, (int(k),)) for k in plens]
+
+
+def phase_eager(records: list) -> dict:
+    """The port's eager ``Engine`` over contiguous caches: (a) qwen2-1.5b
+    at full width, bf16, 8 slots, max_len 4,096; (b) int8 weights with an
+    int8 cache and fp8 weights with an fp8 cache; (c) float32 at 4 layers,
+    full width: the Engine's greedy streams equal the PagedEngine's, and a
+    windowed copy's (window 512) equal the plain versions'."""
+    torch = _torch()
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+    from repro_torch.obs import Tracer
+    from repro_torch.serve.engine import Engine, PagedEngine
+    cfg = get_config("qwen2-1.5b").with_(num_layers=E2E_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lm = LM(cfg, device="cuda")
+    params = lm.init(SEED)
+    setup_gb = _setup_peak_gb()
+    tracer = Tracer(enabled=True)
+    eng = Engine(lm, params, n_slots=8, max_len=4096, seed=SEED,
+                 tracer=tracer)
+    rng = np.random.default_rng(SEED + 15)
+    vocab = cfg.vocab_size
+    eng.submit(rng.integers(0, vocab, 300), max_new_tokens=8)
+    eng.run_to_completion()                              # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prompts = _eager_prompts(rng, vocab, EAGER_REQUESTS)
+    max_new = rng.integers(32, 65, EAGER_REQUESTS)
+    bf16 = _eager_drive(eng, tracer, prompts, max_new, "eager bf16")
+    bf16["setup_peak_gb"] = setup_gb
+    if bf16["long_prompts"] < 4:
+        raise AssertionError(f"eager: {bf16['long_prompts']} prompts past "
+                             "attn_chunk_min")
+    for r in records:
+        if r["name"] in bf16["launches"]:
+            r.setdefault("launches_by_drive", {})["eager_bf16"] = \
+                bf16["launches"][r["name"]]
+    # the 2,048-token prompt again, in a slot other requests have used
+    rid = eng.submit(prompts[0], max_new_tokens=int(max_new[0]))
+    again = eng.run_to_completion()[rid].out_tokens
+    if again != bf16.pop("streams")[0]:
+        raise AssertionError("eager: a repeated prompt gave other tokens")
+    # its admission's logits: B3 and B7 vs chunked attention and the
+    # plain RMSNorm
+    lk = eng._prefill_slot(prompts[0], 0)
+    lp = _swap_plain(lambda: eng._prefill_slot(prompts[0], 0),
+                     ("chunked", "norm"))
+    torch.cuda.synchronize()
+    rel, err = _worst_slot_rel_l2("eager admission", lk[None], lp[None],
+                                  (1, vocab))
+    bf16["logit_rel_l2"], bf16["logit_max_abs"] = rel, err
+    del eng, lm, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) quantized weights over quantized contiguous caches
+    quant = {}
+    for qname in ("int8", "fp8"):
+        qcfg, qlm, qparams, qsetup = _quantized_lm(qname, qname)
+        tracer = Tracer(enabled=True)
+        qeng = Engine(qlm, qparams, n_slots=8, max_len=4096, seed=SEED,
+                      tracer=tracer)
+        qeng.submit(rng.integers(0, vocab, 300), max_new_tokens=8)
+        qeng.run_to_completion()                         # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        qp = _eager_prompts(rng, vocab, EAGER_Q_REQUESTS)
+        arm = _eager_drive(qeng, tracer, qp,
+                           rng.integers(32, 65, EAGER_Q_REQUESTS),
+                           f"eager {qname}", qlinears=QLINEARS)
+        arm["setup_peak_gb"] = qsetup
+        arm.pop("streams")
+        quant[qname] = arm
+        for r in records:
+            if r["name"] in arm["launches"]:
+                r.setdefault("launches_by_drive", {})[f"eager_{qname}"] = \
+                    arm["launches"][r["name"]]
+        del qeng, qlm, qparams
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (c) float32 at 4 layers: Engine == PagedEngine, and a windowed copy
+    # through the Engine == its plain versions
+    cfg32 = get_config("qwen2-1.5b").with_(num_layers=EAGER_F32_LAYERS,
+                                           dtype="float32")
+    lm32 = LM(cfg32, device="cuda")
+    params32 = lm32.init(SEED)
+    iprompts = [rng.integers(0, vocab, (int(n),))
+                for n in rng.integers(150, 401, 6)]
+
+    def streams(eng, ps, max_new=24):
+        ids = [eng.submit(p, max_new_tokens=max_new) for p in ps]
+        done = eng.run_to_completion()
+        return [done[i].out_tokens for i in ids]
+
+    eager32 = streams(Engine(lm32, params32, n_slots=4, max_len=1024,
+                             seed=SEED), iprompts)
+    paged32 = streams(PagedEngine(lm32, params32, n_slots=4, max_len=1024,
+                                  page_size=256, decode_block=8, seed=SEED),
+                      iprompts)
+    same_paged = sum(a == b for a, b in zip(eager32, paged32))
+    wlm = LM(cfg32.with_(attention=dataclasses.replace(cfg32.attention,
+                                                       window=512)),
+             device="cuda")
+    wprompts = [rng.integers(0, vocab, (int(n),))
+                for n in rng.integers(600, 1501, 4)]
+    _reset_launches()
+    wk = streams(Engine(wlm, params32, n_slots=4, max_len=2048, seed=SEED),
+                 wprompts)
+    wlaunch = _read_launches()["flash_attention"]
+    wp = _swap_plain(lambda: streams(Engine(wlm, params32, n_slots=4,
+                                            max_len=2048, seed=SEED),
+                                     wprompts), ("attention", "norm"))
+    same_window = sum(a == b for a, b in zip(wk, wp))
+    if same_paged != len(iprompts) or same_window != len(wprompts) \
+            or wlaunch != EAGER_F32_LAYERS * len(wprompts):
+        raise AssertionError(f"eager float32: {same_paged}/{len(iprompts)} "
+                             f"streams equal the PagedEngine's, "
+                             f"{same_window}/{len(wprompts)} windowed "
+                             f"streams equal the plain versions', "
+                             f"{wlaunch} windowed B3 launches")
+    try:
+        PagedEngine(wlm, params32, n_slots=1, max_len=64)
+        raise AssertionError("PagedEngine accepted a windowed config")
+    except ValueError:
+        pass
+    out = {"bf16": bf16, "quant": quant,
+           "float32": {"paged_equal": same_paged, "requests": len(iprompts),
+                       "window_equal": same_window,
+                       "window_requests": len(wprompts),
+                       "window_b3_launches": wlaunch}}
+    print(f"[15 eager] (a) {cfg.name} {cfg.num_layers}L bf16 Engine, 8 "
+          f"slots, max_len 4096: {bf16['requests']} req "
+          f"({bf16['prompt_tokens']} prompt tokens, {bf16['long_prompts']} "
+          f">= 2048), {bf16['tokens']} tokens in {bf16['wall_s']:.3f}s "
+          f"({bf16['tokens_per_s']:.1f} tok/s), TTFT p50 "
+          f"{bf16['ttft_p50_s']:.4f}s, {bf16['admissions']} admissions + "
+          f"{bf16['decode_steps']} decode steps = {bf16['syncs']} syncs, "
+          f"wall in admissions {bf16['prefill_wall_s']:.3f}s / decode steps "
+          f"{bf16['decode_wall_s']:.3f}s, launches {bf16['launches']}, "
+          f"tensor-core / warp launches {bf16['tc_launches']}, peak mem "
+          f"{bf16['peak_mem_gb']:.2f} GB (set-up {setup_gb:.2f} GB); repeat "
+          f"prompt same tokens; the 2048-token admission's logits, kernels "
+          f"vs chunked attention + plain RMSNorm (relative L2 / max abs, "
+          f"limit {LOGIT_REL_L2}) {rel:.3e}/{err:.3e} | (b) "
+          + "; ".join(f"{q} weights + {q} cache: {a['requests']} req, "
+                      f"{a['tokens']} tokens in {a['wall_s']:.3f}s "
+                      f"({a['tokens_per_s']:.1f} tok/s), TTFT p50 "
+                      f"{a['ttft_p50_s']:.4f}s, {a['syncs']} syncs, "
+                      f"launches {a['launches']}, peak mem "
+                      f"{a['peak_mem_gb']:.2f} GB (set-up "
+                      f"{a['setup_peak_gb']:.2f} GB)"
+                      for q, a in quant.items())
+          + f" | (c) float32 {EAGER_F32_LAYERS}L: Engine vs PagedEngine "
+          f"{same_paged}/{len(iprompts)} streams equal; window 512 Engine "
+          f"({wlaunch} windowed B3 launches) vs plain versions "
+          f"{same_window}/{len(wprompts)} streams equal; PagedEngine refuses "
+          "the window")
+    return out
+
+
+def _resil_counts(eng, tracer, since: int) -> dict:
+    c = _counts(eng, tracer, since)
+    snap = eng.metrics.snapshot()["counters"]
+    c["recovered"] = int(snap.get("resil_recovered_total", 0))
+    return c
+
+
+def _resil_drive(eng, tracer, prompts, max_new, tag: str) -> dict:
+    """Serve ``prompts`` through a resilient scheduler with the launch
+    counts zeroed just before and read just after.  Every request retires
+    with exactly one outcome; B3 / B2 / B1 / B7 ran as many times as the
+    dispatches that got past the fault hook (a faulted dispatch launches
+    nothing)."""
+    torch = _torch()
+    from repro_torch.resil import OUTCOMES
+    cfg = eng.lm.cfg
+    base = _resil_counts(eng, tracer, 0)
+    n_ev = len(tracer.events)
+    _reset_launches()
+    t0 = time.perf_counter()
+    ids = [eng.submit(p, max_new_tokens=int(m))
+           for p, m in zip(prompts, max_new)]
+    done = eng.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in _read_launches().items()
+                if k in ("paged_attention", "flash_attention",
+                         "paged_prefix_extend", "rmsnorm")}
+    now = _resil_counts(eng, tracer, n_ev)
+    d = {k: now[k] - base[k] for k in now if k not in ("cont", "fresh")}
+    d["cont"], d["fresh"] = now["cont"], now["fresh"]
+    outcomes = {o: sum(done[i].outcome == o for i in ids) for o in OUTCOMES}
+    if sum(outcomes.values()) != len(ids):
+        raise AssertionError(f"{tag}: outcomes {outcomes} do not sum to "
+                             f"{len(ids)} requests")
+    verify = getattr(getattr(eng, "spec_stats", None), "verify_steps", 0)
+    layers = cfg.num_layers
+    want = {"flash_attention": layers * d["fresh"],
+            "paged_prefix_extend": layers * (d["cont"] + verify),
+            "paged_attention": layers * d["steps"],
+            "rmsnorm": (2 * layers + 1) * (d["fresh"] + d["cont"]
+                                           + d["steps"] + verify)}
+    if launches != want:
+        raise AssertionError(f"{tag}: launches {launches} != {want}")
+    free = len(eng.alloc.free)
+    if free != eng.alloc.n_pages - 1:
+        raise AssertionError(f"{tag}: {free} pages free at the end, want "
+                             f"{eng.alloc.n_pages - 1}")
+    return {"streams": [done[i].out_tokens for i in ids],
+            "outcomes": outcomes, "wall_s": wall, "launches": launches,
+            "dispatches": {k: d[k] for k in ("fresh", "cont", "steps")},
+            "recovered": d["recovered"], "verify_rounds": verify,
+            "free_pages": free,
+            "retry_after_s": [done[i].retry_after_s for i in ids
+                              if done[i].outcome == "shed"]}
+
+
+def phase_resil(records: list) -> dict:
+    """Resilient serving through the port's SchedEngine, float32 at 4
+    layers and full width: (a) page faults, dispatch faults and a shrunk
+    pool, every request recovered to the fault-free stream; (b) latency
+    spikes against a per-request deadline; (c) 32 requests on 8 slots
+    with the degradation ladder, down to its shed rung; (d) SpecEngine
+    n-gram drafts under mangled proposals and dispatch faults."""
+    torch = _torch()
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch.profile_serve import passage_prompt
+    from repro_torch.models.model import LM
+    from repro_torch.obs import Tracer
+    from repro_torch.resil import FaultInjector
+    from repro_torch.sched import SchedEngine
+    from repro_torch.spec import SpecEngine
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("qwen2-1.5b").with_(num_layers=EAGER_F32_LAYERS,
+                                         dtype="float32")
+    lm = LM(cfg, device="cuda")
+    params = lm.init(SEED)
+    vocab = cfg.vocab_size
+    rng = np.random.default_rng(SEED + 16)
+    # pages and chunks of 128: prompts of 150-400 tokens take 2-4 chunks
+    # (continuations on B2), and the drive makes enough dispatches that
+    # seed 0's schedule faults some of them; no backoff, so that the
+    # schedule (the order of the injector's draws) is the same on any
+    # machine
+    kw = dict(policy="fcfs", prefix_cache=False, n_slots=8, max_len=1024,
+              page_size=128, prefill_chunk=128, decode_block=8, seed=SEED,
+              max_retries=100, backoff_s=0.0, backoff_max_s=0.0)
+    prompts = [rng.integers(0, vocab, (int(n),))
+               for n in rng.integers(150, 401, 8)]
+    clean = SchedEngine(lm, params, **{k: v for k, v in kw.items()
+                                       if not k.startswith(("max_ret",
+                                                            "backoff"))})
+    ids = [clean.submit(p, max_new_tokens=24) for p in prompts]
+    done = clean.run_to_completion()
+    want = [done[i].out_tokens for i in ids]
+    del clean
+
+    def armed(chaos, cls=SchedEngine, **extra):
+        tracer = Tracer(enabled=True)
+        inj = FaultInjector.from_spec(chaos)
+        return cls(lm, params, injector=inj, tracer=tracer,
+                   **{**kw, **extra}), tracer, inj
+
+    # (a) page faults, dispatch faults, 4 pages hidden
+    eng, tracer, inj = armed("seed=0,oom=0.05,fault=0.1,shrink=4")
+    a = _resil_drive(eng, tracer, prompts, [24] * 8, "resil chaos")
+    a["injected"] = dict(inj.counts)
+    if a["outcomes"]["ok"] != 8 or a["streams"] != want \
+            or inj.counts["page_oom"] <= 0 or inj.counts["dispatch"] <= 0 \
+            or a["recovered"] <= 0:
+        raise AssertionError(f"resil chaos: outcomes {a['outcomes']}, "
+                             f"{sum(x == y for x, y in zip(a['streams'], want))}"
+                             f"/8 fault-free streams, injected {inj.counts}, "
+                             f"recovered {a['recovered']}")
+    for r in records:
+        if r["name"] in a["launches"]:
+            r.setdefault("launches_by_drive", {})["resil_chaos"] = \
+                a["launches"][r["name"]]
+
+    # (b) every dispatch sleeps 0.3 s against a 0.75 s deadline: the
+    # requests still prefilling or decoding when it passes time out
+    eng, tracer, inj = armed("seed=0,spike=1.0,spike_s=0.3",
+                             max_request_s=0.75)
+    b = _resil_drive(eng, tracer, prompts, [8, 24] * 4, "resil deadline")
+    b["injected"] = dict(inj.counts)
+    if b["outcomes"]["timed_out"] <= 0:
+        raise AssertionError(f"resil deadline: outcomes {b['outcomes']}")
+
+    # (c) 32 requests on 8 slots with the ladder on
+    eng, tracer, _ = armed(None, ladder=True)
+    rungs = []
+    update = eng.ladder.update
+
+    def spy():
+        rungs.append(update())
+        return rungs[-1]
+    eng.ladder.update = spy
+    many = [rng.integers(0, vocab, (int(n),))
+            for n in rng.integers(150, 401, 32)]
+    c = _resil_drive(eng, tracer, many, [24] * 32, "resil shed")
+    if max(rungs) != 4 or not c["outcomes"]["shed"] \
+            or not all(x > 0 for x in c["retry_after_s"]):
+        raise AssertionError(f"resil shed: rungs up to {max(rungs)}, "
+                             f"outcomes {c['outcomes']}, retry-after "
+                             f"{c['retry_after_s']}")
+    c["max_rung"] = max(rungs)
+
+    # (d) n-gram speculation, 30% of the drafts mangled, dispatch faults
+    pprompts = [passage_prompt(rng, vocab, int(n))
+                for n in rng.integers(150, 401, 8)]
+    clean = SchedEngine(lm, params, **{k: v for k, v in kw.items()
+                                       if not k.startswith(("max_ret",
+                                                            "backoff"))})
+    ids = [clean.submit(p, max_new_tokens=24) for p in pprompts]
+    done = clean.run_to_completion()
+    want_d = [done[i].out_tokens for i in ids]
+    del clean
+    eng, tracer, inj = armed("seed=0,draft=0.3,fault=0.1", cls=SpecEngine,
+                             spec="ngram", draft_k=4, adaptive=False)
+    dd = _resil_drive(eng, tracer, pprompts, [24] * 8, "resil spec")
+    dd["injected"] = dict(inj.counts)
+    if dd["streams"] != want_d or inj.counts["draft"] <= 0 \
+            or dd["verify_rounds"] <= 0:
+        raise AssertionError(f"resil spec: "
+                             f"{sum(x == y for x, y in zip(dd['streams'], want_d))}"
+                             f"/8 streams equal the plain scheduler's, "
+                             f"injected {inj.counts}, {dd['verify_rounds']} "
+                             "verify rounds")
+    out = {}
+    for name, arm in (("chaos", a), ("deadline", b), ("shed", c),
+                      ("spec", dd)):
+        arm.pop("streams")
+        out[name] = arm
+    print(f"[16 resil] {cfg.name} {cfg.num_layers}L float32 SchedEngine, 8 "
+          f"slots, pages and chunks of 128: (a) chaos seed=0,oom=0.05,fault=0.1,shrink=4: "
+          f"outcomes {a['outcomes']}, 8/8 fault-free streams, injected "
+          f"{a['injected']}, {a['recovered']} recoveries, dispatches "
+          f"{a['dispatches']}, launches {a['launches']}, {a['free_pages']} "
+          f"pages free at the end, {a['wall_s']:.3f}s | (b) spikes of 0.3 s "
+          f"on every dispatch, deadline 0.75 s: outcomes {b['outcomes']}, "
+          f"{b['free_pages']} pages free | (c) 32 req with the ladder: rung "
+          f"up to {c['max_rung']} (shed), outcomes {c['outcomes']}, "
+          f"retry-after {min(c['retry_after_s']):.2f}-"
+          f"{max(c['retry_after_s']):.2f}s | (d) SpecEngine ngram, "
+          f"draft=0.3,fault=0.1: 8/8 streams equal the plain scheduler's, "
+          f"injected {dd['injected']}, {dd['verify_rounds']} verify rounds, "
+          f"{dd['recovered']} recoveries")
+    return out
+
+
 def main() -> int:
     dev = phase_device()
     phase_build()
@@ -2605,11 +3093,14 @@ def main() -> int:
                   {name: d["tc_launches"]["rmsnorm"] for name, d in drives})
     rwkv = phase_rwkv(records)
     spec = phase_spec(records)
+    eager = phase_eager(records)
+    resil = phase_resil(records)
     out_dir = ROOT / "chiprun_out"
     if out_dir.is_dir():
         (out_dir / "chip_smoke_e2e.json").write_text(json.dumps(
             {"e2e": e2e, "sched": sched, "qsched": qsched, "fp8": fp8,
-             "rwkv": rwkv, "spec": spec, "kernels": records}, indent=1))
+             "rwkv": rwkv, "spec": spec, "eager": eager, "resil": resil,
+             "kernels": records}, indent=1))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": dev["kind"],

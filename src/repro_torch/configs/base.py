@@ -75,11 +75,18 @@ class ModelConfig:
     tie_embeddings: bool = False
     mlp_bias: bool = False
     dtype: str = "bfloat16"
+    # attention impl: auto = chunked (online softmax over kv blocks) when
+    # seq >= attn_chunk_min, else the plain grouped sdpa.  On the CPU only:
+    # CUDA tensors always take the flash kernel, the same online softmax
+    attn_impl: str = "auto"           # auto | eager | chunked
+    attn_q_block: int = 1024
+    attn_kv_block: int = 1024
+    attn_chunk_min: int = 2048
     # CPU only: prefill attention through the flash op's plain version
     # instead of the plain sdpa (the reference's Pallas switch).  CUDA
     # tensors always take the hand-written kernels, whatever it says.
     use_kernels: bool = False
-    kv_cache_dtype: str = "bfloat16"  # bfloat16 | int8 | fp8 (paged pools)
+    kv_cache_dtype: str = "bfloat16"  # bfloat16 | int8 | fp8
     kv_cache_style: str = "full"      # full | gqa | mqa
     quant: str = "bf16"               # bf16 | fp8 | int8 | int4  (weights)
     # quantized-weight matmuls of the forwards: on the CPU "fused" runs the

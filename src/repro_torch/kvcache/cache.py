@@ -2,14 +2,18 @@
 
 The port's copy of ``repro/kvcache/cache.py``:
 
-Contiguous node:  {"k": (B,S,KH,D), "v": (B,S,KH,D)}              (bf16)
-                  (the eager decode of a draft LM, and the staging
-                  caches of admission and speculative verify)
+Contiguous node:  {"k": (B,S,KH,D), "v": (B,S,KH,D)
+                   [, "k_scale"/"v_scale": (B,S,KH) fp32]}
+                  (the eager ``Engine``'s cache, a draft LM's, and the
+                  bf16 staging caches of admission and speculative
+                  verify)
 Paged node:       {"k_pages"/"v_pages": (N,page,KH,D),
                    [, "k_scales"/"v_scales": (N,KH) fp32]
                    "block_table": (n_slots, pages_per_slot) int32}
 
-int8 / fp8 pools carry one fp32 amax scale per (page, kv head).  A
+Quantized scales are fp32 amax scales: per (batch, position, kv head)
+for contiguous caches, each position quantized once with its own, and per
+(page, kv head) for paged pools.  A
 page's scale is a *running* maximum: a decode write that raises it
 requantizes the page (``quant.requantize``; factor <= 1, so int8 never
 re-clips), and a write at offset 0 resets it, so a reused page sheds its
@@ -22,9 +26,7 @@ and reads are masked by per-slot lengths.
 The reference returns new arrays (its cache is donated to each jitted
 dispatch); here every write updates the cache tensors IN PLACE with
 ``index_put_`` / ``scatter_reduce_`` and returns the same dict, so the page
-pools are never double-resident.  Contiguous quantized caches (per-position
-scales, the eager ``Engine``'s) are not ported yet (ROADMAP A1):
-``alloc_contiguous`` refuses them.
+pools are never double-resident.
 """
 from __future__ import annotations
 
@@ -33,8 +35,9 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import AttentionConfig
-from repro_torch.kvcache.quant import (_div, qmax_of, quantize_with_scale,
-                                       requant_factor, rescale)
+from repro_torch.kvcache.quant import (_div, qmax_of, quantize,
+                                       quantize_with_scale, requant_factor,
+                                       rescale)
 from repro_torch.kvcache.spec import CacheSpec
 
 
@@ -44,15 +47,15 @@ from repro_torch.kvcache.spec import CacheSpec
 
 def alloc_contiguous(spec: CacheSpec, a: AttentionConfig, batch: int,
                      max_len: int, device=None) -> dict:
-    if spec.quantized:
-        raise NotImplementedError(
-            f"kv cache dtype {spec.dtype!r}: contiguous quantized caches "
-            "belong to the eager Engine's attention path, which is not "
-            "ported yet (ROADMAP A1)")
     kvh = spec.stored_kv_heads(a)
     shape = (batch, max_len, kvh, a.head_dim)
-    return {"k": torch.zeros(shape, dtype=spec.store_dtype, device=device),
-            "v": torch.zeros(shape, dtype=spec.store_dtype, device=device)}
+    c = {"k": torch.zeros(shape, dtype=spec.store_dtype, device=device),
+         "v": torch.zeros(shape, dtype=spec.store_dtype, device=device)}
+    if spec.quantized:
+        for name in ("k_scale", "v_scale"):
+            c[name] = torch.zeros(shape[:3], dtype=torch.float32,
+                                  device=device)
+    return c
 
 
 def alloc_paged(spec: CacheSpec, a: AttentionConfig, n_slots: int,
@@ -85,29 +88,46 @@ def alloc_paged(spec: CacheSpec, a: AttentionConfig, n_slots: int,
 
 
 def prefill_write(cache: dict, updates: dict) -> dict:
-    """Slab-write full-sequence values at position 0 (in place)."""
+    """Slab-write full-sequence values at position 0 (in place).  A name
+    with a ``<name>_scale`` sibling in the cache is quantized on the way
+    in, each position with its own amax scale."""
     for name, new in updates.items():
-        cache[name][:, :new.shape[1]] = new.to(cache[name].dtype)
+        s = new.shape[1]
+        sk = name + "_scale"
+        if sk in cache:
+            q, scale = quantize(new, cache[name].dtype)
+            cache[name][:, :s] = q
+            cache[sk][:, :s] = scale
+        else:
+            cache[name][:, :s] = new.to(cache[name].dtype)
     return cache
 
 
 def decode_write(cache: dict, updates: dict, pos: torch.Tensor) -> dict:
     """One-token write (in place) at per-row positions ``pos`` (B,):
-    ``updates`` maps "k" / "v" to (B, 1, KH, D).  A position past the
-    slab is clamped to its last row, as the reference's
+    ``updates`` maps "k" / "v" to (B, 1, KH, D), quantized with their
+    own amax scales into an int8 / fp8 cache.  A position past the slab
+    is clamped to its last row, as the reference's
     ``dynamic_update_slice`` clamps (a draft LM's lock-step steps past
     the end only ever write there)."""
     rows = torch.arange(pos.shape[0], device=pos.device)
     for name, new in updates.items():
         tgt = cache[name]
         p = torch.clamp(pos.long(), 0, tgt.shape[1] - 1)
-        tgt[rows, p] = new[:, 0].to(tgt.dtype)
+        sk = name + "_scale"
+        if sk in cache:
+            q, scale = quantize(new[:, 0], tgt.dtype)
+            tgt[rows, p] = q
+            cache[sk][rows, p] = scale
+        else:
+            tgt[rows, p] = new[:, 0].to(tgt.dtype)
     return cache
 
 
 def kv_views(cache: dict):
     """(k, v, k_scale, v_scale) of a contiguous node; the scales are None
-    (quantized contiguous caches wait for ROADMAP A1)."""
+    for bf16 / float32 caches.  Attention folds them into its products
+    (no dequantized copy of the cache is materialized)."""
     return cache["k"], cache["v"], cache.get("k_scale"), cache.get("v_scale")
 
 

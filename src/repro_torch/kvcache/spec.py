@@ -4,8 +4,9 @@ The port's copy of ``repro/kvcache/spec.py``:
 
   layout ∈ {contiguous, paged}   — (B, S, KH, D) slabs vs page pools +
                                    block tables (serve/paged.py)
-  dtype  ∈ {bf16, int8, fp8}     — quantized page pools carry fp32 amax
-                                   scales per (page, kv head)
+  dtype  ∈ {bf16, int8, fp8}     — quantized caches carry fp32 amax
+                                   scales per (page, kv head) in pools,
+                                   per (row, position, kv head) in slabs
   style  ∈ {full, gqa, mqa}      — stored-head narrowing (heads are
                                    mean-merged before the write)
 """

@@ -3,6 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         [--quant int8|fp8|int4] [--kv-dtype int8|fp8]
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+        --engine eager [--quant int8|fp8 --kv-dtype int8|fp8]
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         --arch rwkv6-1.6b
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         --spec ngram [--kv-dtype int8]
@@ -24,10 +26,14 @@ weights after ``LM.init`` and ``--kv-dtype`` stores the page pools in
 int8 / fp8 (the quantized serving drive of ``chip_smoke.py``); without
 them the drive is bf16 throughout.
 
-``--arch rwkv6-1.6b`` profiles the eager ``Engine`` on rwkv6-1.6b at full
-width instead (24 layers, random weights from seed 0; ``chip_smoke.py``
-phase 13's settings, 8 slots): one admission of 2,048 tokens (the WKV-6
-kernel in every layer), then 32 decode steps with that request active.
+``--engine eager`` profiles the eager ``Engine`` instead, on qwen2-1.5b
+at full width over a contiguous cache (``chip_smoke.py`` phase 15's
+settings: 8 slots, ``max_len`` 4,096): one admission of 2,048 tokens (the
+flash kernel in every layer), then 32 decode steps with that request
+active (every step runs all 8 slots, and its plain attention reads all
+4,096 positions of each).  ``--arch rwkv6-1.6b`` (eager only) does the
+same on rwkv6-1.6b at full width (24 layers; phase 13's settings; the
+WKV-6 kernel in every layer of the admission).
 
 ``--spec ngram`` profiles one speculative verify round of the
 ``SpecEngine`` instead (qwen2-1.5b at full width, ``chip_smoke.py`` phase
@@ -58,7 +64,7 @@ from repro_torch.sched import SchedEngine
 from repro_torch.serve.engine import Engine, PagedEngine
 
 SLOTS, PROMPT, BLOCKS, DECODE_BLOCK, SEED, TOP = 8, 512, 4, 8, 0, 8
-RWKV_PROMPT, RWKV_STEPS = 2048, 32
+EAGER_PROMPT, EAGER_STEPS = 2048, 32
 #: the continuation chunk's prefixes, one per row (page-aligned)
 CONT_STARTS = (512, 1024, 1536, 2048, 2560, 3072, 1024, 2048)
 
@@ -112,23 +118,23 @@ def _phase(name: str, run, extra=None) -> dict:
     return res
 
 
-def _rwkv_phases() -> tuple:
-    """rwkv6-1.6b through the eager ``Engine``: one admission of
-    RWKV_PROMPT tokens, then RWKV_STEPS decode steps."""
-    cfg = get_config("rwkv6-1.6b")
+def _eager_phases(cfg) -> tuple:
+    """``cfg`` through the eager ``Engine``: one admission of
+    EAGER_PROMPT tokens, then EAGER_STEPS decode steps."""
     lm = LM(cfg, device="cuda")
     rng = np.random.default_rng(SEED)
-    eng = Engine(lm, lm.init(SEED), n_slots=SLOTS, max_len=4096, seed=SEED)
-    prompt = rng.integers(0, cfg.vocab_size, (RWKV_PROMPT,))
+    params = quantize_tree(lm.init(SEED), quant=cfg.quant)
+    eng = Engine(lm, params, n_slots=SLOTS, max_len=4096, seed=SEED)
+    prompt = rng.integers(0, cfg.vocab_size, (EAGER_PROMPT,))
     # warm-up (first launches, cuBLAS), and one request that stays active
     # through every decode step below
-    eng.submit(prompt, max_new_tokens=4 * RWKV_STEPS)
+    eng.submit(prompt, max_new_tokens=4 * EAGER_STEPS)
     eng.step()
     results = [
-        _phase(f"admit 1x{RWKV_PROMPT}",
+        _phase(f"admit 1x{EAGER_PROMPT}",
                lambda: eng._prefill_slot(prompt, SLOTS - 1).cpu()),
-        _phase(f"decode {RWKV_STEPS} steps, {SLOTS} slots (1 active)",
-               lambda: [eng.step() for _ in range(RWKV_STEPS)])]
+        _phase(f"decode {EAGER_STEPS} steps, {SLOTS} slots (1 active)",
+               lambda: [eng.step() for _ in range(EAGER_STEPS)])]
     return cfg, results
 
 
@@ -211,9 +217,13 @@ def main(argv=None) -> int:
                     choices=["bf16", "bfloat16", "int8", "fp8"])
     ap.add_argument("--spec", default="none", choices=["none", "ngram"],
                     help="profile one speculative verify round instead")
+    ap.add_argument("--engine", default="paged", choices=["paged", "eager"],
+                    help="profile the eager Engine over a contiguous cache "
+                         "instead (rwkv6-1.6b is eager only)")
     args = ap.parse_args(argv)
     if args.spec != "none" and (args.arch != "qwen2-1.5b"
-                                or args.quant != "bf16"):
+                                or args.quant != "bf16"
+                                or args.engine != "paged"):
         ap.error("--spec profiles qwen2-1.5b with bf16 weights")
     if args.arch == "rwkv6-1.6b" and (args.quant != "bf16"
                                       or args.kv_dtype != "bf16"):
@@ -221,9 +231,13 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    if args.arch == "rwkv6-1.6b" or args.spec != "none":
-        cfg, results = (_rwkv_phases() if args.spec == "none"
-                        else _spec_phases(normalize_dtype(args.kv_dtype)))
+    if args.spec != "none":
+        cfg, results = _spec_phases(normalize_dtype(args.kv_dtype))
+        _report(cfg, results)
+        return 0
+    if args.arch == "rwkv6-1.6b" or args.engine == "eager":
+        cfg, results = _eager_phases(get_config(args.arch).with_(
+            quant=args.quant, kv_cache_dtype=normalize_dtype(args.kv_dtype)))
         _report(cfg, results)
         return 0
     cfg = get_config("qwen2-1.5b").with_(

@@ -1,6 +1,10 @@
-"""Serving entry point of the port: the paged continuous-batching engine,
-the scheduler over it, and the eager engine for attention-free models.
+"""Serving entry point of the port: the eager engine, the paged
+continuous-batching engine and the scheduler over it.
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
+        [--smoke] [--requests 8 --prompt-len 32 --max-new 32 --slots 4 \
+        --max-len 256] [--quant int8|fp8|int4 --kv-dtype int8|fp8] \
+        [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
         [--smoke] [--requests 8 --prompt-len 32 --max-new 32 --slots 4] \
         [--device cpu]
@@ -13,16 +17,23 @@ the scheduler over it, and the eager engine for attention-free models.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
         --prefill-chunk 512 --spec ngram|draft [--draft-k 4 \
         --draft-config auto|self|<arch> --no-spec-adaptive --spec-slack 50]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
+        --policy fcfs [--chaos seed=0,oom=0.05,fault=0.1,shrink=4] \
+        [--degrade] [--max-request-s 30]
 
-Runs on the GPU unless ``--device cpu`` is given.  Without ``--paged`` or
-``--policy`` an attention-free arch (rwkv6-1.6b) is served by the eager
-``Engine``: on the GPU every admission's prefill runs the WKV-6 kernel in
-each layer, and decode runs the reference's one-token recurrence in plain
-torch.  Attention archs need ``--paged`` or ``--policy`` (their eager
-engine over contiguous caches waits for ROADMAP A1).  On the GPU the
-admission prefill goes through the flash-attention kernel, every decode
-step through the paged-attention kernel and, with ``--policy``, every
-continuation chunk of a chunked prefill through the prefix-extend kernel.
+Runs on the GPU unless ``--device cpu`` is given.  Without ``--paged``,
+``--policy`` or ``--spec`` the eager ``Engine`` serves: batch-1 prefill
+of each admission into its slot of a contiguous cache (bf16, or int8 /
+fp8 with per-position scales from ``--kv-dtype``), one decode step for
+every slot a tick and one host sync a token.  On the GPU an attention
+arch's admission runs the flash-attention kernel in each layer (windowed
+configs too) and its decode plain torch over the cache, as the reference
+does; an attention-free arch (rwkv6-1.6b) runs the WKV-6 kernel at
+admission and the one-token recurrence in plain torch.  With ``--paged``
+the admission prefill goes through the flash-attention kernel, every
+decode step through the paged-attention kernel and, with ``--policy``,
+every continuation chunk of a chunked prefill through the prefix-extend
+kernel.
 ``--quant`` quantizes the weights after ``LM.init``: int8 linears run the
 W8A8 decode kernel at M <= 128 rows and the tiled W8A8 kernel above,
 fp8 linears the fp8 decode kernel at M <= 128 (plain torch above, as in
@@ -32,8 +43,13 @@ speculative ``SpecEngine`` (it implies the scheduler, FCFS unless
 ``--policy`` says otherwise): every verify round runs the prefix-extend
 kernel at W = draft_k + 1 rows a slot; ``--spec draft`` drafts with a
 shrunk random-weight copy of the target (``draft_config_of``), or with the
-target itself (``--draft-config self``).  Flags and defaults are the
-reference's (``repro.launch.serve``) for these paths.
+target itself (``--draft-config self``).  ``--chaos`` arms the seeded
+fault injector (``repro_torch.resil``) on the paged and scheduler
+engines, and ``--degrade`` / ``--max-request-s`` the degradation ladder
+and per-request deadlines on the scheduler engines, which then recover
+from injected faults instead of failing; the report adds every request's
+outcome, the injected faults and the ladder's rung.  Flags and defaults
+are the reference's (``repro.launch.serve``) for these paths.
 """
 from __future__ import annotations
 
@@ -46,6 +62,7 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.kvcache import normalize_dtype
 from repro_torch.models.model import LM, resolve_device
 from repro_torch.quant import quantize_tree
+from repro_torch.resil import OUTCOMES, FaultInjector
 from repro_torch.sched import SchedEngine
 from repro_torch.serve.engine import Engine, PagedEngine
 from repro_torch.spec import SpecEngine, draft_config_of
@@ -115,6 +132,23 @@ def main(argv=None):
                     help="quantized-matmul execution on the CPU: 'fused' "
                          "runs the kernels' plain versions, 'ref' the "
                          "oracles; on the GPU the kernels always run")
+    ap.add_argument("--chaos", default=None, metavar="SPEC",
+                    help="seeded fault injection (--paged / --policy / "
+                         "--spec engines): e.g. 'seed=1,oom=0.1,fault=0.1,"
+                         "spike=0.05,draft=0.3,shrink=2' — forced page "
+                         "exhaustion, transient dispatch faults, latency "
+                         "spikes, degenerate draft proposals, pool "
+                         "shrinkage")
+    ap.add_argument("--degrade", action="store_true",
+                    help="graceful-degradation ladder (--policy / --spec): "
+                         "under metrics pressure turn spec off, shrink "
+                         "prefill chunks, then shed load with policy "
+                         "retry-after hints; monotone rungs with "
+                         "hysteresis")
+    ap.add_argument("--max-request-s", type=float, default=None,
+                    help="per-request wall-clock deadline (--policy / "
+                         "--spec): requests past it are cancelled, pages "
+                         "freed, outcome 'timed_out'")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
@@ -124,10 +158,10 @@ def main(argv=None):
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     sched = bool(args.policy) or args.spec != "none"
     eager = not (args.paged or sched)
-    if eager and cfg.attention is not None:
-        ap.error("attention archs are served by the paged engine or the "
-                 "scheduler: pass --paged or --policy (the eager engine over "
-                 "contiguous caches waits for ROADMAP A1)")
+    if eager and args.chaos:
+        ap.error("--chaos needs --paged, --policy or --spec")
+    if not sched and (args.degrade or args.max_request_s is not None):
+        ap.error("--degrade / --max-request-s need --policy or --spec")
 
     device = resolve_device(args.device)
     cfg = cfg.with_(kv_cache_dtype=normalize_dtype(args.kv_dtype),
@@ -138,8 +172,12 @@ def main(argv=None):
         params = quantize_tree(params, quant=args.quant)
         print(f"[serve] weights quantized to {args.quant} "
               f"({args.quant_impl} matmuls), kv {cfg.kv_cache_dtype}")
+    injector = FaultInjector.from_spec(args.chaos)
+    if injector is not None:
+        print(f"[serve] chaos armed: {injector.describe()}")
     kw = dict(n_slots=args.slots, max_len=args.max_len, seed=args.seed,
-              page_size=args.page_size, decode_block=args.decode_block)
+              page_size=args.page_size, decode_block=args.decode_block,
+              injector=injector)
     if eager:
         eng = Engine(lm, params, n_slots=args.slots, max_len=args.max_len,
                      seed=args.seed)
@@ -150,7 +188,9 @@ def main(argv=None):
                         slo_ttft=None if args.slo_ttft is None
                         else args.slo_ttft / 1e3,
                         slo_tpot=None if args.slo_tpot is None
-                        else args.slo_tpot / 1e3, **kw)
+                        else args.slo_tpot / 1e3,
+                        ladder=True if args.degrade else None,
+                        max_request_s=args.max_request_s, **kw)
         if args.spec == "none":
             eng = SchedEngine(lm, params, **sched_kw)
         else:
@@ -181,6 +221,16 @@ def main(argv=None):
           f"{args.slots} slots, {label}, {eng.sync_count} host syncs)")
     if sched:
         print(f"[serve] sched telemetry: {eng.telemetry()}")
+    outcomes = {o: sum(done[i].outcome == o for i in ids) for o in OUTCOMES}
+    print(f"[serve] outcomes: {outcomes}")
+    if injector is not None:
+        print(f"[serve] injected faults: {dict(injector.counts)}")
+    if args.degrade:
+        lad = eng.ladder
+        print(f"[serve] degrade ladder: rung={lad.name} "
+              f"spec_off={lad.spec_off} "
+              f"chunk={lad.chunk_for(eng.prefill_chunk, eng.page_size)} "
+              f"kv_dtype_hint={lad.kv_dtype_hint or 'unchanged'}")
     for i in ids[:3]:
         print(f"  req {i}: {len(done[i].out_tokens)} tokens "
               f"{done[i].out_tokens[:8]}…")

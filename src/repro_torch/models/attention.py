@@ -13,13 +13,20 @@ Entry points per layer, as in ``repro/models/attention.py``:
   * ``attention_decode_paged`` — one token per slot, all slots in one
     paged-attention launch (``kernels/paged_attention``)
   * ``attention_decode``       — one token per row over a contiguous
-    bf16 cache (a draft LM's decode), plain torch as in the reference
+    cache (the eager ``Engine``'s and a draft LM's decode), bf16 / float32
+    or int8 / fp8 with per-position scales, plain torch as in the
+    reference
 
 On CUDA tensors the full-sequence products always go through the flash
-kernel (``kernels/flash_attention``).  On the CPU ``use_flash`` chooses
-between the flash op's plain version and a plain grouped ``sdpa``, as
-the reference's flag chooses between its Pallas kernel and jnp.  Cache
-allocation and writes live in ``repro_torch.kvcache``.
+kernel (``kernels/flash_attention``): the same online softmax as
+``chunked_attention``, never materializing the (S, T) scores, and the
+port's memory-bounded attention at any length.  On the CPU the choice is
+the reference's: ``use_flash`` takes the flash op's plain version, else
+``attn_impl`` "chunked" (or "auto" at S >= ``chunk_min``) takes
+``chunked_attention`` and anything else the plain grouped ``sdpa``.
+Cache allocation and writes live in ``repro_torch.kvcache``; quantized
+contiguous caches are read fused (the K scale multiplies the scores, the
+V scale folds into the probabilities), with no dequantized copy.
 """
 from __future__ import annotations
 
@@ -87,6 +94,75 @@ def causal_mask(s: int, t: int, *, window: Optional[int] = None,
     return m
 
 
+# ---------------------------------------------------------------------------
+# Chunked attention: online softmax over kv blocks (the reference's XLA
+# fallback for long sequences; the flash kernel computes the same function)
+
+
+def _block_attn(q, k, v, carry, mask, scale):
+    """One (q_block x kv_block) online-softmax update.
+    q: (B,KH,G,Sq,D)  k,v: (B,KH,Bk,D)  carry = (m, l, acc) in fp32."""
+    m_prev, l_prev, acc = carry
+    s = torch.einsum("bkgsd,bktd->bkgst", q.float(), k.float()) * scale
+    if mask is not None:
+        s = torch.where(mask[None, None, None], s,
+                        torch.tensor(NEG_INF, device=s.device))
+    m_new = torch.maximum(m_prev, s.amax(dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m_prev - m_new)
+    l_new = l_prev * corr + p.sum(dim=-1)
+    pv = torch.einsum("bkgst,bktd->bkgsd", p.to(v.dtype), v)
+    return m_new, l_new, acc * corr[..., None] + pv.float()
+
+
+def chunked_attention(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool, window: Optional[int],
+                      scale: torch.Tensor, q_block: int = 1024,
+                      kv_block: int = 1024) -> torch.Tensor:
+    """qg: (B,S,KH,G,D)  k,v: (B,T,KH,D) -> (B,S,KH,G,D) in v's dtype.
+
+    The (S, T) scores are never materialized: each q block walks the kv
+    blocks with a running (max, denominator, accumulator).  Blocks that do
+    not divide S and T fall back to one block each, as in the reference.
+    A q block visits only the kv blocks its causal / window mask can
+    reach (the reference's block bounds); a skipped block would add
+    exact zeros, so the result is the reference's rolled scan's."""
+    b, s, kh, g, d = qg.shape
+    t = k.shape[1]
+    qb, kb = min(q_block, s), min(kv_block, t)
+    if s % qb or t % kb:
+        qb, kb = s, t                       # fallback: single block
+    nq, nk = s // qb, t // kb
+    q_sw = qg.permute(0, 2, 3, 1, 4)                   # (B,KH,G,S,D)
+    k_sw, v_sw = k.transpose(1, 2), v.transpose(1, 2)  # (B,KH,T,D)
+    dev = qg.device
+    outs = []
+    for qi in range(nq):
+        hi = nk if not causal else min(nk, ((qi + 1) * qb + kb - 1) // kb)
+        lo = 0 if window is None else max(0, (qi * qb - window) // kb)
+        carry = (torch.full((b, kh, g, qb), NEG_INF, device=dev),
+                 torch.zeros((b, kh, g, qb), device=dev),
+                 torch.zeros((b, kh, g, qb, d), device=dev))
+        q_i = q_sw[:, :, :, qi * qb:(qi + 1) * qb]
+        qpos = qi * qb + torch.arange(qb, device=dev)[:, None]
+        for j in range(lo, hi):
+            kpos = j * kb + torch.arange(kb, device=dev)[None, :]
+            mask = None
+            if causal or window is not None:
+                mask = torch.ones((qb, kb), dtype=torch.bool, device=dev)
+                if causal:
+                    mask &= kpos <= qpos
+                if window is not None:
+                    mask &= kpos > qpos - window
+            carry = _block_attn(q_i, k_sw[:, :, j * kb:(j + 1) * kb],
+                                v_sw[:, :, j * kb:(j + 1) * kb], carry,
+                                mask, scale)
+        _, l, acc = carry
+        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
+    o = torch.cat(outs, dim=3)                         # (B,KH,G,S,D)
+    return o.permute(0, 3, 1, 2, 4).to(v.dtype)
+
+
 def _pad_head_mask(a: AttentionConfig, device=None) -> torch.Tensor:
     """bool[(hp·hd)]: True for live head slots (group-aware padding)."""
     hp = a.heads_padded
@@ -134,47 +210,59 @@ def _project(p: dict, x: torch.Tensor, a: AttentionConfig,
 
 
 def _attend(p: dict, q, k, v, a: AttentionConfig, use_flash: bool,
-            impl: str = "ref"):
+            impl: str = "ref", attn_impl: str = "auto", q_block: int = 1024,
+            kv_block: int = 1024, chunk_min: int = 2048):
     b, s = q.shape[:2]
     kvh = a.kv_heads_effective()
-    # CUDA tensors always take the flash kernel; ``use_flash`` picks the
+    # CUDA tensors always take the flash kernel; the flags pick the
     # branch only on the CPU, where the op runs its plain version (the
-    # parity tests hold both branches against the reference's)
+    # parity tests hold every branch against the reference's)
     if q.is_cuda or (use_flash and a.causal):
         from repro_torch.kernels.flash_attention.ops import flash_attention
         o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                             causal=a.causal,
                             window=a.window if a.causal else None)
     else:
-        mask = (causal_mask(s, s, window=a.window, device=q.device)
-                if a.causal else None)
         qg = q.reshape(b, s, kvh, a.heads_padded // kvh, a.head_dim)
-        o = sdpa(qg, k, v, mask, _scale(a).to(q.device))
+        if attn_impl == "chunked" or (attn_impl == "auto"
+                                      and s >= chunk_min):
+            o = chunked_attention(qg, k, v, causal=a.causal,
+                                  window=a.window,
+                                  scale=_scale(a).to(q.device),
+                                  q_block=q_block, kv_block=kv_block)
+        else:
+            mask = (causal_mask(s, s, window=a.window, device=q.device)
+                    if a.causal else None)
+            o = sdpa(qg, k, v, mask, _scale(a).to(q.device))
     o = o.reshape(b, s, a.heads_padded * a.head_dim)
     return linear_apply(p["wo"], _mask_pad_heads(o, a), impl)
 
 
 def attention_forward(p: dict, x: torch.Tensor, a: AttentionConfig, *,
-                      use_flash: bool = False,
-                      impl: str = "ref") -> torch.Tensor:
+                      use_flash: bool = False, impl: str = "ref",
+                      **chunk_kw) -> torch.Tensor:
     """Full-sequence attention at positions [0, S).  x: (B,S,d) -> (B,S,d).
-    ``impl`` is the quantized linears' ``quant_matmul_impl``."""
+    ``impl`` is the quantized linears' ``quant_matmul_impl``; ``chunk_kw``
+    (``attn_impl``, ``q_block``, ``kv_block``, ``chunk_min``) picks
+    chunked attention on the CPU, as the reference's config does."""
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     q, k, v = _project(p, x, a, positions, impl)
-    return _attend(p, q, k, v, a, use_flash, impl)
+    return _attend(p, q, k, v, a, use_flash, impl, **chunk_kw)
 
 
 def attention_prefill(p: dict, x: torch.Tensor, a: AttentionConfig,
                       cache: dict, *, use_flash: bool = False,
-                      impl: str = "ref") -> tuple[torch.Tensor, dict]:
+                      impl: str = "ref", **chunk_kw
+                      ) -> tuple[torch.Tensor, dict]:
     """Full-seq attention AND fill the contiguous cache for positions
-    [0, s).  K/V are projected once and shared by both (the reference
-    projects them twice; the values are identical)."""
+    [0, s) (int8 / fp8 caches quantized per position on the way in).
+    K/V are projected once and shared by both (the reference projects
+    them twice; the values are identical)."""
     from repro_torch import kvcache
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _project(p, x, a, positions, impl)
-    y = _attend(p, q, k, v, a, use_flash, impl)
+    y = _attend(p, q, k, v, a, use_flash, impl, **chunk_kw)
     kvh_store = cache["k"].shape[2]
     cache = kvcache.prefill_write(cache, {"k": _merge_heads(k, kvh_store),
                                           "v": _merge_heads(v, kvh_store)})
@@ -289,11 +377,14 @@ def attention_verify_paged(p: dict, x: torch.Tensor, a: AttentionConfig,
 def attention_decode(p: dict, x: torch.Tensor, a: AttentionConfig,
                      cache: dict, pos: torch.Tensor, impl: str = "ref"
                      ) -> tuple[torch.Tensor, dict]:
-    """One-token step over a contiguous bf16 cache (in place).  x: (B,1,d);
-    pos: (B,) per-row positions.  Scores accumulate in fp32 from q and the
-    cache in q's dtype; probabilities round to x's dtype before the V
-    product, as the reference's bf16 branch does.  Quantized contiguous
-    caches (its fused-scale branch) wait for ROADMAP A1."""
+    """One-token step over a contiguous cache (in place).  x: (B,1,d);
+    pos: (B,) per-row positions; keys past a row's position (a reused
+    slot's stale rows) and outside its window are masked.  bf16 / float32
+    caches: scores accumulate in fp32 from q and the cache in q's dtype,
+    and probabilities round to x's dtype before the V product.  int8 /
+    fp8 caches, fused as the reference reads them: fp32 scores times the
+    per-position K scale, fp32 probabilities times the V scale before the
+    V product, rounded to x's dtype after it."""
     from repro_torch import kvcache
     b = x.shape[0]
     kvh = a.kv_heads_effective()
@@ -310,19 +401,30 @@ def attention_decode(p: dict, x: torch.Tensor, a: AttentionConfig,
     k_new = _merge_heads(apply_rope(k_new, posv, a.rope_theta), kvh_store)
     v_new = _merge_heads(v_new, kvh_store)
     cache = kvcache.decode_write(cache, {"k": k_new, "v": v_new}, pos)
-    k_cache, v_cache, _, _ = kvcache.kv_views(cache)
+    k_cache, v_cache, k_s, v_s = kvcache.kv_views(cache)
     kpos = torch.arange(k_cache.shape[1], device=x.device)
     valid = kpos[None, :] <= posv                                # (B,T)
     if a.window is not None:
         valid &= kpos[None, :] > posv - a.window
+    valid = valid[:, None, None, None, :]
+    neg = torch.tensor(NEG_INF, device=x.device)
     qg = q.reshape(b, 1, kvh_store, g, a.head_dim)
-    scores = torch.einsum("bskgd,btkd->bkgst", qg.float(),
-                          k_cache.to(qg.dtype).float()) * _scale(a).to(
-                              x.device)
-    scores = torch.where(valid[:, None, None, None, :], scores,
-                         torch.tensor(NEG_INF, device=x.device))
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    o = torch.einsum("bkgst,btkd->bskgd", probs, v_cache.to(x.dtype))
+    scale = _scale(a).to(x.device)
+    if k_s is None:
+        scores = torch.einsum("bskgd,btkd->bkgst", qg.float(),
+                              k_cache.to(qg.dtype).float()) * scale
+        probs = torch.softmax(torch.where(valid, scores, neg),
+                              dim=-1).to(x.dtype)
+        o = torch.einsum("bkgst,btkd->bskgd", probs, v_cache.to(x.dtype))
+    else:
+        # (B,T,KH) scales -> (B,KH,1,1,T) factors on the score/probs axes
+        ks_t = k_s.transpose(1, 2)[:, :, None, None, :]
+        vs_t = v_s.transpose(1, 2)[:, :, None, None, :]
+        scores = torch.einsum("bskgd,btkd->bkgst", qg.float(),
+                              k_cache.float()) * scale * ks_t
+        probs = torch.softmax(torch.where(valid, scores, neg), dim=-1)
+        o = torch.einsum("bkgst,btkd->bskgd", probs * vs_t,
+                         v_cache.float()).to(x.dtype)
     o = o.reshape(b, 1, a.heads_padded * a.head_dim)
     y = linear_apply(p["wo"], _mask_pad_heads(o, a), impl)
     return y, cache

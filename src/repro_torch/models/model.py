@@ -107,7 +107,8 @@ class LM:
     # ------------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, *,
                    kv_dtype: Optional[str] = None) -> list:
-        """Contiguous prefill cache (attention blocks) and recurrent
+        """Contiguous cache (attention blocks; bf16, or int8 / fp8 with
+        per-position scales, from ``cfg.kv_cache_dtype``) and recurrent
         states (RWKV-6 blocks); ``kv_dtype`` overrides the config (the
         paged engine's bf16 staging cache)."""
         return init_stack_cache(self.cfg, batch, max_len, kv_dtype=kv_dtype,
@@ -186,8 +187,9 @@ class LM:
     def decode_step(self, params, token, cache, pos):
         """token: (S,) int; pos: (S,) write positions (or one position for
         every row) -> (logits (S,V), cache).  The cache is paged or
-        contiguous (bf16; a draft LM's) and updated in place; RWKV-6
-        blocks return new state tensors and ignore ``pos``."""
+        contiguous (the eager Engine's or a draft LM's) and updated in
+        place; RWKV-6 blocks return new state tensors and ignore
+        ``pos``."""
         x, cache = self.backbone(params, token[:, None], mode="decode",
                                  cache=cache, pos=pos)
         return self._logits(params, x[:, 0]), cache

@@ -103,6 +103,9 @@ def group_forward(gp: dict, x: torch.Tensor, cfg: ModelConfig, *,
     # the quantized linears' execution choice (every forward of the port
     # is an inference forward: the reference's training "ref" never applies)
     impl = cfg.quant_matmul_impl
+    # chunked attention on the CPU (CUDA tensors take the flash kernel)
+    chunk_kw = dict(attn_impl=cfg.attn_impl, q_block=cfg.attn_q_block,
+                    kv_block=cfg.attn_kv_block, chunk_min=cfg.attn_chunk_min)
     new_cache: Dict[str, Any] = {}
     for i, bk in enumerate(block_kinds(cfg)):
         blk = gp[f"blk{i}"]
@@ -124,7 +127,7 @@ def group_forward(gp: dict, x: torch.Tensor, cfg: ModelConfig, *,
             if c is None:
                 y = attn_mod.attention_forward(blk["attn"], h, a,
                                                use_flash=cfg.use_kernels,
-                                               impl=impl)
+                                               impl=impl, **chunk_kw)
             elif "k_pages" in c["kv"]:
                 y, kv = attn_mod.attention_prefill_paged(blk["attn"], h, a,
                                                          c["kv"], pos, impl)
@@ -132,7 +135,7 @@ def group_forward(gp: dict, x: torch.Tensor, cfg: ModelConfig, *,
             else:
                 y, kv = attn_mod.attention_prefill(
                     blk["attn"], h, a, c["kv"], use_flash=cfg.use_kernels,
-                    impl=impl)
+                    impl=impl, **chunk_kw)
                 new_cache[f"blk{i}"] = {"kv": kv}
         elif mode == "verify":
             y, stage = attn_mod.attention_verify_paged(

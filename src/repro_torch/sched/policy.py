@@ -26,6 +26,8 @@ from typing import Optional
 #: EDF's deadline fallback (seconds) when neither the request nor the
 #: engine supplies a TTFT target
 DEFAULT_TTFT_S = 0.5
+#: retry-after quantum (seconds) per queued request ahead of a shed one
+DEFAULT_RETRY_AFTER_S = 0.1
 
 COST_MODEL_TODO = ("needs the cost model's H100 tier (ROADMAP A5); the "
                    "reference prices jobs with TPU peaks")
@@ -47,6 +49,12 @@ class Policy:
         be DROPPED instead of admitted because its SLO is already
         unmeetable.  Base policies never drop."""
         return False
+
+    def retry_after(self, req, now: float, depth: int) -> float:
+        """Client-facing retry-after hint (seconds) when ``req`` is shed
+        under overload (the degradation ladder's shed rung): one quantum
+        per queued request ahead of it."""
+        return max(depth, 1) * DEFAULT_RETRY_AFTER_S
 
 
 class FCFS(Policy):
@@ -77,6 +85,12 @@ class EDF(Policy):
         prefill estimate overruns the deadline; see the module
         docstring.)"""
         return now >= self.deadline(req)
+
+    def retry_after(self, req, now: float, depth: int) -> float:
+        # a shed EDF request's deadline is already blown; suggest coming
+        # back after the backlog ahead of it has plausibly drained
+        slack = max(self.deadline(req) - now, 0.0)
+        return slack + max(depth, 1) * DEFAULT_RETRY_AFTER_S
 
 
 def make_policy(name: str, *, slo_ttft: Optional[float] = None) -> Policy:

@@ -26,11 +26,18 @@ around them:
   policy picks a victim: its pages are released, the request re-queues,
   and readmission recomputes its KV (prompt + generated-so-far) before
   decoding resumes exactly where it left off.
-
-The reference's request-level isolation and recovery (fault injection,
-the degradation ladder, per-request deadlines, retries with backoff) is
-not ported yet (ROADMAP A3): this engine runs the reference's tick with
-all of those knobs off, dispatch for dispatch and sync for sync.
+* **Request-level isolation & recovery** (``repro_torch.resil``; armed by
+  any of ``injector=`` / ``ladder=`` / ``max_request_s=``) — transient
+  dispatch failures preempt-and-requeue the affected slots with bounded
+  exponential backoff instead of crashing the engine; per-request
+  wall-clock deadlines cancel and free pages; the shed rung rejects
+  excess admissions with a policy-priced retry-after.  Every request
+  retires with exactly one outcome (``ok | shed | timed_out | failed``).
+  The tick catches exactly the reference's two classes,
+  ``TransientDispatchError`` and ``OutOfPagesError``: a kernel fault on
+  the card propagates.  With none of the three knobs set, ``step()`` is
+  the plain tick verbatim: same dispatches, same sync counts, same
+  tokens.
 
 Telemetry (``stats``/``telemetry()``): admitted / preempted counts,
 prefill tokens actually computed vs. served from the prefix cache, and
@@ -47,6 +54,8 @@ import numpy as np
 import torch
 
 from repro_torch.obs.trace import PID_ENGINE
+from repro_torch.resil.degrade import DegradationLadder
+from repro_torch.resil.errors import InjectedPageFault, TransientDispatchError
 from repro_torch.sched.policy import COST_MODEL_TODO, Policy, make_policy
 from repro_torch.sched.prefix import PrefixCache
 from repro_torch.serve.engine import (PagedEngine, Request, _pow2_bucket,
@@ -72,7 +81,10 @@ class SchedEngine(PagedEngine):
                  prefix_cache: bool = True,
                  slo_ttft: Optional[float] = None,
                  slo_tpot: Optional[float] = None,
-                 admission_control: bool = False, **kw):
+                 admission_control: bool = False,
+                 ladder=None, max_request_s: Optional[float] = None,
+                 max_retries: int = 3, backoff_s: float = 0.05,
+                 backoff_max_s: float = 1.0, **kw):
         if admission_control:
             raise NotImplementedError(f"admission_control {COST_MODEL_TODO}")
         super().__init__(lm, params, **kw)
@@ -121,6 +133,34 @@ class SchedEngine(PagedEngine):
                           fn=lambda f=f: getattr(self.prefix, f))
             m.gauge("prefix_cached_pages", "pages pinned by the prefix "
                     "cache", fn=lambda: len(self.prefix.nodes))
+        # --- resilience wiring (repro_torch.resil) ---------------------
+        # ladder accepts True (build one from the engine's own knobs), a
+        # built DegradationLadder, or None.  ``resilient`` gates the
+        # recovery tick: with every knob off the engine runs the plain
+        # tick verbatim (sync- and token-identical)
+        if ladder is True:
+            ladder = DegradationLadder(self.metrics, n_slots=self.n_slots,
+                                       slo_ttft=slo_ttft)
+        self.ladder = ladder
+        self.max_request_s = max_request_s
+        self.max_retries = int(max_retries)
+        self.backoff_s = float(backoff_s)
+        self.backoff_max_s = float(backoff_max_s)
+        self.resilient = ((self.injector is not None
+                           and self.injector.enabled)
+                          or ladder is not None or max_request_s is not None)
+        if self.resilient:
+            self._c_recovered = m.counter(
+                "resil_recovered_total",
+                "transient faults recovered by preempt-and-requeue")
+            self._c_timeouts = m.counter(
+                "resil_timeouts_total",
+                "requests cancelled at their wall-clock deadline")
+            self._c_shed = m.counter(
+                "resil_shed_total", "admissions rejected by the shed rung")
+            self._c_failed = m.counter(
+                "resil_failed_total",
+                "requests retired as failed (retries exhausted / no fit)")
         self._prefilling: Dict[int, Request] = {}    # slot -> mid-prompt req
         # rid -> (len(toks), digest chain): hashing a prompt is O(len),
         # and a page-starved queue is probed every tick — memoize per
@@ -165,14 +205,27 @@ class SchedEngine(PagedEngine):
     # ------------------------------------------------------------------
     # admission (policy-ordered, prefix-aware, chunk-sized page needs)
 
+    def _effective_chunk(self) -> int:
+        """Prefill chunk after the degradation ladder's shrink rung
+        (page-aligned by construction); the configured chunk otherwise."""
+        if self.ladder is not None:
+            return self.ladder.chunk_for(self.prefill_chunk, self.page_size)
+        return self.prefill_chunk
+
     def _admit_new(self) -> None:
-        if not (self.queue and self.free):
+        if not self.queue:
             return
         now = time.perf_counter()
+        if self.ladder is not None and self.ladder.shed:
+            self._shed_excess(now)
+        if not (self.queue and self.free):
+            return
         for req in sorted(self.queue,
                           key=lambda r: self.policy.priority(r, now)):
             if not self.free:
                 break
+            if req.not_before > now:
+                continue             # recovery backoff still running
             self._admit_one(req, now)
 
     def _admit_one(self, req: Request, now: float) -> bool:
@@ -195,18 +248,28 @@ class SchedEngine(PagedEngine):
             hit, pages = (self.prefix.lookup(toks, count=False,
                                              chain=chain)
                           if self.prefix else (0, []))
-            clen = min(self.prefill_chunk, len(toks) - hit)
+            clen = min(self._effective_chunk(), len(toks) - hit)
             need = self.alloc.pages_needed(hit + clen,
                                            self.page_size) - len(pages)
             try:
                 self.alloc.assign(slot, pages, need)
                 break
-            except OutOfPagesError:
+            except OutOfPagesError as e:
                 short = max(need - len(self.alloc.free), 1)
                 if self.prefix is not None and \
                         self.prefix.evict_pages(short) > 0:
                     continue
                 if not (self.active or self._prefilling):
+                    if self.resilient:
+                        if isinstance(e, InjectedPageFault) \
+                                and req.retries < self.max_retries:
+                            req.retries += 1     # spurious: retry next tick
+                            self._c_recovered.inc()
+                            return False
+                        # pool permanently too small for this request
+                        self._c_failed.inc()
+                        self._cancel_queued(req, now, "failed")
+                        return False
                     raise            # nothing in flight will free pages
                 return False         # wait for retirements
         if self.prefix is not None:
@@ -245,16 +308,24 @@ class SchedEngine(PagedEngine):
         """Extend ``slot`` by ``extra`` fresh pages, escalating from
         prefix-cache eviction to policy-chosen preemption.  Raises
         OutOfPagesError only when ``slot`` is the last work in flight and
-        the (fully evicted) pool still cannot hold it."""
+        the (fully evicted) pool still cannot hold it — in resilient mode
+        that terminal case is handled in place instead (the slot is
+        preempted with backoff for a spurious injected fault, cancelled as
+        ``failed`` for a genuine no-fit), so on return the slot has either
+        grown or left active/_prefilling."""
         now = time.perf_counter()
         if len(self.alloc.owned(slot)) + extra > self.alloc.max_pages_per_slot:
+            if self.resilient:
+                self._c_failed.inc()
+                self._cancel_slot(slot, now, "failed")
+                return
             raise OutOfPagesError(
                 f"slot {slot} would exceed {self.alloc.max_pages_per_slot} "
                 f"pages; {self.alloc.occupancy_summary()}")
         while True:
             try:
                 self.alloc.extend(slot, extra)
-            except OutOfPagesError:
+            except OutOfPagesError as e:
                 short = extra - len(self.alloc.free)
                 if self.prefix is not None and \
                         self.prefix.evict_pages(short) > 0:
@@ -263,6 +334,9 @@ class SchedEngine(PagedEngine):
                            list(self.active.items())
                            + list(self._prefilling.items()) if s != slot]
                 if not victims:
+                    if self.resilient:
+                        self._grow_blocked(slot, now, e)
+                        return
                     raise
                 victim = max(victims,
                              key=lambda r: self.policy.victim(r, now))
@@ -271,18 +345,29 @@ class SchedEngine(PagedEngine):
             set_block_table_rows(self.cache, [slot], self.alloc.table[[slot]])
             return
 
+    def _grow_blocked(self, slot: int, now: float, err) -> None:
+        """Terminal growth failure for the LAST in-flight slot: a
+        spurious injected page fault preempts it (requeue with backoff —
+        the fault clears on retry); a genuine no-fit retires it as
+        ``failed`` (nothing left to evict, the pool cannot hold it)."""
+        req = self.active.get(slot) or self._prefilling.get(slot)
+        if isinstance(err, InjectedPageFault) \
+                and req.retries < self.max_retries:
+            req.retries += 1
+            self._c_recovered.inc()
+            self._preempt(slot, now)
+            self._backoff(req, now)
+            return
+        self._c_failed.inc()
+        self._cancel_slot(slot, now, "failed")
+
     def _preempt(self, slot: int, now: float) -> None:
         """Release ``slot``'s pages and requeue its request; readmission
         recomputes the KV (prompt + generated) before decode resumes."""
         req = self.active.pop(slot, None)
         if req is None:
             req = self._prefilling.pop(slot)
-        self.alloc.release(slot)
-        self.lengths[slot] = 0
-        self.temps[slot] = 0.0
-        self.remaining[slot] = 0
-        self.free.append(slot)
-        set_block_table_rows(self.cache, [slot], self.alloc.table[[slot]])
+        self._release_slot(slot)
         req.slot = -1
         req.progress = 0
         req.preemptions += 1
@@ -294,6 +379,138 @@ class SchedEngine(PagedEngine):
                        args={"policy": self.policy.name})
             # re-open the queue span: the readmit wait is queue time
             tr.begin("queue", req.rid, ts=now, args={"readmit": True})
+
+    # ------------------------------------------------------------------
+    # request-level isolation & recovery (repro_torch.resil)
+
+    def _release_slot(self, slot: int) -> None:
+        """Free ``slot``'s pages and host state and re-point its device
+        block-table row at the null page, so lock-step garbage writes
+        can't land in reallocated pages."""
+        self.alloc.release(slot)
+        self.lengths[slot] = 0
+        self.temps[slot] = 0.0
+        self.remaining[slot] = 0
+        self.free.append(slot)
+        set_block_table_rows(self.cache, [slot], self.alloc.table[[slot]])
+
+    def _cancel_slot(self, slot: int, now: float, outcome: str) -> None:
+        """Terminal cancellation of an in-flight slot: retire its request
+        with ``outcome``, release every page, and return the slot to the
+        free list."""
+        req = self.active.pop(slot, None)
+        if req is None:
+            req = self._prefilling.pop(slot)
+        req.outcome = outcome
+        req.done = True
+        req.t_done = now
+        self.tracer.instant("cancel", req.rid, ts=now,
+                            args={"outcome": outcome})
+        self._obs_retire(req)
+        self._release_slot(slot)
+
+    def _cancel_queued(self, req: Request, now: float, outcome: str) -> None:
+        """Terminal cancellation of a still-queued request (no pages to
+        free — it holds no slot)."""
+        self.queue.remove(req)
+        self._chains.pop(req.rid, None)
+        req.outcome = outcome
+        req.done = True
+        req.t_done = now
+        self.tracer.end("queue", req.rid, ts=now,
+                        args={"cancelled": outcome})
+        self._obs_retire(req)
+
+    def _shed_excess(self, now: float) -> None:
+        """Shed rung: keep the policy's ``n_slots`` best-ranked queued
+        requests, reject the rest with outcome ``shed`` and a
+        policy-priced ``retry_after_s`` hint (FCFS sheds the latest
+        arrivals, EDF the most slack)."""
+        if len(self.queue) <= self.n_slots:
+            return
+        ranked = sorted(self.queue,
+                        key=lambda r: self.policy.priority(r, now))
+        for rank, req in enumerate(ranked[self.n_slots:],
+                                   start=self.n_slots):
+            self.queue.remove(req)
+            self._chains.pop(req.rid, None)
+            req.outcome = "shed"
+            req.retry_after_s = self.policy.retry_after(req, now, rank)
+            req.done = True
+            req.t_done = now
+            self._c_shed.inc()
+            self.tracer.end("queue", req.rid, ts=now,
+                            args={"shed": True,
+                                  "retry_after_s":
+                                      round(req.retry_after_s, 4)})
+            self._obs_retire(req)
+
+    def _expire_timeouts(self, now: float) -> None:
+        """Per-request wall-clock deadline (``max_request_s`` from
+        submit): expired queued requests retire in place; expired
+        in-flight slots are cancelled and their pages freed."""
+        dl = self.max_request_s
+        for req in list(self.queue):
+            if now - req.t_submit > dl:
+                self._c_timeouts.inc()
+                self._cancel_queued(req, now, "timed_out")
+        for slot, req in list(self.active.items()) \
+                + list(self._prefilling.items()):
+            if now - req.t_submit > dl:
+                self._c_timeouts.inc()
+                self._cancel_slot(slot, now, "timed_out")
+
+    def _backoff(self, req: Request, now: float) -> None:
+        req.not_before = now + min(
+            self.backoff_s * 2 ** (req.retries - 1), self.backoff_max_s)
+
+    def _requeue_or_fail(self, slots, now: float) -> None:
+        """Preempt each of ``slots`` with backoff, or retire it as
+        ``failed`` once its request has used up ``max_retries``."""
+        for slot in slots:
+            req = self.active.get(slot) or self._prefilling.get(slot)
+            if req is None:
+                continue
+            req.retries += 1
+            if req.retries > self.max_retries:
+                self._c_failed.inc()
+                self._cancel_slot(slot, now, "failed")
+            else:
+                self._preempt(slot, now)
+                self._backoff(req, now)
+
+    def _recover_transient(self, err, now: float) -> None:
+        """Transient dispatch failure: the fault fired at the host boundary
+        BEFORE the dispatch committed any engine state, so the affected
+        phase's slots are preempted and requeued with bounded exponential
+        backoff; a request that exhausts ``max_retries`` retires as
+        ``failed``."""
+        kind = getattr(err, "kind", "dispatch")
+        if kind in ("admit", "prefill_chunk"):
+            slots = list(self._prefilling)
+        elif kind in ("decode_block", "spec_round"):
+            slots = list(self.active)
+        else:
+            slots = list(self._prefilling) + list(self.active)
+        self._c_recovered.inc()
+        tr = self.tracer
+        if tr.enabled:
+            tr.instant("fault", 0, ts=now, pid=PID_ENGINE,
+                       args={"kind": kind, "error": str(err)})
+        self._requeue_or_fail(slots, now)
+
+    def _recover_oom(self, err, now: float) -> None:
+        """Backstop for an allocation failure that escaped the inline
+        handlers mid-tick: preempt everything in flight (pages released,
+        recompute-on-readmit) so the next tick starts from a clean pool;
+        retries are bounded like any transient fault."""
+        self._c_recovered.inc()
+        tr = self.tracer
+        if tr.enabled:
+            tr.instant("fault", 0, ts=now, pid=PID_ENGINE,
+                       args={"kind": "page_oom", "error": str(err)})
+        self._requeue_or_fail(list(self._prefilling) + list(self.active),
+                              now)
 
     # ------------------------------------------------------------------
     # chunked prefill
@@ -317,17 +534,23 @@ class SchedEngine(PagedEngine):
                 if slot not in self._prefilling:
                     continue
                 toks = self._sched_tokens(req)
-                clen = min(self.prefill_chunk, len(toks) - req.progress)
+                clen = min(self._effective_chunk(),
+                           len(toks) - req.progress)
                 need = self.alloc.pages_needed(
                     req.progress + clen, self.page_size) \
                     - len(self.alloc.owned(slot))
                 if need > 0:
                     self._grow(slot, need)
                 ready.append((slot, req, toks, clen))
-            # a later row's _grow may have preempted an earlier ready row
+            # a later row's _grow may have preempted (or cancelled) an
+            # earlier ready row
             ready = [r for r in ready if r[0] in self._prefilling]
             if not ready:
                 continue
+            # chaos hook AFTER page growth, BEFORE any dispatch state is
+            # built: a raise here leaves the rows consistent (pages grown,
+            # progress untouched) for preempt-and-requeue
+            self._maybe_inject("prefill_chunk" if cont else "admit")
             slots = np.asarray([s for s, _, _, _ in ready], np.int32)
             clens = np.asarray([c for _, _, _, c in ready], np.int32)
             starts = np.asarray([r.progress for _, r, _, _ in ready],
@@ -447,14 +670,44 @@ class SchedEngine(PagedEngine):
 
     def step(self) -> List[tuple]:
         """One tick: policy-ordered admission, at most two prefill-chunk
-        dispatches, then one fused decode block for the running slots."""
+        dispatches, then one fused decode block for the running slots.
+
+        In resilient mode (``injector``/``ladder``/``max_request_s``) the
+        tick also updates the degradation ladder, expires per-request
+        deadlines, and turns transient dispatch faults and page
+        exhaustion into preempt-and-requeue recovery instead of
+        propagating them; with all three knobs off this body is the plain
+        tick verbatim."""
         emitted: List[tuple] = []
-        self._admit_new()
-        self._dispatch_chunks(emitted)
-        if self.active:
-            self._ensure_decode_pages()
+        if not self.resilient:
+            self._admit_new()
+            self._dispatch_chunks(emitted)
             if self.active:
-                self._dispatch_decode(emitted)
+                self._ensure_decode_pages()
+                if self.active:
+                    self._dispatch_decode(emitted)
+            return emitted
+        now = time.perf_counter()
+        if self.ladder is not None:
+            self.ladder.update()
+        if self.max_request_s is not None:
+            self._expire_timeouts(now)
+        try:
+            self._admit_new()
+            self._dispatch_chunks(emitted)
+            if self.active:
+                self._ensure_decode_pages()
+                if self.active:
+                    self._dispatch_decode(emitted)
+        except TransientDispatchError as e:
+            self._recover_transient(e, time.perf_counter())
+        except OutOfPagesError as e:
+            self._recover_oom(e, time.perf_counter())
+        if not emitted and self.queue \
+                and not (self.active or self._prefilling):
+            # every queued request is in recovery backoff: yield briefly
+            # instead of spinning the host loop
+            time.sleep(0.0005)
         return emitted
 
     def run_to_completion(self) -> Dict[int, Request]:

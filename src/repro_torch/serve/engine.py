@@ -6,9 +6,10 @@ slots free at once.  The port of ``repro/serve/engine.py``'s two engines:
 
 ``Engine`` — the eager engine: batch-1 prefill of each admitted request
 into its slot, one batched decode step per tick, host-side sampling, and
-one device->host sync per generated token.  The port serves attention-free
-(RWKV-6) decoders with it, whose per-slot cache is a constant-size
-recurrent state.
+one device->host sync per generated token.  It serves attention decoders
+over contiguous per-slot caches (bf16, or int8 / fp8 with per-position
+scales; sliding windows included) and attention-free (RWKV-6) decoders,
+whose per-slot cache is a constant-size recurrent state.
 
 ``PagedEngine`` — queued requests are admitted in ONE right-padded,
 power-of-two-bucketed prefill whose K/V is scattered into the page pools;
@@ -30,6 +31,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.models.transformer import block_kinds
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import PID_ENGINE, Tracer
 from repro_torch.resil.errors import OUTCOMES
@@ -59,7 +61,11 @@ class Request:
     preemptions: int = 0
     progress: int = 0                  # prefill tokens already cached
     rejected: bool = False
+    # --- resilience surface (repro_torch.resil; inert without chaos) ---
     outcome: Optional[str] = None      # one of OUTCOMES, set at retire
+    retries: int = 0                   # transient-fault recovery attempts
+    not_before: float = 0.0            # backoff gate for re-admission
+    retry_after_s: Optional[float] = None   # shed hint for the client
 
 
 class _EngineBase:
@@ -177,26 +183,23 @@ class _EngineBase:
 
 
 class Engine(_EngineBase):
-    """The reference's eager ``Engine`` for attention-free decoders: each
-    admission prefills its prompt alone (batch 1) into its slot, then one
+    """The reference's eager ``Engine``: each admission prefills its
+    prompt alone (batch 1) into its slot of the contiguous cache, then one
     decode step runs every slot, and the host reads the logits and samples
     (greedy, or from ``np.random.default_rng(seed)`` at a temperature) —
     one host sync per admission and one per decode step (``sync_count``).
 
-    Differences from the reference, both deliberate: the slot's recurrent
-    state is zeroed at admission (the reference prefills from whatever the
+    An attention slot's rows past its prompt keep whatever the slot's
+    previous occupant left there; decode never reads them (it masks keys
+    past each row's position) and overwrites them as it goes.  Differences
+    from the reference, both deliberate: an RWKV-6 slot's recurrent state
+    is zeroed at admission (the reference prefills from whatever the
     slot's previous occupant left, so a reused slot changes the stream),
-    and the ``DispatchProfiler`` hooks wait for ROADMAP A3.  Attention
-    blocks over contiguous caches wait for ROADMAP A1."""
+    and the ``DispatchProfiler`` hooks wait for ROADMAP A5."""
 
     def __init__(self, lm, params, *, n_slots: int = 4, max_len: int = 512,
                  eos_id: int = -1, seed: int = 0, metrics=None, tracer=None):
-        cfg = lm.cfg
-        if cfg.attention is not None or any(k != "rwkv6"
-                                            for k in cfg.block_pattern):
-            raise ValueError("Engine serves attention-free (RWKV-6) "
-                             "decoders only; attention blocks over "
-                             "contiguous caches wait for ROADMAP A1")
+        block_kinds(lm.cfg)          # refuses block kinds not ported
         super().__init__(lm, lm.prepare(params), n_slots=n_slots,
                          max_len=max_len, eos_id=eos_id, metrics=metrics,
                          tracer=tracer)
@@ -211,15 +214,22 @@ class Engine(_EngineBase):
     # ------------------------------------------------------------------
     @torch.no_grad()
     def _prefill_slot(self, prompt: np.ndarray, slot: int) -> torch.Tensor:
-        """Batch-1 prefill of ``prompt`` from a zero state, written into
-        slot ``slot`` of the engine cache (in place); returns its
-        last-token logits (V,) on the device."""
+        """Batch-1 prefill of ``prompt`` into slot ``slot`` of the engine
+        cache (in place); returns its last-token logits (V,) on the
+        device.  Attention blocks write positions [0, len) of the slot's
+        rows through views (scales included); RWKV-6 blocks run from a
+        zero state that is copied into the slot."""
         tokens = torch.as_tensor(prompt, device=self.device).long()[None]
-        logits, sub = self.lm.prefill(self.params, tokens,
-                                      self.lm.init_cache(1, len(prompt)))
+        sub = [{blk: ({"kv": {n: t[slot:slot + 1]
+                              for n, t in node["kv"].items()}}
+                      if "kv" in node else
+                      {"state": {n: torch.zeros_like(t[slot:slot + 1])
+                                 for n, t in node["state"].items()}})
+                for blk, node in group.items()} for group in self.cache]
+        logits, sub = self.lm.prefill(self.params, tokens, sub)
         for group, new in zip(self.cache, sub):
             for blk, node in group.items():
-                for name, leaf in node["state"].items():
+                for name, leaf in node.get("state", {}).items():
                     leaf[slot:slot + 1].copy_(new[blk]["state"][name])
         return logits[0]
 
@@ -272,7 +282,7 @@ class Engine(_EngineBase):
             return emitted
 
         # batched decode: every slot steps; free slots step garbage in
-        # their own state, which the next admission overwrites
+        # their own rows / state, which the next admission overwrites
         tokens = np.zeros((self.n_slots,), np.int64)
         pos_by_slot = np.zeros((self.n_slots,), np.int32)
         for slot, req in self.active.items():
@@ -362,7 +372,7 @@ class PagedEngine(_EngineBase):
     def __init__(self, lm, params, *, n_slots: int = 4, max_len: int = 512,
                  eos_id: int = -1, seed: int = 0, page_size: int = PAGE,
                  decode_block: int = 8, n_pages: Optional[int] = None,
-                 metrics=None, tracer=None):
+                 metrics=None, tracer=None, injector=None):
         cfg = lm.cfg
         a = cfg.attention
         if a is None or a.window is not None \
@@ -380,6 +390,12 @@ class PagedEngine(_EngineBase):
         if n_pages is None:
             n_pages = default_pages                  # incl. null page 0
         self.alloc = PageAllocator(n_pages, pages_per_slot, n_slots)
+        # the chaos harness (repro_torch.resil): consulted at the
+        # allocator and at every dispatch boundary while enabled
+        self.injector = injector
+        if injector is not None:
+            self.alloc.injector = injector
+            injector.register_metrics(self.metrics)
         self.cache = lm.init_paged_cache(n_slots, n_pages, pages_per_slot,
                                          page_size=page_size)
         self.lengths = np.zeros((n_slots,), np.int32)
@@ -480,6 +496,15 @@ class PagedEngine(_EngineBase):
     # ------------------------------------------------------------------
     # host loop
 
+    def _maybe_inject(self, kind: str) -> None:
+        """Chaos hook at the host side of a dispatch boundary: no-op
+        without an enabled injector; may sleep (latency spike) or raise
+        :class:`~repro_torch.resil.errors.InjectedFault` BEFORE any state
+        or device work of the dispatch."""
+        inj = self.injector
+        if inj is not None and inj.enabled:
+            inj.pre_dispatch(kind)
+
     def _retire(self, slot: int, now: float):
         req = self.active.pop(slot)
         req.done = True
@@ -518,6 +543,7 @@ class PagedEngine(_EngineBase):
         return admitted
 
     def _dispatch_admit(self, admitted: List[Request], emitted: list):
+        self._maybe_inject("admit")
         plens = np.asarray([len(r.prompt) for r in admitted], np.int32)
         slot_ids = np.asarray([r.slot for r in admitted], np.int32)
         plen_pad = _pow2_bucket(int(plens.max()))
@@ -564,6 +590,7 @@ class PagedEngine(_EngineBase):
                 self._retire(req.slot, now)
 
     def _dispatch_decode(self, emitted: list):
+        self._maybe_inject("decode_block")
         k_blk, s_n = self.decode_block, self.n_slots
         active_mask = np.zeros((s_n,), bool)
         for slot in self.active:

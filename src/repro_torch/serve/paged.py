@@ -48,6 +48,10 @@ class PageAllocator:
         self.table = np.zeros((n_slots, max_pages_per_slot), np.int32)
         self.refs = np.zeros((n_pages,), np.int32)
         self._owned: Dict[int, List[int]] = {}
+        # optional chaos harness (repro_torch.resil.inject.FaultInjector):
+        # when set AND enabled, _take consults it for spurious page faults
+        # and forced pool shrinkage; None is the untouched allocation path
+        self.injector = None
 
     def pages_needed(self, seq_len: int, page_size: int = PAGE) -> int:
         return (seq_len + page_size - 1) // page_size
@@ -80,6 +84,10 @@ class PageAllocator:
 
     def _take(self, need: int) -> List[int]:
         avail = len(self.free)
+        inj = self.injector
+        if inj is not None and inj.enabled:
+            inj.page_fault_check(self)     # may raise InjectedPageFault
+            avail = max(avail - inj.reserved_pages(), 0)
         if need > avail:
             raise OutOfPagesError(
                 f"need {need} pages, {avail} free; "

@@ -30,12 +30,14 @@ plain fused decode dispatch with DRAFT -> VERIFY -> COMMIT rounds:
 Every verify round costs one host sync and emits 1..k+1 tokens per slot.
 A round where no slot has drafts, or where an EDF deadline is too close
 to gamble decode budget on rejected drafts (``spec_slack_s``), falls back
-to the base fused ``decode_block`` dispatch.  The reference's resilience
-hooks around a round (fault injection, the degradation ladder's
-``spec_off`` rung, cancellation) come with the resilient scheduler
-(ROADMAP A3); its sampled rows draw from JAX's threefry stream, which
-torch cannot reproduce, so sampled rows here draw from the engine's
-``torch.Generator`` and agree with the reference as a distribution.
+to the base fused ``decode_block`` dispatch, and so does every round
+while the degradation ladder sits at or past its ``spec_off`` rung.  A
+chaos injector may fail a round at its boundary (before any draft state)
+and mangle proposals into garbage drafts, which exact acceptance
+rejects.  The reference's sampled rows draw from JAX's threefry
+stream, which torch cannot reproduce, so sampled rows here draw from the
+engine's ``torch.Generator`` and agree with the reference as a
+distribution.
 """
 from __future__ import annotations
 
@@ -225,6 +227,11 @@ class SpecEngine(SchedEngine):
                    for r in self.queue)
 
     def _dispatch_decode(self, emitted: list) -> None:
+        if self.ladder is not None and self.ladder.spec_off:
+            # degradation rung >= spec_off: stop gambling decode budget
+            # on drafts; plain fused decode gives the same greedy stream
+            self.spec_stats.fallback_steps += 1
+            return super()._dispatch_decode(emitted)
         if not self._spec_allowed():
             self.spec_stats.skipped_urgent += 1
             self.spec_stats.fallback_steps += 1
@@ -232,6 +239,9 @@ class SpecEngine(SchedEngine):
         return self._spec_round(emitted)
 
     def _spec_round(self, emitted: list) -> None:
+        # chaos hook BEFORE any draft / verify state is built: a raise
+        # here preempts cleanly (the decode hook's contract)
+        self._maybe_inject("spec_round")
         reqs = list(self.active.items())
         # --- draft ----------------------------------------------------
         batch = []
@@ -244,6 +254,11 @@ class SpecEngine(SchedEngine):
             batch.append((slot, req.rid, hist, k))
         t_round0 = t0 = time.perf_counter()   # spec_round span covers
         proposals = self.drafter.propose_batch(batch, self.k_max)
+        if self.injector is not None and self.injector.enabled:
+            # degenerate-proposal injection: exact verify / accept must
+            # reject garbage drafts without perturbing the greedy stream
+            proposals = self.injector.mangle_proposals(proposals,
+                                                       self.k_max)
         # drafting is decode-phase work (the draft-LM arm is a real
         # dispatch + sync): charge it to decode
         self.t_decode_s += time.perf_counter() - t0
@@ -336,6 +351,10 @@ class SpecEngine(SchedEngine):
     def _retire(self, slot: int, now: float):
         self.controller.reset(slot)
         super()._retire(slot, now)
+
+    def _cancel_slot(self, slot: int, now: float, outcome: str):
+        self.controller.reset(slot)
+        super()._cancel_slot(slot, now, outcome)
 
     # ------------------------------------------------------------------
     def telemetry(self, since=None) -> dict:

@@ -54,22 +54,26 @@ def test_alloc_shapes_match(kind, h, kvh, style):
 
 @pytest.mark.parametrize("dtype", ["int8", "fp8"])
 def test_quantized_pools_are_refused(dtype):
-    """Contiguous quantized caches (the eager Engine's) are refused; paged
-    int8 / fp8 pools are allocated with zero fp32 scales, as the
-    reference allocates them (their writes: test_torch_quant.py)."""
+    """Contiguous quantized caches (the eager Engine's, with per-position
+    scales) and paged int8 / fp8 pools (per-page scales) are allocated
+    with zero values and fp32 scales, as the reference allocates them
+    (their writes: test_torch_engine.py, test_torch_quant.py)."""
     a = TAttn(num_heads=4, num_kv_heads=2, head_dim=16)
-    with pytest.raises(NotImplementedError):
-        tkv.alloc_contiguous(tkv.CacheSpec(dtype=dtype), a, 2, 8)
-    t = tkv.alloc_paged(tkv.CacheSpec(layout="paged", dtype=dtype), a, 2, 5,
-                        2)
-    j = jkv.alloc_paged(jkv.CacheSpec(layout="paged", dtype=dtype),
-                        JAttn(num_heads=4, num_kv_heads=2, head_dim=16), 2,
-                        5, 2)
-    assert set(t) == set(j)
-    for name in j:
-        assert tuple(t[name].shape) == tuple(j[name].shape), name
-        assert str(t[name].dtype).split(".")[-1] == str(j[name].dtype), name
-        assert not t[name].float().any(), name
+    ja = JAttn(num_heads=4, num_kv_heads=2, head_dim=16)
+    pairs = [(tkv.alloc_contiguous(tkv.CacheSpec(dtype=dtype), a, 2, 8),
+              jkv.alloc_contiguous(jkv.CacheSpec(dtype=dtype), ja, 2, 8)),
+             (tkv.alloc_paged(tkv.CacheSpec(layout="paged", dtype=dtype), a,
+                              2, 5, 2),
+              jkv.alloc_paged(jkv.CacheSpec(layout="paged", dtype=dtype), ja,
+                              2, 5, 2))]
+    for t, j in pairs:
+        assert set(t) == set(j)
+        assert {"k_scale", "k_scales"} & set(t)
+        for name in j:
+            assert tuple(t[name].shape) == tuple(j[name].shape), name
+            assert str(t[name].dtype).split(".")[-1] == str(j[name].dtype), \
+                name
+            assert not t[name].float().any(), name
 
 
 @pytest.mark.parametrize("page", [4, 8])

@@ -275,5 +275,6 @@ def test_pool_bytes_and_refused_contiguous_cache():
     page_bytes = 5 * 256 * 2 * 16
     assert tkv.pool_bytes(bf) == 2 * 2 * page_bytes
     assert tkv.pool_bytes(i8) == 2 * page_bytes + 2 * 5 * 2 * 4
-    with pytest.raises(NotImplementedError, match="eager Engine"):
-        tkv.alloc_contiguous(tkv.CacheSpec(dtype="fp8"), a, 2, 8)
+    # a contiguous fp8 cache counts its values and per-position scales
+    c8 = tkv.alloc_contiguous(tkv.CacheSpec(dtype="fp8"), a, 2, 8)
+    assert tkv.pool_bytes(c8) == 2 * (2 * 8 * 2 * 16) + 2 * (2 * 8 * 2 * 4)

@@ -56,7 +56,10 @@ def test_scan_covers_the_scheduler_and_every_kernel_module():
                 "kernels/rmsnorm/ops.py", "kernels/rmsnorm/ref.py",
                 "configs/rwkv6_1_6b.py", "spec/__init__.py",
                 "spec/engine.py", "spec/drafter.py", "spec/controller.py",
-                "spec/rollback.py", "core/costmodel.py"):
+                "spec/rollback.py", "core/costmodel.py",
+                "resil/__init__.py", "resil/errors.py", "resil/inject.py",
+                "resil/degrade.py", "serve/engine.py", "kvcache/cache.py",
+                "models/attention.py"):
         assert f"src/repro_torch/{rel}" in scanned, rel
     from repro_torch.kernels import build
     for src in build.SOURCES.values():
@@ -125,6 +128,34 @@ def test_chip_smoke_drives_the_spec_path():
                    "acceptance_rate"):
         assert needle in body, needle
     assert "[14 spec]" in text
+
+
+def test_chip_smoke_drives_the_eager_and_resil_paths():
+    """chip_smoke.py has an eager phase and a resilience phase that its
+    main runs: the first serves through the port's Engine (bf16, int8 and
+    fp8 contiguous caches, a windowed config, logits against chunked
+    attention on the plain side, streams equal to the PagedEngine's), the
+    second through the resilient SchedEngine and SpecEngine under chaos."""
+    text = (ROOT / "chip_smoke.py").read_text()
+    tree = ast.parse(text)
+    funcs = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    main_calls = {ast.unparse(c.func) for c in ast.walk(funcs["main"])
+                  if isinstance(c, ast.Call)}
+    assert {"phase_eager", "phase_resil"} <= main_calls
+    for phase, needles in (
+            ("phase_eager", ("Engine", "PagedEngine", "kv_cache_dtype",
+                             "window", "chunked", "_swap_plain",
+                             "_reset_launches", "sync_count")),
+            ("phase_resil", ("SchedEngine", "SpecEngine", "FaultInjector",
+                             "ladder", "max_request_s", "retry_after_s",
+                             "timed_out", "_reset_launches"))):
+        called = {ast.unparse(c.func) for c in ast.walk(funcs[phase])
+                  if isinstance(c, ast.Call)}
+        body = "\n".join(ast.unparse(funcs[n]) for n in
+                         sorted(called & set(funcs)) + [phase])
+        for needle in needles:
+            assert needle in body, (phase, needle)
+    assert "[15 eager]" in text and "[16 resil]" in text
 
 
 def test_chip_smoke_names_every_ported_kernel():
@@ -261,16 +292,27 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
         main(["--arch", "rwkv6-1.6b", "--smoke", "--requests", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--smoke", "--spec", "ngram", "--requests", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--smoke", "--requests", "1"])
     lm = LM(cfg, device="cpu")            # an explicit request is honoured
     assert lm.device.type == "cpu"
 
 
-def test_launch_serve_requires_paged():
-    """An attention arch without --paged or --policy is refused: its eager
-    engine over contiguous caches is not ported (ROADMAP A1)."""
+def test_launch_serve_requires_paged(capsys):
+    """An attention arch without --paged, --policy or --spec serves
+    through the eager Engine over a contiguous cache (bf16 and int8);
+    the chaos flags still need a paged or scheduler engine."""
     from repro_torch.launch.serve import main
+    for extra in ([], ["--kv-dtype", "int8"]):
+        assert main(["--smoke", "--device", "cpu", "--requests", "3",
+                     "--prompt-len", "20", "--max-new", "4"] + extra) == 0
+        out = capsys.readouterr().out
+        assert "eager" in out and "3 requests, 12 tokens" in out
+        assert "'ok': 3" in out
     with pytest.raises(SystemExit):
-        main(["--smoke", "--device", "cpu"])
+        main(["--smoke", "--device", "cpu", "--chaos", "fault=0.1"])
+    with pytest.raises(SystemExit):
+        main(["--smoke", "--device", "cpu", "--paged", "--degrade"])
 
 
 def test_engine_refuses_non_attention_decoders():

@@ -285,8 +285,10 @@ def test_engine_temperature_sampling_matches_jax(f32_models):
 
 
 def test_engine_refuses_attention_decoders():
-    cfg = t_smoke("qwen2-1.5b")
-    with pytest.raises(ValueError, match="ROADMAP A1"):
+    """The eager Engine serves attention and RWKV-6 blocks; a Mamba block
+    is refused, naming its queue entry (ROADMAP A6)."""
+    cfg = t_smoke(ARCH).with_(block_pattern=("rwkv6", "mamba"))
+    with pytest.raises(NotImplementedError, match="mamba.*ROADMAP A6"):
         TEngine(TLM(cfg, device="cpu"), {}, n_slots=1, max_len=16)
 
 
