@@ -132,13 +132,28 @@ Phases (each prints one line; any failure raises and exits non-zero):
                  every arm the outcomes sum to the requests, every page is
                  freed and B1 / B2 / B3 / B7 ran once a layer for each
                  dispatch that got past the fault hook
+ 17. cost      — the cost model's H100 tier on qwen2-1.5b at full width,
+                 bf16, SchedEngine with 8 slots, max_len 4,096, page 256,
+                 chunk 512: (a) SJF over 8 of phase 7's requests with the
+                 DispatchProfiler on, then off: equal streams, syncs and
+                 launches (B3 / B2 / B1 / B7 at 28 / 28 / 28 / 57 a
+                 dispatch), every sample of a known kind, the samples'
+                 prefill tokens the engine's; each kind's count, median
+                 wall, analytic estimate and drift ratio; (b) EDF with
+                 admission control, the TTFT target between the short and
+                 the long prompts' prefill estimates: exactly the long
+                 ones rejected, the rest served, every page freed; (c)
+                 `python -m repro_torch.launch.serve` twice (SJF open loop
+                 with --profile, --calibration-out, --metrics, --trace-out;
+                 then --spec ngram --quant int8 --calibration-in): exit 0,
+                 the files, the metric names, the calibration carried
 B7 takes every RMSNorm of the qwen2-1.5b drives: 57 launches a forward
 (phases 5, 7, 9, 10), every one on its warp step.  Every B1 / B2 / B3
 launch of those drives (bf16 activations), every B4 and B5 launch of
 phase 9 and every B6 launch of phase 10 must take the tensor-core step:
 their tensor-core launch counts are printed beside the launch counts and
 must equal them.  Launch counts are
-zeroed just before each drive (phases 5, 7, 9, 10, 13-16) and read just
+zeroed just before each drive (phases 5, 7, 9, 10, 13-17) and read just
 after it; peak memory is read for the set-up and, restarted, for the
 drive.  Then one JSON
 line of kernel numbers, and last the result line ``{"ok": true,
@@ -148,6 +163,7 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -3072,6 +3088,297 @@ def phase_resil(records: list) -> dict:
     return out
 
 
+COST_REQUESTS = 8           # phase 17 (a), (b)
+
+
+def _cost_prompts(rng, vocab: int, sys_prompt, plens) -> list:
+    """Phase 7's prompt mix: every other prompt behind the system
+    prompt."""
+    import numpy as np
+    out = []
+    for i, n in enumerate(plens):
+        if i % 2 == 0:
+            n = max(int(n), SYS_PROMPT + 1)
+            out.append(np.concatenate(
+                [sys_prompt, rng.integers(0, vocab, n - SYS_PROMPT)]))
+        else:
+            out.append(rng.integers(0, vocab, int(n)))
+    return out
+
+
+def _cost_drive(eng, tracer, prompts, max_new, tag: str) -> dict:
+    """One drive with the launch counts zeroed just before and read just
+    after: token counts, syncs = chunk dispatches + decode blocks, and B3
+    / B2 / B1 / B7 at 28 / 28 / 28 / 57 a dispatch, every launch on the
+    tensor-core / warp step."""
+    torch = _torch()
+    cfg = eng.lm.cfg
+    base = _counts(eng, tracer, 0)
+    n_ev = len(tracer.events)
+    rejected0 = eng.stats.slo_rejected
+    _reset_launches()
+    t0 = time.perf_counter()
+    ids = [eng.submit(p, max_new_tokens=int(m))
+           for p, m in zip(prompts, max_new)]
+    done = eng.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in _read_launches().items()
+                if k in ("paged_attention", "flash_attention",
+                         "paged_prefix_extend", "rmsnorm")}
+    tc = _tc_launches(tag)
+    now = _counts(eng, tracer, n_ev)
+    d = {k: now[k] - base[k] for k in ("syncs", "steps", "blocks",
+                                        "prefill_tokens")}
+    d["cont"], d["fresh"] = now["cont"], now["fresh"]
+    if d["syncs"] != d["cont"] + d["fresh"] + d["blocks"]:
+        raise AssertionError(f"{tag}: {d['syncs']} host syncs != "
+                             f"{d['cont']} + {d['fresh']} chunk dispatches "
+                             f"+ {d['blocks']} decode blocks")
+    layers = cfg.num_layers
+    want = {"paged_prefix_extend": layers * d["cont"],
+            "flash_attention": layers * d["fresh"],
+            "paged_attention": layers * d["steps"],
+            "rmsnorm": (2 * layers + 1) * (d["cont"] + d["fresh"]
+                                           + d["steps"])}
+    if launches != want or min(launches.values()) == 0:
+        raise AssertionError(f"{tag}: launches {launches} != {want}, or a "
+                             "kernel never launched")
+    for i, m in zip(ids, max_new):
+        r = done[i]
+        if r.rejected:
+            if r.out_tokens:
+                raise AssertionError(f"{tag}: rejected request {i} has "
+                                     "tokens")
+        elif len(r.out_tokens) != int(m) or not all(
+                0 <= t < cfg.vocab_size for t in r.out_tokens):
+            raise AssertionError(f"{tag}: request {i}: "
+                                 f"{len(r.out_tokens)} tokens, want {m}")
+    return {"streams": [done[i].out_tokens for i in ids],
+            "rejected": [bool(done[i].rejected) for i in ids],
+            "slo_rejected": eng.stats.slo_rejected - rejected0,
+            "wall_s": wall, "launches": launches, "tc_launches": tc,
+            "dispatches": {k: d[k] for k in ("fresh", "cont", "blocks",
+                                             "steps")},
+            "syncs": d["syncs"], "prefill_tokens": d["prefill_tokens"],
+            "tokens": sum(len(done[i].out_tokens) for i in ids)}
+
+
+def _cli_cost_runs(out_dir: Path) -> dict:
+    """``python -m repro_torch.launch.serve`` twice as a user runs it: SJF
+    open loop with the profiler, the calibration written and the metrics
+    as JSON; then n-gram speculation over int8 weights seeded with that
+    calibration, the metrics as Prometheus text."""
+    base = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+            "qwen2-1.5b", "--requests", "8", "--prompt-len", "512",
+            "--max-new", "32", "--slots", "8", "--max-len", "1024",
+            "--page-size", "256", "--policy", "sjf"]
+    files = {k: out_dir / f"cost_{k}" for k in
+             ("c1.json", "m1.json", "t1.json", "c2.json", "m2.prom")}
+    runs = (["--arrival-rate", "40", "--profile", "--calibration-out",
+             str(files["c1.json"]), "--metrics", str(files["m1.json"]),
+             "--trace-out", str(files["t1.json"])],
+            ["--spec", "ngram", "--quant", "int8", "--calibration-in",
+             str(files["c1.json"]), "--calibration-out",
+             str(files["c2.json"]), "--metrics", str(files["m2.prom"])])
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    walls = []
+    for extra in runs:
+        t0 = time.perf_counter()
+        proc = subprocess.run(base + extra, cwd=str(ROOT), env=env,
+                              capture_output=True, text=True, timeout=300)
+        walls.append(time.perf_counter() - t0)
+        if proc.returncode != 0:
+            raise AssertionError(f"serve {' '.join(extra)}: exit "
+                                 f"{proc.returncode}\n{proc.stdout[-2000:]}"
+                                 f"\n{proc.stderr[-4000:]}")
+    for k, f in files.items():
+        if not f.is_file() or f.stat().st_size == 0:
+            raise AssertionError(f"serve wrote no {k}")
+    from repro_torch.configs import get_config
+    from repro_torch.core.costmodel import service_estimate
+    m1 = json.loads(files["m1.json"].read_text())
+    m2 = files["m2.prom"].read_text()
+    names1 = {k.split("{")[0] for part in ("counters", "gauges")
+              for k in m1[part]}
+    names2 = {line.split("{")[0].split(" ")[0] for line in m2.splitlines()
+              if line and not line.startswith("#")}
+    est_keys = {f"costmodel_{k}" for k in service_estimate(
+        get_config("qwen2-1.5b"), prompt=512, gen=32)}
+    for names, tag in ((names1, "m1.json"), (names2, "m2.prom")):
+        missing = ({"profile_dispatch_seconds_total",
+                    "costmodel_drift_ratio"} | est_keys) - names
+        if missing:
+            raise AssertionError(f"serve {tag} lacks {sorted(missing)}")
+    c1 = {(f["kind"], f["arm"]): f for f in
+          json.loads(files["c1.json"].read_text())["factors"]}
+    c2 = {(f["kind"], f["arm"]): f for f in
+          json.loads(files["c2.json"].read_text())["factors"]}
+    if not c1 or any(c2.get(k) != v for k, v in c1.items()) \
+            or not set(c2) - set(c1):
+        raise AssertionError("the second run's calibration does not start "
+                             "from the first's factors")
+    return {"walls_s": walls, "series_first": len(c1),
+            "series_second": len(c2),
+            "spec_kinds": sorted({k for k, _ in c2} - {k for k, _ in c1})}
+
+
+def phase_cost(records: list) -> dict:
+    """The cost model's H100 tier driving the port's SchedEngine,
+    qwen2-1.5b at full width, bf16: (a) SJF over 8 of phase 7's requests
+    with the DispatchProfiler on, then the same drive with it off (equal
+    streams, syncs and launches; the samples' drift against the analytic
+    dispatch estimates); (b) EDF with admission control and a TTFT target
+    between the estimates of the short and the long prompts; (c) the
+    serving CLI twice with the profiler, the calibration and the metrics
+    files."""
+    torch = _torch()
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.costmodel import (TIERS, CalibratedCostModel,
+                                            dispatch_estimate,
+                                            service_estimate)
+    from repro_torch.models.model import LM
+    from repro_torch.obs import DISPATCH_KINDS, DispatchProfiler, Tracer
+    from repro_torch.sched import SchedEngine
+    t_phase = time.perf_counter()
+    cfg = get_config("qwen2-1.5b").with_(num_layers=E2E_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm = LM(cfg, device="cuda")
+    params = lm.init(SEED)
+    tier = TIERS["h100-1"]
+    vocab = cfg.vocab_size
+    rng = np.random.default_rng(SEED + 7)            # phase 7's generator
+    sys_prompt = rng.integers(0, vocab, SYS_PROMPT)
+    warm = np.concatenate([sys_prompt, rng.integers(0, vocab, 100)])
+    prompts = _cost_prompts(rng, vocab, sys_prompt,
+                            rng.integers(600, 3001, COST_REQUESTS))
+    max_new = rng.integers(32, 65, COST_REQUESTS)
+    kw = dict(n_slots=8, max_len=4096, page_size=256, prefill_chunk=512,
+              decode_block=8, seed=SEED)
+
+    # (a) SJF, profiled then not: each engine warmed alike (the system
+    # prompt served once, so that half the drive hits the prefix cache)
+    arms = {}
+    for name, on in (("profiled", True), ("plain", False)):
+        tracer = Tracer(enabled=True)
+        prof = DispatchProfiler(enabled=on)
+        eng = SchedEngine(lm, params, policy="sjf", prefix_cache=True,
+                          tracer=tracer, profiler=prof, **kw)
+        eng.submit(warm, max_new_tokens=8)
+        eng.run_to_completion()
+        torch.cuda.synchronize()
+        prof.samples.clear()
+        arms[name] = _cost_drive(eng, tracer, prompts, max_new,
+                                 f"cost sjf {name}")
+        arms[name]["samples"] = list(prof.samples)
+        del eng
+    a, b0 = arms["profiled"], arms["plain"]
+    for key in ("streams", "syncs", "launches", "dispatches"):
+        if a[key] != b0[key]:
+            raise AssertionError(f"cost sjf: {key} differ with the profiler "
+                                 f"on ({a[key] if key != 'streams' else ''})"
+                                 f" and off")
+    samples = a["samples"]
+    bad = {s.kind for s in samples} - set(DISPATCH_KINDS)
+    if bad or len(samples) != a["syncs"]:
+        raise AssertionError(f"cost sjf: {len(samples)} samples for "
+                             f"{a['syncs']} syncs, kinds {bad} unknown")
+    pre = sum(s.tokens for s in samples
+              if s.kind in ("admit", "prefill_chunk"))
+    if pre != a["prefill_tokens"]:
+        raise AssertionError(f"cost sjf: samples carry {pre} prefill "
+                             f"tokens, the engine computed "
+                             f"{a['prefill_tokens']}")
+    prof = DispatchProfiler(enabled=True).bind(cfg, layout="paged")
+    prof.samples = samples
+    calib = CalibratedCostModel()
+    calib.fit_profile(prof, cfg, tier, layout="paged")
+    attain = {}
+    for agg in prof.summary(tier).values():
+        attain.setdefault(agg["kind"], []).append(agg["attainment"])
+    kinds = {}
+    for kind in sorted({s.kind for s in samples}):
+        ks = [s for s in samples if s.kind == kind]
+        est = [dispatch_estimate(cfg, tier, kind=kind, tokens=s.tokens,
+                                 rows=s.rows, steps=s.steps,
+                                 bucket=s.bucket, ctx=s.ctx, layout="paged")
+               for s in ks]
+        kinds[kind] = {"n": len(ks),
+                       "median_ms": statistics.median(s.dur_s for s in ks)
+                       * 1e3,
+                       "median_estimate_ms": statistics.median(est) * 1e3,
+                       "drift": calib.correction(kind),
+                       "attainment": attain.get(kind)}
+    for r in records:
+        if r["name"] in a["launches"]:
+            r.setdefault("launches_by_drive", {})["cost_sjf"] = \
+                a["launches"][r["name"]]
+
+    # (b) EDF + admission control: 4 prompts of 600-1,000 tokens and 4 of
+    # 2,400-3,000, the TTFT target midway between the largest short and
+    # the smallest long prefill estimate
+    plens = np.concatenate([rng.integers(600, 1001, 4),
+                            rng.integers(2400, 3001, 4)])
+    eprompts = [rng.integers(0, vocab, int(n)) for n in plens]
+    enew = rng.integers(32, 65, COST_REQUESTS)
+    est = [service_estimate(cfg, tier, prompt=int(n), gen=0, chunk=512,
+                            layout="paged")["t_prefill_s"] for n in plens]
+    short, long_ = max(est[:4]), min(est[4:])
+    slo = (short + long_) / 2
+    if long_ - short < 2e-3:
+        raise AssertionError(f"cost edf: estimates {short:.4f} / "
+                             f"{long_:.4f} s too close for a TTFT target")
+    tracer = Tracer(enabled=True)
+    eng = SchedEngine(lm, params, policy="edf", prefix_cache=False,
+                      admission_control=True, slo_ttft=slo, tracer=tracer,
+                      **kw)
+    e = _cost_drive(eng, tracer, eprompts, enew, "cost edf")
+    want = [x > slo for x in est]
+    served = sum(not r for r in e["rejected"])
+    if e["rejected"] != want or e["slo_rejected"] != sum(want) \
+            or e["slo_rejected"] + served != COST_REQUESTS:
+        raise AssertionError(f"cost edf: rejected {e['rejected']}, want "
+                             f"{want} (estimates {est}, target {slo})")
+    free = len(eng.alloc.free)
+    if free != eng.alloc.n_pages - 1:
+        raise AssertionError(f"cost edf: {free} pages free at the end, want "
+                             f"{eng.alloc.n_pages - 1}")
+    e["slo_ttft_s"], e["estimates_s"] = slo, est
+    del eng, lm, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the serving CLI, as a user runs it
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    c = _cli_cost_runs(out_dir)
+    wall = time.perf_counter() - t_phase
+    for arm in (a, b0, e):
+        arm.pop("streams")
+    a.pop("samples")
+    b0.pop("samples")
+    out = {"sjf_profiled": a, "sjf_plain": b0, "kinds": kinds, "edf": e,
+           "cli": c, "phase_wall_s": wall}
+    drift = ", ".join(f"{k} {v['n']} x {v['median_ms']:.3f} ms measured / "
+                      f"{v['median_estimate_ms']:.3f} ms h100-1, drift "
+                      f"{v['drift']:.2f}" for k, v in kinds.items())
+    print(f"[17 cost] {cfg.name} {cfg.num_layers}L bf16 SchedEngine, 8 "
+          f"slots, chunk 512: (a) SJF {COST_REQUESTS} req, profiled "
+          f"{a['wall_s']:.3f}s / plain {b0['wall_s']:.3f}s, same streams, "
+          f"{a['syncs']} syncs and launches {a['launches']} (tensor-core "
+          f"{a['tc_launches']}); samples: {drift} | (b) EDF + admission "
+          f"control at {slo * 1e3:.3f} ms: {e['slo_rejected']} rejected, "
+          f"{COST_REQUESTS - e['slo_rejected']} served, every page free "
+          f"| (c) serve --profile --calibration-out, then --spec ngram "
+          f"--quant int8 --calibration-in: {c['walls_s'][0]:.1f}s + "
+          f"{c['walls_s'][1]:.1f}s, {c['series_first']} then "
+          f"{c['series_second']} calibration series | phase "
+          f"{wall:.1f}s")
+    return out
+
+
 def main() -> int:
     dev = phase_device()
     phase_build()
@@ -3095,12 +3402,13 @@ def main() -> int:
     spec = phase_spec(records)
     eager = phase_eager(records)
     resil = phase_resil(records)
+    cost = phase_cost(records)
     out_dir = ROOT / "chiprun_out"
     if out_dir.is_dir():
         (out_dir / "chip_smoke_e2e.json").write_text(json.dumps(
             {"e2e": e2e, "sched": sched, "qsched": qsched, "fp8": fp8,
              "rwkv": rwkv, "spec": spec, "eager": eager, "resil": resil,
-             "kernels": records}, indent=1))
+             "cost": cost, "kernels": records}, indent=1))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": dev["kind"],

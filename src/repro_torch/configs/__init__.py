@@ -6,7 +6,8 @@ from __future__ import annotations
 
 from repro_torch.configs import (llama3_2_1b, qwen2_1_5b, rwkv6_1_6b,
                                  stablelm_1_6b)
-from repro_torch.configs.base import AttentionConfig, ModelConfig, SSMConfig
+from repro_torch.configs.base import (AttentionConfig, EncoderConfig,
+                                     ModelConfig, MoEConfig, SSMConfig)
 
 _ARCH_MODULES = {m.ARCH_ID: m
                  for m in (qwen2_1_5b, llama3_2_1b, stablelm_1_6b,
@@ -33,5 +34,5 @@ def get_smoke_config(arch_id: str) -> ModelConfig:
     return _ARCH_MODULES[a].smoke_config()
 
 
-__all__ = ["ARCH_IDS", "AttentionConfig", "ModelConfig", "SSMConfig",
-           "get_config", "get_smoke_config"]
+__all__ = ["ARCH_IDS", "AttentionConfig", "EncoderConfig", "ModelConfig",
+           "MoEConfig", "SSMConfig", "get_config", "get_smoke_config"]

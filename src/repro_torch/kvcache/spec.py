@@ -16,7 +16,7 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.configs.base import AttentionConfig
+from repro_torch.configs.base import AttentionConfig, ModelConfig
 
 FP8 = torch.float8_e4m3fn
 
@@ -25,6 +25,8 @@ QMAX = {"int8": 127.0, "fp8": 448.0}
 
 STORE_DTYPES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
                 "int8": torch.int8, "fp8": FP8}
+
+ELEM_BYTES = {"bf16": 2.0, "bfloat16": 2.0, "int8": 1.0, "fp8": 1.0}
 
 
 def normalize_dtype(name: str) -> str:
@@ -49,6 +51,12 @@ class CacheSpec:
         object.__setattr__(self, "dtype", normalize_dtype(self.dtype))
         if self.style not in ("full", "gqa", "mqa"):
             raise ValueError(f"style {self.style!r}")
+
+    @classmethod
+    def from_config(cls, cfg: ModelConfig, *, layout: str = "contiguous",
+                    page_size: int = 256) -> "CacheSpec":
+        return cls(layout=layout, dtype=cfg.kv_cache_dtype,
+                   style=cfg.kv_cache_style, page_size=page_size)
 
     @property
     def quantized(self) -> bool:
@@ -78,3 +86,31 @@ def paged_pool_shape(n_slots: int, max_len: int,
     ``max_len`` tokens, plus the reserved null page 0."""
     pages_per_slot = (max_len + page_size - 1) // page_size
     return pages_per_slot, n_slots * pages_per_slot + 1
+
+
+# ---------------------------------------------------------------------------
+# Byte accounting (cost model)
+
+
+def kv_bytes_per_token(cfg: ModelConfig, *, layout: str = "contiguous",
+                       page_size: int = 256) -> float:
+    """Stored bytes per context token across all attention layers,
+    including the fp32 scale tensors a quantized cache carries
+    (per-position for contiguous: 2·KH·4 B/token; per-page for paged:
+    2·KH·4/page_size B/token).  MLA latent caches count as bf16."""
+    a = cfg.attention
+    if a is None or "attn" not in cfg.block_pattern:
+        return 0.0
+    n_attn = sum(1 for b in cfg.block_pattern if b == "attn") * cfg.num_groups
+    spec = CacheSpec.from_config(cfg, layout=layout, page_size=page_size)
+    if a.kind == "mla":
+        return n_attn * (a.kv_lora_rank + a.rope_head_dim) * 2.0  # bf16 only
+    kvh = spec.stored_kv_heads(a)
+    elem = ELEM_BYTES[spec.dtype]
+    per_tok = 2.0 * kvh * a.head_dim * elem
+    if spec.quantized:
+        scale_tok = 2.0 * kvh * 4.0
+        if layout == "paged":
+            scale_tok /= page_size
+        per_tok += scale_tok
+    return n_attn * per_tok

@@ -20,6 +20,11 @@ continuous-batching engine and the scheduler over it.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
         --policy fcfs [--chaos seed=0,oom=0.05,fault=0.1,shrink=4] \
         [--degrade] [--max-request-s 30]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
+        --policy sjf|edf [--admission-control --slo-ttft 50] \
+        [--arrival-rate 40] [--kv-style full|gqa|mqa] [--profile \
+        --calibration-out c.json --calibration-in c.json] \
+        [--metrics m.json|m.prom] [--trace-out t.json]
 
 Runs on the GPU unless ``--device cpu`` is given.  Without ``--paged``,
 ``--policy`` or ``--spec`` the eager ``Engine`` serves: batch-1 prefill
@@ -48,8 +53,21 @@ fault injector (``repro_torch.resil``) on the paged and scheduler
 engines, and ``--degrade`` / ``--max-request-s`` the degradation ladder
 and per-request deadlines on the scheduler engines, which then recover
 from injected faults instead of failing; the report adds every request's
-outcome, the injected faults and the ladder's rung.  Flags and defaults
-are the reference's (``repro.launch.serve``) for these paths.
+outcome, the injected faults and the ladder's rung.  ``--policy sjf``
+ranks admissions by the cost model's remaining-service estimate (H100
+tier), and ``--admission-control`` drops EDF requests whose estimated
+prefill already overruns their TTFT deadline.  ``--arrival-rate``
+submits open loop (Poisson arrivals) instead of all at once.
+``--profile`` times every dispatch (no extra host sync) and, with
+``--calibration-out`` / ``--calibration-in``, fits the cost model's
+per-dispatch corrections and writes / seeds them; ``--metrics`` writes
+the metrics registry after the drive (Prometheus text for .prom / .txt,
+JSON otherwise) with the cost model's ``costmodel_*`` estimates at the
+drive's shape and, when profiling, the drift and attainment gauges;
+``--trace-out`` writes the request trace as Chrome / Perfetto JSON.  The
+artifacts are written in the drive's ``finally``, so a failed drive
+still leaves them.  Flags and defaults are the reference's
+(``repro.launch.serve``) for these paths.
 """
 from __future__ import annotations
 
@@ -59,12 +77,15 @@ import time
 import numpy as np
 
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.core.costmodel import (TIERS, CalibratedCostModel,
+                                        service_estimate)
 from repro_torch.kvcache import normalize_dtype
 from repro_torch.models.model import LM, resolve_device
+from repro_torch.obs import DispatchProfiler, Tracer
 from repro_torch.quant import quantize_tree
 from repro_torch.resil import OUTCOMES, FaultInjector
 from repro_torch.sched import SchedEngine
-from repro_torch.serve.engine import Engine, PagedEngine
+from repro_torch.serve.engine import Engine, PagedEngine, run_open_loop
 from repro_torch.spec import SpecEngine, draft_config_of
 
 
@@ -84,9 +105,12 @@ def main(argv=None):
                     help="tokens per host sync in the paged engine")
     ap.add_argument("--page-size", type=int, default=64,
                     help="KV page size for --paged (tokens per page)")
-    ap.add_argument("--policy", default=None, choices=["fcfs", "edf"],
+    ap.add_argument("--policy", default=None,
+                    choices=["fcfs", "sjf", "edf"],
                     help="serve through the scheduler (SchedEngine) with "
-                         "this admission policy; implies the paged engine")
+                         "this admission policy (sjf: the cost model's "
+                         "shortest remaining service first); implies the "
+                         "paged engine")
     ap.add_argument("--prefix-cache", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="refcounted prefix caching over the paged pools "
@@ -99,6 +123,13 @@ def main(argv=None):
                          "telemetry)")
     ap.add_argument("--slo-tpot", type=float, default=None,
                     help="TPOT SLO target in ms (telemetry)")
+    ap.add_argument("--arrival-rate", type=float, default=0.0,
+                    help="open-loop Poisson arrivals, requests/sec "
+                         "(0: submit everything upfront)")
+    ap.add_argument("--admission-control", action="store_true",
+                    help="drop requests whose cost-model prefill estimate "
+                         "already overruns their TTFT deadline at "
+                         "admission (EDF; goodput-optimal dropping)")
     ap.add_argument("--spec", default="none",
                     choices=["none", "ngram", "draft"],
                     help="speculative decoding (SpecEngine, implies the "
@@ -119,6 +150,10 @@ def main(argv=None):
     ap.add_argument("--spec-slack", type=float, default=None,
                     help="turn speculation off for a tick when a queued "
                          "EDF deadline is closer than this many ms")
+    ap.add_argument("--kv-style", default="full",
+                    choices=["full", "gqa", "mqa"],
+                    help="stored KV heads: the model's (full), at most 8 "
+                         "(gqa) or one (mqa), mean-merged before the write")
     ap.add_argument("--kv-dtype", default="bf16",
                     choices=["bf16", "bfloat16", "int8", "fp8"],
                     help="KV page-pool storage dtype: int8/fp8 pools carry "
@@ -151,6 +186,31 @@ def main(argv=None):
                          "freed, outcome 'timed_out'")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--metrics", default=None, metavar="PATH",
+                    help="write the engine's metrics-registry snapshot "
+                         "here after the drive: Prometheus text for "
+                         ".prom/.txt, JSON otherwise (includes the cost "
+                         "model's estimates at the drive's prompt/gen "
+                         "shape)")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="record per-request lifecycle spans and write "
+                         "Chrome/Perfetto trace-event JSON here (open in "
+                         "ui.perfetto.dev); adds zero host syncs")
+    ap.add_argument("--profile", action="store_true",
+                    help="per-dispatch wall-clock profiling "
+                         "(repro_torch.obs.profile): attribute measured "
+                         "wall-clock to every admit / prefill-chunk / "
+                         "decode-block / spec-round dispatch by config "
+                         "arm and fold drift + roofline-attainment "
+                         "gauges into --metrics; adds zero host syncs")
+    ap.add_argument("--calibration-out", default=None, metavar="PATH",
+                    help="fit a CalibratedCostModel from the profiled "
+                         "dispatches (implies --profile) and write the "
+                         "JSON calibration artifact here")
+    ap.add_argument("--calibration-in", default=None, metavar="PATH",
+                    help="seed the calibration from a previous "
+                         "--calibration-out artifact (corrections keep "
+                         "updating online from this drive's samples)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the "
                          "kernels' plain versions)")
@@ -164,7 +224,9 @@ def main(argv=None):
         ap.error("--degrade / --max-request-s need --policy or --spec")
 
     device = resolve_device(args.device)
-    cfg = cfg.with_(kv_cache_dtype=normalize_dtype(args.kv_dtype),
+    cfg = cfg.with_(kv_cache_style=args.kv_style
+                    if cfg.attention is not None else "full",
+                    kv_cache_dtype=normalize_dtype(args.kv_dtype),
                     quant=args.quant, quant_matmul_impl=args.quant_impl)
     lm = LM(cfg, device=device)
     params = lm.init(args.seed)
@@ -175,16 +237,22 @@ def main(argv=None):
     injector = FaultInjector.from_spec(args.chaos)
     if injector is not None:
         print(f"[serve] chaos armed: {injector.describe()}")
+    tracer = Tracer(enabled=args.trace_out is not None)
+    profiler = DispatchProfiler(enabled=args.profile
+                                or args.calibration_out is not None
+                                or args.calibration_in is not None)
+    obs = dict(tracer=tracer, profiler=profiler)
     kw = dict(n_slots=args.slots, max_len=args.max_len, seed=args.seed,
               page_size=args.page_size, decode_block=args.decode_block,
-              injector=injector)
+              injector=injector, **obs)
     if eager:
         eng = Engine(lm, params, n_slots=args.slots, max_len=args.max_len,
-                     seed=args.seed)
+                     seed=args.seed, **obs)
     elif sched:
         sched_kw = dict(policy=args.policy or "fcfs",
                         prefix_cache=args.prefix_cache,
                         prefill_chunk=args.prefill_chunk,
+                        admission_control=args.admission_control,
                         slo_ttft=None if args.slo_ttft is None
                         else args.slo_ttft / 1e3,
                         slo_tpot=None if args.slo_tpot is None
@@ -207,34 +275,91 @@ def main(argv=None):
     rng = np.random.default_rng(args.seed)
     prompts = [rng.integers(0, cfg.vocab_size, (args.prompt_len,)).tolist()
                for _ in range(args.requests)]
-    t0 = time.perf_counter()
-    ids = [eng.submit(p, max_new_tokens=args.max_new,
-                      temperature=args.temperature) for p in prompts]
-    done = eng.run_to_completion()
-    dt = time.perf_counter() - t0
-    n_tok = sum(len(done[i].out_tokens) for i in ids)
-    label = ("eager" if eager else "paged" if not sched else
-             f"sched/{args.policy or 'fcfs'}"
-             + (f" + spec/{args.spec}" if args.spec != "none" else ""))
-    print(f"[serve] {cfg.name}: {len(ids)} requests, {n_tok} tokens in "
-          f"{dt:.1f}s ({n_tok/dt:.1f} tok/s, continuous batching over "
-          f"{args.slots} slots, {label}, {eng.sync_count} host syncs)")
-    if sched:
-        print(f"[serve] sched telemetry: {eng.telemetry()}")
-    outcomes = {o: sum(done[i].outcome == o for i in ids) for o in OUTCOMES}
-    print(f"[serve] outcomes: {outcomes}")
-    if injector is not None:
-        print(f"[serve] injected faults: {dict(injector.counts)}")
-    if args.degrade:
-        lad = eng.ladder
-        print(f"[serve] degrade ladder: rung={lad.name} "
-              f"spec_off={lad.spec_off} "
-              f"chunk={lad.chunk_for(eng.prefill_chunk, eng.page_size)} "
-              f"kv_dtype_hint={lad.kv_dtype_hint or 'unchanged'}")
-    for i in ids[:3]:
-        print(f"  req {i}: {len(done[i].out_tokens)} tokens "
-              f"{done[i].out_tokens[:8]}…")
+    # the drive runs under try/finally: a mid-drive exception still
+    # flushes whatever telemetry exists (partial metrics / trace /
+    # calibration), then propagates
+    try:
+        t0 = time.perf_counter()
+        if args.arrival_rate > 0:
+            offsets = np.cumsum(rng.exponential(1.0 / args.arrival_rate,
+                                                args.requests))
+            ids = run_open_loop(eng, prompts, offsets,
+                                max_new_tokens=args.max_new,
+                                temperature=args.temperature)
+            done = dict(eng.registry)
+        else:
+            ids = [eng.submit(p, max_new_tokens=args.max_new,
+                              temperature=args.temperature) for p in prompts]
+            done = eng.run_to_completion()
+        dt = time.perf_counter() - t0
+        n_tok = sum(len(done[i].out_tokens) for i in ids)
+        label = ("eager" if eager else "paged" if not sched else
+                 f"sched/{args.policy or 'fcfs'}"
+                 + (f" + spec/{args.spec}" if args.spec != "none" else ""))
+        print(f"[serve] {cfg.name}: {len(ids)} requests, {n_tok} tokens in "
+              f"{dt:.1f}s ({n_tok/dt:.1f} tok/s, continuous batching over "
+              f"{args.slots} slots, {label}, {eng.sync_count} host syncs)")
+        if sched:
+            print(f"[serve] sched telemetry: {eng.telemetry()}")
+        outcomes = {o: sum(done[i].outcome == o for i in ids)
+                    for o in OUTCOMES}
+        print(f"[serve] outcomes: {outcomes}")
+        if injector is not None:
+            print(f"[serve] injected faults: {dict(injector.counts)}")
+        if args.degrade:
+            lad = eng.ladder
+            print(f"[serve] degrade ladder: rung={lad.name} "
+                  f"spec_off={lad.spec_off} "
+                  f"chunk={lad.chunk_for(eng.prefill_chunk, eng.page_size)} "
+                  f"kv_dtype_hint={lad.kv_dtype_hint or 'unchanged'}")
+        for i in ids[:3]:
+            print(f"  req {i}: {len(done[i].out_tokens)} tokens "
+                  f"{done[i].out_tokens[:8]}…")
+    finally:
+        _write_artifacts(args, cfg, eng, tracer, profiler)
     return 0
+
+
+def _write_artifacts(args, cfg, eng, tracer, profiler):
+    """Flush --calibration-out / --metrics / --trace-out.  Runs in the
+    drive's ``finally`` so a mid-drive exception still leaves partial
+    telemetry on disk."""
+    tier = TIERS["h100-1"]
+    calib = None
+    if profiler.enabled:
+        calib = (CalibratedCostModel.load(args.calibration_in)
+                 if args.calibration_in else CalibratedCostModel())
+        records = calib.fit_profile(profiler, eng.lm.cfg, tier,
+                                    layout=eng.kv_layout)
+        calib.register_metrics(eng.metrics)
+        profiler.export_gauges(eng.metrics, tier)
+        print(f"[serve] profiled {len(records)} dispatches across "
+              f"{len(calib.factors)} (kind × arm) calibration series")
+    if args.calibration_out and calib is not None:
+        calib.save(args.calibration_out)
+        print(f"[serve] calibration -> {args.calibration_out}")
+    if args.metrics:
+        # the cost model's estimate at the drive's prompt / gen shape, for
+        # the CLI's config (the contiguous layout, as the reference's
+        # config prices it)
+        est = service_estimate(cfg, tier, prompt=args.prompt_len,
+                               gen=args.max_new, chunk=args.prefill_chunk)
+        eng.metrics.set_gauges(
+            {f"costmodel_{k}": v for k, v in est.items()},
+            help="cost-model roofline estimate at the drive's "
+                 "prompt/gen shape")
+        if str(args.metrics).endswith((".prom", ".txt")):
+            body = eng.metrics.to_prometheus_text()
+        else:
+            body = eng.metrics.to_json(arch=cfg.name,
+                                       engine=type(eng).__name__)
+        with open(args.metrics, "w") as f:
+            f.write(body)
+        print(f"[serve] metrics snapshot -> {args.metrics}")
+    if args.trace_out:
+        tracer.write(args.trace_out)
+        print(f"[serve] trace ({len(tracer.events)} events) -> "
+              f"{args.trace_out} (open in ui.perfetto.dev)")
 
 
 def _draft_model(args, cfg, lm, params, device):

@@ -24,6 +24,12 @@ from repro_torch.models.layers import init_mlp, init_norm, mlp_apply, norm_apply
 
 def block_kinds(cfg: ModelConfig) -> list[dict]:
     """Per-block metadata for one group (attention and RWKV-6 blocks)."""
+    a = cfg.attention
+    if cfg.moe is not None or cfg.encoder is not None \
+            or cfg.cross_attn_every or (a is not None and a.kind == "mla"):
+        raise NotImplementedError(
+            "MoE, MLA, encoder and cross-attention models are not ported "
+            "yet (ROADMAP A6); their config fields are cost-model data")
     out = []
     for kind in cfg.block_pattern:
         if kind == "mamba":

@@ -16,8 +16,8 @@ recovery.
 * ``degrade`` — :class:`DegradationLadder`: monotone service rungs with
   asymmetric hysteresis (spec off -> smaller prefill chunks -> KV-int8
   hint -> load shedding with retry-after), driven by pressure signals
-  already in the metrics registry.  Its cost-model pricing waits for
-  ROADMAP A5.
+  already in the metrics registry; ``priced()`` prices each rung's arm
+  with the cost model.
 
 ``SchedEngine(injector=, ladder=, max_request_s=)`` wires all three in
 (``PagedEngine`` takes the injector), and ``launch/serve --chaos

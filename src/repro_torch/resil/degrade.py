@@ -35,9 +35,9 @@ asymmetric — escalate after ``dwell_ticks`` consecutive high-pressure
 updates, de-escalate only after ``cool_ticks`` calm ones — so the ladder
 reacts fast and relaxes slowly instead of oscillating.
 
-The reference also prices each rung with its cost model
-(``priced()``); that model's peaks are a TPU's, so :meth:`priced`
-raises until the cost model has an H100 tier (ROADMAP A5).
+Each rung's arm is priced by the cost model the offline ``c_inf`` search
+uses (:func:`repro_torch.core.costmodel.rung_estimate`, on an H100 tier);
+``priced()`` returns those estimates for artifacts.
 """
 from __future__ import annotations
 
@@ -168,8 +168,25 @@ class DegradationLadder:
         return self.rung >= SHED
 
     # ------------------------------------------------------------------
-    def priced(self, cfg, tier: str = "h100", **kw) -> List[dict]:
-        """The reference's cost-model pricing of every rung's arm."""
-        raise NotImplementedError(
-            "DegradationLadder.priced needs the cost model's H100 tier "
-            "(ROADMAP A5); the reference prices rungs with TPU peaks")
+    def priced(self, cfg, tier="h100-1", *, prompt: int = 256,
+               gen: int = 64, base_chunk: Optional[int] = None,
+               page_size: int = 1,
+               layout: str = "contiguous") -> List[dict]:
+        """Cost-model pricing of every rung's arm (the same estimates
+        the offline tuner's ``c_inf`` search uses), for artifacts; a
+        paged engine's ladder is priced at ``layout="paged"``."""
+        from repro_torch.core.costmodel import rung_estimate
+        out = []
+        for r, name in enumerate(RUNG_NAMES):
+            chunk = None
+            if base_chunk is not None and r >= CHUNK_SHRINK:
+                half = (base_chunk // 2) // page_size * page_size
+                chunk = max(half, page_size)
+            elif base_chunk is not None:
+                chunk = base_chunk
+            est = rung_estimate(cfg, tier, spec_off=r >= SPEC_OFF,
+                                prefill_chunk=chunk,
+                                kv_dtype="int8" if r >= KV_INT8 else None,
+                                prompt=prompt, gen=gen, layout=layout)
+            out.append({"rung": r, "name": name, **est})
+        return out

@@ -6,8 +6,11 @@ base engine's device programs (batched staging admission, fused
 around them:
 
 * **Policy-ordered admission** — the queue is ranked by a pluggable
-  :mod:`repro_torch.sched.policy` (FCFS / deadline-EDF) instead of strict
-  arrival order, removing the base engine's head-of-line blocking.
+  :mod:`repro_torch.sched.policy` (FCFS / cost-model SJF / deadline-EDF)
+  instead of strict arrival order, removing the base engine's
+  head-of-line blocking; with ``admission_control`` the policy may
+  reject a request whose SLO is already unmeetable (EDF: the cost
+  model's prefill estimate overruns the deadline).
 * **Prefix caching** — admission looks up the longest cached prompt
   prefix (:mod:`repro_torch.sched.prefix`) and maps the shared physical
   pages into the slot's block-table row; prefill runs only on the suffix.
@@ -56,7 +59,7 @@ import torch
 from repro_torch.obs.trace import PID_ENGINE
 from repro_torch.resil.degrade import DegradationLadder
 from repro_torch.resil.errors import InjectedPageFault, TransientDispatchError
-from repro_torch.sched.policy import COST_MODEL_TODO, Policy, make_policy
+from repro_torch.sched.policy import Policy, make_policy
 from repro_torch.sched.prefix import PrefixCache
 from repro_torch.serve.engine import (PagedEngine, Request, _pow2_bucket,
                                       _sample_batch)
@@ -74,7 +77,8 @@ class SchedStats:
 
 
 class SchedEngine(PagedEngine):
-    """Scheduler-driven paged engine (see module docstring)."""
+    """Scheduler-driven paged engine (see module docstring).  ``tier`` is
+    the cost model's hardware tier the SJF / EDF policies price with."""
 
     def __init__(self, lm, params, *, policy="fcfs",
                  prefill_chunk: Optional[int] = None,
@@ -82,12 +86,12 @@ class SchedEngine(PagedEngine):
                  slo_ttft: Optional[float] = None,
                  slo_tpot: Optional[float] = None,
                  admission_control: bool = False,
+                 tier="h100-1",
                  ladder=None, max_request_s: Optional[float] = None,
                  max_retries: int = 3, backoff_s: float = 0.05,
                  backoff_max_s: float = 1.0, **kw):
-        if admission_control:
-            raise NotImplementedError(f"admission_control {COST_MODEL_TODO}")
         super().__init__(lm, params, **kw)
+        self.admission_control = admission_control
         if prefill_chunk is None:
             prefill_chunk = 8 * self.page_size
         # page-aligned chunks are what keep quantized chunk scatters
@@ -104,7 +108,11 @@ class SchedEngine(PagedEngine):
         # write (SpecEngine widens it to a verify round's chunk)
         self.decode_horizon = self.decode_block
         self.policy: Policy = (policy if isinstance(policy, Policy)
-                               else make_policy(policy, slo_ttft=slo_ttft))
+                               else make_policy(policy, cfg=self.lm.cfg,
+                                                tier=tier,
+                                                slo_ttft=slo_ttft,
+                                                prefill_chunk=prefill_chunk,
+                                                layout=self.kv_layout))
         self.prefix = (PrefixCache(self.alloc, self.page_size)
                        if prefix_cache else None)
         self.slo_ttft = slo_ttft
@@ -220,6 +228,8 @@ class SchedEngine(PagedEngine):
             self._shed_excess(now)
         if not (self.queue and self.free):
             return
+        if self.admission_control:
+            self._drop_infeasible(now)
         for req in sorted(self.queue,
                           key=lambda r: self.policy.priority(r, now)):
             if not self.free:
@@ -227,6 +237,26 @@ class SchedEngine(PagedEngine):
             if req.not_before > now:
                 continue             # recovery backoff still running
             self._admit_one(req, now)
+
+    def _drop_infeasible(self, now: float) -> None:
+        """Admission-time SLO feasibility rejection (goodput-optimal
+        dropping): requests the policy deems already unmeetable —
+        deadline-EDF checks the cost model's prefill estimate against
+        the TTFT deadline — are rejected outright instead of burning
+        prefill on a guaranteed SLO miss.  Counted separately in
+        telemetry (``slo_rejected``); the request completes empty with
+        ``rejected=True``."""
+        for req in list(self.queue):
+            if self.policy.admit_drop(req, now):
+                self.queue.remove(req)
+                self._chains.pop(req.rid, None)
+                req.rejected = True
+                req.done = True
+                req.t_done = now
+                self.stats.slo_rejected += 1
+                self.tracer.end("queue", req.rid, ts=now,
+                                args={"rejected": True})
+                self._obs_retire(req)
 
     def _admit_one(self, req: Request, now: float) -> bool:
         toks = self._sched_tokens(req)
@@ -605,6 +635,11 @@ class SchedEngine(PagedEngine):
                 tr.complete("prefill_dispatch", 0, t0, now, pid=PID_ENGINE,
                             args={"rows": n_ready, "cont": bool(cont),
                                   "tokens": int(clens[:n_ready].sum())})
+            prof = self.profiler
+            if prof.enabled:
+                prof.record("prefill_chunk" if cont else "admit", t0, now,
+                            tokens=int(clens[:n_ready].sum()), rows=n_ready,
+                            bucket=cpad, ctx=int(starts.max()) + cpad)
             for i, (slot, req, toks, clen) in enumerate(ready):
                 if tr.enabled:
                     tr.complete(

@@ -20,6 +20,12 @@ per-slot EOS / budget masks kept on the device, so the host reads the
 device once per block instead of once per token (``sync_count`` audits
 this: one per admission batch plus one per decode block, as in the
 reference).
+
+Every engine takes an off-by-default ``DispatchProfiler``
+(``repro_torch.obs.profile``): each dispatch records the two host clock
+reads the engine already takes, the second after the host read that ends
+the dispatch, so profiling adds no sync.  ``run_open_loop`` drives an
+engine with open-loop arrivals.
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ import torch
 
 from repro_torch.models.transformer import block_kinds
 from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.profile import DispatchProfiler
 from repro_torch.obs.trace import PID_ENGINE, Tracer
 from repro_torch.resil.errors import OUTCOMES
 from repro_torch.serve.paged import (PAGE, OutOfPagesError, PageAllocator,
@@ -71,9 +78,13 @@ class Request:
 class _EngineBase:
     """Request intake, slot bookkeeping, metrics and tracing."""
 
+    #: the KV layout the cost model prices for this engine
+    kv_layout = "contiguous"
+
     def __init__(self, lm, params, *, n_slots: int, max_len: int,
                  eos_id: int, metrics: Optional[MetricsRegistry] = None,
-                 tracer: Optional[Tracer] = None):
+                 tracer: Optional[Tracer] = None,
+                 profiler: Optional[DispatchProfiler] = None):
         self.lm = lm
         self.params = params
         self.n_slots = n_slots
@@ -89,6 +100,12 @@ class _EngineBase:
         self.t_decode_s = 0.0
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self.tracer = tracer if tracer is not None else Tracer(enabled=False)
+        # per-dispatch wall-clock profiling (off by default): record()
+        # only consumes host clock reads taken below anyway, so
+        # sync_count and token streams are identical with it on or off
+        self.profiler = (profiler if profiler is not None
+                         else DispatchProfiler(enabled=False))
+        self.profiler.bind(lm.cfg, layout=self.kv_layout)
         m = self.metrics
         self._c_submitted = m.counter(
             "serve_requests_submitted_total", "requests accepted by submit()")
@@ -194,15 +211,15 @@ class Engine(_EngineBase):
     past each row's position) and overwrites them as it goes.  Differences
     from the reference, both deliberate: an RWKV-6 slot's recurrent state
     is zeroed at admission (the reference prefills from whatever the
-    slot's previous occupant left, so a reused slot changes the stream),
-    and the ``DispatchProfiler`` hooks wait for ROADMAP A5."""
+    slot's previous occupant left, so a reused slot changes the stream)."""
 
     def __init__(self, lm, params, *, n_slots: int = 4, max_len: int = 512,
-                 eos_id: int = -1, seed: int = 0, metrics=None, tracer=None):
+                 eos_id: int = -1, seed: int = 0, metrics=None, tracer=None,
+                 profiler=None):
         block_kinds(lm.cfg)          # refuses block kinds not ported
         super().__init__(lm, lm.prepare(params), n_slots=n_slots,
                          max_len=max_len, eos_id=eos_id, metrics=metrics,
-                         tracer=tracer)
+                         tracer=tracer, profiler=profiler)
         self.device = lm.device
         self.rng = np.random.default_rng(seed)
         self.cache = lm.init_cache(n_slots, max_len)
@@ -259,7 +276,12 @@ class Engine(_EngineBase):
             plen = len(req.prompt)
             logits = self._prefill_slot(req.prompt, slot).cpu().numpy()
             self.sync_count += 1                 # <- sync (1 per admission)
-            self.t_prefill_s += time.perf_counter() - req.t_admit
+            t1 = time.perf_counter()
+            self.t_prefill_s += t1 - req.t_admit
+            prof = self.profiler
+            if prof.enabled:
+                prof.record("admit", req.t_admit, t1, tokens=plen, rows=1,
+                            bucket=plen, ctx=plen)
             self._obs_admit(req, req.t_admit, first=True)
             tok = self._sample(logits, req.temperature)
             req.out_tokens.append(tok)
@@ -303,6 +325,11 @@ class Engine(_EngineBase):
             tr.counter("utilization", {"queue_depth": len(self.queue),
                                        "slots_active": len(self.active)},
                        ts=t1)
+        prof = self.profiler
+        if prof.enabled:
+            prof.record("decode_block", t0, t1, tokens=len(self.active),
+                        rows=len(self.active), steps=1, bucket=1,
+                        ctx=int(pos_by_slot.max()))
         for slot, req in list(self.active.items()):
             tok = self._sample(logits[slot], req.temperature)
             req.out_tokens.append(tok)
@@ -319,6 +346,38 @@ class Engine(_EngineBase):
                 del self.active[slot]
                 self._retire(req, slot)
         return emitted
+
+
+# ---------------------------------------------------------------------------
+# Open-loop driving
+
+
+def engine_busy(eng) -> bool:
+    """True while the engine has queued or in-flight work (including a
+    scheduler's mid-prefill slots)."""
+    return bool(eng.queue or eng.active or getattr(eng, "_prefilling",
+                                                   None))
+
+
+def run_open_loop(eng, prompts, offsets, **submit_kw):
+    """Submit ``prompts[i]`` at wall-clock offset ``offsets[i]`` seconds
+    from now (open-loop arrivals), stepping the engine between arrivals
+    and sleeping only when it is idle.  Returns the request ids in
+    prompt order; drive results out of ``eng.registry``."""
+    t0 = time.perf_counter()
+    pending = sorted(zip(offsets, range(len(prompts))))
+    ids: List[Optional[int]] = [None] * len(prompts)
+    while pending or engine_busy(eng):
+        now = time.perf_counter() - t0
+        while pending and pending[0][0] <= now:
+            _, i = pending.pop(0)
+            ids[i] = eng.submit(prompts[i], **submit_kw)
+        if not engine_busy(eng):
+            if pending:
+                time.sleep(min(pending[0][0] - now, 0.005))
+            continue
+        eng.step()
+    return ids
 
 
 # ---------------------------------------------------------------------------
@@ -369,10 +428,12 @@ class PagedEngine(_EngineBase):
     inner loop (see module docstring).  Requires an attention-only
     decoder without a sliding window."""
 
+    kv_layout = "paged"
+
     def __init__(self, lm, params, *, n_slots: int = 4, max_len: int = 512,
                  eos_id: int = -1, seed: int = 0, page_size: int = PAGE,
                  decode_block: int = 8, n_pages: Optional[int] = None,
-                 metrics=None, tracer=None, injector=None):
+                 metrics=None, tracer=None, profiler=None, injector=None):
         cfg = lm.cfg
         a = cfg.attention
         if a is None or a.window is not None \
@@ -380,7 +441,7 @@ class PagedEngine(_EngineBase):
             raise ValueError("PagedEngine needs an attention-only decoder")
         super().__init__(lm, lm.prepare(params), n_slots=n_slots,
                          max_len=max_len, eos_id=eos_id, metrics=metrics,
-                         tracer=tracer)
+                         tracer=tracer, profiler=profiler)
         self.device = lm.device
         self.page_size = page_size
         self.decode_block = decode_block
@@ -571,6 +632,10 @@ class PagedEngine(_EngineBase):
             tr.complete("prefill_dispatch", 0, t0, now, pid=PID_ENGINE,
                         args={"rows": len(admitted),
                               "tokens": int(plens.sum())})
+        prof = self.profiler
+        if prof.enabled:
+            prof.record("admit", t0, now, tokens=int(plens.sum()),
+                        rows=len(admitted), bucket=plen_pad, ctx=plen_pad)
         for i, req in enumerate(admitted):
             t = int(tok0[i])
             req.out_tokens.append(t)
@@ -629,6 +694,11 @@ class PagedEngine(_EngineBase):
         self._c_tokens.inc(int(dstats[0]))
         self._c_eos.inc(int(dstats[1]))
         self._c_requant.inc(int(dstats[2]))
+        prof = self.profiler
+        if prof.enabled:
+            prof.record("decode_block", t0, now, tokens=int(dstats[0]),
+                        rows=len(self.active), steps=k_blk, bucket=k_blk,
+                        ctx=int(self.lengths.max()))
         tr = self.tracer
         if tr.enabled:
             tr.complete("decode_block", 0, t0, now, pid=PID_ENGINE,

@@ -7,20 +7,16 @@ speedup at that rate (``core.costmodel.spec_speedup``).  A slot whose
 drafts stop landing walks itself down to ``k = 0`` (speculation off: a
 verify round costs draft work plus a wider verify, so at low acceptance
 plain decode wins) and back up when the workload turns repetitive again.
-
-One part waits for the port's cost model (ROADMAP A5): with quantized
-target weights the reference rescales the n-gram arm's draft cost by the
-modeled decode-step time of the quantized target, which it prices on a
-TPU tier.  The port refuses that case instead of skipping the rescale.
+With quantized target weights the n-gram arm's draft cost is rescaled by
+the cost model's quantized-decode ratio (``quant_decode_scale``) on the
+engine's tier and KV layout.
 """
 from __future__ import annotations
 
 import numpy as np
 
-from repro_torch.core.costmodel import SPEC_DRAFT_COST, spec_speedup
-
-#: weight formats whose decode step the reference prices as bf16's
-_UNQUANTIZED = ("bf16", "none", "fp16")
+from repro_torch.core.costmodel import (SPEC_DRAFT_COST, TIERS,
+                                        quant_decode_scale, spec_speedup)
 
 
 class AdaptiveDraftController:
@@ -28,23 +24,23 @@ class AdaptiveDraftController:
 
     def __init__(self, n_slots: int, k_max: int, *, arm: str = "ngram",
                  adaptive: bool = True, a0: float = 0.5, beta: float = 0.3,
-                 cfg=None):
+                 cfg=None, tier="h100-1", layout: str = "contiguous"):
         self.n_slots = n_slots
         self.k_max = k_max
         self.adaptive = adaptive
         self.a0 = a0                      # optimistic prior: explore first
         self.beta = beta
         self.draft_cost = SPEC_DRAFT_COST.get(arm, 0.05)
-        # Draft costs are fractions of a TARGET decode step; with
-        # quantized target weights the step shrinks while a host-side
-        # n-gram lookup's absolute cost does not, and the reference
-        # rescales by its cost model's quantized-decode ratio
-        if (cfg is not None and arm == "ngram" and adaptive
-                and cfg.quant not in _UNQUANTIZED):
-            raise NotImplementedError(
-                f"adaptive n-gram drafting with {cfg.quant} weights prices "
-                "the quantized decode step, which needs the cost model's "
-                "H100 tier (ROADMAP A5)")
+        # Draft costs are fractions of a TARGET decode step.  When the
+        # target streams quantized weights, its step shrinks, but a
+        # host-side n-gram lookup's absolute cost does not — rescale so
+        # the k argmax still trades real quantities.  The draft-LM arm is
+        # quantized alongside the target (launch/serve.py), so its
+        # relative cost is unchanged.
+        if cfg is not None and arm == "ngram":
+            tier = TIERS[tier] if isinstance(tier, str) else tier
+            self.draft_cost /= max(quant_decode_scale(cfg, tier,
+                                                      layout=layout), 1e-3)
         self.ema = np.full((n_slots,), a0, np.float64)
         self.rounds = np.zeros((n_slots,), np.int64)
 

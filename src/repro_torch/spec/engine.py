@@ -142,14 +142,15 @@ class SpecEngine(SchedEngine):
     gives self-speculation, an oracle).  ``spec_slack_s`` turns
     speculation off for a tick whenever a queued request's EDF deadline is
     closer than the slack: rejected drafts would waste decode budget the
-    urgent request needs."""
+    urgent request needs.  ``tier`` is the cost model's hardware tier, for
+    the policy and the controller's quantized n-gram rescale."""
 
     def __init__(self, lm, params, *, spec: str = "ngram", draft_k: int = 4,
                  draft_lm=None, draft_params=None, adaptive: bool = True,
-                 spec_slack_s: Optional[float] = None, **kw):
+                 spec_slack_s: Optional[float] = None, tier="h100-1", **kw):
         if spec not in ("ngram", "draft"):
             raise ValueError(f"unknown spec arm {spec!r}")
-        super().__init__(lm, params, **kw)
+        super().__init__(lm, params, tier=tier, **kw)
         self.spec_arm = spec
         self.k_max = int(draft_k)
         self.w_max = self.k_max + 1
@@ -168,7 +169,7 @@ class SpecEngine(SchedEngine):
                                    kv_dtype="bfloat16")
         self.controller = AdaptiveDraftController(
             self.n_slots, k_max=self.k_max, arm=spec, adaptive=adaptive,
-            cfg=lm.cfg)
+            cfg=lm.cfg, tier=tier, layout=self.kv_layout)
         self.spec_slack_s = spec_slack_s
         self.spec_stats = SpecStats()
         # fn-backed registry bridges (SpecStats stays the writer)
@@ -261,7 +262,8 @@ class SpecEngine(SchedEngine):
                                                        self.k_max)
         # drafting is decode-phase work (the draft-LM arm is a real
         # dispatch + sync): charge it to decode
-        self.t_decode_s += time.perf_counter() - t0
+        t_draft1 = time.perf_counter()
+        self.t_decode_s += t_draft1 - t0
         fed = np.zeros((self.n_slots, self.w_max), np.int32)
         widths = np.zeros((self.n_slots,), np.int32)
         ndraft = np.zeros((self.n_slots,), np.int32)
@@ -275,6 +277,11 @@ class SpecEngine(SchedEngine):
             widths[slot] = 1 + nd
             ndraft[slot] = nd
             active_mask[slot] = True
+        prof = self.profiler
+        if prof.enabled:
+            prof.record("draft_propose", t0, t_draft1,
+                        tokens=int(ndraft.sum()), rows=len(reqs),
+                        bucket=self.k_max, ctx=int(self.lengths.max()))
         if ndraft.sum() == 0:            # nothing to verify: plain decode
             self.spec_stats.fallback_steps += 1
             return super()._dispatch_decode(emitted)
@@ -316,6 +323,10 @@ class SpecEngine(SchedEngine):
             host[s_n * w + i * s_n:s_n * w + (i + 1) * s_n].copy()
             for i in range(6))
         nrq = int(host[-1])
+        if prof.enabled:
+            prof.record("spec_round", t0, now, tokens=int(n_emit.sum()),
+                        rows=len(reqs), bucket=self.w_max,
+                        ctx=int(self.lengths.max()))
         self.spec_stats.verify_steps += 1
         self._c_requant.inc(nrq)
         self._c_tokens.inc(int(n_emit.sum()))

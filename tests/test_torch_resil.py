@@ -6,7 +6,9 @@ scheduler tick) against ``repro.resil`` / ``repro.sched``.
   drawn in the same order), on its own and through the allocator.
 * ``DegradationLadder``: the same pressure sequence gives the same rungs,
   pressures and transitions as JAX's; its rung surface; ``priced()``
-  raises naming ROADMAP A5.
+  equal to JAX's at a tier built from the reference's peaks, on bf16 and
+  int8 KV at both layouts.  The policies' retry-after hints (SJF's from
+  the cost model) equal JAX's.
 * ``SchedEngine`` under oom / fault / shrink chaos (spikes left out: they
   depend on the wall clock; backoff 0 for the same reason): the same
   per-request outcomes, streams, ``resil_*`` counters, injector counts,
@@ -160,21 +162,62 @@ def test_ladder_rung_surface_and_pricing_waits_for_a5():
                   lambda x: x.kv_dtype_hint, lambda x: x.shed,
                   lambda x: x.draft_k_cap(6)):
             assert f(lad) == f(jlad)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        lad.priced(t_smoke("qwen2-1.5b"))
+    # the cost model's price of every rung, as JAX's (qwen2-1.5b at full
+    # width, a spec arm on the config so that the spec_off rung moves it)
+    from repro.configs import get_config as j_full
+    from repro_torch.configs import get_config as t_full
+    tier = _cost_tier()
+    for kv in ("bfloat16", "int8"):
+        for layout in ("contiguous", "paged"):
+            jc = j_full("qwen2-1.5b").with_(
+                kv_cache_dtype=kv, spec_decode="ngram",
+                decode_attn_impl="paged_pallas" if layout == "paged"
+                else "eager")
+            tc = t_full("qwen2-1.5b").with_(kv_cache_dtype=kv,
+                                            spec_decode="ngram")
+            for kw in (dict(), dict(prompt=3000, gen=128, base_chunk=512,
+                                    page_size=256),
+                       dict(prompt=40, gen=8, base_chunk=16, page_size=8)):
+                rows = lad.priced(tc, tier, layout=layout, **kw)
+                assert rows == jlad.priced(jc, "v5e-1", **kw)
+                assert [r["name"] for r in rows] == list(tresil.RUNG_NAMES)
+            assert rows[1]["t_decode_tok_s"] > rows[0]["t_decode_tok_s"]
 
 
-@pytest.mark.parametrize("name", ["fcfs", "edf"])
+def _cost_tier():
+    """The reference's v5e-1 tier with its ``HW`` peaks, as a port tier
+    (the port itself carries only ``h100-1``)."""
+    from repro.core.costmodel import TIERS
+    from repro.launch.mesh import HW
+    from repro_torch.core.costmodel import HwTier
+    jt = TIERS["v5e-1"]
+    return HwTier(jt.name, jt.chips, jt.mem_cap, jt.power_budget,
+                  peak_flops_bf16=HW["peak_flops_bf16"],
+                  peak_flops_int8=HW["peak_flops_int8"], hbm_bw=HW["hbm_bw"],
+                  link_bw=HW["ici_bw_per_link"], links=HW["ici_links"],
+                  tdp_watts=HW["tdp_watts"], idle_watts=HW["idle_watts"])
+
+
+@pytest.mark.parametrize("name", ["fcfs", "sjf", "edf"])
 def test_retry_after_matches_jax(name):
-    tp, jp = t_policy(name, slo_ttft=0.2), j_policy(name, slo_ttft=0.2)
+    """Retry-after hints equal JAX's at every queue depth; SJF's is its
+    cost-model estimate of the shed request times its rank (qwen2-1.5b
+    at full width, at a tier built from the reference's peaks)."""
+    from repro.configs import get_config as j_full
+    from repro_torch.configs import get_config as t_full
+    tp = t_policy(name, slo_ttft=0.2, cfg=t_full("qwen2-1.5b"),
+                  tier=_cost_tier())
+    jp = j_policy(name, slo_ttft=0.2, cfg=j_full("qwen2-1.5b"),
+                  tier="v5e-1")
     for depth in (0, 1, 2, 7):
         for now in (100.0, 100.1, 100.5):
-            t = TReq(rid=0, prompt=np.zeros(16, np.int32), t_submit=100.0)
-            j = JReq(rid=0, prompt=np.zeros(16, np.int32), t_submit=100.0)
-            assert tp.retry_after(t, now, depth) == pytest.approx(
-                jp.retry_after(j, now, depth), abs=0)
-    with pytest.raises(NotImplementedError, match="A5"):
-        t_policy("sjf")
+            for plen, new in ((16, 32), (3000, 256)):
+                t = TReq(rid=0, prompt=np.zeros(plen, np.int32),
+                         max_new_tokens=new, t_submit=100.0)
+                j = JReq(rid=0, prompt=np.zeros(plen, np.int32),
+                         max_new_tokens=new, t_submit=100.0)
+                assert tp.retry_after(t, now, depth) == \
+                    jp.retry_after(j, now, depth)
 
 
 # ---------------------------------------------------------------------------

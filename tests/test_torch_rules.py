@@ -1,6 +1,6 @@
 """Rules of the port: it imports nothing of JAX or of the reference
-package, its entry points never fall back to the CPU on their own, and
-its copied configs agree with the reference's."""
+package and carries no TPU constant, its entry points never fall back to
+the CPU on their own, and its copied configs agree with the reference's."""
 import ast
 import dataclasses
 import re
@@ -59,7 +59,8 @@ def test_scan_covers_the_scheduler_and_every_kernel_module():
                 "spec/rollback.py", "core/costmodel.py",
                 "resil/__init__.py", "resil/errors.py", "resil/inject.py",
                 "resil/degrade.py", "serve/engine.py", "kvcache/cache.py",
-                "models/attention.py"):
+                "models/attention.py", "core/space.py", "core/apply.py",
+                "obs/profile.py", "launch/idle_power.py"):
         assert f"src/repro_torch/{rel}" in scanned, rel
     from repro_torch.kernels import build
     for src in build.SOURCES.values():
@@ -156,6 +157,65 @@ def test_chip_smoke_drives_the_eager_and_resil_paths():
         for needle in needles:
             assert needle in body, (phase, needle)
     assert "[15 eager]" in text and "[16 resil]" in text
+
+
+def test_port_carries_no_tpu_constant():
+    """The port prices on its own H100 tier: no file of the port or
+    chip_smoke.py names a TPU tier or the reference's TPU peaks."""
+    bad = {}
+    for f in _port_files():
+        text = f.read_text()
+        hits = [w for w in ("v5e", "197e12", "819e9", "mesh.HW")
+                if w in text]
+        if hits:
+            bad[str(f.relative_to(ROOT))] = hits
+    assert not bad
+
+
+def test_profiler_records_read_only_host_values():
+    """Every ``DispatchProfiler.record`` call of the engines passes host
+    numbers only: no argument reads the device (``.item()``, ``.cpu()``,
+    ``.tolist()``, ``.numpy()``), so profiling adds no sync."""
+    calls = 0
+    for rel in ("serve/engine.py", "sched/scheduler.py", "spec/engine.py"):
+        tree = ast.parse((ROOT / "src" / "repro_torch" / rel).read_text())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Call) and \
+                    ast.unparse(node.func) == "prof.record":
+                calls += 1
+                args = " ".join(ast.unparse(a) for a in
+                                node.args + [k.value for k in node.keywords])
+                for bad in (".item(", ".cpu(", ".tolist(", ".numpy("):
+                    assert bad not in args, (rel, args)
+    # eager admit / decode, paged admit / decode, chunk, draft, verify
+    assert calls == 7
+
+
+def test_chip_smoke_drives_the_cost_phase():
+    """chip_smoke.py has a cost-model phase that its main runs last: SJF
+    with the profiler on and off (equal streams, syncs and launches), EDF
+    with admission control, and the serving CLI with the profiler, the
+    calibration and the metrics files."""
+    text = (ROOT / "chip_smoke.py").read_text()
+    tree = ast.parse(text)
+    funcs = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    main_calls = [ast.unparse(c.func) for c in ast.walk(funcs["main"])
+                  if isinstance(c, ast.Call)]
+    assert "phase_cost" in main_calls
+    called = {ast.unparse(c.func) for c in ast.walk(funcs["phase_cost"])
+              if isinstance(c, ast.Call)}
+    body = "\n".join(ast.unparse(funcs[n]) for n in
+                     sorted(called & set(funcs)) + ["phase_cost"])
+    for needle in ("DispatchProfiler", "'sjf'", "'edf'",
+                   "admission_control", "slo_rejected", "fit_profile",
+                   "dispatch_estimate", "DISPATCH_KINDS", "_reset_launches",
+                   "repro_torch.launch.serve", "--calibration-in",
+                   "--calibration-out", "--profile", "--metrics",
+                   "--trace-out", "--arrival-rate",
+                   "profile_dispatch_seconds_total",
+                   "costmodel_drift_ratio"):
+        assert needle in body, needle
+    assert "[17 cost]" in text
 
 
 def test_chip_smoke_names_every_ported_kernel():

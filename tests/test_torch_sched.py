@@ -9,7 +9,8 @@ urgent-first), in float32 configs, with JAX run at both
 The long prompt is held to JAX's scheduler at the same chunk size, not to
 one-shot prefill: at this trace chunking order flips a greedy near-tie on
 both sides (ROADMAP C).  Also: the prefix cache and the policies against
-JAX's, and the parts of the reference the port leaves for later raising.
+JAX's, and the cost-model policies (SJF, EDF's admission control) priced
+at a tier built from the reference's peaks, alone and driving the engine.
 """
 import dataclasses
 
@@ -19,12 +20,14 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import get_smoke_config as j_smoke  # noqa: E402
 from repro.models.model import LM as JLM  # noqa: E402
 from repro.sched import PrefixCache as JPrefix  # noqa: E402
 from repro.sched import SchedEngine as JSched  # noqa: E402
 from repro.sched import make_policy as j_policy  # noqa: E402
+from repro.serve import engine as j_engine  # noqa: E402
 from repro.serve.engine import Request as JReq  # noqa: E402
 from repro.serve.paged import PageAllocator as JAlloc  # noqa: E402
 from repro_torch.bridge import params_from_numpy  # noqa: E402
@@ -294,16 +297,170 @@ def test_policy_order_matches_jax(name):
     assert outs[0] == outs[1]
 
 
-def test_cost_model_parts_raise_until_ported(models):
-    """SJF and EDF's admission control need the cost model's H100 tier
-    (ROADMAP A5): the port refuses them instead of pricing with TPU
-    numbers."""
-    _, _, tlm, tp = models
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+def _cost_tier():
+    """The reference's v5e-1 tier with its ``HW`` peaks, as a port tier
+    (the port itself carries only ``h100-1``)."""
+    from repro.core.costmodel import TIERS
+    from repro.launch.mesh import HW
+    from repro_torch.core.costmodel import HwTier
+    jt = TIERS["v5e-1"]
+    return HwTier(jt.name, jt.chips, jt.mem_cap, jt.power_budget,
+                  peak_flops_bf16=HW["peak_flops_bf16"],
+                  peak_flops_int8=HW["peak_flops_int8"], hbm_bw=HW["hbm_bw"],
+                  link_bw=HW["ici_bw_per_link"], links=HW["ici_links"],
+                  tdp_watts=HW["tdp_watts"], idle_watts=HW["idle_watts"])
+
+
+def _cost_reqs(cls):
+    """Requests of 8 / 500 / 3,000 tokens, some part-prefilled or
+    mid-stream (a readmit's recompute counts), some with their own SLO."""
+    out = []
+    for rid, (plen, new, progress, gen, t_sub, slo) in enumerate((
+            (8, 4, 0, 0, 0.0, None), (500, 64, 0, 0, 0.2, 0.01),
+            (3000, 16, 1024, 0, 0.0, 0.05), (500, 128, 0, 30, 0.1, None),
+            (3000, 512, 0, 0, 0.4, 0.002), (8, 256, 8, 100, 0.3, 1.0))):
+        r = cls(rid=rid, prompt=np.zeros(plen, np.int32), max_new_tokens=new,
+                t_submit=t_sub, slo_ttft=slo)
+        r.progress = progress
+        r.out_tokens = list(range(gen))
+        out.append(r)
+    return out
+
+
+@pytest.mark.parametrize("kv", ["bfloat16", "int8"])
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+def test_cost_model_parts_raise_until_ported(kv, layout):
+    """SJF and EDF's admission check now price with the cost model: with
+    a tier built from the reference's peaks, qwen2-1.5b at full width
+    (estimates of milliseconds) and ``now`` fixed, SJF's remaining
+    service, admission order (aging included), victim and retry-after,
+    and EDF's order and ``admit_drop`` equal JAX's policies', on bf16 and
+    int8 KV at both layouts (JAX prices the paged one through
+    ``decode_attn_impl``).  Some drops come from the cost model alone
+    (deadline not yet passed)."""
+    from repro.configs import get_config as j_full
+    from repro_torch.configs import get_config as t_full
+    tier = _cost_tier()
+    jc = j_full("qwen2-1.5b").with_(
+        kv_cache_dtype=kv,
+        decode_attn_impl="paged_pallas" if layout == "paged" else "eager")
+    tc = t_full("qwen2-1.5b").with_(kv_cache_dtype=kv)
+    kw = dict(slo_ttft=0.02, prefill_chunk=512)
+    jr, tr = _cost_reqs(JReq), _cost_reqs(TReq)
+    cost_drops = 0
+    for name in ("sjf", "edf"):
+        jp = j_policy(name, cfg=jc, tier="v5e-1", **kw)
+        tp = t_policy(name, cfg=tc, tier=tier, layout=layout, **kw)
+        for now in (0.0, 0.03, 0.205, 0.39, 5.0):
+            assert [r.rid for r in sorted(
+                tr, key=lambda r: tp.priority(r, now))] == \
+                [r.rid for r in sorted(jr, key=lambda r: jp.priority(r, now))]
+            assert [tp.priority(t, now) for t in tr] == \
+                [jp.priority(j, now) for j in jr]
+            assert max(tr, key=lambda r: tp.victim(r, now)).rid == \
+                max(jr, key=lambda r: jp.victim(r, now)).rid
+            drops = [tp.admit_drop(t, now) for t in tr]
+            assert drops == [jp.admit_drop(j, now) for j in jr]
+            if name == "edf":
+                cost_drops += sum(d and now < tp.deadline(t)
+                                  for d, t in zip(drops, tr))
+            for depth in (0, 1, 5):
+                assert [tp.retry_after(t, now, depth) for t in tr] == \
+                    [jp.retry_after(j, now, depth) for j in jr]
+        if name == "sjf":
+            assert [tp.remaining_s(t) for t in tr] == \
+                [jp.remaining_s(j) for j in jr]
+    assert cost_drops > 0
+    with pytest.raises(ValueError, match="sjf needs the model config"):
         t_policy("sjf")
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        TSched(tlm, tp, n_slots=1, max_len=32, page_size=8,
-               admission_control=True)
+    with pytest.raises(ValueError, match="unknown policy"):
+        t_policy("lifo")
+
+
+def _real_page_scale_changes(before, after):
+    """The reference's ``_kv_scale_change_count`` over real pages only, as
+    the port counts (``test_torch_quant_serving.py``)."""
+    from jax.tree_util import keystr, tree_flatten_with_path
+    b = {keystr(p): x for p, x in tree_flatten_with_path(before)[0]
+         if "_scales" in keystr(p)}
+    total = jnp.zeros((), jnp.int32)
+    for p, x in tree_flatten_with_path(after)[0]:
+        if keystr(p) in b:
+            total = total + jnp.sum(
+                (b[keystr(p)][..., 1:, :] != x[..., 1:, :]).astype(jnp.int32))
+    return total
+
+
+#: cost-model policy drives: (engine kwargs, workload prompts, submit kw)
+COST_DRIVES = {
+    # 5 prompts of 3-12 tokens on 2 slots: SJF admits the shortest first
+    "sjf_cold": (dict(policy="sjf", prefix_cache=False), "cold",
+                 [dict(max_new_tokens=9)] * 5),
+    # the tight pool: SJF's victim is the longest remaining job
+    "sjf_preempt": (dict(policy="sjf", prefix_cache=False, prefill_chunk=8,
+                         max_len=48, n_pages=7), "preempt",
+                    [dict(max_new_tokens=20)] * 2),
+    # EDF + admission control on one slot: the request whose deadline
+    # passed before admission is rejected, the others are served
+    "edf_admission": (dict(policy="edf", prefix_cache=False, n_slots=1,
+                           admission_control=True), "cold",
+                      [dict(max_new_tokens=6, slo_ttft=s)
+                       for s in (60.0, -1.0, 60.0, -1.0, 60.0)]),
+}
+
+
+@pytest.mark.parametrize("kv", ["bfloat16", "int8"])
+@pytest.mark.parametrize("drive", sorted(COST_DRIVES))
+def test_cost_model_policies_drive_like_jax(models, drive, kv):
+    """The float32 ``SchedEngine`` under SJF and under EDF with admission
+    control gives JAX's streams, syncs, ``SchedStats`` (``slo_rejected``
+    included), counters and rejections, on bf16 and int8 pools; each
+    engine builds its own policy (config, tier, chunk, and the paged
+    layout on the port's side), and both price every request alike.
+    SJF's aging is set to 0 on both sides, so that the order depends on
+    the estimates alone and not on the wall clock."""
+    jcfg, jp, tlm, tp = models
+    kw, wl, submit_kw = COST_DRIVES[drive]
+    kw = {"n_slots": 2, "max_len": 64, "seed": 0, "page_size": 8,
+          "decode_block": 4, "prefill_chunk": 16, **kw}
+    runs = []
+    for cls, lm, params, tier in (
+            (JSched, JLM(jcfg.with_(kv_cache_dtype=kv)), jp, "v5e-1"),
+            (TSched, TLM(tlm.cfg.with_(kv_cache_dtype=kv), device="cpu"),
+             tp, _cost_tier())):
+        with pytest.MonkeyPatch.context() as mp:
+            # JAX's requant count over real pages only, as the port counts
+            mp.setattr(j_engine, "_kv_scale_change_count",
+                       _real_page_scale_changes)
+            eng = cls(lm, params, tier=tier, **kw)
+            if eng.policy.name == "sjf":
+                eng.policy.aging = 0.0
+            prompts = _prompts(lm.cfg.vocab_size, wl)
+            ids = [eng.submit(p, **s) for p, s in zip(prompts, submit_kw)]
+            done = eng.run_to_completion()
+        runs.append((eng, [done[i] for i in ids]))
+    (jeng, jreqs), (teng, treqs) = runs
+    assert teng.policy.layout == "paged"
+    assert [r.out_tokens for r in treqs] == [r.out_tokens for r in jreqs]
+    assert [r.rejected for r in treqs] == [r.rejected for r in jreqs]
+    assert [r.preemptions for r in treqs] == [r.preemptions for r in jreqs]
+    assert teng.sync_count == jeng.sync_count
+    assert dataclasses.asdict(teng.stats) == dataclasses.asdict(jeng.stats)
+    assert _counters(teng) == _counters(jeng)
+    if drive == "edf_admission":
+        assert teng.stats.slo_rejected == 2
+        assert all(r.out_tokens == [] for r in treqs if r.rejected)
+        assert all(len(r.out_tokens) == 6 for r in treqs if not r.rejected)
+    else:
+        assert [teng.policy.remaining_s(t) for t in treqs] == \
+            [jeng.policy.remaining_s(j) for j in jreqs]
+    if drive == "sjf_preempt":
+        assert teng.stats.preemptions > 0
+    assert sorted(teng.alloc.free) == sorted(jeng.alloc.free)
+
+
+def test_chunk_must_be_a_page_multiple(models):
+    _, _, tlm, tp = models
     with pytest.raises(ValueError, match="multiple of page_size"):
         TSched(tlm, tp, n_slots=1, max_len=32, page_size=8, prefill_chunk=12)
 

@@ -8,8 +8,9 @@ reference's ``repro.spec`` on the same numpy inputs, mirroring
 * ``spec_accept``: greedy prefix rule and EOS / budget / ``max_len`` caps
   equal to JAX's on the same logits; sampled rows as a distribution (the
   port cannot draw JAX's threefry stream).
-* ``NgramDrafter`` proposals, controller ``k`` choices, ``DraftLMDrafter``
-  proposals and ``draft_config_of`` equal to JAX's.
+* ``NgramDrafter`` proposals, controller ``k`` choices (the quantized
+  n-gram draft-cost rescale included), ``DraftLMDrafter`` proposals and
+  ``draft_config_of`` equal to JAX's.
 * ``cow`` / ``ensure_exclusive_tail`` / ``rollback_length`` and
   ``commit_spec_cache`` (int8 pools bit-equal, scales included) against
   JAX's.
@@ -18,7 +19,7 @@ reference's ``repro.spec`` on the same numpy inputs, mirroring
 * ``SpecEngine`` greedy float32 streams equal to JAX's ``SpecEngine`` and
   to the port's ``SchedEngine`` on bf16 and int8 pools, with the same
   syncs, stats and counters; self-speculation, the EDF urgency gate,
-  sampled runs and the A5 refusal.
+  sampled runs.
 * int8 weights through both arms (an int8 draft LM on the draft arm):
   "fused" equal to "ref" and to JAX's streams.
 
@@ -353,17 +354,49 @@ def test_controller_k_choices_match_jax(arm):
 
 
 def test_quantized_ngram_rescale_waits_for_the_cost_model():
-    """With quantized target weights the reference rescales the adaptive
-    n-gram arm's draft cost by its TPU cost model; the port refuses that
-    case (ROADMAP A5) instead of skipping the rescale, and allows the
-    cases that need no rescale."""
-    cfg = t_smoke("qwen2-1.5b").with_(quant="int8")
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        tspec.AdaptiveDraftController(2, 4, arm="ngram", cfg=cfg)
-    tspec.AdaptiveDraftController(2, 4, arm="ngram", cfg=cfg, adaptive=False)
-    tspec.AdaptiveDraftController(2, 4, arm="draft", cfg=cfg)
-    tspec.AdaptiveDraftController(2, 4, arm="ngram",
-                                  cfg=cfg.with_(quant="bf16"))
+    """With quantized target weights the n-gram arm's draft cost is
+    divided by the cost model's quantized-decode ratio: at a tier built
+    from the reference's peaks the rescaled ``draft_cost`` and every
+    ``k_for`` equal JAX's controller's for int8 / fp8 / int4 targets (and
+    bf16, which is not rescaled), full width and smoke, bf16 and int8 KV
+    at both layouts; the draft-LM arm is never rescaled."""
+    from repro.configs import get_config as j_full
+    from repro.core.costmodel import TIERS
+    from repro.launch.mesh import HW
+    from repro_torch.configs import get_config as t_full
+    from repro_torch.core.costmodel import HwTier
+    jt = TIERS["v5e-1"]
+    tier = HwTier(jt.name, jt.chips, jt.mem_cap, jt.power_budget,
+                  peak_flops_bf16=HW["peak_flops_bf16"],
+                  peak_flops_int8=HW["peak_flops_int8"], hbm_bw=HW["hbm_bw"],
+                  link_bw=HW["ici_bw_per_link"], links=HW["ici_links"],
+                  tdp_watts=HW["tdp_watts"], idle_watts=HW["idle_watts"])
+    rng = np.random.default_rng(8)
+    history = [(int(rng.integers(0, 2)), int(p), int(rng.integers(0, p + 1)))
+               for p in rng.integers(0, 9, 40)]
+    rescaled = 0
+    for jget, tget in ((j_full, t_full), (j_smoke, t_smoke)):
+        for quant in ("bf16", "int8", "fp8", "int4"):
+            for kv in ("bfloat16", "int8"):
+                for layout in ("contiguous", "paged"):
+                    jc = jget("qwen2-1.5b").with_(
+                        quant=quant, kv_cache_dtype=kv,
+                        decode_attn_impl="paged_pallas"
+                        if layout == "paged" else "eager")
+                    tc = tget("qwen2-1.5b").with_(quant=quant,
+                                                  kv_cache_dtype=kv)
+                    for arm in ("ngram", "draft"):
+                        j = jspec.AdaptiveDraftController(2, 8, arm=arm,
+                                                          cfg=jc)
+                        t = tspec.AdaptiveDraftController(
+                            2, 8, arm=arm, cfg=tc, tier=tier, layout=layout)
+                        assert t.draft_cost == j.draft_cost
+                        rescaled += t.draft_cost != 0.02 and arm == "ngram"
+                        for slot, prop, acc in history:
+                            t.update(slot, prop, acc)
+                            j.update(slot, prop, acc)
+                            assert t.k_for(slot) == j.k_for(slot)
+    assert rescaled > 0
 
 
 def test_draft_config_matches_jax():
@@ -923,8 +956,7 @@ def _int8_spec_run(models, side, arm, impl):
     """One int8-weight SpecEngine drive (``test_quant_serving.py``'s spec
     arms) on JAX's side or the port's: the n-gram arm, or a random
     ``draft_config_of`` draft LM (seeded 1, bridged) quantized like the
-    target.  ``adaptive=False``: every round verifies ``draft_k`` drafts,
-    and the port's adaptive quantized n-gram rescale waits for A5."""
+    target.  ``adaptive=False``: every round verifies ``draft_k`` drafts."""
     jcfg, jp, tcfg, tp = models
     kw = dict(quant="int8", quant_matmul_impl=impl)
     jcfg, tcfg = jcfg.with_(**kw), tcfg.with_(**kw)
