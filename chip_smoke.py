@@ -147,13 +147,24 @@ Phases (each prints one line; any failure raises and exits non-zero):
                  with --profile, --calibration-out, --metrics, --trace-out;
                  then --spec ngram --quant int8 --calibration-in): exit 0,
                  the files, the metric names, the calibration carried
+ 18. search    — search -> serve: the port's AutoTuner at h100-1 on
+                 qwen2-1.5b at full width (MMLU at 512 tokens, the budget
+                 of the reference's _small_tuner, the arms the port
+                 serves), c* by recommend_efficient, recalibrated from
+                 phase 17's drift; then Default and c* served through
+                 SchedEngine / SpecEngine (one slot, page 256, chunk 512,
+                 4 requests of 512 + 128 tokens one after another):
+                 request latency, TTFT and peak memory beside predict()'s,
+                 every stream full, every page freed, launches = the
+                 dispatches' (B4 / B5 / B6 at 196 a dispatch for quantized
+                 weights)
 B7 takes every RMSNorm of the qwen2-1.5b drives: 57 launches a forward
 (phases 5, 7, 9, 10), every one on its warp step.  Every B1 / B2 / B3
 launch of those drives (bf16 activations), every B4 and B5 launch of
 phase 9 and every B6 launch of phase 10 must take the tensor-core step:
 their tensor-core launch counts are printed beside the launch counts and
 must equal them.  Launch counts are
-zeroed just before each drive (phases 5, 7, 9, 10, 13-17) and read just
+zeroed just before each drive (phases 5, 7, 9, 10, 13-18) and read just
 after it; peak memory is read for the set-up and, restarted, for the
 drive.  Then one JSON
 line of kernel numbers, and last the result line ``{"ok": true,
@@ -3360,7 +3371,7 @@ def phase_cost(records: list) -> dict:
     a.pop("samples")
     b0.pop("samples")
     out = {"sjf_profiled": a, "sjf_plain": b0, "kinds": kinds, "edf": e,
-           "cli": c, "phase_wall_s": wall}
+           "cli": c, "phase_wall_s": wall, "calibration": calib.to_json()}
     drift = ", ".join(f"{k} {v['n']} x {v['median_ms']:.3f} ms measured / "
                       f"{v['median_estimate_ms']:.3f} ms h100-1, drift "
                       f"{v['drift']:.2f}" for k, v in kinds.items())
@@ -3376,6 +3387,249 @@ def phase_cost(records: list) -> dict:
           f"{c['walls_s'][1]:.1f}s, {c['series_first']} then "
           f"{c['series_second']} calibration series | phase "
           f"{wall:.1f}s")
+    return out
+
+
+SEARCH_REQUESTS = 4         # phase 18 (b), each arm: the first warms up
+SEARCH_PROMPT, SEARCH_GEN = 512, 128    # the cost model's protocol
+#: the budget of the reference's tests/test_core_aellm.py::_small_tuner
+SEARCH_BUDGET = dict(n0=48, refine_iters=1, k_per_iter=8, pop_size=24,
+                     generations=10, seed=SEED)
+
+
+def _search_counts(eng, tracer, since_events: int) -> dict:
+    """Phase 7's dispatch counts plus a speculative engine's verify rounds
+    and draft-LM steps (0 on the plain scheduler)."""
+    c = _counts(eng, tracer, since_events)
+    st = getattr(eng, "spec_stats", None)
+    c["verify"] = st.verify_steps if st is not None else 0
+    c["draft_steps"] = getattr(getattr(eng, "drafter", None), "steps", 0)
+    return c
+
+
+def _search_drive(eng, tracer, prompts, tag: str, draft_norms: int) -> dict:
+    """Serve ``prompts`` one after another (each request alone on the
+    card, as the cost model prices it), with the launch counts zeroed
+    just before and read just after: every request gets its 128 tokens,
+    every page is freed, syncs = chunk dispatches + verify rounds + decode
+    blocks, and each kernel launched exactly as the dispatches ask (B3 /
+    B2 / B1 at 28 a fresh chunk / continuation or verify round / decode
+    step, B7 at 57 a forward; B4 / B5 / B6 at 196 a dispatch past / within
+    128 rows for int8 / fp8 weights)."""
+    torch = _torch()
+    cfg = eng.lm.cfg
+    base = _search_counts(eng, tracer, 0)
+    n_ev = len(tracer.events)
+    rows = _record_dispatch_rows(eng)
+    _reset_launches()
+    lat, ttft = [], []
+    for i, p in enumerate(prompts):
+        t0 = time.perf_counter()
+        rid = eng.submit(p, max_new_tokens=SEARCH_GEN)
+        done = eng.run_to_completion()
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+        r = done[rid]
+        ttft.append(r.t_first - r.t_submit)
+        if r.rejected or len(r.out_tokens) != SEARCH_GEN or not all(
+                0 <= t < cfg.vocab_size for t in r.out_tokens):
+            raise AssertionError(f"{tag} request {i}: {len(r.out_tokens)} "
+                                 f"tokens, want {SEARCH_GEN}")
+    launches = _read_launches()
+    tc = _tc_launches(tag)
+    now = _search_counts(eng, tracer, n_ev)
+    d = {k: now[k] - base[k] for k in now if k not in ("cont", "fresh")}
+    d["cont"], d["fresh"] = now["cont"], now["fresh"]
+    if d["syncs"] != d["cont"] + d["fresh"] + d["verify"] + d["blocks"]:
+        raise AssertionError(f"{tag}: {d['syncs']} host syncs != "
+                             f"{d['cont']} + {d['fresh']} chunk dispatches "
+                             f"+ {d['verify']} verify rounds + "
+                             f"{d['blocks']} decode blocks")
+    free = len(eng.alloc.free)
+    if free != eng.alloc.n_pages - 1:
+        raise AssertionError(f"{tag}: {free} pages free at the end, want "
+                             f"{eng.alloc.n_pages - 1}")
+    layers = cfg.num_layers
+    big = sum(m > 128 for m in rows)
+    small = len(rows) - big + d["verify"] + d["steps"]
+    want = {"paged_prefix_extend": layers * (d["cont"] + d["verify"]),
+            "flash_attention": layers * d["fresh"],
+            "paged_attention": layers * d["steps"],
+            "int8_matmul": QLINEARS * big if cfg.quant == "int8" else 0,
+            "w8a8_decode_matmul": QLINEARS * small
+            if cfg.quant == "int8" else 0,
+            "fp8_decode_matmul": QLINEARS * small
+            if cfg.quant == "fp8" else 0,
+            "rmsnorm": NORMS_PER_FORWARD * (len(rows) + d["verify"]
+                                            + d["steps"])
+            + draft_norms * d["draft_steps"],
+            "wkv6": 0}
+    if launches != want or len(rows) != d["cont"] + d["fresh"]:
+        raise AssertionError(f"{tag}: launches {launches} != {want} "
+                             f"(dispatch rows {rows}, {d['verify']} verify "
+                             f"rounds, {d['steps']} decode steps)")
+    tail = slice(1, None)                 # the first request warms up
+    return {"latency_ms": statistics.median(lat[tail]) * 1e3,
+            "ttft_ms": statistics.median(ttft[tail]) * 1e3,
+            "latency_all_ms": [x * 1e3 for x in lat],
+            "ttft_all_ms": [x * 1e3 for x in ttft],
+            "launches": launches, "tc_launches": tc,
+            "dispatches": {k: d[k] for k in ("fresh", "cont", "verify",
+                                             "blocks", "steps")},
+            "syncs": d["syncs"],
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def _serve_search_arm(cfg, eff, tag: str) -> dict:
+    """Serve ``eff`` on ``cfg`` at full width through the SchedEngine (the
+    SpecEngine where its spec arm asks for it), one slot, page 256, chunk
+    512, greedy, random weights from the seed, quantized by
+    ``apply_to_params`` without the fine-tuning arm."""
+    import dataclasses
+    torch = _torch()
+    import numpy as np
+    from repro_torch.core.apply import apply_efficiency_config, \
+        apply_to_params
+    from repro_torch.core.space import FtChoice
+    from repro_torch.models.model import LM
+    from repro_torch.obs import Tracer
+    from repro_torch.sched import SchedEngine
+    from repro_torch.spec import SpecEngine, draft_config_of
+    acfg = apply_efficiency_config(cfg, eff)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm = LM(acfg, device="cuda")
+    params = apply_to_params(lm.init(SEED), dataclasses.replace(
+        eff, ft=FtChoice("full", 0, 1)), None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()          # the weights are made
+    tracer = Tracer(enabled=True)
+    kw = dict(policy="fcfs", prefix_cache=False, n_slots=1,
+              max_len=3 * 256, page_size=256, prefill_chunk=512,
+              decode_block=8, seed=SEED, tracer=tracer)
+    draft_norms = 0
+    if acfg.spec_decode == "none":
+        eng = SchedEngine(lm, params, **kw)
+    else:
+        draft_lm = draft_params = None
+        if acfg.spec_decode == "draft":       # phase 14 (b)'s bf16 draft
+            draft_lm = LM(draft_config_of(cfg), device="cuda")
+            draft_params = draft_lm.init(SEED + 1)
+            draft_norms = DRAFT_NORMS
+        eng = SpecEngine(lm, params, spec=acfg.spec_decode,
+                         draft_k=acfg.spec_draft_k, draft_lm=draft_lm,
+                         draft_params=draft_params, **kw)
+    rng = np.random.default_rng(SEED + 18)
+    prompts = [rng.integers(0, cfg.vocab_size, SEARCH_PROMPT)
+               for _ in range(SEARCH_REQUESTS)]
+    out = _search_drive(eng, tracer, prompts, tag, draft_norms)
+    out["engine"] = type(eng).__name__
+    del eng, lm, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_search(records: list, calibration: dict) -> dict:
+    """Search → serve, the source paper's question for one deployment:
+    (a) the port's AutoTuner at ``h100-1`` on qwen2-1.5b at full width
+    (28 layers, d 1536, 12 heads over 2, d_ff 8960, bf16, tied) for MMLU
+    at 512 tokens, the budget of the reference's ``_small_tuner`` and its
+    ``SpaceMask`` narrowed to the arms the port serves (no attention or
+    MoE arms, A6; the KV arms stay: B1 takes any group); it prints c*
+    (``recommend_efficient``), c*'s and Default's objectives and the
+    Efficiency Score, then recalibrates the fitted tuner with phase 17's
+    ``CalibratedCostModel`` and prints the shifts.  (b) Default and c*
+    served at full width, 4 requests of 512 prompt tokens and 128 new
+    tokens one after another (the median of the last 3): measured request
+    latency and TTFT, the peak device memory after the weights are made,
+    and ``predict(..., layout="paged")``'s latency and memory, uncalibrated
+    and calibrated.  Weights are quantized by ``apply_to_params``; the
+    fine-tuning arm is left out, since LoRA's B starts at zero and an
+    untrained adapter does not change the logits.  Energy stays analytic.
+    The phase fails on a refused c*, a short stream, a leaked page or a
+    launch count that does not match the dispatches; the measured and
+    predicted ratios are a finding, not a check."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.costmodel import TIERS, CalibratedCostModel, \
+        predict
+    from repro_torch.core.evaluator import Evaluator
+    from repro_torch.core.features import TaskSpec
+    from repro_torch.core.pareto import efficiency_score
+    from repro_torch.core.space import EfficiencyConfig, SpaceMask
+    from repro_torch.core.tuner import AutoTuner, recommend_efficient
+    t_phase = time.perf_counter()
+    cfg = get_config("qwen2-1.5b").with_(num_layers=E2E_LAYERS)
+    tier = TIERS["h100-1"]
+    ev = Evaluator(cfg, TaskSpec("mmlu", "understanding", 0.7, 512), tier)
+    tuner = AutoTuner(ev, mask=SpaceMask(attention_arms=False,
+                                         moe_arms=False), **SEARCH_BUDGET)
+    report = tuner.run()
+    t_search = time.perf_counter() - t_phase
+    default = EfficiencyConfig.default()
+    base = ev.evaluate(default)
+    cstar, obj = recommend_efficient(report.archive, base)
+    if cstar is None:
+        raise AssertionError("search: an empty Pareto front")
+    score = efficiency_score(obj, base)
+    calib = CalibratedCostModel.from_json(calibration)
+    shifts = tuner.recalibrate(calib)
+
+    arms, pred = {}, {}
+    for name, eff in (("default", default), ("cstar", cstar)):
+        arms[name] = _serve_search_arm(cfg, eff, f"search {name}")
+        pred[name] = {
+            lab: {k: predict(cfg, eff, tier, layout="paged",
+                             calibration=c)[k]
+                  for k in ("latency_ms", "memory_gb", "energy_j")}
+            for lab, c in (("analytic", None), ("calibrated", calib))}
+    for r in records:
+        for name, a in arms.items():
+            if a["launches"].get(r["name"]):
+                r.setdefault("launches_by_drive", {})[f"search_{name}"] = \
+                    a["launches"][r["name"]]
+    ratio = {"latency_measured": arms["default"]["latency_ms"]
+             / arms["cstar"]["latency_ms"],
+             "memory_measured": arms["default"]["peak_mem_gib"]
+             / arms["cstar"]["peak_mem_gib"]}
+    for lab in ("analytic", "calibrated"):
+        for key, m in (("latency", "latency_ms"), ("memory", "memory_gb")):
+            ratio[f"{key}_{lab}"] = pred["default"][lab][m] \
+                / pred["cstar"][lab][m]
+    wall = time.perf_counter() - t_phase
+    out = {"cstar": str(cstar), "cstar_objs": [float(x) for x in obj],
+           "default_objs": [float(x) for x in base],
+           "efficiency_score": score, "n_real_evals": report.n_real_evals,
+           "surrogate_r2": report.surrogate_r2, "search_wall_s": t_search,
+           "shifts": shifts, "arms": arms, "predicted": pred,
+           "ratio_default_over_cstar": ratio, "phase_wall_s": wall}
+
+    def arm(name):
+        a, p = arms[name], pred[name]
+        return (f"{name} ({a['engine']}): {a['latency_ms']:.2f} ms a request"
+                f", TTFT {a['ttft_ms']:.2f} ms, peak "
+                f"{a['peak_mem_gib']:.3f} GiB, predicted "
+                f"{p['analytic']['latency_ms']:.2f} / calibrated "
+                f"{p['calibrated']['latency_ms']:.2f} ms and "
+                f"{p['analytic']['memory_gb']:.3f} GiB, energy "
+                f"{p['analytic']['energy_j']:.3f} J (analytic), "
+                f"launches {a['launches']}")
+    print(f"[18 search] {cfg.name} {cfg.num_layers}L at h100-1, mmlu/512, "
+          f"{report.n_real_evals} real evals in {t_search:.1f}s: c* = "
+          f"{cstar} | c* [acc, lat_ms, mem_gb, energy_j] = "
+          f"{[round(float(x), 4) for x in obj]}, Default "
+          f"{[round(float(x), 4) for x in base]}, Efficiency Score "
+          f"{score:.3f} | recalibrated from phase 17: lat shift "
+          f"{shifts['lat']:+.4f}, energy shift {shifts['energy']:+.4f} "
+          f"(log) | served {SEARCH_REQUESTS} x {SEARCH_PROMPT} + "
+          f"{SEARCH_GEN}, median of the last 3: {arm('default')}; "
+          f"{arm('cstar')} | Default / c* latency: measured "
+          f"{ratio['latency_measured']:.3f}, predicted "
+          f"{ratio['latency_analytic']:.3f}, calibrated "
+          f"{ratio['latency_calibrated']:.3f}; memory: measured "
+          f"{ratio['memory_measured']:.3f}, predicted "
+          f"{ratio['memory_analytic']:.3f} | phase {wall:.1f}s")
     return out
 
 
@@ -3403,12 +3657,14 @@ def main() -> int:
     eager = phase_eager(records)
     resil = phase_resil(records)
     cost = phase_cost(records)
+    search = phase_search(records, cost["calibration"])
     out_dir = ROOT / "chiprun_out"
     if out_dir.is_dir():
         (out_dir / "chip_smoke_e2e.json").write_text(json.dumps(
             {"e2e": e2e, "sched": sched, "qsched": qsched, "fp8": fp8,
              "rwkv": rwkv, "spec": spec, "eager": eager, "resil": resil,
-             "cost": cost, "kernels": records}, indent=1))
+             "cost": cost, "search": search, "kernels": records},
+            indent=1))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": dev["kind"],

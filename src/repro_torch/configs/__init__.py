@@ -1,17 +1,27 @@
 """Architecture registry of the port: ``get_config(arch_id)`` /
-``get_smoke_config``.  Holds the dense-attention archs the paged serving
-path runs and RWKV-6, which the eager ``Engine`` serves; the reference
-registry (``repro.configs``) has the rest."""
+``get_smoke_config``.  Holds the ten assigned architectures, as the
+reference registry (``repro.configs``) does, and falls back to the
+paper's own evaluation models (``paper_models``) in ``get_config``.  The
+port serves the dense-attention archs and RWKV-6; the MoE, Mamba,
+encoder and cross-attention configs are data the cost model and the
+search read (serving them is ROADMAP A6)."""
 from __future__ import annotations
 
-from repro_torch.configs import (llama3_2_1b, qwen2_1_5b, rwkv6_1_6b,
-                                 stablelm_1_6b)
+from repro_torch.configs import (deepseek_coder_33b, granite_moe_3b_a800m,
+                                 jamba_1_5_large_398b, llama3_2_1b,
+                                 llama3_2_vision_11b, llama4_scout_17b_a16e,
+                                 qwen2_1_5b, rwkv6_1_6b, stablelm_1_6b,
+                                 whisper_base)
 from repro_torch.configs.base import (AttentionConfig, EncoderConfig,
                                      ModelConfig, MoEConfig, SSMConfig)
+from repro_torch.configs.paper_models import PAPER_MODELS
 
-_ARCH_MODULES = {m.ARCH_ID: m
-                 for m in (qwen2_1_5b, llama3_2_1b, stablelm_1_6b,
-                           rwkv6_1_6b)}
+_ARCH_MODULES = {
+    m.ARCH_ID: m
+    for m in (stablelm_1_6b, deepseek_coder_33b, llama3_2_1b, qwen2_1_5b,
+              rwkv6_1_6b, llama4_scout_17b_a16e, granite_moe_3b_a800m,
+              whisper_base, llama3_2_vision_11b, jamba_1_5_large_398b)
+}
 
 ARCH_IDS = tuple(_ARCH_MODULES)
 
@@ -22,17 +32,22 @@ def _norm(arch_id: str) -> str:
 
 def get_config(arch_id: str) -> ModelConfig:
     a = _norm(arch_id)
-    if a not in _ARCH_MODULES:
-        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_ARCH_MODULES)}")
-    return _ARCH_MODULES[a].config()
+    if a in _ARCH_MODULES:
+        return _ARCH_MODULES[a].config()
+    if a in PAPER_MODELS:
+        return PAPER_MODELS[a]()
+    raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_ARCH_MODULES)}"
+                   f" + paper models {sorted(PAPER_MODELS)}")
 
 
 def get_smoke_config(arch_id: str) -> ModelConfig:
     a = _norm(arch_id)
     if a not in _ARCH_MODULES:
-        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_ARCH_MODULES)}")
+        raise KeyError(f"unknown arch {arch_id!r}; "
+                       f"known: {sorted(_ARCH_MODULES)}")
     return _ARCH_MODULES[a].smoke_config()
 
 
 __all__ = ["ARCH_IDS", "AttentionConfig", "EncoderConfig", "ModelConfig",
-           "MoEConfig", "SSMConfig", "get_config", "get_smoke_config"]
+           "MoEConfig", "PAPER_MODELS", "SSMConfig", "get_config",
+           "get_smoke_config"]

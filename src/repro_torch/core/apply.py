@@ -1,10 +1,11 @@
-"""Apply an EfficiencyConfig to a model config: the port's copy of the
-config-rewrite half of ``repro/core/apply.py``.
+"""Apply an EfficiencyConfig to a model: the port's copy of
+``repro/core/apply.py``.
 
 ``apply_efficiency_config`` — ModelConfig -> ModelConfig (architecture +
-inference arms; what the cost model prices).  The parameter transform
-(``apply_to_params``: quantization + PEFT adapters) waits for the
-training path (ROADMAP A7).
+inference arms; what the cost model prices and the engines serve).
+``apply_to_params``         — params -> params: the quantization half
+(c_inf).  PEFT adapters (c_ft) and calibrated AWQ / SmoothQuant scales
+wait for the training path (ROADMAP A7).
 """
 from __future__ import annotations
 
@@ -73,3 +74,28 @@ def apply_efficiency_config(cfg: ModelConfig,
         spec_draft_k=eff.inf.draft_k,
     )
     return out
+
+
+def apply_to_params(params, eff: EfficiencyConfig, key=None, *,
+                    calib: dict | None = None):
+    """Quantize weights (c_inf) as the reference does: ``int4`` gives
+    int4 weights, ``int8`` / ``fp8`` give those, through
+    :func:`repro_torch.quant.quantize_tree`.  A non-full fine-tuning arm
+    (``qlora`` included, which the reference quantizes to int4 under its
+    adapters) and ``calib=`` raise: both are ROADMAP A7.  ``key`` seeds
+    the reference's adapter init and is unused here."""
+    from repro_torch.quant.qops import quantize_tree
+
+    if eff.ft.method != "full":
+        raise NotImplementedError(
+            f"fine-tuning arm {eff.ft.method!r}: PEFT adapters are the "
+            "training path, ROADMAP A7")
+    if calib is not None:
+        raise NotImplementedError(
+            "calib=: activation-aware scales (quant/calibrate.py) are "
+            "ROADMAP A7")
+    if eff.inf.quant == "int4":
+        return quantize_tree(params, quant="int4")
+    if eff.inf.quant in ("int8", "fp8"):
+        return quantize_tree(params, quant=eff.inf.quant)
+    return params

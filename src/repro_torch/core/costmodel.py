@@ -9,13 +9,15 @@ The port's copy of ``repro/core/costmodel.py``.  A roofline model over the
   memory  = weights(quant-aware) + KV cache + activation high-water
   energy  = Σ_phase T·(idle + (tdp−idle)·util)   per chip × chips
 
-Every peak is a field of the :class:`HwTier` being priced; the port's one
-tier is ``h100-1``, one H100 SXM at its data sheet's dense rates.  The
-runtime reads the same rooflines: SJF / EDF admission
-(``repro_torch.sched.policy``), the degradation ladder's rung prices, the
-speculative controller's quantized-decode rescale, and the online
-calibration (:class:`CalibratedCostModel`) that folds measured dispatch
-times (``repro_torch.obs.profile``) back into the estimates.
+Every peak is a field of the :class:`HwTier` being priced; the port's
+tiers are ``h100-1`` (one H100 SXM at its data sheet's dense rates),
+``h100-8`` (an HGX board) and ``h100-256`` (a SuperPOD's NVLink domain),
+with the paper's ``consumer`` / ``datacenter`` / ``high_perf`` mapped onto
+them in that order.  The runtime reads the same rooflines: SJF / EDF
+admission (``repro_torch.sched.policy``), the degradation ladder's rung
+prices, the speculative controller's quantized-decode rescale, and the
+online calibration (:class:`CalibratedCostModel`) that folds measured
+dispatch times (``repro_torch.obs.profile``) back into the estimates.
 
 KV bytes are priced per layout: the paged engines pass ``layout="paged"``
 (scales of quantized pools spread over a page), everything else the
@@ -55,15 +57,30 @@ class HwTier:
 #: 80GB HBM3 at a 700 W limit, 2026-10-17 (``launch/idle_power.py``)
 H100_IDLE_WATTS = 71.29
 
-TIERS = {
-    # One H100 SXM (NVIDIA data sheet, dense rates at 700 W): bf16
-    # 989.4 TFLOP/s, int8 1,978.9 TOP/s, 80 GB of HBM3 at 3.35 TB/s;
-    # NVLink 4 is 18 links of 50 GB/s (unused at one chip)
-    "h100-1": HwTier("h100-1", 1, mem_cap=80e9, power_budget=700.0,
-                     peak_flops_bf16=989.4e12, peak_flops_int8=1978.9e12,
-                     hbm_bw=3.35e12, link_bw=50e9, links=18,
-                     tdp_watts=700.0, idle_watts=H100_IDLE_WATTS),
-}
+
+def _h100_tier(name: str, chips: int) -> HwTier:
+    """``chips`` H100 SXM cards (NVIDIA data sheet, dense rates at 700 W:
+    bf16 989.4 TFLOP/s, int8 1,978.9 TOP/s, 80 GB of HBM3 at 3.35 TB/s) in
+    one NVLink 4 domain, 18 links of 50 GB/s a card through NVSwitch
+    (unused at one card)."""
+    return HwTier(name, chips, mem_cap=80e9, power_budget=700.0 * chips,
+                  peak_flops_bf16=989.4e12, peak_flops_int8=1978.9e12,
+                  hbm_bw=3.35e12, link_bw=50e9, links=18, tdp_watts=700.0,
+                  idle_watts=H100_IDLE_WATTS)
+
+
+# one card; one HGX H100 8-GPU board; a DGX H100 SuperPOD, 256 cards in
+# one NVLink Switch System domain
+TIERS = {name: _h100_tier(name, chips)
+         for name, chips in (("h100-1", 1), ("h100-8", 8),
+                             ("h100-256", 256))}
+# The paper's hardware tiers (an RTX 4090, an A100-80GB, 8 × H200) mapped
+# onto H100 tiers of 1, 8 and 256 cards, as the reference maps them onto
+# its 1-, 8- and 256-chip tiers.  Pricing the paper's own cards would
+# need their measured idle draws, and the port runs on H100s only.
+TIERS["consumer"] = TIERS["h100-1"]
+TIERS["datacenter"] = TIERS["h100-8"]
+TIERS["high_perf"] = TIERS["h100-256"]
 
 BYTES = {"bf16": 2.0, "fp8": 1.0, "int8": 1.0, "int4": 0.5}
 

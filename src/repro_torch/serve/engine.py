@@ -435,6 +435,7 @@ class PagedEngine(_EngineBase):
                  decode_block: int = 8, n_pages: Optional[int] = None,
                  metrics=None, tracer=None, profiler=None, injector=None):
         cfg = lm.cfg
+        block_kinds(cfg)             # refuses block kinds not ported
         a = cfg.attention
         if a is None or a.window is not None \
                 or any(k != "attn" for k in cfg.block_pattern):

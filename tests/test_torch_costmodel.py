@@ -29,6 +29,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 
 from repro import configs as jconfigs  # noqa: E402
+from repro.configs.paper_models import PAPER_MODELS  # noqa: E402
 from repro.core import apply as japply  # noqa: E402
 from repro.core import costmodel as jcm  # noqa: E402
 from repro.core import space as jspace  # noqa: E402
@@ -65,7 +66,11 @@ QUANTS = ("bf16", "int8", "fp8", "int4")
 KV_DTYPES = ("bfloat16", "int8", "fp8")
 STYLES = ("full", "gqa", "mqa")
 LAYOUTS = ("contiguous", "paged")
-ARCHS = sorted(tconfigs.ARCH_IDS)
+#: the archs the port serves; the sweeps below run over these
+ARCHS = ["llama3.2-1b", "qwen2-1.5b", "rwkv6-1.6b", "stablelm-1.6b"]
+#: the rest of the search's roster (config data only): the six other
+#: assigned archs and the paper's six models
+ROSTER = sorted(set(jconfigs.ARCH_IDS) - set(ARCHS)) + sorted(PAPER_MODELS)
 
 
 def _pair(arch, smoke, layout="contiguous", **kw):
@@ -302,6 +307,44 @@ def test_apply_and_predict_match_jax(arch):
                             **kw)
 
 
+@pytest.mark.parametrize("name", ROSTER)
+def test_roster_configs_price_as_jax(name):
+    """The roster's other configs (MoE, Mamba, encoder, cross-attention,
+    windows, MHA), which the port prices but does not serve: parameter
+    counts at full (and smoke) width, each drawn configuration applied
+    field by field, and ``predict`` at the reference's 1-, 8- and
+    256-chip tiers in both layouts, with and without a calibration."""
+    rng = np.random.default_rng(7)
+    calib_t, calib_j = tcm.CalibratedCostModel(), jcm.CalibratedCostModel()
+    for c in (calib_t, calib_j):
+        c.update("decode_block", "a", 3e-3, 1e-3)
+        c.update("admit", "a", 1.5e-3, 1e-3)
+    getters = ["get_config"] + (["get_smoke_config"]
+                                if name in jconfigs.ARCH_IDS else [])
+    for getter in getters:
+        j, t = (getattr(m, getter)(name) for m in (jconfigs, tconfigs))
+        assert t.param_count() == j.param_count()
+        assert t.active_param_count() == j.active_param_count()
+        effs = [tspace.EfficiencyConfig.default()] + [
+            tspace.sample_config(rng, tspace.space_for_family(t.family))
+            for _ in range(6)]
+        for eff in effs:
+            jeff = _j_eff(eff)
+            ta = tapply.apply_efficiency_config(t, eff)
+            _same_fields(ta, japply.apply_efficiency_config(j, jeff))
+            assert ta.param_count() == japply.apply_efficiency_config(
+                j, jeff).param_count()
+            for tier_name, lay in itertools.product(
+                    TIER_NAMES + ("v5e-256",), LAYOUTS):
+                jj = j.with_(decode_attn_impl="paged_pallas"
+                             if lay == "paged" else "eager")
+                for ct, cj in ((None, None), (calib_t, calib_j)):
+                    assert tcm.predict(t, eff, _tier(tier_name),
+                                       calibration=ct, layout=lay) == \
+                        jcm.predict(jj, jeff, jcm.TIERS[tier_name],
+                                    calibration=cj)
+
+
 def test_space_matches_jax():
     """The copied space: the same arms, the same enumeration and size per
     family mask, the same seeded draws and feature encodings."""
@@ -407,10 +450,13 @@ def test_fit_profile_and_json_round_trip_match_jax(tmp_path):
 
 
 def test_h100_tier_is_the_data_sheet():
-    """The port's only tier: one H100 SXM at the data sheet's dense rates,
-    with the measured idle draw; int8 weights take the int8 rate, fp8 and
-    bf16 the bf16 rate; one chip has no collective term."""
-    assert set(tcm.TIERS) == {"h100-1"}
+    """The port's tiers are H100s only (one card, an 8-card board, a
+    256-card NVLink domain, and the paper's three tier names for them);
+    one H100 SXM at the data sheet's dense rates, with the measured idle
+    draw; int8 weights take the int8 rate, fp8 and bf16 the bf16 rate;
+    one chip has no collective term."""
+    assert set(tcm.TIERS) == {"h100-1", "h100-8", "h100-256", "consumer",
+                              "datacenter", "high_perf"}
     t = tcm.TIERS["h100-1"]
     assert (t.chips, t.mem_cap, t.power_budget, t.tdp_watts) == \
         (1, 80e9, 700.0, 700.0)

@@ -60,7 +60,15 @@ def test_scan_covers_the_scheduler_and_every_kernel_module():
                 "resil/__init__.py", "resil/errors.py", "resil/inject.py",
                 "resil/degrade.py", "serve/engine.py", "kvcache/cache.py",
                 "models/attention.py", "core/space.py", "core/apply.py",
-                "obs/profile.py", "launch/idle_power.py"):
+                "obs/profile.py", "launch/idle_power.py",
+                "core/features.py", "core/pareto.py", "core/nsga2.py",
+                "core/surrogate.py", "core/evaluator.py", "core/tuner.py",
+                "configs/paper_models.py", "configs/whisper_base.py",
+                "configs/jamba_1_5_large_398b.py", "tables/__init__.py",
+                "tables/common.py", "tables/table2_main.py",
+                "tables/table3_ablations.py", "tables/table4_vlm.py",
+                "tables/table6_tasks.py", "tables/pareto_front.py",
+                "tables/run.py"):
         assert f"src/repro_torch/{rel}" in scanned, rel
     from repro_torch.kernels import build
     for src in build.SOURCES.values():
@@ -385,16 +393,23 @@ def test_engine_refuses_non_attention_decoders():
         PagedEngine(lm, {}, n_slots=1, max_len=16)
 
 
-@pytest.mark.parametrize("arch", sorted(tconfigs.ARCH_IDS))
+@pytest.mark.parametrize("arch", sorted(tconfigs.ARCH_IDS)
+                         + sorted(tconfigs.PAPER_MODELS))
 def test_copied_configs_agree_with_reference(arch):
     """Every field of the port's config equals the reference's; the
-    attention and SSM sub-configs field by field (either may be None)."""
-    for getter in ("get_config", "get_smoke_config"):
+    attention, MoE, SSM and encoder sub-configs (each a class of its own
+    side) field by field, either may be None.  The ten assigned archs at
+    full and smoke width, the paper's six models (full width only, on
+    both sides)."""
+    getters = ("get_config", "get_smoke_config") \
+        if arch in tconfigs.ARCH_IDS else ("get_config",)
+    for getter in getters:
         t = getattr(tconfigs, getter)(arch)
         j = getattr(jconfigs, getter)(arch)
         for f in dataclasses.fields(t):
             tv, jv = getattr(t, f.name), getattr(j, f.name)
-            if f.name in ("attention", "ssm") and tv is not None:
+            if f.name in ("attention", "moe", "ssm", "encoder") \
+                    and tv is not None:
                 assert jv is not None, (arch, f.name)
                 for g in dataclasses.fields(tv):
                     assert getattr(tv, g.name) == getattr(jv, g.name), \
@@ -405,3 +420,62 @@ def test_copied_configs_agree_with_reference(arch):
         assert t.num_groups == j.num_groups
         if t.attention is not None:
             assert t.attention.heads_padded == j.attention.heads_padded
+        if t.moe is not None:
+            assert t.moe.padded_experts == j.moe.padded_experts
+    assert tconfigs.ARCH_IDS == jconfigs.ARCH_IDS
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m",
+                                  "llama4-scout-17b-a16e",
+                                  "jamba-1.5-large-398b", "whisper-base",
+                                  "llama-3.2-vision-11b", "mixtral-8x7b",
+                                  "llava-1.5-7b"])
+def test_engines_refuse_unported_blocks_naming_a6(arch):
+    """MoE, Mamba, encoder and cross-attention configs are the cost
+    model's data: the model, the eager ``Engine`` and ``PagedEngine``
+    (so the scheduler and ``SpecEngine`` too) refuse them, naming the
+    roadmap item that ports them."""
+    from repro_torch.models.model import LM
+    from repro_torch.serve.engine import Engine, PagedEngine
+    cfg = tconfigs.get_smoke_config(arch) if arch in tconfigs.ARCH_IDS \
+        else tconfigs.get_config(arch).with_(num_layers=4, d_model=64,
+                                             d_ff=128, vocab_size=512)
+    lm = LM(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="A6"):
+        lm.init(0)
+    for eng in (Engine, PagedEngine):
+        with pytest.raises(NotImplementedError, match="A6"):
+            eng(lm, {}, n_slots=1, max_len=16)
+
+
+def test_chip_smoke_drives_the_search_phase():
+    """chip_smoke.py has a search → serve phase that its main runs after
+    the cost phase: the port's AutoTuner at h100-1 on the arms the port
+    serves, recalibrated from the cost phase's profiled drive, then
+    Default and the recommended configuration served with their weights
+    quantized by apply_to_params, each checked for full streams, freed
+    pages and launches that match the dispatches."""
+    text = (ROOT / "chip_smoke.py").read_text()
+    tree = ast.parse(text)
+    funcs = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    main_calls = [ast.unparse(c.func) for c in ast.walk(funcs["main"])
+                  if isinstance(c, ast.Call)]
+    assert "phase_search" in main_calls
+    assert main_calls.index("phase_search") > main_calls.index("phase_cost")
+    # the phase and every helper it reaches
+    reached, todo = set(), ["phase_search"]
+    while todo:
+        name = todo.pop()
+        reached.add(name)
+        todo += [ast.unparse(c.func) for c in ast.walk(funcs[name])
+                 if isinstance(c, ast.Call) and ast.unparse(c.func) in funcs
+                 and ast.unparse(c.func) not in reached]
+    body = "\n".join(ast.unparse(funcs[n]) for n in sorted(reached))
+    for needle in ("AutoTuner", "h100-1", "SpaceMask", "attention_arms=False",
+                   "moe_arms=False", "recommend_efficient", "recalibrate",
+                   "CalibratedCostModel", "apply_efficiency_config",
+                   "apply_to_params", "SchedEngine", "SpecEngine",
+                   "layout='paged'", "_reset_launches", "max_memory_allocated",
+                   "n_pages"):
+        assert needle in body, needle
+    assert "[18 search]" in text

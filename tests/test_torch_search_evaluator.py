@@ -1,0 +1,162 @@
+"""Port parity: the analytic evaluator (``repro_torch.core.evaluator``)
+against the reference's, and the quantization half of ``apply_to_params``.
+
+The evaluator's objective vector ``[acc, lat_ms, mem_gb, energy_j]`` and
+its feasibility equal the reference's exactly (``assert_array_equal``)
+over seeded efficiency configurations × the sixteen configs of the roster
+× the reference's 1- and 8-chip tiers built as port tiers, with and
+without a calibration.  The proxy mode, a PEFT arm and ``calib=`` raise,
+naming ROADMAP A7.  ``apply_to_params`` gives the trees
+``quantize_tree`` gives for each quantization arm."""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from _search_pairs import ROSTER, configs, jeff, tier  # noqa: E402
+from repro.core import costmodel as jcm  # noqa: E402
+from repro.core import evaluator as jev  # noqa: E402
+from repro.core import features as jfeat  # noqa: E402
+from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch.core import apply as tapply  # noqa: E402
+from repro_torch.core import costmodel as tcm  # noqa: E402
+from repro_torch.core import evaluator as tev  # noqa: E402
+from repro_torch.core import features as tfeat  # noqa: E402
+from repro_torch.core import space as tspace  # noqa: E402
+from repro_torch.models.model import LM  # noqa: E402
+from repro_torch.quant import quantize_tree  # noqa: E402
+
+TASKS = ("mmlu", "gsm8k", "longbench", "vqav2")
+
+
+def _calibrations():
+    """The same calibration on both sides: prefill and decode drift."""
+    out = []
+    for mod in (jcm, tcm):
+        c = mod.CalibratedCostModel()
+        c.update("admit", "a", 3e-3, 1e-3)
+        c.update("decode_block", "a", 30e-3, 1e-3)
+        c.update("decode_block", "b", 20e-3, 1e-3)
+        out.append(c)
+    return out
+
+
+def _effs(seed=0, n=10):
+    rng = np.random.default_rng(seed)
+    return [tspace.EfficiencyConfig.default()] + [
+        tspace.sample_config(rng) for _ in range(n)]
+
+
+@pytest.mark.parametrize("name", ROSTER)
+def test_evaluator_objectives_match_jax(name):
+    """Accuracy, latency, memory, energy and feasibility of every config
+    of the roster under seeded efficiency configurations, four tasks (one
+    numeric, one long-context, one vision), two tiers and with or without
+    a calibration, equal the reference's."""
+    jc, tc = configs(name)
+    jcal, tcal = _calibrations()
+    effs = _effs()
+    for tname, (jcal_i, tcal_i), task in (
+            (tn, cal, t) for tn in ("v5e-1", "v5e-8")
+            for cal in ((None, None), (jcal, tcal)) for t in TASKS):
+        je = jev.Evaluator(jc, jfeat.TASKS[task], jcm.TIERS[tname],
+                           base_acc=61.5, calibration=jcal_i)
+        te = tev.Evaluator(tc, tfeat.TASKS[task], tier(tname),
+                           base_acc=61.5, calibration=tcal_i)
+        for eff in effs:
+            np.testing.assert_array_equal(te.evaluate(eff),
+                                          je.evaluate(jeff(eff)))
+            assert te.feasible(eff) == je.feasible(jeff(eff))
+
+
+def test_accuracy_model_and_noise_match_jax():
+    """The accuracy-effects model on its own, over every quantization,
+    attention, KV, MoE and fine-tuning arm (enumerated, not sampled) at a
+    small and a large model, and the seeded noise it adds."""
+    for keys in (("a", 1, 2.5), ("llama2-7b", "mmlu",
+                                  tspace.EfficiencyConfig.default())):
+        assert tev._seeded_noise(*keys, scale=0.15) == \
+            jev._seeded_noise(*keys, scale=0.15)
+    space = tspace.enumerate_space()
+    for name in ("llama2-1b", "llama2-70b", "rwkv6-1.6b"):
+        jc, tc = configs(name)
+        for task in ("gsm8k", "longbench", "alpacaeval"):
+            for eff in space[::211]:
+                assert tev.accuracy_model(tc, eff, tfeat.TASKS[task], 60.0) \
+                    == jev.accuracy_model(jc, jeff(eff), jfeat.TASKS[task],
+                                          60.0)
+
+
+def test_proxy_mode_raises_naming_a7():
+    """The proxy evaluator trains a model: it raises instead of answering
+    with analytic numbers; an unknown mode is refused too."""
+    cfg = tconfigs.get_config("qwen2-1.5b")
+    with pytest.raises(NotImplementedError, match="A7"):
+        tev.Evaluator(cfg, tfeat.TASKS["mmlu"], tcm.TIERS["h100-1"],
+                      mode="proxy")
+    with pytest.raises(ValueError, match="mode"):
+        tev.Evaluator(cfg, tfeat.TASKS["mmlu"], tcm.TIERS["h100-1"],
+                      mode="measured")
+    ev = tev.Evaluator(cfg, tfeat.TASKS["mmlu"], tcm.TIERS["h100-1"])
+    assert ev.mode == "analytic"
+    assert np.isfinite(ev.evaluate(tspace.EfficiencyConfig.default())).all()
+
+
+def _same_tree(a, b):
+    if isinstance(a, dict):
+        assert a.keys() == b.keys()
+        for k in a:
+            _same_tree(a[k], b[k])
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            _same_tree(x, y)
+    else:
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a.view(torch.uint8) if a.dtype.itemsize == 1
+                           else a, b.view(torch.uint8)
+                           if b.dtype.itemsize == 1 else b)
+
+
+def _has_key(tree, key) -> bool:
+    if isinstance(tree, dict):
+        return key in tree or any(_has_key(v, key) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_has_key(v, key) for v in tree)
+    return False
+
+
+@pytest.mark.parametrize("quant", ["bf16", "fp8", "int8", "int4"])
+def test_apply_to_params_quantizes_as_quantize_tree(quant):
+    """Each quantization arm (any method: AWQ, GPTQ and SmoothQuant use no
+    calibration here) gives the tree ``quantize_tree`` gives directly;
+    bf16 leaves the tree as it is."""
+    cfg = tconfigs.get_smoke_config("qwen2-1.5b")
+    params = LM(cfg, device="cpu").init(0)
+    for method in ("gptq", "awq"):
+        eff = tspace.EfficiencyConfig(
+            tspace.ArchChoice("gqa", 0, 1), tspace.FtChoice("full", 0, 1),
+            tspace.InfChoice(quant, method, "full"))
+        got = tapply.apply_to_params(params, eff, None)
+        if quant == "bf16":
+            assert got is params
+        else:
+            _same_tree(got, quantize_tree(params, quant=quant))
+            assert _has_key(got, "qw") and not _has_key(params, "qw")
+
+
+@pytest.mark.parametrize("method", ["lora", "qlora", "dora", "rslora"])
+def test_apply_to_params_peft_and_calib_raise_naming_a7(method):
+    """A fine-tuning arm needs adapters and ``calib=`` activation-aware
+    scales: both belong to the training path (ROADMAP A7)."""
+    params = {"w": torch.zeros(4, 4)}
+    eff = tspace.EfficiencyConfig(
+        tspace.ArchChoice(), tspace.FtChoice(method, 16, 2),
+        tspace.InfChoice("int8", "awq", "full"))
+    with pytest.raises(NotImplementedError, match="A7"):
+        tapply.apply_to_params(params, eff, None)
+    full = dataclasses.replace(eff, ft=tspace.FtChoice("full", 0, 1))
+    with pytest.raises(NotImplementedError, match="A7"):
+        tapply.apply_to_params(params, full, None, calib={"/w": None})
