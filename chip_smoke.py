@@ -150,21 +150,42 @@ Phases (each prints one line; any failure raises and exits non-zero):
  18. search    — search -> serve: the port's AutoTuner at h100-1 on
                  qwen2-1.5b at full width (MMLU at 512 tokens, the budget
                  of the reference's _small_tuner, the arms the port
-                 serves), c* by recommend_efficient, recalibrated from
+                 serves: all but the attention arms, so c* may upcycle to
+                 MoE), c* by recommend_efficient, recalibrated from
                  phase 17's drift; then Default and c* served through
                  SchedEngine / SpecEngine (one slot, page 256, chunk 512,
                  4 requests of 512 + 128 tokens one after another):
                  request latency, TTFT and peak memory beside predict()'s,
                  every stream full, every page freed, launches = the
                  dispatches' (B4 / B5 / B6 at 196 a dispatch for quantized
-                 weights)
+                 weights, 4 a layer for an upcycled MoE)
+ 19. moe       — MoE serving and deepseek-coder-33b at full depth: (a)
+                 granite-moe-3b-a800m at full width and depth (32 layers,
+                 40 experts top-8), bf16: (a1) SchedEngine, FCFS, prefix
+                 cache, phase 7's settings and requests; (a2) PagedEngine
+                 with int8 weights (attention linears; experts stay bf16)
+                 and int8 pools, 8 requests; (a3) the n-gram SpecEngine on
+                 (a1)'s settings over repeated passages; (b)
+                 llama4-scout-17b-a16e at full width and 8 layers through
+                 the eager Engine, 2 slots, prompts past its 8,192 window
+                 (B3 windowed, held first at its head shape); (c)
+                 deepseek-coder-33b at full width and all 62 layers, int8
+                 weights built a group at a time, bf16 pools, PagedEngine,
+                 8 requests, after B1 / B2 / B3 / B4 / B5 / B6 / B7 are
+                 held at its shapes and B1 / B3 / B4 / B5 timed there; (d)
+                 moe_apply (both dispatches) of one granite and one llama4
+                 layer, 4,096 tokens, bf16, on the card vs the CPU, twice
+                 bit-equal.  Every arm: full streams, no leaked page,
+                 launches derived from the config and the dispatches, no
+                 non-finite logit; tokens/s, TTFT p50, decode-step wall,
+                 peak memory after the weights, launches
 B7 takes every RMSNorm of the qwen2-1.5b drives: 57 launches a forward
 (phases 5, 7, 9, 10), every one on its warp step.  Every B1 / B2 / B3
 launch of those drives (bf16 activations), every B4 and B5 launch of
 phase 9 and every B6 launch of phase 10 must take the tensor-core step:
 their tensor-core launch counts are printed beside the launch counts and
 must equal them.  Launch counts are
-zeroed just before each drive (phases 5, 7, 9, 10, 13-18) and read just
+zeroed just before each drive (phases 5, 7, 9, 10, 13-19) and read just
 after it; peak memory is read for the set-up and, restarted, for the
 drive.  Then one JSON
 line of kernel numbers, and last the result line ``{"ok": true,
@@ -1422,6 +1443,17 @@ QSCHED_REQUESTS = 8
 QLINEARS = E2E_LAYERS * 7
 
 
+def _qlinears(cfg) -> int:
+    """Quantized linears of one forward of ``cfg``: the four attention
+    linears of every block, and three more for its dense MLP or its MoE
+    layer's shared expert (expert stacks and router are not quantized,
+    as in the reference's QUANT_TARGETS)."""
+    from repro_torch.models.transformer import block_kinds
+    per_group = sum(4 + (3 if not bk["moe"] or cfg.moe.num_shared_experts
+                         else 0) for bk in block_kinds(cfg))
+    return per_group * cfg.num_groups
+
+
 def _quantized_lm(quant: str, kv: str):
     """qwen2-1.5b at full width with ``quant`` weights (quantized from a
     seed's random bf16 weights, which are then freed) and ``kv`` pools."""
@@ -1485,10 +1517,12 @@ def _read_launches() -> dict:
             "wkv6": wops.launches}
 
 
-def _tc_launches(tag: str) -> dict:
+def _tc_launches(tag: str, exempt=()) -> dict:
     """B1 / B2 / B3 / B4 / B5 / B6 launches of a drive that took the
     tensor-core step (B4: its wgmma step), and B7 launches that took its
-    warp step; raises unless every launch since the last reset took it."""
+    warp step; raises unless every launch since the last reset took it,
+    but for the kernels in ``exempt`` (shapes that rule the step out: B7
+    past d 2,048, B5 past K 16,384)."""
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.int8_matmul import ops as qmm
     from repro_torch.kernels.paged_attention import ops as pops
@@ -1502,7 +1536,7 @@ def _tc_launches(tag: str) -> dict:
           "fp8_decode_matmul": qmm.fp8_tc_launches,
           "rmsnorm": rops.warp_launches}
     for name, n in tc.items():
-        if n != launches[name]:
+        if n != launches[name] and name not in exempt:
             raise AssertionError(f"{tag}: {name} took the tensor-core step "
                                  f"in {n} of {launches[name]} launches")
     return tc
@@ -2320,14 +2354,15 @@ def _spec_drive(eng, tracer, prompts, max_new, tag: str,
     want = {"paged_prefix_extend": layers * (d["cont"] + d["verify"]),
             "flash_attention": layers * d["fresh"],
             "paged_attention": layers * d["steps"],
-            "rmsnorm": NORMS_PER_FORWARD * (d["cont"] + d["fresh"]
-                                            + d["verify"] + d["steps"])
+            "rmsnorm": (2 * layers + 1) * (d["cont"] + d["fresh"]
+                                           + d["verify"] + d["steps"])
             + draft_norms * d["draft_steps"]}
     if launches != want:
-        raise AssertionError(f"{tag}: launches {launches} != {want} (28 x "
+        raise AssertionError(f"{tag}: launches {launches} != {want} (L x "
                              "(continuations + verify rounds) / fresh "
-                             "chunks / fallback decode steps, 57 x target "
-                             f"forwards + {draft_norms} x draft steps)")
+                             "chunks / fallback decode steps, 2L + 1 x "
+                             f"target forwards + {draft_norms} x draft "
+                             "steps)")
     if d["verify"] <= 0 or d["proposed"] <= 0 \
             or launches["paged_prefix_extend"] <= 0:
         raise AssertionError(f"{tag}: {d['verify']} verify rounds, "
@@ -2672,14 +2707,14 @@ def _chunked_plain():
 
 
 def _eager_drive(eng, tracer, prompts, max_new, tag: str,
-                 qlinears: int = 0) -> dict:
+                 qlinears: int = 0, exempt=()) -> dict:
     """Serve ``prompts`` through an eager ``Engine`` with the launch
     counts zeroed just before and read just after; check token counts,
     host syncs = admissions + decode steps, and every kernel's launches:
-    B3 28 x admissions, B7 57 x forwards, and with quantized weights B4
+    B3 L x admissions, B7 2L + 1 x forwards, and with quantized weights B4
     ``qlinears`` x admissions past 128 tokens (int8) and B5 / B6
     ``qlinears`` x decode steps; every launch on its tensor-core / warp
-    step."""
+    step but for the kernels in ``exempt``."""
     torch = _torch()
     cfg = eng.lm.cfg
     n_ev, syncs0 = len(tracer.events), eng.sync_count
@@ -2692,7 +2727,7 @@ def _eager_drive(eng, tracer, prompts, max_new, tag: str,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _read_launches()
-    tc = _tc_launches(tag)
+    tc = _tc_launches(tag, exempt)
     admits, steps = _eager_spans(tracer, n_ev)
     syncs = eng.sync_count - syncs0
     n_tok = 0
@@ -3413,9 +3448,11 @@ def _search_drive(eng, tracer, prompts, tag: str, draft_norms: int) -> dict:
     just before and read just after: every request gets its 128 tokens,
     every page is freed, syncs = chunk dispatches + verify rounds + decode
     blocks, and each kernel launched exactly as the dispatches ask (B3 /
-    B2 / B1 at 28 a fresh chunk / continuation or verify round / decode
-    step, B7 at 57 a forward; B4 / B5 / B6 at 196 a dispatch past / within
-    128 rows for int8 / fp8 weights)."""
+    B2 / B1 at L a fresh chunk / continuation or verify round / decode
+    step, B7 at 2L + 1 a forward; B4 / B5 / B6 at ``_qlinears`` a
+    dispatch past / within 128 rows for int8 / fp8 weights: 28, 57 and
+    196 for qwen2-1.5b, 4 attention linears a layer for an upcycled MoE
+    c*)."""
     torch = _torch()
     cfg = eng.lm.cfg
     base = _search_counts(eng, tracer, 0)
@@ -3449,19 +3486,17 @@ def _search_drive(eng, tracer, prompts, tag: str, draft_norms: int) -> dict:
     if free != eng.alloc.n_pages - 1:
         raise AssertionError(f"{tag}: {free} pages free at the end, want "
                              f"{eng.alloc.n_pages - 1}")
-    layers = cfg.num_layers
+    layers, q = cfg.num_layers, _qlinears(cfg)
     big = sum(m > 128 for m in rows)
     small = len(rows) - big + d["verify"] + d["steps"]
     want = {"paged_prefix_extend": layers * (d["cont"] + d["verify"]),
             "flash_attention": layers * d["fresh"],
             "paged_attention": layers * d["steps"],
-            "int8_matmul": QLINEARS * big if cfg.quant == "int8" else 0,
-            "w8a8_decode_matmul": QLINEARS * small
-            if cfg.quant == "int8" else 0,
-            "fp8_decode_matmul": QLINEARS * small
-            if cfg.quant == "fp8" else 0,
-            "rmsnorm": NORMS_PER_FORWARD * (len(rows) + d["verify"]
-                                            + d["steps"])
+            "int8_matmul": q * big if cfg.quant == "int8" else 0,
+            "w8a8_decode_matmul": q * small if cfg.quant == "int8" else 0,
+            "fp8_decode_matmul": q * small if cfg.quant == "fp8" else 0,
+            "rmsnorm": (2 * layers + 1) * (len(rows) + d["verify"]
+                                           + d["steps"])
             + draft_norms * d["draft_steps"],
             "wkv6": 0}
     if launches != want or len(rows) != d["cont"] + d["fresh"]:
@@ -3536,8 +3571,9 @@ def phase_search(records: list, calibration: dict) -> dict:
     (a) the port's AutoTuner at ``h100-1`` on qwen2-1.5b at full width
     (28 layers, d 1536, 12 heads over 2, d_ff 8960, bf16, tied) for MMLU
     at 512 tokens, the budget of the reference's ``_small_tuner`` and its
-    ``SpaceMask`` narrowed to the arms the port serves (no attention or
-    MoE arms, A6; the KV arms stay: B1 takes any group); it prints c*
+    ``SpaceMask`` narrowed to the arms the port serves (no attention arms:
+    MLA is A6.4; the MoE arms stay, c* may upcycle the MLP to experts; the
+    KV arms stay: B1 takes any group); it prints c*
     (``recommend_efficient``), c*'s and Default's objectives and the
     Efficiency Score, then recalibrates the fitted tuner with phase 17's
     ``CalibratedCostModel`` and prints the shifts.  (b) Default and c*
@@ -3545,7 +3581,9 @@ def phase_search(records: list, calibration: dict) -> dict:
     tokens one after another (the median of the last 3): measured request
     latency and TTFT, the peak device memory after the weights are made,
     and ``predict(..., layout="paged")``'s latency and memory, uncalibrated
-    and calibrated.  Weights are quantized by ``apply_to_params``; the
+    and calibrated.  Each arm is ``LM.init`` of
+    ``apply_efficiency_config(cfg, arm)`` (MoE layers when the arm
+    upcycles), its weights quantized by ``apply_to_params``; the
     fine-tuning arm is left out, since LoRA's B starts at zero and an
     untrained adapter does not change the logits.  Energy stays analytic.
     The phase fails on a refused c*, a short stream, a leaked page or a
@@ -3563,8 +3601,8 @@ def phase_search(records: list, calibration: dict) -> dict:
     cfg = get_config("qwen2-1.5b").with_(num_layers=E2E_LAYERS)
     tier = TIERS["h100-1"]
     ev = Evaluator(cfg, TaskSpec("mmlu", "understanding", 0.7, 512), tier)
-    tuner = AutoTuner(ev, mask=SpaceMask(attention_arms=False,
-                                         moe_arms=False), **SEARCH_BUDGET)
+    tuner = AutoTuner(ev, mask=SpaceMask(attention_arms=False),
+                      **SEARCH_BUDGET)
     report = tuner.run()
     t_search = time.perf_counter() - t_phase
     default = EfficiencyConfig.default()
@@ -3633,6 +3671,589 @@ def phase_search(records: list, calibration: dict) -> dict:
     return out
 
 
+GRANITE = "granite-moe-3b-a800m"
+SCOUT = "llama4-scout-17b-a16e"
+DEEPSEEK = "deepseek-coder-33b"
+SCOUT_LAYERS = 8            # phase 19 (b): 8 of llama4-scout's 48 layers
+SCOUT_REQUESTS = 4          # two waves on its 2 slots
+MOE_Q_REQUESTS = 8          # phase 19 (a2), (a3) and (c)
+MOE_APPLY_TOKENS = 4096     # phase 19 (d)
+#: deepseek-coder-33b's linears (K, N): wq / wo, wk / wv, gate / up, down
+DEEPSEEK_QMM = [(7168, 7168), (7168, 1024), (7168, 19200), (19200, 7168)]
+#: moe_apply on the card vs the CPU: relative L2 of the outputs, and the
+#: dropped fractions' difference
+MOE_REL_L2, MOE_DROP_TOL = 2e-2, 1e-3
+
+
+def _watch_logits(lm):
+    """Make every logits tensor ``lm`` computes fold into one device flag
+    (no host read during a drive); returns the flag's reader."""
+    torch = _torch()
+    ok = torch.ones((), dtype=torch.bool, device="cuda")
+    inner = lm._logits
+
+    def logits(params, x):
+        out = inner(params, x)
+        ok.logical_and_(torch.isfinite(out).all())
+        return out
+    lm._logits = logits
+    return lambda: bool(ok.item())
+
+
+def _moe_paged_drive(eng, tracer, prompts, max_new, tag: str,
+                     exempt=()) -> dict:
+    """Serve ``prompts`` through a paged engine (PagedEngine, SchedEngine
+    or SpecEngine) with the launch counts zeroed just before and read
+    just after.  Fails on a short stream or a token out of vocab, a page
+    still owned by a slot (or, with a prefix cache, one neither free nor
+    cached), host syncs != dispatches, a non-finite logit, or launches
+    other than the config asks: B3 L a fresh chunk or admission, B2 L a
+    continuation or verify round, B1 L a decode step, B7 2L + 1 a
+    forward, and with int8 weights B4 ``_qlinears`` a dispatch past 128
+    rows and B5 ``_qlinears`` a dispatch within them, a verify round or
+    a decode step."""
+    torch = _torch()
+    cfg = eng.lm.cfg
+    finite = _watch_logits(eng.lm)
+    sched = hasattr(eng, "_chunk_impl")
+    st = getattr(eng, "spec_stats", None)
+
+    def counts():
+        snap = eng.metrics.snapshot()["counters"]
+        return {"syncs": eng.sync_count, "steps": eng.steps_run,
+                "blocks": int(snap["serve_decode_dispatches_total"]),
+                "prefill": int(snap["serve_prefill_dispatches_total"]),
+                "verify": st.verify_steps if st is not None else 0}
+    base, n_ev = counts(), len(tracer.events)
+    phase0 = (eng.t_prefill_s, eng.t_decode_s)
+    rows = _record_dispatch_rows(eng)
+    _reset_launches()
+    t0 = time.perf_counter()
+    ids = [eng.submit(p, max_new_tokens=int(m))
+           for p, m in zip(prompts, max_new)]
+    done = eng.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    tc = _tc_launches(tag, exempt)
+    now = counts()
+    d = {k: now[k] - base[k] for k in now}
+    if sched:
+        c = _counts(eng, tracer, n_ev)
+        d["cont"], d["fresh"] = c["cont"], c["fresh"]
+    else:
+        d["cont"], d["fresh"] = 0, d["prefill"]
+    n_tok = 0
+    for i, m in zip(ids, max_new):
+        got = done[i].out_tokens
+        if len(got) != int(m) or not all(0 <= t < cfg.vocab_size
+                                         for t in got):
+            raise AssertionError(f"{tag} request {i}: {len(got)} tokens "
+                                 f"(want {m}) or a token out of vocab")
+        n_tok += len(got)
+    if d["syncs"] != d["cont"] + d["fresh"] + d["verify"] + d["blocks"] \
+            or len(rows) != d["cont"] + d["fresh"]:
+        raise AssertionError(f"{tag}: {d['syncs']} host syncs != "
+                             f"{d['cont']} + {d['fresh']} prefill "
+                             f"dispatches + {d['verify']} verify rounds + "
+                             f"{d['blocks']} decode blocks ({len(rows)} "
+                             "dispatch rows recorded)")
+    alloc = eng.alloc
+    cached = len(eng.prefix.nodes) if getattr(eng, "prefix", None) else 0
+    if any(alloc.owned(s) for s in range(eng.n_slots)) \
+            or len(alloc.free) + cached != alloc.n_pages - 1:
+        raise AssertionError(f"{tag}: a leaked page ({len(alloc.free)} "
+                             f"free + {cached} cached of "
+                             f"{alloc.n_pages - 1})")
+    if not finite():
+        raise AssertionError(f"{tag}: a non-finite logit")
+    layers, q = cfg.num_layers, _qlinears(cfg)
+    big = sum(m > 128 for m in rows)
+    small = len(rows) - big + d["verify"] + d["steps"]
+    want = {"paged_prefix_extend": layers * (d["cont"] + d["verify"]),
+            "flash_attention": layers * d["fresh"],
+            "paged_attention": layers * d["steps"],
+            "int8_matmul": q * big if cfg.quant == "int8" else 0,
+            "w8a8_decode_matmul": q * small if cfg.quant == "int8" else 0,
+            "fp8_decode_matmul": 0,
+            "rmsnorm": (2 * layers + 1) * (len(rows) + d["verify"]
+                                           + d["steps"]),
+            "wkv6": 0}
+    if launches != want:
+        raise AssertionError(f"{tag}: launches {launches} != {want} "
+                             f"(dispatch rows {rows}, {d['verify']} verify "
+                             f"rounds, {d['steps']} decode steps)")
+    ttft = sorted(done[i].t_first - done[i].t_submit for i in ids)
+    # decode blocks and verify rounds: the wall of one decode step or
+    # verify round, each ending in its share of the dispatch's one sync
+    t_dec = eng.t_decode_s - phase0[1]
+    out = {"tokens_per_s": n_tok / wall,
+           "ttft_p50_s": statistics.median(ttft), "wall_s": wall,
+           "tokens": n_tok, "requests": len(ids),
+           "prompt_tokens": int(sum(len(p) for p in prompts)),
+           "fresh_dispatches": d["fresh"], "cont_dispatches": d["cont"],
+           "verify_rounds": d["verify"], "decode_blocks": d["blocks"],
+           "decode_steps": d["steps"], "syncs": d["syncs"],
+           "prefill_wall_s": eng.t_prefill_s - phase0[0],
+           "decode_wall_s": t_dec,
+           "decode_step_wall_ms": 1e3 * t_dec / max(d["steps"]
+                                                    + d["verify"], 1),
+           "launches": {k: v for k, v in launches.items() if v},
+           "tc_launches": {k: v for k, v in tc.items() if v},
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if st is not None:
+        out["acceptance_rate"] = st.drafts_accepted / max(
+            st.drafts_proposed, 1)
+    return out
+
+
+def _moe_line(tag: str, r: dict) -> str:
+    return (f"{tag}: {r['requests']} req ({r['prompt_tokens']} prompt "
+            f"tokens), {r['tokens']} tokens in {r['wall_s']:.3f}s "
+            f"({r['tokens_per_s']:.1f} tok/s), TTFT p50 "
+            f"{r['ttft_p50_s']:.4f}s, decode step (or verify round) "
+            f"{r['decode_step_wall_ms']:.2f} ms, peak "
+            f"{r['peak_mem_gb']:.2f} GB (weights {r['weights_gb']:.2f} GB), "
+            f"launches {r['launches']}, tensor-core launches "
+            f"{r['tc_launches']}")
+
+
+def _moe_granite() -> dict:
+    """(a) granite-moe-3b-a800m at full width and depth, bf16, through the
+    scheduler (a1), the paged engine on int8 weights and pools (a2) and
+    the n-gram SpecEngine (a3)."""
+    torch = _torch()
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch.profile_serve import passage_prompt
+    from repro_torch.models.model import LM
+    from repro_torch.obs import Tracer
+    from repro_torch.quant import quantize_tree
+    from repro_torch.sched import SchedEngine
+    from repro_torch.serve.engine import PagedEngine
+    from repro_torch.spec import SpecEngine
+    cfg = get_config(GRANITE)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lm = LM(cfg, device="cuda")
+    params = lm.init(SEED)
+    weights_gb = _setup_peak_gb()
+    rng = np.random.default_rng(SEED + 19)
+    vocab = cfg.vocab_size
+    kw = dict(policy="fcfs", prefix_cache=True, n_slots=8, max_len=4096,
+              page_size=256, prefill_chunk=512, decode_block=8, seed=SEED)
+    out = {}
+
+    # (a1) phase 7's drive: half the prompts behind one system prompt
+    tracer = Tracer(enabled=True)
+    eng = SchedEngine(lm, params, tracer=tracer, **kw)
+    sys_prompt = rng.integers(0, vocab, SYS_PROMPT)
+    eng.submit(np.concatenate([sys_prompt, rng.integers(0, vocab, 100)]),
+               max_new_tokens=8)
+    eng.run_to_completion()                  # warms the prefix cache
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    plens = rng.integers(600, 3001, SCHED_REQUESTS)
+    prompts = [np.concatenate([sys_prompt, rng.integers(
+        0, vocab, max(int(n), SYS_PROMPT + 1) - SYS_PROMPT)])
+        if i % 2 == 0 else rng.integers(0, vocab, int(n))
+        for i, n in enumerate(plens)]
+    hit0 = eng.stats.prefix_hit_tokens
+    out["a1_sched"] = _moe_paged_drive(
+        eng, tracer, prompts, rng.integers(32, 65, SCHED_REQUESTS),
+        "moe granite sched")
+    out["a1_sched"]["prefix_hit_tokens"] = eng.stats.prefix_hit_tokens - hit0
+    if out["a1_sched"]["prefix_hit_tokens"] <= 0:
+        raise AssertionError("moe granite sched: no prefix-cache hit")
+    del eng
+
+    # (a3) the n-gram SpecEngine on the same settings, repeated passages
+    tracer = Tracer(enabled=True)
+    eng = SpecEngine(lm, params, spec="ngram", draft_k=4, adaptive=True,
+                     tracer=tracer, **kw)
+    eng.submit(passage_prompt(rng, vocab, 700), max_new_tokens=16)
+    eng.run_to_completion()                  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prompts = [passage_prompt(rng, vocab, int(n))
+               for n in rng.integers(600, 3001, MOE_Q_REQUESTS)]
+    out["a3_spec"] = _moe_paged_drive(eng, tracer, prompts,
+                                      [64] * MOE_Q_REQUESTS,
+                                      "moe granite spec")
+    if out["a3_spec"]["verify_rounds"] <= 0:
+        raise AssertionError("moe granite spec: no verify round")
+    del eng
+
+    # (a2) int8 weights (attention linears; expert stacks stay bf16, the
+    # router fp32) and int8 pools through the paged engine
+    qcfg = cfg.with_(quant="int8", kv_cache_dtype="int8")
+    qlm = LM(qcfg, device="cuda")
+    qparams = quantize_tree(params, quant="int8")
+    del params, lm
+    q_gb = _setup_peak_gb()
+    tracer = Tracer(enabled=True)
+    eng = PagedEngine(qlm, qparams, n_slots=8, max_len=4096, page_size=256,
+                      decode_block=8, seed=SEED, tracer=tracer)
+    eng.submit(rng.integers(0, vocab, 300), max_new_tokens=8)
+    eng.run_to_completion()                  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prompts = [rng.integers(0, vocab, int(n))
+               for n in rng.integers(600, 3001, MOE_Q_REQUESTS)]
+    out["a2_paged_int8"] = _moe_paged_drive(
+        eng, tracer, prompts, rng.integers(32, 65, MOE_Q_REQUESTS),
+        "moe granite paged int8")
+    del eng, qparams, qlm
+    for k, gb in (("a1_sched", weights_gb), ("a3_spec", weights_gb),
+                  ("a2_paged_int8", q_gb)):
+        out[k]["weights_gb"] = gb
+    return out
+
+
+def _moe_scout() -> dict:
+    """(b) llama4-scout-17b-a16e at full width and 8 layers, bf16, through
+    the eager Engine: 2 slots, prompts past its 8,192 window; B3 held
+    windowed at its head shape first."""
+    torch = _torch()
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models.model import LM
+    from repro_torch.obs import Tracer
+    from repro_torch.serve.engine import Engine
+    cfg = get_config(SCOUT).with_(num_layers=SCOUT_LAYERS)
+    a = cfg.attention
+    device = torch.device("cuda")
+    g = torch.Generator(device=device).manual_seed(SEED + 191)
+    q, k, v = _flash_inputs(2, 1024, torch.bfloat16, g, device,
+                            a.num_heads, a.num_kv_heads, a.head_dim)
+    tc0 = fops.tc_launches
+    o = fops.flash_attention(q, k, v, causal=True, window=512)
+    held = check_close(f"B3 S1024 H{a.num_heads}/{a.num_kv_heads} "
+                       f"D{a.head_dim} w512"
+                       + _step_tag(fops.tc_launches - tc0, True), o,
+                       attention_ref(q, k, v, causal=True, window=512), 1.0)
+    del q, k, v, o
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lm = LM(cfg, device="cuda")
+    params = lm.init(SEED)
+    weights_gb = _setup_peak_gb()
+    rng = np.random.default_rng(SEED + 192)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n))
+               for n in rng.integers(9000, 12001, SCOUT_REQUESTS)]
+    tracer = Tracer(enabled=True)
+    eng = Engine(lm, params, n_slots=2, max_len=12_288 + 64, seed=SEED,
+                 tracer=tracer)
+    finite = _watch_logits(lm)
+    eng.submit(rng.integers(0, cfg.vocab_size, 300), max_new_tokens=4)
+    eng.run_to_completion()                  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    r = _eager_drive(eng, tracer, prompts, [32] * SCOUT_REQUESTS,
+                     "moe scout eager", exempt=("rmsnorm",))
+    if not finite():
+        raise AssertionError("moe scout eager: a non-finite logit")
+    r.pop("streams")
+    r["decode_step_wall_ms"] = 1e3 * r["decode_wall_s"] / max(
+        r["decode_steps"], 1)
+    r["weights_gb"] = weights_gb
+    r["held"] = held
+    del eng, lm, params
+    return r
+
+
+def _hold_deepseek_kernels(records: list) -> dict:
+    """B1 / B2 / B3 at deepseek-coder-33b's 56 heads over 8 (D 128), bf16,
+    element by element; B4 / B5 bit for bit against their plain versions
+    on CPU copies and B6 element by element, at its linears; B7 at d 7,168
+    within one bf16 ulp; then B1 (8 slots), B3 (8 x 512), B4 (M 4,096) and
+    B5 (M 8) timed at these shapes beside their plain versions and library
+    calls, with their bounds."""
+    torch = _torch()
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.int8_matmul import ops as qmm
+    from repro_torch.kernels.int8_matmul.ref import (fp8_decode_ref,
+                                                     int8_matmul_ref,
+                                                     quantize_rowwise,
+                                                     w8a8_decode_ref)
+    from repro_torch.kernels.paged_attention import ops as pops
+    from repro_torch.kernels.paged_attention.ref import (
+        paged_attention_ref, paged_prefix_extend_ref)
+    from repro_torch.kernels.rmsnorm import ops as rops
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    device = torch.device("cuda")
+    g = torch.Generator(device=device).manual_seed(SEED + 193)
+    bf16 = torch.bfloat16
+    h, kh, d = 56, 8, 128
+    line, times = [], {}
+    lengths = [0, 1, 300, 1024, 517, 256, 77, 900]
+    for dt in ("bfloat16", "int8"):
+        args = _paged_inputs(dt, g, device, lengths, h, kh, d)
+        tc0 = pops.tc_launches
+        out = pops.paged_attention(*args)
+        tag = f"B1 {dt} H{h}/{kh}" + _step_tag(pops.tc_launches - tc0, True)
+        if not torch.equal(out, pops.paged_attention(*args)):
+            raise AssertionError(f"{tag}: a repeated call differs")
+        _, _, vp, _, _, _, vs = args
+        v = vp.float() if vs is None else vp.float() * vs[:, None, :, None]
+        line.append(check_close(tag, out, paged_attention_ref(*args),
+                                v.pow(2).mean().sqrt().item()))
+    ext = _extend_inputs("bfloat16", g, device, [0, 256, 300, 1024, 0],
+                         [512, 256, 512, 0, 0], 512, h, kh, d)
+    tc0 = pops.extend_tc_launches
+    out = pops.paged_prefix_extend_attention(*ext)
+    line.append(check_close(
+        f"B2 bfloat16 W512 H{h}/{kh}"
+        + _step_tag(pops.extend_tc_launches - tc0, True), out,
+        paged_prefix_extend_ref(*ext), 1.0))
+    q, k, v = _flash_inputs(8, 512, bf16, g, device, h, kh, d)
+    tc0 = fops.tc_launches
+    out = fops.flash_attention(q, k, v, causal=True)
+    line.append(check_close(
+        f"B3 S512 H{h}/{kh}" + _step_tag(fops.tc_launches - tc0, True),
+        out, attention_ref(q, k, v, causal=True), 1.0))
+    for kk, n in DEEPSEEK_QMM:
+        qw, ws, bias = _qlinear(g, device, kk, n, "int8")
+        x = torch.randn((8, kk), generator=g, device=device).to(bf16)
+        tc0 = qmm.decode_tc_launches
+        out = qmm.w8a8_matmul_decode(x, qw, ws, bias=bias)
+        step = "tensor cores" if qmm.decode_tc_launches > tc0 else "ragged"
+        if not torch.equal(out.cpu(), w8a8_decode_ref(
+                _cpu(x), _cpu(qw), _cpu(ws), _cpu(bias))):
+            raise AssertionError(f"B5 K{kk} N{n}: differs from the plain "
+                                 "version on the CPU copy")
+        xq, xs = quantize_rowwise(torch.randn((256, kk), generator=g,
+                                              device=device).to(bf16))
+        tc0 = qmm.tc_launches
+        out = qmm.int8_matmul(xq, qw, xs, ws, out_dtype=bf16)
+        b4_step = "wgmma" if qmm.tc_launches > tc0 else "ragged"
+        if not torch.equal(out.cpu(), int8_matmul_ref(
+                _cpu(xq), _cpu(qw), _cpu(xs), _cpu(ws), bf16)):
+            raise AssertionError(f"B4 M256 K{kk} N{n}: differs from the "
+                                 "plain version on the CPU copy")
+        fw, fs, _ = _qlinear(g, device, kk, n, "fp8")
+        tc0 = qmm.fp8_tc_launches
+        out = qmm.fp8_matmul_decode(x, fw, fs, bias=bias).cpu()
+        ref = fp8_decode_ref(_cpu(x), _cpu(fw), _cpu(fs), _cpu(bias))
+        line.append(f"K{kk} N{n}: B5 M8 [{step}] and B4 M256 [{b4_step}] "
+                    "bit-equal to the plain versions; " + check_close(
+                        "B6 M8" + _step_tag(qmm.fp8_tc_launches - tc0, True),
+                        out, ref, ref.float().pow(2).mean().sqrt().item()))
+    for rows in (8, 4096):
+        x = torch.randn((rows, 7168), generator=g, device=device).to(bf16)
+        w = torch.randn((7168,), generator=g, device=device).to(bf16)
+        worst = _within_one_ulp(f"B7 ({rows}, 7168)", rops.rmsnorm(x, w),
+                                rmsnorm_ref(x.cpu(), w.cpu()))
+        line.append(f"B7 ({rows}, 7168) worst {worst:.2f} ulp")
+    del q, k, v, ext, out
+
+    # times at these shapes: B1 and B3 as phases 3 and 4 time them, with
+    # SDPA as the library call (B1's over the gathered context)
+    def paged_copy():
+        return _paged_inputs("bfloat16", g, device, lengths, h, kh, d)
+    copies = [paged_copy() for _ in range(4)]
+    nbytes, flops = paged_bytes_flops(*[copies[0][i]
+                                        for i in (0, 1, 3, 4, 5)])
+    lib_in = []
+    for q_, kp_, vp_, bt_, ln_, _, _ in copies:
+        t = bt_.shape[1] * kp_.shape[1]
+        mask = (torch.arange(t, device=device)[None, :]
+                < ln_[:, None])[:, None, None, :]
+        lib_in.append((q_[:, :, None, :], *(
+            p_[bt_.long()].reshape(8, t, kh, d).transpose(1, 2).contiguous()
+            for p_ in (kp_, vp_)), mask))
+    times["paged_attention"] = {
+        "ms": time_ms(pops.paged_attention, copies),
+        "plain_ms": time_ms(paged_attention_ref, copies, reps=5, rounds=3),
+        "library_ms": time_ms(lambda qq, kk, vv, mm: F.
+                              scaled_dot_product_attention(
+                                  qq, kk, vv, attn_mask=mm, enable_gqa=True),
+                              lib_in),
+        **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops,
+                                                   "bfloat16"))),
+        "shape": f"8 slots, H{h}/{kh} D{d}, lengths {lengths}"}
+    del lib_in
+    copies = [_flash_inputs(8, 512, bf16, g, device, h, kh, d)
+              for _ in range(4)]
+    qq = copies[0][0]
+    nbytes = 2 * (2 * qq.numel() + 2 * copies[0][1].numel())
+    flops = 4.0 * 8 * h * d * flash_pairs(512, 512, True, None)
+    times["flash_attention"] = {
+        "ms": time_ms(lambda a, b_, c: fops.flash_attention(a, b_, c),
+                      copies),
+        "plain_ms": time_ms(lambda a, b_, c: attention_ref(a, b_, c),
+                            copies, reps=5, rounds=3),
+        "library_ms": time_ms(lambda a, b_, c: F.scaled_dot_product_attention(
+            a.transpose(1, 2), b_.transpose(1, 2), c.transpose(1, 2),
+            is_causal=True, enable_gqa=True), copies),
+        **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops,
+                                                   "bfloat16"))),
+        "shape": f"8 x 512, H{h}/{kh} D{d}, causal"}
+    del copies, qq
+    for kind, m in (("B5", 8), ("B4", 4096)):
+        name = QMM_KERNELS[kind][0]
+        per = {f"K{kk}xN{n}": _qmm_times(kind, m, kk, n, g, device)
+               for kk, n in DEEPSEEK_QMM}
+        times[name] = {"M": m, "per_shape": per}
+    for r in records:
+        if r["name"] in times:
+            r.setdefault("deepseek_shapes", times[r["name"]])
+    print("[19 moe] (c) deepseek-coder-33b kernel shapes: " + "; ".join(line))
+    return {"held": line, "times": times}
+
+
+def _moe_deepseek(records: list) -> dict:
+    """(c) deepseek-coder-33b at full width and all 62 layers, int8
+    weights built one group at a time (its bf16 tree never exists whole),
+    bf16 pools, through the PagedEngine: 8 slots, 8 requests of
+    512-2,048 tokens, 32 new tokens each."""
+    torch = _torch()
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import (init_embedding, init_linear,
+                                           init_norm)
+    from repro_torch.models.model import LM
+    from repro_torch.models.transformer import init_group
+    from repro_torch.obs import Tracer
+    from repro_torch.quant import quantize_tree
+    from repro_torch.serve.engine import PagedEngine
+    kernels = _hold_deepseek_kernels(records)
+    cfg = get_config(DEEPSEEK).with_(quant="int8")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lm = LM(cfg, device="cuda")
+    dev, bf16 = lm.device, torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = {"embed": init_embedding(gen, cfg.vocab_size, cfg.d_model,
+                                      bf16, dev), "layers": []}
+    for _ in range(cfg.num_groups):
+        params["layers"].append(quantize_tree(
+            init_group(gen, cfg, bf16, dev), quant="int8"))
+    params["final_norm"] = init_norm(cfg.norm, cfg.d_model, bf16, dev)
+    params["lm_head"] = init_linear(gen, cfg.d_model, cfg.vocab_size,
+                                    dtype=bf16, device=dev)
+    build_s = time.perf_counter() - t0
+    weights_gb = _setup_peak_gb()
+    rng = np.random.default_rng(SEED + 194)
+    tracer = Tracer(enabled=True)
+    eng = PagedEngine(lm, params, n_slots=8, max_len=2304, page_size=256,
+                      decode_block=8, seed=SEED, tracer=tracer)
+    eng.submit(rng.integers(0, cfg.vocab_size, 300), max_new_tokens=4)
+    eng.run_to_completion()                  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prompts = [rng.integers(0, cfg.vocab_size, int(n))
+               for n in rng.integers(512, 2049, MOE_Q_REQUESTS)]
+    # B7 takes its long-row step past d 2,048, and B5 its ragged step on
+    # the down projection (K 19,200 > 16,384)
+    r = _moe_paged_drive(eng, tracer, prompts, [32] * MOE_Q_REQUESTS,
+                         "deepseek paged int8",
+                         exempt=("rmsnorm", "w8a8_decode_matmul"))
+    r.update(weights_gb=weights_gb, build_s=build_s, kernels=kernels)
+    del eng, params, lm
+    return r
+
+
+def _moe_apply_card_vs_cpu() -> dict:
+    """(d) ``moe_apply`` of one granite and one llama4 layer (random
+    weights from the seed), 4,096 tokens, bf16, both dispatches: the card
+    against the same call on the CPU (relative L2, dropped fraction), and
+    two card calls bit-equal."""
+    torch = _torch()
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import init_moe, moe_apply
+
+    def cpu(tree):
+        return {k: cpu(v) if isinstance(v, dict) else v.cpu()
+                for k, v in tree.items()}
+    out = {}
+    device = torch.device("cuda")
+    for arch in (GRANITE, SCOUT):
+        cfg = get_config(arch)
+        gen = torch.Generator(device=device).manual_seed(SEED + 195)
+        p = init_moe(gen, cfg.d_model, cfg.moe, torch.bfloat16, device)
+        x = torch.randn((1, MOE_APPLY_TOKENS, cfg.d_model), generator=gen,
+                        device=device).bfloat16()
+        p_cpu, x_cpu = cpu(p), x.cpu()
+        for impl in ("einsum", "gather"):
+            kw = dict(train=False, group_size=cfg.moe_group_size, impl=impl)
+            y, aux = moe_apply(p, x, cfg.moe, **kw)
+            again, _ = moe_apply(p, x, cfg.moe, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref, raux = moe_apply(p_cpu, x_cpu, cfg.moe, **kw)
+            cpu_s = time.perf_counter() - t0
+            yf, rf = y.cpu().float(), ref.float()
+            rel = ((yf - rf).norm() / rf.norm()).item()
+            drop = float(aux["moe_dropped_frac"])
+            rdrop = float(raux["moe_dropped_frac"])
+            tag = f"{arch} {impl}"
+            if not torch.equal(y, again):
+                raise AssertionError(f"moe_apply {tag}: two card calls "
+                                     "differ")
+            if not (torch.isfinite(yf).all() and rel <= MOE_REL_L2
+                    and abs(drop - rdrop) <= MOE_DROP_TOL):
+                raise AssertionError(
+                    f"moe_apply {tag}: relative L2 {rel:.3e} (limit "
+                    f"{MOE_REL_L2}), dropped {drop:.5f} vs {rdrop:.5f} on "
+                    f"the CPU (limit {MOE_DROP_TOL})")
+            out[tag] = {"rel_l2": rel, "dropped": drop, "dropped_cpu": rdrop,
+                        "cpu_s": cpu_s}
+        del p, x, p_cpu, x_cpu
+    return out
+
+
+def phase_moe(records: list) -> dict:
+    """MoE serving and deepseek-coder-33b at full depth (see the module
+    docstring, phase 19): (a) granite-moe-3b-a800m, (b)
+    llama4-scout-17b-a16e at 8 layers, (c) deepseek-coder-33b, (d)
+    moe_apply on the card against the CPU."""
+    torch = _torch()
+    t_phase = time.perf_counter()
+    out = {"granite": _moe_granite()}
+    out["scout"] = _moe_scout()
+    out["deepseek"] = _moe_deepseek(records)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["moe_apply"] = _moe_apply_card_vs_cpu()
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    drives = {f"moe_{k}": v for k, v in out["granite"].items()}
+    drives.update(moe_scout=out["scout"], moe_deepseek=out["deepseek"])
+    for r in records:
+        for name, drv in drives.items():
+            if drv["launches"].get(r["name"]):
+                r.setdefault("launches_by_drive", {})[name] = \
+                    drv["launches"][r["name"]]
+    g = out["granite"]
+    print("[19 moe] (a) granite-moe-3b-a800m 32L bf16: "
+          + "; ".join(_moe_line(k, v) for k, v in g.items())
+          + f" | prefix hits {g['a1_sched']['prefix_hit_tokens']} tokens, "
+          f"spec acceptance {g['a3_spec']['acceptance_rate']:.3f}")
+    print(f"[19 moe] (b) llama4-scout-17b-a16e {SCOUT_LAYERS}L bf16 eager, "
+          f"2 slots, window 8192 ({out['scout']['held']}): "
+          + _moe_line("eager", out["scout"]))
+    dd = out["deepseek"]
+    print(f"[19 moe] (c) deepseek-coder-33b 62L int8 weights (built in "
+          f"{dd['build_s']:.1f}s), bf16 pools: "
+          + _moe_line("paged", dd) + " | kernel times at its shapes: "
+          + json.dumps(dd["kernels"]["times"]))
+    print("[19 moe] (d) moe_apply card vs CPU, 4,096 tokens bf16: "
+          + "; ".join(f"{k}: rel L2 {v['rel_l2']:.3e}, dropped "
+                      f"{v['dropped']:.5f} / CPU {v['dropped_cpu']:.5f}, "
+                      f"two card calls bit-equal (CPU {v['cpu_s']:.1f}s)"
+                      for k, v in out["moe_apply"].items())
+          + f" | phase {out['phase_wall_s']:.1f}s")
+    return out
+
+
 def main() -> int:
     dev = phase_device()
     phase_build()
@@ -3658,13 +4279,14 @@ def main() -> int:
     resil = phase_resil(records)
     cost = phase_cost(records)
     search = phase_search(records, cost["calibration"])
+    moe = phase_moe(records)
     out_dir = ROOT / "chiprun_out"
     if out_dir.is_dir():
         (out_dir / "chip_smoke_e2e.json").write_text(json.dumps(
             {"e2e": e2e, "sched": sched, "qsched": qsched, "fp8": fp8,
              "rwkv": rwkv, "spec": spec, "eager": eager, "resil": resil,
-             "cost": cost, "search": search, "kernels": records},
-            indent=1))
+             "cost": cost, "search": search, "moe": moe,
+             "kernels": records}, indent=1))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": dev["kind"],

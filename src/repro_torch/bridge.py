@@ -10,7 +10,10 @@ directly: they are recognised by ``dtype.name`` and cross bit for bit
 through a 16- or 8-bit integer view.  Quantized trees (``{"qw", "scale"}``
 linears: int8, packed-int4 uint8 or fp8 ``qw``) cross the same way, and so
 do RWKV-6 blocks (``rwkv``: ``tmix``, ``wdecay``, ``u``, ``ln_x`` and the
-five linears) and their recurrent states (:func:`state_from_numpy`).
+five linears), their recurrent states (:func:`state_from_numpy`) and MoE
+layers (``moe``: the fp32 router, the ``(E, d, f)`` expert stacks, sliced
+per group from the reference's ``(G, E, d, f)``, and the shared expert).
+Every array keeps its numpy dtype.
 """
 from __future__ import annotations
 

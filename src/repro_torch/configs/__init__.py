@@ -2,9 +2,9 @@
 ``get_smoke_config``.  Holds the ten assigned architectures, as the
 reference registry (``repro.configs``) does, and falls back to the
 paper's own evaluation models (``paper_models``) in ``get_config``.  The
-port serves the dense-attention archs and RWKV-6; the MoE, Mamba,
-encoder and cross-attention configs are data the cost model and the
-search read (serving them is ROADMAP A6)."""
+port serves the dense-attention archs, the MoE archs and RWKV-6; the
+Mamba, encoder and cross-attention configs are data the cost model and
+the search read (serving them is ROADMAP A6)."""
 from __future__ import annotations
 
 from repro_torch.configs import (deepseek_coder_33b, granite_moe_3b_a800m,

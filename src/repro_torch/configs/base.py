@@ -94,8 +94,9 @@ class ModelConfig:
     vocab_size: int = 128_256
     attention: Optional[AttentionConfig] = field(
         default_factory=AttentionConfig)   # None for attention-free models
-    # MoE, encoder and cross-attention fields are data the cost model
-    # reads; the models refuse them until they are ported (ROADMAP A6)
+    # MoE blocks are served (models/moe.py); encoder and cross-attention
+    # fields are data the cost model reads, and the models refuse them
+    # until they are ported (ROADMAP A6)
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     encoder: Optional[EncoderConfig] = None
@@ -124,6 +125,11 @@ class ModelConfig:
     # instead of the plain sdpa (the reference's Pallas switch).  CUDA
     # tensors always take the hand-written kernels, whatever it says.
     use_kernels: bool = False
+    # MoE dispatch: tokens are routed in groups of moe_group_size (a
+    # token's expert capacity depends on its group); einsum (GShard) |
+    # gather (sort / scatter)
+    moe_group_size: int = 512
+    moe_impl: str = "einsum"
     kv_cache_dtype: str = "bfloat16"  # bfloat16 | int8 | fp8
     kv_cache_style: str = "full"      # full | gqa | mqa
     quant: str = "bf16"               # bf16 | fp8 | int8 | int4  (weights)

@@ -2,8 +2,7 @@
 vocab=49155, MoE 40e top-8 — 32… (40) experts top-8.
 [hf:ibm-granite/granite-3.0-1b-a400m-base; hf]
 
-Config data for the cost model and the search; the port does not serve
-MoE blocks yet (ROADMAP A6).
+Served through ``models/moe.py`` by every engine of the port.
 """
 from repro_torch.configs.base import AttentionConfig, ModelConfig, MoEConfig
 

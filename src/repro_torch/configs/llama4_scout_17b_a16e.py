@@ -5,8 +5,8 @@ d_ff=8192 vocab=202048, MoE 16e top-1 — MoE, early fusion.
 Every layer is MoE (16 routed experts, top-1, plus one always-on shared
 expert, llama4-style).  Public Scout interleaves chunked-local attention
 (window 8192) with occasional global NoPE layers; this config uses the
-window everywhere.  Config data for the cost model and the search; the
-port does not serve MoE blocks yet (ROADMAP A6).
+window everywhere.  The window keeps it off the paged engines: it serves
+through the eager ``Engine`` over a contiguous cache.
 """
 from repro_torch.configs.base import AttentionConfig, ModelConfig, MoEConfig
 

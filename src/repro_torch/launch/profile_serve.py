@@ -8,6 +8,10 @@
         --arch rwkv6-1.6b
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         --spec ngram [--kv-dtype int8]
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+        --arch granite-moe-3b-a800m [--engine eager]
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+        --arch llama4-scout-17b-a16e --num-layers 8
 
 Builds qwen2-1.5b at full width (random weights from seed 0) on the main
 path's engine settings (8 slots, page 256, ``decode_block`` 8), admits
@@ -35,6 +39,18 @@ active (every step runs all 8 slots, and its plain attention reads all
 same on rwkv6-1.6b at full width (24 layers; phase 13's settings; the
 WKV-6 kernel in every layer of the admission).
 
+``--arch granite-moe-3b-a800m`` profiles the MoE model on the same
+paged or eager settings (32 layers at full width), and
+``--arch llama4-scout-17b-a16e`` the eager ``Engine`` only (its window
+keeps it off the paged engines), with ``--num-layers 8`` to fit one
+card.  For a MoE config every phase also splits its device time into
+kernel families (the attention kernels, the RMSNorm kernel, matrix
+products, everything else: the router's top-k loop and the dispatch
+bookkeeping), and two more phases time one MoE layer alone
+(``moe_apply`` at a decode step's 8 tokens and an admission's 8 x 512),
+where the matrix products are the expert products and the dispatch /
+combine einsums and the rest is routing.
+
 ``--spec ngram`` profiles one speculative verify round of the
 ``SpecEngine`` instead (qwen2-1.5b at full width, ``chip_smoke.py`` phase
 14's settings: 8 slots, page 256, chunk 512, n-gram drafts of k = 4, not
@@ -59,6 +75,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.kvcache import normalize_dtype
 from repro_torch.models.model import LM
+from repro_torch.models.moe import moe_apply
 from repro_torch.quant import quantize_tree
 from repro_torch.sched import SchedEngine
 from repro_torch.serve.engine import Engine, PagedEngine
@@ -67,6 +84,45 @@ SLOTS, PROMPT, BLOCKS, DECODE_BLOCK, SEED, TOP = 8, 512, 4, 8, 0, 8
 EAGER_PROMPT, EAGER_STEPS = 2048, 32
 #: the continuation chunk's prefixes, one per row (page-aligned)
 CONT_STARTS = (512, 1024, 1536, 2048, 2560, 3072, 1024, 2048)
+
+
+#: kernel-name families of a forward's device time (the rest is "other":
+#: elementwise work, reductions, the MoE router's top-k loop)
+FAMILIES = (("attention", ("paged_decode", "flash_fwd", "prefix_extend")),
+            ("rmsnorm", ("rmsnorm",)),
+            ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "gemv",
+                        "int8_matmul", "w8a8_decode", "fp8_decode")))
+
+
+def families(kernels: dict, busy: float) -> dict:
+    """Device ms by kernel family, and "other_ms" for the rest."""
+    out, seen = {}, set()
+    for fam, keys in FAMILIES:
+        names = [k for k in kernels if k not in seen
+                 and any(s in k.lower() for s in keys)]
+        seen.update(names)
+        out[f"{fam}_ms"] = sum(kernels[k] for k in names)
+    out["other_ms"] = busy - sum(out.values())
+    return out
+
+
+def _moe_alone(lm, params) -> list:
+    """One MoE layer alone (``moe_apply`` of the first block) at a decode
+    step's tokens and an admission's."""
+    cfg = lm.cfg
+    p = params["layers"][0]["blk0"]["moe"]
+    out = []
+    for b, s in ((SLOTS, 1), (SLOTS, PROMPT)):
+        x = torch.randn((b, s, cfg.d_model), dtype=lm.dtype,
+                        device="cuda")
+
+        def run(x=x):
+            moe_apply(p, x, cfg.moe, train=False,
+                      group_size=cfg.moe_group_size, impl=cfg.moe_impl)
+        run()
+        out.append(_phase(f"moe layer alone, {b}x{s} tokens", run,
+                          families))
+    return out
 
 
 def _device_kernels(prof) -> tuple[dict, int]:
@@ -112,7 +168,9 @@ def _phase(name: str, run, extra=None) -> dict:
           f"{busy:.3f} ms, idle share {res['idle_share']:.3f}, "
           f"{runs} kernel runs"
           + "".join(f", {k} {v:.3f}" for k, v in res.items()
-                    if k.endswith("_share") and k != "idle_share"))
+                    if k.endswith(("_share", "_ms")) and k not in (
+                        "idle_share", "wall_ms", "device_busy_ms",
+                        "top_kernels_ms")))
     for k, v in ranked:
         print(f"    {v:9.3f} ms  {k[:100]}")
     return res
@@ -130,11 +188,14 @@ def _eager_phases(cfg) -> tuple:
     # through every decode step below
     eng.submit(prompt, max_new_tokens=4 * EAGER_STEPS)
     eng.step()
+    split = families if cfg.moe is not None else None
     results = [
         _phase(f"admit 1x{EAGER_PROMPT}",
-               lambda: eng._prefill_slot(prompt, SLOTS - 1).cpu()),
+               lambda: eng._prefill_slot(prompt, SLOTS - 1).cpu(), split),
         _phase(f"decode {EAGER_STEPS} steps, {SLOTS} slots (1 active)",
-               lambda: [eng.step() for _ in range(EAGER_STEPS)])]
+               lambda: [eng.step() for _ in range(EAGER_STEPS)], split)]
+    if cfg.moe is not None:
+        results += _moe_alone(lm, eng.params)
     return cfg, results
 
 
@@ -210,7 +271,12 @@ def _spec_phases(kv_dtype: str) -> tuple:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default="qwen2-1.5b",
-                    choices=["qwen2-1.5b", "rwkv6-1.6b"])
+                    choices=["qwen2-1.5b", "rwkv6-1.6b",
+                             "granite-moe-3b-a800m",
+                             "llama4-scout-17b-a16e"])
+    ap.add_argument("--num-layers", type=int, default=None,
+                    help="cut the depth (llama4-scout needs 8 to fit one "
+                         "card)")
     ap.add_argument("--quant", default="bf16",
                     choices=["bf16", "fp8", "int8", "int4"])
     ap.add_argument("--kv-dtype", default="bf16",
@@ -227,7 +293,7 @@ def main(argv=None) -> int:
         ap.error("--spec profiles qwen2-1.5b with bf16 weights")
     if args.arch == "rwkv6-1.6b" and (args.quant != "bf16"
                                       or args.kv_dtype != "bf16"):
-        ap.error("--quant and --kv-dtype apply to qwen2-1.5b only")
+        ap.error("--quant and --kv-dtype do not apply to rwkv6-1.6b")
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -235,13 +301,15 @@ def main(argv=None) -> int:
         cfg, results = _spec_phases(normalize_dtype(args.kv_dtype))
         _report(cfg, results)
         return 0
-    if args.arch == "rwkv6-1.6b" or args.engine == "eager":
-        cfg, results = _eager_phases(get_config(args.arch).with_(
-            quant=args.quant, kv_cache_dtype=normalize_dtype(args.kv_dtype)))
+    cfg = get_config(args.arch).with_(
+        quant=args.quant, kv_cache_dtype=normalize_dtype(args.kv_dtype))
+    if args.num_layers is not None:
+        cfg = cfg.with_(num_layers=args.num_layers)
+    if cfg.attention is None or cfg.attention.window is not None \
+            or args.engine == "eager":
+        cfg, results = _eager_phases(cfg)
         _report(cfg, results)
         return 0
-    cfg = get_config("qwen2-1.5b").with_(
-        quant=args.quant, kv_cache_dtype=normalize_dtype(args.kv_dtype))
     lm = LM(cfg, device="cuda")
     params = quantize_tree(lm.init(SEED), quant=args.quant)
     rng = np.random.default_rng(SEED)
@@ -283,12 +351,16 @@ def main(argv=None) -> int:
         lm.prefill_paged(prepared, *chunk, max_pages=pps)
 
     cont()                                     # first launch, build
+    split = families if cfg.moe is not None else None
     results = [
-        _phase(f"admit {SLOTS}x{PROMPT}", admit),
+        _phase(f"admit {SLOTS}x{PROMPT}", admit, split),
         _phase(f"decode {BLOCKS}x{DECODE_BLOCK} steps, {SLOTS} slots",
-               lambda: [warm._dispatch_decode([]) for _ in range(BLOCKS)]),
+               lambda: [warm._dispatch_decode([]) for _ in range(BLOCKS)],
+               split),
         _phase(f"continuation chunk {SLOTS}x{PROMPT}, prefixes "
-               f"{min(CONT_STARTS)}-{max(CONT_STARTS)}", cont)]
+               f"{min(CONT_STARTS)}-{max(CONT_STARTS)}", cont, split)]
+    if cfg.moe is not None:
+        results += _moe_alone(lm, prepared)
     _report(cfg, results)
     return 0
 

@@ -5,10 +5,11 @@ over group-stacked parameters; the port keeps a Python list of groups and
 loops over it.  Block layout (pre-norm residual):
 
     x = x + mixer(norm1(x))            mixer ∈ {attn, rwkv6}
-    x = x + mlp(norm2(x))
+    x = x + mlp_or_moe(norm2(x))
 
-Attention and RWKV-6 blocks with a dense SwiGLU MLP are ported; Mamba
-(ROADMAP A6) and other block kinds raise.
+Attention and RWKV-6 blocks with a dense SwiGLU MLP or a MoE layer on
+every ``moe_every``-th block are ported; Mamba, MLA, encoder and
+cross-attention models (ROADMAP A6) raise.
 """
 from __future__ import annotations
 
@@ -20,18 +21,20 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import init_mlp, init_norm, mlp_apply, norm_apply
+from repro_torch.models.moe import init_moe, moe_apply
 
 
 def block_kinds(cfg: ModelConfig) -> list[dict]:
-    """Per-block metadata for one group (attention and RWKV-6 blocks)."""
+    """Per-block metadata for one group (attention and RWKV-6 blocks,
+    each with a dense MLP or a MoE layer)."""
     a = cfg.attention
-    if cfg.moe is not None or cfg.encoder is not None \
-            or cfg.cross_attn_every or (a is not None and a.kind == "mla"):
+    if cfg.encoder is not None or cfg.cross_attn_every \
+            or (a is not None and a.kind == "mla"):
         raise NotImplementedError(
-            "MoE, MLA, encoder and cross-attention models are not ported "
-            "yet (ROADMAP A6); their config fields are cost-model data")
+            "MLA, encoder and cross-attention models are not ported yet "
+            "(ROADMAP A6); their config fields are cost-model data")
     out = []
-    for kind in cfg.block_pattern:
+    for i, kind in enumerate(cfg.block_pattern):
         if kind == "mamba":
             raise NotImplementedError(
                 "block kind 'mamba' is not ported yet (ROADMAP A6)")
@@ -39,7 +42,8 @@ def block_kinds(cfg: ModelConfig) -> list[dict]:
             raise NotImplementedError(
                 f"block kind {kind!r}: only attention and RWKV-6 blocks "
                 "are ported")
-        out.append({"kind": kind})
+        out.append({"kind": kind,
+                    "moe": cfg.moe is not None and i % cfg.moe_every == 0})
     return out
 
 
@@ -56,8 +60,12 @@ def init_group(gen: torch.Generator, cfg: ModelConfig, dtype=torch.bfloat16,
             blk["rwkv"] = ssm_mod.init_rwkv6(gen, cfg.d_model, cfg.ssm,
                                              dtype, device)
         blk["norm2"] = init_norm(cfg.norm, cfg.d_model, dtype, device)
-        blk["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, bias=cfg.mlp_bias,
-                              dtype=dtype, device=device)
+        if bk["moe"]:
+            blk["moe"] = init_moe(gen, cfg.d_model, cfg.moe, dtype, device)
+        else:
+            blk["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff,
+                                  bias=cfg.mlp_bias, dtype=dtype,
+                                  device=device)
         group[f"blk{i}"] = blk
     return group
 
@@ -156,7 +164,14 @@ def group_forward(gp: dict, x: torch.Tensor, cfg: ModelConfig, *,
             new_cache[f"blk{i}"] = {"kv": kv}
         x = x + y
         h = norm_apply(cfg.norm, blk["norm2"], x, cfg.norm_eps)
-        x = x + mlp_apply(blk["mlp"], h, impl)
+        if bk["moe"]:
+            # every forward of the port serves: eval capacity, aux dropped
+            y, _ = moe_apply(blk["moe"], h, cfg.moe, train=False,
+                             group_size=cfg.moe_group_size,
+                             impl=cfg.moe_impl, quant_impl=impl)
+        else:
+            y = mlp_apply(blk["mlp"], h, impl)
+        x = x + y
     return x, (new_cache if cache is not None else None)
 
 

@@ -107,8 +107,11 @@ def quantize_tree(params, *, quant: str = "int8",
                   targets: str = QUANT_TARGETS):
     """Quantize every matching linear of a parameter tree (nested dicts
     and lists, paths joined with "/"; the port's layer stack is a list of
-    groups, so every weight is 2-D).  bf16 / none / fp16 return the tree
-    as it is."""
+    groups, so every linear's ``w`` is 2-D).  As in the reference's
+    ``QUANT_TARGETS``, a MoE layer's expert stacks (bare ``(E, d, f)``
+    arrays, not ``{"w"}`` linears) and its router (``/moe/router``, kept
+    fp32) are not targets; its shared expert's ``gate`` / ``up`` /
+    ``down`` are.  bf16 / none / fp16 return the tree as it is."""
     if quant in ("bf16", "none", "fp16"):
         return params
 

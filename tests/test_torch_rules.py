@@ -50,7 +50,7 @@ def test_scan_covers_the_scheduler_and_every_kernel_module():
                 "kernels/paged_attention/ref.py", "kernels/build.py",
                 "quant/__init__.py", "quant/qops.py",
                 "kernels/int8_matmul/ops.py", "kernels/int8_matmul/ref.py",
-                "kvcache/quant.py", "models/ssm.py",
+                "kvcache/quant.py", "models/ssm.py", "models/moe.py",
                 "kernels/wkv6/__init__.py", "kernels/wkv6/ops.py",
                 "kernels/wkv6/ref.py", "kernels/rmsnorm/__init__.py",
                 "kernels/rmsnorm/ops.py", "kernels/rmsnorm/ref.py",
@@ -425,22 +425,36 @@ def test_copied_configs_agree_with_reference(arch):
     assert tconfigs.ARCH_IDS == jconfigs.ARCH_IDS
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m",
-                                  "llama4-scout-17b-a16e",
-                                  "jamba-1.5-large-398b", "whisper-base",
-                                  "llama-3.2-vision-11b", "mixtral-8x7b",
-                                  "llava-1.5-7b"])
-def test_engines_refuse_unported_blocks_naming_a6(arch):
-    """MoE, Mamba, encoder and cross-attention configs are the cost
-    model's data: the model, the eager ``Engine`` and ``PagedEngine``
-    (so the scheduler and ``SpecEngine`` too) refuse them, naming the
-    roadmap item that ports them."""
+@pytest.mark.parametrize("arch,served", [
+    ("granite-moe-3b-a800m", True), ("llama4-scout-17b-a16e", True),
+    ("jamba-1.5-large-398b", False), ("whisper-base", False),
+    ("llama-3.2-vision-11b", False), ("mixtral-8x7b", True),
+    ("llava-1.5-7b", False)])
+def test_engines_refuse_unported_blocks_naming_a6(arch, served):
+    """Mamba, encoder and cross-attention configs are the cost model's
+    data: the model, the eager ``Engine`` and ``PagedEngine`` (so the
+    scheduler and ``SpecEngine`` too) refuse them, naming the roadmap
+    item that ports them.  The MoE configs are served: ``LM.init`` builds
+    them, their logits are finite, and ``Engine`` and (without a window)
+    ``PagedEngine`` take them."""
     from repro_torch.models.model import LM
     from repro_torch.serve.engine import Engine, PagedEngine
     cfg = tconfigs.get_smoke_config(arch) if arch in tconfigs.ARCH_IDS \
         else tconfigs.get_config(arch).with_(num_layers=4, d_model=64,
                                              d_ff=128, vocab_size=512)
+    if cfg.moe is not None and arch not in tconfigs.ARCH_IDS:
+        cfg = cfg.with_(moe=dataclasses.replace(cfg.moe, d_ff=128))
     lm = LM(cfg, device="cpu")
+    if served:
+        params = lm.init(0)
+        assert all("moe" in blk for group in params["layers"]
+                   for blk in group.values())
+        assert torch.isfinite(lm.logits(params, torch.arange(6)[None])).all()
+        engines = (Engine, PagedEngine) if cfg.attention.window is None \
+            else (Engine,)
+        for eng in engines:
+            eng(lm, params, n_slots=1, max_len=16)
+        return
     with pytest.raises(NotImplementedError, match="A6"):
         lm.init(0)
     for eng in (Engine, PagedEngine):
@@ -471,11 +485,46 @@ def test_chip_smoke_drives_the_search_phase():
                  if isinstance(c, ast.Call) and ast.unparse(c.func) in funcs
                  and ast.unparse(c.func) not in reached]
     body = "\n".join(ast.unparse(funcs[n]) for n in sorted(reached))
-    for needle in ("AutoTuner", "h100-1", "SpaceMask", "attention_arms=False",
-                   "moe_arms=False", "recommend_efficient", "recalibrate",
+    assert "moe_arms=False" not in body      # the MoE arms are served
+    for needle in ("AutoTuner", "h100-1", "SpaceMask(attention_arms=False)",
+                   "recommend_efficient", "recalibrate",
                    "CalibratedCostModel", "apply_efficiency_config",
                    "apply_to_params", "SchedEngine", "SpecEngine",
                    "layout='paged'", "_reset_launches", "max_memory_allocated",
                    "n_pages"):
         assert needle in body, needle
     assert "[18 search]" in text
+
+
+def test_chip_smoke_drives_the_moe_phase():
+    """chip_smoke.py has a MoE phase that its main runs after the search
+    phase: granite-moe-3b-a800m at full width through the scheduler, the
+    paged engine with int8 weights and the n-gram SpecEngine,
+    llama4-scout-17b-a16e at 8 layers through the eager Engine past its
+    window, deepseek-coder-33b at full depth with int8 weights built a
+    group at a time through the paged engine (its kernel shapes held
+    first), and moe_apply on the card against the CPU, each arm checked
+    for full streams, freed pages and launches derived from the
+    config."""
+    text = (ROOT / "chip_smoke.py").read_text()
+    tree = ast.parse(text)
+    funcs = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    main_calls = [ast.unparse(c.func) for c in ast.walk(funcs["main"])
+                  if isinstance(c, ast.Call)]
+    assert "phase_moe" in main_calls
+    assert main_calls.index("phase_moe") > main_calls.index("phase_search")
+    reached, todo = set(), ["phase_moe"]
+    while todo:
+        name = todo.pop()
+        reached.add(name)
+        todo += [ast.unparse(c.func) for c in ast.walk(funcs[name])
+                 if isinstance(c, ast.Call) and ast.unparse(c.func) in funcs
+                 and ast.unparse(c.func) not in reached]
+    body = "\n".join(ast.unparse(funcs[n]) for n in sorted(reached))
+    for needle in ("granite-moe-3b-a800m", "llama4-scout-17b-a16e",
+                   "deepseek-coder-33b", "SchedEngine", "PagedEngine",
+                   "SpecEngine", "Engine(", "init_group", "quantize_tree",
+                   "moe_apply", "'gather'", "_reset_launches",
+                   "max_memory_allocated", "n_pages", "isfinite"):
+        assert needle in body, needle
+    assert "[19 moe]" in text

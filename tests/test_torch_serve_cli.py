@@ -17,6 +17,8 @@ near-ties), the port's on JAX's ``LM.init`` weights for the same seed
 * ``--calibration-in`` seeds the next drive's calibration; Prometheus text
   for ``.prom``; EDF ``--admission-control`` and ``--kv-style`` run.
 * A drive that raises mid-way still writes ``--metrics``.
+* ``--arch granite-moe-3b-a800m`` (MoE) through ``--paged`` and the
+  scheduler with ``--prefill-chunk`` gives JAX's streams and syncs.
 """
 import json
 
@@ -184,3 +186,32 @@ def test_failed_drive_still_writes_metrics(tmp_path):
     assert snap["counters"]["serve_requests_submitted_total"] == 4
     assert "costmodel_t_prefill_s" in snap["gauges"]
     assert json.loads(t.read_text())["traceEvents"]
+
+
+@pytest.mark.parametrize("engine", [["--paged"], ["--policy", "fcfs"]],
+                         ids=["paged", "sched"])
+def test_moe_arch_streams_match_jax(engine):
+    """``--arch granite-moe-3b-a800m --smoke``: the paged engine, and the
+    scheduler with ``--prefill-chunk 16``, serve JAX's streams with its
+    host syncs."""
+    import repro.serve.engine as jengine_mod
+    engines = []
+    with pytest.MonkeyPatch.context() as mp:
+        _patch(mp, engines)
+        for mod in (jengine_mod, tserve):
+            base = mod.PagedEngine
+
+            class Kept(base):
+                def __init__(self, *a, **k):
+                    super().__init__(*a, **k)
+                    engines.append(self)
+            mp.setattr(mod, "PagedEngine", Kept)
+        argv = ARGS + ["--arch", "granite-moe-3b-a800m"] + engine
+        assert jserve.main(argv) == 0
+        assert tserve.main(argv + ["--device", "cpu"]) == 0
+    jeng, teng = engines
+    assert teng.lm.cfg.moe is not None
+    assert type(teng).__mro__[1].__name__ == type(jeng).__mro__[1].__name__
+    assert _streams(teng) == _streams(jeng)
+    assert all(len(s) == 6 for s in _streams(teng))
+    assert teng.sync_count == jeng.sync_count
