@@ -4254,6 +4254,464 @@ def phase_moe(records: list) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: training
+
+TRAIN_ARCH = "llama3.2-1b"     # the reference's default --arch for training
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 20, 8, 512
+TRAIN_CKPT_EVERY = 10
+RESUME_STEPS = 5               # (d): steps after the resume
+PEFT_STEPS, PEFT_RANK = 10, 16
+PEFT_METHODS = ("lora", "qlora", "dora")
+TRAIN_GRAD_REL_L2 = 1e-4       # (b): smoke configs, card vs CPU, float32
+TRAIN_GRAD_B, TRAIN_GRAD_S = 2, 128
+MOE_RWKV_LAYERS, MOE_RWKV_STEPS = 4, 5
+PROXY_METHODS = ("full", "lora", "qlora")
+TRAIN_SERVE_REQUESTS = 8
+
+
+def _train_quiet(_msg) -> None:
+    pass
+
+
+def _no_launches(tag: str) -> dict:
+    """The eight kernels' counters must still read 0: the training path
+    launches none of them (the reference's launches none of its Pallas
+    kernels)."""
+    got = _read_launches()
+    if any(got.values()):
+        raise AssertionError(f"{tag}: kernel launches in a training run: "
+                             f"{got}")
+    return got
+
+
+def _train_cli(tmp: Path) -> dict:
+    """(a) ``repro_torch.launch.train.main`` for llama3.2-1b at full width
+    and depth, bf16, 20 steps of 8 x 512 tokens, checkpoints every 10."""
+    torch = _torch()
+    from repro_torch.launch import train as train_cli
+    hist = tmp / "a_history.json"
+    argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
+            "--global-batch", str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ),
+            "--ckpt-dir", str(tmp / "ckpt"),
+            "--ckpt-every", str(TRAIN_CKPT_EVERY), "--log-every", "1",
+            "--seed", str(SEED), "--history-out", str(hist)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    rc = train_cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _no_launches("(a) launch.train")
+    h = json.loads(hist.read_text())
+    losses = [r["loss"] for r in h]
+    dts = [r["dt"] for r in h]
+    if rc != 0 or len(h) != TRAIN_STEPS:
+        raise AssertionError(f"(a) rc {rc}, {len(h)} history rows")
+    if not all(map(lambda v: v == v and abs(v) < float("inf"), losses)):
+        raise AssertionError(f"(a) non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"(a) loss did not fall: {losses}")
+    p50 = statistics.median(dts)
+    return {"losses": losses, "dt_s": dts, "step_p50_s": p50,
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / p50,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "wall_s": wall, "grad_norm_last": h[-1]["grad_norm"],
+            "launches": launches, "ckpt_dir": str(tmp / "ckpt")}
+
+
+def _grads_card_vs_cpu() -> dict:
+    """(b) One loss + backward of the float32 smoke configs of
+    llama3.2-1b and granite-moe on the card against the same parameters
+    and batch on the CPU (every leaf within TRAIN_GRAD_REL_L2 relative
+    L2); then one backward of llama3.2-1b at full width, bf16: every float
+    leaf's gradient exists (a kernel on the path would cut the graph:
+    its output carries no grad_fn) and is finite."""
+    torch = _torch()
+    import numpy as np
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models.model import LM
+    from repro_torch.train.loop import loss_and_grads
+    from repro_torch.tree import leaves_with_path, tree_map
+    out = {}
+    rng = np.random.default_rng(SEED)
+    _reset_launches()
+    for arch in (TRAIN_ARCH, GRANITE):
+        cfg = get_smoke_config(arch).with_(dtype="float32")
+        cpu = LM(cfg, device="cpu")
+        card = LM(cfg, device="cuda")
+        p_cpu = cpu.init(SEED)
+        p_card = tree_map(lambda t: t.cuda(), p_cpu)
+        toks = rng.integers(0, cfg.vocab_size,
+                            (TRAIN_GRAD_B, TRAIN_GRAD_S + 1))
+        b = {"tokens": torch.from_numpy(toks[:, :-1]).long(),
+             "labels": torch.from_numpy(toks[:, 1:]).long()}
+        l_cpu, _, g_cpu = loss_and_grads(cpu, p_cpu, b)
+        l_card, _, g_card = loss_and_grads(
+            card, p_card, {k: v.cuda() for k, v in b.items()})
+        worst = 0.0
+        for (path, gh), (_, gd) in zip(leaves_with_path(g_cpu),
+                                       leaves_with_path(g_card)):
+            if gh is None:
+                continue
+            rel = ((gd.cpu() - gh).norm() / gh.norm().clamp(min=1e-30)).item()
+            if not rel <= TRAIN_GRAD_REL_L2:
+                raise AssertionError(f"(b) {arch} {path}: relative L2 "
+                                     f"{rel:.3e} card vs CPU")
+            worst = max(worst, rel)
+        out[arch] = {"loss_card": float(l_card), "loss_cpu": float(l_cpu),
+                     "worst_rel_l2": worst}
+    # full width: the raw autograd result, None kept
+    cfg = get_config(TRAIN_ARCH)
+    lm = LM(cfg, device="cuda")
+    params = lm.init(SEED)
+    leaves = []
+
+    def track(t):
+        if not t.is_floating_point():
+            return t
+        t = t.detach().requires_grad_()
+        leaves.append(t)
+        return t
+    live = tree_map(track, params)
+    toks = rng.integers(0, cfg.vocab_size, (TRAIN_GRAD_B, TRAIN_SEQ + 1))
+    b = {"tokens": torch.from_numpy(toks[:, :-1]).long().cuda(),
+         "labels": torch.from_numpy(toks[:, 1:]).long().cuda()}
+    loss, _ = lm.loss(live, b)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    missing = sum(g is None for g in grads)
+    finite = all(bool(torch.isfinite(g).all()) for g in grads
+                 if g is not None)
+    if missing or not finite:
+        raise AssertionError(f"(b) full width: {missing} leaves without a "
+                             f"gradient, all finite: {finite}")
+    out["full_width"] = {"leaves": len(leaves), "loss": loss.item()}
+    out["launches"] = _no_launches("(b)")
+    del params, live, leaves, grads, loss
+    return out
+
+
+def _peft_full_width(method: str, peak_a: float) -> tuple:
+    """(c) One PEFT arm at full width: llama3.2-1b bf16 with rank-16
+    adapters (qlora: on the int4 base), PEFT_STEPS steps of 8 x 512.
+    Frozen leaves bit-equal before and after, the trainable elements =
+    ``count_trainable``, every trainable leaf moved, the loss falls."""
+    torch = _torch()
+    from repro_torch.configs import get_config
+    from repro_torch.core.apply import apply_to_params
+    from repro_torch.core.space import (ArchChoice, EfficiencyConfig,
+                                        FtChoice, InfChoice)
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models.model import LM
+    from repro_torch.optim.adamw import cosine_schedule
+    from repro_torch.peft.lora import count_trainable, trainable_mask
+    from repro_torch.train.loop import Trainer
+    from repro_torch.tree import leaves_with_path
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(TRAIN_ARCH)
+    lm = LM(cfg, device="cuda")
+    eff = EfficiencyConfig(ArchChoice(), FtChoice(method, PEFT_RANK, 2),
+                           InfChoice())
+    params = apply_to_params(lm.init(SEED), eff, SEED + 1)
+    mask = trainable_mask(params, method)
+    mflat = dict(leaves_with_path(mask))
+    frozen = {p: t.clone() for p, t in leaves_with_path(params)
+              if not mflat[p]}
+    start = {p: t.clone() for p, t in leaves_with_path(params) if mflat[p]}
+    n_train, n_all = count_trainable(params, mask)
+    _reset_launches()
+    tr = Trainer(lm, SyntheticLMData(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                                     seed=SEED),
+                 lr=cosine_schedule(1e-3, 2, PEFT_STEPS), log_every=1,
+                 log_fn=_train_quiet)
+    tr.set_params(params, mask=mask)
+    t0 = time.perf_counter()
+    hist = tr.run(PEFT_STEPS)
+    wall = time.perf_counter() - t0
+    launches = _no_launches(f"(c) {method}")
+    after = dict(leaves_with_path(tr.params))
+    for p, t in frozen.items():
+        a, b = after[p], t
+        if a.element_size() == 1:
+            a, b = a.view(torch.uint8), b.view(torch.uint8)
+        if not torch.equal(a, b):
+            raise AssertionError(f"(c) {method}: frozen leaf {p} moved")
+    moved = sum(after[p].numel() for p, t in start.items()
+                if not torch.equal(after[p], t))
+    with_state = sum(m.numel() for _, m in leaves_with_path(tr.opt_state.mu))
+    if not (with_state == n_train == moved):
+        raise AssertionError(f"(c) {method}: trainable {n_train} "
+                             f"(count_trainable), AdamW state {with_state},"
+                             f" moved {moved}")
+    losses = [r["loss"] for r in hist]
+    if not all(v == v for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"(c) {method}: losses {losses}")
+    res = {"losses": losses, "trainable": n_train, "total": n_all,
+           "step_p50_s": statistics.median(r["dt"] for r in hist),
+           "wall_s": wall,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "peak_vs_full": torch.cuda.max_memory_allocated() / 1e9 / peak_a,
+           "launches": launches}
+    return res, (lm, tr.params if method == "lora" else None)
+
+
+def _resume(ckpt_dir: str) -> dict:
+    """(d) A fresh Trainer on (a)'s directory resumes at step 20 with the
+    parameters, AdamW state and DataState saved there, bit for bit
+    (against the checkpoint's arrays read independently), then runs
+    RESUME_STEPS steps."""
+    torch = _torch()
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models.model import LM
+    from repro_torch.optim.adamw import cosine_schedule
+    from repro_torch.train.loop import Trainer
+    from repro_torch.tree import leaves_with_path
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(TRAIN_ARCH)
+    lm = LM(cfg, device="cuda")
+    t0 = time.perf_counter()
+    saved = CheckpointManager(ckpt_dir).restore()
+    read_s = time.perf_counter() - t0
+    total = TRAIN_STEPS + RESUME_STEPS
+    tr = Trainer(lm, SyntheticLMData(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                                     seed=SEED),
+                 lr=cosine_schedule(3e-4, 20, total), ckpt_dir=ckpt_dir,
+                 log_every=1, log_fn=_train_quiet)
+    t0 = time.perf_counter()
+    tr.init_or_resume(SEED + 7)        # another seed: it must restore
+    resume_s = time.perf_counter() - t0
+    if tr.step != TRAIN_STEPS or tr.opt_state.step != TRAIN_STEPS:
+        raise AssertionError(f"(d) resumed at step {tr.step} / optimizer "
+                             f"{tr.opt_state.step}")
+    arrays = saved["arrays"]
+    n = 0
+    for prefix, tree in (("params/", tr.params), ("opt/mu/", tr.opt_state.mu),
+                         ("opt/nu/", tr.opt_state.nu)):
+        for path, t in leaves_with_path(tree):
+            if not torch.equal(t.cpu(), arrays[prefix + path]):
+                raise AssertionError(f"(d) {prefix}{path} differs from the "
+                                     "checkpoint")
+            n += 1
+    want_ds = {"seed": SEED, "step": TRAIN_STEPS}
+    if saved["data_state"] != want_ds or \
+            tr.pipe.state.to_dict() != want_ds:
+        raise AssertionError(f"(d) data state {tr.pipe.state} / saved "
+                             f"{saved['data_state']}")
+    tr.mgr = None      # (d) checks the restore; its steps save nothing
+    _reset_launches()
+    hist = tr.run(total)
+    launches = _no_launches("(d)")
+    losses = [r["loss"] for r in hist]
+    if len(losses) != RESUME_STEPS or not all(v == v for v in losses):
+        raise AssertionError(f"(d) losses after the resume: {losses}")
+    return {"tensors_checked": n, "read_s": read_s, "resume_s": resume_s,
+            "losses": losses, "launches": launches}
+
+
+def _serve_trained(lm, params) -> dict:
+    """(e) (c)'s LoRA parameters served through PagedEngine, 8 requests,
+    merged (``merge_lora``) and with the adapters unmerged: full streams,
+    B1 / B3 / B7 launched; the first prompt's prefill logits, merged vs
+    unmerged, within LOGIT_REL_L2."""
+    torch = _torch()
+    import numpy as np
+    from repro_torch.peft.lora import merge_lora
+    from repro_torch.serve.engine import PagedEngine
+    rng = np.random.default_rng(SEED + 20)
+    prompts = [rng.integers(0, lm.cfg.vocab_size, (int(n),))
+               for n in rng.integers(128, 513, TRAIN_SERVE_REQUESTS)]
+    out = {}
+    logits = {}
+    for arm, p in (("unmerged", params), ("merged", merge_lora(params))):
+        cache = lm.init_cache(1, 512)
+        first = torch.from_numpy(prompts[0][None]).cuda()
+        lg, _ = lm.prefill(p, first, cache)
+        logits[arm] = lg.float()
+        eng = PagedEngine(lm, p, n_slots=8, max_len=1024, page_size=256,
+                          decode_block=8, seed=SEED)
+        _reset_launches()
+        t0 = time.perf_counter()
+        ids = [eng.submit(q, max_new_tokens=32) for q in prompts]
+        done = eng.run_to_completion()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in _read_launches().items() if v}
+        short = [i for i in ids if len(done[i].out_tokens) != 32]
+        if short or not all(launches.get(k) for k in
+                            ("paged_attention", "flash_attention",
+                             "rmsnorm")):
+            raise AssertionError(f"(e) {arm}: short streams {short}, "
+                                 f"launches {launches}")
+        out[arm] = {"launches": launches, "wall_s": wall,
+                    "tokens_per_s": 32 * len(ids) / wall}
+        del eng
+    a, b = logits["unmerged"], logits["merged"]
+    rel = ((a - b).norm() / b.norm()).item()
+    if not (torch.isfinite(a).all() and rel <= LOGIT_REL_L2):
+        raise AssertionError(f"(e) merged vs unmerged logits: relative L2 "
+                             f"{rel:.3e} (limit {LOGIT_REL_L2})")
+    out["logit_rel_l2"] = rel
+    return out
+
+
+def _moe_rwkv_train() -> dict:
+    """(f) granite-moe-3b-a800m and rwkv6-1.6b at full width and
+    MOE_RWKV_LAYERS layers, bf16, MOE_RWKV_STEPS steps of 8 x 512: finite
+    losses, the MoE aux losses in granite's metrics, no kernel launch."""
+    torch = _torch()
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models.model import LM
+    from repro_torch.optim.adamw import cosine_schedule
+    from repro_torch.train.loop import Trainer
+    out = {}
+    for arch in (GRANITE, "rwkv6-1.6b"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_config(arch).with_(num_layers=MOE_RWKV_LAYERS)
+        lm = LM(cfg, device="cuda")
+        tr = Trainer(lm, SyntheticLMData(cfg.vocab_size, TRAIN_SEQ,
+                                         TRAIN_BATCH, seed=SEED),
+                     lr=cosine_schedule(3e-4, 1, MOE_RWKV_STEPS),
+                     log_every=1, log_fn=_train_quiet)
+        tr.init_or_resume(SEED)
+        _reset_launches()
+        hist = tr.run(MOE_RWKV_STEPS)
+        launches = _no_launches(f"(f) {arch}")
+        losses = [r["loss"] for r in hist]
+        if not all(v == v and abs(v) < float("inf") for v in losses):
+            raise AssertionError(f"(f) {arch}: losses {losses}")
+        if cfg.moe is not None and not {"moe_lb_loss", "moe_z_loss"} <= \
+                hist[-1].keys():
+            raise AssertionError(f"(f) {arch}: metrics {sorted(hist[-1])}")
+        out[arch] = {"losses": losses,
+                     "step_p50_s": statistics.median(r["dt"] for r in hist),
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "aux": {k: hist[-1][k] for k in hist[-1]
+                             if k.startswith("moe_")},
+                     "launches": launches}
+        del tr, lm
+    return out
+
+
+def _proxy_evaluator() -> dict:
+    """(g) The search's proxy evaluator at h100-1 for qwen2-1.5b: the
+    reduced model trained on the card for the default 60 steps under
+    full, lora and qlora; its accuracy objective and seconds."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.costmodel import TIERS
+    from repro_torch.core.evaluator import Evaluator
+    from repro_torch.core.features import TASKS
+    from repro_torch.core.space import (ArchChoice, EfficiencyConfig,
+                                        FtChoice, InfChoice)
+    ev = Evaluator(get_config("qwen2-1.5b"), TASKS["mmlu"], TIERS["h100-1"],
+                   mode="proxy", device="cuda")
+    out = {}
+    _reset_launches()
+    for method in PROXY_METHODS:
+        eff = EfficiencyConfig(ArchChoice(), FtChoice(
+            method, 0 if method == "full" else PEFT_RANK,
+            1 if method == "full" else 2), InfChoice())
+        t0 = time.perf_counter()
+        obj = ev.evaluate(eff)
+        out[method] = {"accuracy": float(obj[0]),
+                       "seconds": time.perf_counter() - t0}
+        if not 0.0 < obj[0] <= 100.0:
+            raise AssertionError(f"(g) {method}: accuracy {obj[0]}")
+    out["launches"] = _no_launches("(g)")
+    return out
+
+
+def phase_train(records: list, smi: str) -> dict:
+    """Training (see the module docstring, phase 20): (a) the CLI at full
+    width, (b) gradients card vs CPU, (c) PEFT at full width, (d) resume
+    from (a), (e) serving (c)'s LoRA model, (f) MoE and RWKV-6, (g) the
+    proxy evaluator."""
+    import shutil
+    import tempfile
+    torch = _torch()
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    out = {}
+    try:
+        out["a_cli"] = a = _train_cli(tmp)
+        print(f"[20 train] (a) {TRAIN_ARCH} {smi}: launch.train 16L bf16, "
+              f"{TRAIN_STEPS} steps of {TRAIN_BATCH}x{TRAIN_SEQ}: step wall "
+              f"p50 {a['step_p50_s'] * 1e3:.1f} ms, "
+              f"{a['tokens_per_s']:.0f} tokens/s, peak "
+              f"{a['peak_gb']:.2f} GB, loss {a['losses'][0]:.4f} -> "
+              f"{a['losses'][-1]:.4f}, wall {a['wall_s']:.1f}s (2 "
+              f"checkpoints), kernel launches 0")
+        out["b_grads"] = g = _grads_card_vs_cpu()
+        print(f"[20 train] (b) {smi}: gradients card vs CPU (float32 smoke"
+              f", limit {TRAIN_GRAD_REL_L2}): " + "; ".join(
+                  f"{k} worst leaf {v['worst_rel_l2']:.3e}"
+                  for k, v in g.items() if "worst_rel_l2" in v)
+              + f" | full width: all {g['full_width']['leaves']} float "
+              "leaves have a finite gradient")
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["c_peft"] = {}
+        lora = None
+        for method in PEFT_METHODS:
+            res, (lm, p) = _peft_full_width(method, a["peak_gb"])
+            out["c_peft"][method] = res
+            if p is not None:
+                lora = (lm, p)
+            print(f"[20 train] (c) {method} r{PEFT_RANK} {smi}: "
+                  f"{res['trainable']:,} of {res['total']:,} trainable, "
+                  f"step p50 {res['step_p50_s'] * 1e3:.1f} ms, loss "
+                  f"{res['losses'][0]:.4f} -> {res['losses'][-1]:.4f}, "
+                  f"peak {res['peak_gb']:.2f} GB ({res['peak_vs_full']:.2f}"
+                  f" x (a)), frozen leaves bit-equal")
+        out["d_resume"] = d = _resume(a["ckpt_dir"])
+        print(f"[20 train] (d) {smi}: resumed at step {TRAIN_STEPS}, "
+              f"{d['tensors_checked']} tensors bit-equal to the checkpoint "
+              f"(read {d['read_s']:.1f}s, resume {d['resume_s']:.1f}s), "
+              f"{RESUME_STEPS} more steps, loss {d['losses'][0]:.4f} -> "
+              f"{d['losses'][-1]:.4f}")
+        out["e_serve"] = e = _serve_trained(*lora)
+        del lora
+        print(f"[20 train] (e) {smi}: the LoRA model served by PagedEngine, "
+              f"{TRAIN_SERVE_REQUESTS} requests: " + "; ".join(
+                  f"{k} {v['tokens_per_s']:.1f} tokens/s launches "
+                  f"{v['launches']}" for k, v in e.items()
+                  if isinstance(v, dict))
+              + f" | first prefill logits merged vs unmerged relative L2 "
+              f"{e['logit_rel_l2']:.3e} (limit {LOGIT_REL_L2})")
+        out["f_moe_rwkv"] = f = _moe_rwkv_train()
+        print(f"[20 train] (f) {smi}: {MOE_RWKV_LAYERS} layers, "
+              f"{MOE_RWKV_STEPS} steps: " + "; ".join(
+                  f"{k} loss {v['losses'][0]:.4f} -> {v['losses'][-1]:.4f},"
+                  f" step p50 {v['step_p50_s'] * 1e3:.1f} ms, peak "
+                  f"{v['peak_gb']:.2f} GB {v['aux']}" for k, v in f.items()))
+        out["g_proxy"] = pr = _proxy_evaluator()
+        print(f"[20 train] (g) {smi}: proxy evaluator qwen2-1.5b at h100-1: "
+              + "; ".join(f"{k} accuracy {v['accuracy']:.3f} in "
+                          f"{v['seconds']:.1f}s" for k, v in pr.items()
+                          if k != "launches"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for r in records:
+        for arm in ("unmerged", "merged"):
+            n = out.get("e_serve", {}).get(arm, {}).get("launches", {}).get(
+                r["name"])
+            if n:
+                r.setdefault("launches_by_drive", {})[f"train_serve_{arm}"] \
+                    = n
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    print(f"[20 train] phase {out['phase_wall_s']:.1f}s")
+    return out
+
+
 def main() -> int:
     dev = phase_device()
     phase_build()
@@ -4280,12 +4738,13 @@ def main() -> int:
     cost = phase_cost(records)
     search = phase_search(records, cost["calibration"])
     moe = phase_moe(records)
+    train = phase_train(records, dev["smi"])
     out_dir = ROOT / "chiprun_out"
     if out_dir.is_dir():
         (out_dir / "chip_smoke_e2e.json").write_text(json.dumps(
             {"e2e": e2e, "sched": sched, "qsched": qsched, "fp8": fp8,
              "rwkv": rwkv, "spec": spec, "eager": eager, "resil": resil,
-             "cost": cost, "search": search, "moe": moe,
+             "cost": cost, "search": search, "moe": moe, "train": train,
              "kernels": records}, indent=1))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

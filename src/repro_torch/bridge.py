@@ -12,8 +12,11 @@ linears: int8, packed-int4 uint8 or fp8 ``qw``) cross the same way, and so
 do RWKV-6 blocks (``rwkv``: ``tmix``, ``wdecay``, ``u``, ``ln_x`` and the
 five linears), their recurrent states (:func:`state_from_numpy`) and MoE
 layers (``moe``: the fp32 router, the ``(E, d, f)`` expert stacks, sliced
-per group from the reference's ``(G, E, d, f)``, and the shared expert).
-Every array keeps its numpy dtype.
+per group from the reference's ``(G, E, d, f)``, and the shared expert),
+and so do PEFT adapters (``lora``: ``a``, ``b``, ``scaling`` and DoRA's
+``m``, sliced per group like any other leaf) over dense or int4 bases.
+Every array keeps its numpy dtype.  :func:`params_to_numpy` goes the
+other way (the tests compare whole trees after training steps).
 """
 from __future__ import annotations
 
@@ -69,3 +72,41 @@ def state_from_numpy(cache: dict, cfg: ModelConfig, device=None) -> list:
     block ``{"state": {"wkv", "x_prev"}}``, in either layout, as numpy
     arrays) -> the port's cache on ``device``."""
     return _groups(cache, cfg, device)
+
+
+def _to_numpy(t):
+    """A tensor as numpy; bf16 and fp8 widen to float32 exactly (numpy
+    has neither, and the port imports no ``ml_dtypes``).  ``None`` (an
+    integer leaf's gradient) stays ``None``."""
+    if t is None:
+        return None
+    t = t.detach().cpu()
+    if t.dtype in (torch.bfloat16, torch.float8_e4m3fn, torch.float8_e5m2):
+        t = t.float()
+    return t.numpy().copy()
+
+
+def _numpy_tree(node: Any):
+    if isinstance(node, dict):
+        return {k: _numpy_tree(v) for k, v in node.items()}
+    return _to_numpy(node)
+
+
+def _stack(groups: list):
+    first = groups[0]
+    if isinstance(first, dict):
+        return {k: _stack([g[k] for g in groups]) for k in first}
+    if first is None:
+        return None
+    return np.stack(groups)
+
+
+def params_to_numpy(params: dict, cfg: ModelConfig) -> dict:
+    """The port's parameter (or gradient) tree -> the reference's layout
+    as numpy: the groups stacked on a leading axis (``scan_layers``) or
+    under ``g{i}`` keys."""
+    groups = [_numpy_tree(g) for g in params["layers"]]
+    out = {k: _numpy_tree(v) for k, v in params.items() if k != "layers"}
+    out["layers"] = (_stack(groups) if cfg.scan_layers
+                     else {f"g{i}": g for i, g in enumerate(groups)})
+    return {k: out[k] for k in params}

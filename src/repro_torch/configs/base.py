@@ -113,7 +113,16 @@ class ModelConfig:
     vocab_pad_multiple: int = 1
     tie_embeddings: bool = False
     mlp_bias: bool = False
+    max_seq_len: int = 32_768
     dtype: str = "bfloat16"
+    # training (LM.loss and the train/ loop): the remat policy of each
+    # group under train=True (full | dots | none); scan_layers is the
+    # reference's group-stacked layout, applied here only where it decides
+    # a result (remat, and which leaves weight decay reaches: a leaf
+    # stacked on the reference's group axis has one more dimension);
+    # ce_chunk is the chunked cross-entropy's segment length
+    remat_policy: str = "full"
+    scan_layers: bool = True
     # attention impl: auto = chunked (online softmax over kv blocks) when
     # seq >= attn_chunk_min, else the plain grouped sdpa.  On the CPU only:
     # CUDA tensors always take the flash kernel, the same online softmax
@@ -130,6 +139,7 @@ class ModelConfig:
     # gather (sort / scatter)
     moe_group_size: int = 512
     moe_impl: str = "einsum"
+    ce_chunk: int = 1024
     kv_cache_dtype: str = "bfloat16"  # bfloat16 | int8 | fp8
     kv_cache_style: str = "full"      # full | gqa | mqa
     quant: str = "bf16"               # bf16 | fp8 | int8 | int4  (weights)

@@ -31,4 +31,5 @@ def smoke_config() -> ModelConfig:
         num_layers=2, d_model=64, d_ff=64, vocab_size=512,
         attention=AttentionConfig(kind="gqa", num_heads=4, num_kv_heads=2,
                                   head_dim=16, rope_theta=10_000.0),
-        moe=MoEConfig(num_experts=5, top_k=2, d_ff=64))
+        moe=MoEConfig(num_experts=5, top_k=2, d_ff=64),
+        ce_chunk=64)

@@ -41,4 +41,5 @@ def smoke_config() -> ModelConfig:
         ssm=SSMConfig(kind="mamba", d_state=8, d_conv=4, expand=2),
         block_pattern=("mamba", "attn"),
         moe=MoEConfig(num_experts=4, top_k=2, d_ff=128),
-        moe_every=2)
+        moe_every=2,
+        ce_chunk=64)

@@ -25,4 +25,5 @@ def smoke_config() -> ModelConfig:
     return config().with_(
         num_layers=2, d_model=64, d_ff=128, vocab_size=512,
         attention=AttentionConfig(kind="gqa", num_heads=4, num_kv_heads=1,
-                                  head_dim=16, rope_theta=500_000.0))
+                                  head_dim=16, rope_theta=500_000.0),
+        ce_chunk=64)

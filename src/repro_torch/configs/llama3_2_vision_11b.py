@@ -38,4 +38,5 @@ def smoke_config() -> ModelConfig:
                                   head_dim=16, rope_theta=500_000.0),
         block_pattern=("attn",) * 2,
         cross_attn_every=2,
-        num_image_tokens=16)
+        num_image_tokens=16,
+        ce_chunk=64)

@@ -37,4 +37,5 @@ def smoke_config() -> ModelConfig:
                                   head_dim=16, rope_theta=500_000.0,
                                   window=32),
         moe=MoEConfig(num_experts=4, top_k=1, d_ff=128,
-                      num_shared_experts=1, shared_d_ff=128))
+                      num_shared_experts=1, shared_d_ff=128),
+        ce_chunk=64)

@@ -26,4 +26,5 @@ def smoke_config() -> ModelConfig:
         num_layers=2, d_model=64, d_ff=128, vocab_size=512,
         attention=AttentionConfig(kind="gqa", num_heads=4, num_kv_heads=2,
                                   head_dim=16, rope_theta=1_000_000.0,
-                                  qkv_bias=True))
+                                  qkv_bias=True),
+        ce_chunk=64)

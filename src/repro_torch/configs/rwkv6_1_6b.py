@@ -28,4 +28,5 @@ def config() -> ModelConfig:
 def smoke_config() -> ModelConfig:
     return config().with_(
         num_layers=2, d_model=64, d_ff=128, vocab_size=512,
-        ssm=SSMConfig(kind="rwkv6", head_dim=16))
+        ssm=SSMConfig(kind="rwkv6", head_dim=16),
+        ce_chunk=64)

@@ -32,4 +32,5 @@ def smoke_config() -> ModelConfig:
         num_layers=2, d_model=64, d_ff=128, vocab_size=512,
         attention=AttentionConfig(kind="gqa", num_heads=4, num_kv_heads=4,
                                   head_dim=16, rope_theta=10_000.0),
-        encoder=EncoderConfig(num_layers=2, max_source_len=64))
+        encoder=EncoderConfig(num_layers=2, max_source_len=64),
+        ce_chunk=64)

@@ -4,6 +4,6 @@ to weights (``apply.py``), the cost model on H100 tiers (``costmodel.py``:
 rooflines, per-dispatch estimates, online calibration), and the search:
 features (``features.py``), Pareto archive and Efficiency Score
 (``pareto.py``), NSGA-II (``nsga2.py``), boosted-tree surrogates
-(``surrogate.py``), the analytic evaluator (``evaluator.py``) and
-Algorithm 1 (``tuner.py``).  The evaluator's proxy mode and PEFT arms need
-the training path (ROADMAP A7)."""
+(``surrogate.py``), the evaluator (``evaluator.py``: analytic, or a
+proxy trained through ``repro_torch.train``) and Algorithm 1
+(``tuner.py``)."""

@@ -3,9 +3,9 @@
 
 ``apply_efficiency_config`` — ModelConfig -> ModelConfig (architecture +
 inference arms; what the cost model prices and the engines serve).
-``apply_to_params``         — params -> params: the quantization half
-(c_inf).  PEFT adapters (c_ft) and calibrated AWQ / SmoothQuant scales
-wait for the training path (ROADMAP A7).
+``apply_to_params``         — params -> params: quantization (c_inf)
+and PEFT adapters (c_ft).  Calibrated AWQ / SmoothQuant scales
+(``calib=``) wait for ``quant/calibrate.py`` (ROADMAP A7).
 """
 from __future__ import annotations
 
@@ -76,26 +76,29 @@ def apply_efficiency_config(cfg: ModelConfig,
     return out
 
 
-def apply_to_params(params, eff: EfficiencyConfig, key=None, *,
+def apply_to_params(params, eff: EfficiencyConfig, seed=0, *,
                     calib: dict | None = None):
-    """Quantize weights (c_inf) as the reference does: ``int4`` gives
-    int4 weights, ``int8`` / ``fp8`` give those, through
-    :func:`repro_torch.quant.quantize_tree`.  A non-full fine-tuning arm
-    (``qlora`` included, which the reference quantizes to int4 under its
-    adapters) and ``calib=`` raise: both are ROADMAP A7.  ``key`` seeds
-    the reference's adapter init and is unused here."""
+    """Quantize weights (c_inf) and attach PEFT adapters (c_ft), as the
+    reference does: ``qlora`` or ``int4`` quantizes the base to int4 first,
+    ``int8`` / ``fp8`` give those weights (``quantize_tree``); then a
+    non-full fine-tuning arm attaches its adapters (``apply_peft``, rank
+    ``ft.rank``, alpha ``rank * alpha_mult``), drawn from ``seed`` (an int
+    or a generator on the weights' device; the reference's is a JAX key).
+    ``calib=`` raises: activation-aware scales are ROADMAP A7's
+    ``quant/calibrate.py``."""
+    from repro_torch.peft.lora import apply_peft
     from repro_torch.quant.qops import quantize_tree
 
-    if eff.ft.method != "full":
-        raise NotImplementedError(
-            f"fine-tuning arm {eff.ft.method!r}: PEFT adapters are the "
-            "training path, ROADMAP A7")
     if calib is not None:
         raise NotImplementedError(
             "calib=: activation-aware scales (quant/calibrate.py) are "
             "ROADMAP A7")
-    if eff.inf.quant == "int4":
-        return quantize_tree(params, quant="int4")
-    if eff.inf.quant in ("int8", "fp8"):
-        return quantize_tree(params, quant=eff.inf.quant)
+    if eff.ft.method == "qlora" or eff.inf.quant == "int4":
+        params = quantize_tree(params, quant="int4")
+    elif eff.inf.quant in ("int8", "fp8"):
+        params = quantize_tree(params, quant=eff.inf.quant)
+    if eff.ft.method != "full":
+        params = apply_peft(params, seed, method=eff.ft.method,
+                            rank=eff.ft.rank,
+                            alpha=float(eff.ft.rank * eff.ft.alpha_mult))
     return params

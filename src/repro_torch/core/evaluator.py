@@ -10,19 +10,24 @@ objective vectors ``[acc, lat_ms, mem_gb, en_j]``:
   seeded noise for realism, and Lat/Mem/Energy from the cost model
   (``repro_torch.core.costmodel.predict``) at the evaluator's tier.
 
-* ``proxy`` — trains a reduced same-family model with the applied config
-  and reads its cross-entropy as the accuracy objective.  It needs the
-  training path, which the port does not have yet (ROADMAP A7), so it
-  raises instead of answering with analytic numbers.
+* ``proxy`` — *measured*: trains a reduced same-family model
+  (``_reduce_config``) with the config applied on synthetic structured
+  data and turns its held-out cross-entropy into the accuracy objective,
+  while Lat/Mem/Energy come from the cost model over the applied
+  full-size config.  It runs on the evaluator's ``device`` (the GPU unless
+  the caller asks for the CPU).
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import math
+from typing import Dict
 
 import numpy as np
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.apply import apply_efficiency_config, apply_to_params
 from repro_torch.core.costmodel import HwTier, predict
 from repro_torch.core.features import TaskSpec
 from repro_torch.core.space import EfficiencyConfig
@@ -96,13 +101,9 @@ def accuracy_model(cfg: ModelConfig, eff: EfficiencyConfig, task: TaskSpec,
 class Evaluator:
     def __init__(self, cfg: ModelConfig, task: TaskSpec, tier: HwTier, *,
                  mode: str = "analytic", base_acc: float = 65.0,
-                 proxy_steps: int = 60, seed: int = 0, calibration=None):
-        if mode == "proxy":
-            raise NotImplementedError(
-                "the proxy evaluator trains a reduced model with the config "
-                "applied; the port's training path is ROADMAP A7 — use "
-                "mode='analytic'")
-        if mode != "analytic":
+                 proxy_steps: int = 60, seed: int = 0, calibration=None,
+                 device=None):
+        if mode not in ("analytic", "proxy"):
             raise ValueError(f"unknown evaluator mode {mode!r}")
         self.cfg = cfg
         self.task = task
@@ -115,15 +116,106 @@ class Evaluator:
         # from repro_torch.obs.profile samples): every latency/energy
         # objective this evaluator produces is scaled by the profiled drift
         self.calibration = calibration
+        self.device = device          # the proxy's; resolved when it runs
+        self._proxy_cache: Dict[str, float] = {}
 
     # ------------------------------------------------------------------
     def evaluate(self, eff: EfficiencyConfig) -> np.ndarray:
         cost = predict(self.cfg, eff, self.tier,
                        prompt=min(self.task.seq_len, 512), gen=128,
                        calibration=self.calibration)
-        acc = accuracy_model(self.cfg, eff, self.task, self.base_acc)
+        if self.mode == "proxy":
+            acc = self._proxy_accuracy(eff)
+        else:
+            acc = accuracy_model(self.cfg, eff, self.task, self.base_acc)
         return np.array([acc, cost["latency_ms"], cost["memory_gb"],
                          cost["energy_j"]])
 
     def feasible(self, eff: EfficiencyConfig) -> bool:
         return bool(predict(self.cfg, eff, self.tier)["feasible"])
+
+    # ------------------------------------------------------------------
+    def _proxy_accuracy(self, eff: EfficiencyConfig) -> float:
+        """Train a reduced same-family model with the config applied for
+        ``proxy_steps`` steps (batch 16 x 64, cosine schedule from 8e-3);
+        acc = 100·exp(−max(eval_ce − 1, 0)/3) over two held-out
+        batches."""
+        key = str(eff)
+        if key in self._proxy_cache:
+            return self._proxy_cache[key]
+        import torch
+
+        from repro_torch.data.pipeline import SyntheticLMData
+        from repro_torch.models.model import LM
+        from repro_torch.optim.adamw import cosine_schedule, init_adamw
+        from repro_torch.peft.lora import trainable_mask
+        from repro_torch.train.loop import make_train_step
+
+        proxy = apply_efficiency_config(_reduce_config(self.cfg), eff)
+        lm = LM(proxy, device=self.device)
+        params = _proxy_params(lm, eff, self.seed)
+        mask = (trainable_mask(params, eff.ft.method)
+                if eff.ft.method != "full" else None)
+        step = make_train_step(lm, lr=cosine_schedule(
+            8e-3, 10, self.proxy_steps), mask=mask)
+        opt = init_adamw(params, mask)
+
+        def batches(pipe):
+            return {k: torch.from_numpy(v).to(lm.device, dtype=torch.long)
+                    for k, v in pipe.next_batch().items()}
+        pipe = SyntheticLMData(proxy.vocab_size, 64, 16, seed=self.seed)
+        for _ in range(self.proxy_steps):
+            params, opt, _, _ = step(params, opt, batches(pipe), None)
+        # eval CE on held-out batches
+        eval_pipe = SyntheticLMData(proxy.vocab_size, 64, 16,
+                                    seed=self.seed + 999)
+        ce = 0.0
+        with torch.no_grad():
+            for _ in range(2):
+                _, m = lm.loss(params, batches(eval_pipe))
+                ce += float(m["ce_loss"]) / 2
+        acc = 100.0 * math.exp(-max(ce - 1.0, 0.0) / 3.0)
+        self._proxy_cache[key] = acc
+        return acc
+
+
+def _proxy_params(lm, eff: EfficiencyConfig, seed: int) -> dict:
+    """The proxy's parameters before its first step: ``lm.init(seed)``
+    with the configuration applied (adapters from seed 1), as the
+    reference builds them (its from JAX keys)."""
+    return apply_to_params(lm.init(seed), eff, 1)
+
+
+def _reduce_config(cfg: ModelConfig) -> ModelConfig:
+    """Same family, laptop size (used by proxy evaluation)."""
+    a = cfg.attention
+    if a is not None:
+        heads = min(a.num_heads, 4)
+        kv = max(1, min(a.kv_heads_effective(), 2))
+        a = dataclasses.replace(
+            a, num_heads=heads,
+            num_kv_heads=kv if a.kind in ("gqa", "mha") else a.num_kv_heads,
+            head_dim=16, kv_lora_rank=min(a.kv_lora_rank, 32),
+            rope_head_dim=8, q_lora_rank=0)
+    moe = cfg.moe
+    if moe is not None:
+        moe = dataclasses.replace(moe, num_experts=min(moe.num_experts, 4),
+                                  top_k=min(moe.top_k, 2), d_ff=64,
+                                  num_shared_experts=min(
+                                      moe.num_shared_experts, 1),
+                                  shared_d_ff=64 if moe.num_shared_experts
+                                  else 0)
+        moe = dataclasses.replace(moe, top_k=min(moe.top_k,
+                                                 moe.num_experts))
+    ssm = cfg.ssm
+    if ssm is not None:
+        ssm = dataclasses.replace(ssm, head_dim=16, d_state=8)
+    enc = cfg.encoder
+    if enc is not None:
+        enc = dataclasses.replace(enc, num_layers=2, max_source_len=24)
+    n_groups = min(cfg.num_groups, 2)
+    return dataclasses.replace(
+        cfg, num_layers=n_groups * cfg.blocks_per_group, d_model=64,
+        d_ff=128, vocab_size=min(cfg.vocab_size, 512), attention=a, moe=moe,
+        ssm=ssm, encoder=enc, num_image_tokens=16, moe_group_size=32,
+        ce_chunk=64, max_seq_len=256, scan_layers=True)

@@ -62,7 +62,11 @@ def wkv6_chunked_ref(r, k, v, logw, u, s0, *, chunk: int = DEFAULT_CHUNK
         cwe = cw - lw_c                                      # exclusive
         # pairwise decay exponent (t, q): cwe_t - cw_q  (≤ 0 for q < t)
         diff = cwe[:, :, None] - cw[:, None, :]              # (B,C,C,H,D)
-        decay = torch.where(tri[None, :, :, None, None], torch.exp(diff),
+        # the exponent is masked before exp as well as after: the values
+        # are the reference's, and a large positive diff above the
+        # diagonal cannot turn the backward's 0 * exp(diff) into NaN
+        live = tri[None, :, :, None, None]
+        decay = torch.where(live, torch.exp(torch.where(live, diff, 0.0)),
                             torch.zeros((), dtype=r.dtype, device=r.device))
         scores = torch.einsum("bthd,bqhd,btqhd->bhtq", r_c, k_c, decay)
         diag = torch.einsum("bthd,bthd,hd->bht", r_c, k_c, u)

@@ -24,6 +24,9 @@ port's memory-bounded attention at any length.  On the CPU the choice is
 the reference's: ``use_flash`` takes the flash op's plain version, else
 ``attn_impl`` "chunked" (or "auto" at S >= ``chunk_min``) takes
 ``chunked_attention`` and anything else the plain grouped ``sdpa``.
+A training forward (``attention_forward(train=True)``, from
+``LM.loss``) makes the CPU's choice on every device, as the reference
+trains through its jnp attention: the kernel has no backward.
 Cache allocation and writes live in ``repro_torch.kvcache``; quantized
 contiguous caches are read fused (the K scale multiplies the scores, the
 V scale folds into the probabilities), with no dequantized copy.
@@ -33,6 +36,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import AttentionConfig
 from repro_torch.models.layers import apply_rope, init_linear, linear_apply
@@ -118,7 +122,8 @@ def _block_attn(q, k, v, carry, mask, scale):
 def chunked_attention(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool, window: Optional[int],
                       scale: torch.Tensor, q_block: int = 1024,
-                      kv_block: int = 1024) -> torch.Tensor:
+                      kv_block: int = 1024,
+                      remat: bool = False) -> torch.Tensor:
     """qg: (B,S,KH,G,D)  k,v: (B,T,KH,D) -> (B,S,KH,G,D) in v's dtype.
 
     The (S, T) scores are never materialized: each q block walks the kv
@@ -126,7 +131,10 @@ def chunked_attention(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     not divide S and T fall back to one block each, as in the reference.
     A q block visits only the kv blocks its causal / window mask can
     reach (the reference's block bounds); a skipped block would add
-    exact zeros, so the result is the reference's rolled scan's."""
+    exact zeros, so the result is the reference's rolled scan's.
+    ``remat`` checkpoints each q block, as the reference's
+    ``jax.checkpoint`` does: backward recomputes one block's
+    probabilities at a time instead of keeping every block's."""
     b, s, kh, g, d = qg.shape
     t = k.shape[1]
     qb, kb = min(q_block, s), min(kv_block, t)
@@ -136,14 +144,13 @@ def chunked_attention(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q_sw = qg.permute(0, 2, 3, 1, 4)                   # (B,KH,G,S,D)
     k_sw, v_sw = k.transpose(1, 2), v.transpose(1, 2)  # (B,KH,T,D)
     dev = qg.device
-    outs = []
-    for qi in range(nq):
+
+    def one_q_block(qi, q_i, k_sw, v_sw):
         hi = nk if not causal else min(nk, ((qi + 1) * qb + kb - 1) // kb)
         lo = 0 if window is None else max(0, (qi * qb - window) // kb)
         carry = (torch.full((b, kh, g, qb), NEG_INF, device=dev),
                  torch.zeros((b, kh, g, qb), device=dev),
                  torch.zeros((b, kh, g, qb, d), device=dev))
-        q_i = q_sw[:, :, :, qi * qb:(qi + 1) * qb]
         qpos = qi * qb + torch.arange(qb, device=dev)[:, None]
         for j in range(lo, hi):
             kpos = j * kb + torch.arange(kb, device=dev)[None, :]
@@ -158,7 +165,16 @@ def chunked_attention(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                 v_sw[:, :, j * kb:(j + 1) * kb], carry,
                                 mask, scale)
         _, l, acc = carry
-        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
+        return acc / torch.clamp(l, min=1e-30)[..., None]
+
+    outs = []
+    for qi in range(nq):
+        q_i = q_sw[:, :, :, qi * qb:(qi + 1) * qb]
+        if remat:
+            outs.append(checkpoint(one_q_block, qi, q_i, k_sw, v_sw,
+                                   use_reentrant=False))
+        else:
+            outs.append(one_q_block(qi, q_i, k_sw, v_sw))
     o = torch.cat(outs, dim=3)                         # (B,KH,G,S,D)
     return o.permute(0, 3, 1, 2, 4).to(v.dtype)
 
@@ -211,13 +227,17 @@ def _project(p: dict, x: torch.Tensor, a: AttentionConfig,
 
 def _attend(p: dict, q, k, v, a: AttentionConfig, use_flash: bool,
             impl: str = "ref", attn_impl: str = "auto", q_block: int = 1024,
-            kv_block: int = 1024, chunk_min: int = 2048):
+            kv_block: int = 1024, chunk_min: int = 2048,
+            train: bool = False):
     b, s = q.shape[:2]
     kvh = a.kv_heads_effective()
     # CUDA tensors always take the flash kernel; the flags pick the
     # branch only on the CPU, where the op runs its plain version (the
-    # parity tests hold every branch against the reference's)
-    if q.is_cuda or (use_flash and a.causal):
+    # parity tests hold every branch against the reference's).  A
+    # training forward takes the reference's training attention on every
+    # device: chunked (each q block checkpointed) or the plain sdpa, by
+    # the same rule, differentiable (the kernel has no backward)
+    if not train and (q.is_cuda or (use_flash and a.causal)):
         from repro_torch.kernels.flash_attention.ops import flash_attention
         o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                             causal=a.causal,
@@ -229,7 +249,8 @@ def _attend(p: dict, q, k, v, a: AttentionConfig, use_flash: bool,
             o = chunked_attention(qg, k, v, causal=a.causal,
                                   window=a.window,
                                   scale=_scale(a).to(q.device),
-                                  q_block=q_block, kv_block=kv_block)
+                                  q_block=q_block, kv_block=kv_block,
+                                  remat=train)
         else:
             mask = (causal_mask(s, s, window=a.window, device=q.device)
                     if a.causal else None)
@@ -240,14 +261,15 @@ def _attend(p: dict, q, k, v, a: AttentionConfig, use_flash: bool,
 
 def attention_forward(p: dict, x: torch.Tensor, a: AttentionConfig, *,
                       use_flash: bool = False, impl: str = "ref",
-                      **chunk_kw) -> torch.Tensor:
+                      train: bool = False, **chunk_kw) -> torch.Tensor:
     """Full-sequence attention at positions [0, S).  x: (B,S,d) -> (B,S,d).
     ``impl`` is the quantized linears' ``quant_matmul_impl``; ``chunk_kw``
     (``attn_impl``, ``q_block``, ``kv_block``, ``chunk_min``) picks
-    chunked attention on the CPU, as the reference's config does."""
+    chunked attention on the CPU, as the reference's config does, and on
+    every device under ``train=True`` (the training forward)."""
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     q, k, v = _project(p, x, a, positions, impl)
-    return _attend(p, q, k, v, a, use_flash, impl, **chunk_kw)
+    return _attend(p, q, k, v, a, use_flash, impl, train=train, **chunk_kw)
 
 
 def attention_prefill(p: dict, x: torch.Tensor, a: AttentionConfig,

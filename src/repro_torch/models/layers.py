@@ -40,16 +40,23 @@ def init_linear(gen: torch.Generator, d_in: int, d_out: int, *,
 
 
 def linear_apply(p: dict, x: torch.Tensor, impl: str = "ref") -> torch.Tensor:
-    """Dense or quantized linear.  Quantized params carry ``{"qw",
-    "scale"}``; their bias goes to ``quantized_matmul`` (which folds it
-    into the decode kernels' epilogue) and ``impl`` is the model's
-    ``quant_matmul_impl``."""
+    """Dense or quantized linear, plus its PEFT adapter when it carries
+    one (``"lora"``: the low-rank update of ``repro_torch.peft.lora``, in
+    every forward, serving ones included).  Quantized params carry
+    ``{"qw", "scale"}``; their bias goes to ``quantized_matmul`` (which
+    folds it into the decode kernels' epilogue) and ``impl`` is the
+    model's ``quant_matmul_impl``, or ``"train"`` in a training
+    forward."""
     if "qw" in p:
         from repro_torch.quant.qops import quantized_matmul
-        return quantized_matmul(x, p, bias=p.get("b"), impl=impl)
-    y = x @ p["w"].to(x.dtype)
-    if "b" in p:
-        y = y + p["b"].to(y.dtype)
+        y = quantized_matmul(x, p, bias=p.get("b"), impl=impl)
+    else:
+        y = x @ p["w"].to(x.dtype)
+        if "b" in p:
+            y = y + p["b"].to(y.dtype)
+    if "lora" in p:
+        from repro_torch.peft.lora import lora_delta
+        y = y + lora_delta(p["lora"], x)
     return y
 
 
@@ -87,11 +94,16 @@ def init_norm(kind: str, d: int, dtype=torch.bfloat16, device=None) -> dict:
     return init_layernorm(d, dtype, device)
 
 
-def norm_apply(kind: str, p: dict, x: torch.Tensor,
-               eps: float) -> torch.Tensor:
+def norm_apply(kind: str, p: dict, x: torch.Tensor, eps: float, *,
+               train: bool = False) -> torch.Tensor:
     """RMSNorm through the B7 op (its kernel on CUDA tensors, the plain
-    version on the CPU); layernorm stays plain, as in the reference."""
+    version on the CPU); layernorm stays plain, as in the reference.  A
+    training forward (``train=True``) takes the plain, differentiable
+    :func:`rmsnorm_apply` on every device, as the reference trains
+    through its jnp norm."""
     if kind == "rmsnorm":
+        if train:
+            return rmsnorm_apply(p, x, eps)
         return rmsnorm_ops.rmsnorm(x, p["scale"], eps)
     return layernorm_apply(p, x, eps)
 

@@ -1,17 +1,21 @@
-"""Public model API: init / prefill / prefill_paged / verify_paged /
-decode_step.
+"""Public model API: init / loss / prefill / prefill_paged / verify_paged
+/ decode_step.
 
 ``LM`` holds the config and the device; parameters are explicit nested
 dicts of tensors in the reference's layout (``repro/models/model.py``),
 with the layer stack as a list of groups.  Entry points run on the card
 (``cuda``) unless the caller asks for ``device="cpu"``; with no GPU and no
-explicit device they raise.
+explicit device they raise.  ``loss`` is the training forward: the
+reference's training math in plain torch under autograd on every device
+(``train=True`` through the stack), and a chunked cross-entropy that
+never holds the whole (B, S, vocab) logits.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (dtype_of, embedding_apply,
@@ -96,13 +100,51 @@ class LM:
                            torch.tensor(-1e30, device=logits.device))
 
     def backbone(self, params, tokens, *, mode="prefill", cache=None,
-                 pos=None):
+                 pos=None, train=False):
+        """-> (final-normed states, cache, aux).  ``train=True`` is the
+        training forward (see ``group_forward``); ``aux`` holds the MoE
+        layers' losses and dropped fractions, summed over the stack."""
         cfg = self.cfg
         x = embedding_apply(params["embed"], tokens).to(self.dtype)
-        x, new_cache = stack_forward(params["layers"], x, cfg, mode=mode,
-                                     cache=cache, pos=pos)
-        x = norm_apply(cfg.norm, params["final_norm"], x, cfg.norm_eps)
-        return x, new_cache
+        x, new_cache, aux = stack_forward(params["layers"], x, cfg,
+                                          mode=mode, cache=cache, pos=pos,
+                                          train=train)
+        x = norm_apply(cfg.norm, params["final_norm"], x, cfg.norm_eps,
+                       train=train)
+        return x, new_cache, aux
+
+    # ------------------------------------------------------------------
+    def _head_w(self, params: dict) -> torch.Tensor:
+        """The live (d, V_pad) head of the parameters: the embedding's
+        transpose when tied.  The loss reads it, never ``head_f32`` (a
+        serving copy that goes stale once a step has run)."""
+        if self.cfg.tie_embeddings:
+            return params["embed"]["w"].T
+        return params["lm_head"]["w"]
+
+    def loss(self, params: dict,
+             batch: dict) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """batch: {tokens (B,S), labels (B,S), [mask (B,S)]} on this LM's
+        device -> (scalar loss, metrics).  The training forward (no
+        kernel launches; differentiable), then :func:`chunked_cross_entropy`
+        against the live head; every aux key ending in ``_loss`` (the MoE
+        layers' load-balance and z losses) is added to the loss, as in
+        the reference."""
+        cfg = self.cfg
+        x, _, aux = self.backbone(params, batch["tokens"], train=True)
+        ce, acc = chunked_cross_entropy(x, self._head_w(params),
+                                        batch["labels"],
+                                        mask=batch.get("mask"),
+                                        chunk=cfg.ce_chunk,
+                                        n_valid=cfg.vocab_size)
+        loss = ce
+        metrics = {"ce_loss": ce, "accuracy": acc}
+        for k, v in aux.items():
+            metrics[k] = v
+            if k.endswith("_loss"):
+                loss = loss + v
+        metrics["loss"] = loss
+        return loss, metrics
 
     # ------------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, *,
@@ -126,7 +168,7 @@ class LM:
 
     @torch.no_grad()
     def logits(self, params, tokens) -> torch.Tensor:
-        x, _ = self.backbone(params, tokens, mode="prefill")
+        x, _, _ = self.backbone(params, tokens, mode="prefill")
         return self._logits(params, x)
 
     @torch.no_grad()
@@ -134,7 +176,8 @@ class LM:
         """Full-context pass filling the cache (in place); returns
         last-token logits.  ``lengths`` (B,) takes each row's logits at
         position ``lengths[b]-1`` (right-padded batched admission)."""
-        x, cache = self.backbone(params, tokens, mode="prefill", cache=cache)
+        x, cache, _ = self.backbone(params, tokens, mode="prefill",
+                                    cache=cache)
         if lengths is None:
             return self._logits(params, x[:, -1]), cache
         return self._logits(params, self._last(x, lengths)), cache
@@ -159,8 +202,8 @@ class LM:
         block table to the batch's prefix span."""
         pos = (slot_ids, starts, lengths) if max_pages is None \
             else (slot_ids, starts, lengths, max_pages)
-        x, cache = self.backbone(params, tokens, mode="prefill", cache=cache,
-                                 pos=pos)
+        x, cache, _ = self.backbone(params, tokens, mode="prefill",
+                                    cache=cache, pos=pos)
         return self._logits(params, self._last(x, lengths)), cache
 
     @torch.no_grad()
@@ -178,9 +221,9 @@ class LM:
         block table to the batch's deepest prefix."""
         pos = (lengths, widths) if max_pages is None \
             else (lengths, widths, max_pages)
-        x, out = self.backbone(params, tokens, mode="verify",
-                               cache=_zip_verify_cache(cache, stage),
-                               pos=pos)
+        x, out, _ = self.backbone(params, tokens, mode="verify",
+                                  cache=_zip_verify_cache(cache, stage),
+                                  pos=pos)
         return self._logits(params, x), _unzip_stage(out)
 
     @torch.no_grad()
@@ -190,8 +233,8 @@ class LM:
         contiguous (the eager Engine's or a draft LM's) and updated in
         place; RWKV-6 blocks return new state tensors and ignore
         ``pos``."""
-        x, cache = self.backbone(params, token[:, None], mode="decode",
-                                 cache=cache, pos=pos)
+        x, cache, _ = self.backbone(params, token[:, None], mode="decode",
+                                    cache=cache, pos=pos)
         return self._logits(params, x[:, 0]), cache
 
 
@@ -213,3 +256,53 @@ def _unzip_stage(out: list) -> list:
     ``commit_spec_cache`` walks)."""
     return [{blk: {"kv": node["stage"]} for blk, node in group.items()}
             for group in out]
+
+
+# ---------------------------------------------------------------------------
+# Chunked cross-entropy
+
+
+def _chunk_ce(x_c, labels_c, mask_c, head_w, n_valid: Optional[int]):
+    """One S-chunk: fp32 logits against the fp32 head (padded vocab
+    columns at -1e30), the summed masked CE and the summed masked hits
+    (argmax, ties to the lower id as in JAX)."""
+    logits = x_c.float() @ head_w.float()
+    v_total = logits.shape[-1]
+    if n_valid is not None and n_valid < v_total:
+        ids = torch.arange(v_total, device=logits.device)
+        logits = torch.where(ids < n_valid, logits,
+                             torch.tensor(-1e30, device=logits.device))
+    lse = torch.logsumexp(logits, dim=-1)
+    lab = torch.gather(logits, -1, labels_c[..., None])[..., 0]
+    ce = (lse - lab) * mask_c
+    hit = (torch.argmax(logits, -1) == labels_c).float() * mask_c
+    return ce.sum(), hit.sum()
+
+
+def chunked_cross_entropy(x: torch.Tensor, head_w: torch.Tensor,
+                          labels: torch.Tensor, *,
+                          mask: Optional[torch.Tensor] = None,
+                          chunk: int = 1024, n_valid: Optional[int] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean next-token CE and accuracy over (B,S,d) final states without
+    materializing the (B,S,V) logits: S is cut into chunks of ``chunk``
+    (one chunk when it does not divide S, as in the reference), each
+    checkpointed, so backward recomputes one chunk's logits at a time.
+    ``mask`` (B,S) weights positions; the denominator is its sum (at least
+    1)."""
+    b, s, _ = x.shape
+    c = min(chunk, s)
+    if s % c:
+        c = s                                    # fallback: single chunk
+    mask = (torch.ones((b, s), device=x.device) if mask is None
+            else mask.float())
+    labels = labels.long()
+    tot = torch.zeros((), device=x.device)
+    hits = torch.zeros((), device=x.device)
+    for i in range(s // c):
+        sl = slice(i * c, (i + 1) * c)
+        ce, hit = checkpoint(_chunk_ce, x[:, sl], labels[:, sl], mask[:, sl],
+                             head_w, n_valid, use_reentrant=False)
+        tot, hits = tot + ce, hits + hit
+    denom = torch.clamp(mask.sum(), min=1.0)
+    return tot / denom, hits / denom

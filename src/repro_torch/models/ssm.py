@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.configs.base import SSMConfig
 from repro_torch.kernels.wkv6 import ops as wkv_ops
+from repro_torch.kernels.wkv6.ref import DEFAULT_CHUNK, wkv6_chunked_ref
 from repro_torch.models.layers import init_linear, linear_apply
 
 LORA_MIX = 32          # low-rank width of the five-stream lerp
@@ -112,17 +113,25 @@ def _rwkv6_out(p: dict, o: torch.Tensor, g: torch.Tensor, h: int, hd: int,
 
 
 def rwkv6_forward(p: dict, x: torch.Tensor, s: SSMConfig, state: dict, *,
-                  impl: str = "ref") -> Tuple[torch.Tensor, dict]:
-    """x: (B,S,d) -> (y (B,S,d), new state).  Starts from ``state``."""
+                  impl: str = "ref",
+                  train: bool = False) -> Tuple[torch.Tensor, dict]:
+    """x: (B,S,d) -> (y (B,S,d), new state).  Starts from ``state``.  A
+    training forward (``train=True``) runs the plain chunked WKV on every
+    device, differentiable (the B8 kernel has no backward; the reference
+    trains through its jnp form)."""
     b, sl, d = x.shape
     hd = s.head_dim
     h = d // hd
     x_prev_tok = torch.cat([state["x_prev"].to(x.dtype)[:, None],
                             x[:, :-1]], dim=1)
     r, k, v, g, logw = _rwkv6_mix(p, x, x_prev_tok, impl)
-    o, wkv = wkv_ops.wkv6(r.reshape(b, sl, h, hd), k.reshape(b, sl, h, hd),
-                          v.reshape(b, sl, h, hd),
-                          logw.reshape(b, sl, h, hd), p["u"], state["wkv"])
+    heads = [t.reshape(b, sl, h, hd) for t in (r, k, v, logw)]
+    if train:
+        o, wkv = wkv6_chunked_ref(*(t.float() for t in heads),
+                                  p["u"].float(), state["wkv"].float(),
+                                  chunk=DEFAULT_CHUNK)
+    else:
+        o, wkv = wkv_ops.wkv6(*heads, p["u"], state["wkv"])
     y = _rwkv6_out(p, o.to(x.dtype), g, h, hd, impl)
     new_state = {"wkv": wkv, "x_prev": x[:, -1].to(state["x_prev"].dtype)}
     return y, new_state

@@ -2,7 +2,9 @@
 
 A *group* is one repeat of ``cfg.block_pattern``.  The reference scans
 over group-stacked parameters; the port keeps a Python list of groups and
-loops over it.  Block layout (pre-norm residual):
+loops over it; in a training forward each group is wrapped in the
+config's remat policy, as the reference wraps its scan body.  Block
+layout (pre-norm residual):
 
     x = x + mixer(norm1(x))            mixer ∈ {attn, rwkv6}
     x = x + mlp_or_moe(norm2(x))
@@ -13,9 +15,12 @@ cross-attention models (ROADMAP A6) raise.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
@@ -102,7 +107,7 @@ def init_group_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 def group_forward(gp: dict, x: torch.Tensor, cfg: ModelConfig, *,
                   mode: str, cache: Optional[dict],
-                  pos: Optional[torch.Tensor]):
+                  pos: Optional[torch.Tensor], train: bool = False):
     """One group.  ``mode`` is "prefill" (full sequence; fills a
     contiguous cache when given, or — on a paged cache — one chunk per row
     at ``pos = (slot_ids, starts, lengths[, max_pages])``), "decode" (one
@@ -112,19 +117,31 @@ def group_forward(gp: dict, x: torch.Tensor, cfg: ModelConfig, *,
     the paged cache, ``pos = (lengths, widths[, max_pages])``; the cache
     node is ``{"kv": paged, "stage": contiguous}`` and only the stage is
     written).  RWKV-6 blocks run their recurrence from the cache's state
-    (zeros without a cache) and ignore ``pos``."""
+    (zeros without a cache) and ignore ``pos``.
+
+    ``train=True`` is the training forward (``LM.loss``): "prefill" with
+    no cache, through the reference's training math in plain torch on
+    every device (norms, attention, quantized linears and the WKV launch
+    no kernel: none has a backward), MoE layers at their training
+    capacity.  Returns ``(x, new cache, aux)``, ``aux`` the MoE layers'
+    losses and dropped fractions summed over the group's blocks."""
     a = cfg.attention
-    # the quantized linears' execution choice (every forward of the port
-    # is an inference forward: the reference's training "ref" never applies)
-    impl = cfg.quant_matmul_impl
-    # chunked attention on the CPU (CUDA tensors take the flash kernel)
+    if train and (mode != "prefill" or cache is not None):
+        raise ValueError("a training forward is a full sequence without a "
+                         "cache (mode='prefill', cache=None)")
+    # the quantized linears' execution choice: the model's serving impl,
+    # or the reference's differentiable oracles in a training forward
+    impl = "train" if train else cfg.quant_matmul_impl
+    # chunked attention on the CPU and in training (serving CUDA tensors
+    # take the flash kernel)
     chunk_kw = dict(attn_impl=cfg.attn_impl, q_block=cfg.attn_q_block,
                     kv_block=cfg.attn_kv_block, chunk_min=cfg.attn_chunk_min)
     new_cache: Dict[str, Any] = {}
+    aux_total: Dict[str, torch.Tensor] = {}
     for i, bk in enumerate(block_kinds(cfg)):
         blk = gp[f"blk{i}"]
         c = cache[f"blk{i}"] if cache is not None else None
-        h = norm_apply(cfg.norm, blk["norm1"], x, cfg.norm_eps)
+        h = norm_apply(cfg.norm, blk["norm1"], x, cfg.norm_eps, train=train)
         if mode not in ("prefill", "decode", "verify"):
             raise ValueError(f"mode {mode!r}")
         if mode == "verify" and bk["kind"] != "attn":
@@ -132,16 +149,20 @@ def group_forward(gp: dict, x: torch.Tensor, cfg: ModelConfig, *,
         if bk["kind"] == "rwkv6":
             st = c["state"] if c is not None else ssm_mod.init_rwkv6_state(
                 x.shape[0], cfg.d_model, cfg.ssm, x.device)
-            step = (ssm_mod.rwkv6_decode if mode == "decode"
-                    else ssm_mod.rwkv6_forward)
-            y, st2 = step(blk["rwkv"], h, cfg.ssm, st, impl=impl)
+            if mode == "decode":
+                y, st2 = ssm_mod.rwkv6_decode(blk["rwkv"], h, cfg.ssm, st,
+                                              impl=impl)
+            else:
+                y, st2 = ssm_mod.rwkv6_forward(blk["rwkv"], h, cfg.ssm, st,
+                                               impl=impl, train=train)
             if c is not None:
                 new_cache[f"blk{i}"] = {"state": st2}
         elif mode == "prefill":
             if c is None:
                 y = attn_mod.attention_forward(blk["attn"], h, a,
                                                use_flash=cfg.use_kernels,
-                                               impl=impl, **chunk_kw)
+                                               impl=impl, train=train,
+                                               **chunk_kw)
             elif "k_pages" in c["kv"]:
                 y, kv = attn_mod.attention_prefill_paged(blk["attn"], h, a,
                                                          c["kv"], pos, impl)
@@ -163,16 +184,18 @@ def group_forward(gp: dict, x: torch.Tensor, cfg: ModelConfig, *,
             y, kv = step(blk["attn"], h, a, c["kv"], pos, impl)
             new_cache[f"blk{i}"] = {"kv": kv}
         x = x + y
-        h = norm_apply(cfg.norm, blk["norm2"], x, cfg.norm_eps)
+        h = norm_apply(cfg.norm, blk["norm2"], x, cfg.norm_eps, train=train)
         if bk["moe"]:
-            # every forward of the port serves: eval capacity, aux dropped
-            y, _ = moe_apply(blk["moe"], h, cfg.moe, train=False,
-                             group_size=cfg.moe_group_size,
-                             impl=cfg.moe_impl, quant_impl=impl)
+            # capacity_factor in training, eval_capacity_factor serving
+            y, aux = moe_apply(blk["moe"], h, cfg.moe, train=train,
+                               group_size=cfg.moe_group_size,
+                               impl=cfg.moe_impl, quant_impl=impl)
+            for k, v in aux.items():
+                aux_total[k] = aux_total[k] + v if k in aux_total else v
         else:
             y = mlp_apply(blk["mlp"], h, impl)
         x = x + y
-    return x, (new_cache if cache is not None else None)
+    return x, (new_cache if cache is not None else None), aux_total
 
 
 def init_stack(gen: torch.Generator, cfg: ModelConfig, dtype=torch.bfloat16,
@@ -191,15 +214,50 @@ def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int, *,
             for _ in range(cfg.num_groups)]
 
 
+def _save_products(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat_policy="dots"``: keep the
+    matrix products' outputs, recompute everything else (JAX's
+    ``checkpoint_dots``)."""
+    return (CheckpointPolicy.MUST_SAVE if op in _PRODUCTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_PRODUCTS = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+             torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default}
+
+
+def _remat(fn, policy: str):
+    """The reference's ``_remat_wrap`` around one group: "full" keeps only
+    the group's inputs (``checkpoint``), "dots" its matrix products too
+    (selective checkpointing), "none" everything."""
+    if policy == "none":
+        return fn
+    if policy not in ("full", "dots"):
+        raise ValueError(f"unknown remat policy {policy!r}")
+    ctx = {}
+    if policy == "dots":
+        ctx["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_products)
+    return functools.partial(checkpoint, fn, use_reentrant=False, **ctx)
+
+
 def stack_forward(params: List[dict], x: torch.Tensor, cfg: ModelConfig, *,
                   mode: str = "prefill", cache: Optional[List[dict]] = None,
-                  pos: Optional[torch.Tensor] = None):
-    """Python loop over the groups (the reference's ``lax.scan``)."""
+                  pos: Optional[torch.Tensor] = None, train: bool = False):
+    """Python loop over the groups (the reference's ``lax.scan``) ->
+    ``(x, new cache, aux)``, ``aux`` summed over the groups.  A training
+    forward wraps each group in ``cfg.remat_policy`` where the reference
+    does (its scanned layout, ``scan_layers=True``)."""
     new_cache = [] if cache is not None else None
+    policy = cfg.remat_policy if train and cfg.scan_layers else "none"
+    body = _remat(group_forward, policy)
+    aux_total: Dict[str, torch.Tensor] = {}
     for i, gp in enumerate(params):
-        x, nc = group_forward(gp, x, cfg, mode=mode,
-                              cache=cache[i] if cache is not None else None,
-                              pos=pos)
+        x, nc, aux = body(gp, x, cfg, mode=mode,
+                          cache=cache[i] if cache is not None else None,
+                          pos=pos, train=train)
         if cache is not None:
             new_cache.append(nc)
-    return x, new_cache
+        for k, v in aux.items():
+            aux_total[k] = aux_total[k] + v if k in aux_total else v
+    return x, new_cache, aux_total

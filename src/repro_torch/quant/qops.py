@@ -14,7 +14,11 @@ the reference: ``impl`` is ``cfg.quant_matmul_impl``, passed down by the
 model's forwards.  On CUDA tensors the kernels always run, whatever it
 says.  On the CPU ``"fused"`` runs the kernels' plain versions and
 ``"ref"`` the oracles, as the reference's switch picks between its
-Pallas kernels and jnp.
+Pallas kernels and jnp.  A training forward passes ``"train"``: the
+reference's "ref" oracles on every device, which autograd differentiates
+as JAX does the jnp ones (the int8 path passes gradient through the
+activations' amax scale; ``round`` has zero gradient), and which launch
+no kernel (the kernels have no backward).
 """
 from __future__ import annotations
 
@@ -28,11 +32,13 @@ from repro_torch.kernels.int8_matmul.ops import (DECODE_M_MAX,
                                                  int4_matmul,
                                                  int8_matmul_dynamic,
                                                  w8a8_matmul_decode)
-from repro_torch.kernels.int8_matmul.ref import (_div, quantize_colwise,
-                                                 quantize_int4_colwise)
+from repro_torch.kernels.int8_matmul.ref import (_div, int8_matmul_ref,
+                                                 quantize_colwise,
+                                                 quantize_int4_colwise,
+                                                 quantize_rowwise)
 
 FP8 = torch.float8_e4m3fn
-IMPLS = ("fused", "ref")
+IMPLS = ("fused", "ref", "train")
 
 QUANT_TARGETS = (r"/(wq|wk|wv|wo|gate|up|down|q_up|kv_up_k|kv_up_v|"
                  r"kv_down|in_proj|out_proj|wr|wg|wout)$")
@@ -51,7 +57,7 @@ def quantized_matmul(x: torch.Tensor, p: dict, *,
     if impl not in IMPLS:
         raise ValueError(f"unknown quant impl {impl!r}")
     qw = p["qw"]
-    kernels = x.is_cuda or impl == "fused"
+    kernels = impl != "train" and (x.is_cuda or impl == "fused")
     m = 1
     for d in x.shape[:-1]:
         m *= d
@@ -67,6 +73,8 @@ def quantized_matmul(x: torch.Tensor, p: dict, *,
     if qw.dtype == torch.int8:
         if kernels and m <= DECODE_M_MAX:
             return _decode(w8a8_matmul_decode)
+        if impl == "train":
+            return _plus_bias(_int8_oracle(x, qw, p["scale"]))
         return _plus_bias(int8_matmul_dynamic(x, qw, p["scale"]))
     if qw.dtype == torch.uint8:
         return _plus_bias(int4_matmul(x, qw, p["scale"]))
@@ -79,6 +87,15 @@ def quantized_matmul(x: torch.Tensor, p: dict, *,
         y = x.float() @ qw.float()
         return _plus_bias((y * p["scale"]).to(x.dtype))
     raise ValueError(f"unrecognized quantized dtype {qw.dtype}")
+
+
+def _int8_oracle(x: torch.Tensor, qw: torch.Tensor,
+                 w_scale: torch.Tensor) -> torch.Tensor:
+    """The reference's W8A8 oracle (row quantization, the exact int32
+    product, ``(acc·xs)·ws``) in plain torch on any device."""
+    xq, xs = quantize_rowwise(x.reshape(-1, x.shape[-1]))
+    y = int8_matmul_ref(xq, qw, xs, w_scale, out_dtype=x.dtype)
+    return y.reshape(*x.shape[:-1], qw.shape[1])
 
 
 def quantize_linear(p: dict, *, quant: str,

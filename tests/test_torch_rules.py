@@ -41,6 +41,16 @@ def test_port_imports_no_jax_and_no_reference():
     assert not {k: v for k, v in bad.items() if v}
 
 
+def test_port_imports_no_msgpack():
+    """The card's machine has no ``msgpack``: the port's checkpoints keep
+    their manifest in JSON, and no port file imports it."""
+    bad = [str(f.relative_to(ROOT)) for f in _port_files()
+           if "msgpack" in set(_imported_roots(f))]
+    assert not bad
+    from repro_torch.checkpoint import manager
+    assert manager.MANIFEST.endswith(".json")
+
+
 def test_scan_covers_the_scheduler_and_every_kernel_module():
     """The import rule above reaches the scheduler, the quantization
     modules, the RWKV-6 mixer and every kernel wrapper."""
@@ -68,7 +78,12 @@ def test_scan_covers_the_scheduler_and_every_kernel_module():
                 "tables/common.py", "tables/table2_main.py",
                 "tables/table3_ablations.py", "tables/table4_vlm.py",
                 "tables/table6_tasks.py", "tables/pareto_front.py",
-                "tables/run.py"):
+                "tables/run.py", "tree.py", "optim/__init__.py",
+                "optim/adamw.py", "optim/compress.py", "peft/__init__.py",
+                "peft/lora.py", "train/__init__.py", "train/loop.py",
+                "data/__init__.py", "data/pipeline.py",
+                "checkpoint/__init__.py", "checkpoint/manager.py",
+                "launch/train.py"):
         assert f"src/repro_torch/{rel}" in scanned, rel
     from repro_torch.kernels import build
     for src in build.SOURCES.values():
@@ -528,3 +543,41 @@ def test_chip_smoke_drives_the_moe_phase():
                    "max_memory_allocated", "n_pages", "isfinite"):
         assert needle in body, needle
     assert "[19 moe]" in text
+
+
+def test_chip_smoke_drives_the_train_phase():
+    """chip_smoke.py has a training phase that its main runs after the MoE
+    phase: the training CLI for llama3.2-1b at full width with
+    checkpoints, gradients on the card against the CPU and every leaf's
+    gradient at full width, LoRA / QLoRA / DoRA at full width with frozen
+    leaves held, the resume from the CLI's checkpoint, the LoRA model
+    served merged and unmerged through PagedEngine, granite-moe and
+    rwkv6 training, and the proxy evaluator; every training arm holds
+    the eight kernels' counters at 0."""
+    text = (ROOT / "chip_smoke.py").read_text()
+    tree = ast.parse(text)
+    funcs = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    main_calls = [ast.unparse(c.func) for c in ast.walk(funcs["main"])
+                  if isinstance(c, ast.Call)]
+    assert "phase_train" in main_calls
+    assert main_calls.index("phase_train") > main_calls.index("phase_moe")
+    reached, todo = set(), ["phase_train"]
+    while todo:
+        name = todo.pop()
+        reached.add(name)
+        todo += [ast.unparse(c.func) for c in ast.walk(funcs[name])
+                 if isinstance(c, ast.Call) and ast.unparse(c.func) in funcs
+                 and ast.unparse(c.func) not in reached]
+    body = "\n".join(ast.unparse(funcs[n]) for n in sorted(reached))
+    for needle in ("train_cli.main", "'--ckpt-dir'", "loss_and_grads",
+                   "allow_unused=True", "apply_to_params", "count_trainable",
+                   "init_or_resume", "merge_lora", "PagedEngine",
+                   "rwkv6-1.6b", "mode='proxy'", "_no_launches",
+                   "_reset_launches", "max_memory_allocated"):
+        assert needle in body, needle
+    assert "PEFT_METHODS" in body
+    consts = {t.id: ast.literal_eval(n.value) for n in tree.body
+              if isinstance(n, ast.Assign) for t in n.targets
+              if isinstance(t, ast.Name) and t.id == "PEFT_METHODS"}
+    assert set(consts["PEFT_METHODS"]) == {"lora", "qlora", "dora"}
+    assert "[20 train]" in text
