@@ -149,11 +149,12 @@ Phases (each prints one line; any failure raises and exits non-zero):
                  the files, the metric names, the calibration carried
  18. search    — search -> serve: the port's AutoTuner at h100-1 on
                  qwen2-1.5b at full width (MMLU at 512 tokens, the budget
-                 of the reference's _small_tuner, the arms the port
-                 serves: all but the attention arms, so c* may upcycle to
-                 MoE), c* by recommend_efficient, recalibrated from
-                 phase 17's drift; then Default and c* served through
-                 SchedEngine / SpecEngine (one slot, page 256, chunk 512,
+                 of the reference's _small_tuner, the whole space: c*
+                 may take MLA or upcycle to MoE), c* by
+                 recommend_efficient, recalibrated from phase 17's drift;
+                 then Default and c* served through SchedEngine /
+                 SpecEngine (an MLA c* through the eager Engine, its spec
+                 arm reported unserved; one slot, page 256, chunk 512,
                  4 requests of 512 + 128 tokens one after another):
                  request latency, TTFT and peak memory beside predict()'s,
                  every stream full, every page freed, launches = the
@@ -179,13 +180,34 @@ Phases (each prints one line; any failure raises and exits non-zero):
                  launches derived from the config and the dispatches, no
                  non-finite logit; tokens/s, TTFT p50, decode-step wall,
                  peak memory after the weights, launches
+ 20. train     — training: the CLI for llama3.2-1b at full width with
+                 checkpoints, gradients card vs CPU, LoRA / QLoRA / DoRA,
+                 the resume, the LoRA model served, granite-moe and rwkv6
+                 training, the proxy evaluator; no kernel launches
+ 21. encdec    — (a) B3 without a causal mask, element by element against
+                 its plain version at whisper's and the vision model's
+                 shapes (S = T = 1,500; S 64 / 512 / 1 over T 1,500 /
+                 1,600), timed beside SDPA; (b) whisper-base at full width
+                 and depth (6 + 6 layers) and (c) llama-3.2-vision-11b (40
+                 layers, 8 with cross-attention) through
+                 LM.prefill(modality_input=) and 32 greedy decode_steps
+                 (8 x 64 tokens over 1,500 frames; 4 x 512 over 1,600
+                 patches): full streams, finite logits, B3 / B7 launches
+                 from the config, prefill and first decode step's logits
+                 vs the plain versions, wall and busy ms of a prefill and
+                 a decode step, peak memory; (d) qwen2-1.5b under the
+                 search's mla arm through the eager Engine, bf16 and int8
+                 weights, the latent bytes a token; (e) calibration:
+                 collect_linear_inputs on the card, SmoothQuant and AWQ
+                 scales, the calibrated int8 model served, GPTQ on the
+                 host, timed
 B7 takes every RMSNorm of the qwen2-1.5b drives: 57 launches a forward
 (phases 5, 7, 9, 10), every one on its warp step.  Every B1 / B2 / B3
 launch of those drives (bf16 activations), every B4 and B5 launch of
 phase 9 and every B6 launch of phase 10 must take the tensor-core step:
 their tensor-core launch counts are printed beside the launch counts and
 must equal them.  Launch counts are
-zeroed just before each drive (phases 5, 7, 9, 10, 13-19) and read just
+zeroed just before each drive (phases 5, 7, 9, 10, 13-21) and read just
 after it; peak memory is read for the set-up and, restarted, for the
 drive.  Then one JSON
 line of kernel numbers, and last the result line ``{"ok": true,
@@ -1443,14 +1465,20 @@ QSCHED_REQUESTS = 8
 QLINEARS = E2E_LAYERS * 7
 
 
-def _qlinears(cfg) -> int:
+def _qlinears(cfg, decode: bool = False) -> int:
     """Quantized linears of one forward of ``cfg``: the four attention
-    linears of every block, and three more for its dense MLP or its MoE
-    layer's shared expert (expert stacks and router are not quantized,
-    as in the reference's QUANT_TARGETS)."""
+    linears of every block (MLA: ``kv_down``, ``q_up``, ``kv_up_k``,
+    ``kv_up_v`` and ``wo``, of which a decode step calls three: it absorbs
+    the up-projections; ``k_rope`` is not a target), and three more for
+    its dense MLP or its MoE layer's shared expert (expert stacks and
+    router are not quantized, as in the reference's QUANT_TARGETS)."""
     from repro_torch.models.transformer import block_kinds
-    per_group = sum(4 + (3 if not bk["moe"] or cfg.moe.num_shared_experts
-                         else 0) for bk in block_kinds(cfg))
+    attn = 4
+    if cfg.attention is not None and cfg.attention.kind == "mla":
+        attn = 3 if decode else 5
+    per_group = sum(attn + (3 if not bk["moe"]
+                            or cfg.moe.num_shared_experts else 0)
+                    for bk in block_kinds(cfg))
     return per_group * cfg.num_groups
 
 
@@ -2707,14 +2735,16 @@ def _chunked_plain():
 
 
 def _eager_drive(eng, tracer, prompts, max_new, tag: str,
-                 qlinears: int = 0, exempt=()) -> dict:
+                 qlinears: int = 0, exempt=(),
+                 decode_qlinears=None) -> dict:
     """Serve ``prompts`` through an eager ``Engine`` with the launch
     counts zeroed just before and read just after; check token counts,
     host syncs = admissions + decode steps, and every kernel's launches:
-    B3 L x admissions, B7 2L + 1 x forwards, and with quantized weights B4
-    ``qlinears`` x admissions past 128 tokens (int8) and B5 / B6
-    ``qlinears`` x decode steps; every launch on its tensor-core / warp
-    step but for the kernels in ``exempt``."""
+    B3 L x admissions (none for MLA, plain torch), B7 2L + 1 x forwards,
+    and with quantized weights B4 ``qlinears`` x admissions past 128
+    tokens (int8) and B5 / B6 ``decode_qlinears`` (default ``qlinears``)
+    x decode steps; every launch on its tensor-core / warp step but for
+    the kernels in ``exempt``."""
     torch = _torch()
     cfg = eng.lm.cfg
     n_ev, syncs0 = len(tracer.events), eng.sync_count
@@ -2743,14 +2773,16 @@ def _eager_drive(eng, tracer, prompts, max_new, tag: str,
                              f"admissions + {steps} decode steps (want "
                              f"{len(prompts)} admissions)")
     long_admits = sum(len(p) > 128 for p in prompts)
+    dq = qlinears if decode_qlinears is None else decode_qlinears
     want = {k: 0 for k in launches}
-    want["flash_attention"] = cfg.num_layers * admits
+    if cfg.attention.kind != "mla":
+        want["flash_attention"] = cfg.num_layers * admits
     want["rmsnorm"] = (2 * cfg.num_layers + 1) * (admits + steps)
     if cfg.quant == "int8":
         want["int8_matmul"] = qlinears * long_admits
-        want["w8a8_decode_matmul"] = qlinears * steps
+        want["w8a8_decode_matmul"] = dq * steps
     elif cfg.quant == "fp8":
-        want["fp8_decode_matmul"] = qlinears * steps
+        want["fp8_decode_matmul"] = dq * steps
     if launches != want:
         raise AssertionError(f"{tag}: launches {launches} != {want}")
     ttft = sorted(done[i].t_first - done[i].t_submit for i in ids)
@@ -3515,11 +3547,46 @@ def _search_drive(eng, tracer, prompts, tag: str, draft_norms: int) -> dict:
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
 
 
+def _search_eager_drive(eng, tracer, prompts, tag: str) -> dict:
+    """``_search_drive`` for the eager ``Engine`` (an MLA arm): each prompt
+    served alone by ``_eager_drive``, with its checks and launch rule (B4
+    at ``_qlinears`` an admission, B5 / B6 at ``_qlinears(decode=True)`` a
+    decode step), reshaped to ``_search_drive``'s result."""
+    import collections
+    torch = _torch()
+    cfg = eng.lm.cfg
+    runs = [_eager_drive(eng, tracer, [p], [SEARCH_GEN], f"{tag} request {i}",
+                         qlinears=_qlinears(cfg),
+                         decode_qlinears=_qlinears(cfg, decode=True))
+            for i, p in enumerate(prompts)]
+
+    def total(key):
+        return dict(sum((collections.Counter(r[key]) for r in runs),
+                        collections.Counter()))
+    lat = [r["wall_s"] for r in runs]
+    ttft = [r["ttft_p50_s"] for r in runs]
+    admits = sum(r["admissions"] for r in runs)
+    steps = sum(r["decode_steps"] for r in runs)
+    tail = slice(1, None)                 # the first request warms up
+    return {"latency_ms": statistics.median(lat[tail]) * 1e3,
+            "ttft_ms": statistics.median(ttft[tail]) * 1e3,
+            "latency_all_ms": [x * 1e3 for x in lat],
+            "ttft_all_ms": [x * 1e3 for x in ttft],
+            "launches": total("launches"), "tc_launches": total("tc_launches"),
+            "dispatches": {"fresh": admits, "cont": 0, "verify": 0,
+                           "blocks": steps, "steps": steps},
+            "syncs": sum(r["syncs"] for r in runs),
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
 def _serve_search_arm(cfg, eff, tag: str) -> dict:
     """Serve ``eff`` on ``cfg`` at full width through the SchedEngine (the
     SpecEngine where its spec arm asks for it), one slot, page 256, chunk
     512, greedy, random weights from the seed, quantized by
-    ``apply_to_params`` without the fine-tuning arm."""
+    ``apply_to_params`` without the fine-tuning arm.  An MLA arm goes
+    through the eager ``Engine`` (one slot, max_len 768): the paged
+    engines refuse MLA in both packages, so its spec arm, if any, has no
+    engine and is reported as unserved."""
     import dataclasses
     torch = _torch()
     import numpy as np
@@ -3540,6 +3607,20 @@ def _serve_search_arm(cfg, eff, tag: str) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()          # the weights are made
     tracer = Tracer(enabled=True)
+    rng = np.random.default_rng(SEED + 18)
+    prompts = [rng.integers(0, cfg.vocab_size, SEARCH_PROMPT)
+               for _ in range(SEARCH_REQUESTS)]
+    if acfg.attention.kind == "mla":
+        from repro_torch.serve.engine import Engine
+        eng = Engine(lm, params, n_slots=1, max_len=3 * 256, seed=SEED,
+                     tracer=tracer)
+        out = _search_eager_drive(eng, tracer, prompts, tag)
+        out["engine"] = "Engine"
+        out["spec_unserved"] = acfg.spec_decode
+        del eng, lm, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
     kw = dict(policy="fcfs", prefix_cache=False, n_slots=1,
               max_len=3 * 256, page_size=256, prefill_chunk=512,
               decode_block=8, seed=SEED, tracer=tracer)
@@ -3555,9 +3636,6 @@ def _serve_search_arm(cfg, eff, tag: str) -> dict:
         eng = SpecEngine(lm, params, spec=acfg.spec_decode,
                          draft_k=acfg.spec_draft_k, draft_lm=draft_lm,
                          draft_params=draft_params, **kw)
-    rng = np.random.default_rng(SEED + 18)
-    prompts = [rng.integers(0, cfg.vocab_size, SEARCH_PROMPT)
-               for _ in range(SEARCH_REQUESTS)]
     out = _search_drive(eng, tracer, prompts, tag, draft_norms)
     out["engine"] = type(eng).__name__
     del eng, lm, params
@@ -3571,9 +3649,9 @@ def phase_search(records: list, calibration: dict) -> dict:
     (a) the port's AutoTuner at ``h100-1`` on qwen2-1.5b at full width
     (28 layers, d 1536, 12 heads over 2, d_ff 8960, bf16, tied) for MMLU
     at 512 tokens, the budget of the reference's ``_small_tuner`` and its
-    ``SpaceMask`` narrowed to the arms the port serves (no attention arms:
-    MLA is A6.4; the MoE arms stay, c* may upcycle the MLP to experts; the
-    KV arms stay: B1 takes any group); it prints c*
+    whole ``SpaceMask()`` (the attention arms too: an MLA c* is served
+    through the eager Engine; the MoE arms, c* may upcycle the MLP to
+    experts; the KV arms: B1 takes any group); it prints c*
     (``recommend_efficient``), c*'s and Default's objectives and the
     Efficiency Score, then recalibrates the fitted tuner with phase 17's
     ``CalibratedCostModel`` and prints the shifts.  (b) Default and c*
@@ -3601,8 +3679,7 @@ def phase_search(records: list, calibration: dict) -> dict:
     cfg = get_config("qwen2-1.5b").with_(num_layers=E2E_LAYERS)
     tier = TIERS["h100-1"]
     ev = Evaluator(cfg, TaskSpec("mmlu", "understanding", 0.7, 512), tier)
-    tuner = AutoTuner(ev, mask=SpaceMask(attention_arms=False),
-                      **SEARCH_BUDGET)
+    tuner = AutoTuner(ev, mask=SpaceMask(), **SEARCH_BUDGET)
     report = tuner.run()
     t_search = time.perf_counter() - t_phase
     default = EfficiencyConfig.default()
@@ -3652,7 +3729,10 @@ def phase_search(records: list, calibration: dict) -> dict:
                 f"{p['calibrated']['latency_ms']:.2f} ms and "
                 f"{p['analytic']['memory_gb']:.3f} GiB, energy "
                 f"{p['analytic']['energy_j']:.3f} J (analytic), "
-                f"launches {a['launches']}")
+                f"launches {a['launches']}"
+                + (f", spec arm {a['spec_unserved']!r} unserved: no engine "
+                   "of either package speculates over MLA"
+                   if a.get("spec_unserved", "none") != "none" else ""))
     print(f"[18 search] {cfg.name} {cfg.num_layers}L at h100-1, mmlu/512, "
           f"{report.n_real_evals} real evals in {t_search:.1f}s: c* = "
           f"{cstar} | c* [acc, lat_ms, mem_gb, energy_j] = "
@@ -4712,6 +4792,464 @@ def phase_train(records: list, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the encoder / cross-attention models, MLA, calibration
+
+WHISPER = "whisper-base"
+VISION = "llama-3.2-vision-11b"
+ENCDEC_DECODE_STEPS = 32
+#: (arch, rows, prompt tokens) of phase 21 (b) and (c)
+ENCDEC_DRIVES = ((WHISPER, 8, 64), (VISION, 4, 512))
+MLA_REQUESTS = 8            # phase 21 (d), each arm
+CALIB_REQUESTS = 4          # phase 21 (e)
+#: (tag, B, S, T, H, KH, D) of phase 21 (a): B3 without a causal mask at
+#: the encoder's and the cross-attention's shapes of (b) and (c)
+NONCAUSAL_SHAPES = (("whisper encoder", 8, 1500, 1500, 8, 8, 64),
+                    ("whisper xattn prefill", 8, 64, 1500, 8, 8, 64),
+                    ("whisper xattn decode", 8, 1, 1500, 8, 8, 64),
+                    ("vision xattn prefill", 4, 512, 1600, 32, 8, 128),
+                    ("vision xattn decode", 4, 1, 1600, 32, 8, 128))
+
+
+def _wall_busy(run) -> dict:
+    """Host wall of one ``run()`` (synchronized) and the device busy time
+    (the sum of its kernels' times, from torch.profiler) of one more."""
+    torch = _torch()
+    from repro_torch.launch.profile_serve import _device_kernels
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        run()
+        torch.cuda.synchronize()
+    kernels, runs = _device_kernels(prof)
+    busy = sum(kernels.values())
+    if busy <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return {"wall_ms": wall, "busy_ms": busy, "kernel_runs": runs}
+
+
+def _noncausal_flash(records: list) -> list:
+    """(a) B3 without a causal mask, S != T and S = T = 1,500 (not a
+    multiple of 64), against its plain version element by element with
+    phase 4's bar, then timed beside the plain version and SDPA."""
+    torch = _torch()
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    device = torch.device("cuda")
+    g = torch.Generator(device=device).manual_seed(SEED + 21)
+    rows = []
+    for tag, b, s, t, h, kh, d in NONCAUSAL_SHAPES:
+        def inputs():
+            return (torch.randn((b, s, h, d), generator=g,
+                                device=device).bfloat16(),
+                    torch.randn((b, t, kh, d), generator=g,
+                                device=device).bfloat16(),
+                    torch.randn((b, t, kh, d), generator=g,
+                                device=device).bfloat16())
+        q, k, v = inputs()
+        tc0 = ops.tc_launches
+        out = ops.flash_attention(q, k, v, causal=False)
+        ref = attention_ref(q, k, v, causal=False)
+        torch.cuda.synchronize()
+        check = check_close(f"{tag} S{s} T{t} H{h}/{kh} D{d}"
+                            + _step_tag(ops.tc_launches - tc0, True),
+                            out, ref, 1.0)
+        err = (out.float() - ref.float()).abs().max().item()
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        copies = [inputs() for _ in range(n_copies(nbytes))]
+        ms = time_ms(lambda a, b_, c: ops.flash_attention(a, b_, c,
+                                                          causal=False),
+                     copies)
+        plain_ms = time_ms(lambda a, b_, c: attention_ref(a, b_, c,
+                                                          causal=False),
+                           copies, reps=5, rounds=3)
+        lib_ms = time_ms(lambda a, b_, c: F.scaled_dot_product_attention(
+            a.transpose(1, 2), b_.transpose(1, 2), c.transpose(1, 2),
+            enable_gqa=True), copies)
+        b_ms, b_by = bound(nbytes, 4.0 * b * h * d * s * t, "bfloat16")
+        rows.append({"shape": tag, "B": b, "S": s, "T": t, "H": h, "KH": kh,
+                     "D": d, "check": check, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "bound_ms": b_ms, "bound_by": b_by})
+        del copies
+    for r in records:
+        if r["name"] == "flash_attention":
+            r["noncausal"] = rows
+    return rows
+
+
+def _source_lm(arch: str):
+    """``arch`` at full width and depth, bf16, random weights from the
+    seed, with the fp32 head made once."""
+    torch = _torch()
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(arch)
+    lm = LM(cfg, device="cuda")
+    params = lm.prepare(lm.init(SEED))
+    return cfg, lm, params, _setup_peak_gb()
+
+
+def _encdec_drive(arch: str, rows: int, plen: int) -> dict:
+    """(b) / (c): ``rows`` prompts of ``plen`` tokens over stub source
+    embeddings (``modality_spec``, N(0, 0.02) as the reference's test
+    batches), one ``LM.prefill(modality_input=)`` and
+    ``ENCDEC_DECODE_STEPS`` greedy ``LM.decode_step``s, the launch counts
+    zeroed just before and read just after.  B3 launches once a
+    self-attention block, cross-attention block and encoder layer in the
+    prefill and once a cross-attention block a decode step (self-attention
+    decode is plain torch over the contiguous cache), every launch on the
+    tensor cores; B7 2L + 1 + (cross-attention blocks) a forward for an
+    RMSNorm model (llama-3.2-vision; d 4,096 takes its long-row step),
+    none for a LayerNorm one (whisper).  Then the prefill's and the first
+    decode step's logits against the plain versions, and the wall and
+    busy time of a prefill and a decode step."""
+    torch = _torch()
+    from repro_torch.configs.specs import modality_spec
+    from repro_torch.models.transformer import block_kinds
+    cfg, lm, params, setup_gb = _source_lm(arch)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 211)
+    spec = modality_spec(cfg, rows)
+    src = (torch.randn(spec.shape, generator=g, device="cuda")
+           * 0.02).to(spec.dtype)
+    toks = torch.randint(0, cfg.vocab_size, (rows, plen), generator=g,
+                         device="cuda")
+    max_len = plen + ENCDEC_DECODE_STEPS
+    cache = lm.init_cache(rows, max_len)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    logits0, cache = lm.prefill(params, toks, cache, modality_input=src)
+    tok = logits0.argmax(-1)
+    out, finite = [tok], torch.isfinite(logits0).all()
+    step_logits0 = None
+    for i in range(ENCDEC_DECODE_STEPS):
+        logits, cache = lm.decode_step(
+            params, tok, cache, torch.full((rows,), plen + i,
+                                           device="cuda"))
+        if step_logits0 is None:
+            step_logits0 = logits
+        finite &= torch.isfinite(logits).all()
+        tok = logits.argmax(-1)
+        out.append(tok)
+    streams = torch.stack(out, 1).tolist()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    tc = _tc_launches(arch, exempt=("rmsnorm",))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not bool(finite) or any(len(s) != ENCDEC_DECODE_STEPS + 1 or not all(
+            0 <= t < cfg.vocab_size for t in s) for s in streams):
+        raise AssertionError(f"{arch}: a short stream, a token out of vocab "
+                             "or a non-finite logit")
+    xattn = sum(k["xattn"] for k in block_kinds(cfg)) * cfg.num_groups
+    enc = cfg.encoder.num_layers if cfg.encoder is not None else 0
+    norms = (2 * cfg.num_layers + 1 + xattn) if cfg.norm == "rmsnorm" \
+        else 0
+    want = {k: 0 for k in launches}
+    want["flash_attention"] = enc + cfg.num_layers + xattn \
+        + xattn * ENCDEC_DECODE_STEPS
+    want["rmsnorm"] = norms * (1 + ENCDEC_DECODE_STEPS)
+    if launches != want:
+        raise AssertionError(f"{arch}: launches {launches} != {want}")
+    # the plain versions: the same prefill and first decode step
+    def plain():
+        c = lm.init_cache(rows, max_len)
+        lp, c = lm.prefill(params, toks, c, modality_input=src)
+        sp, _ = lm.decode_step(params, streams_t[:, 0], c,
+                               torch.full((rows,), plen, device="cuda"))
+        return lp, sp
+    streams_t = torch.tensor(streams, device="cuda")
+    lp, sp = _swap_plain(plain, ("attention", "norm"))
+    v = cfg.vocab_size                 # the padded columns are -1e30
+    rel_p, err_p = _worst_slot_rel_l2(f"{arch} prefill", logits0[:, :v],
+                                      lp[:, :v], (rows, v))
+    rel_d, err_d = _worst_slot_rel_l2(f"{arch} decode step",
+                                      step_logits0[:, :v], sp[:, :v],
+                                      (rows, v))
+    fresh = lm.init_cache(rows, max_len)
+    pre = _wall_busy(lambda: lm.prefill(params, toks, fresh,
+                                        modality_input=src))
+    _, fresh = lm.prefill(params, toks, fresh, modality_input=src)
+    step = _wall_busy(lambda: lm.decode_step(
+        params, streams_t[:, 0], fresh,
+        torch.full((rows,), plen, device="cuda")))
+    res = {"params_b": cfg.param_count() / 1e9, "layers": cfg.num_layers,
+           "encoder_layers": enc, "xattn_blocks": xattn, "rows": rows,
+           "prompt": plen, "source_len": spec.shape[1],
+           "decode_steps": ENCDEC_DECODE_STEPS, "wall_s": wall,
+           "tokens_per_s": rows * (ENCDEC_DECODE_STEPS + 1) / wall,
+           "launches": {k: v for k, v in launches.items() if v},
+           "tc_launches": {k: v for k, v in tc.items() if v},
+           "prefill_rel_l2": rel_p, "prefill_max_abs": err_p,
+           "decode_rel_l2": rel_d, "decode_max_abs": err_d,
+           "prefill": pre, "decode_step": step, "setup_peak_gb": setup_gb,
+           "peak_gb": peak}
+    del lm, params, cache, fresh
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _mla_arm(quant: str) -> dict:
+    """(d) qwen2-1.5b under the search's mla arm (kv_lora_rank 384,
+    rope_head_dim 64) at full width and depth through the eager Engine,
+    bf16 or int8 weights (``apply_to_params``; the absorbed decode reads
+    the dequantized up-projections): 8 requests of 200-1,500 tokens, 32-64
+    new tokens each.  MLA launches no attention kernel (plain torch, as the
+    reference computes it in jnp); B7 at 57 a forward; int8 B4 / B5 at the
+    MLA layer's quantized linears (8 a layer in a forward, 6 in a decode
+    step: the up-projections are absorbed).  The latent cache's bytes a
+    token, and one admission's logits against the plain versions (B7's
+    for bf16; B4 / B5's for int8, bit-equal)."""
+    torch = _torch()
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.apply import apply_efficiency_config, \
+        apply_to_params
+    from repro_torch.core.space import (ArchChoice, EfficiencyConfig,
+                                        FtChoice, InfChoice)
+    from repro_torch.kvcache import kv_bytes_per_token
+    from repro_torch.models.model import LM
+    from repro_torch.obs import Tracer
+    from repro_torch.serve.engine import Engine
+    base = get_config("qwen2-1.5b")
+    eff = EfficiencyConfig(ArchChoice("mla", 0, 1), FtChoice("full", 0, 1),
+                           InfChoice(quant, "none", "full"))
+    cfg = apply_efficiency_config(base, eff)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lm = LM(cfg, device="cuda")
+    params = apply_to_params(lm.init(SEED), eff, None)
+    setup_gb = _setup_peak_gb()
+    tracer = Tracer(enabled=True)
+    eng = Engine(lm, params, n_slots=8, max_len=2048, seed=SEED,
+                 tracer=tracer)
+    rng = np.random.default_rng(SEED + 214)
+    eng.submit(rng.integers(0, cfg.vocab_size, 300), max_new_tokens=8)
+    eng.run_to_completion()                              # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prompts = [rng.integers(0, cfg.vocab_size, (int(n),))
+               for n in rng.integers(200, 1501, MLA_REQUESTS)]
+    res = _eager_drive(eng, tracer, prompts,
+                       rng.integers(32, 65, MLA_REQUESTS), f"mla {quant}",
+                       qlinears=_qlinears(cfg),
+                       decode_qlinears=_qlinears(cfg, decode=True))
+    res.pop("streams")
+    node = eng.cache[0]["blk0"]["kv"]
+    res["cache_bytes_per_token"] = len(eng.cache) * sum(
+        t[0, 0].numel() * t.element_size() for t in node.values())
+    res["kv_bytes_per_token"] = kv_bytes_per_token(cfg)
+    res["gqa_kv_bytes_per_token"] = kv_bytes_per_token(base)
+    res["params_b"] = cfg.param_count() / 1e9
+    res["setup_peak_gb"] = setup_gb
+    # int8: the matmuls alone (B4 / B5 are bit-equal to their plain
+    # versions; a B7 ulp would move a whole int8 step, ROADMAP C trap 5)
+    lk = eng._prefill_slot(prompts[0], 0)
+    lp = _swap_plain(lambda: eng._prefill_slot(prompts[0], 0),
+                     ("matmul",) if quant == "int8" else ("norm",))
+    res["logit_rel_l2"], res["logit_max_abs"] = _worst_slot_rel_l2(
+        f"mla {quant} admission", lk[None], lp[None], (1, cfg.vocab_size))
+    del eng, lm, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _linear_at(params: dict, path: str) -> dict:
+    """The linear at a calibration path (``/layers/g{i}/blk0/mlp/gate``)."""
+    parts = path.strip("/").split("/")
+    node = params["layers"][int(parts[1][1:])]
+    for key in parts[2:]:
+        node = node[key]
+    return node
+
+
+def _calibration() -> dict:
+    """(e) calibration at qwen2-1.5b's full width: ``collect_linear_inputs``
+    on the card (2 x 256 tokens: ``wq`` and ``gate`` of the 28 layers),
+    SmoothQuant and AWQ (8 bits) scales over every capture, the
+    SmoothQuant-calibrated int8 tree (``apply_to_params(calib=)``) served
+    through the eager Engine with its launches checked, and
+    ``gptq_quantize_matrix`` on layer 0's 1,536 x 8,960 ``gate`` on the
+    host (4 bits), timed, its output error on the captured activations
+    beside round-to-nearest's."""
+    torch = _torch()
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.apply import apply_to_params
+    from repro_torch.core.space import (ArchChoice, EfficiencyConfig,
+                                        FtChoice, InfChoice)
+    from repro_torch.models.model import LM
+    from repro_torch.obs import Tracer
+    from repro_torch.quant import calibrate as cal
+    from repro_torch.serve.engine import Engine
+    cfg = get_config("qwen2-1.5b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm = LM(cfg, device="cuda")
+    params = lm.init(SEED)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 215)
+    toks = torch.randint(0, cfg.vocab_size, (2, 256), generator=g,
+                         device="cuda")
+    _reset_launches()
+    t0 = time.perf_counter()
+    caps = cal.collect_linear_inputs(lm, params, toks)
+    torch.cuda.synchronize()
+    t_collect = time.perf_counter() - t0
+    want = {f"/layers/g{i}/blk0/{n}" for i in range(cfg.num_layers)
+            for n in ("attn/wq", "mlp/gate")}
+    if set(caps) != want or any(c.shape != (256, cfg.d_model)
+                                or not torch.isfinite(c).all()
+                                for c in caps.values()):
+        raise AssertionError(f"calibration: captured {sorted(caps)[:4]}... "
+                             f"({len(caps)} linears), want {len(want)}")
+    t0 = time.perf_counter()
+    sq = {p: cal.smoothquant_scales(x.abs().amax(dim=0),
+                                    _linear_at(params, p)["w"])
+          for p, x in caps.items()}
+    torch.cuda.synchronize()
+    t_sq = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    awq = {p: cal.awq_search_scales(_linear_at(params, p)["w"], x, bits=8)
+           for p, x in caps.items()}
+    torch.cuda.synchronize()
+    t_awq = time.perf_counter() - t0
+    for name, sc in (("smoothquant", sq), ("awq", awq)):
+        if not all(torch.isfinite(s).all() and (s > 0).all()
+                   for s in sc.values()):
+            raise AssertionError(f"calibration: {name} scales not finite")
+    # GPTQ on the host
+    gate = "/layers/g0/blk0/mlp/gate"
+    x = caps[gate].double().cpu().numpy()
+    w = _linear_at(params, gate)["w"].double().cpu().numpy()
+    t0 = time.perf_counter()
+    h = cal.hessian_from_inputs(x)
+    wq, _ = cal.gptq_quantize_matrix(w, h, bits=4)
+    t_gptq = time.perf_counter() - t0
+    q, s = cal._rtn(torch.from_numpy(w), 4)
+    w_rtn = (q * s[None, :]).numpy()
+    y = x @ w
+    gptq_err = float(np.linalg.norm(x @ wq - y) / np.linalg.norm(y))
+    rtn_err = float(np.linalg.norm(x @ w_rtn - y) / np.linalg.norm(y))
+    # the SmoothQuant-calibrated int8 model served
+    eff = EfficiencyConfig(ArchChoice("gqa", 0, 1), FtChoice("full", 0, 1),
+                           InfChoice("int8", "smoothquant", "full"))
+    qparams = apply_to_params(params, eff, None, calib=sq)
+    del params, caps
+    qlm = LM(cfg.with_(quant="int8"), device="cuda")
+    setup_gb = _setup_peak_gb()
+    tracer = Tracer(enabled=True)
+    eng = Engine(qlm, qparams, n_slots=4, max_len=1024, seed=SEED,
+                 tracer=tracer)
+    rng = np.random.default_rng(SEED + 216)
+    prompts = [rng.integers(0, cfg.vocab_size, (int(n),))
+               for n in rng.integers(200, 801, CALIB_REQUESTS)]
+    served = _eager_drive(eng, tracer, prompts,
+                          np.full(CALIB_REQUESTS, 32), "calibrated int8",
+                          qlinears=_qlinears(qlm.cfg))
+    served.pop("streams")
+    served["setup_peak_gb"] = setup_gb
+    del eng, qlm, qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"captured": len(want), "collect_s": t_collect,
+            "smoothquant_s": t_sq, "awq_s": t_awq, "gptq_s": t_gptq,
+            "gptq_out_rel_err": gptq_err, "rtn_out_rel_err": rtn_err,
+            "awq_scale_range": [min(float(s.min()) for s in awq.values()),
+                                max(float(s.max()) for s in awq.values())],
+            "served": served}
+
+
+def phase_encdec(records: list, smi: str) -> dict:
+    """Phase 21: (a) B3 non-causal at whisper's and the vision model's
+    shapes; (b) whisper-base and (c) llama-3.2-vision-11b at full width
+    and depth through ``LM.prefill(modality_input=)`` + ``decode_step``;
+    (d) qwen2-1.5b's MLA arm through the eager Engine, bf16 and int8;
+    (e) calibration at qwen2-1.5b's full width."""
+    torch = _torch()
+    t_phase = time.perf_counter()
+    out = {"a_noncausal": _noncausal_flash(records)}
+    print(f"[21 encdec] (a) {smi}: B3 non-causal vs plain (bar of phase 4) "
+          + "; ".join(f"{r['check']}: {r['ms']:.4f} ms, plain "
+                      f"{r['plain_ms']:.4f}, sdpa {r['library_ms']:.4f}, "
+                      f"bound {r['bound_ms']:.4f} ({r['bound_by']})"
+                      for r in out["a_noncausal"]))
+    for (arch, rows, plen), key in zip(ENCDEC_DRIVES, ("b_whisper",
+                                                       "c_vision")):
+        out[key] = d = _encdec_drive(arch, rows, plen)
+        for r in records:
+            if r["name"] in d["launches"]:
+                r.setdefault("launches_by_drive", {})[f"encdec_{arch}"] = \
+                    d["launches"][r["name"]]
+        print(f"[21 encdec] ({key[0]}) {arch} {smi}: "
+              f"{d['params_b']:.2f} B params, {d['layers']}L"
+              + (f" + {d['encoder_layers']}L encoder" if d["encoder_layers"]
+                 else "")
+              + f", {d['xattn_blocks']} cross-attention blocks, {rows} x "
+              f"{plen} tokens over {d['source_len']} source positions, "
+              f"{ENCDEC_DECODE_STEPS} decode steps: {d['tokens_per_s']:.1f}"
+              f" tokens/s, launches {d['launches']} (tensor-core / warp "
+              f"{d['tc_launches']}), prefill wall {d['prefill']['wall_ms']:.2f}"
+              f" ms busy {d['prefill']['busy_ms']:.2f} ms, decode step wall "
+              f"{d['decode_step']['wall_ms']:.2f} ms busy "
+              f"{d['decode_step']['busy_ms']:.2f} ms, logits vs plain "
+              f"(relative L2, limit {LOGIT_REL_L2}) prefill "
+              f"{d['prefill_rel_l2']:.3e}, decode {d['decode_rel_l2']:.3e}, "
+              f"peak {d['peak_gb']:.2f} GB (set-up {d['setup_peak_gb']:.2f} "
+              f"GB)")
+    out["d_mla"] = {}
+    for quant in ("bf16", "int8"):
+        out["d_mla"][quant] = m = _mla_arm(quant)
+        for r in records:
+            if r["name"] in m["launches"]:
+                r.setdefault("launches_by_drive", {})[f"mla_{quant}"] = \
+                    m["launches"][r["name"]]
+        print(f"[21 encdec] (d) qwen2-1.5b mla {quant} {smi}: "
+              f"{m['params_b']:.2f} B params, latent "
+              f"{m['cache_bytes_per_token']} B a token (kv_bytes_per_token "
+              f"{m['kv_bytes_per_token']:.0f}; GQA "
+              f"{m['gqa_kv_bytes_per_token']:.0f}), {m['requests']} req, "
+              f"{m['tokens']} tokens in {m['wall_s']:.3f}s "
+              f"({m['tokens_per_s']:.1f} tok/s), TTFT p50 "
+              f"{m['ttft_p50_s']:.4f}s, {m['admissions']} admissions + "
+              f"{m['decode_steps']} decode steps = {m['syncs']} syncs, "
+              f"launches {m['launches']}, admission logits vs plain "
+              f"{m['logit_rel_l2']:.3e}, peak {m['peak_mem_gb']:.2f} GB")
+    out["e_calibration"] = c = _calibration()
+    s = c["served"]
+    print(f"[21 encdec] (e) calibration qwen2-1.5b {smi}: "
+          f"collect_linear_inputs {c['captured']} linears in "
+          f"{c['collect_s']:.2f}s, SmoothQuant {c['smoothquant_s']:.3f}s, "
+          f"AWQ (8 bits) {c['awq_s']:.2f}s (scales "
+          f"{c['awq_scale_range'][0]:.3g}..{c['awq_scale_range'][1]:.3g}), "
+          f"GPTQ 4 bits on 1536 x 8960 gate (host) {c['gptq_s']:.2f}s, "
+          f"output error GPTQ {c['gptq_out_rel_err']:.4f} vs RTN "
+          f"{c['rtn_out_rel_err']:.4f} | SmoothQuant int8 served: "
+          f"{s['requests']} req, {s['tokens']} tokens "
+          f"({s['tokens_per_s']:.1f} tok/s), launches {s['launches']}")
+    for r in records:
+        if r["name"] in s["launches"]:
+            r.setdefault("launches_by_drive", {})["calibrated_int8"] = \
+                s["launches"][r["name"]]
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+    print(f"[21 encdec] phase {out['phase_wall_s']:.1f}s")
+    return out
+
+
 def main() -> int:
     dev = phase_device()
     phase_build()
@@ -4739,13 +5277,14 @@ def main() -> int:
     search = phase_search(records, cost["calibration"])
     moe = phase_moe(records)
     train = phase_train(records, dev["smi"])
+    encdec = phase_encdec(records, dev["smi"])
     out_dir = ROOT / "chiprun_out"
     if out_dir.is_dir():
         (out_dir / "chip_smoke_e2e.json").write_text(json.dumps(
             {"e2e": e2e, "sched": sched, "qsched": qsched, "fp8": fp8,
              "rwkv": rwkv, "spec": spec, "eager": eager, "resil": resil,
              "cost": cost, "search": search, "moe": moe, "train": train,
-             "kernels": records}, indent=1))
+             "encdec": encdec, "kernels": records}, indent=1))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": dev["kind"],

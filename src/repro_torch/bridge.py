@@ -14,8 +14,11 @@ five linears), their recurrent states (:func:`state_from_numpy`) and MoE
 layers (``moe``: the fp32 router, the ``(E, d, f)`` expert stacks, sliced
 per group from the reference's ``(G, E, d, f)``, and the shared expert),
 and so do PEFT adapters (``lora``: ``a``, ``b``, ``scaling`` and DoRA's
-``m``, sliced per group like any other leaf) over dense or int4 bases.
-Every array keeps its numpy dtype.  :func:`params_to_numpy` goes the
+``m``, sliced per group like any other leaf) over dense or int4 bases,
+and so do MLA attention (``kv_down``, ``k_rope``, ``kv_up_k``,
+``kv_up_v``, ``q_up``[, ``q_down``]), cross-attention blocks (``norm_x``,
+``xattn``) and the encoder, whose layers the reference stacks on a leading
+axis and the port keeps as a list.  Every array keeps its numpy dtype.  :func:`params_to_numpy` goes the
 other way (the tests compare whole trees after training steps).
 """
 from __future__ import annotations
@@ -64,6 +67,12 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
            "final_norm": _tree(tree["final_norm"], device)}
     if not cfg.tie_embeddings:
         out["lm_head"] = _tree(tree["lm_head"], device)
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        out["encoder"] = {
+            "layers": [_tree(enc["layers"], device, i)
+                       for i in range(cfg.encoder.num_layers)],
+            "final_norm": _tree(enc["final_norm"], device)}
     return out
 
 
@@ -104,9 +113,15 @@ def _stack(groups: list):
 def params_to_numpy(params: dict, cfg: ModelConfig) -> dict:
     """The port's parameter (or gradient) tree -> the reference's layout
     as numpy: the groups stacked on a leading axis (``scan_layers``) or
-    under ``g{i}`` keys."""
+    under ``g{i}`` keys, the encoder's layers always stacked."""
     groups = [_numpy_tree(g) for g in params["layers"]]
-    out = {k: _numpy_tree(v) for k, v in params.items() if k != "layers"}
+    out = {k: _numpy_tree(v) for k, v in params.items()
+           if k not in ("layers", "encoder")}
+    if "encoder" in params:
+        enc = params["encoder"]
+        out["encoder"] = {
+            "layers": _stack([_numpy_tree(lp) for lp in enc["layers"]]),
+            "final_norm": _numpy_tree(enc["final_norm"])}
     out["layers"] = (_stack(groups) if cfg.scan_layers
                      else {f"g{i}": g for i, g in enumerate(groups)})
     return {k: out[k] for k in params}

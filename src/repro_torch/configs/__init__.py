@@ -2,9 +2,11 @@
 ``get_smoke_config``.  Holds the ten assigned architectures, as the
 reference registry (``repro.configs``) does, and falls back to the
 paper's own evaluation models (``paper_models``) in ``get_config``.  The
-port serves the dense-attention archs, the MoE archs and RWKV-6; the
-Mamba, encoder and cross-attention configs are data the cost model and
-the search read (serving them is ROADMAP A6)."""
+port serves the dense-attention archs (MLA under the search's arm), the
+MoE archs and RWKV-6 through its engines, and runs the encoder and
+cross-attention archs through ``LM.prefill(modality_input=)`` and
+``LM.decode_step``; the Mamba config (jamba) is data the cost model and
+the search read (ROADMAP A6.3)."""
 from __future__ import annotations
 
 from repro_torch.configs import (deepseek_coder_33b, granite_moe_3b_a800m,

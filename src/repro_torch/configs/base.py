@@ -94,9 +94,9 @@ class ModelConfig:
     vocab_size: int = 128_256
     attention: Optional[AttentionConfig] = field(
         default_factory=AttentionConfig)   # None for attention-free models
-    # MoE blocks are served (models/moe.py); encoder and cross-attention
-    # fields are data the cost model reads, and the models refuse them
-    # until they are ported (ROADMAP A6)
+    # MoE blocks are served (models/moe.py); the encoder and
+    # cross-attention run through LM.prefill(modality_input=); the ssm
+    # field's Mamba blocks are refused until they are ported (ROADMAP A6.3)
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     encoder: Optional[EncoderConfig] = None

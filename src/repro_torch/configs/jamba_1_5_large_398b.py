@@ -5,7 +5,7 @@ d_ff=24576 vocab=65536, MoE 16e top-2 — Mamba+attn 1:7 interleave, MoE.
 Block group of 8 = 1 attention + 7 Mamba layers (attention at index 4,
 as in the public config); MoE MLP on every other layer.  Config data for
 the cost model and the search; the port does not serve Mamba blocks
-yet (ROADMAP A6).
+yet (ROADMAP A6.3).
 """
 from repro_torch.configs.base import (AttentionConfig, ModelConfig, MoEConfig,
                                 SSMConfig)

@@ -5,8 +5,9 @@ d_ff=14336 vocab=128256 — cross-attn image layers.
 The vision tower is a stub: precomputed (B, num_image_tokens, d_model)
 patch embeddings.  Every 5th decoder block gets a gated cross-attention
 layer (8 of 40), mirroring the public checkpoint's cross-attn placement.
-Config data for the cost model and the search; the port does not serve
-cross-attention yet (ROADMAP A6).
+The port runs it through ``LM.prefill(modality_input=)`` and
+``LM.decode_step``; the engines refuse it, as the reference's do (its
+eager ``Engine`` passes no source).
 """
 from repro_torch.configs.base import AttentionConfig, ModelConfig
 

@@ -2,9 +2,10 @@
 vocab=51865 — enc-dec, conv frontend (stub).  [arXiv:2212.04356; unverified]
 
 The conv1d/mel frontend is a stub: precomputed (B, 1500, d_model) frame
-embeddings.  Decoder blocks cross-attend to the encoder output every
-layer.  Config data for the cost model and the search; the port does not
-serve the encoder yet (ROADMAP A6).
+embeddings (``configs.specs.modality_spec``).  Decoder blocks
+cross-attend to the encoder output every layer.  The port runs it through
+``LM.prefill(modality_input=)`` and ``LM.decode_step``; the engines refuse
+it, as the reference's do (its eager ``Engine`` passes no source).
 """
 from repro_torch.configs.base import AttentionConfig, EncoderConfig, ModelConfig
 

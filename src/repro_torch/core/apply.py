@@ -3,9 +3,9 @@
 
 ``apply_efficiency_config`` — ModelConfig -> ModelConfig (architecture +
 inference arms; what the cost model prices and the engines serve).
-``apply_to_params``         — params -> params: quantization (c_inf)
-and PEFT adapters (c_ft).  Calibrated AWQ / SmoothQuant scales
-(``calib=``) wait for ``quant/calibrate.py`` (ROADMAP A7).
+``apply_to_params``         — params -> params: quantization (c_inf,
+with calibrated AWQ / SmoothQuant scales when ``calib=`` is given) and
+PEFT adapters (c_ft).
 """
 from __future__ import annotations
 
@@ -84,19 +84,15 @@ def apply_to_params(params, eff: EfficiencyConfig, seed=0, *,
     non-full fine-tuning arm attaches its adapters (``apply_peft``, rank
     ``ft.rank``, alpha ``rank * alpha_mult``), drawn from ``seed`` (an int
     or a generator on the weights' device; the reference's is a JAX key).
-    ``calib=`` raises: activation-aware scales are ROADMAP A7's
-    ``quant/calibrate.py``."""
+    ``calib`` maps linear paths to equalization scales
+    (``quant.calibrate``; see ``quantize_tree``)."""
     from repro_torch.peft.lora import apply_peft
     from repro_torch.quant.qops import quantize_tree
 
-    if calib is not None:
-        raise NotImplementedError(
-            "calib=: activation-aware scales (quant/calibrate.py) are "
-            "ROADMAP A7")
     if eff.ft.method == "qlora" or eff.inf.quant == "int4":
-        params = quantize_tree(params, quant="int4")
+        params = quantize_tree(params, quant="int4", calib=calib)
     elif eff.inf.quant in ("int8", "fp8"):
-        params = quantize_tree(params, quant=eff.inf.quant)
+        params = quantize_tree(params, quant=eff.inf.quant, calib=calib)
     if eff.ft.method != "full":
         params = apply_peft(params, seed, method=eff.ft.method,
                             rank=eff.ft.rank,

@@ -139,7 +139,14 @@ class Evaluator:
         """Train a reduced same-family model with the config applied for
         ``proxy_steps`` steps (batch 16 x 64, cosine schedule from 8e-3);
         acc = 100·exp(−max(eval_ce − 1, 0)/3) over two held-out
-        batches."""
+        batches.  MLA arms train through the MLA forward.  An encoder or
+        cross-attention model raises: the synthetic data has no
+        ``modality_input`` (the reference's proxy fails there too)."""
+        if self.cfg.encoder is not None or self.cfg.cross_attn_every:
+            raise ValueError(
+                f"proxy evaluation of {self.cfg.name}: SyntheticLMData has "
+                "no modality_input for an encoder or cross-attention model; "
+                "use mode='analytic'")
         key = str(eff)
         if key in self._proxy_cache:
             return self._proxy_cache[key]

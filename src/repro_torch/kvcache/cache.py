@@ -7,6 +7,8 @@ Contiguous node:  {"k": (B,S,KH,D), "v": (B,S,KH,D)
                   (the eager ``Engine``'s cache, a draft LM's, and the
                   bf16 staging caches of admission and speculative
                   verify)
+MLA node:         {"c_kv": (B,S,dc), "k_pe": (B,S,rr)}  (bf16 always;
+                  the eager ``Engine``'s cache of an MLA model)
 Paged node:       {"k_pages"/"v_pages": (N,page,KH,D),
                    [, "k_scales"/"v_scales": (N,KH) fp32]
                    "block_table": (n_slots, pages_per_slot) int32}
@@ -47,6 +49,14 @@ from repro_torch.kvcache.spec import CacheSpec
 
 def alloc_contiguous(spec: CacheSpec, a: AttentionConfig, batch: int,
                      max_len: int, device=None) -> dict:
+    if a.kind == "mla":
+        # the latent stays bf16 whatever spec.dtype says (the reference's
+        # rule: it is small and its quantization is not modelled)
+        dt = torch.bfloat16
+        return {"c_kv": torch.zeros((batch, max_len, a.kv_lora_rank),
+                                    dtype=dt, device=device),
+                "k_pe": torch.zeros((batch, max_len, a.rope_head_dim),
+                                    dtype=dt, device=device)}
     kvh = spec.stored_kv_heads(a)
     shape = (batch, max_len, kvh, a.head_dim)
     c = {"k": torch.zeros(shape, dtype=spec.store_dtype, device=device),
@@ -64,7 +74,10 @@ def alloc_paged(spec: CacheSpec, a: AttentionConfig, n_slots: int,
     """Page pools shared by all slots + the per-slot block table.  Pass
     ``block_table`` to share one table tensor between layers (every layer
     maps a slot to the same pages; the reference keeps one copy per
-    layer)."""
+    layer).  MLA's latent cache has no paged layout, as in the
+    reference."""
+    if a.kind == "mla":
+        raise NotImplementedError("paged decode: standard attention only")
     kvh = spec.stored_kv_heads(a)
     shape = (n_pages, spec.page_size, kvh, a.head_dim)
     if block_table is None:
@@ -105,7 +118,8 @@ def prefill_write(cache: dict, updates: dict) -> dict:
 
 def decode_write(cache: dict, updates: dict, pos: torch.Tensor) -> dict:
     """One-token write (in place) at per-row positions ``pos`` (B,):
-    ``updates`` maps "k" / "v" to (B, 1, KH, D), quantized with their
+    ``updates`` maps "k" / "v" to (B, 1, KH, D) (or MLA's "c_kv" /
+    "k_pe" to (B, 1, dc) / (B, 1, rr)), quantized with their
     own amax scales into an int8 / fp8 cache.  A position past the slab
     is clamped to its last row, as the reference's
     ``dynamic_update_slice`` clamps (a draft LM's lock-step steps past

@@ -1,1 +1,1 @@
-"""Model forwards of the port (attention-only dense decoders)."""
+"""Model forwards of the port: dense, MLA, MoE, RWKV-6, encoder and cross-attention decoders."""

@@ -1,4 +1,4 @@
-"""Attention (MHA / MQA / GQA: one grouped implementation).
+"""Attention (MHA / MQA / GQA: one grouped implementation) and MLA.
 
 Entry points per layer, as in ``repro/models/attention.py``:
   * ``attention_forward``      — full-sequence causal attention
@@ -30,6 +30,14 @@ trains through its jnp attention: the kernel has no backward.
 Cache allocation and writes live in ``repro_torch.kvcache``; quantized
 contiguous caches are read fused (the K scale multiplies the scores, the
 V scale folds into the probabilities), with no dequantized copy.
+
+MLA (DeepSeek-V2 style, the search's ``mla`` arm) compresses K/V into a
+latent ``c_kv`` plus one shared decoupled-RoPE key ``k_pe``; its decode
+absorbs ``kv_up_k`` / ``kv_up_v`` into the query and the output, so the
+contiguous cache holds only (B, S, kv_lora_rank + rope_head_dim) in bf16.
+The reference computes MLA in plain jnp, outside Pallas; the port
+computes it in plain torch on every device (einsum products, an fp32
+softmax), and has no paged layout for it.
 """
 from __future__ import annotations
 
@@ -50,9 +58,22 @@ NEG_INF = -1e30
 
 def init_attention(gen: torch.Generator, d_model: int, a: AttentionConfig,
                    dtype=torch.bfloat16, device=None) -> dict:
+    kw = dict(dtype=dtype, device=device)
+    if a.kind == "mla":
+        h, hd, rr = a.num_heads, a.head_dim, a.rope_head_dim
+        p = {"kv_down": init_linear(gen, d_model, a.kv_lora_rank, **kw),
+             "k_rope": init_linear(gen, d_model, rr, **kw),
+             "kv_up_k": init_linear(gen, a.kv_lora_rank, h * hd, **kw),
+             "kv_up_v": init_linear(gen, a.kv_lora_rank, h * hd, **kw),
+             "wo": init_linear(gen, h * hd, d_model, **kw)}
+        q_in = d_model
+        if a.q_lora_rank:
+            p["q_down"] = init_linear(gen, d_model, a.q_lora_rank, **kw)
+            q_in = a.q_lora_rank
+        p["q_up"] = init_linear(gen, q_in, h * (hd + rr), **kw)
+        return p
     kvh = a.kv_heads_effective()
     hp = a.heads_padded
-    kw = dict(dtype=dtype, device=device)
     p = {"wq": init_linear(gen, d_model, hp * a.head_dim, bias=a.qkv_bias,
                            **kw),
          "wk": init_linear(gen, d_model, kvh * a.head_dim, bias=a.qkv_bias,
@@ -259,6 +280,122 @@ def _attend(p: dict, q, k, v, a: AttentionConfig, use_flash: bool,
     return linear_apply(p["wo"], _mask_pad_heads(o, a), impl)
 
 
+# ---------------------------------------------------------------------------
+# MLA
+
+
+def _mla_latent(p: dict, x: torch.Tensor, a: AttentionConfig,
+                positions: torch.Tensor, impl: str = "ref"):
+    """The latent ``c_kv`` (B,S,dc) and the rotated shared key ``k_pe``
+    (B,S,1,rr) of x: what the cache stores."""
+    b, s, _ = x.shape
+    c_kv = linear_apply(p["kv_down"], x, impl)
+    k_pe = linear_apply(p["k_rope"], x, impl).reshape(b, s, 1,
+                                                       a.rope_head_dim)
+    return c_kv, apply_rope(k_pe, positions, a.rope_theta)
+
+
+def _mla_query(p: dict, x: torch.Tensor, a: AttentionConfig,
+               positions: torch.Tensor, impl: str = "ref"):
+    """(q_nope (B,S,H,hd), rotated q_pe (B,S,H,rr)), through ``q_down``
+    when the config has a ``q_lora_rank``."""
+    b, s, _ = x.shape
+    hd = a.head_dim
+    qx = linear_apply(p["q_down"], x, impl) if "q_down" in p else x
+    q = linear_apply(p["q_up"], qx, impl).reshape(b, s, a.num_heads,
+                                                  hd + a.rope_head_dim)
+    return q[..., :hd], apply_rope(q[..., hd:], positions, a.rope_theta)
+
+
+def _mla_scale(a: AttentionConfig) -> torch.Tensor:
+    return 1.0 / torch.sqrt(torch.tensor(a.head_dim + a.rope_head_dim,
+                                         dtype=torch.float32))
+
+
+def _mla_forward(p: dict, x: torch.Tensor, a: AttentionConfig,
+                 impl: str = "ref"):
+    """The reference's ``_mla_forward`` over positions [0, S): K / V
+    expanded from the latent per head, fp32 scores of the no-RoPE and the
+    RoPE halves, probabilities rounded to v's dtype.  Returns ``(y,
+    c_kv, k_pe)``; a prefill stores the latent it computed (the reference
+    projects it a second time, to the same values)."""
+    b, s, _ = x.shape
+    h, hd = a.num_heads, a.head_dim
+    positions = torch.arange(s, device=x.device)[None, :]
+    c_kv, k_pe = _mla_latent(p, x, a, positions, impl)
+    q_nope, q_pe = _mla_query(p, x, a, positions, impl)
+    k_nope = linear_apply(p["kv_up_k"], c_kv, impl).reshape(b, s, h, hd)
+    v = linear_apply(p["kv_up_v"], c_kv, impl).reshape(b, s, h, hd)
+    scores = (torch.einsum("bshd,bthd->bhst", q_nope.float(),
+                           k_nope.float())
+              + torch.einsum("bshr,btur->bhst", q_pe.float(),
+                             k_pe.float())) * _mla_scale(a).to(x.device)
+    if a.causal:
+        mask = causal_mask(s, s, window=a.window, device=x.device)
+        scores = torch.where(mask[None, None], scores,
+                             torch.tensor(NEG_INF, device=x.device))
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    o = torch.einsum("bhst,bthd->bshd", probs, v).reshape(b, s, h * hd)
+    return linear_apply(p["wo"], o, impl), c_kv, k_pe
+
+
+def _absorbed(p: dict, dtype: torch.dtype) -> torch.Tensor:
+    """An up-projection's (dc, H*hd) weight for the absorbed decode, in
+    ``dtype``: ``w``, or a quantized linear's ``qw`` times its column
+    scales (int8 / fp8, or packed int4 unpacked).  The reference reads
+    ``["w"]`` and so fails on every quantized tree (ROADMAP C, R7).  A
+    LoRA adapter on the linear is not read here, as in the reference."""
+    if "w" in p:
+        return p["w"].to(dtype)
+    from repro_torch.kernels.int8_matmul.ref import unpack_int4
+    qw = p["qw"]
+    w = unpack_int4(qw) if qw.dtype == torch.uint8 else qw
+    return (w.float() * p["scale"].float()[None, :]).to(dtype)
+
+
+def _mla_decode(p: dict, x: torch.Tensor, a: AttentionConfig, cache: dict,
+                pos: torch.Tensor, impl: str = "ref"
+                ) -> tuple[torch.Tensor, dict]:
+    """Absorbed-matmul MLA decode (the reference's ``_mla_decode``): the
+    token's latent and shared key are written into the bf16 cache (in
+    place), the query's no-RoPE half is taken into the latent space
+    through ``kv_up_k`` and scored against the latent cache directly, and
+    the latent output is taken back out through ``kv_up_v``.  Keys past a
+    row's position are masked (no window, as in the reference).  On a
+    quantized tree the up-projections are absorbed dequantized
+    (:func:`_absorbed`); the reference fails there (R7)."""
+    from repro_torch import kvcache
+    b = x.shape[0]
+    h, hd, dc = a.num_heads, a.head_dim, a.kv_lora_rank
+    pos = torch.broadcast_to(torch.as_tensor(pos, device=x.device).long(),
+                             (b,))
+    posv = pos[:, None]
+    c_new, pe_new = _mla_latent(p, x, a, posv, impl)
+    cache = kvcache.decode_write(cache, {"c_kv": c_new,
+                                         "k_pe": pe_new[:, :, 0]}, pos)
+    c_cache, pe_cache = cache["c_kv"], cache["k_pe"]
+    q_nope, q_pe = _mla_query(p, x, a, posv, impl)
+    w_uk = _absorbed(p["kv_up_k"], q_nope.dtype).reshape(dc, h, hd)
+    q_abs = torch.einsum("bshd,chd->bshc", q_nope, w_uk)
+    valid = torch.arange(c_cache.shape[1], device=x.device)[None, :] <= posv
+    scores = (torch.einsum("bshc,btc->bhst", q_abs.float(),
+                           c_cache.to(q_abs.dtype).float())
+              + torch.einsum("bshr,btr->bhst", q_pe.float(),
+                             pe_cache.to(q_pe.dtype).float())
+              ) * _mla_scale(a).to(x.device)
+    scores = torch.where(valid[:, None, None, :], scores,
+                         torch.tensor(NEG_INF, device=x.device))
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    o_lat = torch.einsum("bhst,btc->bshc", probs, c_cache.to(x.dtype))
+    w_uv = _absorbed(p["kv_up_v"], o_lat.dtype).reshape(dc, h, hd)
+    o = torch.einsum("bshc,chd->bshd", o_lat, w_uv).reshape(b, 1, h * hd)
+    return linear_apply(p["wo"], o, impl), cache
+
+
+# ---------------------------------------------------------------------------
+# Forward (prefill)
+
+
 def attention_forward(p: dict, x: torch.Tensor, a: AttentionConfig, *,
                       use_flash: bool = False, impl: str = "ref",
                       train: bool = False, **chunk_kw) -> torch.Tensor:
@@ -266,7 +403,10 @@ def attention_forward(p: dict, x: torch.Tensor, a: AttentionConfig, *,
     ``impl`` is the quantized linears' ``quant_matmul_impl``; ``chunk_kw``
     (``attn_impl``, ``q_block``, ``kv_block``, ``chunk_min``) picks
     chunked attention on the CPU, as the reference's config does, and on
-    every device under ``train=True`` (the training forward)."""
+    every device under ``train=True`` (the training forward).  MLA takes
+    :func:`_mla_forward` on every device."""
+    if a.kind == "mla":
+        return _mla_forward(p, x, a, impl)[0]
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     q, k, v = _project(p, x, a, positions, impl)
     return _attend(p, q, k, v, a, use_flash, impl, train=train, **chunk_kw)
@@ -281,6 +421,10 @@ def attention_prefill(p: dict, x: torch.Tensor, a: AttentionConfig,
     K/V are projected once and shared by both (the reference projects
     them twice; the values are identical)."""
     from repro_torch import kvcache
+    if a.kind == "mla":
+        y, c_kv, k_pe = _mla_forward(p, x, a, impl)
+        return y, kvcache.prefill_write(cache, {"c_kv": c_kv,
+                                                "k_pe": k_pe[:, :, 0]})
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _project(p, x, a, positions, impl)
@@ -406,8 +550,11 @@ def attention_decode(p: dict, x: torch.Tensor, a: AttentionConfig,
     and probabilities round to x's dtype before the V product.  int8 /
     fp8 caches, fused as the reference reads them: fp32 scores times the
     per-position K scale, fp32 probabilities times the V scale before the
-    V product, rounded to x's dtype after it."""
+    V product, rounded to x's dtype after it.  MLA takes
+    :func:`_mla_decode` over its latent cache."""
     from repro_torch import kvcache
+    if a.kind == "mla":
+        return _mla_decode(p, x, a, cache, pos, impl)
     b = x.shape[0]
     kvh = a.kv_heads_effective()
     kvh_store = cache["k"].shape[2]

@@ -46,7 +46,11 @@ def linear_apply(p: dict, x: torch.Tensor, impl: str = "ref") -> torch.Tensor:
     ``{"qw", "scale"}``; their bias goes to ``quantized_matmul`` (which
     folds it into the decode kernels' epilogue) and ``impl`` is the
     model's ``quant_matmul_impl``, or ``"train"`` in a training
-    forward."""
+    forward.  A ``"_capture"`` callable in ``p`` (calibration's copy of
+    the tree, ``quant.calibrate.collect_linear_inputs``) is handed the
+    input first."""
+    if "_capture" in p:
+        p["_capture"](x)
     if "qw" in p:
         from repro_torch.quant.qops import quantized_matmul
         y = quantized_matmul(x, p, bias=p.get("b"), impl=impl)

@@ -8,7 +8,11 @@ with the layer stack as a list of groups.  Entry points run on the card
 explicit device they raise.  ``loss`` is the training forward: the
 reference's training math in plain torch under autograd on every device
 (``train=True`` through the stack), and a chunked cross-entropy that
-never holds the whole (B, S, vocab) logits.
+never holds the whole (B, S, vocab) logits.  Encoder-decoder (whisper)
+and VLM models take their source as ``modality_input`` (B, T_src, d): the
+stub frontends' frame or patch embeddings (``configs.specs.modality_spec``)
+in ``loss``, ``logits`` and ``prefill``; decode reads the source's K / V
+from the cache.
 """
 from __future__ import annotations
 
@@ -21,7 +25,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (dtype_of, embedding_apply,
                                        init_embedding, init_linear,
                                        init_norm, norm_apply)
-from repro_torch.models.transformer import (init_stack, init_stack_cache,
+from repro_torch.models.transformer import (encoder_forward, init_encoder,
+                                            init_stack, init_stack_cache,
                                             stack_forward)
 
 
@@ -68,6 +73,8 @@ class LM:
             if v_pad:
                 head["w"] = torch.nn.functional.pad(head["w"], (0, v_pad))
             params["lm_head"] = head
+        if cfg.encoder is not None:
+            params["encoder"] = init_encoder(gen, cfg, self.dtype, dev)
         return params
 
     # ------------------------------------------------------------------
@@ -99,16 +106,29 @@ class LM:
         return torch.where(ids < v, logits,
                            torch.tensor(-1e30, device=logits.device))
 
+    def _encode_source(self, params, modality_input, train=False):
+        """The cross-attention source of a stub frontend's embeddings
+        (B, T_src, d): the encoder's output (whisper), or the patch
+        embeddings themselves (VLM)."""
+        if self.cfg.encoder is not None:
+            return encoder_forward(params["encoder"], modality_input,
+                                   self.cfg, train=train)
+        return modality_input
+
     def backbone(self, params, tokens, *, mode="prefill", cache=None,
-                 pos=None, train=False):
+                 pos=None, train=False, modality_input=None):
         """-> (final-normed states, cache, aux).  ``train=True`` is the
         training forward (see ``group_forward``); ``aux`` holds the MoE
-        layers' losses and dropped fractions, summed over the stack."""
+        layers' losses and dropped fractions, summed over the stack.
+        ``modality_input`` is encoded once outside decode."""
         cfg = self.cfg
         x = embedding_apply(params["embed"], tokens).to(self.dtype)
+        cross_src = None
+        if modality_input is not None and mode != "decode":
+            cross_src = self._encode_source(params, modality_input, train)
         x, new_cache, aux = stack_forward(params["layers"], x, cfg,
                                           mode=mode, cache=cache, pos=pos,
-                                          train=train)
+                                          train=train, cross_src=cross_src)
         x = norm_apply(cfg.norm, params["final_norm"], x, cfg.norm_eps,
                        train=train)
         return x, new_cache, aux
@@ -124,14 +144,16 @@ class LM:
 
     def loss(self, params: dict,
              batch: dict) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """batch: {tokens (B,S), labels (B,S), [mask (B,S)]} on this LM's
-        device -> (scalar loss, metrics).  The training forward (no
-        kernel launches; differentiable), then :func:`chunked_cross_entropy`
-        against the live head; every aux key ending in ``_loss`` (the MoE
-        layers' load-balance and z losses) is added to the loss, as in
-        the reference."""
+        """batch: {tokens (B,S), labels (B,S), [mask (B,S)],
+        [modality_input]} on this LM's device -> (scalar loss, metrics).
+        The training forward (no kernel launches; differentiable), then
+        :func:`chunked_cross_entropy` against the live head; every aux key
+        ending in ``_loss`` (the MoE layers' load-balance and z losses) is
+        added to the loss, as in the reference."""
         cfg = self.cfg
-        x, _, aux = self.backbone(params, batch["tokens"], train=True)
+        x, _, aux = self.backbone(
+            params, batch["tokens"], train=True,
+            modality_input=batch.get("modality_input"))
         ce, acc = chunked_cross_entropy(x, self._head_w(params),
                                         batch["labels"],
                                         mask=batch.get("mask"),
@@ -167,17 +189,22 @@ class LM:
                                 page_size=page_size, device=self.device)
 
     @torch.no_grad()
-    def logits(self, params, tokens) -> torch.Tensor:
-        x, _, _ = self.backbone(params, tokens, mode="prefill")
+    def logits(self, params, tokens, *, modality_input=None) -> torch.Tensor:
+        x, _, _ = self.backbone(params, tokens, mode="prefill",
+                                modality_input=modality_input)
         return self._logits(params, x)
 
     @torch.no_grad()
-    def prefill(self, params, tokens, cache, *, lengths=None):
-        """Full-context pass filling the cache (in place); returns
-        last-token logits.  ``lengths`` (B,) takes each row's logits at
-        position ``lengths[b]-1`` (right-padded batched admission)."""
+    def prefill(self, params, tokens, cache, *, modality_input=None,
+                lengths=None):
+        """Full-context pass filling the cache (in place; a
+        cross-attention block's source K / V are new tensors of the
+        returned cache); returns last-token logits.  ``lengths`` (B,)
+        takes each row's logits at position ``lengths[b]-1`` (right-padded
+        batched admission)."""
         x, cache, _ = self.backbone(params, tokens, mode="prefill",
-                                    cache=cache)
+                                    cache=cache,
+                                    modality_input=modality_input)
         if lengths is None:
             return self._logits(params, x[:, -1]), cache
         return self._logits(params, self._last(x, lengths)), cache

@@ -13,7 +13,7 @@ rounded to x's dtype, ``logw`` is fp32, prefill rounds the WKV output to
 x's dtype before the group norm while decode keeps it fp32, and the gated
 group-norm output is rounded to bf16 (in float32 configs too) before
 ``wout``.  The state is fp32; ``x_prev`` is stored fp32 and cast back to
-x's dtype when used.  Mamba is not ported (ROADMAP A6): the block
+x's dtype when used.  Mamba is not ported (ROADMAP A6.3): the block
 assembly refuses it.
 """
 from __future__ import annotations

@@ -1,20 +1,25 @@
-"""Block / group / stack assembly.
+"""Block / group / stack assembly, and the encoder.
 
-A *group* is one repeat of ``cfg.block_pattern``.  The reference scans
-over group-stacked parameters; the port keeps a Python list of groups and
-loops over it; in a training forward each group is wrapped in the
-config's remat policy, as the reference wraps its scan body.  Block
-layout (pre-norm residual):
+A *group* is one repeat of ``cfg.block_pattern`` (dense: 1 block; VLM:
+``cross_attn_every`` blocks with cross-attention on the last).  The
+reference scans over group-stacked parameters; the port keeps a Python
+list of groups and loops over it; in a training forward each group is
+wrapped in the config's remat policy, as the reference wraps its scan
+body.  Block layout (pre-norm residual):
 
-    x = x + mixer(norm1(x))            mixer ∈ {attn, rwkv6}
+    x = x + mixer(norm1(x))            mixer ∈ {attn (GQA or MLA), rwkv6}
+    [x = x + xattn(norm_x(x), src)]    (VLM / encoder-decoder blocks)
     x = x + mlp_or_moe(norm2(x))
 
-Attention and RWKV-6 blocks with a dense SwiGLU MLP or a MoE layer on
-every ``moe_every``-th block are ported; Mamba, MLA, encoder and
-cross-attention models (ROADMAP A6) raise.
+Cross-attention reads the source's K / V, projected once at prefill and
+kept in the cache (``xk`` / ``xv``) for decode.  The encoder (whisper) is
+a bidirectional stack over the stub frame embeddings, a list of layers
+where the reference has a vmapped stack.  Mamba blocks (ROADMAP A6.3)
+raise.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Any, Dict, List, Optional
 
@@ -25,31 +30,37 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import init_mlp, init_norm, mlp_apply, norm_apply
+from repro_torch.models.layers import (init_mlp, init_norm, linear_apply,
+                                       mlp_apply, norm_apply)
 from repro_torch.models.moe import init_moe, moe_apply
 
 
 def block_kinds(cfg: ModelConfig) -> list[dict]:
-    """Per-block metadata for one group (attention and RWKV-6 blocks,
-    each with a dense MLP or a MoE layer)."""
-    a = cfg.attention
-    if cfg.encoder is not None or cfg.cross_attn_every \
-            or (a is not None and a.kind == "mla"):
-        raise NotImplementedError(
-            "MLA, encoder and cross-attention models are not ported yet "
-            "(ROADMAP A6); their config fields are cost-model data")
+    """Per-block metadata for one group: the mixer kind, a MoE layer on
+    every ``moe_every``-th block, and cross-attention on every
+    ``cross_attn_every``-th block (VLM) or on every attention block of an
+    encoder-decoder model, as in the reference."""
     out = []
     for i, kind in enumerate(cfg.block_pattern):
         if kind == "mamba":
             raise NotImplementedError(
-                "block kind 'mamba' is not ported yet (ROADMAP A6)")
+                "block kind 'mamba' is not ported yet (ROADMAP A6.3)")
         if kind not in ("attn", "rwkv6"):
             raise NotImplementedError(
                 f"block kind {kind!r}: only attention and RWKV-6 blocks "
                 "are ported")
-        out.append({"kind": kind,
+        xattn = (cfg.cross_attn_every > 0
+                 and (i + 1) % cfg.cross_attn_every == 0) \
+            or (cfg.encoder is not None and kind == "attn")
+        out.append({"kind": kind, "xattn": xattn,
                     "moe": cfg.moe is not None and i % cfg.moe_every == 0})
     return out
+
+
+def _noncausal(a):
+    """The config's attention without a causal mask (cross-attention and
+    the encoder's self-attention)."""
+    return dataclasses.replace(a, causal=False)
 
 
 def init_group(gen: torch.Generator, cfg: ModelConfig, dtype=torch.bfloat16,
@@ -64,6 +75,10 @@ def init_group(gen: torch.Generator, cfg: ModelConfig, dtype=torch.bfloat16,
         else:
             blk["rwkv"] = ssm_mod.init_rwkv6(gen, cfg.d_model, cfg.ssm,
                                              dtype, device)
+        if bk["xattn"]:
+            blk["norm_x"] = init_norm(cfg.norm, cfg.d_model, dtype, device)
+            blk["xattn"] = attn_mod.init_attention(
+                gen, cfg.d_model, _noncausal(cfg.attention), dtype, device)
         blk["norm2"] = init_norm(cfg.norm, cfg.d_model, dtype, device)
         if bk["moe"]:
             blk["moe"] = init_moe(gen, cfg.d_model, cfg.moe, dtype, device)
@@ -84,8 +99,11 @@ def init_group_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     slabs, or page pools + a block table when ``paged`` (``block_table``
     shares one table tensor across layers); ``kv_dtype`` overrides
     ``cfg.kv_cache_dtype`` (the paged engine prefills into a bf16 staging
-    cache).  RWKV-6 blocks: ``{"state": {"wkv": (B,H,D,D), "x_prev":
-    (B,d)}}`` in fp32, position-free."""
+    cache; MLA's latent ``{"c_kv", "k_pe"}`` is contiguous only).  RWKV-6
+    blocks: ``{"state": {"wkv": (B,H,D,D), "x_prev": (B,d)}}`` in fp32,
+    position-free.  A cross-attention block's source K / V (``"xk"`` /
+    ``"xv"``, (B, T_src, KH, D) in bf16, position-free) join its node at
+    prefill, so none is held before there is a source."""
     from repro_torch.kvcache import CacheSpec, alloc_contiguous, alloc_paged
     spec = CacheSpec(layout="paged" if paged else "contiguous",
                      dtype=kv_dtype or cfg.kv_cache_dtype,
@@ -93,21 +111,52 @@ def init_group_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     cache = {}
     for i, bk in enumerate(block_kinds(cfg)):
         if bk["kind"] == "rwkv6":
-            cache[f"blk{i}"] = {"state": ssm_mod.init_rwkv6_state(
-                batch, cfg.d_model, cfg.ssm, device)}
-            continue
-        if paged:
-            kv = alloc_paged(spec, cfg.attention, batch, n_pages,
-                             pages_per_slot, device, block_table)
+            c = {"state": ssm_mod.init_rwkv6_state(batch, cfg.d_model,
+                                                   cfg.ssm, device)}
+        elif paged:
+            c = {"kv": alloc_paged(spec, cfg.attention, batch, n_pages,
+                                   pages_per_slot, device, block_table)}
         else:
-            kv = alloc_contiguous(spec, cfg.attention, batch, max_len, device)
-        cache[f"blk{i}"] = {"kv": kv}
+            c = {"kv": alloc_contiguous(spec, cfg.attention, batch, max_len,
+                                        device)}
+        cache[f"blk{i}"] = c
     return cache
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (source K / V projected once, read from the cache at
+# decode)
+
+
+def _xattn_kv(p: dict, src: torch.Tensor, a, impl: str = "ref"):
+    """The source's K / V (B, T, KH, D): no RoPE, as in the reference."""
+    b, t, _ = src.shape
+    kvh = a.kv_heads_effective()
+    xk = linear_apply(p["wk"], src, impl).reshape(b, t, kvh, a.head_dim)
+    xv = linear_apply(p["wv"], src, impl).reshape(b, t, kvh, a.head_dim)
+    return xk, xv
+
+
+def _xattn_with_kv(p: dict, x: torch.Tensor, a, xk: torch.Tensor,
+                   xv: torch.Tensor, impl: str = "ref",
+                   train: bool = False) -> torch.Tensor:
+    """x's queries (no RoPE) over every source position, no mask, through
+    the attention's own dispatch (``_attend``): the flash kernel's
+    non-causal path on CUDA tensors outside training (S != T: S the
+    prompt at prefill, 1 at decode), the plain grouped ``sdpa`` on the
+    CPU and in training, as the reference computes it."""
+    b, s, _ = x.shape
+    q = linear_apply(p["wq"], x, impl).reshape(b, s, a.heads_padded,
+                                               a.head_dim)
+    return attn_mod._attend(p, q, xk.to(x.dtype), xv.to(x.dtype),
+                            _noncausal(a), False, impl, train=train,
+                            attn_impl="sdpa")
 
 
 def group_forward(gp: dict, x: torch.Tensor, cfg: ModelConfig, *,
                   mode: str, cache: Optional[dict],
-                  pos: Optional[torch.Tensor], train: bool = False):
+                  pos: Optional[torch.Tensor], train: bool = False,
+                  cross_src: Optional[torch.Tensor] = None):
     """One group.  ``mode`` is "prefill" (full sequence; fills a
     contiguous cache when given, or — on a paged cache — one chunk per row
     at ``pos = (slot_ids, starts, lengths[, max_pages])``), "decode" (one
@@ -117,7 +166,10 @@ def group_forward(gp: dict, x: torch.Tensor, cfg: ModelConfig, *,
     the paged cache, ``pos = (lengths, widths[, max_pages])``; the cache
     node is ``{"kv": paged, "stage": contiguous}`` and only the stage is
     written).  RWKV-6 blocks run their recurrence from the cache's state
-    (zeros without a cache) and ignore ``pos``.
+    (zeros without a cache) and ignore ``pos``.  A cross-attention block
+    attends ``cross_src`` (B, T, d: the encoder's output or the stub patch
+    embeddings) in "prefill", storing its K / V in the cache when there is
+    one, and the cached K / V in "decode".
 
     ``train=True`` is the training forward (``LM.loss``): "prefill" with
     no cache, through the reference's training math in plain torch on
@@ -184,6 +236,27 @@ def group_forward(gp: dict, x: torch.Tensor, cfg: ModelConfig, *,
             y, kv = step(blk["attn"], h, a, c["kv"], pos, impl)
             new_cache[f"blk{i}"] = {"kv": kv}
         x = x + y
+        if bk["xattn"]:
+            hx = norm_apply(cfg.norm, blk["norm_x"], x, cfg.norm_eps,
+                            train=train)
+            if mode == "decode":
+                if "xk" not in c:
+                    raise ValueError("cross-attention decode reads the "
+                                     "source's K / V that prefill caches")
+                xk, xv = c["xk"], c["xv"]
+            elif mode == "prefill":
+                if cross_src is None:
+                    raise ValueError("cross-attention needs the source: "
+                                     "pass modality_input")
+                xk, xv = _xattn_kv(blk["xattn"], cross_src, a, impl)
+            else:
+                raise NotImplementedError("verify runs attention blocks "
+                                          "without cross-attention only")
+            y = _xattn_with_kv(blk["xattn"], hx, a, xk, xv, impl, train)
+            if c is not None:
+                new_cache[f"blk{i}"].update(xk=xk.to(torch.bfloat16),
+                                            xv=xv.to(torch.bfloat16))
+            x = x + y
         h = norm_apply(cfg.norm, blk["norm2"], x, cfg.norm_eps, train=train)
         if bk["moe"]:
             # capacity_factor in training, eval_capacity_factor serving
@@ -243,11 +316,13 @@ def _remat(fn, policy: str):
 
 def stack_forward(params: List[dict], x: torch.Tensor, cfg: ModelConfig, *,
                   mode: str = "prefill", cache: Optional[List[dict]] = None,
-                  pos: Optional[torch.Tensor] = None, train: bool = False):
+                  pos: Optional[torch.Tensor] = None, train: bool = False,
+                  cross_src: Optional[torch.Tensor] = None):
     """Python loop over the groups (the reference's ``lax.scan``) ->
     ``(x, new cache, aux)``, ``aux`` summed over the groups.  A training
     forward wraps each group in ``cfg.remat_policy`` where the reference
-    does (its scanned layout, ``scan_layers=True``)."""
+    does (its scanned layout, ``scan_layers=True``).  ``cross_src`` is
+    the cross-attention blocks' source (see ``group_forward``)."""
     new_cache = [] if cache is not None else None
     policy = cfg.remat_policy if train and cfg.scan_layers else "none"
     body = _remat(group_forward, policy)
@@ -255,9 +330,53 @@ def stack_forward(params: List[dict], x: torch.Tensor, cfg: ModelConfig, *,
     for i, gp in enumerate(params):
         x, nc, aux = body(gp, x, cfg, mode=mode,
                           cache=cache[i] if cache is not None else None,
-                          pos=pos, train=train)
+                          pos=pos, train=train, cross_src=cross_src)
         if cache is not None:
             new_cache.append(nc)
         for k, v in aux.items():
             aux_total[k] = aux_total[k] + v if k in aux_total else v
     return x, new_cache, aux_total
+
+
+# ---------------------------------------------------------------------------
+# Whisper-style encoder (bidirectional attention stack, no cache)
+
+
+def init_encoder(gen: torch.Generator, cfg: ModelConfig, dtype=torch.bfloat16,
+                 device=None) -> dict:
+    """``{"layers": [layer, ...], "final_norm"}``: one dict a layer (the
+    reference stacks them on a leading axis), each a pre-norm block of
+    non-causal attention and a dense MLP."""
+    enc_attn = _noncausal(cfg.attention)
+    layers = []
+    for _ in range(cfg.encoder.num_layers):
+        layers.append({
+            "norm1": init_norm(cfg.norm, cfg.d_model, dtype, device),
+            "attn": attn_mod.init_attention(gen, cfg.d_model, enc_attn,
+                                            dtype, device),
+            "norm2": init_norm(cfg.norm, cfg.d_model, dtype, device),
+            "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, dtype=dtype,
+                            device=device)})
+    return {"layers": layers,
+            "final_norm": init_norm(cfg.norm, cfg.d_model, dtype, device)}
+
+
+def encoder_forward(p: dict, frames: torch.Tensor, cfg: ModelConfig, *,
+                    train: bool = False) -> torch.Tensor:
+    """frames (B, T, d) -> the encoder's output (B, T, d).  Self-attention
+    at positions [0, T) (RoPE on), without a mask: the flash kernel's
+    non-causal path on CUDA tensors outside training, the reference's
+    plain choice on the CPU and in training (``sdpa``, chunked from 2,048
+    positions: the reference's encoder passes ``attention_forward``'s
+    defaults, not the config's chunk settings)."""
+    enc_attn = _noncausal(cfg.attention)
+    impl = "train" if train else cfg.quant_matmul_impl
+    x = frames
+    for lp in p["layers"]:
+        h = norm_apply(cfg.norm, lp["norm1"], x, cfg.norm_eps, train=train)
+        x = x + attn_mod.attention_forward(lp["attn"], h, enc_attn,
+                                           impl=impl, train=train)
+        h = norm_apply(cfg.norm, lp["norm2"], x, cfg.norm_eps, train=train)
+        x = x + mlp_apply(lp["mlp"], h, impl)
+    return norm_apply(cfg.norm, p["final_norm"], x, cfg.norm_eps,
+                      train=train)

@@ -104,7 +104,10 @@ def quantize_linear(p: dict, *, quant: str,
     optional per-input-channel equalization vector folded into w."""
     w = p["w"].float()
     if scales is not None:
-        w = w * scales[:, None]
+        # the folded equalization (reference fault R9: nothing divides
+        # the activations by it)
+        w = w * torch.as_tensor(scales, dtype=torch.float32,
+                                device=w.device)[:, None]
     out = {k: v for k, v in p.items() if k != "w"}
     if quant == "int8":
         qw, s = quantize_colwise(w)
@@ -121,11 +124,15 @@ def quantize_linear(p: dict, *, quant: str,
 
 
 def quantize_tree(params, *, quant: str = "int8",
-                  targets: str = QUANT_TARGETS):
+                  targets: str = QUANT_TARGETS, calib: Optional[dict] = None):
     """Quantize every matching linear of a parameter tree (nested dicts
-    and lists, paths joined with "/"; the port's layer stack is a list of
-    groups, so every linear's ``w`` is 2-D).  As in the reference's
-    ``QUANT_TARGETS``, a MoE layer's expert stacks (bare ``(E, d, f)``
+    and lists, paths joined with "/", a list's i-th entry named ``g{i}``
+    as the reference names its unscanned groups; the port's layer stack
+    is a list of groups, so every linear's ``w`` is 2-D).  ``calib`` maps
+    a linear's path (``/layers/g0/blk0/mlp/gate``) to its equalization
+    scales (``quant.calibrate``), folded into W before quantizing; the
+    reference ignores it on its scanned (stacked) layout.  As in the
+    reference's ``QUANT_TARGETS``, a MoE layer's expert stacks (bare ``(E, d, f)``
     arrays, not ``{"w"}`` linears) and its router (``/moe/router``, kept
     fp32) are not targets; its shared expert's ``gate`` / ``up`` /
     ``down`` are.  bf16 / none / fp16 return the tree as it is."""
@@ -134,7 +141,7 @@ def quantize_tree(params, *, quant: str = "int8",
 
     def visit(node, prefix=""):
         if isinstance(node, list):
-            return [visit(sub, f"{prefix}/{i}") for i, sub in enumerate(node)]
+            return [visit(sub, f"{prefix}/g{i}") for i, sub in enumerate(node)]
         if not isinstance(node, dict):
             return node
         new = {}
@@ -142,7 +149,9 @@ def quantize_tree(params, *, quant: str = "int8",
             path = f"{prefix}/{name}"
             if (isinstance(sub, dict) and "w" in sub and sub["w"].ndim == 2
                     and re.search(targets, path)):
-                new[name] = quantize_linear(sub, quant=quant)
+                new[name] = quantize_linear(
+                    sub, quant=quant, scales=calib.get(path) if calib
+                    else None)
             else:
                 new[name] = visit(sub, path)
         return new

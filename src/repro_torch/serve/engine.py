@@ -199,6 +199,12 @@ class _EngineBase:
 # Eager engine
 
 
+def has_source(cfg) -> bool:
+    """True for a model that reads a ``modality_input`` (an encoder, or
+    cross-attention blocks)."""
+    return cfg.encoder is not None or cfg.cross_attn_every > 0
+
+
 class Engine(_EngineBase):
     """The reference's eager ``Engine``: each admission prefills its
     prompt alone (batch 1) into its slot of the contiguous cache, then one
@@ -208,15 +214,25 @@ class Engine(_EngineBase):
 
     An attention slot's rows past its prompt keep whatever the slot's
     previous occupant left there; decode never reads them (it masks keys
-    past each row's position) and overwrites them as it goes.  Differences
-    from the reference, both deliberate: an RWKV-6 slot's recurrent state
-    is zeroed at admission (the reference prefills from whatever the
-    slot's previous occupant left, so a reused slot changes the stream)."""
+    past each row's position) and overwrites them as it goes; an MLA
+    slot's latent rows (``c_kv`` / ``k_pe``) likewise.  Differences from
+    the reference, both deliberate: an RWKV-6 slot's recurrent state is
+    zeroed at admission (the reference prefills from whatever the slot's
+    previous occupant left, so a reused slot changes the stream); and an
+    encoder or cross-attention model is refused here, with a message (the
+    reference's ``Engine`` passes no ``modality_input`` and fails its
+    first admission on ``assert cross_src is not None``).  Those models
+    run through ``LM.prefill(modality_input=)`` and ``LM.decode_step``."""
 
     def __init__(self, lm, params, *, n_slots: int = 4, max_len: int = 512,
                  eos_id: int = -1, seed: int = 0, metrics=None, tracer=None,
                  profiler=None):
         block_kinds(lm.cfg)          # refuses block kinds not ported
+        if has_source(lm.cfg):
+            raise ValueError(
+                f"{lm.cfg.name}: the eager Engine passes no modality_input; "
+                "run encoder / cross-attention models through "
+                "LM.prefill(modality_input=) and LM.decode_step")
         super().__init__(lm, lm.prepare(params), n_slots=n_slots,
                          max_len=max_len, eos_id=eos_id, metrics=metrics,
                          tracer=tracer, profiler=profiler)
@@ -426,7 +442,8 @@ def _pow2_bucket(n: int, lo: int = 8) -> int:
 class PagedEngine(_EngineBase):
     """Continuous batching over a paged KV cache with a host-read-free
     inner loop (see module docstring).  Requires an attention-only
-    decoder without a sliding window."""
+    decoder without a sliding window, MLA, an encoder or cross-attention,
+    as the reference asserts."""
 
     kv_layout = "paged"
 
@@ -437,9 +454,12 @@ class PagedEngine(_EngineBase):
         cfg = lm.cfg
         block_kinds(cfg)             # refuses block kinds not ported
         a = cfg.attention
-        if a is None or a.window is not None \
+        if a is None or a.window is not None or a.kind == "mla" \
+                or has_source(cfg) \
                 or any(k != "attn" for k in cfg.block_pattern):
-            raise ValueError("PagedEngine needs an attention-only decoder")
+            raise ValueError("PagedEngine needs an attention-only decoder "
+                             "(no MLA, no encoder or cross-attention, no "
+                             "sliding window)")
         super().__init__(lm, lm.prepare(params), n_slots=n_slots,
                          max_len=max_len, eos_id=eos_id, metrics=metrics,
                          tracer=tracer, profiler=profiler)

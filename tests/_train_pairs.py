@@ -7,6 +7,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro import configs as jconfigs
@@ -14,6 +15,19 @@ from repro.models.model import LM as JLM
 from repro_torch import configs as tconfigs
 from repro_torch.bridge import params_from_numpy, params_to_numpy
 from repro_torch.models.model import LM as TLM
+
+
+@pytest.fixture
+def one_intraop_thread():
+    """Run a test's CPU torch ops on one intra-op thread: the smoke
+    models' tensors are too small to gain from more (a quickstart's 12
+    training steps take 0.5 s on one thread, 3.2 s on eight), and the
+    suite's other workers share the cores.  The previous count is
+    restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @functools.lru_cache(maxsize=None)

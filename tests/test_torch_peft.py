@@ -92,15 +92,16 @@ def test_peft_trees_match_jax(method):
 
 def test_peft_full_and_the_calib_refusal():
     """"full" keeps the tree as it is and trains every leaf; ``calib=``
-    (AWQ / SmoothQuant scales) still raises, naming A7."""
+    (AWQ / SmoothQuant scales; it raised, naming A7, before
+    ``quant/calibrate.py`` was ported) leaves a bf16 tree as it is, as in
+    the reference: there is no quantization to fold them into."""
     _, _, _, tp = pair("llama3.2-1b")
     _, teff = _effs("full", 0, 1)
     assert tapply.apply_to_params(tp, teff, 1) is tp
     mask = tlora.trainable_mask(tp, "full")
     n, total = tlora.count_trainable(tp, mask)
     assert n == total == sum(t.numel() for _, t in leaves_with_path(tp))
-    with pytest.raises(NotImplementedError, match="A7"):
-        tapply.apply_to_params(tp, teff, 1, calib={})
+    assert tapply.apply_to_params(tp, teff, 1, calib={"/x": None}) is tp
 
 
 @pytest.mark.parametrize("method", ["lora", "dora"])

@@ -444,46 +444,79 @@ def test_copied_configs_agree_with_reference(arch):
     ("granite-moe-3b-a800m", True), ("llama4-scout-17b-a16e", True),
     ("jamba-1.5-large-398b", False), ("whisper-base", False),
     ("llama-3.2-vision-11b", False), ("mixtral-8x7b", True),
-    ("llava-1.5-7b", False)])
+    ("llava-1.5-7b", False), ("qwen2-1.5b-mla", True)])
 def test_engines_refuse_unported_blocks_naming_a6(arch, served):
-    """Mamba, encoder and cross-attention configs are the cost model's
-    data: the model, the eager ``Engine`` and ``PagedEngine`` (so the
-    scheduler and ``SpecEngine`` too) refuse them, naming the roadmap
-    item that ports them.  The MoE configs are served: ``LM.init`` builds
+    """(Kept name.)  Mamba configs are the cost model's data: the model,
+    the eager ``Engine`` and ``PagedEngine`` (so the scheduler and
+    ``SpecEngine`` too) refuse them, naming the roadmap item that ports
+    them (A6.3).  The encoder and cross-attention configs (whisper-base,
+    llama-3.2-vision-11b, llava-1.5-7b) build and give finite logits with
+    a ``modality_input``, and both engines refuse them with a message,
+    as the reference's do.  The MoE configs are served: ``LM.init`` builds
     them, their logits are finite, and ``Engine`` and (without a window)
-    ``PagedEngine`` take them."""
+    ``PagedEngine`` take them.  The search's MLA arm on qwen2-1.5b is
+    served by ``Engine`` and refused by ``PagedEngine``."""
+    from repro_torch.configs.specs import modality_spec
+    from repro_torch.core.apply import apply_efficiency_config
+    from repro_torch.core.space import (ArchChoice, EfficiencyConfig,
+                                        FtChoice, InfChoice)
     from repro_torch.models.model import LM
     from repro_torch.serve.engine import Engine, PagedEngine
-    cfg = tconfigs.get_smoke_config(arch) if arch in tconfigs.ARCH_IDS \
-        else tconfigs.get_config(arch).with_(num_layers=4, d_model=64,
-                                             d_ff=128, vocab_size=512)
+    if arch == "qwen2-1.5b-mla":
+        cfg = apply_efficiency_config(
+            tconfigs.get_smoke_config("qwen2-1.5b"),
+            EfficiencyConfig(ArchChoice("mla", 0, 1), FtChoice("full", 0, 1),
+                             InfChoice("bf16", "none", "full")))
+    elif arch in tconfigs.ARCH_IDS:
+        cfg = tconfigs.get_smoke_config(arch)
+    else:
+        cfg = tconfigs.get_config(arch).with_(num_layers=4, d_model=64,
+                                              d_ff=128, vocab_size=512)
     if cfg.moe is not None and arch not in tconfigs.ARCH_IDS:
         cfg = cfg.with_(moe=dataclasses.replace(cfg.moe, d_ff=128))
+    if cfg.family == "vlm" and arch not in tconfigs.ARCH_IDS:
+        cfg = cfg.with_(num_image_tokens=8, attention=dataclasses.replace(
+            cfg.attention, num_heads=4, num_kv_heads=4, head_dim=16))
     lm = LM(cfg, device="cpu")
     if served:
         params = lm.init(0)
-        assert all("moe" in blk for group in params["layers"]
-                   for blk in group.values())
+        if cfg.moe is not None:
+            assert all("moe" in blk for group in params["layers"]
+                       for blk in group.values())
         assert torch.isfinite(lm.logits(params, torch.arange(6)[None])).all()
-        engines = (Engine, PagedEngine) if cfg.attention.window is None \
-            else (Engine,)
-        for eng in engines:
-            eng(lm, params, n_slots=1, max_len=16)
+        Engine(lm, params, n_slots=1, max_len=16)
+        if cfg.attention.kind == "mla":
+            with pytest.raises(ValueError, match="MLA"):
+                PagedEngine(lm, params, n_slots=1, max_len=16)
+        elif cfg.attention.window is None:
+            PagedEngine(lm, params, n_slots=1, max_len=16)
         return
-    with pytest.raises(NotImplementedError, match="A6"):
-        lm.init(0)
-    for eng in (Engine, PagedEngine):
+    spec = modality_spec(cfg, 1)
+    if spec is None:
         with pytest.raises(NotImplementedError, match="A6"):
-            eng(lm, {}, n_slots=1, max_len=16)
+            lm.init(0)
+        for eng in (Engine, PagedEngine):
+            with pytest.raises(NotImplementedError, match="A6"):
+                eng(lm, {}, n_slots=1, max_len=16)
+        return
+    params = lm.init(0)
+    src = torch.randn(spec.shape).to(spec.dtype)
+    assert torch.isfinite(lm.logits(params, torch.arange(6)[None],
+                                    modality_input=src)).all()
+    with pytest.raises(ValueError, match="modality_input"):
+        Engine(lm, params, n_slots=1, max_len=16)
+    with pytest.raises(ValueError, match="cross-attention"):
+        PagedEngine(lm, params, n_slots=1, max_len=16)
 
 
 def test_chip_smoke_drives_the_search_phase():
     """chip_smoke.py has a search → serve phase that its main runs after
-    the cost phase: the port's AutoTuner at h100-1 on the arms the port
-    serves, recalibrated from the cost phase's profiled drive, then
-    Default and the recommended configuration served with their weights
-    quantized by apply_to_params, each checked for full streams, freed
-    pages and launches that match the dispatches."""
+    the cost phase: the port's AutoTuner at h100-1 on the whole space
+    (the attention arms too: an MLA c* goes through the eager Engine),
+    recalibrated from the cost phase's profiled drive, then Default and
+    the recommended configuration served with their weights quantized by
+    apply_to_params, each checked for full streams, freed pages and
+    launches that match the dispatches."""
     text = (ROOT / "chip_smoke.py").read_text()
     tree = ast.parse(text)
     funcs = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
@@ -501,7 +534,9 @@ def test_chip_smoke_drives_the_search_phase():
                  and ast.unparse(c.func) not in reached]
     body = "\n".join(ast.unparse(funcs[n]) for n in sorted(reached))
     assert "moe_arms=False" not in body      # the MoE arms are served
-    for needle in ("AutoTuner", "h100-1", "SpaceMask(attention_arms=False)",
+    assert "attention_arms=False" not in body    # and the attention arms
+    for needle in ("AutoTuner", "h100-1", "SpaceMask()", "Engine(",
+                   "_search_eager_drive",
                    "recommend_efficient", "recalibrate",
                    "CalibratedCostModel", "apply_efficiency_config",
                    "apply_to_params", "SchedEngine", "SpecEngine",
@@ -581,3 +616,43 @@ def test_chip_smoke_drives_the_train_phase():
               if isinstance(t, ast.Name) and t.id == "PEFT_METHODS"}
     assert set(consts["PEFT_METHODS"]) == {"lora", "qlora", "dora"}
     assert "[20 train]" in text
+
+
+def test_chip_smoke_drives_the_encdec_phase():
+    """chip_smoke.py has a phase 21 that its main runs after the training
+    phase: B3 without a causal mask held element by element at whisper's
+    and the vision model's shapes and timed beside SDPA; whisper-base and
+    llama-3.2-vision-11b at full width and depth through
+    LM.prefill(modality_input=) and decode_step with launches from the
+    config; qwen2-1.5b's MLA arm through the eager Engine in bf16 and
+    int8; and calibration (capture, SmoothQuant, AWQ, the calibrated int8
+    model served, GPTQ timed)."""
+    text = (ROOT / "chip_smoke.py").read_text()
+    tree = ast.parse(text)
+    funcs = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    main_calls = [ast.unparse(c.func) for c in ast.walk(funcs["main"])
+                  if isinstance(c, ast.Call)]
+    assert "phase_encdec" in main_calls
+    assert main_calls.index("phase_encdec") > main_calls.index("phase_train")
+    reached, todo = set(), ["phase_encdec"]
+    while todo:
+        name = todo.pop()
+        reached.add(name)
+        todo += [ast.unparse(c.func) for c in ast.walk(funcs[name])
+                 if isinstance(c, ast.Call) and ast.unparse(c.func) in funcs
+                 and ast.unparse(c.func) not in reached]
+    body = "\n".join(ast.unparse(funcs[n]) for n in sorted(reached))
+    for needle in ("causal=False", "attention_ref", "scaled_dot_product",
+                   "modality_input=src", "decode_step", "modality_spec",
+                   "'mla'", "Engine(", "collect_linear_inputs",
+                   "smoothquant_scales", "awq_search_scales",
+                   "gptq_quantize_matrix", "calib=", "kv_bytes_per_token",
+                   "_reset_launches", "_read_launches", "_swap_plain",
+                   "max_memory_allocated", "isfinite"):
+        assert needle in body, needle
+    consts = {t.id: ast.literal_eval(n.value) for n in tree.body
+              if isinstance(n, ast.Assign) for t in n.targets
+              if isinstance(t, ast.Name) and t.id in ("WHISPER", "VISION")}
+    assert consts == {"WHISPER": "whisper-base",
+                      "VISION": "llama-3.2-vision-11b"}
+    assert "[21 encdec]" in text

@@ -186,12 +186,17 @@ def test_apply_to_params_peft_and_calib_raise_naming_a7(method):
     zero, ``scaling`` alpha / r or / sqrt(r)).  DoRA over a quantized base
     fails an assert in the reference (ROADMAP C, faults of the
     reference); the port's ``m`` is the dequantized base's column norms.
-    ``calib=`` raises naming A7."""
+    ``calib=`` (it raised naming A7 before ``quant/calibrate.py`` was
+    ported) folds its scales into the named linear only: that linear is
+    ``quantize_linear(scales=)``'s, every other leaf the uncalibrated
+    tree's (``test_torch_calibrate`` holds calibrated trees to the
+    reference's bit for bit)."""
     import jax
 
     from _train_pairs import flat, pair
     from repro.core import apply as japply
     from repro_torch.bridge import params_to_numpy
+    from repro_torch.quant.qops import quantize_linear
     jlm, tlm, jp, tp = pair("qwen2-1.5b")
     eff = tspace.EfficiencyConfig(
         tspace.ArchChoice(), tspace.FtChoice(method, 16, 2),
@@ -220,5 +225,19 @@ def test_apply_to_params_peft_and_calib_raise_naming_a7(method):
     assert any(k.endswith("/qw") and want[k].dtype == np.uint8
                for k in want) == (method == "qlora")
     full = dataclasses.replace(eff, ft=tspace.FtChoice("full", 0, 1))
-    with pytest.raises(NotImplementedError, match="A7"):
-        tapply.apply_to_params(tp, full, None, calib={"/w": None})
+    path = "/layers/g1/blk0/mlp/gate"
+    lin = tp["layers"][1]["blk0"]["mlp"]["gate"]
+    s = torch.linspace(0.5, 2.0, lin["w"].shape[0])
+    got = tapply.apply_to_params(tp, full, None, calib={path: s})
+    plain = flat(params_to_numpy(tapply.apply_to_params(tp, full, None),
+                                 tlm.cfg))
+    want = quantize_linear(lin, quant="int8", scales=s)
+    cal = got["layers"][1]["blk0"]["mlp"]["gate"]
+    assert torch.equal(cal["qw"], want["qw"]) \
+        and torch.equal(cal["scale"], want["scale"])
+    assert not torch.equal(cal["qw"], quantize_linear(lin, quant="int8")[
+        "qw"])
+    rest = flat(params_to_numpy(got, tlm.cfg))
+    for k, v in plain.items():
+        if not k.startswith("/layers/blk0/mlp/gate"):
+            np.testing.assert_array_equal(rest[k], v, err_msg=k)
