@@ -201,13 +201,35 @@ Phases (each prints one line; any failure raises and exits non-zero):
                  collect_linear_inputs on the card, SmoothQuant and AWQ
                  scales, the calibrated int8 model served, GPTQ on the
                  host, timed
+ 22. jamba     — Mamba and the jamba hybrid: (e) B3 at jamba's attention
+                 layer (1 x 2,048, 64 heads over 8) element by element,
+                 B4 (M 256) / B5 (M 4) bit for bit at the Mamba in_proj
+                 and out_proj, B7 at d 8,192 within one ulp, each timed at
+                 the main path's shapes beside its plain version, library
+                 call and bound; (a) one Mamba layer at full width: the
+                 chunked log-step scan against the sequential recurrence
+                 (fp32, 1e-4), a 2,048-token forward, the scan alone and
+                 32 decode steps timed; (d) the smoke jamba's loss and
+                 gradients card vs CPU; (b) jamba-1.5-large-398b at full
+                 width over its first five layers (block_pattern[:5]: 4
+                 Mamba blocks and the attention block, 33.1 B parameters,
+                 bf16) through the eager Engine, 4 slots, 4 requests of
+                 512-2,048 tokens, 32 new tokens each: token counts, syncs
+                 = admissions + decode steps, B3 once an admission, B7 11
+                 a forward, a second run on the reused slots gives the
+                 same streams, admission and decode-step logits with B3 /
+                 B7 swapped for their plain versions, wall and busy time
+                 by kernel family, peak memory; (c) the same with int8
+                 weights: B4 / B5 18 a forward, every call of one
+                 admission and one decode step bit-equal to its plain
+                 version
 B7 takes every RMSNorm of the qwen2-1.5b drives: 57 launches a forward
 (phases 5, 7, 9, 10), every one on its warp step.  Every B1 / B2 / B3
 launch of those drives (bf16 activations), every B4 and B5 launch of
 phase 9 and every B6 launch of phase 10 must take the tensor-core step:
 their tensor-core launch counts are printed beside the launch counts and
 must equal them.  Launch counts are
-zeroed just before each drive (phases 5, 7, 9, 10, 13-21) and read just
+zeroed just before each drive (phases 5, 7, 9, 10, 13-22) and read just
 after it; peak memory is read for the set-up and, restarted, for the
 drive.  Then one JSON
 line of kernel numbers, and last the result line ``{"ok": true,
@@ -1467,19 +1489,24 @@ QLINEARS = E2E_LAYERS * 7
 
 def _qlinears(cfg, decode: bool = False) -> int:
     """Quantized linears of one forward of ``cfg``: the four attention
-    linears of every block (MLA: ``kv_down``, ``q_up``, ``kv_up_k``,
-    ``kv_up_v`` and ``wo``, of which a decode step calls three: it absorbs
-    the up-projections; ``k_rope`` is not a target), and three more for
-    its dense MLP or its MoE layer's shared expert (expert stacks and
-    router are not quantized, as in the reference's QUANT_TARGETS)."""
+    linears of every attention block (MLA: ``kv_down``, ``q_up``,
+    ``kv_up_k``, ``kv_up_v`` and ``wo``, of which a decode step calls
+    three: it absorbs the up-projections; ``k_rope`` is not a target), a
+    Mamba block's ``in_proj`` and ``out_proj`` (``x_proj`` and ``dt_proj``
+    are not targets), and three more for a block's dense MLP or its MoE
+    layer's shared expert (expert stacks and router are not quantized, as
+    in the reference's QUANT_TARGETS)."""
     from repro_torch.models.transformer import block_kinds
     attn = 4
     if cfg.attention is not None and cfg.attention.kind == "mla":
         attn = 3 if decode else 5
-    per_group = sum(attn + (3 if not bk["moe"]
-                            or cfg.moe.num_shared_experts else 0)
+    mixer = {"attn": attn, "mamba": 2}
+    per_group = sum(mixer[bk["kind"]] + (3 if not bk["moe"]
+                                         or cfg.moe.num_shared_experts
+                                         else 0)
                     for bk in block_kinds(cfg))
     return per_group * cfg.num_groups
+
 
 
 def _quantized_lm(quant: str, kv: str):
@@ -2740,7 +2767,8 @@ def _eager_drive(eng, tracer, prompts, max_new, tag: str,
     """Serve ``prompts`` through an eager ``Engine`` with the launch
     counts zeroed just before and read just after; check token counts,
     host syncs = admissions + decode steps, and every kernel's launches:
-    B3 L x admissions (none for MLA, plain torch), B7 2L + 1 x forwards,
+    B3 once an attention block x admissions (none for MLA, plain torch;
+    none for a Mamba block), B7 2L + 1 x forwards,
     and with quantized weights B4 ``qlinears`` x admissions past 128
     tokens (int8) and B5 / B6 ``decode_qlinears`` (default ``qlinears``)
     x decode steps; every launch on its tensor-core / warp step but for
@@ -2776,7 +2804,8 @@ def _eager_drive(eng, tracer, prompts, max_new, tag: str,
     dq = qlinears if decode_qlinears is None else decode_qlinears
     want = {k: 0 for k in launches}
     if cfg.attention.kind != "mla":
-        want["flash_attention"] = cfg.num_layers * admits
+        want["flash_attention"] = (cfg.block_pattern.count("attn")
+                                   * cfg.num_groups * admits)
     want["rmsnorm"] = (2 * cfg.num_layers + 1) * (admits + steps)
     if cfg.quant == "int8":
         want["int8_matmul"] = qlinears * long_admits
@@ -4046,6 +4075,32 @@ def _moe_scout() -> dict:
     return r
 
 
+def _flash_times(b: int, s: int, h: int, kh: int, d: int, g,
+                 device) -> dict:
+    """B3 (causal, bf16) at B x S, H over KH heads of D: one call's device
+    time beside its plain version's and SDPA's, and its bound."""
+    torch = _torch()
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    copies = [_flash_inputs(b, s, torch.bfloat16, g, device, h, kh, d)
+              for _ in range(4)]
+    q, k = copies[0][:2]
+    nbytes = 2 * (2 * q.numel() + 2 * k.numel())
+    flops = 4.0 * b * h * d * flash_pairs(s, s, True, None)
+    return {
+        "ms": time_ms(lambda a, b_, c: fops.flash_attention(a, b_, c),
+                      copies),
+        "plain_ms": time_ms(lambda a, b_, c: attention_ref(a, b_, c),
+                            copies, reps=5, rounds=3),
+        "library_ms": time_ms(lambda a, b_, c: F.scaled_dot_product_attention(
+            a.transpose(1, 2), b_.transpose(1, 2), c.transpose(1, 2),
+            is_causal=True, enable_gqa=True), copies),
+        **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops,
+                                                   "bfloat16"))),
+        "shape": f"{b} x {s}, H{h}/{kh} D{d}, causal"}
+
+
 def _hold_deepseek_kernels(records: list) -> dict:
     """B1 / B2 / B3 at deepseek-coder-33b's 56 heads over 8 (D 128), bf16,
     element by element; B4 / B5 bit for bit against their plain versions
@@ -4159,23 +4214,7 @@ def _hold_deepseek_kernels(records: list) -> dict:
                                                    "bfloat16"))),
         "shape": f"8 slots, H{h}/{kh} D{d}, lengths {lengths}"}
     del lib_in
-    copies = [_flash_inputs(8, 512, bf16, g, device, h, kh, d)
-              for _ in range(4)]
-    qq = copies[0][0]
-    nbytes = 2 * (2 * qq.numel() + 2 * copies[0][1].numel())
-    flops = 4.0 * 8 * h * d * flash_pairs(512, 512, True, None)
-    times["flash_attention"] = {
-        "ms": time_ms(lambda a, b_, c: fops.flash_attention(a, b_, c),
-                      copies),
-        "plain_ms": time_ms(lambda a, b_, c: attention_ref(a, b_, c),
-                            copies, reps=5, rounds=3),
-        "library_ms": time_ms(lambda a, b_, c: F.scaled_dot_product_attention(
-            a.transpose(1, 2), b_.transpose(1, 2), c.transpose(1, 2),
-            is_causal=True, enable_gqa=True), copies),
-        **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops,
-                                                   "bfloat16"))),
-        "shape": f"8 x 512, H{h}/{kh} D{d}, causal"}
-    del copies, qq
+    times["flash_attention"] = _flash_times(8, 512, h, kh, d, g, device)
     for kind, m in (("B5", 8), ("B4", 4096)):
         name = QMM_KERNELS[kind][0]
         per = {f"K{kk}xN{n}": _qmm_times(kind, m, kk, n, g, device)
@@ -4402,6 +4441,47 @@ def _train_cli(tmp: Path) -> dict:
             "launches": launches, "ckpt_dir": str(tmp / "ckpt")}
 
 
+def _smoke_grads_card_vs_cpu(arch: str, rng, tag: str,
+                             nonzero: bool = False) -> dict:
+    """One loss + backward of ``arch``'s float32 smoke config on the card
+    against the same parameters and batch on the CPU: the losses, and
+    every float leaf's gradient present on both and within
+    TRAIN_GRAD_REL_L2 relative L2 (and, with ``nonzero``, not all zero:
+    ``loss_and_grads`` gives zeros where the loss reads no leaf)."""
+    torch = _torch()
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import LM
+    from repro_torch.train.loop import loss_and_grads
+    from repro_torch.tree import leaves_with_path, tree_map
+    cfg = get_smoke_config(arch).with_(dtype="float32")
+    cpu = LM(cfg, device="cpu")
+    card = LM(cfg, device="cuda")
+    p_cpu = cpu.init(SEED)
+    p_card = tree_map(lambda t: t.cuda(), p_cpu)
+    toks = rng.integers(0, cfg.vocab_size, (TRAIN_GRAD_B, TRAIN_GRAD_S + 1))
+    b = {"tokens": torch.from_numpy(toks[:, :-1]).long(),
+         "labels": torch.from_numpy(toks[:, 1:]).long()}
+    l_cpu, _, g_cpu = loss_and_grads(cpu, p_cpu, b)
+    l_card, _, g_card = loss_and_grads(
+        card, p_card, {k: v.cuda() for k, v in b.items()})
+    worst, n = 0.0, 0
+    for (path, p), (_, gh), (_, gd) in zip(leaves_with_path(p_cpu),
+                                           leaves_with_path(g_cpu),
+                                           leaves_with_path(g_card)):
+        if not p.is_floating_point():
+            continue
+        if gh is None or gd is None or (nonzero and not bool(
+                (gd != 0).any())):
+            raise AssertionError(f"{tag} {arch} {path}: no gradient")
+        rel = ((gd.cpu() - gh).norm() / gh.norm().clamp(min=1e-30)).item()
+        if not rel <= TRAIN_GRAD_REL_L2:
+            raise AssertionError(f"{tag} {arch} {path}: relative L2 "
+                                 f"{rel:.3e} card vs CPU")
+        worst, n = max(worst, rel), n + 1
+    return {"loss_card": float(l_card), "loss_cpu": float(l_cpu),
+            "worst_rel_l2": worst, "leaves": n}
+
+
 def _grads_card_vs_cpu() -> dict:
     """(b) One loss + backward of the float32 smoke configs of
     llama3.2-1b and granite-moe on the card against the same parameters
@@ -4411,38 +4491,14 @@ def _grads_card_vs_cpu() -> dict:
     its output carries no grad_fn) and is finite."""
     torch = _torch()
     import numpy as np
-    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.configs import get_config
     from repro_torch.models.model import LM
-    from repro_torch.train.loop import loss_and_grads
-    from repro_torch.tree import leaves_with_path, tree_map
+    from repro_torch.tree import tree_map
     out = {}
     rng = np.random.default_rng(SEED)
     _reset_launches()
     for arch in (TRAIN_ARCH, GRANITE):
-        cfg = get_smoke_config(arch).with_(dtype="float32")
-        cpu = LM(cfg, device="cpu")
-        card = LM(cfg, device="cuda")
-        p_cpu = cpu.init(SEED)
-        p_card = tree_map(lambda t: t.cuda(), p_cpu)
-        toks = rng.integers(0, cfg.vocab_size,
-                            (TRAIN_GRAD_B, TRAIN_GRAD_S + 1))
-        b = {"tokens": torch.from_numpy(toks[:, :-1]).long(),
-             "labels": torch.from_numpy(toks[:, 1:]).long()}
-        l_cpu, _, g_cpu = loss_and_grads(cpu, p_cpu, b)
-        l_card, _, g_card = loss_and_grads(
-            card, p_card, {k: v.cuda() for k, v in b.items()})
-        worst = 0.0
-        for (path, gh), (_, gd) in zip(leaves_with_path(g_cpu),
-                                       leaves_with_path(g_card)):
-            if gh is None:
-                continue
-            rel = ((gd.cpu() - gh).norm() / gh.norm().clamp(min=1e-30)).item()
-            if not rel <= TRAIN_GRAD_REL_L2:
-                raise AssertionError(f"(b) {arch} {path}: relative L2 "
-                                     f"{rel:.3e} card vs CPU")
-            worst = max(worst, rel)
-        out[arch] = {"loss_card": float(l_card), "loss_cpu": float(l_cpu),
-                     "worst_rel_l2": worst}
+        out[arch] = _smoke_grads_card_vs_cpu(arch, rng, "(b)")
     # full width: the raw autograd result, None kept
     cfg = get_config(TRAIN_ARCH)
     lm = LM(cfg, device="cuda")
@@ -5250,6 +5306,463 @@ def phase_encdec(records: list, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 22: Mamba and the jamba hybrid
+
+JAMBA = "jamba-1.5-large-398b"
+#: the cut that fits one card: block_pattern[:5], 4 Mamba blocks and the
+#: attention block, MoE on blocks 0, 2 and 4 (33.1 B parameters, 66.2 GB
+#: in bf16; one whole group is 90.5 GB)
+JAMBA_LAYERS = 5
+JAMBA_SLOTS = 4
+JAMBA_STEPS = 32           # new tokens a request in (b) and (c)
+JAMBA_PROMPT = 2048        # (a)'s admission; the longest prompt of (b)
+#: (a): the main path's scan against the sequential recurrence, fp32,
+#: relative L2 of y and of the final state
+MAMBA_SCAN_REL_L2 = 1e-4
+#: (K, N) of the Mamba in_proj and out_proj at jamba's width (rows 4j, 5j)
+JAMBA_QMM = ((8192, 32768), (16384, 8192))
+
+
+def _jamba_config():
+    from repro_torch.configs import first_layers, get_config
+    return first_layers(get_config(JAMBA), JAMBA_LAYERS)
+
+
+def _hold_jamba_kernels(records: list) -> dict:
+    """(e) B3 at jamba's attention layer (1 x 2,048, 64 heads over 8, D
+    128, causal, bf16) element by element against its plain version; B5
+    (M 4) and B4 (M 256) bit for bit against their plain versions on CPU
+    copies at the Mamba ``in_proj`` (K 8,192 -> N 32,768) and ``out_proj``
+    (16,384 -> 8,192); B7 at (4, 8,192) and (2,048, 8,192) within one bf16
+    ulp.  Then each timed at the main path's shapes (B3 1 x 2,048, B4 M
+    2,048, B5 M 4, B7 2,048 and 4 rows) beside its plain version and its
+    library call, with its bound: rows 3j, 4j, 5j and 7j."""
+    torch = _torch()
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.int8_matmul import ops as qmm
+    from repro_torch.kernels.int8_matmul.ref import (int8_matmul_ref,
+                                                     quantize_rowwise,
+                                                     w8a8_decode_ref)
+    from repro_torch.kernels.rmsnorm import ops as rops
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    device = torch.device("cuda")
+    g = torch.Generator(device=device).manual_seed(SEED + 221)
+    bf16 = torch.bfloat16
+    cfg = _jamba_config()
+    h, kh, d = (cfg.attention.num_heads, cfg.attention.num_kv_heads,
+                cfg.attention.head_dim)
+    s, dm = JAMBA_PROMPT, cfg.d_model
+    line, times = [], {}
+    q, k, v = _flash_inputs(1, s, bf16, g, device, h, kh, d)
+    tc0 = fops.tc_launches
+    out = fops.flash_attention(q, k, v, causal=True)
+    line.append(check_close(
+        f"B3 1x{s} H{h}/{kh}" + _step_tag(fops.tc_launches - tc0, True),
+        out, attention_ref(q, k, v, causal=True), 1.0))
+    del q, k, v, out
+    for kk, n in JAMBA_QMM:
+        qw, ws, _ = _qlinear(g, device, kk, n, "int8")
+        x = torch.randn((JAMBA_SLOTS, kk), generator=g, device=device).to(
+            bf16)
+        tc0 = qmm.decode_tc_launches
+        out = qmm.w8a8_matmul_decode(x, qw, ws)
+        step = "tensor cores" if qmm.decode_tc_launches > tc0 else "ragged"
+        if not torch.equal(out.cpu(), w8a8_decode_ref(_cpu(x), _cpu(qw),
+                                                      _cpu(ws), None)):
+            raise AssertionError(f"B5 K{kk} N{n}: differs from the plain "
+                                 "version on the CPU copy")
+        xq, xs = quantize_rowwise(torch.randn((256, kk), generator=g,
+                                              device=device).to(bf16))
+        tc0 = qmm.tc_launches
+        out = qmm.int8_matmul(xq, qw, xs, ws, out_dtype=bf16)
+        b4_step = "wgmma" if qmm.tc_launches > tc0 else "ragged"
+        if not torch.equal(out.cpu(), int8_matmul_ref(
+                _cpu(xq), _cpu(qw), _cpu(xs), _cpu(ws), bf16)):
+            raise AssertionError(f"B4 M256 K{kk} N{n}: differs from the "
+                                 "plain version on the CPU copy")
+        line.append(f"K{kk} N{n}: B5 M{JAMBA_SLOTS} [{step}] and B4 M256 "
+                    f"[{b4_step}] bit-equal to the plain versions")
+    del qw, ws, x, xq, xs, out
+    for rows in (JAMBA_SLOTS, s):
+        x = torch.randn((rows, dm), generator=g, device=device).to(bf16)
+        w = torch.randn((dm,), generator=g, device=device).to(bf16)
+        worst = _within_one_ulp(f"B7 ({rows}, {dm})", rops.rmsnorm(x, w),
+                                rmsnorm_ref(x.cpu(), w.cpu()))
+        line.append(f"B7 ({rows}, {dm}) worst {worst:.2f} ulp")
+
+    # times at the main path's shapes
+    times["flash_attention"] = _flash_times(1, s, h, kh, d, g, device)
+    for kind, m in (("B5", JAMBA_SLOTS), ("B4", s)):
+        per = {f"K{kk}xN{n}": _qmm_times(kind, m, kk, n, g, device)
+               for kk, n in JAMBA_QMM}
+        times[QMM_KERNELS[kind][0]] = {"M": m, "per_shape": per}
+    per = {}
+    for rows in (s, JAMBA_SLOTS):
+        copies = [(torch.randn((rows, dm), generator=g,
+                               device=device).to(bf16),
+                   torch.ones((dm,), device=device, dtype=bf16))
+                  for _ in range(n_copies(rows * dm * 4))]
+        per[f"{rows}x{dm}"] = {
+            "ms": time_ms(rops.rmsnorm, copies),
+            "plain_ms": time_ms(rmsnorm_ref, copies, reps=5, rounds=3),
+            "library_ms": time_ms(lambda x, w: F.rms_norm(x, (dm,), w, 1e-5),
+                                  copies),
+            **dict(zip(("bound_ms", "bound_by"),
+                       bound(rows * dm * 4 + dm * 2, 4.0 * rows * dm,
+                             "float32")))}
+        del copies
+    times["rmsnorm"] = {"per_shape": per}
+    for r in records:
+        if r["name"] in times:
+            r.setdefault("jamba_shapes", times[r["name"]])
+    return {"held": line, "times": times}
+
+
+def _mamba_layer_alone() -> dict:
+    """(a) One Mamba layer at jamba's width (d 8,192, d_inner 16,384, N 16,
+    d_conv 4, bf16 weights from the seed), one 2,048-token admission: the
+    main path's scan (chunks of 128, a log-step scan in each) against the
+    sequential recurrence on the same fp32 operands, y and the final state
+    within MAMBA_SCAN_REL_L2 relative L2; then the wall and device busy
+    time of ``mamba_forward`` at 1 x 2,048, of the scan alone (beside the
+    bound of a fused scan that reads dt, x, B and C and writes y once) and
+    of 32 ``mamba_decode`` steps after it."""
+    torch = _torch()
+    from repro_torch.models import ssm
+    cfg = _jamba_config()
+    s, dm = cfg.ssm, cfg.d_model
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 222)
+    p = ssm.init_mamba(g, dm, s, torch.bfloat16, dev)
+    x = torch.randn((1, JAMBA_PROMPT, dm), generator=g, device=dev).to(
+        torch.bfloat16)
+    st = ssm.init_mamba_state(1, dm, s, dev)
+    with torch.no_grad():
+        _, xf, dt, a, bmat, cmat, _ = ssm.mamba_scan_inputs(p, x, s, st)
+        h0 = st["ssm"]
+        h, y = ssm.mamba_scan(h0, dt, a, bmat, cmat, xf)
+        h_ref, y_ref = ssm.mamba_scan_ref(h0, dt, a, bmat, cmat, xf)
+        rel = {name: ((got - want).norm() / want.norm()).item()
+               for name, got, want in (("y", y, y_ref), ("h", h, h_ref))}
+        if not all(torch.isfinite(t).all() for t in (y, h)) or not max(
+                rel.values()) <= MAMBA_SCAN_REL_L2:
+            raise AssertionError(f"(a) Mamba scan vs the sequential "
+                                 f"recurrence: relative L2 {rel} > "
+                                 f"{MAMBA_SCAN_REL_L2} (or not finite)")
+        del h_ref, y_ref
+        fwd = _wall_busy(lambda: ssm.mamba_forward(p, x, s, st))
+        scan = _wall_busy(lambda: ssm.mamba_scan(h0, dt, a, bmat, cmat, xf))
+        _, st1 = ssm.mamba_forward(p, x, s, st)
+        xt = torch.randn((1, 1, dm), generator=g, device=dev).to(
+            torch.bfloat16)
+
+        def decode():
+            state = st1
+            for _ in range(JAMBA_STEPS):
+                _, state = ssm.mamba_decode(p, xt, s, state)
+        dec = _wall_busy(decode)
+    di, n, sl = s.expand * dm, s.d_state, JAMBA_PROMPT
+    b_ms, b_by = bound(4 * (3 * sl * di + 2 * sl * n + 2 * di * n),
+                       6.0 * sl * di * n, "float32")
+    del p, x, xf, dt, bmat, cmat, y, h
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"scan_rel_l2": rel, "forward": fwd, "scan": scan,
+            "decode_32_steps": dec, "scan_bound_ms": b_ms,
+            "scan_bound_by": b_by, "tokens": sl, "d_inner": di,
+            "d_state": n}
+
+
+def _qmm_calls_vs_plain(fn) -> tuple:
+    """Run ``fn()`` with every B4 and B5 call also computed by its plain
+    version on the same inputs, held bit for bit (not B7 as well: ROADMAP
+    C trap 5); the forward goes on with the kernel's output.  Returns
+    (fn's result, {kernel: calls checked}, the (kernel, M, K, N) shapes)."""
+    torch = _torch()
+    from repro_torch.kernels.int8_matmul import ops as qmm
+    from repro_torch.kernels.int8_matmul.ref import (int8_matmul_ref,
+                                                     w8a8_decode_ref)
+    from repro_torch.quant import qops
+    calls = {"int8_matmul": 0, "w8a8_decode_matmul": 0}
+    shapes = set()
+    b4, b5 = qmm.int8_matmul, qops.w8a8_matmul_decode
+
+    def tiled(xq, wq, xs, ws, *, out_dtype=torch.bfloat16):
+        out = b4(xq, wq, xs, ws, out_dtype=out_dtype)
+        if not torch.equal(out, int8_matmul_ref(xq, wq, xs, ws,
+                                                out_dtype=out_dtype)):
+            raise AssertionError(f"B4 call {calls['int8_matmul']} "
+                                 f"{tuple(xq.shape)} x {tuple(wq.shape)}: "
+                                 "differs from the plain version")
+        calls["int8_matmul"] += 1
+        shapes.add(("B4", *xq.shape, wq.shape[1]))
+        return out
+
+    def decode(x2, wq, ws, *, bias=None, out_dtype=None):
+        out = b5(x2, wq, ws, bias=bias, out_dtype=out_dtype)
+        if not torch.equal(out, w8a8_decode_ref(x2, wq, ws, bias,
+                                                out_dtype or x2.dtype)):
+            raise AssertionError(f"B5 call {calls['w8a8_decode_matmul']} "
+                                 f"{tuple(x2.shape)} x {tuple(wq.shape)}: "
+                                 "differs from the plain version")
+        calls["w8a8_decode_matmul"] += 1
+        shapes.add(("B5", *x2.shape, wq.shape[1]))
+        return out
+
+    qmm.int8_matmul, qops.w8a8_matmul_decode = tiled, decode
+    try:
+        return fn(), calls, sorted(shapes)
+    finally:
+        qmm.int8_matmul, qops.w8a8_matmul_decode = b4, b5
+
+
+def _jamba_prompts(rng, vocab: int) -> list:
+    """4 prompts of 512-2,048 tokens, the first 2,048 (the port takes any
+    length: the reference's fault 10 does not apply)."""
+    plens = [JAMBA_PROMPT, *rng.integers(512, JAMBA_PROMPT + 1, 3)]
+    return [rng.integers(0, vocab, (int(n),)) for n in plens]
+
+
+def _jamba_step_inputs(eng, prompt) -> tuple:
+    """A decode step's (tokens, positions) for every slot of ``eng``, with
+    slot 0 just past ``prompt``."""
+    torch = _torch()
+    toks = torch.full((eng.n_slots,), int(prompt[-1]), device=eng.device)
+    pos = torch.full((eng.n_slots,), len(prompt), device=eng.device)
+    return toks, pos
+
+
+def _jamba_served(lm, params, prompts, tag: str, qlinears: int = 0) -> dict:
+    """One jamba arm through the eager Engine (JAMBA_SLOTS slots, max_len
+    past the longest prompt and its JAMBA_STEPS tokens): a warm-up
+    request, then the drive (``_eager_drive``: tokens, syncs = admissions
+    + decode steps, B3 once an admission, B7 11 a forward on its long-row
+    step, B4 / B5 ``qlinears`` an admission / decode step), then the same
+    drive again: every slot is reused, its Mamba state non-zero before the
+    admission, and each request's stream must equal the first run's.
+    Returns the engine with the result."""
+    torch = _torch()
+    import numpy as np
+    from repro_torch.obs import Tracer
+    from repro_torch.serve.engine import Engine
+    cfg = lm.cfg
+    tracer = Tracer(enabled=True)
+    eng = Engine(lm, params, n_slots=JAMBA_SLOTS,
+                 max_len=JAMBA_PROMPT + JAMBA_STEPS + 1, seed=SEED,
+                 tracer=tracer)
+    rng = np.random.default_rng(SEED + 224)
+    eng.submit(rng.integers(0, cfg.vocab_size, 300), max_new_tokens=4)
+    eng.run_to_completion()                              # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    max_new = np.full(len(prompts), JAMBA_STEPS)
+    exempt = ("rmsnorm", "w8a8_decode_matmul")   # d 8,192; K 24,576
+    res = _eager_drive(eng, tracer, prompts, max_new, tag,
+                       qlinears=qlinears, exempt=exempt)
+    states = [node["state"]["ssm"] for node in eng.cache[0].values()
+              if "state" in node]
+    if not all(bool((st != 0).any(dim=(1, 2)).all()) for st in states):
+        raise AssertionError(f"{tag}: a slot's Mamba state is zero after "
+                             "the drive")
+    again = _eager_drive(eng, tracer, prompts, max_new, f"{tag} again",
+                         qlinears=qlinears, exempt=exempt)
+    if again["streams"] != res["streams"]:
+        raise AssertionError(f"{tag}: the second run (reused slots) gave "
+                             "other streams")
+    res["second_run_tokens_per_s"] = again["tokens_per_s"]
+    return eng, res
+
+
+def _jamba_model(records: list, smi: str) -> dict:
+    """(b) jamba-1.5-large-398b's first five layers at full width, bf16
+    weights from the seed (made on the card, no fp32 copy of a whole
+    expert stack), through the eager Engine: the drive and its second
+    run; one admission's and one decode step's logits with B3 and B7
+    swapped for their plain versions within LOGIT_REL_L2; the admission's
+    and a decode step's wall and device busy time by kernel family.  (c)
+    The same with ``quantize_tree(int8)`` (Mamba in_proj / out_proj, the
+    attention and dense-MLP linears; the expert stacks stay bf16): B4 / B5
+    launches, and every B4 / B5 call of one admission and one decode step
+    bit-equal to its plain version."""
+    torch = _torch()
+    import numpy as np
+    from repro_torch.launch.profile_serve import _phase, families
+    from repro_torch.models.model import LM
+    from repro_torch.quant import quantize_tree
+    from repro_torch.quant.qops import memory_bytes
+    cfg = _jamba_config()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lm = LM(cfg, device="cuda")
+    t0 = time.perf_counter()
+    params = lm.init(SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    out = {"params_b": cfg.param_count() / 1e9, "init_s": init_s,
+           "weights_gb": memory_bytes(params) / 1e9,
+           "setup_peak_gb": _setup_peak_gb()}
+    rng = np.random.default_rng(SEED + 223)
+    prompts = _jamba_prompts(rng, cfg.vocab_size)
+    eng, out["b"] = _jamba_served(lm, params, prompts, "jamba bf16")
+    b = out["b"]
+    v = cfg.vocab_size
+    toks, pos = _jamba_step_inputs(eng, prompts[0])
+
+    def admit():
+        return eng._prefill_slot(prompts[0], 0)
+
+    def step():
+        return lm.decode_step(eng.params, toks, eng.cache, pos)[0]
+    lk = admit()
+    lp = _swap_plain(admit, ("attention", "norm"))
+    b["admission_rel_l2"], b["admission_max_abs"] = _worst_slot_rel_l2(
+        "jamba admission", lk[None], lp[None], (1, v))
+    sk = step()
+    sp = _swap_plain(step, ("attention", "norm"))
+    b["decode_rel_l2"], b["decode_max_abs"] = _worst_slot_rel_l2(
+        "jamba decode step", sk, sp, (JAMBA_SLOTS, v))
+    del lp, sp
+    b["admission_profile"] = _phase(f"22 jamba admit 1x{JAMBA_PROMPT}",
+                                    lambda: admit().cpu(), families)
+    b["decode_profile"] = _phase(f"22 jamba decode step, {JAMBA_SLOTS} "
+                                 "slots", lambda: step().cpu(), families)
+    del eng, lk, sk
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (c) int8 weights: the bf16 leaves that get quantized are freed
+    qparams = quantize_tree(params, quant="int8")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    qlm = LM(cfg.with_(quant="int8"), device="cuda")
+    out["int8_weights_gb"] = memory_bytes(qparams) / 1e9
+    eng, out["c"] = _jamba_served(qlm, qparams, prompts, "jamba int8",
+                                  qlinears=_qlinears(qlm.cfg))
+    c = out["c"]
+    toks, pos = _jamba_step_inputs(eng, prompts[0])
+    _, c["admission_calls"], shapes = _qmm_calls_vs_plain(
+        lambda: eng._prefill_slot(prompts[0], 0))
+    _, c["decode_calls"], more = _qmm_calls_vs_plain(
+        lambda: qlm.decode_step(eng.params, toks, eng.cache, pos))
+    want = _qlinears(qlm.cfg)
+    if c["admission_calls"] != {"int8_matmul": want,
+                                "w8a8_decode_matmul": 0} or \
+            c["decode_calls"] != {"int8_matmul": 0,
+                                  "w8a8_decode_matmul": want}:
+        raise AssertionError(f"jamba int8: B4 / B5 calls checked "
+                             f"{c['admission_calls']} / {c['decode_calls']},"
+                             f" want {want} each")
+    c["qmm_shapes"] = [list(sh) for sh in shapes + more]
+    del eng, qparams, qlm, lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_jamba(records: list, smi: str) -> dict:
+    """Phase 22: (e) B3 / B4 / B5 / B7 held and timed at jamba's shapes
+    (rows 3j / 4j / 5j / 7j); (a) one Mamba layer at jamba's width, the
+    scan against its oracle and timed; (d) the smoke jamba's loss and
+    gradients on the card against the CPU's; (b) jamba-1.5-large-398b's
+    first five layers at full width through the eager Engine, bf16, and
+    (c) with int8 weights."""
+    torch = _torch()
+    import numpy as np
+    t_phase = time.perf_counter()
+    out = {"e_kernels": _hold_jamba_kernels(records)}
+    t = out["e_kernels"]["times"]
+    print(f"[22 jamba] (e) {smi}: " + "; ".join(out["e_kernels"]["held"])
+          + "; times " + "; ".join(
+              f"{name} {r.get('shape', '')}: ms {r['ms']:.4f} plain "
+              f"{r['plain_ms']:.4f} library {r['library_ms']:.4f} bound "
+              f"{r['bound_ms']:.4f} ({r['bound_by']})"
+              for name, r in (("B3", t["flash_attention"]),))
+          + "; " + "; ".join(
+              f"{kind} M{t[name]['M']} {shape}: ms {r['ms']:.4f} plain "
+              f"{r['plain_ms']:.4f} library {r['library_ms']:.4f} bf16 "
+              f"{r['bf16_ms']:.4f} bound {r['bound_ms']:.4f} "
+              f"({r['bound_by']})"
+              for kind, name in (("B4", "int8_matmul"),
+                                 ("B5", "w8a8_decode_matmul"))
+              for shape, r in t[name]["per_shape"].items())
+          + "; " + "; ".join(
+              f"B7 {shape}: ms {r['ms']:.4f} plain {r['plain_ms']:.4f} "
+              f"F.rms_norm {r['library_ms']:.4f} bound {r['bound_ms']:.4f}"
+              f" ({r['bound_by']})"
+              for shape, r in t["rmsnorm"]["per_shape"].items()))
+    out["a_mamba_layer"] = a = _mamba_layer_alone()
+    print(f"[22 jamba] (a) one Mamba layer, d {_jamba_config().d_model}, "
+          f"d_inner {a['d_inner']}, N {a['d_state']}, 1 x {a['tokens']} "
+          f"{smi}: scan vs the sequential recurrence (fp32, relative L2, "
+          f"limit {MAMBA_SCAN_REL_L2}) y {a['scan_rel_l2']['y']:.3e} h "
+          f"{a['scan_rel_l2']['h']:.3e}; forward wall "
+          f"{a['forward']['wall_ms']:.2f} ms busy "
+          f"{a['forward']['busy_ms']:.2f} ms ({a['forward']['kernel_runs']}"
+          f" kernel runs); scan alone wall {a['scan']['wall_ms']:.2f} busy "
+          f"{a['scan']['busy_ms']:.2f} ms, bound of a fused scan "
+          f"{a['scan_bound_ms']:.4f} ms ({a['scan_bound_by']}); "
+          f"{JAMBA_STEPS} decode steps wall "
+          f"{a['decode_32_steps']['wall_ms']:.2f} busy "
+          f"{a['decode_32_steps']['busy_ms']:.2f} ms")
+    _reset_launches()
+    out["d_train"] = d = _smoke_grads_card_vs_cpu(
+        JAMBA, np.random.default_rng(SEED + 225), "(d)", nonzero=True)
+    d["launches"] = _no_launches("(d)")
+    print(f"[22 jamba] (d) smoke jamba float32 loss card {d['loss_card']:.6f}"
+          f" cpu {d['loss_cpu']:.6f}, {d['leaves']} gradient leaves, worst "
+          f"relative L2 card vs CPU {d['worst_rel_l2']:.3e} (limit "
+          f"{TRAIN_GRAD_REL_L2}), every leaf's gradient non-zero, no kernel "
+          "launch")
+    m = _jamba_model(records, smi)
+    out.update(m)
+    b, c = m["b"], m["c"]
+    adm = b["admission_profile"]
+    b["mamba_share_of_admission"] = (
+        _jamba_config().block_pattern.count("mamba")
+        * a["forward"]["busy_ms"] / adm["device_busy_ms"])
+    for arm, r in (("jamba_bf16", b), ("jamba_int8", c)):
+        for rec in records:
+            if rec["name"] in r["launches"]:
+                rec.setdefault("launches_by_drive", {})[arm] = \
+                    r["launches"][rec["name"]]
+    dec = b["decode_profile"]
+    print(f"[22 jamba] (b) {JAMBA} first {JAMBA_LAYERS} layers "
+          f"{_jamba_config().block_pattern} {smi}: {m['params_b']:.2f} B "
+          f"params, {m['weights_gb']:.2f} GB of weights made in "
+          f"{m['init_s']:.1f}s; {b['requests']} req, {b['tokens']} tokens "
+          f"in {b['wall_s']:.3f}s ({b['tokens_per_s']:.1f} tok/s; second "
+          f"run {b['second_run_tokens_per_s']:.1f}, same streams), TTFT p50 "
+          f"{b['ttft_p50_s']:.4f}s, {b['admissions']} admissions + "
+          f"{b['decode_steps']} decode steps = {b['syncs']} syncs, launches "
+          f"{b['launches']}; admission 1 x {JAMBA_PROMPT} wall "
+          f"{adm['wall_ms']:.2f} ms busy {adm['device_busy_ms']:.2f} ms "
+          f"(matmul {adm['matmul_ms']:.2f}, attention "
+          f"{adm['attention_ms']:.2f}, rmsnorm {adm['rmsnorm_ms']:.2f}, "
+          f"other {adm['other_ms']:.2f}), the 4 Mamba layers' share "
+          f"{b['mamba_share_of_admission']:.3f}; decode step wall "
+          f"{dec['wall_ms']:.2f} ms busy {dec['device_busy_ms']:.2f} ms "
+          f"(matmul {dec['matmul_ms']:.2f}); logits vs plain B3 / B7 "
+          f"(relative L2, limit {LOGIT_REL_L2}) admission "
+          f"{b['admission_rel_l2']:.3e}, decode {b['decode_rel_l2']:.3e}; "
+          f"peak {b['peak_mem_gb']:.2f} GB (set-up "
+          f"{m['setup_peak_gb']:.2f} GB)")
+    print(f"[22 jamba] (c) int8 weights ({m['int8_weights_gb']:.2f} GB) "
+          f"{smi}: {c['requests']} req, {c['tokens']} tokens "
+          f"({c['tokens_per_s']:.1f} tok/s), TTFT p50 {c['ttft_p50_s']:.4f}s,"
+          f" launches {c['launches']}; every B4 / B5 call of one admission "
+          f"({c['admission_calls']}) and one decode step "
+          f"({c['decode_calls']}) bit-equal to its plain version; peak "
+          f"{c['peak_mem_gb']:.2f} GB")
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+    print(f"[22 jamba] phase {out['phase_wall_s']:.1f}s")
+    return out
+
+
 def main() -> int:
     dev = phase_device()
     phase_build()
@@ -5278,13 +5791,15 @@ def main() -> int:
     moe = phase_moe(records)
     train = phase_train(records, dev["smi"])
     encdec = phase_encdec(records, dev["smi"])
+    jamba = phase_jamba(records, dev["smi"])
     out_dir = ROOT / "chiprun_out"
     if out_dir.is_dir():
         (out_dir / "chip_smoke_e2e.json").write_text(json.dumps(
             {"e2e": e2e, "sched": sched, "qsched": qsched, "fp8": fp8,
              "rwkv": rwkv, "spec": spec, "eager": eager, "resil": resil,
              "cost": cost, "search": search, "moe": moe, "train": train,
-             "encdec": encdec, "kernels": records}, indent=1))
+             "encdec": encdec, "jamba": jamba, "kernels": records},
+            indent=1))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": dev["kind"],

@@ -10,7 +10,9 @@ directly: they are recognised by ``dtype.name`` and cross bit for bit
 through a 16- or 8-bit integer view.  Quantized trees (``{"qw", "scale"}``
 linears: int8, packed-int4 uint8 or fp8 ``qw``) cross the same way, and so
 do RWKV-6 blocks (``rwkv``: ``tmix``, ``wdecay``, ``u``, ``ln_x`` and the
-five linears), their recurrent states (:func:`state_from_numpy`) and MoE
+five linears), Mamba blocks (``mamba``: ``in_proj``, ``x_proj``,
+``dt_proj``, ``out_proj``, ``conv_w``, ``conv_b``, ``dt_bias``, ``A_log``
+and ``D``), their recurrent states (:func:`state_from_numpy`) and MoE
 layers (``moe``: the fp32 router, the ``(E, d, f)`` expert stacks, sliced
 per group from the reference's ``(G, E, d, f)``, and the shared expert),
 and so do PEFT adapters (``lora``: ``a``, ``b``, ``scaling`` and DoRA's
@@ -77,9 +79,12 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
 
 
 def state_from_numpy(cache: dict, cfg: ModelConfig, device=None) -> list:
-    """Reference cache of an attention-free model (``init_cache``: per
-    block ``{"state": {"wkv", "x_prev"}}``, in either layout, as numpy
-    arrays) -> the port's cache on ``device``."""
+    """Reference contiguous cache (``init_cache``, in either layout, as
+    numpy arrays) -> the port's cache on ``device``: per block an
+    attention block's ``{"kv": ...}`` (and a cross-attention block's
+    ``xk`` / ``xv``), an RWKV-6 block's ``{"state": {"wkv", "x_prev"}}``
+    or a Mamba block's ``{"state": {"ssm", "conv"}}``, mixed within a
+    group in a hybrid model (jamba)."""
     return _groups(cache, cfg, device)
 
 

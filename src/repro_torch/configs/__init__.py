@@ -5,8 +5,8 @@ paper's own evaluation models (``paper_models``) in ``get_config``.  The
 port serves the dense-attention archs (MLA under the search's arm), the
 MoE archs and RWKV-6 through its engines, and runs the encoder and
 cross-attention archs through ``LM.prefill(modality_input=)`` and
-``LM.decode_step``; the Mamba config (jamba) is data the cost model and
-the search read (ROADMAP A6.3)."""
+``LM.decode_step``; the Mamba hybrid (jamba) and RWKV-6 through the
+eager ``Engine`` only."""
 from __future__ import annotations
 
 from repro_torch.configs import (deepseek_coder_33b, granite_moe_3b_a800m,
@@ -50,6 +50,21 @@ def get_smoke_config(arch_id: str) -> ModelConfig:
     return _ARCH_MODULES[a].smoke_config()
 
 
+def first_layers(cfg: ModelConfig, n: int) -> ModelConfig:
+    """``cfg`` cut to its first ``n`` layers: whole groups when ``n`` is a
+    multiple of the group's length, else one group of the first ``n``
+    entries of ``block_pattern`` (jamba's first five layers: 4 Mamba
+    blocks and the attention block, what one H100 holds at full
+    width)."""
+    if n % cfg.blocks_per_group == 0:
+        return cfg.with_(num_layers=n)
+    if n > cfg.blocks_per_group:
+        raise ValueError(f"{n} layers: more than one group of "
+                         f"{cfg.blocks_per_group} blocks and not a whole "
+                         "number of groups")
+    return cfg.with_(num_layers=n, block_pattern=cfg.block_pattern[:n])
+
+
 __all__ = ["ARCH_IDS", "AttentionConfig", "EncoderConfig", "ModelConfig",
-           "MoEConfig", "PAPER_MODELS", "SSMConfig", "get_config",
-           "get_smoke_config"]
+           "MoEConfig", "PAPER_MODELS", "SSMConfig", "first_layers",
+           "get_config", "get_smoke_config"]

@@ -96,12 +96,12 @@ class ModelConfig:
         default_factory=AttentionConfig)   # None for attention-free models
     # MoE blocks are served (models/moe.py); the encoder and
     # cross-attention run through LM.prefill(modality_input=); the ssm
-    # field's Mamba blocks are refused until they are ported (ROADMAP A6.3)
+    # field configures RWKV-6 or Mamba blocks (eager Engine only)
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     encoder: Optional[EncoderConfig] = None
-    # Layer pattern within a repeating group: "attn" | "rwkv6" blocks
-    # ("mamba" is not ported).
+    # Layer pattern within a repeating group: "attn" | "mamba" | "rwkv6"
+    # blocks.
     block_pattern: Tuple[str, ...] = ("attn",)
     moe_every: int = 1                # MoE MLP on every n-th block
     cross_attn_every: int = 0         # VLM cross-attention every n blocks

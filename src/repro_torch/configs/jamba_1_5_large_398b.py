@@ -3,9 +3,10 @@ d_ff=24576 vocab=65536, MoE 16e top-2 — Mamba+attn 1:7 interleave, MoE.
 [arXiv:2403.19887; hf]
 
 Block group of 8 = 1 attention + 7 Mamba layers (attention at index 4,
-as in the public config); MoE MLP on every other layer.  Config data for
-the cost model and the search; the port does not serve Mamba blocks
-yet (ROADMAP A6.3).
+as in the public config); MoE MLP on every other layer.  The port
+builds, trains and serves it through the eager ``Engine`` (the paged
+engines refuse its Mamba blocks, as the reference's do); one H100 holds
+its first five layers at full width (``block_pattern[:5]``).
 """
 from repro_torch.configs.base import (AttentionConfig, ModelConfig, MoEConfig,
                                 SSMConfig)

@@ -12,6 +12,8 @@
         --arch granite-moe-3b-a800m [--engine eager]
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         --arch llama4-scout-17b-a16e --num-layers 8
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+        --engine eager --arch jamba-1.5-large-398b --num-layers 5
 
 Builds qwen2-1.5b at full width (random weights from seed 0) on the main
 path's engine settings (8 slots, page 256, ``decode_block`` 8), admits
@@ -43,7 +45,14 @@ WKV-6 kernel in every layer of the admission).
 paged or eager settings (32 layers at full width), and
 ``--arch llama4-scout-17b-a16e`` the eager ``Engine`` only (its window
 keeps it off the paged engines), with ``--num-layers 8`` to fit one
-card.  For a MoE config every phase also splits its device time into
+card.  ``--arch jamba-1.5-large-398b --num-layers 5`` profiles the
+Mamba hybrid through the eager ``Engine`` (its only engine) over its
+first five layers (``--num-layers`` short of a whole group cuts
+``block_pattern`` to its first N blocks: 4 Mamba blocks and the
+attention block, the cut that fits one card), and two more phases time
+one Mamba layer alone (``mamba_forward`` at the admission's tokens,
+``mamba_decode`` at a decode step's slots).
+For a MoE config every phase also splits its device time into
 kernel families (the attention kernels, the RMSNorm kernel, matrix
 products, everything else: the router's top-k loop and the dispatch
 bookkeeping), and two more phases time one MoE layer alone
@@ -72,10 +81,12 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import first_layers, get_config
 from repro_torch.kvcache import normalize_dtype
 from repro_torch.models.model import LM
 from repro_torch.models.moe import moe_apply
+from repro_torch.models.ssm import (init_mamba_state, mamba_decode,
+                                    mamba_forward)
 from repro_torch.quant import quantize_tree
 from repro_torch.sched import SchedEngine
 from repro_torch.serve.engine import Engine, PagedEngine
@@ -121,6 +132,27 @@ def _moe_alone(lm, params) -> list:
                       group_size=cfg.moe_group_size, impl=cfg.moe_impl)
         run()
         out.append(_phase(f"moe layer alone, {b}x{s} tokens", run,
+                          families))
+    return out
+
+
+def _mamba_alone(lm, params) -> list:
+    """One Mamba layer alone (the first Mamba block's mixer) at an
+    admission's EAGER_PROMPT tokens and at a decode step's SLOTS tokens."""
+    cfg = lm.cfg
+    name = next(f"blk{i}" for i, k in enumerate(cfg.block_pattern)
+                if k == "mamba")
+    p = params["layers"][0][name]["mamba"]
+    out = []
+    for b, s, fn in ((1, EAGER_PROMPT, mamba_forward),
+                     (SLOTS, 1, mamba_decode)):
+        x = torch.randn((b, s, cfg.d_model), dtype=lm.dtype, device="cuda")
+        st = init_mamba_state(b, cfg.d_model, cfg.ssm, "cuda")
+
+        def run(x=x, st=st, fn=fn):
+            fn(p, x, cfg.ssm, st)
+        run()
+        out.append(_phase(f"mamba layer alone, {b}x{s} tokens", run,
                           families))
     return out
 
@@ -196,6 +228,8 @@ def _eager_phases(cfg) -> tuple:
                lambda: [eng.step() for _ in range(EAGER_STEPS)], split)]
     if cfg.moe is not None:
         results += _moe_alone(lm, eng.params)
+    if "mamba" in cfg.block_pattern:
+        results += _mamba_alone(lm, eng.params)
     return cfg, results
 
 
@@ -273,10 +307,12 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default="qwen2-1.5b",
                     choices=["qwen2-1.5b", "rwkv6-1.6b",
                              "granite-moe-3b-a800m",
-                             "llama4-scout-17b-a16e"])
+                             "llama4-scout-17b-a16e",
+                             "jamba-1.5-large-398b"])
     ap.add_argument("--num-layers", type=int, default=None,
                     help="cut the depth (llama4-scout needs 8 to fit one "
-                         "card)")
+                         "card, jamba 5: a count short of a whole group "
+                         "cuts block_pattern to its first N blocks)")
     ap.add_argument("--quant", default="bf16",
                     choices=["bf16", "fp8", "int8", "int4"])
     ap.add_argument("--kv-dtype", default="bf16",
@@ -285,7 +321,7 @@ def main(argv=None) -> int:
                     help="profile one speculative verify round instead")
     ap.add_argument("--engine", default="paged", choices=["paged", "eager"],
                     help="profile the eager Engine over a contiguous cache "
-                         "instead (rwkv6-1.6b is eager only)")
+                         "instead (rwkv6-1.6b and jamba are eager only)")
     args = ap.parse_args(argv)
     if args.spec != "none" and (args.arch != "qwen2-1.5b"
                                 or args.quant != "bf16"
@@ -294,6 +330,9 @@ def main(argv=None) -> int:
     if args.arch == "rwkv6-1.6b" and (args.quant != "bf16"
                                       or args.kv_dtype != "bf16"):
         ap.error("--quant and --kv-dtype do not apply to rwkv6-1.6b")
+    if args.arch == "jamba-1.5-large-398b" and args.engine != "eager":
+        ap.error("jamba-1.5-large-398b is served by the eager Engine only: "
+                 "pass --engine eager")
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -304,7 +343,7 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch).with_(
         quant=args.quant, kv_cache_dtype=normalize_dtype(args.kv_dtype))
     if args.num_layers is not None:
-        cfg = cfg.with_(num_layers=args.num_layers)
+        cfg = first_layers(cfg, args.num_layers)
     if cfg.attention is None or cfg.attention.window is not None \
             or args.engine == "eager":
         cfg, results = _eager_phases(cfg)

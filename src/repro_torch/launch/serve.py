@@ -8,6 +8,8 @@ continuous-batching engine and the scheduler over it.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
         [--smoke] [--requests 8 --prompt-len 32 --max-new 32 --slots 4] \
         [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch jamba-1.5-large-398b --smoke --device cpu [--quant int8]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
         --paged [--smoke] [--requests 8 --prompt-len 32 --max-new 32 \
         --slots 4 --max-len 256 --page-size 64 --decode-block 8] \
@@ -34,7 +36,12 @@ every slot a tick and one host sync a token.  On the GPU an attention
 arch's admission runs the flash-attention kernel in each layer (windowed
 configs too) and its decode plain torch over the cache, as the reference
 does; an attention-free arch (rwkv6-1.6b) runs the WKV-6 kernel at
-admission and the one-token recurrence in plain torch.  With ``--paged``
+admission and the one-token recurrence in plain torch, and a Mamba
+hybrid (jamba-1.5-large-398b; one H100 holds only its first five layers,
+so on the card it runs from ``chip_smoke.py`` phase 22 or ``--smoke``)
+its Mamba blocks in plain torch and its attention block as an attention
+arch's.  RWKV-6 and Mamba archs take the eager ``Engine`` only:
+``--paged``, ``--policy`` and ``--spec`` refuse them.  With ``--paged``
 the admission prefill goes through the flash-attention kernel, every
 decode step through the paged-attention kernel and, with ``--policy``,
 every continuation chunk of a chunked prefill through the prefix-extend
@@ -222,6 +229,11 @@ def main(argv=None):
         ap.error("--chaos needs --paged, --policy or --spec")
     if not sched and (args.degrade or args.max_request_s is not None):
         ap.error("--degrade / --max-request-s need --policy or --spec")
+    if not eager and any(k != "attn" for k in cfg.block_pattern):
+        ap.error(f"{cfg.name} has {'/'.join(sorted(set(cfg.block_pattern)))}"
+                 " blocks: the paged engines (--paged, --policy, --spec) "
+                 "serve attention-only decoders; drop them to serve through "
+                 "the eager Engine")
 
     device = resolve_device(args.device)
     cfg = cfg.with_(kv_cache_style=args.kv_style

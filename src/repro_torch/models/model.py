@@ -173,8 +173,9 @@ class LM:
                    kv_dtype: Optional[str] = None) -> list:
         """Contiguous cache (attention blocks; bf16, or int8 / fp8 with
         per-position scales, from ``cfg.kv_cache_dtype``) and recurrent
-        states (RWKV-6 blocks); ``kv_dtype`` overrides the config (the
-        paged engine's bf16 staging cache)."""
+        states (RWKV-6 and Mamba blocks; a hybrid group holds both kinds);
+        ``kv_dtype`` overrides the config (the paged engine's bf16 staging
+        cache)."""
         return init_stack_cache(self.cfg, batch, max_len, kv_dtype=kv_dtype,
                                 device=self.device)
 
@@ -258,7 +259,7 @@ class LM:
         """token: (S,) int; pos: (S,) write positions (or one position for
         every row) -> (logits (S,V), cache).  The cache is paged or
         contiguous (the eager Engine's or a draft LM's) and updated in
-        place; RWKV-6 blocks return new state tensors and ignore
+        place; RWKV-6 and Mamba blocks return new state tensors and ignore
         ``pos``."""
         x, cache, _ = self.backbone(params, token[:, None], mode="decode",
                                     cache=cache, pos=pos)

@@ -40,7 +40,10 @@ def init_moe(gen: torch.Generator, d_model: int, m: MoEConfig,
              dtype=torch.bfloat16, device=None) -> dict:
     """Router ``{"w": (d, E_pad)}`` in fp32 whatever the model's dtype,
     expert stacks ``gate_e`` / ``up_e`` ``(E_pad, d, f)`` and ``down_e``
-    ``(E_pad, f, d)``, and the shared expert (a SwiGLU MLP) if any."""
+    ``(E_pad, f, d)``, and the shared expert (a SwiGLU MLP) if any.  An
+    expert stack is drawn one expert at a time in fp32 and cast into the
+    stack, so no fp32 copy of a whole stack is made (12.9 GB for one of
+    jamba's); on the CPU the values equal one draw of the whole stack."""
     e, f = m.padded_experts, m.d_ff
     f32 = dict(dtype=torch.float32, device=device)
 
@@ -48,7 +51,10 @@ def init_moe(gen: torch.Generator, d_model: int, m: MoEConfig,
         return torch.rand(shape, generator=gen, **f32) * (2 * bound) - bound
 
     def expert_stack(d_in, d_out):
-        return uniform((e, d_in, d_out), 1.0 / d_in ** 0.5).to(dtype)
+        out = torch.empty((e, d_in, d_out), dtype=dtype, device=device)
+        for i in range(e):
+            out[i] = uniform((d_in, d_out), 1.0 / d_in ** 0.5)
+        return out
 
     p = {"router": {"w": uniform((d_model, e), 1.0 / d_model ** 0.5)},
          "gate_e": expert_stack(d_model, f),

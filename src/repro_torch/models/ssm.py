@@ -1,26 +1,49 @@
-"""Attention-free sequence mixer: RWKV-6 ("Finch").
+"""Attention-free sequence mixers: RWKV-6 ("Finch") and Mamba (selective
+SSM).
 
-The RWKV-6 half of ``repro/models/ssm.py``, with the same entry points:
-  * ``rwkv6_forward`` — full sequence (prefill), returns (y, final_state);
-    the WKV recurrence goes through ``kernels/wkv6/ops.py`` (the B8
-    kernel on CUDA tensors, its plain chunked version on the CPU)
-  * ``rwkv6_decode``  — one-token step on the constant-size state, plain
-    torch as in the reference
-  * ``init_rwkv6`` / ``init_rwkv6_state``
+The port of ``repro/models/ssm.py``, with the same entry points:
+  * ``rwkv6_forward`` / ``mamba_forward`` — full sequence (prefill and
+    training), returns (y, final_state)
+  * ``rwkv6_decode`` / ``mamba_decode``  — one-token step on the
+    constant-size state, plain torch as in the reference
+  * ``init_rwkv6`` / ``init_rwkv6_state`` / ``init_mamba`` /
+    ``init_mamba_state``
 
-The reference's casts are kept exactly: the five mixed streams are
-rounded to x's dtype, ``logw`` is fp32, prefill rounds the WKV output to
-x's dtype before the group norm while decode keeps it fp32, and the gated
+RWKV-6: the WKV recurrence goes through ``kernels/wkv6/ops.py`` (the B8
+kernel on CUDA tensors, its plain chunked version on the CPU).  The
+reference's casts are kept exactly: the five mixed streams are rounded
+to x's dtype, ``logw`` is fp32, prefill rounds the WKV output to x's
+dtype before the group norm while decode keeps it fp32, and the gated
 group-norm output is rounded to bf16 (in float32 configs too) before
 ``wout``.  The state is fp32; ``x_prev`` is stored fp32 and cast back to
-x's dtype when used.  Mamba is not ported (ROADMAP A6.3): the block
-assembly refuses it.
+x's dtype when used.
+
+Mamba is plain torch on every device, as the reference computes it in
+jnp (no ``pallas_call``).  Its casts are the reference's: the depthwise
+causal conv sums in ``xi``'s dtype (weights and carried context cast to
+it), ``silu(xc + conv_b)`` in fp32 rounded to ``xi``'s dtype, ``dt`` /
+``B`` / ``C`` in fp32, and ``y + D·x`` gated by ``silu(z)`` in fp32,
+rounded to x's dtype before ``out_proj``.  The state is fp32
+``{"ssm": (B, d_inner, N), "conv": (B, d_conv - 1, d_inner)}``.  The
+selective scan runs in chunks of ``MAMBA_CHUNK`` tokens, so no more than
+one chunk's (B, C, d_inner, N) tensors are live: within a chunk a
+log-step (Hillis–Steele) scan of the ``(exp(dt·A), dt·x·B)`` pairs
+(:func:`mamba_chunk_scan`, 7 steps at 128), across chunks the carried
+state.  :func:`mamba_scan_ref`, the sequential recurrence, is its plain
+oracle.  The port takes any length: where the reference cuts the prompt
+into ``max(1, S // 128)`` equal chunks and asserts that they divide S
+(its fault 10: a 301-token prompt fails), the port's last chunk is
+shorter, and the scan does not depend on where chunks break.  Under
+``train=True`` each chunk step is checkpointed, as the reference's
+``jax.checkpoint``, so backward keeps one (B, d_inner, N) carry a chunk.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import SSMConfig
 from repro_torch.kernels.wkv6 import ops as wkv_ops
@@ -30,6 +53,8 @@ from repro_torch.models.layers import init_linear, linear_apply
 LORA_MIX = 32          # low-rank width of the five-stream lerp
 LORA_DECAY = 64        # low-rank width of the decay
 GROUP_NORM_EPS = 64e-5
+MAMBA_CHUNK = 128      # tokens a selective-scan chunk
+DT_BIAS_INIT = -4.6    # softplus^-1(0.01)
 
 
 def init_rwkv6(gen: torch.Generator, d_model: int, s: SSMConfig,
@@ -157,3 +182,160 @@ def rwkv6_decode(p: dict, x: torch.Tensor, s: SSMConfig, state: dict, *,
     y = _rwkv6_out(p, o.reshape(b, 1, h, hd), g, h, hd, impl)
     return y, {"wkv": new_wkv, "x_prev": x[:, -1].to(state["x_prev"].dtype)}
 
+
+# ===========================================================================
+# Mamba
+
+
+def init_mamba(gen: torch.Generator, d_model: int, s: SSMConfig,
+               dtype=torch.bfloat16, device=None) -> dict:
+    di = s.expand * d_model
+    dtr = s.dt_rank or max(1, d_model // 16)
+    f32 = dict(dtype=torch.float32, device=device)
+    a_init = torch.log(torch.arange(1, s.d_state + 1, **f32))[None].repeat(
+        di, 1)
+    return {
+        "in_proj": init_linear(gen, d_model, 2 * di, dtype=dtype,
+                               device=device),
+        "conv_w": torch.randn((di, s.d_conv), generator=gen, **f32) * 0.02,
+        "conv_b": torch.zeros((di,), **f32),
+        "x_proj": init_linear(gen, di, dtr + 2 * s.d_state, dtype=dtype,
+                              device=device),
+        "dt_proj": init_linear(gen, dtr, di, dtype=dtype, device=device),
+        "dt_bias": torch.full((di,), DT_BIAS_INIT, **f32),
+        "A_log": a_init,
+        "D": torch.ones((di,), **f32),
+        "out_proj": init_linear(gen, di, d_model, dtype=dtype, device=device),
+    }
+
+
+def init_mamba_state(batch: int, d_model: int, s: SSMConfig,
+                     device=None) -> dict:
+    di = s.expand * d_model
+    f32 = dict(dtype=torch.float32, device=device)
+    return {"ssm": torch.zeros((batch, di, s.d_state), **f32),
+            "conv": torch.zeros((batch, s.d_conv - 1, di), **f32)}
+
+
+def _mamba_ssm_params(p: dict, xc: torch.Tensor, s: SSMConfig, impl: str):
+    """xc (B,S,di) -> dt (B,S,di), A (di,N), B and C (B,S,N), all fp32.
+    ``dt_proj.w`` is read directly, as the reference reads it."""
+    dtr = p["dt_proj"]["w"].shape[0]
+    proj = linear_apply(p["x_proj"], xc, impl).float()
+    dt, bmat, cmat = torch.split(proj, [dtr, s.d_state, s.d_state], dim=-1)
+    dt = F.softplus(dt @ p["dt_proj"]["w"].float() + p["dt_bias"])
+    a = -torch.exp(p["A_log"])
+    return dt, a, bmat, cmat
+
+
+def mamba_chunk_scan(h0: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                     bmat: torch.Tensor, cmat: torch.Tensor,
+                     x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One chunk of the selective scan, ``h_t = exp(dt_t·A) h_{t-1} +
+    dt_t x_t B_t`` and ``y_t = h_t · C_t``, as a log-step (Hillis–Steele)
+    scan of the pairs over the chunk's C tokens (ceil(log2 C) steps; the
+    reference's ``associative_scan`` with the same combine).  h0 (B,di,N);
+    dt, x (B,C,di); a (di,N); bmat, cmat (B,C,N), all fp32 -> (h_C
+    (B,di,N), y (B,C,di))."""
+    da = torch.exp(dt[..., None] * a)                            # (B,C,di,N)
+    dbx = (dt * x)[..., None] * bmat[:, :, None, :]              # (B,C,di,N)
+    c, k = dt.shape[1], 1
+    while k < c:
+        # (a1, b1) earlier, (a2, b2) later -> (a2·a1, a2·b1 + b2)
+        dbx = torch.cat([dbx[:, :k], da[:, k:] * dbx[:, :-k] + dbx[:, k:]],
+                        dim=1)
+        da = torch.cat([da[:, :k], da[:, k:] * da[:, :-k]], dim=1)
+        k *= 2
+    h = da * h0[:, None] + dbx
+    return h[:, -1], torch.einsum("bcdn,bcn->bcd", h, cmat)
+
+
+def mamba_scan(h0, dt, a, bmat, cmat, x, *, chunk: int = MAMBA_CHUNK,
+               train: bool = False):
+    """The selective scan over S tokens in chunks of ``chunk`` (the last
+    one shorter when ``chunk`` does not divide S), the state carried
+    between them; each chunk step checkpointed under ``train``.  Shapes
+    as :func:`mamba_chunk_scan` with S for C -> (h_S, y (B,S,di))."""
+    h, ys = h0, []
+    for lo in range(0, dt.shape[1], chunk):
+        args = (h, dt[:, lo:lo + chunk], a, bmat[:, lo:lo + chunk],
+                cmat[:, lo:lo + chunk], x[:, lo:lo + chunk])
+        h, y = (checkpoint(mamba_chunk_scan, *args, use_reentrant=False)
+                if train else mamba_chunk_scan(*args))
+        ys.append(y)
+    return h, torch.cat(ys, dim=1)
+
+
+def mamba_scan_ref(h0, dt, a, bmat, cmat, x):
+    """Plain oracle of :func:`mamba_scan`: the sequential recurrence, one
+    token at a time."""
+    h, ys = h0, []
+    for t in range(dt.shape[1]):
+        h = torch.exp(dt[:, t, :, None] * a) * h \
+            + (dt[:, t] * x[:, t])[..., None] * bmat[:, t, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, cmat[:, t]))
+    return h, torch.stack(ys, dim=1)
+
+
+def mamba_scan_inputs(p: dict, x: torch.Tensor, s: SSMConfig, state: dict,
+                      impl: str = "ref") -> tuple:
+    """The full-sequence forward up to the scan: ``in_proj``, the causal
+    depthwise conv over the carried context and the SSM parameters.
+    x (B,S,d) -> (z (B,S,di) in x's dtype, then fp32 x (B,S,di), dt
+    (B,S,di), A (di,N), B and C (B,S,N), and the new conv context)."""
+    sl = x.shape[1]
+    xz = linear_apply(p["in_proj"], x, impl)
+    xi, z = torch.chunk(xz, 2, dim=-1)                           # (B,S,di)
+
+    # causal depthwise conv with carried context, summed in xi's dtype
+    ctx = state["conv"].to(xi.dtype)                             # (B,k-1,di)
+    xpad = torch.cat([ctx, xi], dim=1)
+    new_conv = (xpad[:, -(s.d_conv - 1):].to(state["conv"].dtype)
+                if s.d_conv > 1 else state["conv"])
+    w = p["conv_w"].to(xi.dtype)
+    xc = xpad[:, 0:sl] * w[:, 0]
+    for i in range(1, s.d_conv):
+        xc = xc + xpad[:, i:i + sl] * w[:, i]
+    xc = F.silu(xc.float() + p["conv_b"]).to(xi.dtype)
+
+    dt, a, bmat, cmat = _mamba_ssm_params(p, xc, s, impl)
+    return z, xc.float(), dt, a, bmat, cmat, new_conv
+
+
+def mamba_forward(p: dict, x: torch.Tensor, s: SSMConfig, state: dict, *,
+                  impl: str = "ref",
+                  train: bool = False) -> Tuple[torch.Tensor, dict]:
+    """x: (B,S,d) -> (y (B,S,d), new state), from ``state``; any S."""
+    z, xf, dt, a, bmat, cmat, new_conv = mamba_scan_inputs(p, x, s, state,
+                                                           impl)
+    h_last, y = mamba_scan(state["ssm"].float(), dt, a, bmat, cmat, xf,
+                           train=train)
+    y = y + p["D"] * xf
+    y = (y * F.silu(z.float())).to(x.dtype)
+    out = linear_apply(p["out_proj"], y, impl)
+    return out, {"ssm": h_last.to(state["ssm"].dtype), "conv": new_conv}
+
+
+def mamba_decode(p: dict, x: torch.Tensor, s: SSMConfig, state: dict, *,
+                 impl: str = "ref") -> Tuple[torch.Tensor, dict]:
+    """x: (B,1,d) single token; the state carries the SSM state and the
+    conv's last ``d_conv - 1`` inputs."""
+    xz = linear_apply(p["in_proj"], x, impl)                     # (B,1,2di)
+    xi, z = torch.chunk(xz[:, 0], 2, dim=-1)                     # (B,di)
+
+    ctx = state["conv"].to(xi.dtype)                             # (B,k-1,di)
+    window = torch.cat([ctx, xi[:, None]], dim=1)                # (B,k,di)
+    xc = torch.einsum("bkd,dk->bd", window, p["conv_w"].to(xi.dtype))
+    xc = F.silu(xc.float() + p["conv_b"]).to(xi.dtype)
+    new_conv = window[:, 1:].to(state["conv"].dtype)
+
+    dt, a, bmat, cmat = _mamba_ssm_params(p, xc[:, None], s, impl)
+    dt, bmat, cmat = dt[:, 0], bmat[:, 0], cmat[:, 0]
+    xf = xc.float()
+    da = torch.exp(dt[..., None] * a)                            # (B,di,N)
+    dbx = (dt * xf)[..., None] * bmat[:, None, :]
+    h = da * state["ssm"].float() + dbx
+    y = torch.einsum("bdn,bn->bd", h, cmat) + p["D"] * xf
+    y = (y * F.silu(z.float())).to(x.dtype)
+    out = linear_apply(p["out_proj"], y[:, None], impl)
+    return out, {"ssm": h.to(state["ssm"].dtype), "conv": new_conv}

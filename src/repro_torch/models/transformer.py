@@ -7,15 +7,17 @@ list of groups and loops over it; in a training forward each group is
 wrapped in the config's remat policy, as the reference wraps its scan
 body.  Block layout (pre-norm residual):
 
-    x = x + mixer(norm1(x))            mixer ∈ {attn (GQA or MLA), rwkv6}
+    x = x + mixer(norm1(x))            mixer ∈ {attn (GQA or MLA), mamba,
+                                                rwkv6}
     [x = x + xattn(norm_x(x), src)]    (VLM / encoder-decoder blocks)
     x = x + mlp_or_moe(norm2(x))
 
 Cross-attention reads the source's K / V, projected once at prefill and
 kept in the cache (``xk`` / ``xv``) for decode.  The encoder (whisper) is
 a bidirectional stack over the stub frame embeddings, a list of layers
-where the reference has a vmapped stack.  Mamba blocks (ROADMAP A6.3)
-raise.
+where the reference has a vmapped stack.  A hybrid group (jamba: Mamba
+blocks and one attention block) carries each Mamba block's recurrent
+state beside the attention block's K / V in the same cache.
 """
 from __future__ import annotations
 
@@ -42,13 +44,10 @@ def block_kinds(cfg: ModelConfig) -> list[dict]:
     encoder-decoder model, as in the reference."""
     out = []
     for i, kind in enumerate(cfg.block_pattern):
-        if kind == "mamba":
+        if kind not in ("attn", "mamba", "rwkv6"):
             raise NotImplementedError(
-                "block kind 'mamba' is not ported yet (ROADMAP A6.3)")
-        if kind not in ("attn", "rwkv6"):
-            raise NotImplementedError(
-                f"block kind {kind!r}: only attention and RWKV-6 blocks "
-                "are ported")
+                f"block kind {kind!r}: only attention, Mamba and RWKV-6 "
+                "blocks exist")
         xattn = (cfg.cross_attn_every > 0
                  and (i + 1) % cfg.cross_attn_every == 0) \
             or (cfg.encoder is not None and kind == "attn")
@@ -72,6 +71,9 @@ def init_group(gen: torch.Generator, cfg: ModelConfig, dtype=torch.bfloat16,
             blk["attn"] = attn_mod.init_attention(gen, cfg.d_model,
                                                   cfg.attention, dtype,
                                                   device)
+        elif bk["kind"] == "mamba":
+            blk["mamba"] = ssm_mod.init_mamba(gen, cfg.d_model, cfg.ssm,
+                                              dtype, device)
         else:
             blk["rwkv"] = ssm_mod.init_rwkv6(gen, cfg.d_model, cfg.ssm,
                                              dtype, device)
@@ -100,8 +102,9 @@ def init_group_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     shares one table tensor across layers); ``kv_dtype`` overrides
     ``cfg.kv_cache_dtype`` (the paged engine prefills into a bf16 staging
     cache; MLA's latent ``{"c_kv", "k_pe"}`` is contiguous only).  RWKV-6
-    blocks: ``{"state": {"wkv": (B,H,D,D), "x_prev": (B,d)}}`` in fp32,
-    position-free.  A cross-attention block's source K / V (``"xk"`` /
+    blocks: ``{"state": {"wkv": (B,H,D,D), "x_prev": (B,d)}}``, Mamba
+    blocks ``{"state": {"ssm": (B,di,N), "conv": (B,d_conv-1,di)}}``, in
+    fp32, position-free.  A cross-attention block's source K / V (``"xk"`` /
     ``"xv"``, (B, T_src, KH, D) in bf16, position-free) join its node at
     prefill, so none is held before there is a source."""
     from repro_torch.kvcache import CacheSpec, alloc_contiguous, alloc_paged
@@ -112,6 +115,9 @@ def init_group_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     for i, bk in enumerate(block_kinds(cfg)):
         if bk["kind"] == "rwkv6":
             c = {"state": ssm_mod.init_rwkv6_state(batch, cfg.d_model,
+                                                   cfg.ssm, device)}
+        elif bk["kind"] == "mamba":
+            c = {"state": ssm_mod.init_mamba_state(batch, cfg.d_model,
                                                    cfg.ssm, device)}
         elif paged:
             c = {"kv": alloc_paged(spec, cfg.attention, batch, n_pages,
@@ -165,8 +171,8 @@ def group_forward(gp: dict, x: torch.Tensor, cfg: ModelConfig, *,
     ``decode_attn_impl``) or "verify" (a speculative chunk per slot over
     the paged cache, ``pos = (lengths, widths[, max_pages])``; the cache
     node is ``{"kv": paged, "stage": contiguous}`` and only the stage is
-    written).  RWKV-6 blocks run their recurrence from the cache's state
-    (zeros without a cache) and ignore ``pos``.  A cross-attention block
+    written).  RWKV-6 and Mamba blocks run their recurrence from the
+    cache's state (zeros without a cache) and ignore ``pos``.  A cross-attention block
     attends ``cross_src`` (B, T, d: the encoder's output or the stub patch
     embeddings) in "prefill", storing its K / V in the cache when there is
     one, and the cached K / V in "decode".
@@ -174,8 +180,8 @@ def group_forward(gp: dict, x: torch.Tensor, cfg: ModelConfig, *,
     ``train=True`` is the training forward (``LM.loss``): "prefill" with
     no cache, through the reference's training math in plain torch on
     every device (norms, attention, quantized linears and the WKV launch
-    no kernel: none has a backward), MoE layers at their training
-    capacity.  Returns ``(x, new cache, aux)``, ``aux`` the MoE layers'
+    no kernel: none has a backward; each Mamba scan chunk checkpointed),
+    MoE layers at their training capacity.  Returns ``(x, new cache, aux)``, ``aux`` the MoE layers'
     losses and dropped fractions summed over the group's blocks."""
     a = cfg.attention
     if train and (mode != "prefill" or cache is not None):
@@ -206,6 +212,17 @@ def group_forward(gp: dict, x: torch.Tensor, cfg: ModelConfig, *,
                                               impl=impl)
             else:
                 y, st2 = ssm_mod.rwkv6_forward(blk["rwkv"], h, cfg.ssm, st,
+                                               impl=impl, train=train)
+            if c is not None:
+                new_cache[f"blk{i}"] = {"state": st2}
+        elif bk["kind"] == "mamba":
+            st = c["state"] if c is not None else ssm_mod.init_mamba_state(
+                x.shape[0], cfg.d_model, cfg.ssm, x.device)
+            if mode == "decode":
+                y, st2 = ssm_mod.mamba_decode(blk["mamba"], h, cfg.ssm, st,
+                                              impl=impl)
+            else:
+                y, st2 = ssm_mod.mamba_forward(blk["mamba"], h, cfg.ssm, st,
                                                impl=impl, train=train)
             if c is not None:
                 new_cache[f"blk{i}"] = {"state": st2}

@@ -8,8 +8,9 @@ slots free at once.  The port of ``repro/serve/engine.py``'s two engines:
 into its slot, one batched decode step per tick, host-side sampling, and
 one device->host sync per generated token.  It serves attention decoders
 over contiguous per-slot caches (bf16, or int8 / fp8 with per-position
-scales; sliding windows included) and attention-free (RWKV-6) decoders,
-whose per-slot cache is a constant-size recurrent state.
+scales; sliding windows included), attention-free (RWKV-6) decoders and
+Mamba hybrids (jamba), whose per-slot cache holds a constant-size
+recurrent state for each RWKV-6 or Mamba block.
 
 ``PagedEngine`` — queued requests are admitted in ONE right-padded,
 power-of-two-bucketed prefill whose K/V is scattered into the page pools;
@@ -216,9 +217,10 @@ class Engine(_EngineBase):
     previous occupant left there; decode never reads them (it masks keys
     past each row's position) and overwrites them as it goes; an MLA
     slot's latent rows (``c_kv`` / ``k_pe``) likewise.  Differences from
-    the reference, both deliberate: an RWKV-6 slot's recurrent state is
-    zeroed at admission (the reference prefills from whatever the slot's
-    previous occupant left, so a reused slot changes the stream); and an
+    the reference, both deliberate: an RWKV-6 or Mamba slot's recurrent
+    state (``wkv`` / ``x_prev``, ``ssm`` / ``conv``) is zeroed at
+    admission (the reference prefills from whatever the slot's previous
+    occupant left, so a reused slot changes the stream); and an
     encoder or cross-attention model is refused here, with a message (the
     reference's ``Engine`` passes no ``modality_input`` and fails its
     first admission on ``assert cross_src is not None``).  Those models
@@ -227,7 +229,7 @@ class Engine(_EngineBase):
     def __init__(self, lm, params, *, n_slots: int = 4, max_len: int = 512,
                  eos_id: int = -1, seed: int = 0, metrics=None, tracer=None,
                  profiler=None):
-        block_kinds(lm.cfg)          # refuses block kinds not ported
+        block_kinds(lm.cfg)          # refuses unknown block kinds
         if has_source(lm.cfg):
             raise ValueError(
                 f"{lm.cfg.name}: the eager Engine passes no modality_input; "
@@ -250,8 +252,8 @@ class Engine(_EngineBase):
         """Batch-1 prefill of ``prompt`` into slot ``slot`` of the engine
         cache (in place); returns its last-token logits (V,) on the
         device.  Attention blocks write positions [0, len) of the slot's
-        rows through views (scales included); RWKV-6 blocks run from a
-        zero state that is copied into the slot."""
+        rows through views (scales included); RWKV-6 and Mamba blocks run
+        from a zero state that is copied into the slot."""
         tokens = torch.as_tensor(prompt, device=self.device).long()[None]
         sub = [{blk: ({"kv": {n: t[slot:slot + 1]
                               for n, t in node["kv"].items()}}
@@ -442,8 +444,8 @@ def _pow2_bucket(n: int, lo: int = 8) -> int:
 class PagedEngine(_EngineBase):
     """Continuous batching over a paged KV cache with a host-read-free
     inner loop (see module docstring).  Requires an attention-only
-    decoder without a sliding window, MLA, an encoder or cross-attention,
-    as the reference asserts."""
+    decoder (no RWKV-6 or Mamba block) without a sliding window, MLA, an
+    encoder or cross-attention, as the reference asserts."""
 
     kv_layout = "paged"
 
@@ -452,14 +454,15 @@ class PagedEngine(_EngineBase):
                  decode_block: int = 8, n_pages: Optional[int] = None,
                  metrics=None, tracer=None, profiler=None, injector=None):
         cfg = lm.cfg
-        block_kinds(cfg)             # refuses block kinds not ported
+        block_kinds(cfg)             # refuses unknown block kinds
         a = cfg.attention
         if a is None or a.window is not None or a.kind == "mla" \
                 or has_source(cfg) \
                 or any(k != "attn" for k in cfg.block_pattern):
             raise ValueError("PagedEngine needs an attention-only decoder "
-                             "(no MLA, no encoder or cross-attention, no "
-                             "sliding window)")
+                             "(no RWKV-6 or Mamba block, no MLA, no encoder "
+                             "or cross-attention, no sliding window); serve "
+                             f"{cfg.name} through the eager Engine")
         super().__init__(lm, lm.prepare(params), n_slots=n_slots,
                          max_len=max_len, eos_id=eos_id, metrics=metrics,
                          tracer=tracer, profiler=profiler)

@@ -4,9 +4,12 @@ block) and llama-3.2-vision-11b (stub patch embeddings, cross-attention
 in every second block of the smoke config), their smoke configs in
 float32, the reference's ``LM.init`` pytree bridged to torch, and the
 same numpy tokens and ``modality_input`` (``tests/conftest.py``'s
-``make_batch``, cast to float32 on both sides).  The reference's
-functions run under ``jax.jit``: one compile a function where its eager
-calls compile op by op.
+``make_batch``, cast to float32 on both sides).  The weights are the
+port's ``LM.init`` tree in the reference's layout (``params_to_numpy``),
+handed to both sides.  The reference's functions run under ``jax.jit``,
+compiled once an arch and shared by the tests (``_jfns``): its encoder,
+``logits`` and ``prefill`` as one program, ``decode_step``, and
+``value_and_grad`` of ``loss``.
 
 * ``encoder_forward``, ``LM.logits`` and ``prefill`` (logits and every
   cache leaf: self-attention K / V, the source's ``xk`` / ``xv``) to
@@ -37,7 +40,7 @@ from repro.configs.specs import modality_spec as j_modality_spec  # noqa: E402
 from repro.models import transformer as jtr  # noqa: E402
 from repro.models.model import LM as JLM  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
-from repro_torch.bridge import params_from_numpy, state_from_numpy  # noqa: E402
+from repro_torch.bridge import params_to_numpy, state_from_numpy  # noqa: E402
 from repro_torch.configs.specs import modality_spec  # noqa: E402
 from repro_torch.models import transformer as ttr  # noqa: E402
 from repro_torch.models.model import LM as TLM  # noqa: E402
@@ -47,24 +50,44 @@ pytestmark = pytest.mark.usefixtures("one_intraop_thread")
 
 
 ARCHS = ("whisper-base", "llama-3.2-vision-11b")
+CACHE_LEN = 24
 
 
 @functools.lru_cache(maxsize=None)
 def _pair(arch):
-    """(JAX LM, port LM, JAX params, port params); the port's tree is
-    shared by the tests, which only read it."""
+    """(JAX LM, port LM, JAX params, port params): the port's
+    ``LM.init(1)`` tree and the same weights in the reference's layout;
+    the port's tree is shared by the tests, which only read it."""
     jcfg = jconfigs.get_smoke_config(arch).with_(dtype="float32")
     tcfg = tconfigs.get_smoke_config(arch).with_(dtype="float32")
     jlm, tlm = JLM(jcfg), TLM(tcfg, device="cpu")
-    jp = jax.jit(jlm.init)(jax.random.PRNGKey(1))
-    tp = params_from_numpy(jax.tree.map(np.asarray, jp), tcfg, "cpu")
+    tp = tlm.init(1)
+    jp = jax.tree.map(jnp.asarray, params_to_numpy(tp, tcfg))
     return jlm, tlm, jp, tp
+
+
+@functools.lru_cache(maxsize=None)
+def _jfns(arch):
+    """The reference's programs of ``arch``, jitted once: ``forward``
+    (the encoder's output, ``logits`` and ``prefill`` in one program),
+    ``decode`` and ``grad`` (``value_and_grad`` of ``loss``)."""
+    jlm = _pair(arch)[0]
+
+    def forward(p, tokens, src):
+        enc = (jtr.encoder_forward(p["encoder"], src, jlm.cfg)
+               if jlm.cfg.encoder is not None else None)
+        cache = jlm.init_cache(tokens.shape[0], CACHE_LEN)
+        return (enc, jlm.logits(p, tokens, modality_input=src),
+                jlm.prefill(p, tokens, cache, modality_input=src))
+    return {"forward": jax.jit(forward), "decode": jax.jit(jlm.decode_step),
+            "grad": jax.jit(jax.value_and_grad(jlm.loss, has_aux=True,
+                                               allow_int=True))}
 
 
 def _inputs(cfg, b=2, s=16):
     """make_batch's tokens, labels and modality_input (float32), as numpy
     and as JAX / torch tensors."""
-    nb = {k: np.asarray(jnp.asarray(v, jnp.float32)) if
+    nb = {k: np.asarray(v).astype(np.float32) if
           k == "modality_input" else np.asarray(v)
           for k, v in make_batch(cfg, b=b, s=s, seed=3).items()}
     return nb, {k: jnp.asarray(v) for k, v in nb.items()}, tbatch(nb)
@@ -72,7 +95,7 @@ def _inputs(cfg, b=2, s=16):
 
 def _np(x):
     return x.float().numpy() if isinstance(x, torch.Tensor) \
-        else np.asarray(jnp.asarray(x, jnp.float32))
+        else np.asarray(x).astype(np.float32)
 
 
 def _assert_caches_close(tcache, jcache, cfg, tol):
@@ -98,32 +121,27 @@ def test_encoder_logits_and_prefill_match_jax(arch):
     nb, jb, tb = _inputs(cfg)
     src = tb["modality_input"]
     assert tuple(src.shape) == modality_spec(cfg, 2).shape
+    j_enc, j_logits, (jl, jc) = _jfns(arch)["forward"](
+        jp, jb["tokens"], jb["modality_input"])
     if cfg.encoder is not None:
         assert len(tp["encoder"]["layers"]) == cfg.encoder.num_layers
         np.testing.assert_allclose(
-            _np(ttr.encoder_forward(tp["encoder"], src, cfg)),
-            _np(jax.jit(jtr.encoder_forward, static_argnums=2)(
-                jp["encoder"], jb["modality_input"], jlm.cfg)),
+            _np(ttr.encoder_forward(tp["encoder"], src, cfg)), _np(j_enc),
             atol=1e-4, rtol=1e-4)
     kinds = ttr.block_kinds(cfg)
     assert kinds == jtr.block_kinds(jlm.cfg)
     assert any(k["xattn"] for k in kinds)
     full = _np(tlm.logits(tp, tb["tokens"], modality_input=src))
-    np.testing.assert_allclose(
-        full, _np(jax.jit(jlm.logits)(jp, jb["tokens"],
-                                      modality_input=jb["modality_input"])),
-        atol=1e-4, rtol=1e-4)
-    jl, jc = jax.jit(jlm.prefill)(jp, jb["tokens"], jlm.init_cache(2, 24),
-                                  modality_input=jb["modality_input"])
-    tl, tc = tlm.prefill(tp, tb["tokens"], tlm.init_cache(2, 24),
+    np.testing.assert_allclose(full, _np(j_logits), atol=1e-4, rtol=1e-4)
+    tl, tc = tlm.prefill(tp, tb["tokens"], tlm.init_cache(2, CACHE_LEN),
                          modality_input=src)
     np.testing.assert_allclose(_np(tl), _np(jl), atol=1e-4, rtol=1e-4)
     _assert_caches_close(tc, jc, cfg, 1e-2)
     # one decode step from the reference's cache: no source passed, the
     # cross-attention reads the cached K / V
     tcache = state_from_numpy(jax.tree.map(np.asarray, jc), cfg, "cpu")
-    jl, jc2 = jax.jit(jlm.decode_step)(jp, jb["tokens"][:, 0], jc,
-                                       jnp.full((2,), 16, jnp.int32))
+    jl, jc2 = _jfns(arch)["decode"](jp, jb["tokens"][:, 0], jc,
+                                    jnp.asarray(np.full((2,), 16, np.int32)))
     tl, tc2 = tlm.decode_step(tp, tb["tokens"][:, 0], tcache,
                               torch.full((2,), 16))
     np.testing.assert_allclose(_np(tl), _np(jl), atol=1e-4, rtol=1e-4)
@@ -140,7 +158,8 @@ def test_decode_matches_full_context(arch):
     _, _, tb = _inputs(tlm.cfg)
     src = tb["modality_input"]
     full = _np(tlm.logits(tp, tb["tokens"], modality_input=src))
-    _, tc = tlm.prefill(tp, tb["tokens"][:, :8], tlm.init_cache(2, 24),
+    _, tc = tlm.prefill(tp, tb["tokens"][:, :8],
+                        tlm.init_cache(2, CACHE_LEN),
                         modality_input=src)
     for i in range(8, 12):
         tl, tc = tlm.decode_step(tp, tb["tokens"][:, i], tc,
@@ -157,8 +176,7 @@ def test_loss_and_grads_match_jax(arch):
     1e-4 relative L2."""
     jlm, tlm, jp, tp = _pair(arch)
     _, jb, tb = _inputs(tlm.cfg, s=64)
-    (jloss, jm), jg = jax.jit(jax.value_and_grad(
-        jlm.loss, has_aux=True, allow_int=True))(jp, jb)
+    (jloss, jm), jg = _jfns(arch)["grad"](jp, jb)
     tloss, tm, tg = loss_and_grads(tlm, tp, tb)
     np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-5)
     for k in jm:

@@ -442,14 +442,16 @@ def test_copied_configs_agree_with_reference(arch):
 
 @pytest.mark.parametrize("arch,served", [
     ("granite-moe-3b-a800m", True), ("llama4-scout-17b-a16e", True),
-    ("jamba-1.5-large-398b", False), ("whisper-base", False),
+    ("jamba-1.5-large-398b", True), ("whisper-base", False),
     ("llama-3.2-vision-11b", False), ("mixtral-8x7b", True),
     ("llava-1.5-7b", False), ("qwen2-1.5b-mla", True)])
 def test_engines_refuse_unported_blocks_naming_a6(arch, served):
-    """(Kept name.)  Mamba configs are the cost model's data: the model,
-    the eager ``Engine`` and ``PagedEngine`` (so the scheduler and
-    ``SpecEngine`` too) refuse them, naming the roadmap item that ports
-    them (A6.3).  The encoder and cross-attention configs (whisper-base,
+    """(Kept name: Mamba configs were refused, naming A6.3, before the
+    Mamba mixer was ported.)  jamba's hybrid groups build, give finite
+    logits and are served by the eager ``Engine``; ``PagedEngine`` (so
+    the scheduler and ``SpecEngine`` too) refuses them with a message,
+    as the reference's asserts; a block kind that exists in neither
+    package is refused.  The encoder and cross-attention configs (whisper-base,
     llama-3.2-vision-11b, llava-1.5-7b) build and give finite logits with
     a ``modality_input``, and both engines refuse them with a message,
     as the reference's do.  The MoE configs are served: ``LM.init`` builds
@@ -461,6 +463,7 @@ def test_engines_refuse_unported_blocks_naming_a6(arch, served):
     from repro_torch.core.space import (ArchChoice, EfficiencyConfig,
                                         FtChoice, InfChoice)
     from repro_torch.models.model import LM
+    from repro_torch.models.transformer import block_kinds
     from repro_torch.serve.engine import Engine, PagedEngine
     if arch == "qwen2-1.5b-mla":
         cfg = apply_efficiency_config(
@@ -481,24 +484,24 @@ def test_engines_refuse_unported_blocks_naming_a6(arch, served):
     if served:
         params = lm.init(0)
         if cfg.moe is not None:
-            assert all("moe" in blk for group in params["layers"]
-                       for blk in group.values())
+            kinds = block_kinds(cfg)
+            assert all(("moe" in blk) == k["moe"] for group in params["layers"]
+                       for blk, k in zip(group.values(), kinds))
         assert torch.isfinite(lm.logits(params, torch.arange(6)[None])).all()
         Engine(lm, params, n_slots=1, max_len=16)
         if cfg.attention.kind == "mla":
             with pytest.raises(ValueError, match="MLA"):
                 PagedEngine(lm, params, n_slots=1, max_len=16)
+        elif "mamba" in cfg.block_pattern:
+            with pytest.raises(ValueError, match="Mamba"):
+                PagedEngine(lm, params, n_slots=1, max_len=16)
+            bad = cfg.with_(block_pattern=("mamba", "retnet"))
+            with pytest.raises(NotImplementedError, match="retnet"):
+                LM(bad, device="cpu").init(0)
         elif cfg.attention.window is None:
             PagedEngine(lm, params, n_slots=1, max_len=16)
         return
     spec = modality_spec(cfg, 1)
-    if spec is None:
-        with pytest.raises(NotImplementedError, match="A6"):
-            lm.init(0)
-        for eng in (Engine, PagedEngine):
-            with pytest.raises(NotImplementedError, match="A6"):
-                eng(lm, {}, n_slots=1, max_len=16)
-        return
     params = lm.init(0)
     src = torch.randn(spec.shape).to(spec.dtype)
     assert torch.isfinite(lm.logits(params, torch.arange(6)[None],
@@ -656,3 +659,42 @@ def test_chip_smoke_drives_the_encdec_phase():
     assert consts == {"WHISPER": "whisper-base",
                       "VISION": "llama-3.2-vision-11b"}
     assert "[21 encdec]" in text
+
+
+def test_chip_smoke_drives_the_jamba_phase():
+    """chip_smoke.py has a phase 22 that its main runs after the encoder
+    phase: B3 / B4 / B5 / B7 held and timed at jamba's shapes; one Mamba
+    layer's scan against the sequential recurrence; the smoke jamba's
+    gradients card vs CPU; jamba-1.5-large-398b's first five layers at
+    full width through the eager Engine in bf16 and int8, with every
+    B4 / B5 call of an admission and a decode step held to its plain
+    version."""
+    text = (ROOT / "chip_smoke.py").read_text()
+    tree = ast.parse(text)
+    funcs = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    main_calls = [ast.unparse(c.func) for c in ast.walk(funcs["main"])
+                  if isinstance(c, ast.Call)]
+    assert "phase_jamba" in main_calls
+    assert main_calls.index("phase_jamba") > main_calls.index("phase_encdec")
+    reached, todo = set(), ["phase_jamba"]
+    while todo:
+        name = todo.pop()
+        reached.add(name)
+        todo += [ast.unparse(c.func) for c in ast.walk(funcs[name])
+                 if isinstance(c, ast.Call) and ast.unparse(c.func) in funcs
+                 and ast.unparse(c.func) not in reached]
+    body = "\n".join(ast.unparse(funcs[n]) for n in sorted(reached))
+    for needle in ("mamba_scan_ref", "mamba_scan(", "mamba_forward",
+                   "mamba_decode", "first_layers", "Engine(",
+                   "quantize_tree", "int8_matmul_ref", "w8a8_decode_ref",
+                   "attention_ref", "rmsnorm_ref", "scaled_dot_product",
+                   "_int_mm", "F.rms_norm", "_reset_launches",
+                   "_read_launches", "_swap_plain", "loss_and_grads",
+                   "max_memory_allocated", "isfinite"):
+        assert needle in body, needle
+    consts = {t.id: ast.literal_eval(n.value) for n in tree.body
+              if isinstance(n, ast.Assign) for t in n.targets
+              if isinstance(t, ast.Name) and t.id in ("JAMBA",
+                                                      "JAMBA_LAYERS")}
+    assert consts == {"JAMBA": "jamba-1.5-large-398b", "JAMBA_LAYERS": 5}
+    assert "[22 jamba]" in text

@@ -16,6 +16,8 @@ differs from its own unrolled one by more than that on these inputs, so
 the scanned tree is bridged and held to the unrolled forward of the same
 weights.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -285,11 +287,25 @@ def test_engine_temperature_sampling_matches_jax(f32_models):
 
 
 def test_engine_refuses_attention_decoders():
-    """The eager Engine serves attention and RWKV-6 blocks; a Mamba block
-    is refused, naming its queue entry (ROADMAP A6)."""
-    cfg = t_smoke(ARCH).with_(block_pattern=("rwkv6", "mamba"))
-    with pytest.raises(NotImplementedError, match="mamba.*ROADMAP A6"):
-        TEngine(TLM(cfg, device="cpu"), {}, n_slots=1, max_len=16)
+    """(Kept name: a Mamba block was refused before the Mamba mixer was
+    ported.)  The eager Engine serves a group of an RWKV-6 and a Mamba
+    block: it builds, its cache holds both states, and a prompt in a
+    reused slot gives the fresh slot's tokens.  A block kind that does
+    not exist is refused, naming the kinds that do."""
+    cfg = t_smoke(ARCH).with_(
+        block_pattern=("rwkv6", "mamba"), dtype="float32",
+        ssm=dataclasses.replace(t_smoke(ARCH).ssm, d_state=8))
+    lm = TLM(cfg, device="cpu")
+    params = lm.init(0)
+    prompts = _prompts()[:2]
+    eng, reused = _drive(TEngine, lm, params, prompts, 1, max_new=4)
+    assert set(eng.cache[0]["blk0"]["state"]) == {"wkv", "x_prev"}
+    assert set(eng.cache[0]["blk1"]["state"]) == {"ssm", "conv"}
+    assert reused == [_drive(TEngine, lm, params, [p], 1, max_new=4)[1][0]
+                      for p in prompts]
+    bad = cfg.with_(block_pattern=("rwkv6", "retnet"))
+    with pytest.raises(NotImplementedError, match="Mamba and RWKV-6"):
+        TEngine(TLM(bad, device="cpu"), {}, n_slots=1, max_len=16)
 
 
 def test_launch_serve_rwkv_smoke_on_cpu(capsys):
