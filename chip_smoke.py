@@ -223,13 +223,31 @@ Phases (each prints one line; any failure raises and exits non-zero):
                  weights: B4 / B5 18 a forward, every call of one
                  admission and one decode step bit-equal to its plain
                  version
+ 23. tp        — tensor-parallel serving, two ranks (spawned, gloo: NCCL
+                 refuses two ranks on one card) sharing the card, each
+                 loading the kernels phase 2 built: (f) B1 / B2 / B3 at a
+                 rank's heads (6 over 1, D 128) element by element and
+                 timed beside SDPA and their bounds; a probe of each
+                 collective on CUDA tensors; (a) qwen2-1.5b at full width
+                 through PagedEngine on phase 5's drive: streams equal on
+                 both ranks, admissions / decode steps / syncs and B1 / B3
+                 / B7 launches a rank equal to one rank's (run in this
+                 process), one admission's and one decode step's logits
+                 within LOGIT_REL_L2 of one rank's, the collectives of a
+                 decode step; (b) float32 at 4 layers: the streams equal
+                 one rank's; (c) SchedEngine (two waves behind a shared
+                 prefix) and the n-gram SpecEngine, B2 counted; (d) int8
+                 weights and int8 pools, every B4 / B5 call of one
+                 admission and one decode step bit-equal; (e) the gather
+                 arm for two decode steps, its all-gather bytes a step at
+                 least 4x (a)'s
 B7 takes every RMSNorm of the qwen2-1.5b drives: 57 launches a forward
 (phases 5, 7, 9, 10), every one on its warp step.  Every B1 / B2 / B3
 launch of those drives (bf16 activations), every B4 and B5 launch of
 phase 9 and every B6 launch of phase 10 must take the tensor-core step:
 their tensor-core launch counts are printed beside the launch counts and
 must equal them.  Launch counts are
-zeroed just before each drive (phases 5, 7, 9, 10, 13-22) and read just
+zeroed just before each drive (phases 5, 7, 9, 10, 13-23) and read just
 after it; peak memory is read for the set-up and, restarted, for the
 drive.  Then one JSON
 line of kernel numbers, and last the result line ``{"ok": true,
@@ -5763,6 +5781,567 @@ def phase_jamba(records: list, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 23: tensor-parallel serving, two ranks sharing the card
+
+
+TP_RANKS = 2
+TP_HEADS = (6, 1, 128)      # qwen2-1.5b's heads on one of two ranks
+TP_F32_LAYERS = 4           # (b): phase 16's float32 depth
+TP_F32_REQUESTS = 8
+TP_SCHED_REQUESTS = 4       # (c): half behind a shared prefix
+TP_Q_REQUESTS = 4           # (d), 16 new tokens each
+TP_Q_NEW = 16
+TP_GATHER_STEPS = 2         # (e)
+TP_GATHER_MIN_RATIO = 4.0   # (e): kv_shard's all-gather bytes at least 4x
+                            # below gather's (the reference's bar)
+
+
+def _tp_kernel_rows() -> dict:
+    """(f): B1, B2 and B3 at one rank's heads (6 over 1, D 128), element
+    by element against their plain versions on phases 3 / 6 / 4's
+    operands, and timed beside the plain version, SDPA and the bound
+    (rows 1t / 2t / 3t)."""
+    torch = _torch()
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.paged_attention import ops as pops
+    from repro_torch.kernels.paged_attention.ref import (
+        paged_attention_ref, paged_prefix_extend_ref)
+    device = torch.device("cuda")
+    g = torch.Generator(device=device).manual_seed(SEED + 23)
+    h, kh, d = TP_HEADS
+    rows, held = {}, []
+    # B1: phase 3's slots (a free slot, one token, partial pages, the
+    # full horizon), 8 slots x 4 pages of 256
+    lengths = [0, 1, 300, 1024, 517, 256, 77, 900]
+    args = _paged_inputs("bfloat16", g, device, lengths, h, kh, d)
+    out = pops.paged_attention(*args)
+    ref = paged_attention_ref(*args)
+    torch.cuda.synchronize()
+    vp = args[2]
+    held.append(check_close(f"1t B1 H{h}/{kh} D{d}", out, ref,
+                            vp.float().pow(2).mean().sqrt().item()))
+    nbytes, flops = paged_bytes_flops(args[0], args[1], args[3], args[4],
+                                      args[5])
+    copies = [_paged_inputs("bfloat16", g, device, lengths, h, kh, d)
+              for _ in range(n_copies(vp.numel() * vp.element_size() * 2))]
+    lib_in = []
+    for (q_, kp_, vp_, bt_, ln_, _, _) in copies:
+        t = bt_.shape[1] * kp_.shape[1]
+        kc = kp_[bt_.long()].reshape(8, t, kh, d).transpose(1, 2)
+        vc = vp_[bt_.long()].reshape(8, t, kh, d).transpose(1, 2)
+        mask = (torch.arange(t, device=device)[None, :]
+                < ln_[:, None])[:, None, None, :]
+        lib_in.append((q_[:, :, None, :], kc.contiguous(), vc.contiguous(),
+                       mask))
+    rows["1t"] = {
+        "shape": f"8 slots, H{h}/{kh} D{d}, lengths {lengths}",
+        "max_abs_err": (out.float() - ref.float()).abs().max().item(),
+        "ms": time_ms(pops.paged_attention, copies),
+        "plain_ms": time_ms(paged_attention_ref, copies, reps=5, rounds=3),
+        "library_ms": time_ms(
+            lambda qq, kk, vv, mm: F.scaled_dot_product_attention(
+                qq, kk, vv, attn_mask=mm, enable_gqa=True), lib_in),
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(nbytes, flops, "bfloat16")))}
+
+    # B2: phase 6's timed case, the scheduler's continuation chunks
+    def extend():
+        return _extend_inputs("bfloat16", g, device, [512, 1024, 2048, 3072],
+                              [512] * 4, 512, h, kh, d, pps=16)
+
+    args = extend()
+    out = pops.paged_prefix_extend_attention(*args)
+    ref = paged_prefix_extend_ref(*args)
+    torch.cuda.synchronize()
+    held.append(check_close(f"2t B2 W512 H{h}/{kh} D{d}", out, ref, 1.0))
+    nbytes, flops = extend_bytes_flops(args)
+    copies = [args] + [extend() for _ in range(3)]
+    lib_in = [_extend_sdpa_inputs(a) for a in copies[:2]]
+    rows["2t"] = {
+        "shape": f"4 x 512 chunk rows over prefixes 512-3072, H{h}/{kh} D{d}",
+        "max_abs_err": (out.float() - ref.float()).abs().max().item(),
+        "ms": time_ms(pops.paged_prefix_extend_attention, copies, reps=10),
+        "plain_ms": time_ms(paged_prefix_extend_ref, copies[:2], reps=3,
+                            rounds=3),
+        "library_ms": time_ms(
+            lambda qq, kk, vv, mm: F.scaled_dot_product_attention(
+                qq, kk, vv, attn_mask=mm, enable_gqa=True), lib_in,
+            reps=10),
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(nbytes, flops, "bfloat16")))}
+    # B3: an admission of 8 x 512 tokens
+    q, k, v = _flash_inputs(8, 512, torch.bfloat16, g, device, h, kh, d)
+    out = fops.flash_attention(q, k, v)
+    ref = attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    held.append(check_close(f"3t B3 8 x 512 H{h}/{kh} D{d} causal", out,
+                            ref, v.float().pow(2).mean().sqrt().item()))
+    rows["3t"] = {**_flash_times(8, 512, h, kh, d, g, device),
+                  "max_abs_err": (out.float() - ref.float()).abs().max(
+                      ).item()}
+    return {"rows": rows, "held": held}
+
+
+def _tp_prompts(vocab: int) -> tuple:
+    """Phase 5's drive, from its seed: the warm-up prompt, the 12
+    prompts of 64-512 tokens and their 32-64 new tokens."""
+    import numpy as np
+    rng = np.random.default_rng(SEED)
+    warm = rng.integers(0, vocab, (64,))
+    plens = rng.integers(64, 513, 12)
+    max_new = rng.integers(32, 65, 12)
+    return warm, [rng.integers(0, vocab, (int(n),)) for n in plens], max_new
+
+
+def _tp_shared_prompts(vocab: int) -> list:
+    """(c): 4 prompts of repeated passages (the n-gram drafter proposes),
+    two of them behind a shared 512-token prefix."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 231)
+    out = []
+    for i in range(TP_SCHED_REQUESTS):
+        passage = rng.integers(0, vocab, (48,))
+        out.append(np.tile(passage, 12)[:512 + 64 * i])
+    shared = out[0][:512]
+    return out[:2] + [np.concatenate([shared, p[:256]]) for p in out[2:]]
+
+
+def _tp_logit_inputs(vocab: int) -> tuple:
+    """One admission of 8 rows (100-500 tokens, padded to 512) and the
+    decode step after it (the same next token on every side)."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 232)
+    plens = rng.integers(100, 500, 8).astype(np.int32)
+    toks = np.zeros((8, 512), np.int64)
+    for s, n in enumerate(plens):
+        toks[s, :n] = rng.integers(0, vocab, n)
+    return toks, plens, rng.integers(0, vocab, 8).astype(np.int32)
+
+
+def _tp_logits(lm, params, inputs, wrap=None) -> dict:
+    """The logits (CPU float32) of one admission prefill and one decode
+    step on a fresh paged cache of ``lm``'s heads; ``wrap(fn)`` (e.g.
+    ``_qmm_calls_vs_plain``) runs each forward and returns (result,
+    calls, shapes)."""
+    torch = _torch()
+    import numpy as np
+    from repro_torch.serve.paged import (PageAllocator,
+                                         scatter_prefill_cache,
+                                         set_block_table_rows)
+    wrap = wrap or (lambda fn: (fn(), None, None))
+    toks, plens, nxt = inputs
+    n_s, pps = 8, 4
+    alloc = PageAllocator(n_s * pps + 1, pps, n_s)
+    cache = lm.init_paged_cache(n_s, n_s * pps + 1, pps, page_size=256)
+    for s, n in enumerate(plens):
+        alloc.alloc(s, alloc.pages_needed(int(n) + 8, 256))
+    set_block_table_rows(cache, np.arange(n_s), alloc.table)
+    dev = lm.device
+    t_toks = torch.as_tensor(toks, device=dev)
+    t_plens = torch.as_tensor(plens, device=dev)
+    stage = lm.init_cache(n_s, 512, kv_dtype="bfloat16")
+    (pre, stage), pre_calls, pre_shapes = wrap(
+        lambda: lm.prefill(params, t_toks, stage, lengths=t_plens))
+    scatter_prefill_cache(cache, stage, torch.arange(n_s, device=dev),
+                          t_plens)
+    (dec, _), dec_calls, dec_shapes = wrap(
+        lambda: lm.decode_step(params, torch.as_tensor(nxt, device=dev),
+                               cache, t_plens))
+    return {"prefill": pre.float().cpu().numpy(),
+            "decode": dec.float().cpu().numpy(),
+            "prefill_calls": pre_calls, "decode_calls": dec_calls,
+            "shapes": sorted(set(pre_shapes or []) | set(dec_shapes or []))}
+
+
+def _tp_paged_drive(eng, prompts, max_new, tag: str) -> dict:
+    """Serve ``prompts`` through a PagedEngine with the launch counts
+    zeroed just before and read just after (phase 5's checks: token
+    counts, syncs = admissions + decode blocks, B1 = L x decode steps, B3
+    = L x admissions, B7 = (2L + 1) x forwards), the decode steps'
+    collectives and the streams."""
+    torch = _torch()
+    cfg = eng.lm.cfg
+    cnt0 = eng.metrics.snapshot()["counters"]
+    syncs0, steps0 = eng.sync_count, eng.steps_run
+    t_dec0 = eng.t_decode_s
+    coll0 = eng.decode_collectives.copy()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    ids = [eng.submit(p, max_new_tokens=int(m))
+           for p, m in zip(prompts, max_new)]
+    done = eng.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    cnt = eng.metrics.snapshot()["counters"]
+    admits = int(cnt["serve_prefill_dispatches_total"]
+                 - cnt0["serve_prefill_dispatches_total"])
+    blocks = int(cnt["serve_decode_dispatches_total"]
+                 - cnt0["serve_decode_dispatches_total"])
+    syncs, steps = eng.sync_count - syncs0, eng.steps_run - steps0
+    streams = [list(done[i].out_tokens) for i in ids]
+    for s, m in zip(streams, max_new):
+        if len(s) != int(m) or not all(0 <= t < cfg.vocab_size for t in s):
+            raise AssertionError(f"{tag}: a stream of {len(s)} tokens, want "
+                                 f"{m}, or a token out of vocab")
+    layers = cfg.num_layers
+    want = {"paged_attention": layers * steps,
+            "flash_attention": layers * admits,
+            "rmsnorm": (2 * layers + 1) * (admits + steps)}
+    got = {k: launches[k] for k in want}
+    if syncs != admits + blocks or got != want:
+        raise AssertionError(f"{tag}: {syncs} syncs for {admits} admissions "
+                             f"+ {blocks} blocks; launches {got} != {want}")
+    ttft = sorted(done[i].t_first - done[i].t_submit for i in ids)
+    n_tok = sum(len(s) for s in streams)
+    return {"streams": streams, "tokens": n_tok, "wall_s": wall,
+            "tokens_per_s": n_tok / wall,
+            "ttft_p50_s": statistics.median(ttft), "admissions": admits,
+            "decode_blocks": blocks, "decode_steps": steps, "syncs": syncs,
+            "decode_step_wall_ms": (eng.t_decode_s - t_dec0) / max(steps, 1)
+            * 1e3,
+            "launches": {k: v for k, v in launches.items() if v},
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "decode_collectives": eng.decode_collectives.since(
+                coll0).to_dict(steps=max(steps, 1))}
+
+
+def _tp_probe(mesh) -> dict:
+    """Every collective the path makes, once on CUDA tensors, checked:
+    all-reduce sum and max (fp32), all-gather (built from broadcasts) of
+    bf16, int8 and fp8 pieces."""
+    torch = _torch()
+    from repro_torch.sharding.collectives import all_gather, all_reduce
+    dev, r, m = mesh.device, mesh.model_rank, mesh.model
+    x = torch.arange(6, device=dev, dtype=torch.float32) + 10 * r
+    want_sum = sum(torch.arange(6, dtype=torch.float32) + 10 * i
+                   for i in range(m))
+    ok = {"sum": torch.equal(all_reduce(x, "sum", mesh).cpu(), want_sum),
+          "max": torch.equal(all_reduce(x, "max", mesh).cpu(),
+                             torch.arange(6, dtype=torch.float32)
+                             + 10 * (m - 1))}
+    for dt in (torch.bfloat16, torch.int8, torch.float8_e4m3fn):
+        piece = (torch.full((2, 3), r + 1, device=dev)).to(dt)
+        got = all_gather(piece, 0, mesh).float().cpu()
+        ok[str(dt)[6:]] = torch.equal(
+            got, torch.arange(1, m + 1).float().repeat_interleave(2)[:, None]
+            .expand(2 * m, 3))
+    if not all(ok.values()):
+        raise AssertionError(f"collective probe on {dev} ({mesh.backend}): "
+                             f"{ok}")
+    return ok
+
+
+def _tp_rank(rank: int) -> dict:
+    """One of the two ranks of phase 23, on the card the parent holds:
+    (a) qwen2-1.5b at full width through PagedEngine, phase 5's drive,
+    and the logits of one admission and one decode step; (c) SchedEngine
+    and the n-gram SpecEngine; (e) the gather arm for two decode steps;
+    (d) int8 weights and int8 pools with every B4 / B5 call of one
+    admission and one decode step held bit for bit; (b) float32 at 4
+    layers."""
+    torch = _torch()
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import LM
+    from repro_torch.obs import Tracer
+    from repro_torch.quant import quantize_tree
+    from repro_torch.sched import SchedEngine
+    from repro_torch.serve.engine import PagedEngine
+    from repro_torch.spec import SpecEngine
+    missing = [n for n in build.SOURCES if not build.lib_path(n).exists()]
+    if missing:
+        raise RuntimeError(f"rank {rank}: kernels {missing} not built by "
+                           "phase 2 (the ranks load, never build)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    mesh = make_host_mesh(model=TP_RANKS, device="cuda")
+    out = {"mesh": mesh.describe(), "probe": _tp_probe(mesh)}
+    cfg = get_config("qwen2-1.5b")
+    lm = LM(cfg, device="cuda")
+    params = lm.init(SEED)
+    paged = dict(n_slots=8, max_len=1024, page_size=256, seed=SEED,
+                 mesh=mesh)
+    # (a)
+    eng = PagedEngine(lm, params, decode_block=8, **paged)
+    out["local_heads"] = [tuple(eng.cache[0]["blk0"]["kv"]["k_pages"].shape),
+                          tuple(eng.params["embed"]["w"].shape)]
+    warm, prompts, max_new = _tp_prompts(cfg.vocab_size)
+    eng.submit(warm, max_new_tokens=8)
+    eng.run_to_completion()
+    out["a"] = _tp_paged_drive(eng, prompts, max_new, f"rank {rank} (a)")
+    out["a"]["setup_s"] = time.perf_counter() - t_start
+    out["a"]["logits"] = _tp_logits(eng.lm, eng.params,
+                                    _tp_logit_inputs(cfg.vocab_size))
+    del eng
+    # (c)
+    shared = _tp_shared_prompts(cfg.vocab_size)
+    sched_kw = dict(paged, decode_block=8, policy="fcfs", prefix_cache=True,
+                    prefill_chunk=512)
+    out["c"] = {}
+    for name, cls, kw in (("sched", SchedEngine, {}),
+                          ("spec", SpecEngine, {"spec": "ngram",
+                                                "draft_k": 4})):
+        tracer = Tracer(enabled=True)
+        eng = cls(lm, params, tracer=tracer, **sched_kw, **kw)
+        if name == "spec":
+            r = _spec_drive(eng, tracer, shared, [32] * len(shared),
+                            f"rank {rank} (c) spec")
+        else:
+            r = _tp_sched_drive(eng, tracer, shared, f"rank {rank} (c)")
+        r["streams"] = [list(q.out_tokens) for q in
+                        sorted(eng.registry.values(), key=lambda q: q.rid)]
+        out["c"][name] = r
+        del eng
+    # (e)
+    glm = LM(cfg.with_(tp_attn_impl="gather"), device="cuda")
+    eng = PagedEngine(glm, params, decode_block=TP_GATHER_STEPS, **paged)
+    _reset_launches()
+    for p in prompts[:8]:
+        eng.submit(p, max_new_tokens=1 + TP_GATHER_STEPS)
+    eng.step()
+    if eng.steps_run != TP_GATHER_STEPS:
+        raise AssertionError(f"rank {rank} (e): {eng.steps_run} decode steps")
+    out["e"] = {"decode_collectives": eng.decode_collectives.to_dict(
+        steps=TP_GATHER_STEPS), "launches": _read_launches(),
+        "pages": eng.alloc.n_pages}
+    del eng
+    # (d)
+    qcfg = cfg.with_(quant="int8", kv_cache_dtype="int8")
+    qlm = LM(qcfg, device="cuda")
+    qparams = quantize_tree(params, quant="int8")
+    del params
+    eng = PagedEngine(qlm, qparams, decode_block=8, **paged)
+    out["d"] = _tp_paged_drive(eng, prompts[:TP_Q_REQUESTS],
+                               [TP_Q_NEW] * TP_Q_REQUESTS,
+                               f"rank {rank} (d)")
+    lg = _tp_logits(eng.lm, eng.params, _tp_logit_inputs(cfg.vocab_size),
+                    wrap=_qmm_calls_vs_plain)
+    out["d"]["bit_equal_calls"] = {"admission": lg["prefill_calls"],
+                                   "decode": lg["decode_calls"],
+                                   "shapes": lg["shapes"]}
+    del eng, qparams, lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b)
+    f32 = cfg.with_(num_layers=TP_F32_LAYERS, dtype="float32")
+    flm = LM(f32, device="cuda")
+    eng = PagedEngine(flm, flm.init(SEED), decode_block=8, **paged)
+    out["b"] = {"streams": _tp_f32_streams(eng)}
+    out["wall_s"] = time.perf_counter() - t_start
+    return out
+
+
+def _tp_sched_drive(eng, tracer, prompts, tag: str) -> dict:
+    """(c)'s SchedEngine drive: 32 new tokens a request, in two waves
+    (the second behind the first's prefix: prefix-cache hits), the launch
+    counts zeroed just before; B2 = L x continuation chunks, B3 = L x
+    fresh chunks, B1 = L x decode steps."""
+    torch = _torch()
+    base = _counts(eng, tracer, 0)
+    n_ev = len(tracer.events)
+    _reset_launches()
+    half = len(prompts) // 2
+    for wave in (prompts[:half], prompts[half:]):
+        for p in wave:
+            eng.submit(p, max_new_tokens=32)
+        eng.run_to_completion()
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    now = _counts(eng, tracer, n_ev)
+    steps = now["steps"] - base["steps"]
+    layers = eng.lm.cfg.num_layers
+    want = {"paged_prefix_extend": layers * now["cont"],
+            "flash_attention": layers * now["fresh"],
+            "paged_attention": layers * steps}
+    got = {k: launches[k] for k in want}
+    if got != want or now["cont"] <= 0 or eng.stats.prefix_hit_tokens <= 0:
+        raise AssertionError(f"{tag}: launches {got} != {want} "
+                             f"({now['cont']} continuation chunks, "
+                             f"{eng.stats.prefix_hit_tokens} prefix hits)")
+    return {"launches": got, "cont_dispatches": now["cont"],
+            "fresh_dispatches": now["fresh"], "decode_steps": steps,
+            "prefix_hit_tokens": eng.stats.prefix_hit_tokens}
+
+
+def _tp_f32_streams(eng) -> list:
+    """(b)'s float32 drive: phase 5's first 8 prompts, 24 new tokens."""
+    warm, prompts, _ = _tp_prompts(eng.lm.cfg.vocab_size)
+    ids = [eng.submit(p, max_new_tokens=24)
+           for p in prompts[:TP_F32_REQUESTS]]
+    done = eng.run_to_completion()
+    return [list(done[i].out_tokens) for i in ids]
+
+
+def _tp_single_rank() -> dict:
+    """The single-rank side of (a) and (b), in this process: phase 5's
+    drive and logits, and the float32 streams."""
+    torch = _torch()
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+    from repro_torch.serve.engine import PagedEngine
+    cfg = get_config("qwen2-1.5b")
+    paged = dict(n_slots=8, max_len=1024, page_size=256, seed=SEED,
+                 decode_block=8)
+    lm = LM(cfg, device="cuda")
+    eng = PagedEngine(lm, lm.init(SEED), **paged)
+    warm, prompts, max_new = _tp_prompts(cfg.vocab_size)
+    eng.submit(warm, max_new_tokens=8)
+    eng.run_to_completion()
+    out = {"a": _tp_paged_drive(eng, prompts, max_new, "one rank (a)")}
+    out["a"]["logits"] = _tp_logits(lm, eng.params,
+                                    _tp_logit_inputs(cfg.vocab_size))
+    del eng
+    f32 = LM(cfg.with_(num_layers=TP_F32_LAYERS, dtype="float32"),
+             device="cuda")
+    eng = PagedEngine(f32, f32.init(SEED), **paged)
+    out["b"] = {"streams": _tp_f32_streams(eng)}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rel_l2_rows(a, b) -> float:
+    import numpy as np
+    return float((np.linalg.norm(a - b, axis=-1)
+                  / np.linalg.norm(b, axis=-1)).max())
+
+
+def phase_tp(records: list, e2e: dict, smi: str) -> dict:
+    """Phase 23: qwen2-1.5b at full width served by two ranks that share
+    the card over gloo (NCCL refuses two ranks on one device), against
+    the single rank in this process."""
+    torch = _torch()
+    from repro_torch.launch.mesh import spawn_world
+    t_phase = time.perf_counter()
+    f = _tp_kernel_rows()
+    single = _tp_single_rank()
+    ranks = spawn_world(_tp_rank, TP_RANKS, device="cuda")
+    r0, a1 = ranks[0], single["a"]
+    out = {"f": f, "single": {k: v for k, v in a1.items()
+                              if k not in ("streams", "logits")},
+           "ranks": []}
+    for k in ("a", "b", "d"):
+        for r in ranks[1:]:
+            if r[k]["streams"] != r0[k]["streams"]:
+                raise AssertionError(f"({k}) a rank's streams differ "
+                                     "from rank 0's")
+    for name in ("sched", "spec"):
+        if any(r["c"][name]["streams"] != r0["c"][name]["streams"]
+               for r in ranks[1:]):
+            raise AssertionError(f"(c) {name}: a rank's streams differ")
+    # (a) against the single rank
+    for key in ("admissions", "decode_steps", "syncs", "launches"):
+        if any(r["a"][key] != a1[key] for r in ranks):
+            raise AssertionError(f"(a) {key}: ranks "
+                                 f"{[r['a'][key] for r in ranks]} vs one "
+                                 f"rank {a1[key]}")
+    errs = {}
+    for step in ("prefill", "decode"):
+        errs[step] = max(_rel_l2_rows(r["a"]["logits"][step],
+                                      a1["logits"][step]) for r in ranks)
+        if not errs[step] <= LOGIT_REL_L2:
+            raise AssertionError(f"(a) {step} logits 2 ranks vs one: a "
+                                 f"row's relative L2 {errs[step]:.3e} > "
+                                 f"{LOGIT_REL_L2}")
+    pairs = [(x, y) for s, t in zip(r0["a"]["streams"], a1["streams"])
+             for x, y in zip(s, t)]
+    equal_share = sum(x == y for x, y in pairs) / len(pairs)
+    # (b) float32 identity
+    if r0["b"]["streams"] != single["b"]["streams"]:
+        raise AssertionError("(b) float32 streams: 2 ranks differ from one")
+    # (e) the gather arm's all-gather bytes a decode step
+    ag = {"kv_shard": r0["a"]["decode_collectives"]
+          ["bytes_per_step_by_op"].get("all-gather", 0.0),
+          "gather": r0["e"]["decode_collectives"]["bytes_per_step_by_op"]
+          .get("all-gather", 0.0)}
+    if not ag["gather"] >= TP_GATHER_MIN_RATIO * max(ag["kv_shard"], 1.0):
+        raise AssertionError(f"(e) all-gather bytes a step {ag}: kv_shard "
+                             f"not {TP_GATHER_MIN_RATIO}x below gather")
+    for r in ranks:
+        out["ranks"].append({
+            "a": {k: v for k, v in r["a"].items()
+                  if k not in ("streams", "logits")},
+            "c": {n: {k: v for k, v in c.items() if k != "streams"}
+                  for n, c in r["c"].items()},
+            "d": {k: v for k, v in r["d"].items() if k != "streams"},
+            "e": r["e"], "wall_s": r["wall_s"], "mesh": r["mesh"],
+            "probe": r["probe"], "local_heads": r["local_heads"]})
+    out.update(logit_rel_l2=errs, equal_token_share=equal_share,
+               all_gather_bytes_per_step=ag)
+    for rec in records:
+        if rec["name"] in r0["a"]["launches"]:
+            rec.setdefault("launches_by_drive", {})["tp_rank0"] = \
+                r0["a"]["launches"][rec["name"]]
+    rows = f["rows"]
+    print(f"[23 tp] (f) {smi}: " + "; ".join(f["held"]) + "; " + "; ".join(
+        f"{tag} {r['shape']}: ms {r['ms']:.4f} plain {r['plain_ms']:.4f} "
+        f"sdpa {r['library_ms']:.4f} bound {r['bound_ms']:.4f} "
+        f"({r['bound_by']})" for tag, r in rows.items()))
+    a0 = r0["a"]
+    coll = a0["decode_collectives"]
+    print(f"[23 tp] (a) {smi}: {r0['mesh']}, probe {r0['probe']}, rank "
+          f"pools / embedding {r0['local_heads']}; 2 ranks: "
+          f"{a0['tokens']} tokens, " + ", ".join(
+              f"rank {i} {r['a']['tokens_per_s']:.1f} tok/s TTFT p50 "
+              f"{r['a']['ttft_p50_s']:.4f}s decode step "
+              f"{r['a']['decode_step_wall_ms']:.2f} ms peak "
+              f"{r['a']['peak_mem_gb']:.2f} GB" for i, r in
+              enumerate(ranks))
+          + f"; one rank here {a1['tokens_per_s']:.1f} tok/s TTFT p50 "
+          f"{a1['ttft_p50_s']:.4f}s decode step "
+          f"{a1['decode_step_wall_ms']:.2f} ms (phase 5: "
+          f"{e2e['tokens_per_s']:.1f} tok/s, TTFT p50 "
+          f"{e2e['ttft_p50_s']:.4f}s); {a0['admissions']} admissions + "
+          f"{a0['decode_blocks']} blocks = {a0['syncs']} syncs, "
+          f"{a0['decode_steps']} steps as one rank's; launches per rank "
+          f"{[r['a']['launches'] for r in ranks]}; logits vs one rank "
+          f"(worst row's relative L2, limit {LOGIT_REL_L2}) prefill "
+          f"{errs['prefill']:.3e} decode {errs['decode']:.3e}; equal "
+          f"tokens {equal_share:.4f}; collectives a decode step "
+          f"{coll['count_by_op']} calls / {a0['decode_steps']} steps, "
+          f"bytes a step {coll['bytes_per_step_by_op']} (total "
+          f"{coll['total_bytes_per_step']:.0f})")
+    print(f"[23 tp] (b) float32 {TP_F32_LAYERS} layers: "
+          f"{len(r0['b']['streams'])} streams of 2 ranks equal one rank's "
+          "token for token")
+    for name, c in r0["c"].items():
+        print(f"[23 tp] (c) {name}: streams equal on both ranks, launches "
+              f"per rank {[r['c'][name]['launches'] for r in ranks]}, "
+              f"{c['cont_dispatches']} continuation chunks"
+              + (f", {c['verify_rounds']} verify rounds, acceptance "
+                 f"{c['acceptance_rate']:.3f}" if name == "spec" else "")
+              + (f", prefix hits {c['prefix_hit_tokens']} tokens"
+                 if name == "sched" else ""))
+    d0 = r0["d"]
+    print(f"[23 tp] (d) int8 weights + int8 pools: {d0['tokens']} tokens "
+          f"({d0['tokens_per_s']:.1f} tok/s), launches per rank "
+          f"{[r['d']['launches'] for r in ranks]}; every B4 / B5 call of "
+          f"one admission {d0['bit_equal_calls']['admission']} and one "
+          f"decode step {d0['bit_equal_calls']['decode']} bit-equal to its "
+          f"plain version on each rank, shapes "
+          f"{d0['bit_equal_calls']['shapes']}")
+    print(f"[23 tp] (e) all-gather bytes a decode step: kv_shard "
+          f"{ag['kv_shard']:.0f}, gather {ag['gather']:.0f} "
+          f"({ag['gather'] / max(ag['kv_shard'], 1.0):.1f}x; limit "
+          f"{TP_GATHER_MIN_RATIO}x), gather arm collectives "
+          f"{r0['e']['decode_collectives']['bytes_per_step_by_op']} over "
+          f"{r0['e']['pages']} pages")
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+    print(f"[23 tp] phase {out['phase_wall_s']:.1f}s (ranks "
+          f"{[round(r['wall_s'], 1) for r in ranks]}s)")
+    return out
+
+
 def main() -> int:
     dev = phase_device()
     phase_build()
@@ -5792,13 +6371,15 @@ def main() -> int:
     train = phase_train(records, dev["smi"])
     encdec = phase_encdec(records, dev["smi"])
     jamba = phase_jamba(records, dev["smi"])
+    tp = phase_tp(records, e2e, dev["smi"])
     out_dir = ROOT / "chiprun_out"
     if out_dir.is_dir():
         (out_dir / "chip_smoke_e2e.json").write_text(json.dumps(
             {"e2e": e2e, "sched": sched, "qsched": qsched, "fp8": fp8,
              "rwkv": rwkv, "spec": spec, "eager": eager, "resil": resil,
              "cost": cost, "search": search, "moe": moe, "train": train,
-             "encdec": encdec, "jamba": jamba, "kernels": records},
+             "encdec": encdec, "jamba": jamba, "tp": tp,
+             "kernels": records},
             indent=1))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

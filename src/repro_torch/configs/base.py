@@ -152,6 +152,15 @@ class ModelConfig:
     # "spec"); the engines take theirs as arguments
     spec_decode: str = "none"         # none | ngram | draft
     spec_draft_k: int = 4             # max draft tokens per verify round
+    # serving mesh: size of the "model" axis the paged engines serve over
+    # (their mesh=, launch.serve --model-parallel; repro_torch.sharding).
+    # 1 = one rank, exactly the unsharded path
+    model_parallel: int = 1
+    # paged attention under a model axis: "kv_shard" keeps each rank's kv
+    # heads local (no KV crosses between ranks); "gather" is the naive
+    # baseline that all-gathers q and the pools into every rank each step
+    # (collective-byte A/B only)
+    tp_attn_impl: str = "kv_shard"    # kv_shard | gather
 
     def with_(self, **kw) -> "ModelConfig":
         return replace(self, **kw)

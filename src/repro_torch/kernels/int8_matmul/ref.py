@@ -60,10 +60,14 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor,
 # Quantization (the reference's oracles)
 
 
-def quantize_rowwise(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Symmetric per-row int8 quantization of (..., K)."""
+def quantize_rowwise(x: torch.Tensor, amax: Optional[torch.Tensor] = None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int8 quantization of (..., K).  ``amax`` (...,
+    1) replaces the rows' own absolute maxima (a row split over ranks
+    quantizes against the whole row's)."""
     xf = x.float()
-    amax = xf.abs().amax(dim=-1, keepdim=True)
+    if amax is None:
+        amax = xf.abs().amax(dim=-1, keepdim=True)
     scale = _div(torch.clamp(amax, min=1e-8), 127.0)
     q = torch.clamp(torch.round(xf / scale), -127, 127)
     return q.to(torch.int8), scale[..., 0]

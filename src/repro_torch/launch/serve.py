@@ -79,14 +79,18 @@ still leaves them.  Flags and defaults are the reference's
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import time
 
 import numpy as np
+import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.costmodel import (TIERS, CalibratedCostModel,
                                         service_estimate)
 from repro_torch.kvcache import normalize_dtype
+from repro_torch.launch.mesh import make_host_mesh, spawn_world
 from repro_torch.models.model import LM, resolve_device
 from repro_torch.obs import DispatchProfiler, Tracer
 from repro_torch.quant import quantize_tree
@@ -174,6 +178,18 @@ def main(argv=None):
                     help="quantized-matmul execution on the CPU: 'fused' "
                          "runs the kernels' plain versions, 'ref' the "
                          "oracles; on the GPU the kernels always run")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="serve over this many ranks on the model axis "
+                         "(kv-head-sharded paged attention and split "
+                         "weights; implies the paged engine): N processes "
+                         "on --device, gloo where they share a card or run "
+                         "on the CPU, nccl where each has its own card")
+    ap.add_argument("--tp-attn-impl", default="kv_shard",
+                    choices=["kv_shard", "gather"],
+                    help="sharded paged attention: 'kv_shard' keeps each "
+                         "rank's KV local; 'gather' is the naive baseline "
+                         "that all-gathers q and the pools into every rank "
+                         "(collective-byte A/B only)")
     ap.add_argument("--chaos", default=None, metavar="SPEC",
                     help="seeded fault injection (--paged / --policy / "
                          "--spec engines): e.g. 'seed=1,oom=0.1,fault=0.1,"
@@ -224,7 +240,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     sched = bool(args.policy) or args.spec != "none"
-    eager = not (args.paged or sched)
+    # --model-parallel N > 1 implies the paged engine, as in the reference
+    eager = not (args.paged or sched or args.model_parallel > 1)
     if eager and args.chaos:
         ap.error("--chaos needs --paged, --policy or --spec")
     if not sched and (args.degrade or args.max_request_s is not None):
@@ -234,12 +251,57 @@ def main(argv=None):
                  " blocks: the paged engines (--paged, --policy, --spec) "
                  "serve attention-only decoders; drop them to serve through "
                  "the eager Engine")
-
+    if args.model_parallel < 1:
+        ap.error("--model-parallel must be >= 1")
+    if args.model_parallel > 1 and args.arrival_rate > 0:
+        ap.error("--arrival-rate submits by each rank's own clock; a "
+                 "sharded drive (--model-parallel > 1) submits everything "
+                 "up front")
     device = resolve_device(args.device)
+    if args.model_parallel > 1:
+        return _serve_sharded(args, device)
+    _serve(args, device)
+    return 0
+
+
+def _serve_sharded(args, device) -> int:
+    """Start ``--model-parallel`` ranks on ``device``, each serving the
+    same drive on its slice (:func:`_serve_rank`); print rank 0's report
+    and fail if any rank's streams differ from rank 0's."""
+    n = args.model_parallel
+    threads = max(1, torch.get_num_threads() // n) \
+        if device.type == "cpu" else None
+    results = spawn_world(_serve_rank, n, args, device=device,
+                          threads=threads)
+    print(results[0]["out"], end="")
+    for rank, r in enumerate(results[1:], 1):
+        if r["streams"] != results[0]["streams"]:
+            raise RuntimeError(f"rank {rank}'s streams differ from rank 0's")
+    print(f"[serve] {n} ranks, every rank's streams equal")
+    return 0
+
+
+def _serve_rank(rank: int, args) -> dict:
+    mesh = make_host_mesh(model=args.model_parallel, device=args.device
+                          or "cuda")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        print(f"[serve] {mesh.describe()}")
+        streams = _serve(args, mesh.device, mesh, artifacts=rank == 0)
+    return {"out": out.getvalue(), "streams": streams}
+
+
+def _serve(args, device, mesh=None, artifacts: bool = True):
+    """One drive on ``device`` (one rank's, under ``mesh``): returns the
+    requests' token streams."""
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    sched = bool(args.policy) or args.spec != "none"
+    eager = not (args.paged or sched or mesh is not None)
     cfg = cfg.with_(kv_cache_style=args.kv_style
                     if cfg.attention is not None else "full",
                     kv_cache_dtype=normalize_dtype(args.kv_dtype),
-                    quant=args.quant, quant_matmul_impl=args.quant_impl)
+                    quant=args.quant, quant_matmul_impl=args.quant_impl,
+                    tp_attn_impl=args.tp_attn_impl)
     lm = LM(cfg, device=device)
     params = lm.init(args.seed)
     if args.quant != "bf16":
@@ -256,7 +318,7 @@ def main(argv=None):
     obs = dict(tracer=tracer, profiler=profiler)
     kw = dict(n_slots=args.slots, max_len=args.max_len, seed=args.seed,
               page_size=args.page_size, decode_block=args.decode_block,
-              injector=injector, **obs)
+              injector=injector, mesh=mesh, **obs)
     if eager:
         eng = Engine(lm, params, n_slots=args.slots, max_len=args.max_len,
                      seed=args.seed, **obs)
@@ -328,8 +390,9 @@ def main(argv=None):
             print(f"  req {i}: {len(done[i].out_tokens)} tokens "
                   f"{done[i].out_tokens[:8]}…")
     finally:
-        _write_artifacts(args, cfg, eng, tracer, profiler)
-    return 0
+        if artifacts:
+            _write_artifacts(args, cfg, eng, tracer, profiler)
+    return [list(done[i].out_tokens) for i in ids]
 
 
 def _write_artifacts(args, cfg, eng, tracer, profiler):

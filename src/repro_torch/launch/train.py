@@ -55,7 +55,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.model_parallel > 1:
         ap.error("--model-parallel > 1: sharded training is not ported yet "
-                 "(ROADMAP A8)")
+                 "(ROADMAP A8.2: sharded training with FSDP; sharded "
+                 "serving is launch.serve --model-parallel)")
     device = resolve_device(args.device)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)

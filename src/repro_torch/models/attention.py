@@ -48,6 +48,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import AttentionConfig
 from repro_torch.models.layers import apply_rope, init_linear, linear_apply
+from repro_torch.sharding.collectives import active
 
 NEG_INF = -1e30
 
@@ -277,7 +278,7 @@ def _attend(p: dict, q, k, v, a: AttentionConfig, use_flash: bool,
                     if a.causal else None)
             o = sdpa(qg, k, v, mask, _scale(a).to(q.device))
     o = o.reshape(b, s, a.heads_padded * a.head_dim)
-    return linear_apply(p["wo"], _mask_pad_heads(o, a), impl)
+    return linear_apply(p["wo"], _mask_pad_heads(o, a), impl, row=True)
 
 
 # ---------------------------------------------------------------------------
@@ -336,7 +337,7 @@ def _mla_forward(p: dict, x: torch.Tensor, a: AttentionConfig,
                              torch.tensor(NEG_INF, device=x.device))
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     o = torch.einsum("bhst,bthd->bshd", probs, v).reshape(b, s, h * hd)
-    return linear_apply(p["wo"], o, impl), c_kv, k_pe
+    return linear_apply(p["wo"], o, impl, row=True), c_kv, k_pe
 
 
 def _absorbed(p: dict, dtype: torch.dtype) -> torch.Tensor:
@@ -389,7 +390,7 @@ def _mla_decode(p: dict, x: torch.Tensor, a: AttentionConfig, cache: dict,
     o_lat = torch.einsum("bhst,btc->bshc", probs, c_cache.to(x.dtype))
     w_uv = _absorbed(p["kv_up_v"], o_lat.dtype).reshape(dc, h, hd)
     o = torch.einsum("bshc,chd->bshd", o_lat, w_uv).reshape(b, 1, h * hd)
-    return linear_apply(p["wo"], o, impl), cache
+    return linear_apply(p["wo"], o, impl, row=True), cache
 
 
 # ---------------------------------------------------------------------------
@@ -436,6 +437,28 @@ def attention_prefill(p: dict, x: torch.Tensor, a: AttentionConfig,
 
 
 # ---------------------------------------------------------------------------
+# Paged ops under a model axis
+
+
+#: head dims of the prefix-extend op's operands (q, pools, block table,
+#: prefix lengths, chunk K / V, widths, scales)
+_EXTEND_HEAD_DIMS = (2, 2, 2, None, None, 2, 2, None, 1, 1)
+
+
+def _paged_call(fn, head_dims, out_dim: int, *args):
+    """``fn(*args)`` over this rank's heads, or, under the ``gather``
+    tensor-parallel arm, over every rank's heads gathered into each rank
+    (``sharding.tp.over_all_heads``; ``head_dims`` names each operand's
+    head dim, ``out_dim`` the output's).  Under ``kv_shard`` and without a
+    model axis the op runs on the local operands as they are."""
+    tp = active()
+    if tp is None or tp.attn_impl != "gather":
+        return fn(*args)
+    from repro_torch.sharding.tp import over_all_heads
+    return over_all_heads(fn, args, head_dims, out_dim, tp.mesh)
+
+
+# ---------------------------------------------------------------------------
 # Paged prefill (chunked prefill continuation)
 
 
@@ -478,11 +501,13 @@ def attention_prefill_paged(p: dict, x: torch.Tensor, a: AttentionConfig,
     rows = bt[slot_ids.long()]                                   # (B,P)
     if max_pages is not None and max_pages < rows.shape[1]:
         rows = rows[:, :max_pages]
-    o = paged_prefix_extend_attention(
-        q.contiguous(), kp, vp, rows.contiguous(), starts.to(torch.int32),
-        k_new, v_new, lengths.to(torch.int32), k_sc, v_sc)
+    o = _paged_call(paged_prefix_extend_attention, _EXTEND_HEAD_DIMS, 2,
+                    q.contiguous(), kp, vp, rows.contiguous(),
+                    starts.to(torch.int32), k_new, v_new,
+                    lengths.to(torch.int32), k_sc, v_sc)
     o = o.reshape(b, c, a.heads_padded * a.head_dim)
-    y = linear_apply(p["wo"], _mask_pad_heads(o.to(x.dtype), a), impl)
+    y = linear_apply(p["wo"], _mask_pad_heads(o.to(x.dtype), a), impl,
+                     row=True)
     return y, cache
 
 
@@ -527,12 +552,15 @@ def attention_verify_paged(p: dict, x: torch.Tensor, a: AttentionConfig,
     kp, vp, k_sc, v_sc, bt = kvcache.paged_views(cache)
     if max_pages is not None and max_pages < bt.shape[1]:
         bt = bt[:, :max_pages]
-    o = paged_prefix_extend_attention(
-        q.contiguous(), kp, vp, bt.contiguous(), lengths.to(torch.int32),
-        stage["k"][:, :w].contiguous(), stage["v"][:, :w].contiguous(),
-        widths.to(torch.int32), k_sc, v_sc)
+    o = _paged_call(paged_prefix_extend_attention, _EXTEND_HEAD_DIMS, 2,
+                    q.contiguous(), kp, vp, bt.contiguous(),
+                    lengths.to(torch.int32),
+                    stage["k"][:, :w].contiguous(),
+                    stage["v"][:, :w].contiguous(),
+                    widths.to(torch.int32), k_sc, v_sc)
     o = o.reshape(b, w, a.heads_padded * a.head_dim)
-    y = linear_apply(p["wo"], _mask_pad_heads(o.to(x.dtype), a), impl)
+    y = linear_apply(p["wo"], _mask_pad_heads(o.to(x.dtype), a), impl,
+                     row=True)
     return y, stage
 
 
@@ -595,7 +623,7 @@ def attention_decode(p: dict, x: torch.Tensor, a: AttentionConfig,
         o = torch.einsum("bkgst,btkd->bskgd", probs * vs_t,
                          v_cache.float()).to(x.dtype)
     o = o.reshape(b, 1, a.heads_padded * a.head_dim)
-    y = linear_apply(p["wo"], _mask_pad_heads(o, a), impl)
+    y = linear_apply(p["wo"], _mask_pad_heads(o, a), impl, row=True)
     return y, cache
 
 
@@ -632,8 +660,10 @@ def attention_decode_paged(p: dict, x: torch.Tensor, a: AttentionConfig,
     v_new = _merge_heads(v_new, kvh_store)[:, 0]
     cache = kvcache.paged_write_batch(cache, pos, k_new, v_new)
     k_pages, v_pages, k_sc, v_sc, bt = kvcache.paged_views(cache)
-    o = paged_attention(q.contiguous(), k_pages, v_pages, bt,
-                        (pos + 1).to(torch.int32), k_sc, v_sc)   # (S,H,D)
+    o = _paged_call(paged_attention, (1, 2, 2, None, None, 1, 1), 1,
+                    q.contiguous(), k_pages, v_pages, bt,
+                    (pos + 1).to(torch.int32), k_sc, v_sc)       # (S,H,D)
     o = o.reshape(b, 1, a.heads_padded * a.head_dim)
-    y = linear_apply(p["wo"], _mask_pad_heads(o.to(x.dtype), a), impl)
+    y = linear_apply(p["wo"], _mask_pad_heads(o.to(x.dtype), a), impl,
+                     row=True)
     return y, cache

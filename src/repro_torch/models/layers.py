@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.sharding.collectives import active
 
 _DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
            "float32": torch.float32, "fp32": torch.float32,
@@ -39,7 +40,8 @@ def init_linear(gen: torch.Generator, d_in: int, d_out: int, *,
     return p
 
 
-def linear_apply(p: dict, x: torch.Tensor, impl: str = "ref") -> torch.Tensor:
+def linear_apply(p: dict, x: torch.Tensor, impl: str = "ref", *,
+                 row: bool = False) -> torch.Tensor:
     """Dense or quantized linear, plus its PEFT adapter when it carries
     one (``"lora"``: the low-rank update of ``repro_torch.peft.lora``, in
     every forward, serving ones included).  Quantized params carry
@@ -48,10 +50,26 @@ def linear_apply(p: dict, x: torch.Tensor, impl: str = "ref") -> torch.Tensor:
     model's ``quant_matmul_impl``, or ``"train"`` in a training
     forward.  A ``"_capture"`` callable in ``p`` (calibration's copy of
     the tree, ``quant.calibrate.collect_linear_inputs``) is handed the
-    input first."""
+    input first.
+
+    ``row=True`` marks a row-split linear (``wo``, ``down``): inside a
+    tensor-parallel forward (``sharding.collectives.active()``) its
+    rank computes the fp32 partial product over its slice of the
+    contraction, and the partials are summed in fp32, rounded once and
+    the bias added once (``sharding.tp.row_linear``).  Outside one the
+    flag changes nothing."""
     if "_capture" in p:
         p["_capture"](x)
-    if "qw" in p:
+    tp = active() if row else None
+    if tp is not None:
+        from repro_torch.sharding.tp import row_linear
+        if "qw" in p:
+            from repro_torch.quant.qops import row_partial
+            part = row_partial(x, p, impl, tp.mesh)
+        else:
+            part = x.float() @ p["w"].float()
+        y = row_linear(part, x.dtype, p.get("b"), tp.mesh)
+    elif "qw" in p:
         from repro_torch.quant.qops import quantized_matmul
         y = quantized_matmul(x, p, bias=p.get("b"), impl=impl)
     else:
@@ -168,4 +186,4 @@ def mlp_apply(p: dict, x: torch.Tensor, impl: str = "ref") -> torch.Tensor:
     g = linear_apply(p["gate"], x, impl)
     u = linear_apply(p["up"], x, impl)
     h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
-    return linear_apply(p["down"], h, impl)
+    return linear_apply(p["down"], h, impl, row=True)

@@ -28,6 +28,8 @@ from repro_torch.models.layers import (dtype_of, embedding_apply,
 from repro_torch.models.transformer import (encoder_forward, init_encoder,
                                             init_stack, init_stack_cache,
                                             stack_forward)
+from repro_torch.sharding import tp
+from repro_torch.sharding.collectives import tensor_parallel
 
 
 def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
@@ -43,10 +45,22 @@ def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
 
 
 class LM:
-    def __init__(self, cfg: ModelConfig, device=None):
+    """``mesh`` (a ``repro_torch.launch.mesh.Mesh`` whose model axis is
+    ``cfg.model_parallel``) makes this LM one rank of a tensor-parallel
+    model: its parameters are the rank's slice
+    (``sharding.rules.shard_params``), every serving forward runs under
+    the mesh (``sharding.tp``) and the logits are gathered whole.  The
+    training forward refuses a mesh."""
+
+    def __init__(self, cfg: ModelConfig, device=None, mesh=None):
         self.cfg = cfg
         self.dtype = dtype_of(cfg.dtype)
         self.device = resolve_device(device)
+        m = 1 if mesh is None else mesh.model
+        if m != cfg.model_parallel:
+            raise ValueError(f"LM: cfg.model_parallel={cfg.model_parallel} "
+                             f"but the mesh's model axis is {m}")
+        self.mesh = mesh if m > 1 else None
 
     # ------------------------------------------------------------------
     def init(self, seed: Union[int, torch.Generator] = 0) -> dict:
@@ -95,6 +109,7 @@ class LM:
 
     def _logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         logits = x.float() @ self.head_f32(params).T
+        logits = tp.logits_whole(logits, self.cfg.padded_vocab, self.mesh)
         return self._mask_pad_logits(logits)
 
     def _mask_pad_logits(self, logits: torch.Tensor) -> torch.Tensor:
@@ -122,16 +137,29 @@ class LM:
         layers' losses and dropped fractions, summed over the stack.
         ``modality_input`` is encoded once outside decode."""
         cfg = self.cfg
-        x = embedding_apply(params["embed"], tokens).to(self.dtype)
-        cross_src = None
-        if modality_input is not None and mode != "decode":
-            cross_src = self._encode_source(params, modality_input, train)
-        x, new_cache, aux = stack_forward(params["layers"], x, cfg,
-                                          mode=mode, cache=cache, pos=pos,
-                                          train=train, cross_src=cross_src)
-        x = norm_apply(cfg.norm, params["final_norm"], x, cfg.norm_eps,
-                       train=train)
+        if train and self.mesh is not None:
+            raise NotImplementedError(
+                "training under a model axis > 1 is not ported yet "
+                "(ROADMAP A8.2: sharded training with FSDP)")
+        with tensor_parallel(self.mesh, cfg.tp_attn_impl):
+            x = self._embed(params, tokens)
+            cross_src = None
+            if modality_input is not None and mode != "decode":
+                cross_src = self._encode_source(params, modality_input,
+                                                train)
+            x, new_cache, aux = stack_forward(params["layers"], x, cfg,
+                                              mode=mode, cache=cache,
+                                              pos=pos, train=train,
+                                              cross_src=cross_src)
+            x = norm_apply(cfg.norm, params["final_norm"], x, cfg.norm_eps,
+                           train=train)
         return x, new_cache, aux
+
+    def _embed(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+        w = params["embed"]["w"]
+        if self.mesh is not None and w.shape[0] != self.cfg.padded_vocab:
+            return tp.embed(w, tokens, self.mesh).to(self.dtype)
+        return embedding_apply(params["embed"], tokens).to(self.dtype)
 
     # ------------------------------------------------------------------
     def _head_w(self, params: dict) -> torch.Tensor:

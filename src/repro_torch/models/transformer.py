@@ -35,6 +35,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (init_mlp, init_norm, linear_apply,
                                        mlp_apply, norm_apply)
 from repro_torch.models.moe import init_moe, moe_apply
+from repro_torch.sharding.tp import local_attention
 
 
 def block_kinds(cfg: ModelConfig) -> list[dict]:
@@ -98,8 +99,9 @@ def init_group_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                      kv_dtype: Optional[str] = None, device=None,
                      block_table: Optional[torch.Tensor] = None) -> dict:
     """Caches for one group.  Attention blocks: contiguous (B, S, KH, D)
-    slabs, or page pools + a block table when ``paged`` (``block_table``
-    shares one table tensor across layers); ``kv_dtype`` overrides
+    slabs (KH: this rank's kv heads under a model axis), or page pools +
+    a block table when ``paged`` (``block_table`` shares one table tensor
+    across layers); ``kv_dtype`` overrides
     ``cfg.kv_cache_dtype`` (the paged engine prefills into a bf16 staging
     cache; MLA's latent ``{"c_kv", "k_pe"}`` is contiguous only).  RWKV-6
     blocks: ``{"state": {"wkv": (B,H,D,D), "x_prev": (B,d)}}``, Mamba
@@ -112,6 +114,7 @@ def init_group_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                      dtype=kv_dtype or cfg.kv_cache_dtype,
                      style=cfg.kv_cache_style, page_size=page_size)
     cache = {}
+    a = local_attention(cfg)
     for i, bk in enumerate(block_kinds(cfg)):
         if bk["kind"] == "rwkv6":
             c = {"state": ssm_mod.init_rwkv6_state(batch, cfg.d_model,
@@ -120,11 +123,10 @@ def init_group_cache(cfg: ModelConfig, batch: int, max_len: int, *,
             c = {"state": ssm_mod.init_mamba_state(batch, cfg.d_model,
                                                    cfg.ssm, device)}
         elif paged:
-            c = {"kv": alloc_paged(spec, cfg.attention, batch, n_pages,
-                                   pages_per_slot, device, block_table)}
+            c = {"kv": alloc_paged(spec, a, batch, n_pages, pages_per_slot,
+                                   device, block_table)}
         else:
-            c = {"kv": alloc_contiguous(spec, cfg.attention, batch, max_len,
-                                        device)}
+            c = {"kv": alloc_contiguous(spec, a, batch, max_len, device)}
         cache[f"blk{i}"] = c
     return cache
 
@@ -182,8 +184,10 @@ def group_forward(gp: dict, x: torch.Tensor, cfg: ModelConfig, *,
     every device (norms, attention, quantized linears and the WKV launch
     no kernel: none has a backward; each Mamba scan chunk checkpointed),
     MoE layers at their training capacity.  Returns ``(x, new cache, aux)``, ``aux`` the MoE layers'
-    losses and dropped fractions summed over the group's blocks."""
-    a = cfg.attention
+    losses and dropped fractions summed over the group's blocks.  Under a
+    model axis (``cfg.model_parallel`` > 1) attention runs this rank's
+    heads (``sharding.tp.local_attention``)."""
+    a = local_attention(cfg)
     if train and (mode != "prefill" or cache is not None):
         raise ValueError("a training forward is a full sequence without a "
                          "cache (mode='prefill', cache=None)")

@@ -89,6 +89,32 @@ def quantized_matmul(x: torch.Tensor, p: dict, *,
     raise ValueError(f"unrecognized quantized dtype {qw.dtype}")
 
 
+def row_partial(x: torch.Tensor, p: dict, impl: str,
+                mesh) -> torch.Tensor:
+    """This rank's fp32 partial of a row-split int8 (W8A8) linear: x (...,
+    K/m) holds the rank's slice of each row and ``qw`` the matching K/m
+    rows.  The activation quantization stays the whole row's: the ranks'
+    row maxima are all-reduced (max) first, so each rank quantizes its
+    slice to exactly the int8 values one rank would.  The product runs
+    the tiled W8A8 op (B4 on CUDA tensors, any M: B5 quantizes inside its
+    launch, against the slice's own maxima) with both scales applied and
+    no bias; ``sharding.tp.row_linear`` sums the partials and adds the
+    bias once."""
+    from repro_torch.kernels.int8_matmul import ops as qmm
+    from repro_torch.sharding.collectives import all_reduce
+    qw = p["qw"]
+    if qw.dtype != torch.int8 or impl not in ("fused", "ref"):
+        raise ValueError(f"row-split quantized linear: {qw.dtype} weights, "
+                         f"impl {impl!r}; a model axis takes int8 serving "
+                         "forwards only")
+    x2 = x.reshape(-1, x.shape[-1])
+    amax = all_reduce(x2.float().abs().amax(dim=-1, keepdim=True), "max",
+                      mesh)
+    xq, xs = quantize_rowwise(x2, amax)
+    y = qmm.int8_matmul(xq, qw, xs, p["scale"], out_dtype=torch.float32)
+    return y.reshape(*x.shape[:-1], qw.shape[1])
+
+
 def _int8_oracle(x: torch.Tensor, qw: torch.Tensor,
                  w_scale: torch.Tensor) -> torch.Tensor:
     """The reference's W8A8 oracle (row quantization, the exact int32

@@ -61,8 +61,8 @@ from repro_torch.resil.degrade import DegradationLadder
 from repro_torch.resil.errors import InjectedPageFault, TransientDispatchError
 from repro_torch.sched.policy import Policy, make_policy
 from repro_torch.sched.prefix import PrefixCache
-from repro_torch.serve.engine import (PagedEngine, Request, _pow2_bucket,
-                                      _sample_batch)
+from repro_torch.serve.engine import (_SAME_DECISIONS, PagedEngine,
+                                      Request, _pow2_bucket, _sample_batch)
 from repro_torch.serve.paged import OutOfPagesError, set_block_table_rows
 
 
@@ -91,6 +91,14 @@ class SchedEngine(PagedEngine):
                  max_retries: int = 3, backoff_s: float = 0.05,
                  backoff_max_s: float = 1.0, **kw):
         super().__init__(lm, params, **kw)
+        if self.mesh is not None and (
+                admission_control or ladder is not None
+                or max_request_s is not None
+                or getattr(policy, "name", policy) != "fcfs"):
+            raise ValueError(
+                _SAME_DECISIONS + "the FCFS policy without admission "
+                "control, a degradation ladder or request deadlines (they "
+                "read each rank's own wall clock)")
         self.admission_control = admission_control
         if prefill_chunk is None:
             prefill_chunk = 8 * self.page_size

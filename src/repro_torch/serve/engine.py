@@ -38,6 +38,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.launch.roofline import CollectiveStats
 from repro_torch.models.transformer import block_kinds
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.profile import DispatchProfiler
@@ -46,6 +47,13 @@ from repro_torch.resil.errors import OUTCOMES
 from repro_torch.serve.paged import (PAGE, OutOfPagesError, PageAllocator,
                                      _attn_nodes, scatter_prefill_cache,
                                      set_block_table_rows)
+from repro_torch.sharding.collectives import all_reduce
+from repro_torch.sharding.tp import shard_model
+
+#: the start of a sharded engine's refusal of host decisions that read the
+#: wall clock (each rank's own; ranks that decide apart split the streams)
+_SAME_DECISIONS = ("under a model axis > 1 every rank must take the same "
+                   "host decisions, so a sharded engine takes ")
 
 
 @dataclasses.dataclass
@@ -106,7 +114,8 @@ class _EngineBase:
         # sync_count and token streams are identical with it on or off
         self.profiler = (profiler if profiler is not None
                          else DispatchProfiler(enabled=False))
-        self.profiler.bind(lm.cfg, layout=self.kv_layout)
+        self.profiler.bind(lm.cfg, model_parallel=lm.cfg.model_parallel,
+                           layout=self.kv_layout)
         m = self.metrics
         self._c_submitted = m.counter(
             "serve_requests_submitted_total", "requests accepted by submit()")
@@ -452,7 +461,8 @@ class PagedEngine(_EngineBase):
     def __init__(self, lm, params, *, n_slots: int = 4, max_len: int = 512,
                  eos_id: int = -1, seed: int = 0, page_size: int = PAGE,
                  decode_block: int = 8, n_pages: Optional[int] = None,
-                 metrics=None, tracer=None, profiler=None, injector=None):
+                 mesh=None, metrics=None, tracer=None, profiler=None,
+                 injector=None):
         cfg = lm.cfg
         block_kinds(cfg)             # refuses unknown block kinds
         a = cfg.attention
@@ -463,6 +473,15 @@ class PagedEngine(_EngineBase):
                              "(no RWKV-6 or Mamba block, no MLA, no encoder "
                              "or cross-attention, no sliding window); serve "
                              f"{cfg.name} through the eager Engine")
+        # sharded serving: a mesh whose model axis is > 1 serves this
+        # rank's slice of the weights and kv heads (repro_torch.sharding);
+        # every rank runs this host loop and makes the same decisions.
+        # mesh=None (or a model axis of 1) is the unsharded path
+        self.mesh = mesh if mesh is not None and mesh.model > 1 else None
+        if self.mesh is not None:
+            if injector is not None:
+                raise ValueError(_SAME_DECISIONS + "no chaos injector")
+            lm, params = shard_model(lm, params, self.mesh)
         super().__init__(lm, lm.prepare(params), n_slots=n_slots,
                          max_len=max_len, eos_id=eos_id, metrics=metrics,
                          tracer=tracer, profiler=profiler)
@@ -516,6 +535,29 @@ class PagedEngine(_EngineBase):
             "batched prefill / chunk dispatches")
         self._c_decode_disp = m.counter(
             "serve_decode_dispatches_total", "fused decode-block dispatches")
+        #: the collectives of the fused decode dispatches (sharded only)
+        self.decode_collectives = CollectiveStats()
+        if self.mesh is not None:
+            st = self.mesh.stats
+            for op in ("all-reduce", "all-gather"):
+                m.counter("tp_collective_bytes_total",
+                          "per-rank collective bytes by op",
+                          fn=lambda op=op: st.bytes_by_op.get(op, 0.0),
+                          op=op)
+                m.counter("tp_collective_calls_total",
+                          "per-rank collective calls by op",
+                          fn=lambda op=op: st.count_by_op.get(op, 0), op=op)
+            m.gauge("tp_collective_bytes_per_decode_step",
+                    "per-rank collective bytes of a fused decode step",
+                    fn=lambda: self.decode_collectives.total_bytes
+                    / max(self.steps_run, 1))
+
+    def _global_count(self, n: torch.Tensor) -> torch.Tensor:
+        """A count over this rank's kv heads, summed over the model group
+        (so a sharded engine's counters equal a single rank's)."""
+        if self.mesh is None:
+            return n
+        return all_reduce(n.float(), "sum", self.mesh).to(n.dtype)
 
     # ------------------------------------------------------------------
     # device programs
@@ -575,7 +617,8 @@ class PagedEngine(_EngineBase):
             toks[i] = tokens
         toks[n_steps:] = tokens
         if scales0 is not None:
-            stats[2] = (_scale_snapshot(self.cache) != scales0).sum()
+            stats[2] = self._global_count(
+                (_scale_snapshot(self.cache) != scales0).sum())
         return toks, emits, tokens, lengths, active, remaining, stats
 
     # ------------------------------------------------------------------
@@ -691,11 +734,14 @@ class PagedEngine(_EngineBase):
         state = torch.as_tensor(np.stack([self.last_tok, self.lengths,
                                           active_mask.astype(np.int32),
                                           self.remaining]), device=dev)
+        coll0 = None if self.mesh is None else self.mesh.stats.copy()
         t0 = time.perf_counter()
         toks, emits, last, lengths, active, remaining, stats = \
             self._decode_impl(state[0], state[1], state[2].bool(), state[3],
                               torch.as_tensor(self.temps, device=dev),
                               n_steps, self._gen_if(self.temps))
+        if coll0 is not None:
+            self.decode_collectives.merge(self.mesh.stats.since(coll0))
         # ONE device->host copy for the whole block
         host = torch.cat([toks.flatten(), emits.flatten().to(torch.int32),
                           last, lengths, active.to(torch.int32), remaining,

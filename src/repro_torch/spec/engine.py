@@ -51,9 +51,10 @@ import torch
 from repro_torch.obs.trace import PID_ENGINE
 from repro_torch.sched.policy import EDF
 from repro_torch.sched.scheduler import SchedEngine
-from repro_torch.serve.engine import (_gumbel_argmax, _pow2_bucket,
-                                      _scale_snapshot)
+from repro_torch.serve.engine import (_SAME_DECISIONS, _gumbel_argmax,
+                                      _pow2_bucket, _scale_snapshot)
 from repro_torch.serve.paged import commit_spec_cache
+from repro_torch.sharding.tp import shard_model
 from repro_torch.spec.controller import AdaptiveDraftController
 from repro_torch.spec.drafter import DraftLMDrafter, NgramDrafter
 from repro_torch.spec.rollback import ensure_exclusive_tail
@@ -151,6 +152,9 @@ class SpecEngine(SchedEngine):
         if spec not in ("ngram", "draft"):
             raise ValueError(f"unknown spec arm {spec!r}")
         super().__init__(lm, params, tier=tier, **kw)
+        if self.mesh is not None and spec_slack_s is not None:
+            raise ValueError(_SAME_DECISIONS + "no spec_slack_s (it reads "
+                             "each rank's own wall clock)")
         self.spec_arm = spec
         self.k_max = int(draft_k)
         self.w_max = self.k_max + 1
@@ -161,12 +165,18 @@ class SpecEngine(SchedEngine):
         else:
             if draft_lm is None or draft_params is None:
                 raise ValueError("spec='draft' needs draft_lm/draft_params")
+            if self.mesh is not None:
+                # the draft LM serves on the same mesh, its weights split
+                # as the target's (a replicated draft would repeat the
+                # same work on every rank)
+                draft_lm, draft_params = shard_model(draft_lm, draft_params,
+                                                     self.mesh)
             self.drafter = DraftLMDrafter(
                 draft_lm, draft_params, n_slots=self.n_slots,
                 max_len=self.max_len + 2 * self.w_max, k_max=self.k_max)
         # the verify chunk's bf16 K/V staging cache, rewritten every round
-        self.stage = lm.init_cache(self.n_slots, self.w_max,
-                                   kv_dtype="bfloat16")
+        self.stage = self.lm.init_cache(self.n_slots, self.w_max,
+                                        kv_dtype="bfloat16")
         self.controller = AdaptiveDraftController(
             self.n_slots, k_max=self.k_max, arm=spec, adaptive=adaptive,
             cfg=lm.cfg, tier=tier, layout=self.kv_layout)
@@ -211,7 +221,8 @@ class SpecEngine(SchedEngine):
         new_active = active & ~done
         nrq = torch.zeros((1,), dtype=torch.int32, device=fed.device)
         if scales0 is not None:
-            nrq[0] = (_scale_snapshot(self.cache) != scales0).sum()
+            nrq[0] = self._global_count(
+                (_scale_snapshot(self.cache) != scales0).sum())
         return y, n_emit, n_match, last, new_lengths, new_active, \
             new_remaining, nrq
 
