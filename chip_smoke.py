@@ -241,13 +241,27 @@ Phases (each prints one line; any failure raises and exits non-zero):
                  admission and one decode step bit-equal; (e) the gather
                  arm for two decode steps, its all-gather bytes a step at
                  least 4x (a)'s
+ 24. train_tp  — sharded training of llama3.2-1b (16 layers, d 2,048,
+                 bf16) by two ranks sharing the card over gloo, against
+                 one rank in this process, phase 20's 8 x 512 batch and
+                 seed: (a) `python -m repro_torch.launch.train
+                 --model-parallel 2` (its main), 3 steps: each loss within
+                 2e-2 relative of one rank's, each rank's step wall p50,
+                 tokens/s, peak memory and collectives a step by kind, no
+                 kernel launch; (b) a data axis of 2 with
+                 make_param_specs(fsdp=True) at the default minimum size,
+                 each rank 4 of the 8 rows, the same checks and figures;
+                 (c) float32 at 2 layers of full width on both meshes:
+                 every leaf's first-step gradient, gathered whole, within
+                 1e-4 relative L2 of one rank's and 3 steps' losses within
+                 1e-5
 B7 takes every RMSNorm of the qwen2-1.5b drives: 57 launches a forward
 (phases 5, 7, 9, 10), every one on its warp step.  Every B1 / B2 / B3
 launch of those drives (bf16 activations), every B4 and B5 launch of
 phase 9 and every B6 launch of phase 10 must take the tensor-core step:
 their tensor-core launch counts are printed beside the launch counts and
 must equal them.  Launch counts are
-zeroed just before each drive (phases 5, 7, 9, 10, 13-23) and read just
+zeroed just before each drive (phases 5, 7, 9, 10, 13-24) and read just
 after it; peak memory is read for the set-up and, restarted, for the
 drive.  Then one JSON
 line of kernel numbers, and last the result line ``{"ok": true,
@@ -1575,19 +1589,8 @@ def _reset_launches() -> None:
 
 
 def _read_launches() -> dict:
-    from repro_torch.kernels.flash_attention import ops as fops
-    from repro_torch.kernels.int8_matmul import ops as qmm
-    from repro_torch.kernels.paged_attention import ops as pops
-    from repro_torch.kernels.rmsnorm import ops as rops
-    from repro_torch.kernels.wkv6 import ops as wops
-    return {"paged_attention": pops.launches,
-            "flash_attention": fops.launches,
-            "paged_prefix_extend": pops.extend_launches,
-            "int8_matmul": qmm.launches,
-            "w8a8_decode_matmul": qmm.decode_launches,
-            "fp8_decode_matmul": qmm.fp8_launches,
-            "rmsnorm": rops.launches,
-            "wkv6": wops.launches}
+    from repro_torch.kernels import launch_counts
+    return launch_counts()
 
 
 def _tc_launches(tag: str, exempt=()) -> dict:
@@ -6260,9 +6263,9 @@ def phase_tp(records: list, e2e: dict, smi: str) -> dict:
         raise AssertionError("(b) float32 streams: 2 ranks differ from one")
     # (e) the gather arm's all-gather bytes a decode step
     ag = {"kv_shard": r0["a"]["decode_collectives"]
-          ["bytes_per_step_by_op"].get("all-gather", 0.0),
+          ["bytes_per_step_by_op"].get("all-gather/model", 0.0),
           "gather": r0["e"]["decode_collectives"]["bytes_per_step_by_op"]
-          .get("all-gather", 0.0)}
+          .get("all-gather/model", 0.0)}
     if not ag["gather"] >= TP_GATHER_MIN_RATIO * max(ag["kv_shard"], 1.0):
         raise AssertionError(f"(e) all-gather bytes a step {ag}: kv_shard "
                              f"not {TP_GATHER_MIN_RATIO}x below gather")
@@ -6342,6 +6345,305 @@ def phase_tp(records: list, e2e: dict, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 24: sharded training, two ranks sharing the card
+
+TRAIN_TP_RANKS = 2
+TRAIN_TP_STEPS = 3
+TRAIN_TP_LR, TRAIN_TP_WARMUP = 3e-4, 20   # launch.train's defaults
+TRAIN_TP_LOSS_RTOL = 2e-2      # (a), (b): bf16, each step vs one rank's
+TRAIN_TP_F32_LAYERS = 2        # (c): float32 at full width
+TRAIN_TP_GRAD_REL_L2 = 1e-4    # (c): every leaf's first-step gradient
+TRAIN_TP_F32_LOSS_RTOL = 1e-5  # (c): each step's loss
+
+
+def _train_tp_cli(n: int, tmp: Path) -> dict:
+    """(a) ``python -m repro_torch.launch.train --arch llama3.2-1b
+    --model-parallel n`` (its ``main``, in this process) at full width
+    and depth, bf16, TRAIN_TP_STEPS steps of phase 20's batch: rank 0's
+    history, its output and every rank's report (one rank: this
+    process's figures)."""
+    import contextlib
+    import io
+    torch = _torch()
+    from repro_torch.launch import train as train_cli
+    hist = tmp / f"a{n}_history.json"
+    argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_TP_STEPS),
+            "--global-batch", str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ),
+            "--lr", str(TRAIN_TP_LR), "--warmup", str(TRAIN_TP_WARMUP),
+            "--log-every", "1", "--seed", str(SEED), "--history-out",
+            str(hist), "--model-parallel", str(n)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = train_cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _no_launches(f"(a) launch.train --model-parallel {n}")
+    text = buf.getvalue()
+    h = json.loads(hist.read_text())
+    losses = [r["loss"] for r in h]
+    if rc != 0 or len(h) != TRAIN_TP_STEPS:
+        raise AssertionError(f"(a) --model-parallel {n}: rc {rc}, {len(h)} "
+                             f"history rows")
+    if not all(v == v and abs(v) < float("inf") for v in losses):
+        raise AssertionError(f"(a) --model-parallel {n}: non-finite loss "
+                             f"{losses}")
+    reports = [json.loads(ln.split(" report ", 1)[1])
+               for ln in text.splitlines() if ln.startswith("[train] rank ")]
+    if n == 1:
+        p50 = statistics.median(r["dt"] for r in h)
+        reports = [{"step_p50_s": p50,
+                    "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / p50,
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "kernel_launches": sum(launches.values()),
+                    "collectives_a_step": {}}]
+    mesh_line = [ln for ln in text.splitlines() if "[train] mesh" in ln]
+    if n > 1 and (len(reports) != n or not mesh_line):
+        raise AssertionError(f"(a) --model-parallel {n}: {len(reports)} "
+                             f"rank reports, mesh line {mesh_line}")
+    if any(r["kernel_launches"] for r in reports):
+        raise AssertionError(f"(a) kernel launches in a training rank: "
+                             f"{[r['kernel_launches'] for r in reports]}")
+    return {"losses": losses, "ranks": reports, "wall_s": wall,
+            "mesh": mesh_line[0][8:] if mesh_line else None}
+
+
+def _train_tp_reports(tr, torch) -> dict:
+    """A rank's figures after ``tr.run``, as ``launch.train`` reports
+    them."""
+    p50 = statistics.median(tr.step_times)
+    n = max(tr.steps_run, 1)
+    st = tr.step_collectives
+    return {"step_p50_s": p50,
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / p50,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "collectives_a_step": {k: [st.count_by_op[k] / n,
+                                       st.bytes_by_op[k] / n]
+                                   for k in sorted(st.count_by_op)
+                                   if st.count_by_op[k]}}
+
+
+def _train_tp_f32(mesh, fsdp: bool, one: dict) -> dict:
+    """(c) on ``mesh``: float32 llama3.2-1b at TRAIN_TP_F32_LAYERS layers
+    of full width; the first batch's gradient gathered whole against one
+    rank's (``one``, computed in this rank) leaf by leaf, then
+    TRAIN_TP_STEPS steps' losses."""
+    torch = _torch()
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models.model import LM
+    from repro_torch.optim.adamw import cosine_schedule
+    from repro_torch.sharding.rules import gather_leaf, make_param_specs
+    from repro_torch.train.loop import Trainer
+    from repro_torch.tree import leaves_with_path, tree_map
+    cfg = get_config(TRAIN_ARCH).with_(num_layers=TRAIN_TP_F32_LAYERS,
+                                       dtype="float32")
+    specs = make_param_specs(LM(cfg, device="meta").init(torch.Generator()),
+                             mesh, fsdp=True) if fsdp else None
+    tr = Trainer(LM(cfg, device="cuda"),
+                 SyntheticLMData(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                                 seed=SEED),
+                 lr=cosine_schedule(TRAIN_TP_LR, TRAIN_TP_WARMUP,
+                                    TRAIN_TP_STEPS), mesh=mesh,
+                 param_specs=specs, log_every=1, log_fn=_train_quiet)
+    tr.init_or_resume(SEED)
+    pieces, _ = tr._step_fn.compute_grads(tr.params, one["batch"])
+    whole = tree_map(lambda g, s: gather_leaf(g, s, mesh), pieces, tr.specs)
+    want = dict(leaves_with_path(one["grads"]))
+    errs = {}
+    for path, g in leaves_with_path(whole):
+        w = want[path]
+        den = float(w.norm())
+        errs[path] = float((g - w).norm()) / den if den else float(g.norm())
+    del pieces, whole
+    worst = max(errs, key=errs.get)
+    if not errs[worst] <= TRAIN_TP_GRAD_REL_L2:
+        raise AssertionError(f"(c) {mesh.describe()}: gradient of {worst} "
+                             f"relative L2 {errs[worst]:.3e} > "
+                             f"{TRAIN_TP_GRAD_REL_L2}")
+    losses = [r["loss"] for r in tr.run(TRAIN_TP_STEPS)]
+    for step, (a, b) in enumerate(zip(losses, one["losses"])):
+        if not abs(a - b) <= TRAIN_TP_F32_LOSS_RTOL * abs(b):
+            raise AssertionError(f"(c) {mesh.describe()}: step {step + 1} "
+                                 f"loss {a} vs one rank's {b}")
+    return {"mesh": mesh.describe(), "leaves": len(errs),
+            "worst_leaf": worst, "worst_rel_l2": errs[worst],
+            "losses": losses}
+
+
+def _train_tp_one_f32() -> dict:
+    """(c)'s single rank, computed in each rank: the first batch, its
+    gradient and TRAIN_TP_STEPS steps' losses."""
+    torch = _torch()
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models.model import LM
+    from repro_torch.optim.adamw import cosine_schedule
+    from repro_torch.train.loop import Trainer, loss_and_grads
+    cfg = get_config(TRAIN_ARCH).with_(num_layers=TRAIN_TP_F32_LAYERS,
+                                       dtype="float32")
+    lm = LM(cfg, device="cuda")
+    batch = {k: torch.from_numpy(v).long().cuda() for k, v in
+             SyntheticLMData(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                             seed=SEED).next_batch().items()}
+    _, _, grads = loss_and_grads(lm, lm.init(SEED), batch)
+    tr = Trainer(lm, SyntheticLMData(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                                     seed=SEED),
+                 lr=cosine_schedule(TRAIN_TP_LR, TRAIN_TP_WARMUP,
+                                    TRAIN_TP_STEPS), log_every=1,
+                 log_fn=_train_quiet)
+    tr.init_or_resume(SEED)
+    losses = [r["loss"] for r in tr.run(TRAIN_TP_STEPS)]
+    return {"batch": batch, "grads": grads, "losses": losses}
+
+
+def _train_tp_rank(rank: int) -> dict:
+    """One of the two ranks of phase 24 (b) and (c), on the card the
+    parent holds: (b) llama3.2-1b at full width and depth, bf16, over a
+    data axis of 2 with FSDP at the default minimum size, each rank 4 of
+    the 8 rows; (c) float32 at 2 layers over (a)'s mesh (model 2) and
+    (b)'s, against one rank's gradient and losses."""
+    torch = _torch()
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import LM
+    from repro_torch.optim.adamw import cosine_schedule
+    from repro_torch.sharding.rules import make_param_specs
+    from repro_torch.train.loop import Trainer
+    from repro_torch.tree import leaves
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    data = make_host_mesh(model=1, device="cuda")
+    model = make_host_mesh(model=TRAIN_TP_RANKS, device="cuda")
+    out = {"mesh_b": data.describe()}
+    # (b)
+    cfg = get_config(TRAIN_ARCH)
+    specs = make_param_specs(LM(cfg, device="meta").init(torch.Generator()),
+                             data, fsdp=True)
+    tr = Trainer(LM(cfg, device="cuda"),
+                 SyntheticLMData(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                                 seed=SEED),
+                 lr=cosine_schedule(TRAIN_TP_LR, TRAIN_TP_WARMUP,
+                                    TRAIN_TP_STEPS), mesh=data,
+                 param_specs=specs, log_every=1, log_fn=_train_quiet)
+    tr.init_or_resume(SEED)
+    split = sum("data" in s for s in leaves(specs))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    hist = tr.run(TRAIN_TP_STEPS)
+    out["b"] = dict(_train_tp_reports(tr, torch),
+                    losses=[r["loss"] for r in hist],
+                    launches=_no_launches(f"rank {rank} (b)"),
+                    rows=TRAIN_BATCH // data.data, split_leaves=split,
+                    param_count=tr.param_count())
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (c)
+    _reset_launches()
+    one = _train_tp_one_f32()
+    out["c"] = {"model2": _train_tp_f32(model, False, one),
+                "data2_fsdp": _train_tp_f32(data, True, one),
+                "one_rank_losses": one["losses"]}
+    out["c"]["launches"] = _no_launches(f"rank {rank} (c)")
+    del one
+    out["wall_s"] = time.perf_counter() - t_start
+    return out
+
+
+def _coll_line(c: dict) -> str:
+    return ", ".join(f"{k} {v[0]:g} x {v[1] / 1e6:.1f} MB"
+                     for k, v in c.items())
+
+
+def phase_train_tp(smi: str) -> dict:
+    """Phase 24: llama3.2-1b trained by two ranks that share the card over
+    gloo, against one rank in this process: (a) ``launch.train
+    --model-parallel 2``, (b) a data axis of 2 with FSDP, (c) float32 at
+    2 layers over both meshes, gradient and losses."""
+    import shutil
+    import tempfile
+    torch = _torch()
+    from repro_torch.launch.mesh import spawn_world
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_tp_"))
+    try:
+        one = _train_tp_cli(1, tmp)
+        two = _train_tp_cli(TRAIN_TP_RANKS, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    worst = {}
+    worst["a"] = max(abs(a - b) / abs(b)
+                     for a, b in zip(two["losses"], one["losses"]))
+    if not worst["a"] <= TRAIN_TP_LOSS_RTOL:
+        raise AssertionError(f"(a) losses {two['losses']} vs one rank's "
+                             f"{one['losses']}: {worst['a']:.3e} > "
+                             f"{TRAIN_TP_LOSS_RTOL}")
+    ranks = spawn_world(_train_tp_rank, TRAIN_TP_RANKS, device="cuda")
+    r0 = ranks[0]
+    if any(r["b"]["losses"] != r0["b"]["losses"] for r in ranks):
+        raise AssertionError("(b) the ranks report different losses")
+    worst["b"] = max(abs(a - b) / abs(b)
+                     for a, b in zip(r0["b"]["losses"], one["losses"]))
+    if not worst["b"] <= TRAIN_TP_LOSS_RTOL:
+        raise AssertionError(f"(b) losses {r0['b']['losses']} vs one "
+                             f"rank's {one['losses']}: {worst['b']:.3e} > "
+                             f"{TRAIN_TP_LOSS_RTOL}")
+    a1 = one["ranks"][0]
+    print(f"[24 train_tp] (a) {smi}: launch.train --model-parallel "
+          f"{TRAIN_TP_RANKS}, {two['mesh']}, {TRAIN_ARCH} 16L bf16, "
+          f"{TRAIN_TP_STEPS} steps of {TRAIN_BATCH}x{TRAIN_SEQ}: losses "
+          f"{[round(v, 5) for v in two['losses']]} vs one rank's "
+          f"{[round(v, 5) for v in one['losses']]} (worst relative "
+          f"{worst['a']:.3e}, limit {TRAIN_TP_LOSS_RTOL}); " + "; ".join(
+              f"rank {i} step wall p50 {r['step_p50_s'] * 1e3:.1f} ms, "
+              f"{r['tokens_per_s']:.0f} tokens/s, peak {r['peak_gb']:.2f} "
+              f"GB, collectives a step {_coll_line(r['collectives_a_step'])}"
+              for i, r in enumerate(two["ranks"]))
+          + f"; one rank step wall p50 {a1['step_p50_s'] * 1e3:.1f} ms, "
+          f"{a1['tokens_per_s']:.0f} tokens/s, peak {a1['peak_gb']:.2f} GB;"
+          f" kernel launches 0")
+    b0 = r0["b"]
+    print(f"[24 train_tp] (b) {smi}: {r0['mesh_b']}, FSDP at the default "
+          f"minimum size ({b0['split_leaves']} leaves split over data), "
+          f"{b0['rows']} of {TRAIN_BATCH} rows a rank, 16L bf16, "
+          f"{TRAIN_TP_STEPS} steps: losses "
+          f"{[round(v, 5) for v in b0['losses']]} (worst relative vs one "
+          f"rank {worst['b']:.3e}); " + "; ".join(
+              f"rank {i} step wall p50 {r['b']['step_p50_s'] * 1e3:.1f} ms,"
+              f" {r['b']['tokens_per_s']:.0f} tokens/s, peak "
+              f"{r['b']['peak_gb']:.2f} GB, collectives a step "
+              f"{_coll_line(r['b']['collectives_a_step'])}"
+              for i, r in enumerate(ranks)) + "; kernel launches 0")
+    c0 = r0["c"]
+    print(f"[24 train_tp] (c) float32 {TRAIN_TP_F32_LAYERS} layers: "
+          + "; ".join(f"{c0[k]['mesh']}: {c0[k]['leaves']} leaves' first-"
+                      f"step gradients, worst {c0[k]['worst_leaf']} "
+                      f"{c0[k]['worst_rel_l2']:.3e} (limit "
+                      f"{TRAIN_TP_GRAD_REL_L2}), losses "
+                      f"{c0[k]['losses']}" for k in ("model2", "data2_fsdp"))
+          + f"; one rank's {c0['one_rank_losses']} (limit "
+          f"{TRAIN_TP_F32_LOSS_RTOL} relative); kernel launches 0")
+    out = {"a": {"one": one, "two": two}, "ranks": ranks,
+           "worst_loss_rel": worst,
+           "phase_wall_s": time.perf_counter() - t_phase}
+    torch.cuda.empty_cache()
+    print(f"[24 train_tp] phase {out['phase_wall_s']:.1f}s (ranks "
+          f"{[round(r['wall_s'], 1) for r in ranks]}s)")
+    return out
+
+
 def main() -> int:
     dev = phase_device()
     phase_build()
@@ -6372,6 +6674,7 @@ def main() -> int:
     encdec = phase_encdec(records, dev["smi"])
     jamba = phase_jamba(records, dev["smi"])
     tp = phase_tp(records, e2e, dev["smi"])
+    train_tp = phase_train_tp(dev["smi"])
     out_dir = ROOT / "chiprun_out"
     if out_dir.is_dir():
         (out_dir / "chip_smoke_e2e.json").write_text(json.dumps(
@@ -6379,7 +6682,7 @@ def main() -> int:
              "rwkv": rwkv, "spec": spec, "eager": eager, "resil": resil,
              "cost": cost, "search": search, "moe": moe, "train": train,
              "encdec": encdec, "jamba": jamba, "tp": tp,
-             "kernels": records},
+             "train_tp": train_tp, "kernels": records},
             indent=1))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,11 +1,13 @@
 """The serving mesh of the port: ranks in a ``torch.distributed`` world.
 
 The reference builds a JAX device mesh (``repro/launch/mesh.py``); the
-port has one process a rank, and its ``"model"`` axis is a process group:
+port has one process a rank, and each axis is a set of process groups:
 ranks ``d * model .. d * model + model - 1`` form data replica ``d``'s
 model group (the model axis is minor, as in the reference's
-``make_mesh((n // model, model))``).  :func:`spawn_world` starts an
-N-rank world and :func:`make_host_mesh` lays the axes over it.
+``make_mesh((n // model, model))``), and the ranks with one model
+coordinate ``m``, ``{m, m + model, ...}``, form its data group (over
+which the batch and FSDP's leaves are split).  :func:`spawn_world` starts
+an N-rank world and :func:`make_host_mesh` lays the axes over it.
 
 Backend rule (printed in every mesh line): ``nccl`` where every rank has
 a card of its own, ``gloo`` otherwise, so several ranks can share one
@@ -41,10 +43,10 @@ _RECIPE = ("start N ranks first: repro_torch.launch.mesh.spawn_world(fn, "
 @dataclass
 class Mesh:
     """This rank's view of the mesh: the axis sizes, its index on each
-    axis, its model group (``None`` in a world of one) with that group's
-    global ranks in axis order, its device and the world's backend.
-    ``stats`` accumulates every collective the rank makes over the
-    group."""
+    axis, its model group and its data group (``None`` where the axis
+    has one rank) with each group's global ranks in axis order, its
+    device and the world's backend.  ``stats`` accumulates every
+    collective the rank makes, by kind and axis."""
     shape: Dict[str, int]
     coords: Dict[str, int]
     device: torch.device
@@ -52,19 +54,36 @@ class Mesh:
     ranks: Sequence[int] = (0,)
     backend: str = "none"
     stats: CollectiveStats = field(default_factory=CollectiveStats)
+    data_group: Any = None
+    data_ranks: Sequence[int] = (0,)
 
     @property
     def model(self) -> int:
         return self.shape.get("model", 1)
 
     @property
+    def data(self) -> int:
+        return self.shape.get("data", 1)
+
+    @property
+    def world(self) -> int:
+        return self.data * self.model
+
+    @property
     def model_rank(self) -> int:
         return self.coords.get("model", 0)
 
+    @property
+    def data_rank(self) -> int:
+        return self.coords.get("data", 0)
+
+    @property
+    def rank(self) -> int:
+        return self.data_rank * self.model + self.model_rank
+
     def describe(self) -> str:
-        world = self.shape.get("data", 1) * self.model
-        return (f"mesh {dict(self.shape)} over {world} rank"
-                f"{'s' if world != 1 else ''} ({self.backend}, "
+        return (f"mesh {dict(self.shape)} over {self.world} rank"
+                f"{'s' if self.world != 1 else ''} ({self.backend}, "
                 f"{self.device})")
 
 
@@ -89,7 +108,9 @@ def _rank_device(device, rank: int, world: int) -> torch.device:
 def make_host_mesh(*, model: int = 1, device="cuda") -> Mesh:
     """The mesh over the initialized world (a world of one when no
     process group is up): ``{"data": world // model, "model": model}``.
-    Every rank must call it (it creates the model groups)."""
+    Every rank must call it: it creates every model group, then every
+    data group, in one order on every rank (an axis of one rank has no
+    group)."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
     if model < 1 or world % model:
@@ -99,17 +120,26 @@ def make_host_mesh(*, model: int = 1, device="cuda") -> Mesh:
             + _RECIPE)
     shape = {"data": world // model, "model": model}
     coords = rank_coords(rank, shape)
+    data = shape["data"]
     group, ranks = None, (rank,)
-    if world > 1:
-        for d in range(shape["data"]):
+    if model > 1:
+        for d in range(data):
             members = list(range(d * model, (d + 1) * model))
             g = dist.new_group(members)
             if d == coords["data"]:
                 group, ranks = g, tuple(members)
+    data_group, data_ranks = None, (rank,)
+    if data > 1:
+        for m in range(model):
+            members = list(range(m, world, model))
+            g = dist.new_group(members)
+            if m == coords["model"]:
+                data_group, data_ranks = g, tuple(members)
     backend = dist.get_backend() if dist.is_initialized() else "none"
     return Mesh(shape=shape, coords=coords,
                 device=_rank_device(device, rank, world), group=group,
-                ranks=ranks, backend=backend)
+                ranks=ranks, backend=backend, data_group=data_group,
+                data_ranks=data_ranks)
 
 
 def _rank_main(fn, rank: int, world: int, init: str, backend: str,

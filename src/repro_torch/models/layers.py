@@ -13,7 +13,7 @@ import torch
 
 from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
-from repro_torch.sharding.collectives import active
+from repro_torch.sharding.collectives import active, column_input
 
 _DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
            "float32": torch.float32, "fp32": torch.float32,
@@ -57,9 +57,14 @@ def linear_apply(p: dict, x: torch.Tensor, impl: str = "ref", *,
     rank computes the fp32 partial product over its slice of the
     contraction, and the partials are summed in fp32, rounded once and
     the bias added once (``sharding.tp.row_linear``).  Outside one the
-    flag changes nothing."""
+    flag changes nothing.  A column-split linear (``row=False``) in a
+    tensor-parallel training forward reads its input through
+    ``collectives.column_input`` (identity forward, gradient summed over
+    the model axis); serving, under ``no_grad``, reads ``x`` itself."""
     if "_capture" in p:
         p["_capture"](x)
+    if not row:
+        x = column_input(x)
     tp = active() if row else None
     if tp is not None:
         from repro_torch.sharding.tp import row_linear

@@ -29,7 +29,9 @@ from repro_torch.models.transformer import (encoder_forward, init_encoder,
                                             init_stack, init_stack_cache,
                                             stack_forward)
 from repro_torch.sharding import tp
-from repro_torch.sharding.collectives import tensor_parallel
+from repro_torch.sharding.collectives import (all_reduce, copy_to_model,
+                                              reduce_from_model,
+                                              tensor_parallel)
 
 
 def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
@@ -48,9 +50,9 @@ class LM:
     """``mesh`` (a ``repro_torch.launch.mesh.Mesh`` whose model axis is
     ``cfg.model_parallel``) makes this LM one rank of a tensor-parallel
     model: its parameters are the rank's slice
-    (``sharding.rules.shard_params``), every serving forward runs under
-    the mesh (``sharding.tp``) and the logits are gathered whole.  The
-    training forward refuses a mesh."""
+    (``sharding.rules.shard_params``), every forward runs under the mesh
+    (``sharding.tp``), serving gathers the logits whole and the loss
+    takes a vocab-parallel cross-entropy."""
 
     def __init__(self, cfg: ModelConfig, device=None, mesh=None):
         self.cfg = cfg
@@ -137,10 +139,6 @@ class LM:
         layers' losses and dropped fractions, summed over the stack.
         ``modality_input`` is encoded once outside decode."""
         cfg = self.cfg
-        if train and self.mesh is not None:
-            raise NotImplementedError(
-                "training under a model axis > 1 is not ported yet "
-                "(ROADMAP A8.2: sharded training with FSDP)")
         with tensor_parallel(self.mesh, cfg.tp_attn_impl):
             x = self._embed(params, tokens)
             cross_src = None
@@ -170,26 +168,43 @@ class LM:
             return params["embed"]["w"].T
         return params["lm_head"]["w"]
 
-    def loss(self, params: dict,
-             batch: dict) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def loss(self, params: dict, batch: dict, *, data=None
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """batch: {tokens (B,S), labels (B,S), [mask (B,S)],
         [modality_input]} on this LM's device -> (scalar loss, metrics).
         The training forward (no kernel launches; differentiable), then
-        :func:`chunked_cross_entropy` against the live head; every aux key
-        ending in ``_loss`` (the MoE layers' load-balance and z losses) is
-        added to the loss, as in the reference."""
+        :func:`chunked_cross_entropy` against the live head (vocab-parallel
+        under a model axis that splits it: the final states enter it
+        through ``copy_to_model``); every aux key ending in ``_loss`` (the
+        MoE layers' load-balance and z losses) is added to the loss, as in
+        the reference.
+
+        ``data`` (a mesh whose data axis splits the batch's rows) makes
+        the result this rank's share of the global one: CE and accuracy
+        over the data axis's mask count, each aux term over the axis
+        size, so that the shares (and their gradients) sum over the data
+        axis to the global mean."""
         cfg = self.cfg
         x, _, aux = self.backbone(
             params, batch["tokens"], train=True,
             modality_input=batch.get("modality_input"))
-        ce, acc = chunked_cross_entropy(x, self._head_w(params),
-                                        batch["labels"],
+        head = self._head_w(params)
+        vocab_mesh = self.mesh if self.mesh is not None \
+            and head.shape[1] != cfg.padded_vocab else None
+        if vocab_mesh is not None:
+            x = copy_to_model(x, vocab_mesh)
+        split = data is not None and data.data > 1
+        ce, acc = chunked_cross_entropy(x, head, batch["labels"],
                                         mask=batch.get("mask"),
                                         chunk=cfg.ce_chunk,
-                                        n_valid=cfg.vocab_size)
+                                        n_valid=cfg.vocab_size,
+                                        mesh=vocab_mesh,
+                                        data=data if split else None)
         loss = ce
         metrics = {"ce_loss": ce, "accuracy": acc}
         for k, v in aux.items():
+            if split:
+                v = v / data.data
             metrics[k] = v
             if k.endswith("_loss"):
                 loss = loss + v
@@ -318,10 +333,16 @@ def _unzip_stage(out: list) -> list:
 # Chunked cross-entropy
 
 
-def _chunk_ce(x_c, labels_c, mask_c, head_w, n_valid: Optional[int]):
+def _chunk_ce(x_c, labels_c, mask_c, head_w, n_valid: Optional[int],
+              mesh=None):
     """One S-chunk: fp32 logits against the fp32 head (padded vocab
     columns at -1e30), the summed masked CE and the summed masked hits
-    (argmax, ties to the lower id as in JAX)."""
+    (argmax, ties to the lower id as in JAX).  Under ``mesh`` the head
+    is this rank's slice of the vocabulary (its model-axis piece):
+    :func:`_chunk_ce_vocab_parallel`."""
+    if mesh is not None:
+        return _chunk_ce_vocab_parallel(x_c, labels_c, mask_c, head_w,
+                                        n_valid, mesh)
     logits = x_c.float() @ head_w.float()
     v_total = logits.shape[-1]
     if n_valid is not None and n_valid < v_total:
@@ -335,17 +356,58 @@ def _chunk_ce(x_c, labels_c, mask_c, head_w, n_valid: Optional[int]):
     return ce.sum(), hit.sum()
 
 
+def _chunk_ce_vocab_parallel(x_c, labels_c, mask_c, head_w,
+                             n_valid: Optional[int], mesh):
+    """:func:`_chunk_ce` on this rank's vocabulary slice ``head_w`` (d,
+    V/m), ids ``model_rank * V/m ..``: no rank holds the chunk's whole
+    logits.  The shift is the all-reduced max (no gradient), the
+    normalizer an all-reduced sum of ``exp``, the label's logit summed
+    from the rank that holds it; the argmax is the lowest global id
+    that reaches the global max."""
+    logits = x_c.float() @ head_w.float()
+    v_loc = logits.shape[-1]
+    off = mesh.model_rank * v_loc
+    ids = off + torch.arange(v_loc, device=logits.device)
+    if n_valid is not None:
+        logits = torch.where(ids < n_valid, logits,
+                             torch.tensor(-1e30, device=logits.device))
+    best = logits.detach().amax(-1)
+    arg = torch.argmax(logits.detach(), -1)
+    top = all_reduce(best, "max", mesh)
+    sumexp = reduce_from_model(
+        torch.exp(logits - top[..., None]).sum(-1), mesh)
+    lse = top + torch.log(sumexp)
+    local = labels_c - off
+    held = (local >= 0) & (local < v_loc)
+    lab = torch.gather(logits, -1, local.clamp(0, v_loc - 1)[..., None])
+    lab = reduce_from_model(torch.where(held, lab[..., 0],
+                                        torch.zeros_like(lab[..., 0])), mesh)
+    ce = (lse - lab) * mask_c
+    # the lowest id reaching the global max: the max of -id (ids < 2^24
+    # are exact in fp32)
+    cand = torch.where(best == top, -(off + arg).float(),
+                       torch.tensor(-float(1 << 24), device=arg.device))
+    first = -all_reduce(cand, "max", mesh)
+    hit = (first == labels_c.float()).float() * mask_c
+    return ce.sum(), hit.sum()
+
+
 def chunked_cross_entropy(x: torch.Tensor, head_w: torch.Tensor,
                           labels: torch.Tensor, *,
                           mask: Optional[torch.Tensor] = None,
-                          chunk: int = 1024, n_valid: Optional[int] = None
+                          chunk: int = 1024, n_valid: Optional[int] = None,
+                          mesh=None, data=None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mean next-token CE and accuracy over (B,S,d) final states without
     materializing the (B,S,V) logits: S is cut into chunks of ``chunk``
     (one chunk when it does not divide S, as in the reference), each
     checkpointed, so backward recomputes one chunk's logits at a time.
     ``mask`` (B,S) weights positions; the denominator is its sum (at least
-    1)."""
+    1).  ``mesh``: ``head_w`` is this rank's vocab slice (vocab-parallel
+    chunks; a recompute makes the forward's collectives again, in the
+    same order on every rank).  ``data``: the rows are this rank's of a
+    batch split over the data axis, and the denominator is the axis's
+    total mask count (all-reduced, no gradient)."""
     b, s, _ = x.shape
     c = min(chunk, s)
     if s % c:
@@ -358,7 +420,10 @@ def chunked_cross_entropy(x: torch.Tensor, head_w: torch.Tensor,
     for i in range(s // c):
         sl = slice(i * c, (i + 1) * c)
         ce, hit = checkpoint(_chunk_ce, x[:, sl], labels[:, sl], mask[:, sl],
-                             head_w, n_valid, use_reentrant=False)
+                             head_w, n_valid, mesh, use_reentrant=False)
         tot, hits = tot + ce, hits + hit
-    denom = torch.clamp(mask.sum(), min=1.0)
+    count = mask.sum()
+    if data is not None:
+        count = all_reduce(count, "sum", data, "data")
+    denom = torch.clamp(count, min=1.0)
     return tot / denom, hits / denom

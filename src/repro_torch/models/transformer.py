@@ -35,6 +35,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (init_mlp, init_norm, linear_apply,
                                        mlp_apply, norm_apply)
 from repro_torch.models.moe import init_moe, moe_apply
+from repro_torch.sharding.collectives import active, scoped
 from repro_torch.sharding.tp import local_attention
 
 
@@ -311,13 +312,15 @@ def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 def _save_products(ctx, op, *args, **kwargs):
     """Selective-checkpoint policy of ``remat_policy="dots"``: keep the
     matrix products' outputs, recompute everything else (JAX's
-    ``checkpoint_dots``)."""
+    ``checkpoint_dots``).  The collectives of a sharded forward are kept
+    too, so a recompute makes none."""
     return (CheckpointPolicy.MUST_SAVE if op in _PRODUCTS
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
 _PRODUCTS = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
-             torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default}
+             torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default,
+             torch.ops.repro_torch.collective.default}
 
 
 def _remat(fn, policy: str):
@@ -343,10 +346,12 @@ def stack_forward(params: List[dict], x: torch.Tensor, cfg: ModelConfig, *,
     ``(x, new cache, aux)``, ``aux`` summed over the groups.  A training
     forward wraps each group in ``cfg.remat_policy`` where the reference
     does (its scanned layout, ``scan_layers=True``).  ``cross_src`` is
-    the cross-attention blocks' source (see ``group_forward``)."""
+    the cross-attention blocks' source (see ``group_forward``).  A
+    checkpointed group runs under the tensor-parallel scope it was
+    called in, its recompute in backward included."""
     new_cache = [] if cache is not None else None
     policy = cfg.remat_policy if train and cfg.scan_layers else "none"
-    body = _remat(group_forward, policy)
+    body = _remat(scoped(group_forward, active()), policy)
     aux_total: Dict[str, torch.Tensor] = {}
     for i, gp in enumerate(params):
         x, nc, aux = body(gp, x, cfg, mode=mode,

@@ -103,12 +103,27 @@ def adamw_update(grads, state: AdamWState, params, *,
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, *, mesh=None, specs=None):
     """-> (grads scaled by min(1, max_norm / ||g||), ||g||): the fp32 norm
     over every float gradient leaf, frozen weights' included, as the
-    reference's (it differentiates the whole tree)."""
-    sq = [torch.sum(torch.square(g.float())) for g in leaves(grads)
-          if _is_float(g)]
+    reference's (it differentiates the whole tree).
+
+    Under ``mesh`` ``grads`` holds this rank's pieces, placed by
+    ``specs``: each rank sums the squares of the pieces it counts
+    (``sharding.rules.counted_once``: every element of the whole tree
+    once over the world), and one all-reduce over the world gives the
+    norm of the whole tree."""
+    if mesh is None:
+        sq = [torch.sum(torch.square(g.float())) for g in leaves(grads)
+              if _is_float(g)]
+    else:
+        from repro_torch.sharding.collectives import all_reduce
+        from repro_torch.sharding.rules import counted_once
+        sq = [torch.sum(torch.square(g.float()))
+              for g, s in zip(leaves(grads), leaves(specs))
+              if _is_float(g) and counted_once(s, mesh)]
+        total = sum(sq, torch.zeros((), device=mesh.device))
+        sq = [all_reduce(total, "sum", mesh, "world")]
     gnorm = torch.sqrt(sum(sq[1:], sq[0]))
     scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype)

@@ -93,10 +93,27 @@ def int8_compress(grads, error, *, stacked: bool = True):
 
 
 def compress_grads(grads, error, *, scheme: str = "none",
-                   topk_ratio: float = 0.01,
-                   stacked: bool = True) -> Tuple[Any, Any, float]:
+                   topk_ratio: float = 0.01, stacked: bool = True,
+                   mesh=None, specs=None) -> Tuple[Any, Any, float]:
+    """-> (compressed grads, new error, logical bytes ratio).  Under
+    ``mesh`` the trees hold this rank's pieces, placed by ``specs``: a
+    leaf that an axis splits has its gradient and error gathered whole,
+    is compressed as one rank compresses the whole tree (the same top-k
+    thresholds and int8 scales), and this rank keeps its piece of the
+    result and of the new error."""
     if scheme == "none":
         return grads, error, 1.0
+    if mesh is not None:
+        from repro_torch.sharding.rules import gather_leaf, local_leaf
+        whole = [tree_map(lambda t, s: None if t is None
+                          else gather_leaf(t, s, mesh), tree, specs)
+                 for tree in (grads, error)]
+        g, e, ratio = compress_grads(*whole, scheme=scheme,
+                                     topk_ratio=topk_ratio, stacked=stacked)
+        pieces = [tree_map(lambda t, s: None if t is None
+                           else local_leaf(t, s, mesh), tree, specs)
+                  for tree in (g, e)]
+        return pieces[0], pieces[1], ratio
     if scheme == "topk":
         return topk_compress(grads, error, ratio=topk_ratio, stacked=stacked)
     if scheme == "int8":

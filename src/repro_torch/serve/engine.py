@@ -540,13 +540,15 @@ class PagedEngine(_EngineBase):
         if self.mesh is not None:
             st = self.mesh.stats
             for op in ("all-reduce", "all-gather"):
+                key = f"{op}/model"
                 m.counter("tp_collective_bytes_total",
                           "per-rank collective bytes by op",
-                          fn=lambda op=op: st.bytes_by_op.get(op, 0.0),
+                          fn=lambda key=key: st.bytes_by_op.get(key, 0.0),
                           op=op)
                 m.counter("tp_collective_calls_total",
                           "per-rank collective calls by op",
-                          fn=lambda op=op: st.count_by_op.get(op, 0), op=op)
+                          fn=lambda key=key: st.count_by_op.get(key, 0),
+                          op=op)
             m.gauge("tp_collective_bytes_per_decode_step",
                     "per-rank collective bytes of a fused decode step",
                     fn=lambda: self.decode_collectives.total_bytes

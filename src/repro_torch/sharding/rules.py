@@ -15,8 +15,10 @@ Tensor-parallel choices: projections split their flattened head dim,
 MoE expert stacks their expert dim when the axis divides it (else the
 per-expert hidden dim), embeddings their vocab dim; norms and biases of
 row-split linears stay whole.  ``fsdp=True`` adds the ``"data"`` axis to
-large leaves as the reference's ZeRO-3 rule does (rules only: training
-takes it up in a later slice).
+large leaves as the reference's ZeRO-3 rule does (``train.loop``'s
+``Trainer(mesh=, param_specs=)`` trains with it).  The port honours
+``fsdp_min_size``, which the reference accepts and never passes on
+(ROADMAP C, reference fault 11); at its default both place alike.
 
 JAX places a tree with these specs; the port slices it instead:
 :func:`shard_params` gives one rank its local tree, :func:`unshard` joins
@@ -140,21 +142,23 @@ def _map_with_path(fn, tree: Any, prefix: str = "") -> Any:
     return fn(prefix, tree)
 
 
-def make_param_specs(params: Any, mesh, *, fsdp: bool = False) -> Any:
+def make_param_specs(params: Any, mesh, *, fsdp: bool = False,
+                     fsdp_min_size: int = 1 << 20) -> Any:
     """A placement for every leaf of ``params`` (tensors, on any device
     including ``meta``, or anything with a ``shape``), in a tree of the
     same structure.  ``mesh`` needs only a ``shape`` dict.
 
-    ``fsdp=True`` additionally splits every large leaf over the "data"
-    axis (ZeRO-3 style): the largest dim the tensor-parallel rule left
-    whole and the data axis divides."""
+    ``fsdp=True`` additionally splits every leaf of at least
+    ``fsdp_min_size`` elements over the "data" axis (ZeRO-3 style): the
+    largest dim the tensor-parallel rule left whole and the data axis
+    divides."""
     ctx = _ctx(mesh)
 
     def leaf_spec(path, leaf):
         shape = tuple(leaf.shape)
         spec = spec_for_path(path, shape, ctx)
         if fsdp:
-            spec = _with_fsdp(spec, shape, ctx)
+            spec = _with_fsdp(spec, shape, ctx, fsdp_min_size)
         return _sanitize(spec, shape, ctx)
 
     return _map_with_path(leaf_spec, params)
@@ -261,6 +265,41 @@ def shard_params(params: Any, specs: Any, mesh) -> Any:
     if not isinstance(params, torch.Tensor):
         return params
     return _local(params, specs, mesh.shape, mesh.coords)
+
+
+def split_axes(spec: Placement) -> tuple:
+    """The axes a placement splits its leaf over."""
+    return tuple(a for e in spec if e is not None for a in _axes(e))
+
+
+def counted_once(spec: Placement, mesh) -> bool:
+    """Whether this rank's piece of a leaf placed by ``spec`` enters a sum
+    over the whole tree (a global norm): on each axis the leaf is either
+    split, or whole and counted on that axis's rank 0 only."""
+    split = split_axes(spec)
+    return all(a in split or mesh.coords.get(a, 0) == 0
+               for a in ("data", "model") if mesh.shape.get(a, 1) > 1)
+
+
+def gather_leaf(piece: torch.Tensor, spec: Placement,
+                mesh) -> torch.Tensor:
+    """The whole leaf from this rank's piece (no gradient): gathered
+    along each split dim over its axis (collectives on every rank of
+    those axes)."""
+    from repro_torch.sharding.collectives import all_gather
+    for dim, entry in enumerate(spec):
+        if entry is not None:
+            if isinstance(entry, tuple):
+                raise ValueError(f"placement {spec}: one axis a dim")
+            piece = all_gather(piece, dim, mesh, entry)
+    return piece
+
+
+def local_leaf(whole: torch.Tensor, spec: Placement,
+               mesh) -> torch.Tensor:
+    """This rank's piece of a whole leaf (:func:`shard_params` on one
+    leaf)."""
+    return _local(whole, spec, mesh.shape, mesh.coords)
 
 
 def rank_coords(rank: int, shape: Dict[str, int]) -> Dict[str, int]:

@@ -140,14 +140,14 @@ def test_kv_shard_moves_4x_fewer_all_gather_bytes_than_gather(runs):
     per = {name: runs["world2"][0][name]["decode_collectives"]
            ["bytes_per_step_by_op"] for name in ("paged-bfloat16",
                                                   "paged-gather")}
-    kv, gather = (per[n]["all-gather"] for n in ("paged-bfloat16",
-                                                 "paged-gather"))
+    kv, gather = (per[n]["all-gather/model"] for n in ("paged-bfloat16",
+                                                       "paged-gather"))
     assert gather >= 4 * kv > 0, per
     # the logits: 2 slots x 256 of the 512 vocab rows, fp32
     assert kv == 2 * 256 * 4
     # wo and down all-reduce per layer, plus the embedding: fp32 rows
     cfg = get_smoke_config("qwen2-1.5b")
-    assert per["paged-bfloat16"]["all-reduce"] == \
+    assert per["paged-bfloat16"]["all-reduce/model"] == \
         (2 * cfg.num_layers + 1) * 2 * cfg.d_model * 4
 
 
@@ -193,16 +193,6 @@ def test_refusals_under_a_model_axis():
             _build(cfg, cls=arms.SchedEngine, prefill_chunk=8, **kw)
     with pytest.raises(ValueError, match="model_parallel"):
         LM(cfg, device="cpu", mesh=_mesh2())
-
-
-def test_training_refuses_a_model_axis(capsys):
-    """``launch.train --model-parallel 2`` is refused, naming the A8 part
-    that ports sharded training."""
-    from repro_torch.launch import train
-    with pytest.raises(SystemExit):
-        train.main(["--smoke", "--device", "cpu", "--steps", "1",
-                    "--model-parallel", "2"])
-    assert "A8.2" in capsys.readouterr().err
 
 
 def test_serve_cli_model_parallel_prints_the_paged_streams(runs):

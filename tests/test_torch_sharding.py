@@ -305,6 +305,66 @@ def test_collective_layer_has_no_try_and_no_device_switch():
     assert not others
     assert "is_cuda" not in path.read_text() \
         and "device.type" not in path.read_text()
+    # the autograd pairs move their data through the same one operator
+    pairs = {n.name: n for n in tree.body if isinstance(n, ast.ClassDef)
+             and any(ast.unparse(b) == "torch.autograd.Function"
+                     for b in n.bases)}
+    assert set(pairs) == {"_CopyToModel", "_ReduceFromModel", "_FsdpGather"}
+    for cls in pairs.values():
+        used = {ast.unparse(n.func) for n in ast.walk(cls)
+                if isinstance(n, ast.Call)}
+        assert used & {"_call", "_reduce_f32"}, cls.name
+        assert not {u for u in used if u.startswith("dist.")}, cls.name
+
+
+def test_fsdp_min_size_is_honoured():
+    """``make_param_specs(fsdp=True, fsdp_min_size=)`` splits over "data"
+    exactly the leaves of at least that many elements that the rule can
+    split (the reference drops the argument: ROADMAP C, reference fault
+    11); at the default it places as JAX does (every arch above)."""
+    params = _port_tree(tconfigs.get_smoke_config("qwen2-1.5b"))
+    mesh = FakeMesh(2, 2)
+
+    def specs(**kw):
+        return dict(leaves_with_path(rules.make_param_specs(params, mesh,
+                                                            **kw)))
+    plain, every = specs(), specs(fsdp=True, fsdp_min_size=1)
+    assert sum("data" in s for s in every.values()) > len(every) // 2
+    sizes = sorted({t.numel() for _, t in leaves_with_path(params)})
+    for min_size in (1, sizes[len(sizes) // 2], 1 << 20):
+        got = specs(fsdp=True, fsdp_min_size=min_size)
+        for path, t in leaves_with_path(params):
+            want = every if t.numel() >= min_size else plain
+            assert got[path] == want[path], (min_size, path)
+    assert specs(fsdp=True) == specs(fsdp=True, fsdp_min_size=1 << 20) \
+        == plain
+
+
+def test_chip_smoke_drives_the_train_tp_phase():
+    """chip_smoke.py has a sharded-training phase that its main runs after
+    the tensor-parallel serving phase: ``launch.train --model-parallel``
+    on two spawned ranks, a data axis with FSDP through ``Trainer(``, and
+    float32 gradients and losses of both meshes against one rank's."""
+    text = (ROOT / "chip_smoke.py").read_text()
+    tree = ast.parse(text)
+    funcs = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    main_calls = [ast.unparse(c.func) for c in ast.walk(funcs["main"])
+                  if isinstance(c, ast.Call)]
+    assert main_calls.index("phase_train_tp") > main_calls.index("phase_tp")
+    reached, todo = set(), ["phase_train_tp"]
+    while todo:
+        name = todo.pop()
+        reached.add(name)
+        todo += [ast.unparse(a) for c in ast.walk(funcs[name])
+                 if isinstance(c, ast.Call)
+                 for a in [c.func] + list(c.args)
+                 if ast.unparse(a) in funcs and ast.unparse(a) not in reached]
+    body = "\n".join(ast.unparse(funcs[n]) for n in sorted(reached))
+    for needle in ("spawn_world", "Trainer(", "fsdp=True", "launch.train",
+                   "--model-parallel", "make_host_mesh", "_no_launches",
+                   "max_memory_allocated", "step_collectives", "float32"):
+        assert needle in body, needle
+    assert "[24 train_tp]" in text
 
 
 def test_local_attention_and_refusals():
