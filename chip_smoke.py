@@ -255,13 +255,46 @@ Phases (each prints one line; any failure raises and exits non-zero):
                  every leaf's first-step gradient, gathered whole, within
                  1e-4 relative L2 of one rank's and 3 steps' losses within
                  1e-5
+ 25. tp_moe_quant — MoE, fp8 / int4 weights and LoRA adapters under a
+                 model axis of 2 (two ranks sharing the card over gloo,
+                 against one rank in this process): (f) B1 and B3 at
+                 granite's rank heads (12 over 4, D 64) and B6 at qwen2's
+                 rank linears (column K 1,536 x N 4,480 bf16 out, row
+                 K 4,480 x N 1,536 fp32 out, no bias), element by
+                 element, timed beside the plain version, the library
+                 call and the bound; (a) granite-moe-3b-a800m at full
+                 width and depth (32 layers, 40 experts top-8, EP at 20 a
+                 rank, einsum dispatch) through PagedEngine with phase
+                 19's engine settings: streams equal on both ranks,
+                 admissions / decode steps / syncs and B1 / B3 / B7
+                 launches a rank equal one rank's, one admission's and
+                 one decode step's logits row by row (float32 within
+                 1e-3; bf16, on seeds 0 and 1, within 2x a one-rank
+                 witness of summation order), the collectives of a
+                 decode step; (b) the gather dispatch for two decode
+                 steps; (c) float32 granite at 2 layers: streams equal one
+                 rank's; (d) qwen2-1.5b with fp8, then int4 weights:
+                 every B6 call of one decode step against its plain
+                 version (phase 8's limits), logits within 2e-2, streams
+                 equal across ranks; (e) rank-16 LoRA adapters, unmerged:
+                 logits within 2e-2 of one rank's
+ 26. train_tp_peft — sharded fine-tuning by two ranks sharing the card:
+                 (a) llama3.2-1b at full width and depth with LoRA and
+                 QLoRA (int4 base), phase 20's 8 x 512 batch, 3 steps
+                 each: losses within 2e-2 of one rank's, step wall p50,
+                 peak, collectives a step by kind, no kernel launch; (b)
+                 granite-moe-3b-a800m's first 8 of 32 layers at full
+                 width, full fine-tune, the same; (c) float32 at 2
+                 layers: every trainable leaf's first-step gradient (the
+                 router's, LoRA's and QLoRA's adapters) gathered whole
+                 within 1e-4 relative L2 of one rank's
 B7 takes every RMSNorm of the qwen2-1.5b drives: 57 launches a forward
 (phases 5, 7, 9, 10), every one on its warp step.  Every B1 / B2 / B3
 launch of those drives (bf16 activations), every B4 and B5 launch of
 phase 9 and every B6 launch of phase 10 must take the tensor-core step:
 their tensor-core launch counts are printed beside the launch counts and
 must equal them.  Launch counts are
-zeroed just before each drive (phases 5, 7, 9, 10, 13-24) and read just
+zeroed just before each drive (phases 5, 7, 9, 10, 13-26) and read just
 after it; peak memory is read for the set-up and, restarted, for the
 drive.  Then one JSON
 line of kernel numbers, and last the result line ``{"ok": true,
@@ -961,10 +994,12 @@ def _qmm_check(g, device) -> str:
             f"{errs['B6']:.3e}"), errs, b5_steps
 
 
-def _qmm_times(kind: str, m: int, k: int, n: int, g, device) -> dict:
+def _qmm_times(kind: str, m: int, k: int, n: int, g, device,
+               out_dtype=None, bias: bool = True) -> dict:
     """One call's device time of a quantized-matmul kernel, its plain
     version, its library call and a bf16 product over the dequantized
-    weight, on cycled copies of the operands; and its bound."""
+    weight, on cycled copies of the operands; and its bound.  B6 may take
+    another output type (``out_dtype``) and no bias."""
     torch = _torch()
     import torch.nn.functional as F
     from repro_torch.kernels.int8_matmul import ops
@@ -979,7 +1014,7 @@ def _qmm_times(kind: str, m: int, k: int, n: int, g, device) -> dict:
     for _ in range(n_copies(k * n + m * k * 2)):
         qw, ws, b = _qlinear(g, device, k, n, quant)
         x = torch.randn((m, k), generator=g, device=device).to(bf16)
-        copies.append((x, qw, ws, b))
+        copies.append((x, qw, ws, b if bias else None))
         bf_in.append((x, (qw.float() * ws).to(bf16)))
     if kind == "B4":
         ins = [(*quantize_rowwise(x), qw, ws) for x, qw, ws, _ in copies]
@@ -994,12 +1029,16 @@ def _qmm_times(kind: str, m: int, k: int, n: int, g, device) -> dict:
         ins = copies
         fn = ((lambda x, qw, ws, b: ops.w8a8_matmul_decode(x, qw, ws, bias=b))
               if kind == "B5" else
-              (lambda x, qw, ws, b: ops.fp8_matmul_decode(x, qw, ws, bias=b)))
-        plain = w8a8_decode_ref if kind == "B5" else fp8_decode_ref
+              (lambda x, qw, ws, b: ops.fp8_matmul_decode(
+                  x, qw, ws, bias=b, out_dtype=out_dtype)))
+        plain = w8a8_decode_ref if kind == "B5" else (
+            lambda x, qw, ws, b: fp8_decode_ref(x, qw, ws, b, out_dtype))
         # cuBLASLt's int8 product wants more than 16 rows: M padded to 32
         lib_in = [(F.pad(quantize_rowwise(x)[0], (0, 0, 0, 32 - m)), qw)
                   for x, qw, _, _ in copies]
-        nbytes = m * k * 2 + k * n + 4 * n + 2 * n + 2 * m * n
+        out_size = 4 if out_dtype == torch.float32 else 2
+        nbytes = m * k * 2 + k * n + 4 * n + (2 * n if bias else 0) \
+            + out_size * m * n
     reps = 20 if kind != "B4" else 5
     ms = time_ms(fn, ins, reps=reps)
     plain_ms = time_ms(plain, ins[:2], reps=3, rounds=3)
@@ -6212,6 +6251,11 @@ def _tp_single_rank() -> dict:
     return out
 
 
+def _rel_l2_all(a, b) -> float:
+    import numpy as np
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
 def _rel_l2_rows(a, b) -> float:
     import numpy as np
     return float((np.linalg.norm(a - b, axis=-1)
@@ -6644,6 +6688,776 @@ def phase_train_tp(smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 25: MoE, fp8 / int4 weights and adapters under a model axis
+
+TPM_RANKS = 2
+TPM_HEADS = (12, 4, 64)      # granite's heads on one of two ranks
+#: B6 at qwen2-1.5b's rank linears: (K, N, out dtype) of the column-split
+#: gate / up and the row-split down (an fp32 partial, no bias), M 8
+TPM_B6 = ((1536, 4480, "bfloat16"), (4480, 1536, "float32"))
+TPM_B6_M = 8
+TPM_REQUESTS = 8             # (a): phase 19's engine, 64-512-token prompts
+TPM_GATHER_STEPS = 2         # (b)
+TPM_F32_LAYERS = 2           # (c)
+TPM_F32_REL_L2 = 1e-3        # (a): float32 logits, 2 ranks vs one, a row
+#: (a): bf16 logits on these seeds, each row of 2 ranks' within
+#: TPM_WITNESS_FACTOR times the worst row of one rank's summation-order
+#: witness (``_moe_rank_combine``) from one rank's: the ratio read
+#: 1.13-1.42 on the two seeds' prefill and decode logits
+TPM_SEEDS = (SEED, SEED + 1)
+TPM_WITNESS_FACTOR = 2.0
+TPM_Q_REQUESTS, TPM_Q_NEW = 4, 16    # (d)
+TPM_LORA_RANK = 16           # (e)
+
+
+def _without_arrays(d):
+    """``d`` without its logits and streams (for the JSON summary)."""
+    if isinstance(d, dict):
+        return {k: _without_arrays(v) for k, v in d.items()
+                if not str(k).startswith(("logits", "streams"))}
+    if isinstance(d, list):
+        return [_without_arrays(v) for v in d]
+    return d
+
+
+def _tpm_b6_row(k: int, n: int, out: str, g, device) -> tuple:
+    """B6 at M TPM_B6_M over a (K, N) fp8 linear with ``out`` output (no
+    bias for an fp32 partial, a bf16 bias else): element by element
+    against its plain version on the CPU copy, then timed beside it, a
+    bf16 product over the dequantized weight (the library call) and the
+    bound (``_qmm_times``)."""
+    torch = _torch()
+    from repro_torch.kernels.int8_matmul import ops as qmm
+    from repro_torch.kernels.int8_matmul.ref import fp8_decode_ref
+    odt = getattr(torch, out)
+    m, partial = TPM_B6_M, out == "float32"
+    qw, ws, b = _qlinear(g, device, k, n, "fp8")
+    b = None if partial else b
+    x = torch.randn((m, k), generator=g, device=device).to(torch.bfloat16)
+    tc0 = qmm.fp8_tc_launches
+    got = qmm.fp8_matmul_decode(x, qw, ws, bias=b, out_dtype=odt).cpu()
+    step = _step_tag(qmm.fp8_tc_launches - tc0, True)
+    ref = fp8_decode_ref(_cpu(x), _cpu(qw), _cpu(ws), _cpu(b), odt)
+    line = check_close(f"6t B6 M{m} K{k} N{n} {out} out{step}", got, ref,
+                       ref.float().pow(2).mean().sqrt().item())
+    times = _qmm_times("B6", m, k, n, g, device, out_dtype=odt,
+                       bias=not partial)
+    return line, {
+        "shape": f"M{m} K{k} N{n}, {out} out, "
+        + ("no bias" if partial else "bf16 bias"),
+        "max_abs_err": (got.float() - ref.float()).abs().max().item(),
+        **{key: times[key] for key in ("ms", "plain_ms", "library_ms",
+                                       "bound_ms", "bound_by")}}
+
+
+def _tpm_kernel_rows() -> dict:
+    """(f): B1 and B3 at granite's rank heads (12 over 4, D 64: a group of
+    3) on phases 3 / 4's cases, and B6 at qwen2's rank linears, element by
+    element against their plain versions and timed (rows 1g / 3g / 6t)."""
+    torch = _torch()
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.paged_attention import ops as pops
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    device = torch.device("cuda")
+    g = torch.Generator(device=device).manual_seed(SEED + 25)
+    h, kh, d = TPM_HEADS
+    rows, held = {}, []
+    lengths = [0, 1, 300, 1024, 517, 256, 77, 900]
+    args = _paged_inputs("bfloat16", g, device, lengths, h, kh, d)
+    out = pops.paged_attention(*args)
+    ref = paged_attention_ref(*args)
+    torch.cuda.synchronize()
+    held.append(check_close(f"1g B1 H{h}/{kh} D{d}", out, ref,
+                            args[2].float().pow(2).mean().sqrt().item()))
+    nbytes, flops = paged_bytes_flops(args[0], args[1], args[3], args[4],
+                                      args[5])
+    copies = [_paged_inputs("bfloat16", g, device, lengths, h, kh, d)
+              for _ in range(n_copies(args[2].numel() * 2 * 2))]
+    lib_in = []
+    for (q_, kp_, vp_, bt_, ln_, _, _) in copies:
+        t = bt_.shape[1] * kp_.shape[1]
+        mask = (torch.arange(t, device=device)[None, :]
+                < ln_[:, None])[:, None, None, :]
+        lib_in.append((q_[:, :, None, :], *(
+            p_[bt_.long()].reshape(8, t, kh, d).transpose(1, 2).contiguous()
+            for p_ in (kp_, vp_)), mask))
+    rows["1g"] = {
+        "shape": f"8 slots, H{h}/{kh} D{d}, lengths {lengths}",
+        "max_abs_err": (out.float() - ref.float()).abs().max().item(),
+        "ms": time_ms(pops.paged_attention, copies),
+        "plain_ms": time_ms(paged_attention_ref, copies, reps=5, rounds=3),
+        "library_ms": time_ms(
+            lambda qq, kk, vv, mm: F.scaled_dot_product_attention(
+                qq, kk, vv, attn_mask=mm, enable_gqa=True), lib_in),
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(nbytes, flops, "bfloat16")))}
+    del copies, lib_in
+    q, k, v = _flash_inputs(8, 512, torch.bfloat16, g, device, h, kh, d)
+    out = fops.flash_attention(q, k, v)
+    ref = attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    held.append(check_close(f"3g B3 8 x 512 H{h}/{kh} D{d} causal", out,
+                            ref, v.float().pow(2).mean().sqrt().item()))
+    rows["3g"] = {**_flash_times(8, 512, h, kh, d, g, device),
+                  "max_abs_err": (out.float() - ref.float()).abs().max(
+                      ).item()}
+    rows["6t"] = {}
+    for k_, n_, o_ in TPM_B6:
+        line, row = _tpm_b6_row(k_, n_, o_, g, device)
+        held.append(line)
+        rows["6t"][f"K{k_}xN{n_}"] = row
+    return {"rows": rows, "held": held}
+
+
+def _fp8_calls_vs_plain(fn) -> tuple:
+    """Run ``fn()`` with every B6 call (``quant.qops.fp8_matmul_decode``:
+    the column-split linears and the row-split fp32 partials) also
+    computed by its plain version on the same inputs and held element by
+    element (phase 8's limits); the forward goes on with the kernel's
+    output.  Returns (fn's result, calls checked, the (M, K, N, out)
+    shapes)."""
+    from repro_torch.kernels.int8_matmul.ref import fp8_decode_ref
+    from repro_torch.quant import qops
+    b6 = qops.fp8_matmul_decode
+    calls, shapes = [0], set()
+
+    def held(x2, wq, ws, *, bias=None, out_dtype=None):
+        out = b6(x2, wq, ws, bias=bias, out_dtype=out_dtype)
+        ref = fp8_decode_ref(x2, wq, ws, bias, out_dtype or x2.dtype)
+        check_close(f"B6 call {calls[0]} {tuple(x2.shape)} x "
+                    f"{tuple(wq.shape)}", out, ref,
+                    ref.float().pow(2).mean().sqrt().item())
+        calls[0] += 1
+        shapes.add((*x2.shape, wq.shape[1], str(out.dtype)[6:]))
+        return out
+    qops.fp8_matmul_decode = held
+    try:
+        return fn(), calls[0], sorted(shapes)
+    finally:
+        qops.fp8_matmul_decode = b6
+
+
+def _tpm_prompts(vocab: int) -> tuple:
+    """(a)'s drive: TPM_REQUESTS prompts of 64-512 tokens (phase 23's
+    lengths) and 16-32 new tokens, from their own seed."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 25)
+    plens = rng.integers(64, 513, TPM_REQUESTS)
+    return ([rng.integers(0, vocab, (int(n),)) for n in plens],
+            rng.integers(16, 33, TPM_REQUESTS))
+
+
+def _with_lora_b(tree, seed: int, scale: float):
+    """``tree`` with every adapter's ``b`` drawn from a normal of ``scale``
+    on the card from ``seed`` (LoRA's zero ``b`` would add nothing to the
+    logits and leave ``a`` no first-step gradient)."""
+    torch = _torch()
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(node):
+        if isinstance(node, list):
+            for v in node:
+                draw(v)
+        elif isinstance(node, dict):
+            if "lora" in node:
+                b = node["lora"]["b"]
+                node["lora"]["b"] = torch.randn(b.shape, generator=g,
+                                                device=b.device) * scale
+            for v in node.values():
+                draw(v)
+    draw(tree)
+    return tree
+
+
+def _tpm_lora(params):
+    """qwen2's tree with rank-16 LoRA adapters on every attention and MLP
+    linear, their ``b`` drawn."""
+    from repro_torch.peft.lora import apply_peft
+    return _with_lora_b(apply_peft(params, SEED + 26, method="lora",
+                                   rank=TPM_LORA_RANK), SEED + 27, 0.02)
+
+
+def _tpm_qwen2(quant, mesh=None) -> dict:
+    """(d) / (e) on one side: qwen2-1.5b with fp8 or int4 weights (a
+    TPM_Q_REQUESTS x TPM_Q_NEW PagedEngine drive, then one admission's
+    and one decode step's logits, every B6 call held), or with LoRA
+    adapters (``quant`` "lora": logits only)."""
+    torch = _torch()
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+    from repro_torch.quant import quantize_tree
+    from repro_torch.serve.engine import PagedEngine
+    cfg = get_config("qwen2-1.5b")
+    params = LM(cfg, device="cuda").init(SEED)
+    if quant == "lora":
+        params = _tpm_lora(params)
+    else:
+        params = quantize_tree(params, quant=quant)
+        cfg = cfg.with_(quant=quant)
+    lm = LM(cfg, device="cuda")
+    eng = PagedEngine(lm, params, n_slots=8, max_len=1024, page_size=256,
+                      decode_block=8, seed=SEED, mesh=mesh)
+    del params
+    out = {}
+    if quant != "lora":
+        prompts = _tp_prompts(cfg.vocab_size)[1]
+        out = _tp_paged_drive(eng, prompts[:TPM_Q_REQUESTS],
+                              [TPM_Q_NEW] * TPM_Q_REQUESTS,
+                              f"(d) {quant}")
+    wrap = _fp8_calls_vs_plain if quant == "fp8" else None
+    out["logits"] = _tp_logits(eng.lm, eng.params,
+                               _tp_logit_inputs(cfg.vocab_size), wrap=wrap)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _moe_rank_combine():
+    """A context in which one rank's MoE layers run as the one rank of a
+    model axis of one: every expert, the combine an fp32 partial rounded
+    once by ``row_linear``, the arithmetic a rank of phase 25 does (one
+    sum over 40 experts in place of two over 20 and an all-reduce).  Its
+    logits against one rank's are the witness of how far a change of
+    summation order alone moves granite's bf16 logits."""
+    import contextlib
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe
+    from repro_torch.sharding.collectives import TensorParallel
+    scope = TensorParallel(make_host_mesh(model=1, device="cuda"))
+
+    @contextlib.contextmanager
+    def run():
+        share = moe._share
+        moe._share = lambda p, m: (scope, 0, m.padded_experts, False)
+        try:
+            yield
+        finally:
+            moe._share = share
+    return run()
+
+
+def _tpm_seed_logits(lm, params, inputs, mesh) -> dict:
+    """bf16 granite logits of ``_tp_logit_inputs`` and, on one rank
+    (``mesh=None``), the summation-order witness's."""
+    out = {"logits": _tp_logits(lm, params, inputs)}
+    if mesh is None:
+        with _moe_rank_combine():
+            out["logits_witness"] = _tp_logits(lm, params, inputs)
+    return out
+
+
+def _tpm_granite(mesh=None) -> dict:
+    """(a) and (c) on one side (``mesh=None``: one rank): granite at full
+    width and depth through PagedEngine, the drive and the logits (bf16
+    on each of TPM_SEEDS, one rank's summation-order witness beside
+    them), the logits again in float32; and the float32 2-layer
+    streams.  Under ``mesh`` also (b), the gather dispatch for
+    TPM_GATHER_STEPS decode steps.  A rank keeps only its pieces while it
+    serves (the whole tree is drawn again for (b))."""
+    torch = _torch()
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+    from repro_torch.serve.engine import PagedEngine
+    from repro_torch.sharding.tp import shard_model
+    cfg = get_config(GRANITE)
+    kw = dict(n_slots=8, max_len=4096, page_size=256, seed=SEED, mesh=mesh)
+    lm = LM(cfg, device="cuda")
+    t0 = time.perf_counter()
+    eng = PagedEngine(lm, lm.init(SEED), decode_block=8, **kw)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"local": {k: tuple(v.shape) for k, v in
+                     eng.params["layers"][0]["blk0"]["moe"].items()
+                     if k != "router"},
+           "embed": tuple(eng.params["embed"]["w"].shape)}
+    prompts, max_new = _tpm_prompts(cfg.vocab_size)
+    eng.submit(prompts[0][:64], max_new_tokens=8)
+    eng.run_to_completion()                  # warm-up
+    tag = "one rank" if mesh is None else f"rank {mesh.rank}"
+    out["a"] = _tp_paged_drive(eng, prompts, max_new, f"{tag} (a)")
+    out["a"]["setup_s"] = time.perf_counter() - t0
+    inputs = _tp_logit_inputs(cfg.vocab_size)
+    out["seeds"] = {SEED: _tpm_seed_logits(eng.lm, eng.params, inputs,
+                                           mesh)}
+    del eng
+    gc.collect()
+    for seed in TPM_SEEDS[1:]:
+        slm, params = lm, lm.init(seed)
+        if mesh is not None:
+            slm, params = shard_model(lm, params, mesh)
+        out["seeds"][seed] = _tpm_seed_logits(slm, params, inputs, mesh)
+        del slm, params
+        gc.collect()
+    if mesh is not None:
+        glm = LM(cfg.with_(moe_impl="gather"), device="cuda")
+        eng = PagedEngine(glm, lm.init(SEED), decode_block=TPM_GATHER_STEPS,
+                          **kw)
+        _reset_launches()
+        for p in prompts[:4]:
+            eng.submit(p, max_new_tokens=1 + TPM_GATHER_STEPS)
+        eng.step()
+        if eng.steps_run != TPM_GATHER_STEPS:
+            raise AssertionError(f"{tag} (b): {eng.steps_run} decode steps")
+        out["b"] = {"decode_collectives": eng.decode_collectives.to_dict(
+            steps=TPM_GATHER_STEPS), "launches": _read_launches(),
+            "streams": [list(q.out_tokens) for q in sorted(
+                eng.registry.values(), key=lambda q: q.rid)]}
+        del eng
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (a) in float32 at full width and depth: the logits alone
+    flm = LM(cfg.with_(dtype="float32"), device="cuda")
+    fparams = flm.init(SEED)
+    if mesh is not None:
+        flm, fparams = shard_model(flm, fparams, mesh)
+    out["a"]["logits_f32"] = _tp_logits(flm, fparams, inputs)
+    del flm, fparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32 = LM(cfg.with_(num_layers=TPM_F32_LAYERS, dtype="float32"),
+             device="cuda")
+    eng = PagedEngine(f32, f32.init(SEED), decode_block=8, **kw)
+    ids = [eng.submit(p, max_new_tokens=24) for p in prompts]
+    done = eng.run_to_completion()
+    out["c"] = {"streams": [list(done[i].out_tokens) for i in ids]}
+    del eng, f32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tpm_rank(rank: int) -> dict:
+    """One of the two ranks of phase 25, on the card the parent holds."""
+    torch = _torch()
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_host_mesh
+    missing = [n for n in build.SOURCES if not build.lib_path(n).exists()]
+    if missing:
+        raise RuntimeError(f"rank {rank}: kernels {missing} not built by "
+                           "phase 2 (the ranks load, never build)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    mesh = make_host_mesh(model=TPM_RANKS, device="cuda")
+    out = {"mesh": mesh.describe(), "granite": _tpm_granite(mesh)}
+    for quant in ("fp8", "int4", "lora"):
+        out[quant] = _tpm_qwen2(quant, mesh)
+    out["wall_s"] = time.perf_counter() - t_start
+    return out
+
+
+def phase_tp_moe(records: list, smi: str) -> dict:
+    """Phase 25: granite-moe-3b-a800m, qwen2-1.5b with fp8 / int4 weights
+    and with LoRA adapters, served by two ranks that share the card over
+    gloo, against one rank in this process."""
+    torch = _torch()
+    from repro_torch.launch.mesh import spawn_world
+    t_phase = time.perf_counter()
+    f = _tpm_kernel_rows()
+    one = {"granite": _tpm_granite()}
+    for quant in ("fp8", "int4", "lora"):
+        one[quant] = _tpm_qwen2(quant)
+    ranks = spawn_world(_tpm_rank, TPM_RANKS, device="cuda")
+    r0, g1 = ranks[0], one["granite"]
+    streams = [("granite", "a"), ("granite", "b"), ("granite", "c"),
+               ("fp8", None), ("int4", None)]
+    for key, sub in streams:
+        pick = (lambda r: r[key][sub]["streams"]) if sub else \
+            (lambda r: r[key]["streams"])
+        if any(pick(r) != pick(r0) for r in ranks[1:]):
+            raise AssertionError(f"{key} {sub or ''}: a rank's streams "
+                                 "differ from rank 0's")
+    if r0["granite"]["c"]["streams"] != g1["c"]["streams"]:
+        raise AssertionError("(c) float32 granite streams: 2 ranks differ "
+                             "from one")
+    for key in ("admissions", "decode_steps", "syncs", "launches"):
+        if any(r["granite"]["a"][key] != g1["a"][key] for r in ranks):
+            raise AssertionError(
+                f"(a) {key}: ranks {[r['granite']['a'][key] for r in ranks]}"
+                f" vs one rank {g1['a'][key]}")
+    ep = g1["local"]["gate_e"][0] // TPM_RANKS      # EP: E/m experts a rank
+    if any(r["granite"]["local"]["gate_e"][0] != ep for r in ranks):
+        raise AssertionError(f"(a) not EP at {ep} experts a rank: "
+                             f"{r0['granite']['local']}")
+    # granite in bf16: a bf16 ulp in a router input flips near-tied
+    # top-8 choices of single tokens, and over 32 layers of random
+    # weights the flips compound.  Held row by row (as phase 23): the
+    # float32 logits within TPM_F32_REL_L2 of one rank's; the bf16 logits,
+    # on each of two seeds, within TPM_WITNESS_FACTOR times the distance
+    # of one rank's summation-order witness from one rank's.
+    errs, worst_row = {}, {}
+    for step in ("prefill", "decode"):
+        key = f"granite {step} f32"
+        errs[key] = worst_row[key] = max(
+            _rel_l2_rows(r["granite"]["a"]["logits_f32"][step],
+                         g1["a"]["logits_f32"][step]) for r in ranks)
+        if not errs[key] <= TPM_F32_REL_L2:
+            raise AssertionError(f"{key} logits 2 ranks vs one: a row's "
+                                 f"relative L2 {errs[key]:.3e} > "
+                                 f"{TPM_F32_REL_L2}")
+        for seed in TPM_SEEDS:
+            one_s = g1["seeds"][seed]
+            key = f"granite {step} seed {seed}"
+            errs[key] = worst_row[key] = max(
+                _rel_l2_rows(r["granite"]["seeds"][seed]["logits"][step],
+                             one_s["logits"][step]) for r in ranks)
+            wit = errs[key + " witness"] = _rel_l2_rows(
+                one_s["logits_witness"][step], one_s["logits"][step])
+            if not errs[key] <= TPM_WITNESS_FACTOR * wit:
+                raise AssertionError(
+                    f"{key} bf16 logits 2 ranks vs one: a row's relative "
+                    f"L2 {errs[key]:.3e} > {TPM_WITNESS_FACTOR:g} x the "
+                    f"summation-order witness's {wit:.3e}")
+    for q in ("fp8", "int4", "lora"):
+        for step in ("prefill", "decode"):
+            key = f"{q} {step}"
+            errs[key] = worst_row[key] = max(
+                _rel_l2_rows(r[q]["logits"][step], one[q]["logits"][step])
+                for r in ranks)
+            if not errs[key] <= LOGIT_REL_L2:
+                raise AssertionError(f"{key} logits 2 ranks vs one: a "
+                                     f"row's relative L2 {errs[key]:.3e} "
+                                     f"> {LOGIT_REL_L2}")
+    b6 = [r["fp8"]["logits"]["decode_calls"] for r in ranks]
+    if not all(b6) or one["fp8"]["logits"]["decode_calls"] <= 0:
+        raise AssertionError(f"(d) no B6 call held in a decode step: {b6}")
+    for rec in records:
+        if rec["name"] in r0["granite"]["a"]["launches"]:
+            rec.setdefault("launches_by_drive", {})["tp_moe_rank0"] = \
+                r0["granite"]["a"]["launches"][rec["name"]]
+        if rec["name"] == "fp8_decode_matmul":
+            rec.setdefault("launches_by_drive", {})["tp_fp8_rank0"] = \
+                r0["fp8"]["launches"].get(rec["name"], 0)
+    rows = f["rows"]
+    print(f"[25 tp_moe_quant] (f) {smi}: " + "; ".join(f["held"]) + "; "
+          + "; ".join(f"{tag} {r['shape']}: ms {r['ms']:.4f} plain "
+                      f"{r['plain_ms']:.4f} library {r['library_ms']:.4f} "
+                      f"bound {r['bound_ms']:.4f} ({r['bound_by']})"
+                      for tag, r in [("1g", rows["1g"]), ("3g", rows["3g"])]
+                      + [(f"6t {k}", v) for k, v in rows["6t"].items()]))
+    a0 = r0["granite"]["a"]
+    coll = a0["decode_collectives"]
+    print(f"[25 tp_moe_quant] (a) {smi}: {r0['mesh']}, {GRANITE} 32L bf16 "
+          f"einsum, rank experts {r0['granite']['local']}, embedding "
+          f"{r0['granite']['embed']}; 2 ranks: {a0['tokens']} tokens, "
+          + ", ".join(f"rank {i} {r['granite']['a']['tokens_per_s']:.1f} "
+                      f"tok/s TTFT p50 {r['granite']['a']['ttft_p50_s']:.4f}"
+                      f"s decode step "
+                      f"{r['granite']['a']['decode_step_wall_ms']:.2f} ms "
+                      f"peak {r['granite']['a']['peak_mem_gb']:.2f} GB"
+                      for i, r in enumerate(ranks))
+          + f"; one rank here {g1['a']['tokens_per_s']:.1f} tok/s TTFT p50 "
+          f"{g1['a']['ttft_p50_s']:.4f}s decode step "
+          f"{g1['a']['decode_step_wall_ms']:.2f} ms peak "
+          f"{g1['a']['peak_mem_gb']:.2f} GB; {a0['admissions']} admissions "
+          f"+ {a0['decode_blocks']} blocks = {a0['syncs']} syncs, "
+          f"{a0['decode_steps']} steps as one rank's; launches per rank "
+          f"{[r['granite']['a']['launches'] for r in ranks]}; logits vs one"
+          f" rank (worst row) float32 prefill "
+          f"{errs['granite prefill f32']:.3e} decode "
+          f"{errs['granite decode f32']:.3e} (limit {TPM_F32_REL_L2}); "
+          f"bf16 " + "; ".join(
+              f"seed {k[-1]} {k[0]} {errs[k[1]]:.3e} (witness "
+              f"{errs[k[2]]:.3e}, ratio {errs[k[1]] / errs[k[2]]:.3f})"
+              for k in ((st, f"granite {st} seed {sd}",
+                         f"granite {st} seed {sd} witness", sd)
+                        for sd in TPM_SEEDS for st in ("prefill", "decode")))
+          + f" (limit {TPM_WITNESS_FACTOR:g} x the witness); collectives a "
+          f"decode step "
+          f"{coll['count_by_op']} calls / {a0['decode_steps']} steps, bytes "
+          f"a step {coll['bytes_per_step_by_op']}")
+    b0 = r0["granite"]["b"]
+    print(f"[25 tp_moe_quant] (b) gather dispatch, {TPM_GATHER_STEPS} "
+          f"decode steps: streams equal on both ranks, launches "
+          f"{b0['launches']}, collectives a step "
+          f"{b0['decode_collectives']['bytes_per_step_by_op']}")
+    print(f"[25 tp_moe_quant] (c) float32 granite {TPM_F32_LAYERS} layers: "
+          f"{len(r0['granite']['c']['streams'])} streams of 2 ranks equal "
+          "one rank's token for token")
+    for q in ("fp8", "int4"):
+        d0 = r0[q]
+        print(f"[25 tp_moe_quant] (d) qwen2-1.5b {q} weights: "
+              f"{d0['tokens']} tokens ({d0['tokens_per_s']:.1f} tok/s, one "
+              f"rank {one[q]['tokens_per_s']:.1f}), decode step "
+              f"{d0['decode_step_wall_ms']:.2f} ms (one rank "
+              f"{one[q]['decode_step_wall_ms']:.2f}), launches per rank "
+              f"{[r[q]['launches'] for r in ranks]}, streams equal on both "
+              f"ranks; logits vs one rank prefill {errs[q + ' prefill']:.3e}"
+              f" decode {errs[q + ' decode']:.3e}"
+              + (f"; every B6 call of one decode step held: "
+                 f"{[r[q]['logits']['decode_calls'] for r in ranks]} a "
+                 f"rank (one rank {one[q]['logits']['decode_calls']}), "
+                 f"shapes {d0['logits']['shapes']}" if q == "fp8" else "")
+              + f"; collectives a decode step "
+              f"{d0['decode_collectives']['bytes_per_step_by_op']}")
+    print(f"[25 tp_moe_quant] (e) qwen2-1.5b + rank-{TPM_LORA_RANK} LoRA "
+          f"unmerged: logits vs one rank prefill {errs['lora prefill']:.3e} "
+          f"decode {errs['lora decode']:.3e}")
+    out = _without_arrays({"f": f, "one": one, "ranks": ranks,
+                           "logit_rel_l2": errs,
+                           "logit_rel_l2_worst_row": worst_row})
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+    print(f"[25 tp_moe_quant] phase {out['phase_wall_s']:.1f}s (ranks "
+          f"{[round(r['wall_s'], 1) for r in ranks]}s)")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 26: sharded fine-tuning with adapters, quantized bases and MoE
+
+TTP_RANKS = 2
+TTP_STEPS = 3
+TTP_PEFT = ("lora", "qlora")       # (a), rank PEFT_RANK
+TTP_GRANITE_LAYERS = 8             # (b): the first 8 of granite's 32
+TTP_F32_LAYERS = 2                 # (c)
+#: (c): a leaf's gradient is held within the larger of
+#: TRAIN_TP_GRAD_REL_L2 and this many times the distance a change of
+#: summation order alone puts between two one-rank gradients (a scalar
+#: such as LoRA's ``scaling`` sums millions of terms that cancel)
+TTP_FLOOR_FACTOR = 3.0
+
+
+def _ttp_config(arch: str, layers=None, dtype=None):
+    from repro_torch.configs import first_layers, get_config
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = first_layers(cfg, layers)
+    return cfg if dtype is None else cfg.with_(dtype=dtype)
+
+
+def _ttp_params(cfg, method: str):
+    """``cfg``'s weights from SEED, then its fine-tuning arm: int4 base for
+    QLoRA, and PEFT_RANK adapters (``b`` drawn from a seeded normal, so
+    that the first step's gradients reach ``a``), with their trainable
+    mask (``None``: every leaf)."""
+    from repro_torch.models.model import LM
+    from repro_torch.peft.lora import apply_peft, trainable_mask
+    from repro_torch.quant import quantize_tree
+    params = LM(cfg, device="cuda").init(SEED)
+    if method == "full":
+        return params, None
+    if method == "qlora":
+        params = quantize_tree(params, quant="int4")
+    params = _with_lora_b(apply_peft(params, SEED + 1, method=method,
+                                     rank=PEFT_RANK), SEED + 2, 0.01)
+    return params, trainable_mask(params, method)
+
+
+def _ttp_train(cfg, method: str, mesh=None) -> dict:
+    """TTP_STEPS steps of ``Trainer(mesh=, mask=)`` on phase 20's batch
+    (one rank: ``mesh=None``), the launch counts zeroed before: the
+    losses and the rank's figures."""
+    torch = _torch()
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models.model import LM
+    from repro_torch.optim.adamw import cosine_schedule
+    from repro_torch.peft.lora import count_trainable
+    from repro_torch.train.loop import Trainer
+    from repro_torch.tree import tree_map
+    tr = Trainer(LM(cfg, device="cuda"),
+                 SyntheticLMData(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                                 seed=SEED),
+                 lr=cosine_schedule(TRAIN_TP_LR, TRAIN_TP_WARMUP, TTP_STEPS),
+                 mesh=mesh, log_every=1, log_fn=_train_quiet)
+    params, mask = _ttp_params(cfg, method)
+    trainable = count_trainable(params, mask)[0] if mask is not None \
+        else count_trainable(params, tree_map(lambda _: True, params))[0]
+    tr.set_params(params, mask=mask)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    hist = tr.run(TTP_STEPS)
+    losses = [r["loss"] for r in hist]
+    if not all(v == v and abs(v) < float("inf") for v in losses):
+        raise AssertionError(f"{cfg.name} {method}: non-finite loss "
+                             f"{losses}")
+    out = dict(_train_tp_reports(tr, torch), losses=losses,
+               launches=_no_launches(f"{cfg.name} {method}"),
+               trainable=trainable)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ttp_f32_grads(arch: str, method: str, mesh) -> dict:
+    """(c): float32 at TTP_F32_LAYERS layers of full width: every
+    trainable leaf's first-step gradient, gathered whole from the ranks'
+    pieces, against one rank's (computed in this rank)."""
+    import dataclasses
+    torch = _torch()
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models.model import LM
+    from repro_torch.sharding.rules import gather_leaf, make_param_specs
+    from repro_torch.sharding.tp import shard_model
+    from repro_torch.train.loop import loss_and_grads, sharded_grads
+    from repro_torch.tree import leaves_with_path, tree_map
+    cfg = _ttp_config(arch, TTP_F32_LAYERS, "float32")
+    if cfg.moe is not None:
+        # dropless (capacity_factor E / k: a group's capacity is every
+        # token): under drops a token's slot moves with a rounding-level
+        # change of a router input, and the first-step gradient of its
+        # expert with it, so two exact implementations differ there
+        cfg = cfg.with_(moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+    params, mask = _ttp_params(cfg, method)
+    batch = {k: torch.from_numpy(v).long().cuda() for k, v in
+             SyntheticLMData(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                             seed=SEED).next_batch().items()}
+    lm = LM(cfg, device="cuda")
+    _, _, want = loss_and_grads(lm, params, batch)
+    # the same gradient as the mean of two half batches' (mathematically
+    # equal; every sum over tokens in another order): how far a change
+    # of summation order alone moves each leaf on one rank
+    half = TRAIN_BATCH // 2
+    halves = [loss_and_grads(lm, params, {k: v[i * half:(i + 1) * half]
+                                          for k, v in batch.items()})[2]
+              for i in range(2)]
+    again = dict(leaves_with_path(tree_map(
+        lambda a, b: None if a is None else (a.float() + b.float()) / 2,
+        *halves)))
+    del halves
+    specs = make_param_specs(params, mesh)
+    tlm, local = shard_model(lm, params, mesh)
+    pieces, _ = sharded_grads(tlm, local, batch, mesh, specs)
+    whole = tree_map(lambda g, s: None if g is None
+                     else gather_leaf(g, s, mesh), pieces, specs)
+    trainable = dict(leaves_with_path(mask)) if mask is not None else None
+    want = dict(leaves_with_path(want))
+    def rel(g, w):
+        den = float(w.norm())
+        return float((g.float() - w).norm()) / den if den \
+            else float(g.float().norm())
+    errs, limits = {}, {}
+    for path, g in leaves_with_path(whole):
+        if g is None or (trainable is not None and not trainable[path]):
+            continue
+        w = want[path].float()
+        errs[path] = rel(g, w)
+        limits[path] = max(TRAIN_TP_GRAD_REL_L2,
+                           TTP_FLOOR_FACTOR * rel(again[path], w))
+    share = {p: errs[p] / limits[p] for p in errs}
+    worst = max(share, key=share.get)
+    if not share[worst] <= 1.0:
+        raise AssertionError(f"(c) {arch} {method}: gradient of {worst} "
+                             f"relative L2 {errs[worst]:.3e} > "
+                             f"{limits[worst]:.3e}")
+    loose = {p: limits[p] for p in limits
+             if limits[p] > TRAIN_TP_GRAD_REL_L2}
+    router = [p for p in errs if "/router/" in p]
+    if arch == GRANITE and not router:
+        raise AssertionError("(c) granite: no router gradient held")
+    del params, pieces, whole, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"leaves": len(errs), "worst_leaf": worst,
+            "worst_rel_l2": errs[worst], "worst_limit": limits[worst],
+            "above_1e-4": {p: errs[p] for p in errs
+                           if errs[p] > TRAIN_TP_GRAD_REL_L2},
+            "order_floor_limits": loose,
+            "floor_ratio": {p: errs[p] * TTP_FLOOR_FACTOR / limits[p]
+                            for p in loose},
+            "router_rel_l2": max((errs[p] for p in router), default=None)}
+
+
+def _ttp_rank(rank: int) -> dict:
+    """One of the two ranks of phase 26, on the card the parent holds:
+    (a) llama3.2-1b LoRA and QLoRA, (b) granite's first 8 layers, full
+    fine-tune, under a model axis of 2; (c) float32 gradients."""
+    torch = _torch()
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    mesh = make_host_mesh(model=TTP_RANKS, device="cuda")
+    out = {"mesh": mesh.describe()}
+    llama = _ttp_config(TRAIN_ARCH)
+    for method in TTP_PEFT:
+        out[method] = _ttp_train(llama, method, mesh)
+    out["granite"] = _ttp_train(_ttp_config(GRANITE, TTP_GRANITE_LAYERS),
+                                "full", mesh)
+    _reset_launches()
+    out["c"] = {f"{a} {m}": _ttp_f32_grads(a, m, mesh)
+                for a, m in ((GRANITE, "full"), (TRAIN_ARCH, "lora"),
+                             (TRAIN_ARCH, "qlora"))}
+    out["c_launches"] = _no_launches(f"rank {rank} (c)")
+    out["wall_s"] = time.perf_counter() - t_start
+    return out
+
+
+def phase_train_tp_peft(smi: str) -> dict:
+    """Phase 26: LoRA / QLoRA on llama3.2-1b and granite's first 8 layers
+    trained by two ranks that share the card over gloo, against one rank
+    in this process."""
+    torch = _torch()
+    from repro_torch.launch.mesh import spawn_world
+    t_phase = time.perf_counter()
+    llama = _ttp_config(TRAIN_ARCH)
+    one = {m: _ttp_train(llama, m) for m in TTP_PEFT}
+    one["granite"] = _ttp_train(_ttp_config(GRANITE, TTP_GRANITE_LAYERS),
+                                "full")
+    ranks = spawn_world(_ttp_rank, TTP_RANKS, device="cuda")
+    r0 = ranks[0]
+    worst = {}
+    for key in one:
+        if any(r[key]["losses"] != r0[key]["losses"] for r in ranks):
+            raise AssertionError(f"({key}) the ranks report different "
+                                 "losses")
+        worst[key] = max(abs(a - b) / abs(b) for a, b in
+                         zip(r0[key]["losses"], one[key]["losses"]))
+        if not worst[key] <= TRAIN_TP_LOSS_RTOL:
+            raise AssertionError(f"({key}) losses {r0[key]['losses']} vs "
+                                 f"one rank's {one[key]['losses']}: "
+                                 f"{worst[key]:.3e} > {TRAIN_TP_LOSS_RTOL}")
+    for key, tag in (("lora", "(a) LoRA"), ("qlora", "(a) QLoRA"),
+                     ("granite", f"(b) {GRANITE} first "
+                                 f"{TTP_GRANITE_LAYERS} layers, full")):
+        arch = GRANITE if key == "granite" else f"{TRAIN_ARCH} 16L"
+        print(f"[26 train_tp_peft] {tag} {smi}: {r0['mesh']}, {arch} bf16, "
+              f"{TTP_STEPS} steps of {TRAIN_BATCH}x{TRAIN_SEQ}, "
+              f"{r0[key]['trainable']} trainable elements: losses "
+              f"{[round(v, 5) for v in r0[key]['losses']]} vs one rank's "
+              f"{[round(v, 5) for v in one[key]['losses']]} (worst relative "
+              f"{worst[key]:.3e}, limit {TRAIN_TP_LOSS_RTOL}); " + "; ".join(
+                  f"rank {i} step wall p50 {r[key]['step_p50_s'] * 1e3:.1f} "
+                  f"ms, {r[key]['tokens_per_s']:.0f} tokens/s, peak "
+                  f"{r[key]['peak_gb']:.2f} GB, collectives a step "
+                  f"{_coll_line(r[key]['collectives_a_step'])}"
+                  for i, r in enumerate(ranks))
+              + f"; one rank step wall p50 "
+              f"{one[key]['step_p50_s'] * 1e3:.1f} ms, "
+              f"{one[key]['tokens_per_s']:.0f} tokens/s, peak "
+              f"{one[key]['peak_gb']:.2f} GB; kernel launches 0")
+    c0 = r0["c"]
+    print(f"[26 train_tp_peft] (c) float32 {TTP_F32_LAYERS} layers, "
+          f"{r0['mesh']}: " + "; ".join(
+              f"{k}: {v['leaves']} trainable leaves' first-step gradients, "
+              f"worst {v['worst_leaf']} {v['worst_rel_l2']:.3e} (limit "
+              f"{v['worst_limit']:.3e}), past {TRAIN_TP_GRAD_REL_L2}: "
+              f"{len(v['above_1e-4'])} ({v['above_1e-4']}; their limits "
+              f"from the summation-order floor: {v['order_floor_limits']},"
+              f" each leaf's error over its floor: {v['floor_ratio']})"
+              + (f", router {v['router_rel_l2']:.3e}"
+                 if v["router_rel_l2"] is not None else "")
+              for k, v in c0.items())
+          + f" (limit: the larger of {TRAIN_TP_GRAD_REL_L2} and "
+          f"{TTP_FLOOR_FACTOR:g}x the floor); kernel launches 0")
+    out = {"one": one, "ranks": ranks, "worst_loss_rel": worst,
+           "phase_wall_s": time.perf_counter() - t_phase}
+    torch.cuda.empty_cache()
+    print(f"[26 train_tp_peft] phase {out['phase_wall_s']:.1f}s (ranks "
+          f"{[round(r['wall_s'], 1) for r in ranks]}s)")
+    return out
+
+
 def main() -> int:
     dev = phase_device()
     phase_build()
@@ -6675,6 +7489,8 @@ def main() -> int:
     jamba = phase_jamba(records, dev["smi"])
     tp = phase_tp(records, e2e, dev["smi"])
     train_tp = phase_train_tp(dev["smi"])
+    tp_moe = phase_tp_moe(records, dev["smi"])
+    train_tp_peft = phase_train_tp_peft(dev["smi"])
     out_dir = ROOT / "chiprun_out"
     if out_dir.is_dir():
         (out_dir / "chip_smoke_e2e.json").write_text(json.dumps(
@@ -6682,7 +7498,8 @@ def main() -> int:
              "rwkv": rwkv, "spec": spec, "eager": eager, "resil": resil,
              "cost": cost, "search": search, "moe": moe, "train": train,
              "encdec": encdec, "jamba": jamba, "tp": tp,
-             "train_tp": train_tp, "kernels": records},
+             "train_tp": train_tp, "tp_moe": tp_moe,
+             "train_tp_peft": train_tp_peft, "kernels": records},
             indent=1))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -181,7 +181,9 @@ def main(argv=None):
     ap.add_argument("--model-parallel", type=int, default=1,
                     help="serve over this many ranks on the model axis "
                          "(kv-head-sharded paged attention and split "
-                         "weights; implies the paged engine): N processes "
+                         "weights, MoE experts, --quant weights and "
+                         "adapters included; implies the paged engine): N "
+                         "processes "
                          "on --device, gloo where they share a card or run "
                          "on the CPU, nccl where each has its own card")
     ap.add_argument("--tp-attn-impl", default="kv_shard",

@@ -12,7 +12,8 @@ the model, ``apply_to_params`` (quantized base, adapters) to the weights,
 and the trainable mask of its fine-tuning arm.  ``--model-parallel N``
 above 1 trains on N ranks (``launch.mesh.spawn_world``; world = model
 axis, data 1): every rank trains its tensor-parallel slice
-(``Trainer(mesh=)``), and rank 0 prints the mesh line and the log and
+(``Trainer(mesh=)``; MoE archs, and a c* with adapters or a quantized
+base, included), and rank 0 prints the mesh line and the log and
 writes ``--history-out``.  On the card the ranks share it over gloo (or
 take one card each over NCCL, ``launch.mesh.backend_for``); with
 ``--device cpu`` they run on the CPU.  ``--autotune`` searches once, in
@@ -37,7 +38,7 @@ from repro_torch.launch.mesh import make_host_mesh, spawn_world
 from repro_torch.models.model import LM, resolve_device
 from repro_torch.optim.adamw import cosine_schedule
 from repro_torch.peft.lora import trainable_mask
-from repro_torch.sharding.tp import LATER, check_trainable
+from repro_torch.sharding.tp import check_trainable
 from repro_torch.train.loop import Trainer
 
 
@@ -95,12 +96,6 @@ def main(argv=None):
         try:
             check_trainable(cfg.with_(model_parallel=args.model_parallel),
                             {})
-            if eff is not None and (eff.ft.method != "full"
-                                    or eff.inf.quant != "bf16"):
-                raise ValueError(
-                    f"c* (fine-tuning {eff.ft.method}, weights "
-                    f"{eff.inf.quant}): PEFT adapters and quantized bases "
-                    f"under a model axis > 1 are not sharded yet: {LATER}")
         except ValueError as e:
             ap.error(str(e))
         n = args.model_parallel

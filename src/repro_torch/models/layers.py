@@ -55,26 +55,24 @@ def linear_apply(p: dict, x: torch.Tensor, impl: str = "ref", *,
     ``row=True`` marks a row-split linear (``wo``, ``down``): inside a
     tensor-parallel forward (``sharding.collectives.active()``) its
     rank computes the fp32 partial product over its slice of the
-    contraction, and the partials are summed in fp32, rounded once and
-    the bias added once (``sharding.tp.row_linear``).  Outside one the
-    flag changes nothing.  A column-split linear (``row=False``) in a
-    tensor-parallel training forward reads its input through
+    contraction (:func:`row_partial`, its adapter's update included),
+    and the partials are summed in fp32, rounded once and the bias added
+    once (``sharding.tp.row_linear``).  Outside one the flag changes
+    nothing.  A column-split linear (``row=False``) in a tensor-parallel
+    training forward reads its input through
     ``collectives.column_input`` (identity forward, gradient summed over
-    the model axis); serving, under ``no_grad``, reads ``x`` itself."""
+    the model axis); serving, under ``no_grad``, reads ``x`` itself.  Its
+    adapter runs ``(x @ a) @ b_local`` on the rank's columns of ``b``."""
     if "_capture" in p:
         p["_capture"](x)
-    if not row:
-        x = column_input(x)
     tp = active() if row else None
     if tp is not None:
         from repro_torch.sharding.tp import row_linear
-        if "qw" in p:
-            from repro_torch.quant.qops import row_partial
-            part = row_partial(x, p, impl, tp.mesh)
-        else:
-            part = x.float() @ p["w"].float()
-        y = row_linear(part, x.dtype, p.get("b"), tp.mesh)
-    elif "qw" in p:
+        return row_linear(row_partial(p, x, impl, tp.mesh), x.dtype,
+                          p.get("b"), tp.mesh)
+    if not row:
+        x = column_input(x)
+    if "qw" in p:
         from repro_torch.quant.qops import quantized_matmul
         y = quantized_matmul(x, p, bias=p.get("b"), impl=impl)
     else:
@@ -85,6 +83,25 @@ def linear_apply(p: dict, x: torch.Tensor, impl: str = "ref", *,
         from repro_torch.peft.lora import lora_delta
         y = y + lora_delta(p["lora"], x)
     return y
+
+
+def row_partial(p: dict, x: torch.Tensor, impl: str,
+                mesh) -> torch.Tensor:
+    """This rank's fp32 partial of a row-split linear (no bias): ``x``
+    (..., K/m) is the rank's slice of the contraction and ``p`` holds the
+    matching K/m rows (``qw``: ``quant.qops.row_partial``).  An adapter's
+    update goes into the rank's own columns of the partial
+    (``peft.lora.lora_row_partial``), so the linear's one all-reduce
+    carries it."""
+    if "qw" in p:
+        from repro_torch.quant.qops import row_partial as quant_partial
+        part = quant_partial(x, p, impl, mesh)
+    else:
+        part = x.float() @ p["w"].float()
+    if "lora" in p:
+        from repro_torch.peft.lora import lora_row_partial
+        part = lora_row_partial(p["lora"], x, part, mesh)
+    return part
 
 
 # ---------------------------------------------------------------------------
@@ -187,8 +204,13 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, *,
             "down": init_linear(gen, d_ff, d_model, **kw)}
 
 
-def mlp_apply(p: dict, x: torch.Tensor, impl: str = "ref") -> torch.Tensor:
+def mlp_hidden(p: dict, x: torch.Tensor, impl: str = "ref") -> torch.Tensor:
+    """The SwiGLU hidden state ``silu(gate(x)) * up(x)`` (a rank's
+    columns of it under a model axis)."""
     g = linear_apply(p["gate"], x, impl)
     u = linear_apply(p["up"], x, impl)
-    h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
-    return linear_apply(p["down"], h, impl, row=True)
+    return torch.nn.functional.silu(g.float()).to(x.dtype) * u
+
+
+def mlp_apply(p: dict, x: torch.Tensor, impl: str = "ref") -> torch.Tensor:
+    return linear_apply(p["down"], mlp_hidden(p, x, impl), impl, row=True)

@@ -23,6 +23,23 @@ and are dropped, and the gather dispatch sums a token's ``top_k``
 contributions one after another in ascending expert order (the order
 of the reference's scatter-add on the CPU) instead of through an
 atomic scatter-add, so repeated calls are bit-equal on the card.
+
+Under a model axis (``sharding.collectives.active()``; the placements of
+``sharding.rules``, as the reference's ``"model"`` constraints on the
+expert buffers) routing, capacity and the aux losses run on every rank
+from the same whole activations and the replicated fp32 router, so they
+are the same everywhere.  A rank then runs either its E/m experts on its
+slice of the dispatch buffers (EP, where the axis divides the padded
+expert count) or every expert over its f/m slice of the hidden width
+(the TP fallback, its ``down`` product an fp32 partial).  Either way it
+produces an fp32 partial of the routed output, the shared expert's
+row-split ``down`` partial joins it, and one fp32 all-reduce a layer
+sums them, rounded once (``sharding.tp.row_linear``).  In a training
+forward the gates are read through ``copy_to_model`` (a rank's gates
+reach only its experts, so the router's gradient through them is
+partial) and the expert inputs through ``column_input``; the aux
+losses, whole on every rank, read the router's probabilities directly
+and so count once.
 """
 from __future__ import annotations
 
@@ -33,7 +50,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
-from repro_torch.models.layers import init_mlp, mlp_apply
+from repro_torch.models.layers import (init_mlp, mlp_apply, mlp_hidden,
+                                       row_partial)
+from repro_torch.sharding.collectives import (active, column_input,
+                                              copy_to_model)
 
 
 def init_moe(gen: torch.Generator, d_model: int, m: MoEConfig,
@@ -101,12 +121,55 @@ def _route(xg: torch.Tensor, p: dict, m: MoEConfig):
     return logits, torch.softmax(logits, dim=-1)               # (g,s,E)
 
 
-def _expert_ffn(p: dict, xin: torch.Tensor) -> torch.Tensor:
-    """xin (E, rows, d) -> (E, rows, d): every expert's SwiGLU."""
+def _expert_ffn(p: dict, xin: torch.Tensor,
+                partial: bool = False) -> torch.Tensor:
+    """xin (E, rows, d) -> (E, rows, d): every expert's SwiGLU
+    (``partial``: over this rank's slice of the hidden width, the ``down``
+    product an fp32 partial)."""
     gate_h = torch.bmm(xin, p["gate_e"].to(xin.dtype))
     up_h = torch.bmm(xin, p["up_e"].to(xin.dtype))
     h = F.silu(gate_h.float()).to(xin.dtype) * up_h
+    if partial:
+        return torch.bmm(h.float(), p["down_e"].float())
     return torch.bmm(h, p["down_e"].to(h.dtype))
+
+
+def _share(p: dict, m: MoEConfig):
+    """(scope, e0, e1, fallback): under a tensor-parallel scope the
+    experts [e0, e1) this rank runs (its stacks' leading dim under EP;
+    every expert over its f/m slice under the TP fallback, ``fallback``
+    True); ``(None, 0, E, False)`` outside one."""
+    tp = active()
+    e = m.padded_experts
+    if tp is None:
+        return None, 0, e, False
+    n = p["gate_e"].shape[0]
+    e0 = tp.mesh.model_rank * n if n < e else 0
+    return tp, e0, e0 + n, n == e and p["gate_e"].shape[2] < m.d_ff
+
+
+def _gate_probs(probs: torch.Tensor, tp) -> torch.Tensor:
+    """The router probabilities the gates are read from: under a
+    tensor-parallel training forward through ``copy_to_model`` (a rank's
+    gates reach only its experts), else ``probs`` itself."""
+    if tp is None or not torch.is_grad_enabled() or not probs.requires_grad:
+        return probs
+    return copy_to_model(probs, tp.mesh)
+
+
+def _tp_out(p: dict, x: torch.Tensor, part: torch.Tensor, quant_impl: str,
+            tp) -> torch.Tensor:
+    """The layer's output from this rank's fp32 partial of the routed
+    output (B, S, d): the shared expert's ``down`` partial added, one
+    fp32 all-reduce, rounded once, the shared ``down`` bias added once."""
+    from repro_torch.sharding.tp import row_linear
+    bias = None
+    if "shared" in p:
+        sh = p["shared"]
+        part = part + row_partial(sh["down"], mlp_hidden(sh, x, quant_impl),
+                                  quant_impl, tp.mesh)
+        bias = sh["down"].get("b")
+    return row_linear(part, x.dtype, bias, tp.mesh)
 
 
 def _xla_mean(t: torch.Tensor) -> torch.Tensor:
@@ -148,9 +211,11 @@ def moe_apply(p: dict, x: torch.Tensor, m: MoEConfig, *, train: bool = True,
     if impl != "einsum":
         raise ValueError(f"unknown MoE impl {impl!r}")
     b, s, d = x.shape
+    tp, e0, e1, fallback = _share(p, m)
     xg, n_tok = _groups(x, group_size)
     g, gs, _ = xg.shape
     logits, probs = _route(xg, p, m)
+    gprobs = _gate_probs(probs, tp)
     cap = _capacity(gs, m, train)
     e = m.padded_experts
     dev = x.device
@@ -161,11 +226,11 @@ def moe_apply(p: dict, x: torch.Tensor, m: MoEConfig, *, train: bool = True,
     gates_sum = torch.zeros((g, gs), dtype=torch.float32, device=dev)
     counts = torch.zeros((g, e), dtype=torch.int32, device=dev)
     fract_assigned = torch.zeros((g, e), dtype=torch.float32, device=dev)
-    masked = probs
+    masked = gprobs
     for _ in range(m.top_k):
         idx = torch.argmax(masked, dim=-1)                      # (g,s)
         onehot = F.one_hot(idx, e).float()                      # (g,s,E)
-        gate = torch.sum(probs * onehot, -1)                    # (g,s)
+        gate = torch.sum(gprobs * onehot, -1)                   # (g,s)
         # position of each token within its expert's buffer
         pos_in_e = torch.cumsum(onehot, 1) - onehot
         pos = torch.sum(pos_in_e * onehot, -1) + torch.gather(
@@ -186,12 +251,25 @@ def moe_apply(p: dict, x: torch.Tensor, m: MoEConfig, *, train: bool = True,
     combine = combine / torch.clamp(gates_sum, min=1e-9)[..., None, None]
     dispatch_f = dispatch.to(x.dtype)
 
-    # --- expert computation -----------------------------------------------
-    xin = torch.einsum("gsec,gsd->egcd", dispatch_f, xg)        # (E,g,cap,d)
-    xout = _expert_ffn(p, xin.reshape(e, g * cap, d)).reshape(e, g, cap, d)
-    out = torch.einsum("gsec,egcd->gsd", combine.to(xg.dtype), xout)
-    out = _shared(p, x, out.reshape(-1, d)[:n_tok].reshape(b, s, d),
-                  quant_impl)
+    # --- expert computation: this rank's experts' slice of the dispatch
+    # buffers (every expert outside a tensor-parallel scope) --------------
+    xcol = x if tp is None else column_input(x)
+    xc = xg if xcol is x else _groups(xcol, group_size)[0]
+    n = e1 - e0
+    xin = torch.einsum("gsec,gsd->egcd", dispatch_f[:, :, e0:e1], xc)
+    xout = _expert_ffn(p, xin.reshape(n, g * cap, d), fallback).reshape(
+        n, g, cap, d)
+    # the combine weights rounded to x's dtype; a rank's partial takes the
+    # products and their sum in fp32
+    cw = combine[:, :, e0:e1].to(x.dtype)
+    if tp is not None:
+        cw, xout = cw.float(), xout.float()
+    out = torch.einsum("gsec,egcd->gsd", cw, xout)
+    out = out.reshape(-1, d)[:n_tok].reshape(b, s, d)
+    if tp is None:
+        out = _shared(p, x, out, quant_impl)
+    else:
+        out = _tp_out(p, x, out, quant_impl, tp)
 
     # --- aux losses (f: fraction of tokens dispatched to e; P: mean
     # router prob for e) ----------------------------------------------------
@@ -216,6 +294,7 @@ def moe_apply_gather(p: dict, x: torch.Tensor, m: MoEConfig, *,
                      train: bool = True, group_size: int = 512,
                      quant_impl: str = "ref") -> Tuple[torch.Tensor, dict]:
     b, s, d = x.shape
+    tp, e0, e1, fallback = _share(p, m)
     xg, n_tok = _groups(x, group_size)
     g, gs, _ = xg.shape
     logits, probs = _route(xg, p, m)
@@ -223,7 +302,7 @@ def moe_apply_gather(p: dict, x: torch.Tensor, m: MoEConfig, *,
     cap = _capacity(gs, m, train)
     dev = x.device
 
-    gate, idx = _top_k(probs, k)                                # (g,s,k)
+    gate, idx = _top_k(_gate_probs(probs, tp), k)               # (g,s,k)
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
 
     # stable sort of every group's slots by expert; rank within an
@@ -240,27 +319,40 @@ def moe_apply_gather(p: dict, x: torch.Tensor, m: MoEConfig, *,
     dest = torch.where(keep_s, eid_s * cap + pos_s, e * cap)    # drop bin
     rows = torch.arange(g, device=dev)[:, None]
     # scatter tokens into each group's (E·cap, d) expert buffer
-    buf = xg.new_zeros((g, e * cap + 1, d))
-    buf[rows, dest] = xg[rows, tok_s]
-    xin = buf[:, :-1].reshape(g, e, cap, d).transpose(0, 1)     # (E,g,cap,d)
+    xcol = x if tp is None else column_input(x)
+    xc = xg if xcol is x else _groups(xcol, group_size)[0]
+    buf = xc.new_zeros((g, e * cap + 1, d))
+    buf[rows, dest] = xc[rows, tok_s]
+    # (E,g,cap,d), this rank's experts' rows of it under EP
+    xin = buf[:, :-1].reshape(g, e, cap, d).transpose(0, 1)[e0:e1]
+    n = e1 - e0
+    xout = _expert_ffn(p, xin.reshape(n, g * cap, d), fallback).reshape(
+        n, g, cap, d)
+    xout = xout.transpose(0, 1).reshape(g, n * cap, d)          # (g,n·cap,d)
 
-    xout = _expert_ffn(p, xin.reshape(e, g * cap, d)).reshape(e, g, cap, d)
-    xout = xout.transpose(0, 1).reshape(g, e * cap, d)          # (g,E·cap,d)
-
-    src = torch.where(keep_s, eid_s * cap + torch.clamp(pos_s, max=cap - 1),
-                      0)
+    # the slots this rank's experts hold (every kept slot outside EP)
+    held = keep_s & (eid_s >= e0) & (eid_s < e1)
+    src = torch.where(held, (eid_s - e0) * cap
+                      + torch.clamp(pos_s, max=cap - 1), 0)
     y_s = xout[rows, src]                                       # (g,gs·k,d)
-    w_s = torch.gather(gate.reshape(g, gs * k), 1, order) * keep_s
-    y_s = y_s * w_s[..., None].to(y_s.dtype)
+    w_s = torch.gather(gate.reshape(g, gs * k), 1, order) * held
+    w_s = w_s[..., None].to(y_s.dtype)
+    if tp is not None:
+        y_s, w_s = y_s.float(), w_s.float()
+    y_s = y_s * w_s
     # token-major, each token's k contributions in the sorted slots'
     # (ascending expert) order, summed one after another in y's dtype
+    # (fp32 for a rank's partial)
     by_token = torch.argsort(tok_s, dim=-1, stable=True)
     y_tok = y_s[rows, by_token].reshape(g, gs, k, d)
     out = y_tok[:, :, 0]
     for j in range(1, k):
         out = out + y_tok[:, :, j]
-    out = _shared(p, x, out.reshape(-1, d)[:n_tok].reshape(b, s, d),
-                  quant_impl)
+    out = out.reshape(-1, d)[:n_tok].reshape(b, s, d)
+    if tp is None:
+        out = _shared(p, x, out, quant_impl)
+    else:
+        out = _tp_out(p, x, out, quant_impl, tp)
 
     # aux losses (the einsum path's formulas)
     f_e = counts.float() / (gs * k)

@@ -29,6 +29,7 @@ from typing import Tuple, Union
 
 import torch
 
+from repro_torch.sharding.collectives import replicated
 from repro_torch.tree import leaves, tree_map
 
 # target projections for adapter injection (paper: attention + MLP)
@@ -53,9 +54,38 @@ def init_lora(gen: torch.Generator, d_in: int, d_out: int, *, rank: int,
 
 def lora_delta(p: dict, x: torch.Tensor) -> torch.Tensor:
     """The low-rank update ``(x @ a) @ b * scaling`` in fp32, cast to x's
-    dtype.  DoRA's ``m`` is not read, as in the reference."""
-    y = (x.float() @ p["a"]) @ p["b"] * p["scaling"]
+    dtype.  DoRA's ``m`` is not read, as in the reference.  Under a model
+    axis (a column-split linear) ``b`` is the rank's columns and the
+    update the rank's columns of it; in a training forward ``a`` and
+    ``scaling``, whole on every rank but read against this rank's
+    columns only, go through ``collectives.replicated`` (their gradients
+    summed over the axis)."""
+    a, scaling = replicated(p["a"], p["scaling"])
+    y = (x.float() @ a) @ p["b"] * scaling
     return y.to(x.dtype)
+
+
+def lora_row_partial(p: dict, x: torch.Tensor, part: torch.Tensor,
+                     mesh) -> torch.Tensor:
+    """A row-split linear's fp32 partial ``part`` (..., N) with this
+    rank's share of the adapter's update added: the rank's K/m rows of
+    ``a`` against its slice ``x`` (..., K/m) give a partial of ``x @ a``
+    (r wide), summed over the model axis (one r-wide all-reduce; in
+    training its gradient is summed back, since each rank's columns of
+    ``b`` see only part of it); ``u @ b_local * scaling`` lands in the
+    rank's own N/m columns of ``part``, and the linear's all-reduce
+    carries it to every rank."""
+    from repro_torch.sharding.collectives import (copy_to_model,
+                                                  reduce_from_model)
+    a, scaling = replicated(p["a"], p["scaling"])
+    k, n = x.shape[-1], p["b"].shape[1]
+    r0, c0 = mesh.model_rank * k, mesh.model_rank * n
+    u = reduce_from_model(x.float() @ a[r0:r0 + k], mesh)
+    if torch.is_grad_enabled() and u.requires_grad:
+        u = copy_to_model(u, mesh)
+    delta = u @ p["b"] * scaling
+    return torch.cat([part[..., :c0], part[..., c0:c0 + n] + delta,
+                      part[..., c0 + n:]], dim=-1)
 
 
 def _col_norm(w: torch.Tensor) -> torch.Tensor:
@@ -142,10 +172,17 @@ def trainable_mask(params, method: str = "lora"):
 
 
 @torch.no_grad()
-def merge_lora(params):
+def merge_lora(params, mesh=None):
     """Fold each dense linear's adapter into its weight (deployment):
     ``w + (a @ b) * scaling`` in fp32, rounded once to w's dtype.  An
-    adapter on a quantized base stays attached, as in the reference."""
+    adapter on a quantized base stays attached, as in the reference.
+
+    ``mesh``: ``params`` is one rank's tree under its model axis
+    (``sharding.rules.shard_params``).  A column-split ``w`` (K, N/m) takes
+    ``a @ b_local`` as it stands; a row-split one (K/m, N) takes the
+    rank's K/m rows of ``a`` against ``b`` gathered whole over the axis
+    (one all-gather a linear, on every rank), so the result is the rank's
+    piece of the merged whole tree."""
     def visit(node):
         if isinstance(node, list):
             return [visit(v) for v in node]
@@ -154,8 +191,19 @@ def merge_lora(params):
         if "lora" in node and "w" in node:
             node = dict(node)
             lo = node.pop("lora")
-            delta = (lo["a"] @ lo["b"]) * lo["scaling"][..., None]
-            node["w"] = (node["w"].float() + delta).to(node["w"].dtype)
+            a, b, w = lo["a"], lo["b"], node["w"]
+            if w.shape[0] != a.shape[0]:          # a rank's rows of w
+                if mesh is None:
+                    raise ValueError(
+                        f"merge_lora: w {tuple(w.shape)} against a "
+                        f"{tuple(a.shape)} is a row-split rank's piece; "
+                        "pass its mesh")
+                from repro_torch.sharding.collectives import all_gather
+                k = w.shape[0]
+                a = a[mesh.model_rank * k:(mesh.model_rank + 1) * k]
+                b = all_gather(b, 1, mesh)
+            delta = (a @ b) * lo["scaling"][..., None]
+            node["w"] = (w.float() + delta).to(w.dtype)
         return {k: visit(v) for k, v in node.items()}
 
     return visit(params)

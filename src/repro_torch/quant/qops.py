@@ -32,10 +32,12 @@ from repro_torch.kernels.int8_matmul.ops import (DECODE_M_MAX,
                                                  int4_matmul,
                                                  int8_matmul_dynamic,
                                                  w8a8_matmul_decode)
-from repro_torch.kernels.int8_matmul.ref import (_div, int8_matmul_ref,
+from repro_torch.kernels.int8_matmul.ref import (_div, int8_dot,
+                                                 int8_matmul_ref,
                                                  quantize_colwise,
                                                  quantize_int4_colwise,
-                                                 quantize_rowwise)
+                                                 quantize_rowwise,
+                                                 unpack_int4)
 
 FP8 = torch.float8_e4m3fn
 IMPLS = ("fused", "ref", "train")
@@ -91,28 +93,74 @@ def quantized_matmul(x: torch.Tensor, p: dict, *,
 
 def row_partial(x: torch.Tensor, p: dict, impl: str,
                 mesh) -> torch.Tensor:
-    """This rank's fp32 partial of a row-split int8 (W8A8) linear: x (...,
-    K/m) holds the rank's slice of each row and ``qw`` the matching K/m
-    rows.  The activation quantization stays the whole row's: the ranks'
-    row maxima are all-reduced (max) first, so each rank quantizes its
-    slice to exactly the int8 values one rank would.  The product runs
-    the tiled W8A8 op (B4 on CUDA tensors, any M: B5 quantizes inside its
-    launch, against the slice's own maxima) with both scales applied and
-    no bias; ``sharding.tp.row_linear`` sums the partials and adds the
-    bias once."""
+    """This rank's fp32 partial of a row-split quantized linear, with its
+    scale applied and no bias (``sharding.tp.row_linear`` sums the
+    partials and adds the bias once): x (..., K/m) holds the rank's slice
+    of each row and ``qw`` the matching K/m rows.
+
+    * int8 (W8A8): the activation quantization stays the whole row's:
+      the ranks' row maxima are all-reduced (max) first, so each rank
+      quantizes its slice to exactly the int8 values one rank would.
+      Serving runs the tiled W8A8 op (B4 on CUDA tensors, any M: B5
+      quantizes inside its launch, against the slice's own maxima); a
+      training forward (impl ``"train"``) the reference's oracle, whose
+      gradient reaches x only through the row maximum: summed over the
+      ranks, it is split evenly over the row's elements that reach the
+      maximum, whichever ranks hold them, as one rank splits it.
+    * fp8: B6 (its plain version on the CPU under impl ``"fused"``) with
+      an fp32 output at M <= 128 in serving; else the reference's plain
+      fp32 product, the scale applied to the output.
+    * int4 (packed two rows a byte along K): the plain unpack-and-
+      dequantize product, as the reference's; a K/m that is odd would
+      split a packed pair and is refused.
+    In a training forward the scale (whole on every rank, applied to a
+    partial) is read through ``collectives.replicated``."""
     from repro_torch.kernels.int8_matmul import ops as qmm
-    from repro_torch.sharding.collectives import all_reduce
+    from repro_torch.sharding.collectives import all_reduce, replicated
+    if impl not in IMPLS:
+        raise ValueError(f"unknown quant impl {impl!r}")
     qw = p["qw"]
-    if qw.dtype != torch.int8 or impl not in ("fused", "ref"):
-        raise ValueError(f"row-split quantized linear: {qw.dtype} weights, "
-                         f"impl {impl!r}; a model axis takes int8 serving "
-                         "forwards only")
-    x2 = x.reshape(-1, x.shape[-1])
-    amax = all_reduce(x2.float().abs().amax(dim=-1, keepdim=True), "max",
-                      mesh)
-    xq, xs = quantize_rowwise(x2, amax)
-    y = qmm.int8_matmul(xq, qw, xs, p["scale"], out_dtype=torch.float32)
-    return y.reshape(*x.shape[:-1], qw.shape[1])
+    k = x.shape[-1]
+    x2 = x.reshape(-1, k)
+    out_shape = (*x.shape[:-1], qw.shape[1])
+    if qw.dtype == torch.int8:
+        local = x2.float().abs().amax(dim=-1, keepdim=True)
+        amax = all_reduce(local.detach(), "max", mesh)
+        if impl != "train":
+            xq, xs = quantize_rowwise(x2, amax)
+            y = qmm.int8_matmul(xq, qw, xs, p["scale"],
+                                out_dtype=torch.float32)
+            return y.reshape(out_shape)
+        # the gradient through the row maximum: one rank's splits it
+        # evenly over the row's elements that reach it, so each rank
+        # takes the share of them it holds (ties across ranks included)
+        ties = (x2.detach().float().abs() == amax).sum(
+            -1, keepdim=True).float()
+        share = ties / all_reduce(ties, "sum", mesh)
+        amax, ws = replicated(amax + (local - local.detach()) * share,
+                              p["scale"])
+        xq, xs = quantize_rowwise(x2, amax)
+        y = int8_dot(xq, qw).float() * xs[:, None] * ws[None, :]
+        return y.reshape(out_shape)
+    if qw.dtype == torch.uint8:
+        if k != 2 * qw.shape[0]:
+            from repro_torch.sharding.tp import A88
+            raise ValueError(
+                f"row-split int4 linear: a rank's slice of K is {k} wide "
+                f"against {qw.shape[0]} packed rows; int4 packs two rows "
+                f"of K a byte, so the model axis must leave K/m even: {A88}")
+        (ws,) = replicated(p["scale"])
+        w = unpack_int4(qw).float() * ws[None, :]
+        return (x2.float() @ w).reshape(out_shape)
+    if qw.dtype == FP8:
+        kernels = impl != "train" and (x.is_cuda or impl == "fused")
+        if kernels and x2.shape[0] <= DECODE_M_MAX:
+            y = fp8_matmul_decode(x2.contiguous(), qw, p["scale"],
+                                  out_dtype=torch.float32)
+            return y.reshape(out_shape)
+        (ws,) = replicated(p["scale"])
+        return ((x2.float() @ qw.float()) * ws).reshape(out_shape)
+    raise ValueError(f"unrecognized quantized dtype {qw.dtype}")
 
 
 def _int8_oracle(x: torch.Tensor, qw: torch.Tensor,

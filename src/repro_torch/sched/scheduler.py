@@ -61,8 +61,8 @@ from repro_torch.resil.degrade import DegradationLadder
 from repro_torch.resil.errors import InjectedPageFault, TransientDispatchError
 from repro_torch.sched.policy import Policy, make_policy
 from repro_torch.sched.prefix import PrefixCache
-from repro_torch.serve.engine import (_SAME_DECISIONS, PagedEngine,
-                                      Request, _pow2_bucket, _sample_batch)
+from repro_torch.serve.engine import (PagedEngine, Request, _pow2_bucket,
+                                      _sample_batch, same_decisions)
 from repro_torch.serve.paged import OutOfPagesError, set_block_table_rows
 
 
@@ -95,10 +95,10 @@ class SchedEngine(PagedEngine):
                 admission_control or ladder is not None
                 or max_request_s is not None
                 or getattr(policy, "name", policy) != "fcfs"):
-            raise ValueError(
-                _SAME_DECISIONS + "the FCFS policy without admission "
-                "control, a degradation ladder or request deadlines (they "
-                "read each rank's own wall clock)")
+            raise ValueError(same_decisions(
+                "the FCFS policy without admission control, a degradation "
+                "ladder or request deadlines (they read each rank's own "
+                "wall clock)"))
         self.admission_control = admission_control
         if prefill_chunk is None:
             prefill_chunk = 8 * self.page_size

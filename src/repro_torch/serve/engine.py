@@ -52,8 +52,12 @@ from repro_torch.sharding.tp import shard_model
 
 #: the start of a sharded engine's refusal of host decisions that read the
 #: wall clock (each rank's own; ranks that decide apart split the streams)
-_SAME_DECISIONS = ("under a model axis > 1 every rank must take the same "
-                   "host decisions, so a sharded engine takes ")
+def same_decisions(what: str) -> str:
+    """The refusal of a host decision that reads each rank's own wall
+    clock under a model axis, naming the ROADMAP item that lifts it."""
+    from repro_torch.sharding.tp import A87
+    return ("under a model axis > 1 every rank must take the same host "
+            f"decisions, so a sharded engine takes {what}: {A87}")
 
 
 @dataclasses.dataclass
@@ -480,7 +484,7 @@ class PagedEngine(_EngineBase):
         self.mesh = mesh if mesh is not None and mesh.model > 1 else None
         if self.mesh is not None:
             if injector is not None:
-                raise ValueError(_SAME_DECISIONS + "no chaos injector")
+                raise ValueError(same_decisions("no chaos injector"))
             lm, params = shard_model(lm, params, self.mesh)
         super().__init__(lm, lm.prepare(params), n_slots=n_slots,
                          max_len=max_len, eos_id=eos_id, metrics=metrics,

@@ -23,7 +23,9 @@ Under autograd the sharded training forward goes through three pairs
 (Megatron's f / g, and FSDP's gather):
   * :func:`copy_to_model`: identity forward, all-reduce SUM of the
     gradient over the model axis; on a whole activation entering
-    column-split work;
+    column-split work, and (as :func:`replicated`, one all-reduce for
+    several) on the whole leaves that a rank reads only in part (LoRA's
+    ``a`` and ``scaling``, a row-split quantized linear's scale);
   * :func:`reduce_from_model`: all-reduce SUM forward, identity backward;
     what the row-split linears and the vocab-split lookups reduce
     through;
@@ -208,17 +210,6 @@ def _reduce_f32(x: torch.Tensor, mesh, kind: str, axis: str,
 # Autograd pairs
 
 
-class _CopyToModel(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _reduce_f32(g, ctx.mesh, "sum", "model"), None
-
-
 class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh):
@@ -241,10 +232,42 @@ class _FsdpGather(torch.autograd.Function):
             None, None
 
 
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, *xs):
+        ctx.mesh = mesh
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        if len(gs) == 1:                # one tensor: kept in its shape
+            return None, _reduce_f32(gs[0], ctx.mesh, "sum", "model")
+        flat = _reduce_f32(torch.cat([g.float().reshape(-1) for g in gs]),
+                           ctx.mesh, "sum", "model")
+        out = [piece.view_as(g).to(g.dtype) for g, piece in zip(
+            gs, torch.split(flat, [g.numel() for g in gs]))]
+        return (None, *out)
+
+
 def copy_to_model(x: torch.Tensor, mesh) -> torch.Tensor:
     """``x`` unchanged; its gradient summed over the model axis (the
     column-split work each rank does on ``x`` gives a partial one)."""
-    return _CopyToModel.apply(x, mesh)
+    return _CopyToModel.apply(mesh, x)[0]
+
+
+def replicated(*xs: torch.Tensor):
+    """Whole leaves (the same on every rank) whose use on one rank gives
+    only a partial gradient (a LoRA ``a`` against this rank's rows or
+    columns, a row-split linear's scale), read under a tensor-parallel
+    scope with grad enabled through one :func:`copy_to_model` for all of
+    them: identity forward, their gradients summed over the model axis
+    in one fp32 all-reduce.  Elsewhere (serving, one rank) ``xs``
+    themselves.  Returns a tuple, one tensor per argument."""
+    tp = active()
+    if tp is None or not torch.is_grad_enabled() \
+            or not any(x.requires_grad for x in xs):
+        return xs
+    return _CopyToModel.apply(tp.mesh, *xs)
 
 
 def reduce_from_model(x: torch.Tensor, mesh) -> torch.Tensor:

@@ -12,6 +12,13 @@ of every parameter that ``sharding.rules`` gives it and computes:
     once to the activation dtype, the bias added once after (the
     reference's ``f32_accum``: the sum a single device computes, not a
     sum of rounded partials);
+  * quantized linears (int8 / fp8 / int4) on their slices alike, the
+    row-split ones through ``quant.qops.row_partial``, and PEFT adapters
+    unmerged (``models.layers.linear_apply``);
+  * MoE layers (``models.moe``): routing on every rank from the whole
+    activations, the rank's E/m experts (EP, where the axis divides the
+    padded expert count) or every expert over its f/m slice of the
+    hidden width (the TP fallback), one fp32 all-reduce a layer;
   * a vocab-split embedding lookup (:func:`embed`) and vocab-split fp32
     logits, gathered before sampling.
 Activations stay whole between the blocks (the reference's
@@ -21,11 +28,12 @@ the column-split inputs through ``copy_to_model``, so autograd gives
 every rank the gradient of its slice; the row-split partials stay fp32
 there too (the reference accumulates them in fp32 only when serving).
 
-:func:`check_servable` refuses, each with a message, what serving does
-not shard: head counts the axis does not divide (the reference
-replicates them), a d_ff it does not divide, MoE layers, fp8 / int4
-weights, PEFT adapters and a narrowed KV-head style.
-:func:`check_trainable` refuses what training does not shard.
+:func:`check_servable` and :func:`check_trainable` refuse, each with a
+message naming its ROADMAP item, what the port does not shard: head
+counts, widths or expert counts the axis does not divide and MLA (the
+reference replicates them), an odd K/m under int4, a narrowed KV-head
+style, the gather arm in training (A8.8), and in training Mamba /
+RWKV-6 blocks, cross-attention and encoders (A8.6).
 """
 from __future__ import annotations
 
@@ -37,9 +45,15 @@ import torch
 from repro_torch.sharding.collectives import (all_gather, local_piece,
                                               reduce_from_model)
 
-#: the ROADMAP part that shards what this slice refuses
-LATER = ("ROADMAP A8.3 (MoE, fp8 / int4 / int8 bases and PEFT adapters "
-         "under a model axis, serving and training)")
+#: the ROADMAP items that shard what the port still refuses
+A86 = ("ROADMAP A8.6 (Mamba / RWKV-6 blocks, cross-attention and encoders "
+       "under a model axis in training)")
+A87 = ("ROADMAP A8.7 (host decisions that read the wall clock under a "
+       "model axis: rank 0's decisions broadcast to the group)")
+A88 = ("ROADMAP A8.8 (layouts a model axis does not split: MLA, head "
+       "counts, widths or expert counts it does not divide, an odd K/m "
+       "under int4, a narrowed kv_cache_style, the gather arm in "
+       "training)")
 
 
 def local_attention(cfg):
@@ -66,7 +80,28 @@ def _heads_refusal(cfg) -> str:
                 f"{a.num_heads} query heads (num_heads) and the {kvh} kv "
                 f"heads (num_kv_heads) of a {a.kind} attention without "
                 "padded heads; the port refuses head counts the axis does "
-                "not divide (the reference replicates them)")
+                f"not divide (the reference replicates them): {A88}")
+    return ""
+
+
+def _widths_refusal(cfg) -> str:
+    """Why the model axis cannot split ``cfg``'s MLP or MoE widths ("" where
+    it can): a dense d_ff, or an expert count (EP) and else the experts'
+    hidden width (the TP fallback), and the shared experts' width."""
+    m, moe = cfg.model_parallel, cfg.moe
+    dense = moe is None or cfg.moe_every > 1
+    if dense and cfg.d_ff % m:
+        return f"{cfg.name}: a model axis of {m} must divide d_ff {cfg.d_ff}"
+    if moe is None:
+        return ""
+    if moe.padded_experts % m and moe.d_ff % m:
+        return (f"{cfg.name}: a model axis of {m} must divide the "
+                f"{moe.padded_experts} (padded) experts or their hidden "
+                f"width {moe.d_ff}")
+    shared = moe.num_shared_experts * moe.shared_d_ff
+    if shared % m:
+        return (f"{cfg.name}: a model axis of {m} must divide the shared "
+                f"experts' hidden width {shared}")
     return ""
 
 
@@ -81,78 +116,70 @@ def _leaves(node, prefix=""):
         yield prefix, node
 
 
-def check_servable(cfg, params) -> None:
-    """Raise ``ValueError`` for a config or tree this slice does not serve
-    under a model axis of ``cfg.model_parallel`` > 1."""
-    from repro_torch.kvcache import cache_kv_heads
+def _tree_refusal(cfg, params) -> str:
+    """Why the model axis cannot split a leaf of ``params`` ("" where it
+    can): a row-split int4 ``qw`` whose K/m is odd (a packed byte holds
+    two rows of K)."""
     m = cfg.model_parallel
-    local_attention(cfg)                 # refuses non-dividing heads
-    if cfg.moe is not None:
-        raise ValueError(f"{cfg.name}: MoE layers under a model axis > 1 "
-                         f"are not sharded yet: {LATER}")
-    if cfg.d_ff % m:
-        raise ValueError(f"{cfg.name}: a model axis of {m} must divide "
-                         f"d_ff {cfg.d_ff}")
+    for path, leaf in _leaves(params):
+        if path.endswith(("/down/qw", "/wo/qw")) \
+                and leaf.dtype == torch.uint8 and leaf.shape[0] % m:
+            return (f"{path}: int4 packs two rows of K a byte, so a model "
+                    f"axis of {m} must leave K/m even (K = "
+                    f"{2 * leaf.shape[0]})")
+    return ""
+
+
+def check_servable(cfg, params) -> None:
+    """Raise ``ValueError`` for a config or tree the port does not serve
+    under a model axis of ``cfg.model_parallel`` > 1.  MoE layers (EP or
+    the TP fallback), int8 / fp8 / int4 weights and PEFT adapters
+    (unmerged) are served."""
+    from repro_torch.kvcache import cache_kv_heads
+    local_attention(cfg)                 # refuses non-dividing heads, MLA
+    refusal = _widths_refusal(cfg) or _tree_refusal(cfg, params)
+    if refusal:
+        raise ValueError(f"{refusal}: {A88}")
     if cache_kv_heads(cfg.attention, cfg.kv_cache_style) \
             != cfg.attention.kv_heads_effective():
         raise ValueError(f"kv_cache_style {cfg.kv_cache_style!r} merges kv "
                          "heads; under a model axis > 1 the pools keep "
-                         "every kv head (kv_cache_style 'full')")
-    for path, leaf in _leaves(params):
-        if path.endswith("/lora") or "/lora/" in path:
-            raise ValueError(f"{path}: PEFT adapters under a model axis > 1 "
-                             "are not sharded; merge them first "
-                             "(peft.lora.merge_lora)")
-        if path.endswith("/qw") and leaf.dtype != torch.int8:
-            kind = "int4" if leaf.dtype == torch.uint8 else "fp8"
-            raise ValueError(f"{path}: {kind} weights under a model axis "
-                             f"> 1 are not sharded yet: {LATER}")
+                         f"every kv head (kv_cache_style 'full'): {A88}")
 
 
 def check_trainable(cfg, params) -> None:
     """Raise ``ValueError`` for a config or tree that training does not
-    shard under a model axis of ``cfg.model_parallel`` > 1: MoE layers,
-    PEFT adapters, int8 / int4 / fp8 bases, blocks other than attention
-    (Mamba, RWKV-6), cross-attention and encoders, the gather attention
-    arm, and head counts or a d_ff the axis does not divide.  A data
-    axis alone (``model_parallel`` 1) refuses nothing."""
+    shard under a model axis of ``cfg.model_parallel`` > 1: blocks other
+    than attention (Mamba, RWKV-6), cross-attention and encoders (A8.6),
+    the gather attention arm, and head counts, widths or expert counts
+    the axis does not divide (A8.8).  MoE layers, PEFT adapters and
+    int8 / int4 / fp8 bases train.  A data axis alone
+    (``model_parallel`` 1) refuses nothing."""
     m = cfg.model_parallel
     if m == 1:
         return
     if cfg.attention is not None and _heads_refusal(cfg):
-        raise ValueError(f"{_heads_refusal(cfg)}: {LATER}")
-    if cfg.moe is not None:
-        raise ValueError(f"{cfg.name}: MoE layers under a model axis > 1 "
-                         f"are not sharded yet: {LATER}")
+        raise ValueError(_heads_refusal(cfg))
     if set(cfg.block_pattern) != {"attn"} or cfg.encoder is not None \
             or cfg.cross_attn_every:
         raise ValueError(f"{cfg.name}: training under a model axis > 1 "
                          "shards attention-only decoders; Mamba / RWKV-6 "
                          "blocks, cross-attention and encoders are not "
-                         f"sharded yet: {LATER}")
+                         f"sharded yet: {A86}")
     if cfg.tp_attn_impl != "kv_shard":
         raise ValueError(f"tp_attn_impl {cfg.tp_attn_impl!r}: training "
                          "under a model axis takes the kv_shard arm (the "
-                         "gather arm's all-gathers have no gradient)")
-    if cfg.d_ff % m:
-        raise ValueError(f"{cfg.name}: a model axis of {m} must divide "
-                         f"d_ff {cfg.d_ff}: {LATER}")
-    for path, leaf in _leaves(params):
-        if path.endswith("/lora") or "/lora/" in path:
-            raise ValueError(f"{path}: PEFT adapters under a model axis > 1 "
-                             f"are not sharded yet: {LATER}")
-        if path.endswith("/qw"):
-            kind = {torch.int8: "int8", torch.uint8: "int4"}.get(
-                leaf.dtype, "fp8")
-            raise ValueError(f"{path}: {kind} bases under a model axis > 1 "
-                             f"are not sharded yet: {LATER}")
+                         f"gather arm's all-gathers have no gradient): {A88}")
+    refusal = _widths_refusal(cfg) or _tree_refusal(cfg, params)
+    if refusal:
+        raise ValueError(f"{refusal}: {A88}")
 
 
 def shard_model(lm, params, mesh):
     """(this rank's LM, this rank's parameters) for an unsharded LM and
     its whole parameters (the same on every rank, e.g. from one seed):
     the config marked with the mesh's model axis, refused by
-    :func:`check_servable` where this slice does not serve it, and the
+    :func:`check_servable` where the port does not serve it, and the
     tree sliced by the placement rules."""
     from repro_torch.sharding.rules import make_param_specs, shard_params
     cfg = lm.cfg.with_(model_parallel=mesh.model)

@@ -51,8 +51,8 @@ import torch
 from repro_torch.obs.trace import PID_ENGINE
 from repro_torch.sched.policy import EDF
 from repro_torch.sched.scheduler import SchedEngine
-from repro_torch.serve.engine import (_SAME_DECISIONS, _gumbel_argmax,
-                                      _pow2_bucket, _scale_snapshot)
+from repro_torch.serve.engine import (_gumbel_argmax, _pow2_bucket,
+                                      _scale_snapshot, same_decisions)
 from repro_torch.serve.paged import commit_spec_cache
 from repro_torch.sharding.tp import shard_model
 from repro_torch.spec.controller import AdaptiveDraftController
@@ -153,8 +153,8 @@ class SpecEngine(SchedEngine):
             raise ValueError(f"unknown spec arm {spec!r}")
         super().__init__(lm, params, tier=tier, **kw)
         if self.mesh is not None and spec_slack_s is not None:
-            raise ValueError(_SAME_DECISIONS + "no spec_slack_s (it reads "
-                             "each rank's own wall clock)")
+            raise ValueError(same_decisions(
+                "no spec_slack_s (it reads each rank's own wall clock)"))
         self.spec_arm = spec
         self.k_max = int(draft_k)
         self.w_max = self.k_max + 1

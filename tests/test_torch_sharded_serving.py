@@ -164,32 +164,43 @@ def _build(cfg, params=None, cls=None, **kw):
 
 
 def test_refusals_under_a_model_axis():
-    """What this slice does not shard is refused with a message: heads
-    the axis does not divide (both counts named), MoE, fp8 and int4
-    weights, PEFT adapters, and the host decisions that read each rank's
-    own wall clock; none needs a process group to be refused."""
+    """What the port still does not shard under a model axis is refused
+    with a message naming its ROADMAP item, and none names A8.3 (MoE,
+    fp8 / int4 weights and PEFT adapters are served since): heads the
+    axis does not divide (both counts named) and MLA, expert counts and
+    widths it divides neither, an int4 K/m that splits a packed pair, a
+    narrowed KV-head style (A8.8), and the host decisions that read each
+    rank's own wall clock (A8.7); none needs a process group to be
+    refused."""
     import dataclasses
-    from repro_torch.peft.lora import apply_peft
     from repro_torch.quant import quantize_tree
     from repro_torch.resil import FaultInjector
+    from repro_torch.sharding.tp import check_servable
     cfg = get_smoke_config("qwen2-1.5b")
     odd = cfg.with_(attention=dataclasses.replace(
         cfg.attention, num_heads=6, num_kv_heads=3))
-    with pytest.raises(ValueError, match="6 query heads.*3 kv heads"):
+    with pytest.raises(ValueError, match="6 query heads.*3 kv heads.*A8.8"):
         _build(odd)
-    with pytest.raises(ValueError, match="MoE.*A8.3"):
-        _build(get_smoke_config("granite-moe-3b-a800m"))
-    params = LM(cfg, device="cpu").init(0)
-    for quant in ("fp8", "int4"):
-        with pytest.raises(ValueError, match=f"{quant} weights.*A8.3"):
-            _build(cfg, quantize_tree(params, quant=quant))
-    with pytest.raises(ValueError, match="PEFT adapters"):
-        _build(cfg, apply_peft(params, 0, method="lora"))
-    with pytest.raises(ValueError, match="same host decisions"):
+    mla = cfg.with_(model_parallel=2, attention=dataclasses.replace(
+        cfg.attention, kind="mla"))
+    with pytest.raises(ValueError, match="mla attention.*A8.8"):
+        check_servable(mla, {})
+    granite = get_smoke_config("granite-moe-3b-a800m")
+    narrow = granite.with_(moe=dataclasses.replace(granite.moe, d_ff=63))
+    with pytest.raises(ValueError,
+                       match="5 \\(padded\\) experts.*width 63.*A8.8"):
+        _build(narrow)
+    k6 = cfg.with_(d_ff=6)
+    with pytest.raises(ValueError, match="K/m even.*A8.8"):
+        _build(k6, quantize_tree(LM(k6, device="cpu").init(0),
+                                 quant="int4"))
+    with pytest.raises(ValueError, match="kv_cache_style 'mqa'.*A8.8"):
+        _build(cfg.with_(kv_cache_style="mqa"))
+    with pytest.raises(ValueError, match="same host decisions.*A8.7"):
         _build(cfg, injector=FaultInjector.from_spec("seed=0,fault=0.1"))
     for kw in ({"policy": "edf"}, {"admission_control": True},
                {"max_request_s": 1.0}):
-        with pytest.raises(ValueError, match="FCFS"):
+        with pytest.raises(ValueError, match="FCFS.*A8.7"):
             _build(cfg, cls=arms.SchedEngine, prefill_chunk=8, **kw)
     with pytest.raises(ValueError, match="model_parallel"):
         LM(cfg, device="cpu", mesh=_mesh2())

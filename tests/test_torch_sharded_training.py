@@ -356,10 +356,12 @@ def test_world_checkpoint_resumes_on_one_rank(runs):
 
 
 def test_check_trainable_refusals_name_a83():
-    """Under a model axis > 1 training refuses MoE, PEFT adapters,
-    int8 / int4 / fp8 bases, non-attention blocks and heads the axis does
-    not divide, each with its message; a data axis alone refuses
-    nothing."""
+    """Under a model axis > 1 training takes MoE layers, PEFT adapters
+    and int8 / int4 / fp8 bases (A8.3, done); what it still refuses names
+    its own ROADMAP item and not A8.3: non-attention blocks (A8.6), heads
+    the axis does not divide, the gather arm, expert counts and widths
+    it divides neither, an int4 K/m that splits a packed pair (A8.8); a
+    data axis alone refuses nothing."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.model import LM
     from repro_torch.peft.lora import apply_peft
@@ -370,21 +372,39 @@ def test_check_trainable_refusals_name_a83():
     params = LM(cfg, device="cpu").init(0)
     check_trainable(m2, params)
     check_trainable(cfg, apply_peft(params, 0, method="lora"))
-    with pytest.raises(ValueError, match="MoE.*A8.3"):
-        check_trainable(get_smoke_config("granite-moe-3b-a800m").with_(
-            model_parallel=2), {})
-    with pytest.raises(ValueError, match="PEFT adapters.*A8.3"):
-        check_trainable(m2, apply_peft(params, 0, method="lora"))
+    granite = get_smoke_config("granite-moe-3b-a800m")
+    check_trainable(granite.with_(model_parallel=2), {})
+    for method in ("lora", "dora", "rslora"):
+        check_trainable(m2, apply_peft(params, 0, method=method))
     for quant in ("int8", "int4", "fp8"):
-        with pytest.raises(ValueError, match=f"{quant} bases.*A8.3"):
-            check_trainable(m2, quantize_tree(params, quant=quant))
-    with pytest.raises(ValueError, match="A8.3"):
+        check_trainable(m2, quantize_tree(params, quant=quant))
+    check_trainable(m2, apply_peft(quantize_tree(params, quant="int4"), 0,
+                                   method="qlora"))
+    refused = []
+    with pytest.raises(ValueError, match="Mamba / RWKV-6.*A8.6") as e:
         check_trainable(get_smoke_config("rwkv6-1.6b").with_(
             model_parallel=2), {})
+    refused.append(e)
     odd = m2.with_(attention=dataclasses.replace(
         cfg.attention, num_heads=6, num_kv_heads=3))
-    with pytest.raises(ValueError, match="6 query heads.*3 kv heads"):
+    with pytest.raises(ValueError,
+                       match="6 query heads.*3 kv heads.*A8.8") as e:
         check_trainable(odd, {})
+    refused.append(e)
+    with pytest.raises(ValueError, match="gather.*A8.8") as e:
+        check_trainable(m2.with_(tp_attn_impl="gather"), {})
+    refused.append(e)
+    narrow = granite.with_(model_parallel=2, moe=dataclasses.replace(
+        granite.moe, d_ff=63))
+    with pytest.raises(ValueError, match="width 63.*A8.8") as e:
+        check_trainable(narrow, {})
+    refused.append(e)
+    k6 = cfg.with_(d_ff=6)
+    with pytest.raises(ValueError, match="K/m even.*A8.8") as e:
+        check_trainable(k6.with_(model_parallel=2), quantize_tree(
+            LM(k6, device="cpu").init(0), quant="int4"))
+    refused.append(e)
+    assert not [r for r in refused if "A8.3" in str(r.value)]
 
 
 def test_train_cli_model_parallel_trains(runs):

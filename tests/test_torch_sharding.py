@@ -130,6 +130,72 @@ def test_rules_match_jax_on_quantized_and_lora_trees(arch):
         _assert_same(apply_peft(params, 0, method=method))
 
 
+#: the trees whose placements A8.3 computes on: granite's 5 experts (the
+#: TP fallback over 2 and 4), granite's padded to 6 (EP over 2 with a
+#: never-routed pad expert), llama4-scout's 4 with a shared expert (EP),
+#: and qwen2's dense tree
+A83_TREES = ("granite", "granite_pad2", "llama4", "qwen2")
+A83_TRANSFORMS = ("none", "int8", "fp8", "int4", "lora", "dora", "rslora",
+                  "qlora")
+
+
+def _a83_config(get, tree: str):
+    import dataclasses
+    arch = {"granite": "granite-moe-3b-a800m",
+            "granite_pad2": "granite-moe-3b-a800m",
+            "llama4": "llama4-scout-17b-a16e", "qwen2": "qwen2-1.5b"}[tree]
+    cfg = get(arch)
+    if tree == "granite_pad2":
+        cfg = cfg.with_(moe=dataclasses.replace(cfg.moe,
+                                                expert_pad_multiple=2))
+    return cfg
+
+
+@pytest.mark.parametrize("transform", A83_TRANSFORMS)
+@pytest.mark.parametrize("tree", A83_TREES)
+def test_rules_match_jax_on_moe_quantized_and_adapted_trees(tree,
+                                                            transform):
+    """The trees A8.3 serves and trains under a model axis, quantized
+    (int8 / fp8 / int4) or with adapters (LoRA / DoRA / rsLoRA, and
+    QLoRA on an int4 base), the reference's (from ``eval_shape``) and the
+    port's, get JAX's placements at model 1 / 2 / 4 / 16 (FSDP off and
+    on): the expert stacks on E where the axis divides it, else on the
+    experts' hidden width; ``/lora/b`` on its columns under a row-split
+    ``wo`` / ``down`` too."""
+    jcfg = _a83_config(get_smoke_config, tree)
+    tcfg = _a83_config(tconfigs.get_smoke_config, tree)
+    quant = {"int8": "int8", "fp8": "fp8", "int4": "int4",
+             "qlora": "int4"}.get(transform)
+    method = transform if transform in ("lora", "dora", "rslora",
+                                        "qlora") else None
+
+    def jtree(k):
+        p = JLM(jcfg).init(k)
+        if quant:
+            p = j_quantize_tree(p, quant=quant)
+        return j_apply_peft(p, k, method=method) if method else p
+    jt = jax.eval_shape(jtree, jax.random.PRNGKey(0))
+    _assert_same(jt, jt)
+    params = TLM(tcfg, device="cpu").init(0)
+    if quant:
+        params = quantize_tree(params, quant=quant)
+    if method:
+        params = apply_peft(params, 0, method=method)
+    _assert_same(params)
+    if tcfg.moe is not None and transform == "none":
+        for m in (2, 4):
+            spec = rules.make_param_specs(params, FakeMesh(m))[
+                "layers"][0]["blk0"]["moe"]["gate_e"]
+            ep = tcfg.moe.padded_experts % m == 0
+            assert spec == (("model", None, None) if ep
+                            else (None, None, "model")), (tree, m)
+    if method and tree == "qwen2":
+        spec = rules.make_param_specs(params, FakeMesh(2))[
+            "layers"][0]["blk0"]["mlp"]["down"]
+        assert spec["lora"]["b"] == (None, "model")
+        assert spec["lora"]["a"] == (None, None)
+
+
 CTX16 = {"model_size": 16, "data_size": 16}
 
 
@@ -365,6 +431,52 @@ def test_chip_smoke_drives_the_train_tp_phase():
                    "max_memory_allocated", "step_collectives", "float32"):
         assert needle in body, needle
     assert "[24 train_tp]" in text
+
+
+def test_chip_smoke_drives_the_moe_quant_and_peft_phases():
+    """chip_smoke.py has the two A8.3 phases, run by its main after the
+    sharded-training phase: 25 serves granite at full width with EP, the
+    gather dispatch, float32 granite, qwen2 with fp8 (every B6 call held)
+    and int4 weights and with LoRA adapters on two spawned ranks against
+    one rank, after B1 / B3 / B6 are held and timed at the ranks' shapes;
+    26 trains LoRA / QLoRA llama3.2-1b and granite's first 8 layers and
+    holds float32 first-step gradients, the router's included."""
+    text = (ROOT / "chip_smoke.py").read_text()
+    tree = ast.parse(text)
+    funcs = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    main_calls = [ast.unparse(c.func) for c in ast.walk(funcs["main"])
+                  if isinstance(c, ast.Call)]
+    assert main_calls.index("phase_tp_moe") > main_calls.index(
+        "phase_train_tp")
+    assert main_calls.index("phase_train_tp_peft") > main_calls.index(
+        "phase_tp_moe")
+
+    def reached(root):
+        seen, todo = set(), [root]
+        while todo:
+            name = todo.pop()
+            seen.add(name)
+            todo += [ast.unparse(a) for c in ast.walk(funcs[name])
+                     if isinstance(c, ast.Call)
+                     for a in [c.func] + list(c.args)
+                     if ast.unparse(a) in funcs and ast.unparse(a) not in seen]
+        return "\n".join(ast.unparse(funcs[n]) for n in sorted(seen))
+    body = reached("phase_tp_moe")
+    for needle in ("spawn_world", "make_host_mesh", "PagedEngine(",
+                   "GRANITE", "moe_impl='gather'", "float32",
+                   "quantize_tree", "'fp8'", "'int4'", "apply_peft",
+                   "_fp8_calls_vs_plain", "fp8_decode_ref", "_reset_launches",
+                   "LOGIT_REL_L2", "max_memory_allocated", "paged_attention",
+                   "flash_attention", "fp8_matmul_decode", "bound(",
+                   "scaled_dot_product_attention", "decode_collectives"):
+        assert needle in body, needle
+    body = reached("phase_train_tp_peft")
+    for needle in ("spawn_world", "make_host_mesh", "Trainer(",
+                   "trainable_mask", "'lora'", "'qlora'", "first_layers",
+                   "_no_launches", "max_memory_allocated", "sharded_grads",
+                   "gather_leaf", "router", "TRAIN_TP_GRAD_REL_L2"):
+        assert needle in body, needle
+    assert "[25 tp_moe_quant]" in text and "[26 train_tp_peft]" in text
 
 
 def test_local_attention_and_refusals():
