@@ -163,8 +163,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
  19. moe       — MoE serving and deepseek-coder-33b at full depth: (a)
                  granite-moe-3b-a800m at full width and depth (32 layers,
                  40 experts top-8), bf16: (a1) SchedEngine, FCFS, prefix
-                 cache, phase 7's settings and requests; (a2) PagedEngine
-                 with int8 weights (attention linears; experts stay bf16)
+                 cache, phase 7's settings, 8 of its requests; (a2)
+                 PagedEngine with int8 weights (attention linears; experts stay bf16)
                  and int8 pools, 8 requests; (a3) the n-gram SpecEngine on
                  (a1)'s settings over repeated passages; (b)
                  llama4-scout-17b-a16e at full width and 8 layers through
@@ -175,7 +175,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
                  8 requests, after B1 / B2 / B3 / B4 / B5 / B6 / B7 are
                  held at its shapes and B1 / B3 / B4 / B5 timed there; (d)
                  moe_apply (both dispatches) of one granite and one llama4
-                 layer, 4,096 tokens, bf16, on the card vs the CPU, twice
+                 layer, 1,024 tokens, bf16, on the card vs the CPU, twice
                  bit-equal.  Every arm: full streams, no leaked page,
                  launches derived from the config and the dispatches, no
                  non-finite logit; tokens/s, TTFT p50, decode-step wall,
@@ -245,7 +245,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
                  bf16) by two ranks sharing the card over gloo, against
                  one rank in this process, phase 20's 8 x 512 batch and
                  seed: (a) `python -m repro_torch.launch.train
-                 --model-parallel 2` (its main), 3 steps: each loss within
+                 --model-parallel 2` (its main), 2 steps: each loss within
                  2e-2 relative of one rank's, each rank's step wall p50,
                  tokens/s, peak memory and collectives a step by kind, no
                  kernel launch; (b) a data axis of 2 with
@@ -253,7 +253,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
                  each rank 4 of the 8 rows, the same checks and figures;
                  (c) float32 at 2 layers of full width on both meshes:
                  every leaf's first-step gradient, gathered whole, within
-                 1e-4 relative L2 of one rank's and 3 steps' losses within
+                 1e-4 relative L2 of one rank's and 2 steps' losses within
                  1e-5
  25. tp_moe_quant — MoE, fp8 / int4 weights and LoRA adapters under a
                  model axis of 2 (two ranks sharing the card over gloo,
@@ -280,21 +280,44 @@ Phases (each prints one line; any failure raises and exits non-zero):
                  logits within 2e-2 of one rank's
  26. train_tp_peft — sharded fine-tuning by two ranks sharing the card:
                  (a) llama3.2-1b at full width and depth with LoRA and
-                 QLoRA (int4 base), phase 20's 8 x 512 batch, 3 steps
+                 QLoRA (int4 base), phase 20's 8 x 512 batch, 2 steps
                  each: losses within 2e-2 of one rank's, step wall p50,
                  peak, collectives a step by kind, no kernel launch; (b)
-                 granite-moe-3b-a800m's first 8 of 32 layers at full
+                 granite-moe-3b-a800m's first 4 of 32 layers at full
                  width, full fine-tune, the same; (c) float32 at 2
                  layers: every trainable leaf's first-step gradient (the
                  router's, LoRA's and QLoRA's adapters) gathered whole
                  within 1e-4 relative L2 of one rank's
+ 27. cells     — the dry-run's cells on the card: (a) llama3.2-1b at full
+                 width and depth on one rank, B3 at 1 x 32,768 causal and
+                 B1 at 16 slots x 32,768 (32 heads over 8, D 64) held and
+                 timed beside the plain version, SDPA and the bound; then
+                 launch.steps' train_4k (4 rows), prefill_32k (1 x 32,768)
+                 and decode_32k (16 x 32,768 over a contiguous and a paged
+                 cache) cells, 3 timed runs each: step wall, peak, B1 / B3
+                 / B7 launches = the layer count x the runs, logits equal
+                 to LM.prefill / LM.decode_step (and prefill's within
+                 2e-2 of the plain versions), the train loss equal to
+                 LM.loss, each cell's meta trace (run meanwhile in two host
+                 processes) beside it, the train and contiguous decode
+                 steps' FLOPs equal to FlopCounterMode's to the FLOP; (b)
+                 qwen2-1.5b at full width and depth, the decode cell with
+                 decode_attn_impl="cp" on four ranks sharing the card
+                 over gloo (8 x 32,768, 8,192 positions a rank), 3 steps:
+                 the collectives a step equal CP_PREDICTED, bf16 logits
+                 within 2x a one-rank witness of rounding, float32 at 2
+                 layers within 1e-5 of one rank's; (c) a GPipe pipeline of
+                 llama3.2-1b's 16 layers as 2 stages on two ranks, 4
+                 microbatches of 2 x 512: outputs within 2e-2 of one rank
+                 running the 16 layers, S + M - 1 permutes of a
+                 microbatch and one sum
 B7 takes every RMSNorm of the qwen2-1.5b drives: 57 launches a forward
 (phases 5, 7, 9, 10), every one on its warp step.  Every B1 / B2 / B3
 launch of those drives (bf16 activations), every B4 and B5 launch of
 phase 9 and every B6 launch of phase 10 must take the tensor-core step:
 their tensor-core launch counts are printed beside the launch counts and
 must equal them.  Launch counts are
-zeroed just before each drive (phases 5, 7, 9, 10, 13-26) and read just
+zeroed just before each drive (phases 5, 7, 9, 10, 13-27) and read just
 after it; peak memory is read for the set-up and, restarted, for the
 drive.  Then one JSON
 line of kernel numbers, and last the result line ``{"ok": true,
@@ -478,18 +501,21 @@ RTOL = {"bfloat16": 1.6e-2, "float32": 1e-5}
 ATOL = {"bfloat16": 1e-3, "float32": 1e-5}
 
 
-def check_close(tag: str, out, ref, v_rms: float) -> str:
+def check_close(tag: str, out, ref, v_rms: float, kind=None) -> str:
     """Hold ``out`` to ``ref`` element by element; raise on any element
-    past its limit.  Returns the case's line: the max error, the limit
-    used and the worst element's share of its limit."""
-    return check_close_share(tag, out, ref, v_rms)[0]
+    past its limit (``kind``'s, by default ``ref``'s dtype's).  Returns
+    the case's line: the max error, the limit used and the worst
+    element's share of its limit."""
+    return check_close_share(tag, out, ref, v_rms, kind)[0]
 
 
-def check_close_share(tag: str, out, ref, v_rms: float) -> tuple:
+def check_close_share(tag: str, out, ref, v_rms: float,
+                      kind=None) -> tuple:
     """``check_close``'s line and the worst element's share of its
     limit."""
     torch = _torch()
-    kind = "float32" if ref.dtype == torch.float32 else "bfloat16"
+    if kind is None:
+        kind = "float32" if ref.dtype == torch.float32 else "bfloat16"
     atol, rtol = ATOL[kind] * v_rms, RTOL[kind]
     o, r = out.float(), ref.float()
     if out.shape != ref.shape or not torch.isfinite(o).all():
@@ -3546,7 +3572,7 @@ def phase_cost(records: list) -> dict:
     return out
 
 
-SEARCH_REQUESTS = 4         # phase 18 (b), each arm: the first warms up
+SEARCH_REQUESTS = 3         # phase 18 (b), each arm: the first warms up
 SEARCH_PROMPT, SEARCH_GEN = 512, 128    # the cost model's protocol
 #: the budget of the reference's tests/test_core_aellm.py::_small_tuner
 SEARCH_BUDGET = dict(n0=48, refine_iters=1, k_per_iter=8, pop_size=24,
@@ -3744,8 +3770,8 @@ def phase_search(records: list, calibration: dict) -> dict:
     (``recommend_efficient``), c*'s and Default's objectives and the
     Efficiency Score, then recalibrates the fitted tuner with phase 17's
     ``CalibratedCostModel`` and prints the shifts.  (b) Default and c*
-    served at full width, 4 requests of 512 prompt tokens and 128 new
-    tokens one after another (the median of the last 3): measured request
+    served at full width, 3 requests of 512 prompt tokens and 128 new
+    tokens one after another (the median of the last 2): measured request
     latency and TTFT, the peak device memory after the weights are made,
     and ``predict(..., layout="paged")``'s latency and memory, uncalibrated
     and calibrated.  Each arm is ``LM.init`` of
@@ -3830,7 +3856,8 @@ def phase_search(records: list, calibration: dict) -> dict:
           f"{score:.3f} | recalibrated from phase 17: lat shift "
           f"{shifts['lat']:+.4f}, energy shift {shifts['energy']:+.4f} "
           f"(log) | served {SEARCH_REQUESTS} x {SEARCH_PROMPT} + "
-          f"{SEARCH_GEN}, median of the last 3: {arm('default')}; "
+          f"{SEARCH_GEN}, median of the last {SEARCH_REQUESTS - 1}: "
+          f"{arm('default')}; "
           f"{arm('cstar')} | Default / c* latency: measured "
           f"{ratio['latency_measured']:.3f}, predicted "
           f"{ratio['latency_analytic']:.3f}, calibrated "
@@ -3845,8 +3872,8 @@ SCOUT = "llama4-scout-17b-a16e"
 DEEPSEEK = "deepseek-coder-33b"
 SCOUT_LAYERS = 8            # phase 19 (b): 8 of llama4-scout's 48 layers
 SCOUT_REQUESTS = 4          # two waves on its 2 slots
-MOE_Q_REQUESTS = 8          # phase 19 (a2), (a3) and (c)
-MOE_APPLY_TOKENS = 4096     # phase 19 (d)
+MOE_Q_REQUESTS = 8          # phase 19 (a1), (a2), (a3) and (c)
+MOE_APPLY_TOKENS = 1024     # phase 19 (d): two routing groups of 512
 #: deepseek-coder-33b's linears (K, N): wq / wo, wk / wv, gate / up, down
 DEEPSEEK_QMM = [(7168, 7168), (7168, 1024), (7168, 19200), (19200, 7168)]
 #: moe_apply on the card vs the CPU: relative L2 of the outputs, and the
@@ -4014,7 +4041,8 @@ def _moe_granite() -> dict:
               page_size=256, prefill_chunk=512, decode_block=8, seed=SEED)
     out = {}
 
-    # (a1) phase 7's drive: half the prompts behind one system prompt
+    # (a1) phase 7's drive at half its requests: half the prompts behind
+    # one system prompt
     tracer = Tracer(enabled=True)
     eng = SchedEngine(lm, params, tracer=tracer, **kw)
     sys_prompt = rng.integers(0, vocab, SYS_PROMPT)
@@ -4023,14 +4051,14 @@ def _moe_granite() -> dict:
     eng.run_to_completion()                  # warms the prefix cache
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    plens = rng.integers(600, 3001, SCHED_REQUESTS)
+    plens = rng.integers(600, 3001, MOE_Q_REQUESTS)
     prompts = [np.concatenate([sys_prompt, rng.integers(
         0, vocab, max(int(n), SYS_PROMPT + 1) - SYS_PROMPT)])
         if i % 2 == 0 else rng.integers(0, vocab, int(n))
         for i, n in enumerate(plens)]
     hit0 = eng.stats.prefix_hit_tokens
     out["a1_sched"] = _moe_paged_drive(
-        eng, tracer, prompts, rng.integers(32, 65, SCHED_REQUESTS),
+        eng, tracer, prompts, rng.integers(32, 65, MOE_Q_REQUESTS),
         "moe granite sched")
     out["a1_sched"]["prefix_hit_tokens"] = eng.stats.prefix_hit_tokens - hit0
     if out["a1_sched"]["prefix_hit_tokens"] <= 0:
@@ -4343,7 +4371,7 @@ def _moe_deepseek(records: list) -> dict:
 
 def _moe_apply_card_vs_cpu() -> dict:
     """(d) ``moe_apply`` of one granite and one llama4 layer (random
-    weights from the seed), 4,096 tokens, bf16, both dispatches: the card
+    weights from the seed), 1,024 tokens, bf16, both dispatches: the card
     against the same call on the CPU (relative L2, dropped fraction), and
     two card calls bit-equal."""
     torch = _torch()
@@ -4424,7 +4452,8 @@ def phase_moe(records: list) -> dict:
           f"{dd['build_s']:.1f}s), bf16 pools: "
           + _moe_line("paged", dd) + " | kernel times at its shapes: "
           + json.dumps(dd["kernels"]["times"]))
-    print("[19 moe] (d) moe_apply card vs CPU, 4,096 tokens bf16: "
+    print(f"[19 moe] (d) moe_apply card vs CPU, {MOE_APPLY_TOKENS:,} "
+          "tokens bf16: "
           + "; ".join(f"{k}: rel L2 {v['rel_l2']:.3e}, dropped "
                       f"{v['dropped']:.5f} / CPU {v['dropped_cpu']:.5f}, "
                       f"two card calls bit-equal (CPU {v['cpu_s']:.1f}s)"
@@ -4437,10 +4466,10 @@ def phase_moe(records: list) -> dict:
 # phase 20: training
 
 TRAIN_ARCH = "llama3.2-1b"     # the reference's default --arch for training
-TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 20, 8, 512
-TRAIN_CKPT_EVERY = 10
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 10, 8, 512
+TRAIN_CKPT_EVERY = 5
 RESUME_STEPS = 5               # (d): steps after the resume
-PEFT_STEPS, PEFT_RANK = 10, 16
+PEFT_STEPS, PEFT_RANK = 5, 16
 PEFT_METHODS = ("lora", "qlora", "dora")
 TRAIN_GRAD_REL_L2 = 1e-4       # (b): smoke configs, card vs CPU, float32
 TRAIN_GRAD_B, TRAIN_GRAD_S = 2, 128
@@ -4466,7 +4495,7 @@ def _no_launches(tag: str) -> dict:
 
 def _train_cli(tmp: Path) -> dict:
     """(a) ``repro_torch.launch.train.main`` for llama3.2-1b at full width
-    and depth, bf16, 20 steps of 8 x 512 tokens, checkpoints every 10."""
+    and depth, bf16, 10 steps of 8 x 512 tokens, checkpoints every 5."""
     torch = _torch()
     from repro_torch.launch import train as train_cli
     hist = tmp / "a_history.json"
@@ -5830,7 +5859,7 @@ def phase_jamba(records: list, smi: str) -> dict:
 TP_RANKS = 2
 TP_HEADS = (6, 1, 128)      # qwen2-1.5b's heads on one of two ranks
 TP_F32_LAYERS = 4           # (b): phase 16's float32 depth
-TP_F32_REQUESTS = 8
+TP_F32_REQUESTS = 4
 TP_SCHED_REQUESTS = 4       # (c): half behind a shared prefix
 TP_Q_REQUESTS = 4           # (d), 16 new tokens each
 TP_Q_NEW = 16
@@ -6393,7 +6422,7 @@ def phase_tp(records: list, e2e: dict, smi: str) -> dict:
 # phase 24: sharded training, two ranks sharing the card
 
 TRAIN_TP_RANKS = 2
-TRAIN_TP_STEPS = 3
+TRAIN_TP_STEPS = 2
 TRAIN_TP_LR, TRAIN_TP_WARMUP = 3e-4, 20   # launch.train's defaults
 TRAIN_TP_LOSS_RTOL = 2e-2      # (a), (b): bf16, each step vs one rank's
 TRAIN_TP_F32_LAYERS = 2        # (c): float32 at full width
@@ -6697,7 +6726,7 @@ TPM_HEADS = (12, 4, 64)      # granite's heads on one of two ranks
 #: gate / up and the row-split down (an fp32 partial, no bias), M 8
 TPM_B6 = ((1536, 4480, "bfloat16"), (4480, 1536, "float32"))
 TPM_B6_M = 8
-TPM_REQUESTS = 8             # (a): phase 19's engine, 64-512-token prompts
+TPM_REQUESTS = 4             # (a): phase 19's engine, 64-512-token prompts
 TPM_GATHER_STEPS = 2         # (b)
 TPM_F32_LAYERS = 2           # (c)
 TPM_F32_REL_L2 = 1e-3        # (a): float32 logits, 2 ranks vs one, a row
@@ -7212,9 +7241,9 @@ def phase_tp_moe(records: list, smi: str) -> dict:
 # phase 26: sharded fine-tuning with adapters, quantized bases and MoE
 
 TTP_RANKS = 2
-TTP_STEPS = 3
+TTP_STEPS = 2
 TTP_PEFT = ("lora", "qlora")       # (a), rank PEFT_RANK
-TTP_GRANITE_LAYERS = 8             # (b): the first 8 of granite's 32
+TTP_GRANITE_LAYERS = 4             # (b): the first 4 of granite's 32
 TTP_F32_LAYERS = 2                 # (c)
 #: (c): a leaf's gradient is held within the larger of
 #: TRAIN_TP_GRAD_REL_L2 and this many times the distance a change of
@@ -7370,7 +7399,7 @@ def _ttp_f32_grads(arch: str, method: str, mesh) -> dict:
 
 def _ttp_rank(rank: int) -> dict:
     """One of the two ranks of phase 26, on the card the parent holds:
-    (a) llama3.2-1b LoRA and QLoRA, (b) granite's first 8 layers, full
+    (a) llama3.2-1b LoRA and QLoRA, (b) granite's first 4 layers, full
     fine-tune, under a model axis of 2; (c) float32 gradients."""
     torch = _torch()
     from repro_torch.launch.mesh import make_host_mesh
@@ -7394,7 +7423,7 @@ def _ttp_rank(rank: int) -> dict:
 
 
 def phase_train_tp_peft(smi: str) -> dict:
-    """Phase 26: LoRA / QLoRA on llama3.2-1b and granite's first 8 layers
+    """Phase 26: LoRA / QLoRA on llama3.2-1b and granite's first 4 layers
     trained by two ranks that share the card over gloo, against one rank
     in this process."""
     torch = _torch()
@@ -7458,6 +7487,815 @@ def phase_train_tp_peft(smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 27: the dry-run cells on the card, context-parallel decode, GPipe
+
+
+CELL_REPS = 3                   # (a): timed runs of each cell
+CELL_TRAIN_REPS = 2             # (a): timed steps of the train cell
+CELL_TRAIN_SEQ = 4096           # train_4k's rows
+CELL_TRAIN_ROWS = 4             # (a): the rows train_4k runs (time)
+CELL_MEM_SHARE = 0.9            # (a): of the card's memory for the rows
+CELL_PREFILL = (1, 32_768)      # prefill_32k cut from 32 rows to 1
+CELL_DECODE = (16, 32_768)      # decode_32k cut from 128 rows to 16
+CELL_ATTN_BLOCK = 4096          # the dry-run's chunk at 32,768 (S / 8)
+CELL_LOSS_RTOL = 1e-5
+CP_ARCH, CP_RANKS = "qwen2-1.5b", 4
+CP_BATCH, CP_SEQ, CP_STEPS = 8, 32_768, 3
+#: (b): each row's first position, on and around the 4 shards' edges
+CP_POS = (8191, 8192, 16383, 16384, 20000, 24575, 24576, 32000)
+CP_F32_LAYERS, CP_F32_REL_L2 = 2, 1e-5
+#: (b): a rank's collectives a decode step, predicted in PERF.md §6 before
+#: the first run: 28 layers x (q / k / v gathers; the combine's max, l
+#: and o; wo and down) + the embedding's sum + the logits' gather
+CP_PREDICTED = {"all-reduce/model": (141, 4_199_424.0),
+                "all-gather/model": (85, 1_444_864.0)}
+PIPE_RANKS, PIPE_MICRO, PIPE_MB = 2, 4, (2, 512)
+
+
+def _cell_walls(fn, runs: int) -> tuple:
+    """``fn()`` ``runs`` times: (its last output, each run's wall in ms
+    from CUDA events)."""
+    torch = _torch()
+    walls, out = [], None
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        walls.append(start.elapsed_time(end))
+    return out, walls
+
+
+def _cell_flops(fn) -> tuple:
+    """(output, FLOPs FlopCounterMode counts) of one real run of ``fn``."""
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as fc:
+        out = fn()
+    _torch().cuda.synchronize()
+    return out, fc.get_total_flops()
+
+
+def _cell_trace(cfg, shape) -> dict:
+    """The meta trace of ``cfg``'s cell at ``shape`` on one rank's
+    abstract mesh (a world of one), computed on the host."""
+    from repro_torch.launch.mesh import abstract_mesh
+    from repro_torch.launch.roofline import model_flops_for
+    from repro_torch.launch.steps import build_cell
+    t0 = time.perf_counter()
+    terms = build_cell(cfg, shape, abstract_mesh({})).trace(
+        model_flops_for(cfg, shape))
+    return {"flops": terms.flops, "bytes": terms.hbm_bytes,
+            "bottleneck": terms.bottleneck, "t_max_ms": terms.t_max * 1e3,
+            "t_compute_ms": terms.t_compute * 1e3,
+            "t_memory_ms": terms.t_memory * 1e3,
+            "trace_s": time.perf_counter() - t0}
+
+
+def _cell_line(tag: str, r: dict) -> str:
+    t = r["trace"]
+    return (f"{tag}: wall median {r['wall_ms']:.2f} ms ({r['walls']}), "
+            f"peak {r['peak_gb']:.2f} GB, launches {r['launches']} "
+            f"(formula {r['want_launches']}); meta trace {t['flops']:.4g} "
+            f"FLOPs, {t['bytes']:.4g} B, {t['bottleneck']}-bound, t_max "
+            f"{t['t_max_ms']:.3f} ms = {t['t_max_ms'] / r['wall_ms']:.3f} "
+            f"of the wall")
+
+
+def _cell_launches(l_count: int, runs: int, b1: bool, b3: bool,
+                   b7: bool) -> dict:
+    return {"paged_attention": l_count * runs if b1 else 0,
+            "flash_attention": l_count * runs if b3 else 0,
+            "rmsnorm": (2 * l_count + 1) * runs if b7 else 0}
+
+
+def _cell_take(want: dict, tag: str) -> dict:
+    got = {k: v for k, v in _read_launches().items() if k in want}
+    if got != want:
+        raise AssertionError(f"(a) {tag}: launches {got} != {want}")
+    return got
+
+
+def _cells_train(cfg, mesh, params0, traces) -> dict:
+    """(a) train_4k: a 1-row probe step's peak sizes the rows; then the
+    cell at those rows: its loss against LM.loss, FlopCounterMode over
+    one real step against the meta trace, and CELL_REPS timed steps."""
+    torch = _torch()
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.optim.adamw import init_adamw
+    g = torch.Generator(device="cuda").manual_seed(SEED + 27)
+
+    def batch(rows):
+        toks = torch.randint(0, cfg.vocab_size, (rows, CELL_TRAIN_SEQ + 1),
+                             generator=g, device="cuda")
+        return {"tokens": toks[:, :-1].int(), "labels": toks[:, 1:].int(),
+                "mask": torch.ones((rows, CELL_TRAIN_SEQ), device="cuda")}
+
+    def cell_at(rows):
+        return build_cell(cfg, ShapeConfig("train_4k", CELL_TRAIN_SEQ, rows,
+                                           "train"), mesh)
+
+    params = _clone_tree(params0)
+    opt = init_adamw(params)
+    gc.collect()
+    torch.cuda.synchronize()
+    static = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    probe = CELL_TRAIN_ROWS // 2       # a step's peak at half the rows
+    cell_at(probe).fn(params, opt, batch(probe))
+    torch.cuda.synchronize()
+    p_half = torch.cuda.max_memory_allocated() / 1e9
+    rows = CELL_TRAIN_ROWS
+    cell = cell_at(rows)
+    b = batch(rows)
+    loss_ref = float(cell.lm.loss(params, b)[0])
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    (_, _, metrics), flops_real = _cell_flops(
+        lambda: cell.fn(params, opt, b))
+    loss = float(metrics["loss"])
+    _, walls = _cell_walls(lambda: cell.fn(params, opt, b), CELL_TRAIN_REPS)
+    want = _cell_launches(cfg.num_layers, CELL_TRAIN_REPS + 1, False, False,
+                          False)
+    launches = _cell_take(want, "train_4k")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # the rows the card holds, from the peaks at half the rows and at all
+    per_row = (peak - p_half) / (rows - probe)
+    fixed = peak - rows * per_row      # weights, state, gradients
+    total = torch.cuda.get_device_properties(0).total_memory / 1e9
+    holds = int((CELL_MEM_SHARE * total - fixed) // per_row) \
+        if per_row > 0.05 else None
+    if not abs(loss - loss_ref) <= CELL_LOSS_RTOL * abs(loss_ref):
+        raise AssertionError(f"(a) train_4k loss {loss} vs LM.loss "
+                             f"{loss_ref}")
+    trace = traces["train"].result()
+    if trace["flops"] != flops_real:
+        raise AssertionError(f"(a) train_4k: meta trace {trace['flops']} "
+                             f"FLOPs != the real run's {flops_real}")
+    del params, opt, cell
+    torch.cuda.empty_cache()
+    return {"rows": rows, "holds_rows": holds, "per_row_gb": per_row,
+            "fixed_gb": fixed, "static_gb": static,
+            "loss": loss, "loss_ref": loss_ref, "flops_real": flops_real,
+            "wall_ms": statistics.median(walls), "walls": walls,
+            "peak_gb": peak, "launches": launches, "want_launches": want,
+            "trace": trace}
+
+
+def _clone_tree(tree):
+    from repro_torch.tree import tree_map
+    torch = _torch()
+    return tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor)
+                    else t, tree)
+
+
+def _cells_prefill(cfg, mesh, params, traces) -> dict:
+    """(a) prefill_32k at 1 x 32,768: B3 and B7 on every layer; logits
+    against the plain versions (chunked attention, plain RMSNorm)."""
+    torch = _torch()
+    import numpy as np
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.steps import build_cell
+    b, s = CELL_PREFILL
+    shape = ShapeConfig("prefill_32k", s, b, "prefill")
+    cfg = _cells_prefill_config(cfg)
+    cell = build_cell(cfg, shape, mesh)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 28)
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                         device="cuda").int()
+    cache = cell.lm.init_cache(b, s)
+    _setup_peak_gb()
+    _reset_launches()
+    (logits, _), walls = _cell_walls(lambda: cell.fn(params, toks, cache),
+                                     CELL_REPS)
+    want = _cell_launches(cfg.num_layers, CELL_REPS, False, True, True)
+    launches = _cell_take(want, "prefill_32k")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    direct, _ = cell.lm.prefill(params, toks, cache)
+    err_direct = _rel_l2_all(logits.float().cpu().numpy(),
+                             direct.float().cpu().numpy())
+    if not err_direct <= LOGIT_REL_L2:
+        raise AssertionError(f"(a) prefill_32k cell vs LM.prefill: "
+                             f"{err_direct:.3e}")
+    plain, _ = _swap_plain(lambda: cell.lm.prefill(params, toks, cache),
+                           ("chunked", "norm"))
+    err = _rel_l2_all(logits.float().cpu().numpy(),
+                      plain.float().cpu().numpy())
+    if not (np.isfinite(logits.float().cpu().numpy()).all()
+            and err <= LOGIT_REL_L2):
+        raise AssertionError(f"(a) prefill_32k logits vs plain: {err:.3e}")
+    del cache
+    torch.cuda.empty_cache()
+    return {"wall_ms": statistics.median(walls), "walls": walls,
+            "peak_gb": peak, "launches": launches, "want_launches": want,
+            "logits_rel_l2_vs_prefill": err_direct,
+            "logits_rel_l2_vs_plain": err,
+            "trace": traces["prefill"].result()}
+
+
+def _cells_decode(cfg, mesh, params, traces) -> dict:
+    """(a) decode_32k at 16 x 32,768 over a random contiguous cache (the
+    plain decode, B7 on every norm) and the same contents in page pools
+    (B1): logits against the plain RMSNorm and against each other; the
+    contiguous cell's FLOPs against its meta trace."""
+    torch = _torch()
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.steps import build_cell
+    b, s = CELL_DECODE
+    shape = ShapeConfig("decode_32k", s, b, "decode")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 29)
+    tok = torch.randint(0, cfg.vocab_size, (b,), generator=g,
+                        device="cuda").int()
+    pos = (s - 1 - 997 * torch.arange(b, device="cuda")).int()
+    out = {}
+    cell = build_cell(cfg, shape, mesh)
+    cache = cell.lm.init_cache(b, s)
+    for grp in cache:
+        for node in grp.values():
+            for t in node["kv"].values():
+                t.copy_(torch.randn(t.shape, generator=g, device="cuda"))
+    _setup_peak_gb()
+    _reset_launches()
+    (logits_c, _), flops_real = _cell_flops(
+        lambda: cell.fn(params, tok, cache, pos))
+    _, walls = _cell_walls(lambda: cell.fn(params, tok, cache, pos),
+                           CELL_REPS)
+    want = _cell_launches(cfg.num_layers, CELL_REPS + 1, False, False, True)
+    launches = _cell_take(want, "decode_32k contiguous")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    direct, _ = cell.lm.decode_step(params, tok, cache, pos)
+    err_direct = _rel_l2_all(logits_c.float().cpu().numpy(),
+                             direct.float().cpu().numpy())
+    if not err_direct <= LOGIT_REL_L2:
+        raise AssertionError(f"(a) decode_32k cell vs LM.decode_step: "
+                             f"{err_direct:.3e}")
+    plain, _ = _swap_plain(lambda: cell.lm.decode_step(params, tok, cache,
+                                                       pos), ("norm",))
+    err = _rel_l2_all(logits_c.float().cpu().numpy(),
+                      plain.float().cpu().numpy())
+    if not err <= LOGIT_REL_L2:
+        raise AssertionError(f"(a) decode_32k contiguous logits vs plain "
+                             f"RMSNorm: {err:.3e}")
+    trace = traces["decode"].result()
+    if trace["flops"] != flops_real:
+        raise AssertionError(f"(a) decode_32k: meta trace {trace['flops']} "
+                             f"FLOPs != the real run's {flops_real}")
+    out["contiguous"] = {"wall_ms": statistics.median(walls),
+                         "walls": walls, "peak_gb": peak,
+                         "launches": launches, "want_launches": want,
+                         "flops_real": flops_real,
+                         "logits_rel_l2_vs_decode_step": err_direct,
+                         "logits_rel_l2_vs_plain": err, "trace": trace}
+    # the same contents in page pools: slot i's pages 1 + 128 i + j
+    pcfg = cfg.with_(decode_attn_impl="paged_pallas")
+    pcell = build_cell(pcfg, shape, mesh)
+    page = 256
+    pps = s // page
+    pcache = pcell.lm.init_paged_cache(b, b * pps + 1, pps, page_size=page)
+    bt = pcache[0]["blk0"]["kv"]["block_table"]
+    bt.copy_((1 + torch.arange(b * pps, device="cuda")).view(b, pps))
+    for grp, pgrp in zip(cache, pcache):
+        for name, node in grp.items():
+            for k in ("k", "v"):
+                pages = pgrp[name]["kv"][f"{k}_pages"]
+                pages[1:].view(b, pps, page, *pages.shape[2:]).copy_(
+                    node["kv"][k].view(b, pps, page, *pages.shape[2:]))
+    del cache
+    torch.cuda.empty_cache()
+    _setup_peak_gb()
+    _reset_launches()
+    (logits_p, _), walls = _cell_walls(
+        lambda: pcell.fn(params, tok, pcache, pos), CELL_REPS)
+    want = _cell_launches(cfg.num_layers, CELL_REPS, True, False, True)
+    launches = _cell_take(want, "decode_32k paged")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    direct, _ = pcell.lm.decode_step(params, tok, pcache, pos)
+    err = _rel_l2_all(logits_p.float().cpu().numpy(),
+                      direct.float().cpu().numpy())
+    if not err <= LOGIT_REL_L2:
+        raise AssertionError(f"(a) decode_32k paged cell vs "
+                             f"LM.decode_step: {err:.3e}")
+    plain, _ = _swap_plain(lambda: pcell.lm.decode_step(params, tok, pcache,
+                                                        pos),
+                           ("attention", "norm"))
+    lp = logits_p.float().cpu().numpy()
+    out["paged"] = {"wall_ms": statistics.median(walls), "walls": walls,
+                    "peak_gb": peak, "launches": launches,
+                    "want_launches": want,
+                    "logits_rel_l2_vs_decode_step": err,
+                    # bf16 over 16 random layers: B1 / B7 against their
+                    # plain versions, and against the contiguous cell's
+                    # attention, recorded (each B1 call is held element by
+                    # element at this shape in _cells_kernel_rows)
+                    "logits_rel_l2_vs_plain": _rel_l2_all(
+                        lp, plain.float().cpu().numpy()),
+                    "logits_rel_l2_vs_contiguous": _rel_l2_all(
+                        lp, logits_c.float().cpu().numpy()),
+                    "trace": traces["paged"].result()}
+    del pcache
+    torch.cuda.empty_cache()
+    return out
+
+
+def _cells_kernel_rows(records: list) -> dict:
+    """B3 at 1 x 32,768 causal and B1 at 16 slots x 32,768, llama3.2-1b's
+    heads (32 over 8, D 64): held element by element (B3 against the
+    chunked plain version: the plain version's 32,768^2 scores would take
+    137 GB), timed beside the plain version, SDPA and the bound."""
+    torch = _torch()
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.paged_attention import ops as pops
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    device = torch.device("cuda")
+    g = torch.Generator(device=device).manual_seed(SEED + 30)
+    h, kh, d = 32, 8, 64
+    b, s = CELL_PREFILL
+    q, k, v = _flash_inputs(b, s, torch.bfloat16, g, device, h, kh, d)
+    out = fops.flash_attention(q, k, v)
+    chunked = _chunked_plain()
+    # the plain side in fp32 on the bf16 operands, as attention_ref holds
+    # B3 in phase 4 (a bf16-rounded plain output would add its own ulp)
+    ref = chunked(q.float(), k.float(), v.float())
+    torch.cuda.synchronize()
+    held = [check_close(f"B3 {b} x {s} H{h}/{kh} D{d} causal vs chunked "
+                        "(fp32, bf16 bar)", out, ref,
+                        v.float().pow(2).mean().sqrt().item(), "bfloat16")]
+    nbytes = 2 * (2 * q.numel() + 2 * k.numel())
+    flops = 4.0 * b * h * d * (s * (s + 1) // 2)
+    copies = [(q, k, v), _flash_inputs(b, s, torch.bfloat16, g, device, h,
+                                       kh, d)]
+    rows = {"3c": {
+        "shape": f"{b} x {s}, H{h}/{kh} D{d}, causal",
+        "max_abs_err": (out.float() - ref.float()).abs().max().item(),
+        "ms": time_ms(lambda a, b_, c: fops.flash_attention(a, b_, c),
+                      copies, reps=5, rounds=3),
+        "plain_ms": time_ms(chunked, copies, reps=1, rounds=3),
+        "plain": "chunked attention (blocks of 1,024)",
+        "library_ms": time_ms(lambda a, b_, c: F.scaled_dot_product_attention(
+            a.transpose(1, 2), b_.transpose(1, 2), c.transpose(1, 2),
+            is_causal=True, enable_gqa=True), copies, reps=5, rounds=3),
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(nbytes, flops, "bfloat16")))}}
+    del copies, q, k, v, out, ref
+    bs, s = CELL_DECODE
+    lengths = [s] * bs
+    args = _paged_inputs("bfloat16", g, device, lengths, h, kh, d,
+                         pps=s // 256)
+    out = pops.paged_attention(*args)
+    ref = paged_attention_ref(*args)
+    torch.cuda.synchronize()
+    held.append(check_close(f"B1 {bs} slots x {s} H{h}/{kh} D{d}", out, ref,
+                            args[2].float().pow(2).mean().sqrt().item()))
+    nbytes, flops = paged_bytes_flops(args[0], args[1], args[3], args[4],
+                                      args[5])
+    copies = [args, _paged_inputs("bfloat16", g, device, lengths, h, kh, d,
+                                  pps=s // 256)]
+    q_, kp, vp, bt, _, _, _ = args
+    kc = kp[bt.long()].reshape(bs, s, kh, d).transpose(1, 2).contiguous()
+    vc = vp[bt.long()].reshape(bs, s, kh, d).transpose(1, 2).contiguous()
+    rows["1c"] = {
+        "shape": f"{bs} slots x {s}, H{h}/{kh} D{d}",
+        "max_abs_err": (out.float() - ref.float()).abs().max().item(),
+        "ms": time_ms(pops.paged_attention, copies, reps=10, rounds=3),
+        "plain_ms": time_ms(paged_attention_ref, copies, reps=2, rounds=3),
+        "library_ms": time_ms(
+            lambda qq, kk, vv: F.scaled_dot_product_attention(
+                qq, kk, vv, enable_gqa=True),
+            [(q_[:, :, None, :], kc, vc)], reps=10, rounds=3),
+        "library": "SDPA over the gathered context",
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(nbytes, flops, "bfloat16")))}
+    del copies, args, kc, vc
+    torch.cuda.empty_cache()
+    for rec in records:
+        if rec["name"] == "flash_attention":
+            rec["cells_prefill_32k"] = rows["3c"]
+        if rec["name"] == "paged_attention":
+            rec["cells_decode_32k"] = rows["1c"]
+    return {"rows": rows, "held": held}
+
+
+def _cells_prefill_config(cfg):
+    return cfg.with_(attn_q_block=CELL_ATTN_BLOCK,
+                     attn_kv_block=CELL_ATTN_BLOCK)
+
+
+def _cells_traces(pool, cfg) -> dict:
+    """The meta traces of (a)'s cells, submitted to ``pool`` (host
+    processes: they run while the card runs the cells)."""
+    from repro_torch.configs import ShapeConfig
+    dec = ShapeConfig("decode_32k", CELL_DECODE[1], CELL_DECODE[0], "decode")
+    jobs = {"train": (cfg, ShapeConfig("train_4k", CELL_TRAIN_SEQ,
+                                       CELL_TRAIN_ROWS, "train")),
+            "prefill": (_cells_prefill_config(cfg),
+                        ShapeConfig("prefill_32k", CELL_PREFILL[1],
+                                    CELL_PREFILL[0], "prefill")),
+            "decode": (cfg, dec),
+            "paged": (cfg.with_(decode_attn_impl="paged_pallas"), dec)}
+    return {k: pool.submit(_cell_trace, *a) for k, a in jobs.items()}
+
+
+def _cells_one_rank(records: list, smi: str) -> dict:
+    """27 (a): llama3.2-1b's dry-run cells on one rank at full width and
+    depth; their meta traces run meanwhile in two host processes."""
+    torch = _torch()
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import LM
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    with ProcessPoolExecutor(2, mp_context=mp.get_context("spawn")) as pool:
+        traces = _cells_traces(pool, cfg)
+        kern = _cells_kernel_rows(records)
+        mesh = make_host_mesh(device="cuda")
+        params = LM(cfg, device="cuda").init(SEED)
+        out = {"kernels": kern,
+               "train": _cells_train(cfg, mesh, params, traces),
+               "prefill": _cells_prefill(cfg, mesh, params, traces),
+               "decode": _cells_decode(cfg, mesh, params, traces)}
+    del params
+    torch.cuda.empty_cache()
+    tr = out["train"]
+    print(f"[27 cells] (a) {smi}: {TRAIN_ARCH} {cfg.num_layers}L bf16 on "
+          f"{mesh.describe()}; {' | '.join(kern['held'])}; "
+          + "; ".join(f"{k} {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, "
+                      f"SDPA {r['library_ms']:.4f}, bound {r['bound_ms']:.4f}"
+                      f" ({r['bound_by']}) [{r['shape']}]"
+                      for k, r in kern["rows"].items()))
+    print(f"[27 cells] (a) train_4k reduced to {tr['rows']} x "
+          f"{CELL_TRAIN_SEQ} rows (of 256; the card holds {tr['holds_rows']}"
+          f" at {CELL_MEM_SHARE:g} of its memory: {tr['per_row_gb']:.2f} GB "
+          f"a row over {tr['fixed_gb']:.2f} GB of weights, state and "
+          f"gradients, from the peaks of {CELL_TRAIN_ROWS // 2}- and "
+          f"{CELL_TRAIN_ROWS}-row steps, over {tr['static_gb']:.2f} GB "
+          f"before a step; run at {tr['rows']} for the phase's time): loss "
+          f"{tr['loss']:.6f} vs LM.loss "
+          f"{tr['loss_ref']:.6f}; FLOPs of a real step {tr['flops_real']:.6g}"
+          f" == the meta trace's; " + _cell_line("train_4k", tr))
+    pf = out["prefill"]
+    print(f"[27 cells] (a) prefill_32k reduced to {CELL_PREFILL[0]} x "
+          f"{CELL_PREFILL[1]} (of 32 rows): logits vs LM.prefill "
+          f"{pf['logits_rel_l2_vs_prefill']:.3e}, vs plain (chunked "
+          f"attention, plain RMSNorm) {pf['logits_rel_l2_vs_plain']:.3e}; "
+          + _cell_line("prefill_32k", pf))
+    dc, dp = out["decode"]["contiguous"], out["decode"]["paged"]
+    print(f"[27 cells] (a) decode_32k reduced to {CELL_DECODE[0]} x "
+          f"{CELL_DECODE[1]} (of 128 rows): contiguous logits vs "
+          f"LM.decode_step {dc['logits_rel_l2_vs_decode_step']:.3e}, vs "
+          f"plain RMSNorm {dc['logits_rel_l2_vs_plain']:.3e}, FLOPs of a "
+          f"real step "
+          f"{dc['flops_real']:.6g} == the meta trace's; "
+          + _cell_line("contiguous", dc) + f" | paged logits vs "
+          f"LM.decode_step {dp['logits_rel_l2_vs_decode_step']:.3e}; not "
+          f"held: vs the plain versions (B1, B7) "
+          f"{dp['logits_rel_l2_vs_plain']:.3e}, vs the contiguous cell's "
+          f"{dp['logits_rel_l2_vs_contiguous']:.3e}; "
+          + _cell_line("paged", dp))
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def _cp_cache(cfg, b: int, s: int, lo: int, hi: int) -> list:
+    """Positions [lo, hi) of a (b, s) contiguous cache of random K / V,
+    each layer from its own generator (every rank and the single rank
+    draw the same values)."""
+    torch = _torch()
+    from repro_torch.models.layers import dtype_of
+    a = cfg.attention
+    shape = (b, s, a.num_kv_heads, a.head_dim)
+    dt = dtype_of(cfg.dtype)
+    out = []
+    for layer in range(cfg.num_layers):
+        g = torch.Generator(device="cuda").manual_seed(SEED * 1000 + layer)
+        node = {}
+        for name in ("k", "v"):
+            whole = torch.randn(shape, generator=g, device="cuda").to(dt)
+            node[name] = whole[:, lo:hi].clone()
+            del whole
+        out.append({"blk0": {"kv": node}})
+    return out
+
+
+def _cp_inputs(cfg) -> tuple:
+    torch = _torch()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    toks = torch.randint(0, cfg.vocab_size, (CP_STEPS, CP_BATCH),
+                         generator=g, device="cuda").int()
+    pos = torch.tensor(CP_POS, device="cuda").int()
+    return toks, pos
+
+
+def _cp_configs():
+    from repro_torch.configs import get_config
+    cfg = get_config(CP_ARCH).with_(decode_attn_impl="cp")
+    return {"bf16": cfg,
+            "f32": cfg.with_(dtype="float32", num_layers=CP_F32_LAYERS)}
+
+
+def _cp_steps(step, cfg) -> dict:
+    """CP_STEPS decode steps of ``step(token, pos)``: logits, walls."""
+    toks, pos = _cp_inputs(cfg)
+    logits, walls = [], []
+    for i in range(CP_STEPS):
+        out, w = _cell_walls(lambda: step(toks[i], pos + i), 1)
+        logits.append(out.float().cpu().numpy())
+        walls += w
+    return {"logits": logits, "walls": walls}
+
+
+def _cp_rank(rank: int) -> dict:
+    """One of the four ranks of 27 (b): the decode cell with cp, this
+    rank's quarter of the cache's sequence."""
+    torch = _torch()
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models.model import LM
+    from repro_torch.sharding.rules import shard_params
+    missing = [n for n in build.SOURCES if not build.lib_path(n).exists()]
+    if missing:
+        raise RuntimeError(f"rank {rank}: kernels {missing} not built")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    mesh = make_host_mesh(model=CP_RANKS, device="cuda")
+    n = CP_SEQ // CP_RANKS
+    lo = mesh.model_rank * n
+    out = {"mesh": mesh.describe()}
+    for key, cfg in _cp_configs().items():
+        cell = build_cell(cfg, ShapeConfig("decode_32k", CP_SEQ, CP_BATCH,
+                                           "decode"), mesh)
+        whole = LM(cfg, device="cuda").init(SEED)
+        params = shard_params(whole, cell.in_shardings[0], mesh)
+        del whole
+        torch.cuda.empty_cache()
+        cache = _cp_cache(cfg, CP_BATCH, CP_SEQ, lo, lo + n)
+        before = mesh.stats.copy()
+        r = _cp_steps(lambda t, p: cell.fn(params, t, cache, p)[0], cfg)
+        calls = mesh.stats.since(before)
+        r["calls"] = {k: v / CP_STEPS for k, v in calls.count_by_op.items()
+                      if v}
+        r["bytes"] = {k: v / CP_STEPS for k, v in calls.bytes_by_op.items()
+                      if v}
+        r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out[key] = r
+        del params, cache
+        torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def _cp_one_rank() -> dict:
+    """The single rank of 27 (b): ``LM.decode_step`` over the whole
+    cache, the same weights, tokens and positions; and its witness: the
+    same steps under a tensor-parallel scope of one rank, so that each
+    layer takes the context-parallel step over one shard (fp32
+    probabilities into the V product, where the eager decode rounds them
+    to bf16) and the row-split linears their fp32 partial rounded once
+    (where one rank rounds cuBLAS's bf16 product): a rank's arithmetic
+    without the split, which leaves only the fp32 sums' order."""
+    torch = _torch()
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as model_mod
+    from repro_torch.models.model import LM
+    one = make_host_mesh(device="cuda")
+    scope = model_mod.tensor_parallel
+    out = {}
+    for key, cfg in _cp_configs().items():
+        lm = LM(cfg.with_(decode_attn_impl="eager"), device="cuda")
+        params = lm.prepare(lm.init(SEED))
+        cache = _cp_cache(cfg, CP_BATCH, CP_SEQ, 0, CP_SEQ)
+        torch.cuda.reset_peak_memory_stats()
+        out[key] = _cp_steps(
+            lambda t, p: lm.decode_step(params, t, cache, p)[0], cfg)
+        out[key]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        rank_math = LM(cfg, device="cuda")          # decode_attn_impl="cp"
+        model_mod.tensor_parallel = \
+            lambda mesh, impl="kv_shard": scope(one, impl)
+        try:
+            out[key]["witness"] = _cp_steps(
+                lambda t, p: rank_math.decode_step(params, t, cache, p)[0],
+                cfg)["logits"]
+        finally:
+            model_mod.tensor_parallel = scope
+        del params, cache
+        torch.cuda.empty_cache()
+    return out
+
+
+def _pipe_rank(rank: int) -> dict:
+    """One of the two stages of 27 (c): llama3.2-1b's layers 8 s .. 8 s +
+    7 at full width, 4 microbatches of 2 x 512 through the GPipe
+    schedule."""
+    torch = _torch()
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding.pipeline import pipeline_forward
+    from repro_torch.tree import tree_map
+    missing = [n for n in build.SOURCES if not build.lib_path(n).exists()]
+    if missing:
+        raise RuntimeError(f"rank {rank}: kernels {missing} not built")
+    t0 = time.perf_counter()
+    mesh = make_host_mesh(stage=PIPE_RANKS, device="cuda")
+    cfg, x, layers = _pipe_model()
+    per = cfg.num_layers // PIPE_RANKS
+    s = mesh.stage_rank
+    mine = {"layers": tree_map(lambda t: t[None],
+                               layers[s * per:(s + 1) * per])}
+    del layers
+    torch.cuda.empty_cache()
+    stage_fn = _pipe_stage_fn(cfg.with_(num_layers=per))
+    before = mesh.stats.copy()
+    _reset_launches()
+    with torch.no_grad():
+        y, walls = _cell_walls(
+            lambda: pipeline_forward(stage_fn, mine, x, mesh), 1)
+    calls = mesh.stats.since(before)
+    return {"mesh": mesh.describe(), "y": y.cpu(), "wall_ms": walls[0],
+            "launches": _read_launches(),
+            "calls": {k: v for k, v in calls.count_by_op.items() if v},
+            "bytes": {k: v for k, v in calls.bytes_by_op.items() if v},
+            "wall_s": time.perf_counter() - t0}
+
+
+def _pipe_model() -> tuple:
+    """(config, the microbatches' embeddings (M, 2, 512, d), the layer
+    list) of llama3.2-1b from SEED."""
+    torch = _torch()
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+    cfg = get_config(TRAIN_ARCH)
+    lm = LM(cfg, device="cuda")
+    params = lm.init(SEED)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 32)
+    toks = torch.randint(0, cfg.vocab_size, (PIPE_MICRO * PIPE_MB[0],
+                                             PIPE_MB[1]),
+                         generator=g, device="cuda")
+    with torch.no_grad():
+        x = lm._embed(params, toks).reshape(PIPE_MICRO, *PIPE_MB, -1)
+    return cfg, x, params["layers"]
+
+
+def _pipe_stage_fn(cfg):
+    from repro_torch.models.transformer import stack_forward
+
+    def stage_fn(p, x):
+        return stack_forward(p["layers"], x, cfg, mode="prefill")[0]
+    return stage_fn
+
+
+def _pipe_one_rank() -> dict:
+    """The single rank of 27 (c): the 16 layers in order on each
+    microbatch."""
+    torch = _torch()
+    cfg, x, layers = _pipe_model()
+    stage_fn = _pipe_stage_fn(cfg)
+    with torch.no_grad():
+        y, walls = _cell_walls(lambda: torch.stack(
+            [stage_fn({"layers": layers}, x[i]) for i in range(x.shape[0])]),
+            1)
+    del layers
+    torch.cuda.empty_cache()
+    return {"y": y.cpu(), "wall_ms": walls[0], "mb_bytes":
+            x[0].numel() * x.element_size()}
+
+
+def _cp_calls(r: dict) -> dict:
+    return {k: (r["bf16"]["calls"][k], r["bf16"]["bytes"][k])
+            for k in r["bf16"]["calls"]}
+
+
+def _cp_and_pipe(smi: str) -> dict:
+    """27 (b) and (c), each world against the single rank in this
+    process."""
+    import numpy as np
+    torch = _torch()
+    from repro_torch.launch.mesh import spawn_world
+    one = _cp_one_rank()
+    ranks = spawn_world(_cp_rank, CP_RANKS, device="cuda")
+    out = {"one": {k: {"walls": v["walls"], "peak_gb": v["peak_gb"]}
+                   for k, v in one.items()}, "ranks": []}
+    errs, wit = {}, {}
+    for key, limit in (("bf16", LOGIT_REL_L2), ("f32", CP_F32_REL_L2)):
+        # against one rank's eager decode; and against the witness, one
+        # rank running the same attention math (a rank's path without
+        # the split), which bounds what the split itself changes
+        errs[key] = max(_rel_l2_all(a, b) for r in ranks for a, b in
+                        zip(r[key]["logits"], one[key]["logits"]))
+        wit[key] = {"vs_witness": max(
+            _rel_l2_all(a, b) for r in ranks for a, b in
+            zip(r[key]["logits"], one[key]["witness"])),
+            "witness_vs_eager": max(_rel_l2_all(a, b) for a, b in zip(
+                one[key]["witness"], one[key]["logits"]))}
+        # a change of rounding alone moves random-weight bf16 logits by
+        # about what the split does (ROADMAP C, trap 10): the bar is the
+        # larger of the limit and twice that witness's distance
+        bar = max(limit, 2 * wit[key]["witness_vs_eager"])
+        wit[key]["bar"] = bar
+        for name, got in (("one rank with a rank's arithmetic",
+                           wit[key]["vs_witness"]),
+                          ("one rank's eager decode", errs[key])):
+            if not got <= bar:
+                raise AssertionError(
+                    f"(b) {key} logits of 4 ranks vs {name}: {got:.3e} > "
+                    f"{bar:.3e} (the larger of {limit} and 2x the "
+                    f"witness's {wit[key]['witness_vs_eager']:.3e})")
+    for r in ranks:
+        got = {k: (r["bf16"]["calls"].get(k), r["bf16"]["bytes"].get(k))
+               for k in set(r["bf16"]["calls"]) | set(CP_PREDICTED)}
+        if got != CP_PREDICTED:
+            raise AssertionError(f"(b) collectives a step {got} != the "
+                                 f"prediction {CP_PREDICTED}")
+        out["ranks"].append({k: {"walls": r[k]["walls"],
+                                 "peak_gb": r[k]["peak_gb"]}
+                             for k in ("bf16", "f32")})
+    out["logits_rel_l2"] = errs
+    out["witness"] = wit
+    r0 = ranks[0]
+    print(f"[27 cells] (b) {smi}: {CP_ARCH} {_cp_configs()['bf16'].num_layers}"
+          f"L bf16, decode cell with cp on {r0['mesh']}, contiguous cache "
+          f"{CP_BATCH} x {CP_SEQ} ({CP_SEQ // CP_RANKS} positions a rank), "
+          f"{CP_STEPS} steps from positions {list(CP_POS)}: logits vs one "
+          f"rank's eager LM.decode_step over the whole cache "
+          f"{errs['bf16']:.3e}, vs one rank with a rank's arithmetic (the "
+          f"witness) {wit['bf16']['vs_witness']:.3e}, the witness vs the "
+          f"eager decode {wit['bf16']['witness_vs_eager']:.3e} (limit "
+          f"{wit['bf16']['bar']:.3e}: the larger of {LOGIT_REL_L2} and 2x "
+          f"that); float32 {CP_F32_LAYERS}L {errs['f32']:.3e} / "
+          f"{wit['f32']['vs_witness']:.3e} / "
+          f"{wit['f32']['witness_vs_eager']:.3e} (limit "
+          f"{wit['f32']['bar']:.3e}); collectives a step "
+          f"a rank {_cp_calls(r0)} (= the prediction); step wall a rank "
+          + "; ".join(f"rank {i} {[round(w, 2) for w in r['bf16']['walls']]}"
+                      f" ms, peak {r['bf16']['peak_gb']:.2f} GB"
+                      for i, r in enumerate(ranks))
+          + f"; one rank {[round(w, 2) for w in one['bf16']['walls']]} ms, "
+          f"peak {one['bf16']['peak_gb']:.2f} GB; rank walls "
+          f"{[round(r['wall_s'], 1) for r in ranks]} s")
+    del one, ranks
+    # (c)
+    one = _pipe_one_rank()
+    stages = spawn_world(_pipe_rank, PIPE_RANKS, device="cuda")
+    mb = one["mb_bytes"]
+    ticks = PIPE_RANKS + PIPE_MICRO - 1
+    want_calls = {"collective-permute/stage": ticks, "all-reduce/stage": 1}
+    want_bytes = {"collective-permute/stage": float(ticks * mb),
+                  "all-reduce/stage": float(PIPE_MICRO * mb)}
+    errs = []
+    for st in stages:
+        if st["calls"] != want_calls or st["bytes"] != want_bytes:
+            raise AssertionError(f"(c) collectives {st['calls']} "
+                                 f"{st['bytes']} != {want_calls} "
+                                 f"{want_bytes}")
+        errs.append(_rel_l2_all(st["y"].float().numpy(),
+                                one["y"].float().numpy()))
+        if not (np.isfinite(st["y"].float().numpy()).all()
+                and errs[-1] <= LOGIT_REL_L2):
+            raise AssertionError(f"(c) pipeline outputs vs one rank's 16 "
+                                 f"layers: {errs[-1]:.3e}")
+    layers_a_stage = 16 // PIPE_RANKS
+    want_l = {"flash_attention": layers_a_stage * PIPE_MICRO,
+              "rmsnorm": 2 * layers_a_stage * PIPE_MICRO}
+    for st in stages:
+        got = {k: st["launches"][k] for k in want_l}
+        if got != want_l:
+            raise AssertionError(f"(c) a stage's launches {got} != {want_l}")
+    out["pipe"] = {"errs": errs, "walls_ms": [st["wall_ms"] for st in stages],
+                   "one_wall_ms": one["wall_ms"], "calls": want_calls,
+                   "bytes": want_bytes, "launches": want_l}
+    print(f"[27 cells] (c) {smi}: GPipe, {TRAIN_ARCH} 16L bf16 as "
+          f"{PIPE_RANKS} stages of {layers_a_stage} on {stages[0]['mesh']}, "
+          f"{PIPE_MICRO} microbatches of {PIPE_MB[0]} x {PIPE_MB[1]}: outputs "
+          f"vs one rank's 16 layers in order {max(errs):.3e} (limit "
+          f"{LOGIT_REL_L2}); a stage's collectives {want_calls}, bytes "
+          f"{want_bytes} (= {ticks} ticks x {mb} B + the final sum); "
+          f"launches a stage {want_l}; wall "
+          f"{[round(w, 2) for w in out['pipe']['walls_ms']]} ms a stage, one "
+          f"rank {one['wall_ms']:.2f} ms")
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_cells(records: list, smi: str) -> dict:
+    """Phase 27: (a) llama3.2-1b's dry-run cells on one rank, (b) the
+    context-parallel decode on four ranks sharing the card, (c) a GPipe
+    pipeline of two stages."""
+    t0 = time.perf_counter()
+    out = {"a": _cells_one_rank(records, smi)}
+    out.update(_cp_and_pipe(smi))
+    out["phase_wall_s"] = time.perf_counter() - t0
+    print(f"[27 cells] phase {out['phase_wall_s']:.1f}s ((a) "
+          f"{out['a']['wall_s']:.1f}s)")
+    return out
+
+
 def main() -> int:
     dev = phase_device()
     phase_build()
@@ -7491,6 +8329,7 @@ def main() -> int:
     train_tp = phase_train_tp(dev["smi"])
     tp_moe = phase_tp_moe(records, dev["smi"])
     train_tp_peft = phase_train_tp_peft(dev["smi"])
+    cells = phase_cells(records, dev["smi"])
     out_dir = ROOT / "chiprun_out"
     if out_dir.is_dir():
         (out_dir / "chip_smoke_e2e.json").write_text(json.dumps(
@@ -7499,7 +8338,8 @@ def main() -> int:
              "cost": cost, "search": search, "moe": moe, "train": train,
              "encdec": encdec, "jamba": jamba, "tp": tp,
              "train_tp": train_tp, "tp_moe": tp_moe,
-             "train_tp_peft": train_tp_peft, "kernels": records},
+             "train_tp_peft": train_tp_peft, "cells": _without_arrays(cells),
+             "kernels": records},
             indent=1))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -14,8 +14,9 @@ from repro_torch.configs import (deepseek_coder_33b, granite_moe_3b_a800m,
                                  llama3_2_vision_11b, llama4_scout_17b_a16e,
                                  qwen2_1_5b, rwkv6_1_6b, stablelm_1_6b,
                                  whisper_base)
-from repro_torch.configs.base import (AttentionConfig, EncoderConfig,
-                                     ModelConfig, MoEConfig, SSMConfig)
+from repro_torch.configs.base import (SHAPES, AttentionConfig,
+                                     EncoderConfig, ModelConfig, MoEConfig,
+                                     SSMConfig, ShapeConfig)
 from repro_torch.configs.paper_models import PAPER_MODELS
 
 _ARCH_MODULES = {
@@ -50,6 +51,10 @@ def get_smoke_config(arch_id: str) -> ModelConfig:
     return _ARCH_MODULES[a].smoke_config()
 
 
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES[name]
+
+
 def first_layers(cfg: ModelConfig, n: int) -> ModelConfig:
     """``cfg`` cut to its first ``n`` layers: whole groups when ``n`` is a
     multiple of the group's length, else one group of the first ``n``
@@ -66,5 +71,5 @@ def first_layers(cfg: ModelConfig, n: int) -> ModelConfig:
 
 
 __all__ = ["ARCH_IDS", "AttentionConfig", "EncoderConfig", "ModelConfig",
-           "MoEConfig", "PAPER_MODELS", "SSMConfig", "first_layers",
-           "get_config", "get_smoke_config"]
+           "MoEConfig", "PAPER_MODELS", "SHAPES", "SSMConfig", "ShapeConfig",
+           "first_layers", "get_config", "get_shape", "get_smoke_config"]

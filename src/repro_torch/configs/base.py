@@ -161,6 +161,13 @@ class ModelConfig:
     # baseline that all-gathers q and the pools into every rank each step
     # (collective-byte A/B only)
     tp_attn_impl: str = "kv_shard"    # kv_shard | gather
+    # contiguous-cache decode under a mesh: "eager" (a rank's kv heads) |
+    # "cp" (context parallel: the cache's sequence split over the model
+    # axis, partial softmax stats combined across ranks;
+    # serve/decode_attn.py) | "paged_pallas" (the paged cache, which the
+    # dry-run's decode cell allocates; the engines pick their layout
+    # themselves, so this names the reference's value only)
+    decode_attn_impl: str = "eager"
 
     def with_(self, **kw) -> "ModelConfig":
         return replace(self, **kw)
@@ -272,3 +279,23 @@ class ModelConfig:
                           if i % self.moe_every == 0])
         inactive = (m.num_experts - m.top_k) * 3 * self.d_model * m.d_ff
         return n - moe_layers * inactive
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (the reference's assigned shape grid)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str                         # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}

@@ -1,6 +1,8 @@
 """Public op: flash attention, dispatched on the tensors' device.
 
-CPU tensors take the plain version (``ref.py``).  CUDA tensors launch the
+CPU tensors take the plain version (``ref.py``), and so do meta tensors
+(no values and no kernel: the plain version gives the result's shape
+and dtype to a dry-run trace).  CUDA tensors launch the
 hand-written kernel (``csrc/flash_attention.cu``) or raise; there is no
 fallback.  ``launches`` counts kernel launches (one per call on a CUDA
 tensor); ``tc_launches`` counts those that took the kernel's tensor-core
@@ -29,7 +31,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     window: Optional[int] = None) -> torch.Tensor:
     """q: (B,S,H,D); k,v: (B,T,KH,D) -> (B,S,H,D) in q's dtype."""
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return attention_ref(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")

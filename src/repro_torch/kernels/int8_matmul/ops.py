@@ -1,6 +1,7 @@
 """Public ops: quantized matmuls, dispatched on the tensors' device.
 
-CPU tensors take the plain versions (``ref.py``).  CUDA tensors launch the
+CPU tensors take the plain versions (``ref.py``), and so do meta tensors
+(a dry-run trace's shapes and dtypes).  CUDA tensors launch the
 hand-written kernels or raise; there is no fallback:
   * ``int8_matmul``        -> ``csrc/int8_matmul.cu`` (B4, tiled W8A8)
   * ``w8a8_matmul_decode`` -> ``csrc/w8a8_decode.cu`` (B5, skinny M)
@@ -97,7 +98,7 @@ def int8_matmul(xq: torch.Tensor, wq: torch.Tensor, x_scale: torch.Tensor,
                 out_dtype=torch.bfloat16) -> torch.Tensor:
     """xq: (M,K) int8; wq: (K,N) int8; x_scale: (M,), w_scale: (N,) fp32
     -> (M,N) ``(acc·xs)·ws`` in ``out_dtype``."""
-    if xq.device.type == "cpu":
+    if xq.device.type in ("cpu", "meta"):
         return int8_matmul_ref(xq, wq, x_scale, w_scale, out_dtype=out_dtype)
     if xq.device.type != "cuda":
         raise ValueError(f"int8_matmul: unsupported device {xq.device}")
@@ -151,7 +152,7 @@ def w8a8_matmul_decode(x2: torch.Tensor, wq: torch.Tensor,
     int8, w_scale (N,) fp32, bias (N,) or None -> (M,N).  The kernel
     quantizes x per row itself and folds the bias into its epilogue."""
     out_dtype = out_dtype or x2.dtype
-    if x2.device.type == "cpu":
+    if x2.device.type in ("cpu", "meta"):
         return w8a8_decode_ref(x2, wq, w_scale, bias, out_dtype)
     if x2.device.type != "cuda":
         raise ValueError(f"w8a8_matmul_decode: unsupported device "
@@ -166,7 +167,7 @@ def fp8_matmul_decode(x2: torch.Tensor, wq: torch.Tensor,
     """Skinny weight-only fp8: x2 (M,K) (M <= 128 on CUDA), wq (K,N)
     float8_e4m3fn, w_scale (N,) fp32, bias (N,) or None -> (M,N)."""
     out_dtype = out_dtype or x2.dtype
-    if x2.device.type == "cpu":
+    if x2.device.type in ("cpu", "meta"):
         return fp8_decode_ref(x2, wq, w_scale, bias, out_dtype)
     if x2.device.type != "cuda":
         raise ValueError(f"fp8_matmul_decode: unsupported device "

@@ -1,7 +1,8 @@
 """Public ops: paged decode attention and multi-query prefix-extend
 attention, dispatched on the tensors' device.
 
-CPU tensors take the plain versions (``ref.py``).  CUDA tensors launch the
+CPU tensors take the plain versions (``ref.py``), and so do meta tensors
+(a dry-run trace's shapes and dtypes).  CUDA tensors launch the
 hand-written kernels (``csrc/paged_attention.cu``,
 ``csrc/paged_prefix_extend.cu``) or raise; there is no fallback.
 ``launches`` and ``extend_launches`` count kernel launches (one per call on
@@ -57,7 +58,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     """q: (S,H,D); k_pages/v_pages: (N,page,KH,D); block_table: (S,P)
     int32; lengths: (S,) int32; k_scales/v_scales: (N,KH) fp32 for int8 /
     fp8 pools -> (S,H,D) in q's dtype."""
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return paged_attention_ref(q, k_pages, v_pages, block_table, lengths,
                                    k_scales, v_scales)
     if q.device.type != "cuda":
@@ -157,7 +158,7 @@ def paged_prefix_extend_attention(q: torch.Tensor, k_pages: torch.Tensor,
     attended causally up to ``widths[s]``; k_scales/v_scales: (N,KH) fp32
     for int8 / fp8 pools -> (S,W,H,D) in q's dtype.  q and the chunk are
     each fp32 or bf16."""
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return paged_prefix_extend_ref(q, k_pages, v_pages, block_table,
                                        prefix_lens, chunk_k, chunk_v, widths,
                                        k_scales, v_scales)

@@ -1,7 +1,8 @@
 """Public op: RMSNorm over the last axis, dispatched on the tensors'
 device.
 
-CPU tensors take the plain version (``ref.py``).  CUDA tensors launch the
+CPU tensors take the plain version (``ref.py``), and so do meta tensors
+(a dry-run trace's shapes and dtypes).  CUDA tensors launch the
 hand-written kernel (``csrc/rmsnorm.cu``) or raise; there is no fallback.
 ``launches`` counts kernel launches (one per call on a CUDA tensor);
 ``warp_launches`` counts those that took the warp step (one warp a row
@@ -27,7 +28,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-5) -> torch.Tensor:
     """x: (..., d) bf16 / fp32; scale: (d,) bf16 / fp32 -> (..., d) in
     x's dtype."""
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         return rmsnorm_ref(x, scale, eps)
     if x.device.type != "cuda":
         raise ValueError(f"rmsnorm: unsupported device {x.device}")

@@ -1,7 +1,8 @@
 """Public op: the RWKV-6 WKV recurrence, dispatched on the tensors' device.
 
 CPU tensors take the plain chunked version (``ref.py``) on fp32 copies,
-as the reference's op does.  CUDA tensors launch the hand-written kernel
+as the reference's op does, and so do meta tensors (a dry-run trace's
+shapes and dtypes).  CUDA tensors launch the hand-written kernel
 (``csrc/wkv6.cu``: a chunk-parallel increment pass, a carry pass along
 the chunks, a chunk-parallel output pass) or raise; there is no
 fallback.  ``launches`` counts calls that launched the kernel on a CUDA
@@ -34,7 +35,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (o (B,S,H,D) fp32, s_final (B,H,D,D) fp32).  On the card r / k / v
     are bf16 or fp32 (read as they are: the upcast is exact), logw, u and
     s0 fp32, D 64."""
-    if r.device.type == "cpu":
+    if r.device.type in ("cpu", "meta"):
         return wkv6_chunked_ref(r.float(), k.float(), v.float(),
                                 logw.float(), u.float(), s0.float(),
                                 chunk=DEFAULT_CHUNK)

@@ -1,20 +1,37 @@
 """The serving mesh of the port: ranks in a ``torch.distributed`` world.
 
 The reference builds a JAX device mesh (``repro/launch/mesh.py``); the
-port has one process a rank, and each axis is a set of process groups:
-ranks ``d * model .. d * model + model - 1`` form data replica ``d``'s
-model group (the model axis is minor, as in the reference's
-``make_mesh((n // model, model))``), and the ranks with one model
-coordinate ``m``, ``{m, m + model, ...}``, form its data group (over
-which the batch and FSDP's leaves are split).  :func:`spawn_world` starts
-an N-rank world and :func:`make_host_mesh` lays the axes over it.
+port has one process a rank, and each axis is a set of process groups.
+Ranks are laid out stage-major, then data, then model
+(``sharding.rules.AXIS_ORDER``): with S stages, D data replicas and a
+model axis of M, rank ``(s * D + d) * M + m`` sits at stage ``s``, data
+replica ``d`` and model coordinate ``m``.  So:
+  * a model group is a run of M consecutive ranks (the model axis is
+    minor, as in the reference's ``make_mesh((n // model, model))``);
+  * a data group is the D ranks of one stage with one model coordinate,
+    ``{s * D * M + m + k * M}`` (over which the batch and FSDP's leaves
+    are split);
+  * a stage group is the S ranks with one (data, model) coordinate,
+    ``{d * M + m + k * D * M}`` (over which a GPipe pipeline,
+    ``sharding.pipeline``, moves activations).
+:func:`spawn_world` starts an N-rank world and :func:`make_host_mesh`
+lays the axes over it.
 
 Backend rule (printed in every mesh line): ``nccl`` where every rank has
 a card of its own, ``gloo`` otherwise, so several ranks can share one
 card (gloo moves CUDA tensors through the host for ``broadcast`` and
 ``all_reduce``, the only two collectives the port calls) or run on the
-CPU.  The reference's ``ensure_host_devices``, ``make_production_mesh``
-and ``HW`` (XLA flags, TPU pods and peaks) have no counterpart.
+CPU.
+
+:func:`abstract_mesh` is one rank's view of a mesh of any shape, the
+reference's production ``{"data": 16, "model": 16}`` and ``{"pod": 2,
+"data": 16, "model": 16}`` included (``make_production_mesh``), at given
+coordinates, on device ``meta``, with no process group: the counterpart
+of the reference's 512 placeholder host devices in its dry-run.  Its
+collectives count their bytes and return meta tensors
+(``sharding.collectives``).  The reference's ``ensure_host_devices`` and
+``HW`` (XLA flags and TPU peaks) have no counterpart; the dry-run's
+peaks are the H100's (``launch.roofline``).
 """
 from __future__ import annotations
 
@@ -30,7 +47,8 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.launch.roofline import CollectiveStats
-from repro_torch.sharding.rules import rank_coords
+from repro_torch.sharding.rules import (AXIS_ORDER, global_rank,
+                                        rank_coords)
 
 #: how long a world may run, and a collective wait, before it is stopped
 WORLD_TIMEOUT_S = 900.0
@@ -43,10 +61,11 @@ _RECIPE = ("start N ranks first: repro_torch.launch.mesh.spawn_world(fn, "
 @dataclass
 class Mesh:
     """This rank's view of the mesh: the axis sizes, its index on each
-    axis, its model group and its data group (``None`` where the axis
-    has one rank) with each group's global ranks in axis order, its
-    device and the world's backend.  ``stats`` accumulates every
-    collective the rank makes, by kind and axis."""
+    axis, its model, data and stage groups (``None`` where the axis has
+    one rank) with each group's global ranks in axis order, its device
+    and the world's backend.  ``stats`` accumulates every collective the
+    rank makes, by kind and axis.  ``abstract`` marks an
+    :func:`abstract_mesh` (meta tensors, no process group)."""
     shape: Dict[str, int]
     coords: Dict[str, int]
     device: torch.device
@@ -56,6 +75,9 @@ class Mesh:
     stats: CollectiveStats = field(default_factory=CollectiveStats)
     data_group: Any = None
     data_ranks: Sequence[int] = (0,)
+    stage_group: Any = None
+    stage_ranks: Sequence[int] = (0,)
+    abstract: bool = False
 
     @property
     def model(self) -> int:
@@ -66,8 +88,15 @@ class Mesh:
         return self.shape.get("data", 1)
 
     @property
+    def stage(self) -> int:
+        return self.shape.get("stage", 1)
+
+    @property
     def world(self) -> int:
-        return self.data * self.model
+        n = 1
+        for size in self.shape.values():
+            n *= size
+        return n
 
     @property
     def model_rank(self) -> int:
@@ -78,13 +107,47 @@ class Mesh:
         return self.coords.get("data", 0)
 
     @property
+    def stage_rank(self) -> int:
+        return self.coords.get("stage", 0)
+
+    @property
     def rank(self) -> int:
-        return self.data_rank * self.model + self.model_rank
+        return global_rank(self.coords, self.shape)
 
     def describe(self) -> str:
+        if self.abstract:
+            return (f"abstract mesh {dict(self.shape)} of {self.world} rank"
+                    f"{'s' if self.world != 1 else ''}, the view of rank "
+                    f"{dict(self.coords)} (meta; no process group)")
         return (f"mesh {dict(self.shape)} over {self.world} rank"
                 f"{'s' if self.world != 1 else ''} ({self.backend}, "
                 f"{self.device})")
+
+
+def abstract_mesh(shape: Dict[str, int],
+                  coords: Optional[Dict[str, int]] = None) -> Mesh:
+    """One rank's view of a mesh of ``shape`` (axes among
+    :data:`~repro_torch.sharding.rules.AXIS_ORDER`; ``"data"`` and
+    ``"model"`` default to 1) at ``coords`` (default: every axis 0), on
+    device ``meta``: no process group and no backend.  Nothing runs on
+    it but meta tensors; its collectives add their kind and rank-local
+    operand bytes to ``stats`` and return meta results."""
+    unknown = set(shape) - set(AXIS_ORDER)
+    if unknown:
+        raise ValueError(f"abstract_mesh: unknown axes {sorted(unknown)}; "
+                         f"axes are {AXIS_ORDER}")
+    full = {a: int(shape[a]) for a in AXIS_ORDER if a in shape}
+    full.setdefault("data", 1)
+    full.setdefault("model", 1)
+    full = {a: full[a] for a in AXIS_ORDER if a in full}
+    at = {a: 0 for a in full}
+    at.update(coords or {})
+    for a, i in at.items():
+        if a not in full or not 0 <= i < full[a]:
+            raise ValueError(f"abstract_mesh: coordinate {a}={i} outside "
+                             f"{full}")
+    return Mesh(shape=full, coords=at, device=torch.device("meta"),
+                abstract=True)
 
 
 def backend_for(device: torch.device, world: int) -> str:
@@ -105,41 +168,61 @@ def _rank_device(device, rank: int, world: int) -> torch.device:
     return torch.device("cuda", rank if own else 0)
 
 
-def make_host_mesh(*, model: int = 1, device="cuda") -> Mesh:
+def make_host_mesh(*, model: int = 1, stage: int = 1,
+                   device="cuda") -> Mesh:
     """The mesh over the initialized world (a world of one when no
-    process group is up): ``{"data": world // model, "model": model}``.
+    process group is up): ``{"data": world // (stage * model), "model":
+    model}``, with ``"stage": stage`` ahead of them when ``stage`` > 1.
     Every rank must call it: it creates every model group, then every
-    data group, in one order on every rank (an axis of one rank has no
-    group)."""
+    data group, then every stage group, in one order on every rank (an
+    axis of one rank has no group)."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
-    if model < 1 or world % model:
+    if model < 1 or stage < 1 or world % (model * stage):
         raise ValueError(
-            f"make_host_mesh(model={model}): {world} rank"
-            f"{'s' if world != 1 else ''} not divisible by the model axis; "
-            + _RECIPE)
-    shape = {"data": world // model, "model": model}
+            f"make_host_mesh(model={model}, stage={stage}): {world} rank"
+            f"{'s' if world != 1 else ''} not divisible by the model and "
+            "stage axes; " + _RECIPE)
+    data = world // (model * stage)
+    shape = {"data": data, "model": model}
+    if stage > 1:
+        shape = {"stage": stage, **shape}
     coords = rank_coords(rank, shape)
-    data = shape["data"]
+    plane = data * model                  # the ranks of one stage
+
+    def groups(members_of, count, mine):
+        """Create ``count`` groups (every rank, in one order) and return
+        this rank's (group, its members)."""
+        out = (None, (rank,))
+        for i in range(count):
+            members = members_of(i)
+            g = dist.new_group(members)
+            if i == mine:
+                out = (g, tuple(members))
+        return out
+
     group, ranks = None, (rank,)
     if model > 1:
-        for d in range(data):
-            members = list(range(d * model, (d + 1) * model))
-            g = dist.new_group(members)
-            if d == coords["data"]:
-                group, ranks = g, tuple(members)
+        group, ranks = groups(
+            lambda i: list(range(i * model, (i + 1) * model)),
+            stage * data, coords.get("stage", 0) * data + coords["data"])
     data_group, data_ranks = None, (rank,)
     if data > 1:
-        for m in range(model):
-            members = list(range(m, world, model))
-            g = dist.new_group(members)
-            if m == coords["model"]:
-                data_group, data_ranks = g, tuple(members)
+        data_group, data_ranks = groups(
+            lambda i: [(i // model) * plane + i % model + k * model
+                       for k in range(data)],
+            stage * model, coords.get("stage", 0) * model + coords["model"])
+    stage_group, stage_ranks = None, (rank,)
+    if stage > 1:
+        stage_group, stage_ranks = groups(
+            lambda i: [i + k * plane for k in range(stage)],
+            plane, coords["data"] * model + coords["model"])
     backend = dist.get_backend() if dist.is_initialized() else "none"
     return Mesh(shape=shape, coords=coords,
                 device=_rank_device(device, rank, world), group=group,
                 ranks=ranks, backend=backend, data_group=data_group,
-                data_ranks=data_ranks)
+                data_ranks=data_ranks, stage_group=stage_group,
+                stage_ranks=stage_ranks)
 
 
 def _rank_main(fn, rank: int, world: int, init: str, backend: str,

@@ -48,7 +48,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import AttentionConfig
 from repro_torch.models.layers import apply_rope, init_linear, linear_apply
-from repro_torch.sharding.collectives import active
+from repro_torch.sharding.collectives import active, all_gather
 
 NEG_INF = -1e30
 
@@ -624,6 +624,79 @@ def attention_decode(p: dict, x: torch.Tensor, a: AttentionConfig,
                          v_cache.float()).to(x.dtype)
     o = o.reshape(b, 1, a.heads_padded * a.head_dim)
     y = linear_apply(p["wo"], _mask_pad_heads(o, a), impl, row=True)
+    return y, cache
+
+
+def _whole_projection(p: dict, x: torch.Tensor, width: int, mesh,
+                      axis: str, impl: str) -> torch.Tensor:
+    """The (B,1,width) output of a column linear whole on every rank: the
+    rank's columns (its placement's slice) all-gathered over ``axis``
+    when the leaf is split, as GSPMD gathers a replicated operand."""
+    y = linear_apply(p, x, impl)
+    return y if y.shape[-1] == width else all_gather(y, 2, mesh, axis)
+
+
+def _contraction_rows(p: dict) -> int:
+    """Rows of a linear's weight (its K) as this rank holds them."""
+    if "w" in p:
+        return p["w"].shape[0]
+    qw = p["qw"]
+    return qw.shape[0] * (2 if qw.dtype == torch.uint8 else 1)
+
+
+def attention_decode_cp(p: dict, x: torch.Tensor, a: AttentionConfig,
+                        cache: dict, pos: torch.Tensor, mesh, *,
+                        axis: str = "model", impl: str = "ref"
+                        ) -> tuple[torch.Tensor, dict]:
+    """Context-parallel decode (the reference's ``attention_decode_cp``):
+    the contiguous cache's sequence is split over ``axis``, so ``cache``
+    holds this rank's positions [i·S/n, (i+1)·S/n) of every kv head, (B,
+    S/n, KH, D), in bf16 / float32.  x: (B,1,d); pos: (B,) (or one
+    position for every row).
+
+    The projections are placed by the rules (``wq`` / ``wk`` / ``wv``
+    column-split where the axis divides their width, which need not be
+    whole heads): each rank's columns are all-gathered before RoPE, so q,
+    k and v are whole on every rank, as GSPMD gathers them into the
+    reference's ``shard_map(in_specs=P())``.  The rank writes the new
+    token's k / v only where it owns that position, computes fp32
+    partials over its shard (``serve.decode_attn.partial_attn``) and
+    combines them over the axis (one max, two sum all-reduces).  The
+    whole (B, H·D) output goes through ``wo`` row-split: the rank's rows
+    of it, an fp32 partial summed over the axis (``row=True``)."""
+    from repro_torch.serve.decode_attn import (combine, partial_attn,
+                                               shard_valid)
+    b = x.shape[0]
+    kvh = a.kv_heads_effective()
+    kvh_store = cache["k"].shape[2]
+    hd, hp = a.head_dim, a.heads_padded
+    pos = torch.broadcast_to(torch.as_tensor(pos, device=x.device).long(),
+                             (b,))
+    posv = pos[:, None]
+    q = _whole_projection(p["wq"], x, hp * hd, mesh, axis, impl)
+    k_new = _whole_projection(p["wk"], x, kvh * hd, mesh, axis, impl)
+    v_new = _whole_projection(p["wv"], x, kvh * hd, mesh, axis, impl)
+    q = apply_rope(q.reshape(b, 1, hp, hd), posv, a.rope_theta)[:, 0]
+    k_new = _merge_heads(apply_rope(k_new.reshape(b, 1, kvh, hd), posv,
+                                    a.rope_theta), kvh_store)[:, 0]
+    v_new = _merge_heads(v_new.reshape(b, 1, kvh, hd), kvh_store)[:, 0]
+    s_local = cache["k"].shape[1]
+    lo = mesh.coords.get(axis, 0) * s_local
+    own = ((pos >= lo) & (pos < lo + s_local))[:, None, None]
+    tgt = torch.clamp(pos - lo, 0, s_local - 1)
+    rows = torch.arange(b, device=x.device)
+    for name, new in (("k", k_new), ("v", v_new)):
+        c = cache[name]
+        c[rows, tgt] = torch.where(own, new.to(c.dtype), c[rows, tgt])
+    valid = shard_valid(pos, lo, s_local, a.window)
+    o, m, l = partial_attn(q, cache["k"], cache["v"], valid,
+                           _scale(a).to(x.device))
+    o = combine(o, m, l, mesh, axis).reshape(b, 1, hp * hd).to(x.dtype)
+    o = _mask_pad_heads(o, a)
+    k_rows = _contraction_rows(p["wo"])
+    if k_rows != o.shape[-1]:               # wo's rows split over the axis
+        o = o.narrow(2, mesh.coords.get(axis, 0) * k_rows, k_rows)
+    y = linear_apply(p["wo"], o, impl, row=True)
     return y, cache
 
 

@@ -171,7 +171,10 @@ def group_forward(gp: dict, x: torch.Tensor, cfg: ModelConfig, *,
     at ``pos = (slot_ids, starts, lengths[, max_pages])``), "decode" (one
     token per row, ``pos`` the (S,) write positions; the cache's layout
     picks paged or contiguous attention, where the reference reads
-    ``decode_attn_impl``) or "verify" (a speculative chunk per slot over
+    ``decode_attn_impl``, which under a mesh can ask for the
+    context-parallel decode of a contiguous bf16 / float32 cache split
+    over the model axis's sequence, ``attention_decode_cp``) or "verify"
+    (a speculative chunk per slot over
     the paged cache, ``pos = (lengths, widths[, max_pages])``; the cache
     node is ``{"kv": paged, "stage": contiguous}`` and only the stage is
     written).  RWKV-6 and Mamba blocks run their recurrence from the
@@ -188,7 +191,13 @@ def group_forward(gp: dict, x: torch.Tensor, cfg: ModelConfig, *,
     losses and dropped fractions summed over the group's blocks.  Under a
     model axis (``cfg.model_parallel`` > 1) attention runs this rank's
     heads (``sharding.tp.local_attention``)."""
-    a = local_attention(cfg)
+    # context-parallel decode (``decode_attn_impl="cp"``) under a model
+    # axis: the projections are gathered whole, so the config's heads
+    # need not divide over the axis
+    tp = active()
+    cp = mode == "decode" and cfg.decode_attn_impl == "cp" \
+        and tp is not None
+    a = cfg.attention if cp else local_attention(cfg)
     if train and (mode != "prefill" or cache is not None):
         raise ValueError("a training forward is a full sequence without a "
                          "cache (mode='prefill', cache=None)")
@@ -253,9 +262,19 @@ def group_forward(gp: dict, x: torch.Tensor, cfg: ModelConfig, *,
         else:
             if c is None:
                 raise ValueError("attention decode needs a cache")
-            step = (attn_mod.attention_decode_paged if "k_pages" in c["kv"]
-                    else attn_mod.attention_decode)
-            y, kv = step(blk["attn"], h, a, c["kv"], pos, impl)
+            if cp and "k_pages" not in c["kv"] and a.kind != "mla" \
+                    and "k_scale" not in c["kv"]:
+                # the cache's sequence over the model axis; quantized
+                # caches fall through to the eager decode, as in the
+                # reference
+                y, kv = attn_mod.attention_decode_cp(
+                    blk["attn"], h, a, c["kv"], pos, tp.mesh, impl=impl)
+            else:
+                step = (attn_mod.attention_decode_paged
+                        if "k_pages" in c["kv"]
+                        else attn_mod.attention_decode)
+                y, kv = step(blk["attn"], h, local_attention(cfg), c["kv"],
+                             pos, impl)
             new_cache[f"blk{i}"] = {"kv": kv}
         x = x + y
         if bk["xattn"]:

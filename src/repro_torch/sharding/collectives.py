@@ -2,19 +2,29 @@
 
 Every call names an axis: ``"model"`` (the tensor-parallel group, the
 default), ``"data"`` (the ranks with the same model coordinate, over
-which the batch and FSDP's leaves are split) or ``"world"`` (every
-rank).  Two primitives, made on every device alike (the CPU tests take
+which the batch and FSDP's leaves are split), ``"stage"`` (the ranks of
+one pipeline position, ``sharding.pipeline``) or ``"world"`` (every
+rank).  Three primitives, made on every device alike (the CPU tests take
 the route the card takes):
   * :func:`all_reduce` (sum or max), on a copy;
   * :func:`all_gather` along a dim, built from one ``broadcast`` per rank
     of the axis on a byte view of the pieces: exact for any dtype, and
     within what gloo offers on CUDA tensors (``broadcast`` and
-    ``all_reduce`` only).
+    ``all_reduce`` only);
+  * :func:`ppermute`, the ring permute (rank i's tensor to rank i + 1 of
+    the axis), built the same way: one ``broadcast`` per rank, each rank
+    keeping its predecessor's piece.
 Each call adds its operand bytes (an all-gather's: this rank's piece;
-a reduce-scatter's: the whole operand) to the mesh's
+a reduce-scatter's: the whole operand; a permute's: the tensor it
+sends) to the mesh's
 :class:`~repro_torch.launch.roofline.CollectiveStats` under
-``"<kind>/<axis>"`` (``all-reduce/model``, ``all-gather/data``, ...),
-the port's source of collective bytes.  Both run as one registered
+``"<kind>/<axis>"`` (``all-reduce/model``, ``all-gather/data``,
+``collective-permute/stage``, ...), the port's source of collective
+bytes: a permute counts once, under its own kind, whatever broadcasts
+carry it.  On an abstract mesh (``launch.mesh.abstract_mesh``) a call
+moves nothing: it counts the same kind and bytes and returns a meta
+tensor of the result's shape, and it raises for a tensor that is not on
+``meta``.  Both run as one registered
 operator (``repro_torch::collective``), so that a selective-checkpoint
 policy can keep its outputs (``models.transformer._save_products``):
 a recompute then makes no collective and counts none.
@@ -50,7 +60,7 @@ import torch
 import torch.distributed as dist
 
 TP_ATTN_IMPLS = ("kv_shard", "gather")
-AXES = ("model", "data", "world")
+AXES = ("model", "data", "stage", "pod", "world")
 
 
 @dataclass(frozen=True)
@@ -119,14 +129,25 @@ _MESHES: "weakref.WeakValueDictionary[int, object]" = \
 
 def _axis(mesh, axis: str):
     """(process group, its global ranks in axis order, this rank's index
-    on the axis) of ``axis``; the world's group is the default one."""
+    on the axis) of ``axis``; the world's group is the default one.  On
+    an abstract mesh the group is ``None`` and the ranks are those a
+    group would hold."""
+    if axis not in AXES:
+        raise ValueError(f"axis {axis!r}: one of {AXES}")
+    if axis == "world":
+        return None, tuple(range(mesh.world)), mesh.rank
+    if getattr(mesh, "abstract", False):
+        from repro_torch.sharding.rules import global_rank
+        members = tuple(global_rank({**mesh.coords, axis: i}, mesh.shape)
+                        for i in range(mesh.shape.get(axis, 1)))
+        return None, members, mesh.coords.get(axis, 0)
     if axis == "model":
         return mesh.group, mesh.ranks, mesh.model_rank
     if axis == "data":
         return mesh.data_group, mesh.data_ranks, mesh.data_rank
-    if axis == "world":
-        return None, tuple(range(mesh.world)), mesh.rank
-    raise ValueError(f"axis {axis!r}: one of {AXES}")
+    if axis == "stage":
+        return mesh.stage_group, mesh.stage_ranks, mesh.stage_rank
+    raise ValueError(f"axis {axis!r}: only an abstract mesh has it")
 
 
 #: the operator's library: a plain registration (``custom_op`` would
@@ -136,28 +157,50 @@ _LIB.define("collective(Tensor x, int mesh_key, str kind, str axis, "
             "int dim) -> Tensor")
 
 
+_LABELS = {"sum": "all-reduce", "max": "all-reduce", "gather": "all-gather",
+           "scatter": "reduce-scatter", "permute": "collective-permute"}
+
+
+def _abstract(x: torch.Tensor, mesh, kind: str, axis: str,
+              dim: int) -> torch.Tensor:
+    """An abstract mesh's call: the kind and bytes counted, the result's
+    shape on meta."""
+    n = mesh.shape.get(axis, 1) if axis != "world" else mesh.world
+    mesh.stats.add(f"{_LABELS[kind]}/{axis}", x.numel() * x.element_size())
+    shape = list(x.shape)
+    if kind == "gather":
+        shape[dim] *= n
+    elif kind == "scatter":
+        shape[dim] //= n
+    return torch.empty(shape, dtype=x.dtype, device="meta")
+
+
 def _collective(x: torch.Tensor, mesh_key: int, kind: str, axis: str,
                 dim: int) -> torch.Tensor:
     """``kind`` "sum" / "max" (all-reduce), "gather" (all-gather along
-    ``dim``) or "scatter" (reduce-scatter: the sum's piece along ``dim``)
-    of ``x`` over ``axis``; a new tensor, in ``x``'s dtype."""
+    ``dim``), "scatter" (reduce-scatter: the sum's piece along ``dim``)
+    or "permute" (the ring permute: the axis predecessor's ``x``) of
+    ``x`` over ``axis``; a new tensor, in ``x``'s dtype."""
     mesh = _MESHES[mesh_key]
     group, ranks, index = _axis(mesh, axis)
     x = x.contiguous()
-    if kind == "gather":
+    if kind in ("gather", "permute"):
+        keep = (index - 1) % len(ranks)
         pieces = []
         for i, src in enumerate(ranks):
             buf = x if i == index else torch.empty_like(x)
             dist.broadcast(buf.view(-1).view(torch.uint8), src=src,
                            group=group)
             pieces.append(buf)
-        mesh.stats.add(f"all-gather/{axis}", x.numel() * x.element_size())
+        mesh.stats.add(f"{_LABELS[kind]}/{axis}",
+                       x.numel() * x.element_size())
+        if kind == "permute":
+            return pieces[keep]
         return torch.cat(pieces, dim)
     y = x.clone()
     dist.all_reduce(y, op=_OPS["sum" if kind == "scatter" else kind],
                     group=group)
-    label = "reduce-scatter" if kind == "scatter" else "all-reduce"
-    mesh.stats.add(f"{label}/{axis}", y.numel() * y.element_size())
+    mesh.stats.add(f"{_LABELS[kind]}/{axis}", y.numel() * y.element_size())
     if kind == "scatter":
         n = y.shape[dim] // len(ranks)
         y = y.narrow(dim, index * n, n).clone()
@@ -168,8 +211,15 @@ _LIB.impl("collective", _collective, "CompositeExplicitAutograd")
 
 
 def _call(x, mesh, kind: str, axis: str, dim: int = 0) -> torch.Tensor:
+    abstract = getattr(mesh, "abstract", False)
+    if abstract and not x.is_meta:
+        raise ValueError(f"{_LABELS[kind]} on an abstract mesh takes meta "
+                         f"tensors, not {x.device} (its ranks are views; "
+                         "nothing moves)")
     if len(_axis(mesh, axis)[1]) == 1:      # one rank: nothing to move
-        return x if kind in ("gather", "scatter") else x.clone()
+        return x if kind in ("gather", "scatter", "permute") else x.clone()
+    if abstract:
+        return _abstract(x, mesh, kind, axis, dim)
     _MESHES[id(mesh)] = mesh
     return torch.ops.repro_torch.collective(x, id(mesh), kind, axis, dim)
 
@@ -187,6 +237,13 @@ def all_gather(x: torch.Tensor, dim: int, mesh=None,
     axis order (no gradient)."""
     mesh = mesh if mesh is not None else active().mesh
     return _call(x, mesh, "gather", axis, dim)
+
+
+def ppermute(x: torch.Tensor, mesh, axis: str = "stage") -> torch.Tensor:
+    """The ring permute over ``axis`` (the reference's ``ppermute`` with
+    pairs ``(i, (i + 1) % n)``): this rank sends ``x`` to its successor
+    on the axis and returns its predecessor's (no gradient)."""
+    return _call(x, mesh, "permute", axis)
 
 
 def local_piece(x: torch.Tensor, dim: int, mesh) -> torch.Tensor:

@@ -143,7 +143,8 @@ def _map_with_path(fn, tree: Any, prefix: str = "") -> Any:
 
 
 def make_param_specs(params: Any, mesh, *, fsdp: bool = False,
-                     fsdp_min_size: int = 1 << 20) -> Any:
+                     fsdp_min_size: int = 1 << 20,
+                     stacked_groups: int = 1) -> Any:
     """A placement for every leaf of ``params`` (tensors, on any device
     including ``meta``, or anything with a ``shape``), in a tree of the
     same structure.  ``mesh`` needs only a ``shape`` dict.
@@ -151,13 +152,24 @@ def make_param_specs(params: Any, mesh, *, fsdp: bool = False,
     ``fsdp=True`` additionally splits every leaf of at least
     ``fsdp_min_size`` elements over the "data" axis (ZeRO-3 style): the
     largest dim the tensor-parallel rule left whole and the data axis
-    divides."""
+    divides.  ``stacked_groups`` (the dry-run's placements) decides that
+    for a leaf of the layer stack (``layers/...``) as the reference's
+    scanned tree has it, stacked over that many groups: its size counts
+    every group (the port's list holds one group a leaf)."""
     ctx = _ctx(mesh)
 
     def leaf_spec(path, leaf):
         shape = tuple(leaf.shape)
         spec = spec_for_path(path, shape, ctx)
-        if fsdp:
+        if fsdp and stacked_groups > 1 and path.startswith("layers/"):
+            full = _with_fsdp((None,) + spec, (stacked_groups,) + shape,
+                              ctx, fsdp_min_size)
+            if full[0] is not None:
+                raise ValueError(f"{path}: FSDP would split the stacked "
+                                 "group dim, which the port's list of "
+                                 "groups does not have")
+            spec = full[1:]
+        elif fsdp:
             spec = _with_fsdp(spec, shape, ctx, fsdp_min_size)
         return _sanitize(spec, shape, ctx)
 
@@ -302,11 +314,30 @@ def local_leaf(whole: torch.Tensor, spec: Placement,
     return _local(whole, spec, mesh.shape, mesh.coords)
 
 
+#: the axes of a mesh from major to minor: the model axis is minor, so a
+#: model group is a run of consecutive ranks
+AXIS_ORDER = ("stage", "pod", "data", "model")
+
+
 def rank_coords(rank: int, shape: Dict[str, int]) -> Dict[str, int]:
-    """A global rank's index on each axis: the model axis is minor, so a
-    model group is a run of consecutive ranks."""
-    model = shape.get("model", 1)
-    return {"data": rank // model, "model": rank % model}
+    """A global rank's index on each axis of ``shape`` (always ``"data"``
+    and ``"model"``; ``"stage"`` and ``"pod"`` where the mesh has them),
+    the axes laid out as :data:`AXIS_ORDER`."""
+    coords = {}
+    for axis in reversed(AXIS_ORDER):
+        if axis in shape or axis in ("data", "model"):
+            n = shape.get(axis, 1)
+            coords[axis] = rank % n
+            rank //= n
+    return {a: coords[a] for a in AXIS_ORDER if a in coords}
+
+
+def global_rank(coords: Dict[str, int], shape: Dict[str, int]) -> int:
+    """The inverse of :func:`rank_coords`."""
+    rank = 0
+    for axis in AXIS_ORDER:
+        rank = rank * shape.get(axis, 1) + coords.get(axis, 0)
+    return rank
 
 
 def unshard(shards: Sequence[Any], specs: Any,

@@ -130,13 +130,30 @@ def _tree_refusal(cfg, params) -> str:
     return ""
 
 
-def check_servable(cfg, params) -> None:
+def cp_decode(cfg) -> bool:
+    """Whether ``cfg``'s contiguous decode takes the context-parallel
+    step under a model axis (``decode_attn_impl="cp"``, an unquantized
+    cache, not MLA): there the axis splits the cache's sequence, not the
+    heads, so any head count is served (``models.attention.
+    attention_decode_cp``)."""
+    from repro_torch.kvcache import normalize_dtype
+    a = cfg.attention
+    return (cfg.decode_attn_impl == "cp" and a is not None
+            and a.kind != "mla"
+            and normalize_dtype(cfg.kv_cache_dtype) == "bfloat16")
+
+
+def check_servable(cfg, params, *, cp: bool = False) -> None:
     """Raise ``ValueError`` for a config or tree the port does not serve
     under a model axis of ``cfg.model_parallel`` > 1.  MoE layers (EP or
     the TP fallback), int8 / fp8 / int4 weights and PEFT adapters
-    (unmerged) are served."""
+    (unmerged) are served.  ``cp=True`` is the context-parallel decode
+    step (``launch.steps``' decode cell): where :func:`cp_decode` holds,
+    head counts the axis does not divide are served too; the engines
+    never pass it, and keep refusing them (A8.8)."""
     from repro_torch.kvcache import cache_kv_heads
-    local_attention(cfg)                 # refuses non-dividing heads, MLA
+    if not (cp and cp_decode(cfg)):
+        local_attention(cfg)             # refuses non-dividing heads, MLA
     refusal = _widths_refusal(cfg) or _tree_refusal(cfg, params)
     if refusal:
         raise ValueError(f"{refusal}: {A88}")

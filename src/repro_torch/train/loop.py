@@ -123,13 +123,15 @@ def _rank_rows(batch: dict, mesh, num_microbatches: int) -> dict:
 
 
 def sharded_grads(lm, params, batch, mesh, specs,
-                  num_microbatches: int = 1):
+                  num_microbatches: int = 1, local_batch: bool = False):
     """``(grads, metrics)`` of one rank of ``mesh``: ``params`` its pieces
-    (placed by ``specs``), ``batch`` the global batch.  ``grads`` are the
-    pieces of the single-device gradient (microbatches averaged, fp32
-    where they are accumulated), ``metrics`` the global ones, equal on
-    every rank."""
-    if mesh.data > 1:
+    (placed by ``specs``), ``batch`` the global batch, or with
+    ``local_batch`` this rank's rows of it already (a dry-run cell's
+    argument, its microbatches consecutive runs of those rows).
+    ``grads`` are the pieces of the single-device gradient (microbatches
+    averaged, fp32 where they are accumulated), ``metrics`` the global
+    ones, equal on every rank."""
+    if mesh.data > 1 and not local_batch:
         batch = _rank_rows(batch, mesh, num_microbatches)
     tracked, whole_over_data = [], []
 
@@ -184,7 +186,8 @@ def sharded_grads(lm, params, batch, mesh, specs,
 
 def make_train_step(lm, *, lr, mask=None, max_grad_norm: float = 1.0,
                     num_microbatches: int = 1, compress: str = "none",
-                    weight_decay: float = 0.1, mesh=None, specs=None):
+                    weight_decay: float = 0.1, mesh=None, specs=None,
+                    local_batch: bool = False):
     """-> ``step(params, opt_state, batch, err_fb) -> (params, opt_state,
     err_fb, metrics)``.  ``batch`` is a dict of (B, S) tensors on the
     model's device; the parameters and the optimizer state are updated in
@@ -196,7 +199,8 @@ def make_train_step(lm, *, lr, mask=None, max_grad_norm: float = 1.0,
     (``cfg.model_parallel`` the mesh's model axis), the parameters, state
     and error feedback are this rank's pieces placed by ``specs`` (every
     rank's tree and placements alike), ``batch`` is the global batch, and
-    the step is the single-device step (:func:`sharded_grads`).
+    the step is the single-device step (:func:`sharded_grads`;
+    ``local_batch``: ``batch`` holds this rank's rows only).
     ``step.compute_grads(params, batch) -> (grads, metrics)`` is the
     step's gradient alone, before compression and the clip."""
     stacked = lm.cfg.scan_layers
@@ -206,7 +210,7 @@ def make_train_step(lm, *, lr, mask=None, max_grad_norm: float = 1.0,
     def compute_grads(params, batch):
         if mesh is not None:
             return sharded_grads(lm, params, batch, mesh, specs,
-                                 num_microbatches)
+                                 num_microbatches, local_batch)
         if num_microbatches == 1:
             _, metrics, grads = loss_and_grads(lm, params, batch)
             return grads, metrics

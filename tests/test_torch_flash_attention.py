@@ -72,11 +72,21 @@ def test_flash_plain_ragged_lengths(s):
     _check(q, k, v, None, 2e-5)
 
 
+class _OnOtherDevice:
+    """Stands in for a tensor on a device that is neither the CPU, nor
+    CUDA, nor meta (the wrapper reads its device first)."""
+    device = torch.device("xpu")
+
+
 def test_flash_wrapper_refuses_unknown_device():
+    """Meta tensors take the plain version (a dry-run trace's shapes);
+    any device other than the CPU, CUDA and meta is refused."""
     q, k, v = (tensor_from_numpy(np.asarray(x)).to("meta")
                for x in _qkv(3, 1, 8, 2, 1, 16, jnp.float32))
+    out = torch_ops.flash_attention(q, k, v)
+    assert out.is_meta and out.shape == q.shape
     with pytest.raises(ValueError, match="unsupported device"):
-        torch_ops.flash_attention(q, k, v)
+        torch_ops.flash_attention(_OnOtherDevice(), k, v)
     assert torch_ops.launches == torch_ops.tc_launches == 0
 
 

@@ -115,15 +115,24 @@ def test_split_plan_covers_horizon():
     assert torch_ops.split_plan(8, 2, 1024) == (8, 128)
 
 
+class _OnOtherDevice:
+    """Stands in for a tensor on a device that is neither the CPU, nor
+    CUDA, nor meta (the wrapper reads its device first)."""
+    device = torch.device("xpu")
+
+
 def test_wrapper_dispatches_on_device_only():
-    """A tensor that is neither on the CPU nor on a CUDA device is
-    refused; the CPU path is the plain version, bit for bit."""
+    """A tensor that is neither on the CPU, nor on a CUDA device, nor on
+    meta is refused; the CPU path is the plain version, bit for bit, and
+    meta tensors take it too (a dry-run trace's shapes)."""
     rng = np.random.default_rng(2)
     args = [_to_torch(a) for a in _inputs(rng, 2, 4, 2, 32, 8, 2,
                                            jnp.float32)[:5]]
     assert torch.equal(torch_ops.paged_attention(*args),
                        paged_attention_ref(*args))
     meta = [a.to("meta") for a in args]
+    out = torch_ops.paged_attention(*meta)
+    assert out.is_meta and out.shape == args[0].shape
     with pytest.raises(ValueError, match="unsupported device"):
-        torch_ops.paged_attention(*meta)
+        torch_ops.paged_attention(_OnOtherDevice(), *args[1:])
     assert torch_ops.launches == 0

@@ -139,15 +139,24 @@ def test_width_one_equals_paged_decode(h, kvh):
     _close(ext[:, 0], dec, F32_TOL)
 
 
+class _OnOtherDevice:
+    """Stands in for a tensor on a device that is neither the CPU, nor
+    CUDA, nor meta (the wrapper reads its device first)."""
+    device = torch.device("xpu")
+
+
 def test_extend_wrapper_dispatches_on_device_only():
-    """A tensor that is neither on the CPU nor on a CUDA device is
-    refused; the CPU path is the plain version, bit for bit."""
+    """A tensor that is neither on the CPU, nor on a CUDA device, nor on
+    meta is refused; the CPU path is the plain version, bit for bit, and
+    meta tensors take it too (a dry-run trace's shapes)."""
     args = _torch_args(_inputs("int8", 4, 2, 5))
-    assert torch.equal(torch_ops.paged_prefix_extend_attention(*args),
-                       paged_prefix_extend_ref(*args))
-    meta = [a.to("meta") for a in args]
+    want = paged_prefix_extend_ref(*args)
+    assert torch.equal(torch_ops.paged_prefix_extend_attention(*args), want)
+    meta = [a.to("meta") if a is not None else None for a in args]
+    out = torch_ops.paged_prefix_extend_attention(*meta)
+    assert out.is_meta and out.shape == want.shape
     with pytest.raises(ValueError, match="unsupported device"):
-        torch_ops.paged_prefix_extend_attention(*meta)
+        torch_ops.paged_prefix_extend_attention(_OnOtherDevice(), *args[1:])
     assert torch_ops.extend_launches == torch_ops.extend_tc_launches == 0
 
 

@@ -100,7 +100,17 @@ def test_norm_apply_counts_no_launch_on_the_cpu():
     assert ops.launches == 0
 
 
+class _OnOtherDevice:
+    """Stands in for a tensor on a device that is neither the CPU, nor
+    CUDA, nor meta (the wrapper reads its device first)."""
+    device = torch.device("xpu")
+
+
 def test_rmsnorm_refuses_other_devices():
+    """Meta tensors take the plain version (a dry-run trace's shapes);
+    any device other than the CPU, CUDA and meta is refused."""
     x = torch.ones((2, 8), device="meta")
+    out = ops.rmsnorm(x, torch.ones(8, device="meta"))
+    assert out.is_meta and out.shape == x.shape
     with pytest.raises(ValueError, match="unsupported device"):
-        ops.rmsnorm(x, torch.ones(8, device="meta"))
+        ops.rmsnorm(_OnOtherDevice(), torch.ones(8))

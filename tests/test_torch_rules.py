@@ -53,7 +53,8 @@ def test_port_imports_no_msgpack():
 
 def test_scan_covers_the_scheduler_and_every_kernel_module():
     """The import rule above reaches the scheduler, the quantization
-    modules, the RWKV-6 mixer and every kernel wrapper."""
+    modules, the RWKV-6 mixer, every kernel wrapper and the dry-run,
+    context-parallel and pipeline modules."""
     scanned = {str(f.relative_to(ROOT)) for f in _port_files()}
     for rel in ("sched/__init__.py", "sched/policy.py", "sched/prefix.py",
                 "sched/scheduler.py", "kernels/paged_attention/ops.py",
@@ -83,7 +84,9 @@ def test_scan_covers_the_scheduler_and_every_kernel_module():
                 "peft/lora.py", "train/__init__.py", "train/loop.py",
                 "data/__init__.py", "data/pipeline.py",
                 "checkpoint/__init__.py", "checkpoint/manager.py",
-                "launch/train.py"):
+                "launch/train.py", "launch/dryrun.py", "launch/steps.py",
+                "launch/roofline.py", "launch/mesh.py", "configs/specs.py",
+                "serve/decode_attn.py", "sharding/pipeline.py"):
         assert f"src/repro_torch/{rel}" in scanned, rel
     from repro_torch.kernels import build
     for src in build.SOURCES.values():
@@ -106,10 +109,13 @@ WRAPPERS = {"kernels/int8_matmul/ops.py": ("int8_matmul_ref",
 
 @pytest.mark.parametrize("rel", sorted(WRAPPERS))
 def test_wrappers_dispatch_on_the_device_without_fallback(rel):
-    """Every kernel wrapper picks its plain version only on a CPU tensor's
-    device (an ``if <tensor>.device.type == "cpu"`` branch), raises for
-    any other device than CUDA, and has no ``try`` anywhere: a failed
-    build or launch on the card raises instead of falling back."""
+    """Every kernel wrapper picks its plain version only on a CPU or a
+    meta tensor's device (an ``if <tensor>.device.type in ("cpu",
+    "meta")`` branch: a meta tensor has no values and no kernel, and the
+    plain version gives a dry-run trace its result's shape and dtype),
+    raises for any other device than CUDA, and has no ``try`` anywhere:
+    a failed build or launch on the card raises instead of falling
+    back."""
     path = ROOT / "src" / "repro_torch" / rel
     tree = ast.parse(path.read_text())
     assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], rel
@@ -118,8 +124,7 @@ def test_wrappers_dispatch_on_the_device_without_fallback(rel):
         if not isinstance(node, ast.If):
             continue
         test = ast.unparse(node.test)
-        if test.endswith('.device.type == "cpu"') or \
-                test.endswith(".device.type == 'cpu'"):
+        if test.endswith(".device.type in ('cpu', 'meta')"):
             for stmt in node.body:
                 if isinstance(stmt, ast.Return) and \
                         isinstance(stmt.value, ast.Call):
@@ -127,6 +132,118 @@ def test_wrappers_dispatch_on_the_device_without_fallback(rel):
     assert set(WRAPPERS[rel]) <= plain_returns, (rel, plain_returns)
     source = path.read_text()
     assert 'device.type != "cuda"' in source and "raise ValueError" in source
+
+
+def test_wrappers_take_meta_tensors_to_their_plain_versions():
+    """Each kernel wrapper called on meta tensors returns meta results of
+    the plain version's shape and dtype (and launches nothing)."""
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.int8_matmul.ops import (fp8_matmul_decode,
+                                                     int8_matmul,
+                                                     w8a8_matmul_decode)
+    from repro_torch.kernels.paged_attention.ops import (
+        paged_attention, paged_prefix_extend_attention)
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.kernels.wkv6.ops import wkv6
+
+    def meta(*shape, dtype=torch.bfloat16):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    before = launch_counts()
+    i32 = torch.int32
+    outs = {
+        "flash": (flash_attention(meta(2, 16, 4, 8), meta(2, 16, 2, 8),
+                                  meta(2, 16, 2, 8)), (2, 16, 4, 8)),
+        "paged": (paged_attention(meta(2, 4, 8), meta(5, 16, 2, 8),
+                                  meta(5, 16, 2, 8),
+                                  meta(2, 2, dtype=i32),
+                                  meta(2, dtype=i32)), (2, 4, 8)),
+        "extend": (paged_prefix_extend_attention(
+            meta(2, 3, 4, 8), meta(5, 16, 2, 8), meta(5, 16, 2, 8),
+            meta(2, 2, dtype=i32), meta(2, dtype=i32), meta(2, 3, 2, 8),
+            meta(2, 3, 2, 8), meta(2, dtype=i32)), (2, 3, 4, 8)),
+        "int8": (int8_matmul(meta(4, 32, dtype=torch.int8),
+                             meta(32, 16, dtype=torch.int8),
+                             meta(4, dtype=torch.float32),
+                             meta(16, dtype=torch.float32)), (4, 16)),
+        "w8a8": (w8a8_matmul_decode(meta(4, 32),
+                                    meta(32, 16, dtype=torch.int8),
+                                    meta(16, dtype=torch.float32)),
+                 (4, 16)),
+        "fp8": (fp8_matmul_decode(meta(4, 32),
+                                  meta(32, 16, dtype=torch.float8_e4m3fn),
+                                  meta(16, dtype=torch.float32)), (4, 16)),
+        "rmsnorm": (rmsnorm(meta(3, 64), meta(64)), (3, 64)),
+        "wkv6": (wkv6(*(meta(1, 16, 2, 8) for _ in range(4)), meta(2, 8),
+                      meta(1, 2, 8, 8, dtype=torch.float32))[0],
+                 (1, 16, 2, 8)),
+    }
+    for name, (out, shape) in outs.items():
+        assert out.device.type == "meta" and tuple(out.shape) == shape, name
+    assert launch_counts() == before
+
+
+def test_abstract_mesh_collectives_count_and_refuse_real_tensors():
+    """On an abstract mesh a collective counts its kind and rank-local
+    bytes and returns a meta result of its shape; a tensor that is not on
+    meta raises (nothing moves between views)."""
+    from repro_torch.launch.mesh import abstract_mesh
+    from repro_torch.sharding import collectives as coll
+    mesh = abstract_mesh({"pod": 2, "data": 16, "model": 16},
+                         {"pod": 1, "data": 3, "model": 5})
+    assert mesh.rank == (1 * 16 + 3) * 16 + 5 and mesh.world == 512
+    assert "abstract" in mesh.describe()
+    x = torch.empty((4, 8), dtype=torch.bfloat16, device="meta")
+    assert coll.all_gather(x, 1, mesh).shape == (4, 128)
+    assert coll.all_reduce(x, "max", mesh, "data").shape == (4, 8)
+    assert coll.ppermute(x, mesh, "pod").shape == (4, 8)
+    assert mesh.stats.count_by_op == {"all-gather/model": 1,
+                                      "all-reduce/data": 1,
+                                      "collective-permute/pod": 1}
+    assert set(mesh.stats.bytes_by_op.values()) == {64.0}
+    for fn in (lambda t: coll.all_reduce(t, "sum", mesh),
+               lambda t: coll.all_gather(t, 0, mesh),
+               lambda t: coll.ppermute(t, mesh, "data")):
+        with pytest.raises(ValueError, match="abstract mesh takes meta"):
+            fn(torch.zeros(4, 8))
+
+
+def test_chip_smoke_drives_the_cells_phase():
+    """chip_smoke.py has a phase 27 that its main runs last: (a) the
+    dry-run cells of llama3.2-1b on one rank (train_4k, prefill_32k,
+    decode_32k over a contiguous and a paged cache) with their meta
+    traces, (b) the context-parallel decode cell of qwen2-1.5b on four
+    ranks against one rank, (c) a GPipe pipeline of two stages against
+    one rank."""
+    text = (ROOT / "chip_smoke.py").read_text()
+    tree = ast.parse(text)
+    funcs = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    main_calls = [ast.unparse(c.func) for c in ast.walk(funcs["main"])
+                  if isinstance(c, ast.Call)]
+    assert "phase_cells" in main_calls
+    assert main_calls.index("phase_cells") > \
+        main_calls.index("phase_train_tp_peft")
+    # the ranks' and the trace workers' functions are arguments of
+    # spawn_world and of the pool, not calls
+    reached, todo = set(), ["phase_cells", "_cp_rank", "_pipe_rank",
+                            "_cell_trace"]
+    while todo:
+        name = todo.pop()
+        reached.add(name)
+        todo += [ast.unparse(c.func) for c in ast.walk(funcs[name])
+                 if isinstance(c, ast.Call) and ast.unparse(c.func) in funcs
+                 and ast.unparse(c.func) not in reached]
+    body = "\n".join(ast.unparse(funcs[n]) for n in sorted(reached))
+    for needle in ("build_cell", "abstract_mesh", ".trace(",
+                   "FlopCounterMode", "train_4k", "prefill_32k",
+                   "decode_32k", "paged_pallas", "decode_attn_impl='cp'",
+                   "spawn_world", "make_host_mesh(stage=",
+                   "pipeline_forward", "CP_PREDICTED", "_reset_launches",
+                   "_read_launches", "_swap_plain", "scaled_dot_product",
+                   "max_memory_allocated", "isfinite"):
+        assert needle in body, needle
+    for tag in ("[27 cells] (a)", "[27 cells] (b)", "[27 cells] (c)"):
+        assert tag in text, tag
 
 
 def test_chip_smoke_drives_the_spec_path():
@@ -188,7 +305,8 @@ def test_port_carries_no_tpu_constant():
     bad = {}
     for f in _port_files():
         text = f.read_text()
-        hits = [w for w in ("v5e", "197e12", "819e9", "mesh.HW")
+        hits = [w for w in ("v5e", "197e12", "394e12", "819e9",
+                            "16 * 2**30", "mesh.HW", "ici_bw_per_link")
                 if w in text]
         if hits:
             bad[str(f.relative_to(ROOT))] = hits

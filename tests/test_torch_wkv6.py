@@ -104,10 +104,20 @@ def test_wkv6_upcasts_bf16_inputs_on_the_cpu():
     np.testing.assert_allclose(s.numpy(), ref[1], **TOL)
 
 
+class _OnOtherDevice:
+    """Stands in for a tensor on a device that is neither the CPU, nor
+    CUDA, nor meta (the wrapper reads its device first)."""
+    device = torch.device("xpu")
+
+
 def test_wkv6_refuses_other_devices():
+    """Meta tensors take the plain version (a dry-run trace's shapes);
+    any device other than the CPU, CUDA and meta is refused."""
     args = [torch.from_numpy(a).to("meta") for a in _inputs(1, 4, 2, 16, 0)]
+    o, s = ops.wkv6(*args)
+    assert o.is_meta and o.shape == args[0].shape and s.is_meta
     with pytest.raises(ValueError, match="unsupported device"):
-        ops.wkv6(*args)
+        ops.wkv6(_OnOtherDevice(), *args[1:])
 
 
 # --- the CUDA kernel's arithmetic, emulated on the CPU -------------------
