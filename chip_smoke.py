@@ -155,7 +155,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
                  then Default and c* served through SchedEngine /
                  SpecEngine (an MLA c* through the eager Engine, its spec
                  arm reported unserved; one slot, page 256, chunk 512,
-                 4 requests of 512 + 128 tokens one after another):
+                 2 requests of 512 + 128 tokens one after another):
                  request latency, TTFT and peak memory beside predict()'s,
                  every stream full, every page freed, launches = the
                  dispatches' (B4 / B5 / B6 at 196 a dispatch for quantized
@@ -163,16 +163,16 @@ Phases (each prints one line; any failure raises and exits non-zero):
  19. moe       — MoE serving and deepseek-coder-33b at full depth: (a)
                  granite-moe-3b-a800m at full width and depth (32 layers,
                  40 experts top-8), bf16: (a1) SchedEngine, FCFS, prefix
-                 cache, phase 7's settings, 8 of its requests; (a2)
+                 cache, phase 7's settings, 4 of its requests; (a2)
                  PagedEngine with int8 weights (attention linears; experts stay bf16)
-                 and int8 pools, 8 requests; (a3) the n-gram SpecEngine on
+                 and int8 pools, 4 requests; (a3) the n-gram SpecEngine on
                  (a1)'s settings over repeated passages; (b)
                  llama4-scout-17b-a16e at full width and 8 layers through
                  the eager Engine, 2 slots, prompts past its 8,192 window
                  (B3 windowed, held first at its head shape); (c)
                  deepseek-coder-33b at full width and all 62 layers, int8
                  weights built a group at a time, bf16 pools, PagedEngine,
-                 8 requests, after B1 / B2 / B3 / B4 / B5 / B6 / B7 are
+                 4 requests, after B1 / B2 / B3 / B4 / B5 / B6 / B7 are
                  held at its shapes and B1 / B3 / B4 / B5 timed there; (d)
                  moe_apply (both dispatches) of one granite and one llama4
                  layer, 1,024 tokens, bf16, on the card vs the CPU, twice
@@ -303,7 +303,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
                  steps' FLOPs equal to FlopCounterMode's to the FLOP; (b)
                  qwen2-1.5b at full width and depth, the decode cell with
                  decode_attn_impl="cp" on four ranks sharing the card
-                 over gloo (8 x 32,768, 8,192 positions a rank), 3 steps:
+                 over gloo (8 x 32,768, 8,192 positions a rank), 2 steps:
                  the collectives a step equal CP_PREDICTED, bf16 logits
                  within 2x a one-rank witness of rounding, float32 at 2
                  layers within 1e-5 of one rank's; (c) a GPipe pipeline of
@@ -311,13 +311,28 @@ Phases (each prints one line; any failure raises and exits non-zero):
                  microbatches of 2 x 512: outputs within 2e-2 of one rank
                  running the 16 layers, S + M - 1 permutes of a
                  microbatch and one sum
+ 28. whole_heads — on 27 (b)'s four ranks and weights, qwen2-1.5b's 12
+                 query heads over 2 kv heads, which 4 does not divide:
+                 every rank computes every head from projections
+                 gathered whole. (a) launch.steps' prefill cell, 4 x
+                 512, bf16 at full depth: logits within 2e-2 a row of
+                 one rank's, float32 at 2 layers within 1e-5, B3 28 and
+                 B7 57 launches a rank with every call held against its
+                 plain version, the collectives a prefill equal
+                 WH_PREDICTED; (b) the train cell, 2 steps: losses
+                 within 2e-2 of one rank's, step wall, peak and the
+                 collectives a step (the gathers' reduce-scatters apart),
+                 float32 at 2 layers: every gradient leaf gathered whole
+                 within 1e-4 of one rank's, the loss within 1e-5; then
+                 B3 at a rank's shape timed beside the plain version,
+                 SDPA and the bound
 B7 takes every RMSNorm of the qwen2-1.5b drives: 57 launches a forward
 (phases 5, 7, 9, 10), every one on its warp step.  Every B1 / B2 / B3
 launch of those drives (bf16 activations), every B4 and B5 launch of
 phase 9 and every B6 launch of phase 10 must take the tensor-core step:
 their tensor-core launch counts are printed beside the launch counts and
 must equal them.  Launch counts are
-zeroed just before each drive (phases 5, 7, 9, 10, 13-27) and read just
+zeroed just before each drive (phases 5, 7, 9, 10, 13-28) and read just
 after it; peak memory is read for the set-up and, restarted, for the
 drive.  Then one JSON
 line of kernel numbers, and last the result line ``{"ok": true,
@@ -3572,7 +3587,7 @@ def phase_cost(records: list) -> dict:
     return out
 
 
-SEARCH_REQUESTS = 3         # phase 18 (b), each arm: the first warms up
+SEARCH_REQUESTS = 2         # phase 18 (b), each arm: the first warms up
 SEARCH_PROMPT, SEARCH_GEN = 512, 128    # the cost model's protocol
 #: the budget of the reference's tests/test_core_aellm.py::_small_tuner
 SEARCH_BUDGET = dict(n0=48, refine_iters=1, k_per_iter=8, pop_size=24,
@@ -3770,8 +3785,8 @@ def phase_search(records: list, calibration: dict) -> dict:
     (``recommend_efficient``), c*'s and Default's objectives and the
     Efficiency Score, then recalibrates the fitted tuner with phase 17's
     ``CalibratedCostModel`` and prints the shifts.  (b) Default and c*
-    served at full width, 3 requests of 512 prompt tokens and 128 new
-    tokens one after another (the median of the last 2): measured request
+    served at full width, 2 requests of 512 prompt tokens and 128 new
+    tokens one after another (the first warms up): measured request
     latency and TTFT, the peak device memory after the weights are made,
     and ``predict(..., layout="paged")``'s latency and memory, uncalibrated
     and calibrated.  Each arm is ``LM.init`` of
@@ -3872,7 +3887,7 @@ SCOUT = "llama4-scout-17b-a16e"
 DEEPSEEK = "deepseek-coder-33b"
 SCOUT_LAYERS = 8            # phase 19 (b): 8 of llama4-scout's 48 layers
 SCOUT_REQUESTS = 4          # two waves on its 2 slots
-MOE_Q_REQUESTS = 8          # phase 19 (a1), (a2), (a3) and (c)
+MOE_Q_REQUESTS = 4          # phase 19 (a1), (a2), (a3) and (c)
 MOE_APPLY_TOKENS = 1024     # phase 19 (d): two routing groups of 512
 #: deepseek-coder-33b's linears (K, N): wq / wo, wk / wv, gate / up, down
 DEEPSEEK_QMM = [(7168, 7168), (7168, 1024), (7168, 19200), (19200, 7168)]
@@ -4318,7 +4333,7 @@ def _hold_deepseek_kernels(records: list) -> dict:
 def _moe_deepseek(records: list) -> dict:
     """(c) deepseek-coder-33b at full width and all 62 layers, int8
     weights built one group at a time (its bf16 tree never exists whole),
-    bf16 pools, through the PagedEngine: 8 slots, 8 requests of
+    bf16 pools, through the PagedEngine: 8 slots, 4 requests of
     512-2,048 tokens, 32 new tokens each."""
     torch = _torch()
     import numpy as np
@@ -4473,9 +4488,9 @@ PEFT_STEPS, PEFT_RANK = 5, 16
 PEFT_METHODS = ("lora", "qlora", "dora")
 TRAIN_GRAD_REL_L2 = 1e-4       # (b): smoke configs, card vs CPU, float32
 TRAIN_GRAD_B, TRAIN_GRAD_S = 2, 128
-MOE_RWKV_LAYERS, MOE_RWKV_STEPS = 4, 5
+MOE_RWKV_LAYERS, MOE_RWKV_STEPS = 4, 3
 PROXY_METHODS = ("full", "lora", "qlora")
-TRAIN_SERVE_REQUESTS = 8
+TRAIN_SERVE_REQUESTS = 4
 
 
 def _train_quiet(_msg) -> None:
@@ -4741,7 +4756,7 @@ def _resume(ckpt_dir: str) -> dict:
 
 
 def _serve_trained(lm, params) -> dict:
-    """(e) (c)'s LoRA parameters served through PagedEngine, 8 requests,
+    """(e) (c)'s LoRA parameters served through PagedEngine, 4 requests,
     merged (``merge_lora``) and with the adapters unmerged: full streams,
     B1 / B3 / B7 launched; the first prompt's prefill logits, merged vs
     unmerged, within LOGIT_REL_L2."""
@@ -5859,10 +5874,10 @@ def phase_jamba(records: list, smi: str) -> dict:
 TP_RANKS = 2
 TP_HEADS = (6, 1, 128)      # qwen2-1.5b's heads on one of two ranks
 TP_F32_LAYERS = 4           # (b): phase 16's float32 depth
-TP_F32_REQUESTS = 4
+TP_F32_REQUESTS = 2
 TP_SCHED_REQUESTS = 4       # (c): half behind a shared prefix
-TP_Q_REQUESTS = 4           # (d), 16 new tokens each
-TP_Q_NEW = 16
+TP_Q_REQUESTS = 4           # (d), 8 new tokens each
+TP_Q_NEW = 8
 TP_GATHER_STEPS = 2         # (e)
 TP_GATHER_MIN_RATIO = 4.0   # (e): kv_shard's all-gather bytes at least 4x
                             # below gather's (the reference's bar)
@@ -6726,7 +6741,7 @@ TPM_HEADS = (12, 4, 64)      # granite's heads on one of two ranks
 #: gate / up and the row-split down (an fp32 partial, no bias), M 8
 TPM_B6 = ((1536, 4480, "bfloat16"), (4480, 1536, "float32"))
 TPM_B6_M = 8
-TPM_REQUESTS = 4             # (a): phase 19's engine, 64-512-token prompts
+TPM_REQUESTS = 2             # (a): phase 19's engine, 64-512-token prompts
 TPM_GATHER_STEPS = 2         # (b)
 TPM_F32_LAYERS = 2           # (c)
 TPM_F32_REL_L2 = 1e-3        # (a): float32 logits, 2 ranks vs one, a row
@@ -7492,7 +7507,7 @@ def phase_train_tp_peft(smi: str) -> dict:
 
 
 CELL_REPS = 3                   # (a): timed runs of each cell
-CELL_TRAIN_REPS = 2             # (a): timed steps of the train cell
+CELL_TRAIN_REPS = 1             # (a): timed steps of the train cell
 CELL_TRAIN_SEQ = 4096           # train_4k's rows
 CELL_TRAIN_ROWS = 4             # (a): the rows train_4k runs (time)
 CELL_MEM_SHARE = 0.9            # (a): of the card's memory for the rows
@@ -7501,7 +7516,7 @@ CELL_DECODE = (16, 32_768)      # decode_32k cut from 128 rows to 16
 CELL_ATTN_BLOCK = 4096          # the dry-run's chunk at 32,768 (S / 8)
 CELL_LOSS_RTOL = 1e-5
 CP_ARCH, CP_RANKS = "qwen2-1.5b", 4
-CP_BATCH, CP_SEQ, CP_STEPS = 8, 32_768, 3
+CP_BATCH, CP_SEQ, CP_STEPS = 8, 32_768, 2
 #: (b): each row's first position, on and around the 4 shards' edges
 CP_POS = (8191, 8192, 16383, 16384, 20000, 24575, 24576, 32000)
 CP_F32_LAYERS, CP_F32_REL_L2 = 2, 1e-5
@@ -7511,6 +7526,26 @@ CP_F32_LAYERS, CP_F32_REL_L2 = 2, 1e-5
 CP_PREDICTED = {"all-reduce/model": (141, 4_199_424.0),
                 "all-gather/model": (85, 1_444_864.0)}
 PIPE_RANKS, PIPE_MICRO, PIPE_MB = 2, 4, (2, 512)
+#: phase 28: qwen2-1.5b's heads over 27 (b)'s four ranks (12 query heads
+#: divide, 2 kv heads do not): every rank computes every head
+WH_ROWS, WH_SEQ = 4, 512        # (a) prefill and (b) train: 4 x 512
+WH_TRAIN_STEPS = 2
+WH_REPS = 1                     # (a): timed prefill after the counted one
+WH_LOGIT_REL_L2 = 2e-2          # (a) bf16, per row, vs one rank's
+WH_F32_REL_L2 = 1e-5            # (a) float32 at CP_F32_LAYERS layers
+WH_LOSS_RTOL = 2e-2             # (b) bf16, each step vs one rank's
+WH_F32_GRAD_REL_L2 = 1e-4       # (b) float32: every leaf's gradient
+WH_F32_LOSS_RTOL = 1e-5         # (b) float32: the loss
+#: (a): a rank's collectives a bf16 prefill, predicted in PERF.md §6
+#: before the first run: 28 layers x (q / k / v gathers of the rank's
+#: columns: 384 + 64 + 64 of 4 x 512 rows in bf16) + the last token's
+#: logits (37,984 fp32 a row); 28 x (wo, down: fp32 partials of 4 x 512 x
+#: 1,536) + the embedding's sum
+WH_PREDICTED = {"all-gather/model": (85, 59_328_000.0),
+                "all-reduce/model": (57, 717_225_984.0)}
+#: (a): a rank's launches a prefill: B3 a layer, B7 twice a layer and once
+#: for the final norm
+WH_LAUNCHES = {"flash_attention": 28, "rmsnorm": 57}
 
 
 def _cell_walls(fn, runs: int) -> tuple:
@@ -8029,11 +8064,13 @@ def _cp_rank(rank: int) -> dict:
     n = CP_SEQ // CP_RANKS
     lo = mesh.model_rank * n
     out = {"mesh": mesh.describe()}
+    kept = {}
     for key, cfg in _cp_configs().items():
         cell = build_cell(cfg, ShapeConfig("decode_32k", CP_SEQ, CP_BATCH,
                                            "decode"), mesh)
         whole = LM(cfg, device="cuda").init(SEED)
         params = shard_params(whole, cell.in_shardings[0], mesh)
+        kept[key] = params
         del whole
         torch.cuda.empty_cache()
         cache = _cp_cache(cfg, CP_BATCH, CP_SEQ, lo, lo + n)
@@ -8049,6 +8086,8 @@ def _cp_rank(rank: int) -> dict:
         del params, cache
         torch.cuda.empty_cache()
     out["wall_s"] = time.perf_counter() - t0
+    # phase 28 on the same ranks and the same pieces of the weights
+    out["p28"] = _whole_rank(mesh, kept)
     return out
 
 
@@ -8085,9 +8124,254 @@ def _cp_one_rank() -> dict:
                 cfg)["logits"]
         finally:
             model_mod.tensor_parallel = scope
-        del params, cache
+        del cache
+        torch.cuda.empty_cache()
+        # phase 28's single rank, on the same weights (without the
+        # serving copy of the head)
+        params.pop("head_f32")
+        out[key]["p28"] = _whole_one_rank(cfg, params,
+                                          train=key == "bf16")
+        del params
         torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 28: head counts the model axis does not divide, in prefill and
+# training (the whole-heads arm), on 27 (b)'s four ranks
+
+
+def _wh_tokens(cfg):
+    """(a)'s prompts and (b)'s batch, from SEED (the ranks and the single
+    rank draw the same)."""
+    torch = _torch()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    toks = torch.randint(0, cfg.vocab_size, (WH_ROWS, WH_SEQ + 1),
+                         generator=g, device="cuda")
+    mask = (torch.rand((WH_ROWS, WH_SEQ), generator=g, device="cuda")
+            < 0.9).float()
+    return toks[:, :-1].int(), {"tokens": toks[:, :-1].int(),
+                                "labels": toks[:, 1:].int(), "mask": mask}
+
+
+def _wh_shape(mode: str):
+    from repro_torch.configs import ShapeConfig
+    name = "prefill_32k" if mode == "prefill" else "train_4k"
+    return ShapeConfig(name, WH_SEQ, WH_ROWS, mode)
+
+
+def _wh_calls(mesh, before) -> dict:
+    calls = mesh.stats.since(before)
+    return {k: (calls.count_by_op[k], calls.bytes_by_op[k])
+            for k in sorted(calls.count_by_op) if calls.count_by_op[k]}
+
+
+def _wh_held(fn) -> tuple:
+    """``fn()`` with every B3 and B7 call also computed by its plain
+    version on the same inputs and held element by element (B3 against
+    the plain attention in fp32 on the bf16 operands at the bf16 bar, as
+    phase 4 holds it; B7 within one bf16 ulp, as phase 12); the forward
+    goes on with the kernel's output.  Returns (fn's result, {kernel:
+    calls held}, the worst share of a limit)."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.rmsnorm import ops as rops
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    calls = {"flash_attention": 0, "rmsnorm": 0}
+    worst = [0.0]
+    b3, b7 = fops.flash_attention, rops.rmsnorm
+
+    def flash(q, k, v, causal=True, window=None):
+        out = b3(q, k, v, causal=causal, window=window)
+        ref = attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                            window=window)
+        _, w = check_close_share(
+            f"B3 call {calls['flash_attention']} {tuple(q.shape)}", out,
+            ref, v.float().pow(2).mean().sqrt().item(), "bfloat16")
+        worst[0] = max(worst[0], w)
+        calls["flash_attention"] += 1
+        return out
+
+    def norm(x, scale, eps=1e-5):
+        out = b7(x, scale, eps)
+        worst[0] = max(worst[0], _within_one_ulp(
+            f"B7 call {calls['rmsnorm']} {tuple(x.shape)}", out,
+            rmsnorm_ref(x, scale, eps).cpu()))
+        calls["rmsnorm"] += 1
+        return out
+
+    fops.flash_attention, rops.rmsnorm = flash, norm
+    try:
+        return fn(), calls, worst[0]
+    finally:
+        fops.flash_attention, rops.rmsnorm = b3, b7
+
+
+def _wh_prefill(cfg, params, mesh) -> dict:
+    """(a) on one rank of ``mesh`` (or the single rank, ``mesh`` of one):
+    ``launch.steps``' prefill cell of ``cfg`` at 4 x 512 on this rank's
+    pieces.  bf16: the launches and collectives of one counted prefill
+    (every B3 / B7 call held), then WH_REPS timed runs.  Returns the last
+    token's logits."""
+    torch = _torch()
+    from repro_torch.launch.steps import build_cell
+    cell = build_cell(cfg, _wh_shape("prefill"), mesh)
+    tokens, _ = _wh_tokens(cfg)
+
+    def run():
+        return cell.fn(params, tokens, cell.lm.init_cache(WH_ROWS,
+                                                          WH_SEQ))[0]
+    out = {}
+    if cfg.dtype == "bfloat16":
+        before = mesh.stats.copy()
+        _reset_launches()
+        logits, held, worst = _wh_held(run)
+        torch.cuda.synchronize()
+        out.update(launches={k: v for k, v in _read_launches().items() if v},
+                   held=held, held_worst=worst, calls=_wh_calls(mesh, before))
+        _, out["walls"] = _cell_walls(run, WH_REPS)
+    else:
+        logits = run()
+    out["logits"] = logits.float().cpu().numpy()
+    return out
+
+
+def _wh_train(cfg, params, mesh) -> dict:
+    """(b) on one rank of ``mesh`` (or the single rank): ``launch.steps``'
+    train cell of ``cfg`` at 4 x 512, WH_TRAIN_STEPS steps of the same
+    batch (the parameters and AdamW's state updated in place): each
+    step's loss and wall, the peak, and the collectives a step."""
+    torch = _torch()
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.optim.adamw import init_adamw
+    cell = build_cell(cfg, _wh_shape("train"), mesh)
+    _, batch = _wh_tokens(cfg)
+    opt = init_adamw(params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    before = mesh.stats.copy()
+    losses, walls = [], []
+    for _ in range(WH_TRAIN_STEPS):
+        (_, _, metrics), w = _cell_walls(
+            lambda: cell.fn(params, opt, batch), 1)
+        losses.append(float(metrics["loss"]))
+        walls += w
+    calls = _wh_calls(mesh, before)
+    return {"losses": losses, "walls": walls,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "calls": {k: (n / WH_TRAIN_STEPS, b / WH_TRAIN_STEPS)
+                      for k, (n, b) in calls.items()},
+            "launches": _no_launches("(b) a training rank")}
+
+
+def _wh_grads(cfg, params, mesh, rank: int) -> dict:
+    """(b)'s float32 arm: the first batch's gradient of this rank's pieces
+    (``train.loop.sharded_grads`` on the train cell's placements),
+    gathered whole on every rank; rank 0 holds every leaf to one rank's
+    ``loss_and_grads`` on the whole weights, and the loss."""
+    torch = _torch()
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models.model import LM
+    from repro_torch.sharding.rules import gather_leaf
+    from repro_torch.train.loop import loss_and_grads, sharded_grads
+    from repro_torch.tree import leaves_with_path, tree_map
+    cell = build_cell(cfg, _wh_shape("train"), mesh)
+    _, batch = _wh_tokens(cfg)
+    before = mesh.stats.copy()
+    pieces, metrics = sharded_grads(cell.lm, params, batch, mesh,
+                                    cell.in_shardings[0], local_batch=True)
+    calls = _wh_calls(mesh, before)
+    whole = tree_map(lambda g, s: None if g is None
+                     else gather_leaf(g, s, mesh), pieces,
+                     cell.in_shardings[0])
+    del pieces
+    if rank != 0:
+        return {"calls": calls}
+    lm = LM(cfg, device="cuda")
+    loss, _, want = loss_and_grads(lm, lm.init(SEED), batch)
+    want = dict(leaves_with_path(want))
+    errs = {}
+    for path, g in leaves_with_path(whole):
+        if g is None:
+            continue
+        w = want[path].float()
+        den = float(w.norm())
+        errs[path] = float((g.float() - w).norm()) / den if den \
+            else float(g.norm())
+    worst = max(errs, key=errs.get)
+    return {"calls": calls, "leaves": len(errs), "worst_leaf": worst,
+            "worst_rel_l2": errs[worst], "loss": float(metrics["loss"]),
+            "one_loss": float(loss)}
+
+
+def _whole_rank(mesh, params: dict) -> dict:
+    """Phase 28 on one of 27 (b)'s four ranks, on the pieces of 27 (b)'s
+    weights (``params``: "bf16" at full depth, "f32" at CP_F32_LAYERS
+    layers): (a) the prefill cell, (b) the train cell (last: it updates
+    the weights in place) and the float32 gradient."""
+    torch = _torch()
+    t0 = time.perf_counter()
+    cfgs = _cp_configs()
+    out = {"a": _wh_prefill(cfgs["bf16"], params["bf16"], mesh),
+           "a_f32": _wh_prefill(cfgs["f32"], params["f32"], mesh)}
+    out["b_f32"] = _wh_grads(cfgs["f32"], params["f32"], mesh,
+                             mesh.model_rank)
+    out["b"] = _wh_train(cfgs["bf16"], params["bf16"], mesh)
+    del params
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def _whole_one_rank(cfg, params, *, train: bool) -> dict:
+    """Phase 28's single rank in this process, on 27 (b)'s weights: (a)'s
+    prefill cell, and for bf16 (b)'s train cell (last: it updates
+    ``params`` in place)."""
+    from repro_torch.launch.mesh import make_host_mesh
+    one = make_host_mesh(device="cuda")
+    out = {"a": _wh_prefill(cfg, params, one)}
+    if train:
+        out["b"] = _wh_train(cfg, params, one)
+    return out
+
+
+def _wh_kernel_row(records: list) -> dict:
+    """B3 at a phase 28 rank's shape (4 x 512 causal, every one of
+    qwen2-1.5b's 12 heads over 2, D 128; row 3 is 8 x 512): held, timed
+    beside the plain version, SDPA and the bound."""
+    torch = _torch()
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    g = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    b, s, (h, kh, d) = WH_ROWS, WH_SEQ, (12, 2, 128)
+    q, k, v = _flash_inputs(b, s, torch.bfloat16, g, "cuda", h, kh, d)
+    out = fops.flash_attention(q, k, v)
+    ref = attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    line = check_close(f"B3 {b} x {s} H{h}/{kh} D{d} causal", out, ref, 1.0)
+    copies = [_flash_inputs(b, s, torch.bfloat16, g, "cuda", h, kh, d)
+              for _ in range(8)]
+    nbytes = 2 * (2 * q.numel() + 2 * k.numel())
+    flops = 4.0 * b * h * d * flash_pairs(s, s, True, None)
+    row = {"shape": f"{b} x {s}, H{h}/{kh} D{d}, causal",
+           "max_abs_err": (out.float() - ref.float()).abs().max().item(),
+           "ms": time_ms(lambda a, b_, c: fops.flash_attention(a, b_, c),
+                         copies),
+           "plain_ms": time_ms(lambda a, b_, c: attention_ref(a, b_, c),
+                               copies, reps=5, rounds=3),
+           "library_ms": time_ms(
+               lambda a, b_, c: F.scaled_dot_product_attention(
+                   a.transpose(1, 2), b_.transpose(1, 2),
+                   c.transpose(1, 2), is_causal=True, enable_gqa=True),
+               copies),
+           **dict(zip(("bound_ms", "bound_by"),
+                      bound(nbytes, flops, "bfloat16")))}
+    del copies
+    torch.cuda.empty_cache()
+    return {"row": row, "line": line}
 
 
 def _pipe_rank(rank: int) -> dict:
@@ -8172,6 +8456,96 @@ def _cp_calls(r: dict) -> dict:
             for k in r["bf16"]["calls"]}
 
 
+def _whole_check(one: dict, ranks: list, smi: str) -> dict:
+    """Phase 28's bars over the four ranks' results against the single
+    rank's; raises on any failure."""
+    import numpy as np
+    o_bf, o_f32 = one["bf16"]["p28"], one["f32"]["p28"]
+    errs = {"bf16": 0.0, "f32": 0.0, "loss": 0.0}
+    for i, r in enumerate(ranks):
+        w = r["p28"]
+        for key, got, want, bar in (
+                ("bf16", w["a"]["logits"], o_bf["a"]["logits"],
+                 WH_LOGIT_REL_L2),
+                ("f32", w["a_f32"]["logits"], o_f32["a"]["logits"],
+                 WH_F32_REL_L2)):
+            if not np.isfinite(got).all() or got.shape != want.shape:
+                raise AssertionError(f"[28] (a) {key} rank {i}: logits not "
+                                     f"finite or of shape {want.shape}")
+            e = _rel_l2_rows(got, want)
+            errs[key] = max(errs[key], e)
+            if not e <= bar:
+                raise AssertionError(f"[28] (a) {key} rank {i}: logits "
+                                     f"{e:.3e} > {bar} of one rank's")
+        a = w["a"]
+        if a["launches"] != WH_LAUNCHES or a["held"] != WH_LAUNCHES:
+            raise AssertionError(f"[28] (a) rank {i}: launches "
+                                 f"{a['launches']}, held {a['held']} != "
+                                 f"{WH_LAUNCHES}")
+        if a["calls"] != WH_PREDICTED:
+            raise AssertionError(f"[28] (a) rank {i}: collectives "
+                                 f"{a['calls']} != the prediction "
+                                 f"{WH_PREDICTED}")
+        for step, (x, y) in enumerate(zip(w["b"]["losses"],
+                                          o_bf["b"]["losses"])):
+            e = abs(x - y) / abs(y)
+            errs["loss"] = max(errs["loss"], e)
+            if not (np.isfinite(x) and e <= WH_LOSS_RTOL):
+                raise AssertionError(f"[28] (b) rank {i} step {step + 1}: "
+                                     f"loss {x} vs one rank's {y}")
+    g = ranks[0]["p28"]["b_f32"]
+    if not (g["worst_rel_l2"] <= WH_F32_GRAD_REL_L2
+            and abs(g["loss"] - g["one_loss"])
+            <= WH_F32_LOSS_RTOL * abs(g["one_loss"])):
+        raise AssertionError(f"[28] (b) float32: gradient of "
+                             f"{g['worst_leaf']} {g['worst_rel_l2']:.3e} "
+                             f"(limit {WH_F32_GRAD_REL_L2}), loss "
+                             f"{g['loss']} vs {g['one_loss']}")
+    r0 = ranks[0]["p28"]
+    walls = [r["p28"]["wall_s"] for r in ranks]
+    out = {"errs": errs, "a_calls": r0["a"]["calls"],
+           "a_launches": r0["a"]["launches"],
+           "a_walls": [r["p28"]["a"]["walls"] for r in ranks],
+           "a_one_walls": o_bf["a"]["walls"],
+           "b": [{k: r["p28"]["b"][k] for k in ("losses", "walls",
+                                                "peak_gb", "calls")}
+                 for r in ranks],
+           "b_one": {k: o_bf["b"][k] for k in ("losses", "walls",
+                                              "peak_gb")},
+           "b_f32": g, "b_f32_calls": g["calls"], "rank_wall_s": walls}
+    print(f"[28 whole_heads] (a) {smi}: {CP_ARCH} "
+          f"{_cp_configs()['bf16'].num_layers}L bf16, launch.steps' prefill "
+          f"cell {WH_ROWS} x {WH_SEQ} on {ranks[0]['mesh']} (12 query "
+          f"heads over 2 kv heads, every head on every rank): logits vs one "
+          f"rank's LM.prefill {errs['bf16']:.3e} a row (limit "
+          f"{WH_LOGIT_REL_L2}); float32 {CP_F32_LAYERS}L {errs['f32']:.3e} "
+          f"(limit {WH_F32_REL_L2}); launches a prefill a rank "
+          f"{r0['a']['launches']}, every call held ({r0['a']['held']}, "
+          f"worst {max(r['p28']['a']['held_worst'] for r in ranks):.2f} of "
+          f"a limit); collectives a prefill a rank {r0['a']['calls']} (= "
+          f"the prediction); wall a prefill "
+          + "; ".join(f"rank {i} {[round(x, 2) for x in r['p28']['a']['walls']]}"
+                      f" ms" for i, r in enumerate(ranks))
+          + f"; one rank {[round(x, 2) for x in o_bf['a']['walls']]} ms")
+    print(f"[28 whole_heads] (b) {smi}: the train cell {WH_ROWS} x {WH_SEQ},"
+          f" {WH_TRAIN_STEPS} steps: losses a rank "
+          f"{[[round(x, 5) for x in r['p28']['b']['losses']] for r in ranks]}"
+          f" vs one rank's {[round(x, 5) for x in o_bf['b']['losses']]} "
+          f"(worst {errs['loss']:.3e}, limit {WH_LOSS_RTOL}); step wall "
+          + "; ".join(f"rank {i} {[round(x, 1) for x in r['p28']['b']['walls']]}"
+                      f" ms, peak {r['p28']['b']['peak_gb']:.2f} GB"
+                      for i, r in enumerate(ranks))
+          + f"; one rank {[round(x, 1) for x in o_bf['b']['walls']]} ms, "
+          f"peak {o_bf['b']['peak_gb']:.2f} GB; collectives a step a rank "
+          f"{r0['b']['calls']} (the reduce-scatters are the gathers' "
+          f"backward); float32 {CP_F32_LAYERS}L: {g['leaves']} gradient "
+          f"leaves gathered whole, worst {g['worst_leaf']} "
+          f"{g['worst_rel_l2']:.3e} (limit {WH_F32_GRAD_REL_L2}), loss "
+          f"{g['loss']:.7f} vs {g['one_loss']:.7f}, collectives "
+          f"{g['calls']}; phase wall a rank {[round(x, 1) for x in walls]} s")
+    return out
+
+
 def _cp_and_pipe(smi: str) -> dict:
     """27 (b) and (c), each world against the single rank in this
     process."""
@@ -8239,6 +8613,7 @@ def _cp_and_pipe(smi: str) -> dict:
           + f"; one rank {[round(w, 2) for w in one['bf16']['walls']]} ms, "
           f"peak {one['bf16']['peak_gb']:.2f} GB; rank walls "
           f"{[round(r['wall_s'], 1) for r in ranks]} s")
+    out["p28"] = _whole_check(one, ranks, smi)
     del one, ranks
     # (c)
     one = _pipe_one_rank()
@@ -8293,6 +8668,24 @@ def phase_cells(records: list, smi: str) -> dict:
     out["phase_wall_s"] = time.perf_counter() - t0
     print(f"[27 cells] phase {out['phase_wall_s']:.1f}s ((a) "
           f"{out['a']['wall_s']:.1f}s)")
+    # phase 28 ran on (b)'s ranks; its kernel row at a rank's B3 shape
+    t0 = time.perf_counter()
+    k = _wh_kernel_row(records)
+    p28 = out["p28"]
+    for rec in records:
+        if rec["name"] in p28["a_launches"]:
+            rec["whole_heads_prefill"] = {
+                "launches_a_rank": p28["a_launches"][rec["name"]],
+                "ranks": CP_RANKS}
+        if rec["name"] == "flash_attention":
+            rec["whole_heads_prefill"].update(k["row"])
+    r = k["row"]
+    print(f"[28 whole_heads] {smi}: {k['line']}; B3 at a rank's shape "
+          f"{r['shape']} {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, SDPA "
+          f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
+          f"({r['bound_by']}); phase 28 wall a rank "
+          f"{[round(x, 1) for x in p28['rank_wall_s']]} s "
+          f"(+{time.perf_counter() - t0:.1f} s here)")
     return out
 
 

@@ -10,8 +10,10 @@ grid (``configs.base.SHAPES``):
               modality_input]}
   prefill  -> tokens + an empty contiguous cache [+ modality_input]
   decode   -> one token a sequence + a cache holding ``seq_len``
-              positions (paged for ``decode_attn_impl="paged_pallas"``)
-              + per-sequence positions
+              positions (paged for ``decode_attn_impl="paged_pallas"``;
+              a cross-attention block's source K / V as well, which the
+              reference's ``init_cache`` allocates) + per-sequence
+              positions
 
 The caches are built by the port's own ``LM.init_cache`` /
 ``init_paged_cache`` on meta, whole (the config's ``model_parallel``
@@ -99,12 +101,34 @@ def prefill_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
     return out
 
 
+def _with_source_kv(cfg: ModelConfig, cache: list, batch: int) -> list:
+    """``cache`` with each cross-attention block's source K / V, (B,
+    T_src, KH, D) in bf16, T_src the encoder's ``max_source_len`` or
+    ``num_image_tokens`` (the reference's ``init_cache``; the port's
+    caches add them at prefill, from the source)."""
+    from repro_torch.models.transformer import block_kinds
+    kinds = block_kinds(cfg)
+    if not any(bk["xattn"] for bk in kinds):
+        return cache
+    a = cfg.attention
+    t_src = (cfg.encoder.max_source_len if cfg.encoder is not None
+             else cfg.num_image_tokens)
+    shape = (batch, t_src, a.kv_heads_effective(), a.head_dim)
+    for group in cache:
+        for i, bk in enumerate(kinds):
+            if bk["xattn"]:
+                group[f"blk{i}"].update(xk=_meta(shape, BF16),
+                                        xv=_meta(shape, BF16))
+    return cache
+
+
 def decode_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
     b, s = shape.global_batch, shape.seq_len
     cache = (abstract_paged_cache(cfg, b, s)
              if cfg.decode_attn_impl == "paged_pallas"
              else abstract_cache(cfg, b, s))
-    return {"token": _meta((b,), I32), "cache": cache,
+    return {"token": _meta((b,), I32),
+            "cache": _with_source_kv(cfg, cache, b),
             "pos": _meta((b,), I32)}
 
 

@@ -19,6 +19,13 @@ reference's own remedy for it is the context-parallel combine
 (``serve/decode_attn.py``).  The artifact records it.  ``--set
 decode_attn_impl=...`` overrides.
 
+A cell ends "ok" (traced), "skipped" (the reference's long_500k policy),
+"refused" (the port does not shard the layout yet: a ``ValueError``
+naming its ROADMAP item, from ``sharding.tp``) or "error" (anything
+else); the command exits 1 only for errors.  ``run_cell(trace=False)``
+stops a cell once it is built (its checks, abstract inputs and
+placements): "built" in place of "ok", in well under a second a cell.
+
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-1.5b \\
         --shape decode_32k [--multi-pod] [--set attn_q_block=2048] [--tag x]
@@ -99,7 +106,8 @@ def _decode_impl(cfg, shape, mesh, overrides: dict):
 
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
              overrides: dict, fsdp: str, tag: str, out_dir: pathlib.Path,
-             microbatches: int = 1, quiet: bool = False) -> dict:
+             microbatches: int = 1, quiet: bool = False,
+             trace: bool = True) -> dict:
     mesh_name = "pod2x16x16" if multi_pod else "pod16x16"
     cell_id = f"{arch}__{shape_name}__{mesh_name}" + (f"__{tag}" if tag
                                                      else "")
@@ -141,6 +149,13 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
         t0 = time.time()
         cell = build_cell(cfg, shape, mesh, fsdp=use_fsdp,
                           microbatches=microbatches)
+        if not trace:
+            result.update(status="built", fsdp=bool(use_fsdp))
+            if not quiet:
+                print(f"[dryrun] {cell_id}: BUILT (not traced)")
+            out_dir.mkdir(parents=True, exist_ok=True)
+            out_path.write_text(json.dumps(result, indent=1))
+            return result
         terms = cell.trace(model_flops_for(cfg, shape))
         t_trace = time.time() - t0
         result.update({
@@ -169,11 +184,13 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
                   f"(trace {t_trace:.0f}s)"
                   + (f" [decode_attn_impl=cp: {cp_why}]" if cp_why else ""))
     except Exception as e:  # noqa: BLE001 - record the failure mode
-        result["status"] = "error"
+        refused = isinstance(e, ValueError) and "ROADMAP A8." in str(e)
+        result["status"] = "refused" if refused else "error"
         result["error"] = f"{type(e).__name__}: {e}"
         result["traceback"] = traceback.format_exc()[-4000:]
         if not quiet:
-            print(f"[dryrun] {cell_id}: ERROR {result['error'][:200]}")
+            print(f"[dryrun] {cell_id}: {result['status'].upper()} "
+                  f"{result['error'][:200]}")
     out_dir.mkdir(parents=True, exist_ok=True)
     out_path.write_text(json.dumps(result, indent=1))
     return result
@@ -204,7 +221,7 @@ def main(argv=None):
     meshes = [False, True] if args.both_meshes else [args.multi_pod]
 
     out_dir = pathlib.Path(args.out)
-    n_ok = n_skip = n_err = 0
+    n_ok = n_skip = n_refused = n_err = 0
     for multi in meshes:
         for arch in archs:
             for shape in shapes:
@@ -214,8 +231,10 @@ def main(argv=None):
                              microbatches=args.microbatches)
                 n_ok += r["status"] == "ok"
                 n_skip += r["status"] == "skipped"
+                n_refused += r["status"] == "refused"
                 n_err += r["status"] == "error"
-    print(f"[dryrun] done: {n_ok} ok, {n_skip} skipped, {n_err} errors")
+    print(f"[dryrun] done: {n_ok} ok, {n_skip} skipped, {n_refused} "
+          f"refused, {n_err} errors")
     return 1 if n_err else 0
 
 

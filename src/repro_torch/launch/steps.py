@@ -29,10 +29,14 @@ Placement policy (the reference's baseline):
 The placements are the reference's (tests hold them leaf by leaf at 16 ×
 16 and 2 × 16 × 16); what a rank computes on them is the port's: it
 refuses, with the ROADMAP item, what ``sharding.tp`` does not shard
-(``check_trainable`` / ``check_servable``), and the context-parallel
-decode is the one step that serves head counts the model axis does not
-divide.  The port's stack is a list of groups, so a cache or parameter
-leaf has no stacked group dim.
+(``check_trainable`` / ``check_servable``).  Head counts the model axis
+does not divide are computed whole on every rank in the prefill and
+train cells and in cross-attention (the whole-heads arm), and by the
+context-parallel step in the decode cell.  FSDP-split parameters are
+gathered whole over "data" in every cell: a layer group at a time as
+the stack reaches it in the serving cells, the whole tree once a step in
+the train cell.  The port's stack is a list of groups, so a cache or
+parameter leaf has no stacked group dim.
 """
 from __future__ import annotations
 
@@ -223,20 +227,25 @@ def auto_fsdp(cfg: ModelConfig, mesh, mode: str = "train", *,
     return need > budget_gb * 2**30
 
 
-def _rank_cache_placement(c_sh: Any, cache_abs: Any, mesh, *,
+def _rank_cache_placement(c_sh: Any, cache_abs: Any, mesh, rank_cfg, *,
                           cp: bool) -> Any:
     """The cache placement a rank of the port computes on: the
-    reference's, except that under a model axis > 1 a contiguous
-    attention cache outside the context-parallel decode splits its kv
-    heads over "model" (the port's rank writes and reads only its own kv
-    heads, the layout its engines hold; the reference keeps every kv
-    head on each chip and lets GSPMD gather)."""
+    reference's, except that under a model axis > 1 that divides the
+    heads (``rank_cfg`` does not take the whole-heads arm) a contiguous
+    attention cache outside the context-parallel decode, and a
+    cross-attention block's source K / V, split their kv heads over
+    "model" (the port's rank writes and reads only its own kv heads, the
+    layout its engines hold; the reference keeps every kv head on each
+    chip and lets GSPMD gather)."""
+    from repro_torch.sharding.tp import whole_heads
     model = mesh.shape.get("model", 1)
-    if cp or model == 1:
+    if model == 1 or whole_heads(rank_cfg):
         return c_sh
 
     def leaf(path, spec):
-        if not isinstance(spec, tuple) or "/kv/" not in path \
+        source = path.endswith(("/xk", "/xv"))
+        if not isinstance(spec, tuple) \
+                or not (source or ("/kv/" in path and not cp)) \
                 or "pages" in path or path.endswith("block_table"):
             return spec
         l = _at(cache_abs, path)
@@ -271,6 +280,26 @@ def _dp_offset(mesh, batch: int) -> int:
         return 0
     idx, total = _split_index(dp, mesh.shape, mesh.coords)
     return idx * (batch // total)
+
+
+def _fsdp_view(params: dict, specs: dict, mesh, *,
+               skip: tuple = ()) -> dict:
+    """A serving step's parameters whole over the data axis
+    (``train.loop.fsdp_leaf`` on every leaf FSDP splits): the layer
+    groups one at a time, as the stack reaches them (a generator, so a
+    rank holds one gathered group at a time), every other top-level
+    entry once a step; the entries in ``skip`` (what the step does not
+    read) are left out."""
+    from repro_torch.train.loop import fsdp_leaf
+    from repro_torch.tree import tree_map
+
+    def whole(tree, spec):
+        return tree_map(lambda t, s: fsdp_leaf(t, s, mesh), tree, spec)
+    out = {k: whole(v, specs[k]) for k, v in params.items()
+           if k != "layers" and k not in skip}
+    out["layers"] = (whole(g, s) for g, s in zip(params["layers"],
+                                                   specs["layers"]))
+    return out
 
 
 def _own_slots(cache: Any, lo: int, n: int) -> Any:
@@ -357,14 +386,17 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
                     (p_sh, o_sh, b_sh), (p_sh, o_sh, None), mesh, lm)
 
     if rank_cfg.model_parallel > 1:
-        check_servable(rank_cfg, params_abs,
-                       cp=shape.mode == "decode")
+        check_servable(rank_cfg, params_abs, cell=shape.mode)
     logits_sh = (_dp(mesh) if shape.global_batch % _dp_total(mesh) == 0
                  else None, None)
     cache_abs = specs["cache"]
     c_sh = _rank_cache_placement(
         cache_shardings(cache_abs, mesh, cfg, shape), cache_abs, mesh,
-        cp=shape.mode == "decode" and cp_decode(cfg))
+        rank_cfg, cp=shape.mode == "decode" and cp_decode(cfg))
+
+    def view(params, skip=()):
+        return _fsdp_view(params, p_sh, mesh, skip=skip) if fsdp \
+            else params
     if shape.mode == "prefill":
         tok_sh = batch_shardings({"t": specs["tokens"]}, mesh)["t"]
         args, in_sh = [specs["tokens"], cache_abs], [tok_sh, c_sh]
@@ -374,11 +406,11 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
                                          mesh)["m"])
 
             def prefill_step(params, tokens, cache, modality_input):
-                return lm.prefill(params, tokens, cache,
+                return lm.prefill(view(params), tokens, cache,
                                   modality_input=modality_input)
         else:
             def prefill_step(params, tokens, cache):
-                return lm.prefill(params, tokens, cache)
+                return lm.prefill(view(params), tokens, cache)
 
         return Cell(name, prefill_step, (params_abs, *args),
                     (p_sh, *in_sh), (logits_sh, c_sh), mesh, lm)
@@ -389,7 +421,7 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
     lo = _dp_offset(mesh, shape.global_batch)
 
     def serve_step(params, token, cache, pos):
-        return lm.decode_step(params, token,
+        return lm.decode_step(view(params, ("encoder",)), token,
                               _own_slots(cache, lo, token.shape[0]), pos)
 
     return Cell(name, serve_step,

@@ -27,6 +27,16 @@ the reference's: ``use_flash`` takes the flash op's plain version, else
 A training forward (``attention_forward(train=True)``, from
 ``LM.loss``) makes the CPU's choice on every device, as the reference
 trains through its jnp attention: the kernel has no backward.
+Under a model axis that does not divide the head counts the
+full-sequence entry points take the whole-heads arm (``mesh=``): each
+projection runs on the rank's columns (the rules' split, which need not
+be whole heads) and is all-gathered whole before RoPE
+(:func:`_whole_qkv`; in training through ``collectives.gather_from``,
+whose backward sums the partial gradients and keeps the rank's piece),
+attention runs over every head, and ``wo`` takes the rank's rows of the
+whole output as an fp32 partial summed once (:func:`_wo`).  The
+context-parallel decode (:func:`attention_decode_cp`) uses the same two
+steps.
 Cache allocation and writes live in ``repro_torch.kvcache``; quantized
 contiguous caches are read fused (the K scale multiplies the scores, the
 V scale folds into the probabilities), with no dequantized copy.
@@ -48,7 +58,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import AttentionConfig
 from repro_torch.models.layers import apply_rope, init_linear, linear_apply
-from repro_torch.sharding.collectives import active, all_gather
+from repro_torch.sharding.collectives import active, gather_from
 
 NEG_INF = -1e30
 
@@ -235,14 +245,18 @@ def _scale(a: AttentionConfig) -> torch.Tensor:
 
 
 def _project(p: dict, x: torch.Tensor, a: AttentionConfig,
-             positions: torch.Tensor, impl: str = "ref"):
-    """q (B,S,Hp,D), rotated k (B,S,KH,D) and v from one projection."""
+             positions: torch.Tensor, impl: str = "ref", mesh=None):
+    """q (B,S,Hp,D), rotated k (B,S,KH,D) and v from one projection; with
+    ``mesh`` every head, gathered whole (:func:`_whole_qkv`)."""
     b, s, _ = x.shape
     kvh = a.kv_heads_effective()
-    q = linear_apply(p["wq"], x, impl).reshape(b, s, a.heads_padded,
-                                               a.head_dim)
-    k = linear_apply(p["wk"], x, impl).reshape(b, s, kvh, a.head_dim)
-    v = linear_apply(p["wv"], x, impl).reshape(b, s, kvh, a.head_dim)
+    if mesh is None:
+        q, k, v = (linear_apply(p[n], x, impl) for n in ("wq", "wk", "wv"))
+    else:
+        q, k, v = _whole_qkv(p, x, a, mesh, "model", impl)
+    q = q.reshape(b, s, a.heads_padded, a.head_dim)
+    k = k.reshape(b, s, kvh, a.head_dim)
+    v = v.reshape(b, s, kvh, a.head_dim)
     return (apply_rope(q, positions, a.rope_theta),
             apply_rope(k, positions, a.rope_theta), v)
 
@@ -250,7 +264,10 @@ def _project(p: dict, x: torch.Tensor, a: AttentionConfig,
 def _attend(p: dict, q, k, v, a: AttentionConfig, use_flash: bool,
             impl: str = "ref", attn_impl: str = "auto", q_block: int = 1024,
             kv_block: int = 1024, chunk_min: int = 2048,
-            train: bool = False):
+            train: bool = False, mesh=None):
+    """Attention of q (B,S,Hp,D) over k / v (B,T,KH,D) through ``wo``;
+    ``mesh``: q / k / v hold every head (the whole-heads arm) and ``wo``
+    reads the rank's rows of the output (:func:`_wo`)."""
     b, s = q.shape[:2]
     kvh = a.kv_heads_effective()
     # CUDA tensors always take the flash kernel; the flags pick the
@@ -278,7 +295,53 @@ def _attend(p: dict, q, k, v, a: AttentionConfig, use_flash: bool,
                     if a.causal else None)
             o = sdpa(qg, k, v, mask, _scale(a).to(q.device))
     o = o.reshape(b, s, a.heads_padded * a.head_dim)
-    return linear_apply(p["wo"], _mask_pad_heads(o, a), impl, row=True)
+    return _wo(p["wo"], o, a, impl, mesh)
+
+
+def _whole_projection(p: dict, x: torch.Tensor, width: int, mesh,
+                      axis: str, impl: str) -> torch.Tensor:
+    """The (..., width) output of a column linear whole on every rank: the
+    rank's columns (its placement's slice) all-gathered over ``axis``
+    when the leaf is split, as GSPMD gathers a replicated operand.  The
+    gather's backward sums the gradient over the axis and keeps the
+    rank's columns (``collectives.gather_from``): each rank's ``wo``
+    reads only its rows of the output, so each holds a partial."""
+    y = linear_apply(p, x, impl)
+    return y if y.shape[-1] == width else gather_from(y, y.ndim - 1, mesh,
+                                                      axis)
+
+
+def _whole_qkv(p: dict, x: torch.Tensor, a: AttentionConfig, mesh,
+               axis: str, impl: str) -> tuple:
+    """q (..., Hp·D), k and v (..., KH·D) of ``x`` over every head, before
+    RoPE (:func:`_whole_projection` of ``wq`` / ``wk`` / ``wv``)."""
+    kvh, hd = a.kv_heads_effective(), a.head_dim
+    return tuple(_whole_projection(p[n], x, h * hd, mesh, axis, impl)
+                 for n, h in (("wq", a.heads_padded), ("wk", kvh),
+                              ("wv", kvh)))
+
+
+def _contraction_rows(p: dict) -> int:
+    """Rows of a linear's weight (its K) as this rank holds them."""
+    if "w" in p:
+        return p["w"].shape[0]
+    qw = p["qw"]
+    return qw.shape[0] * (2 if qw.dtype == torch.uint8 else 1)
+
+
+def _wo(p: dict, o: torch.Tensor, a: AttentionConfig, impl: str, mesh=None,
+        axis: str = "model") -> torch.Tensor:
+    """``wo`` over the (..., Hp·D) attention output, padded heads zeroed,
+    row-split under a tensor-parallel scope (``row=True``).  With ``mesh``
+    the output is whole on every rank (every head) and ``wo``'s rows are
+    split over ``axis``: the rank's rows of the output go through them,
+    an fp32 partial summed over the axis."""
+    o = _mask_pad_heads(o, a)
+    if mesh is not None:
+        k_rows = _contraction_rows(p)
+        if k_rows != o.shape[-1]:          # wo's rows split over the axis
+            o = o.narrow(-1, mesh.coords.get(axis, 0) * k_rows, k_rows)
+    return linear_apply(p, o, impl, row=True)
 
 
 # ---------------------------------------------------------------------------
@@ -399,28 +462,34 @@ def _mla_decode(p: dict, x: torch.Tensor, a: AttentionConfig, cache: dict,
 
 def attention_forward(p: dict, x: torch.Tensor, a: AttentionConfig, *,
                       use_flash: bool = False, impl: str = "ref",
-                      train: bool = False, **chunk_kw) -> torch.Tensor:
+                      train: bool = False, mesh=None,
+                      **chunk_kw) -> torch.Tensor:
     """Full-sequence attention at positions [0, S).  x: (B,S,d) -> (B,S,d).
     ``impl`` is the quantized linears' ``quant_matmul_impl``; ``chunk_kw``
     (``attn_impl``, ``q_block``, ``kv_block``, ``chunk_min``) picks
     chunked attention on the CPU, as the reference's config does, and on
     every device under ``train=True`` (the training forward).  MLA takes
-    :func:`_mla_forward` on every device."""
+    :func:`_mla_forward` on every device.  ``mesh`` takes the whole-heads
+    arm (``a`` the whole config; see the module docstring)."""
     if a.kind == "mla":
         return _mla_forward(p, x, a, impl)[0]
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    q, k, v = _project(p, x, a, positions, impl)
-    return _attend(p, q, k, v, a, use_flash, impl, train=train, **chunk_kw)
+    q, k, v = _project(p, x, a, positions, impl, mesh)
+    return _attend(p, q, k, v, a, use_flash, impl, train=train, mesh=mesh,
+                   **chunk_kw)
 
 
 def attention_prefill(p: dict, x: torch.Tensor, a: AttentionConfig,
                       cache: dict, *, use_flash: bool = False,
-                      impl: str = "ref", **chunk_kw
+                      impl: str = "ref", mesh=None, **chunk_kw
                       ) -> tuple[torch.Tensor, dict]:
     """Full-seq attention AND fill the contiguous cache for positions
     [0, s) (int8 / fp8 caches quantized per position on the way in).
     K/V are projected once and shared by both (the reference projects
-    them twice; the values are identical)."""
+    them twice; the values are identical).  ``mesh`` takes the
+    whole-heads arm: the cache holds every kv head, and where its
+    sequence is split over the model axis (a prefill cell's placement
+    past 12 GB a rank) this rank writes only its own positions."""
     from repro_torch import kvcache
     if a.kind == "mla":
         y, c_kv, k_pe = _mla_forward(p, x, a, impl)
@@ -428,11 +497,19 @@ def attention_prefill(p: dict, x: torch.Tensor, a: AttentionConfig,
                                                 "k_pe": k_pe[:, :, 0]})
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
-    q, k, v = _project(p, x, a, positions, impl)
-    y = _attend(p, q, k, v, a, use_flash, impl, **chunk_kw)
+    q, k, v = _project(p, x, a, positions, impl, mesh)
+    y = _attend(p, q, k, v, a, use_flash, impl, mesh=mesh, **chunk_kw)
     kvh_store = cache["k"].shape[2]
-    cache = kvcache.prefill_write(cache, {"k": _merge_heads(k, kvh_store),
-                                          "v": _merge_heads(v, kvh_store)})
+    k, v = _merge_heads(k, kvh_store), _merge_heads(v, kvh_store)
+    s_local = cache["k"].shape[1]
+    if mesh is not None and s_local < s:
+        if s_local * mesh.model != s:
+            raise ValueError(f"a prefill cache of {s_local} positions a "
+                             f"rank for {s}: only a split over the model "
+                             f"axis ({mesh.model}) is written")
+        lo = mesh.model_rank * s_local
+        k, v = k[:, lo:lo + s_local], v[:, lo:lo + s_local]
+    cache = kvcache.prefill_write(cache, {"k": k, "v": v})
     return y, cache
 
 
@@ -627,23 +704,6 @@ def attention_decode(p: dict, x: torch.Tensor, a: AttentionConfig,
     return y, cache
 
 
-def _whole_projection(p: dict, x: torch.Tensor, width: int, mesh,
-                      axis: str, impl: str) -> torch.Tensor:
-    """The (B,1,width) output of a column linear whole on every rank: the
-    rank's columns (its placement's slice) all-gathered over ``axis``
-    when the leaf is split, as GSPMD gathers a replicated operand."""
-    y = linear_apply(p, x, impl)
-    return y if y.shape[-1] == width else all_gather(y, 2, mesh, axis)
-
-
-def _contraction_rows(p: dict) -> int:
-    """Rows of a linear's weight (its K) as this rank holds them."""
-    if "w" in p:
-        return p["w"].shape[0]
-    qw = p["qw"]
-    return qw.shape[0] * (2 if qw.dtype == torch.uint8 else 1)
-
-
 def attention_decode_cp(p: dict, x: torch.Tensor, a: AttentionConfig,
                         cache: dict, pos: torch.Tensor, mesh, *,
                         axis: str = "model", impl: str = "ref"
@@ -673,9 +733,7 @@ def attention_decode_cp(p: dict, x: torch.Tensor, a: AttentionConfig,
     pos = torch.broadcast_to(torch.as_tensor(pos, device=x.device).long(),
                              (b,))
     posv = pos[:, None]
-    q = _whole_projection(p["wq"], x, hp * hd, mesh, axis, impl)
-    k_new = _whole_projection(p["wk"], x, kvh * hd, mesh, axis, impl)
-    v_new = _whole_projection(p["wv"], x, kvh * hd, mesh, axis, impl)
+    q, k_new, v_new = _whole_qkv(p, x, a, mesh, axis, impl)
     q = apply_rope(q.reshape(b, 1, hp, hd), posv, a.rope_theta)[:, 0]
     k_new = _merge_heads(apply_rope(k_new.reshape(b, 1, kvh, hd), posv,
                                     a.rope_theta), kvh_store)[:, 0]
@@ -692,12 +750,7 @@ def attention_decode_cp(p: dict, x: torch.Tensor, a: AttentionConfig,
     o, m, l = partial_attn(q, cache["k"], cache["v"], valid,
                            _scale(a).to(x.device))
     o = combine(o, m, l, mesh, axis).reshape(b, 1, hp * hd).to(x.dtype)
-    o = _mask_pad_heads(o, a)
-    k_rows = _contraction_rows(p["wo"])
-    if k_rows != o.shape[-1]:               # wo's rows split over the axis
-        o = o.narrow(2, mesh.coords.get(axis, 0) * k_rows, k_rows)
-    y = linear_apply(p["wo"], o, impl, row=True)
-    return y, cache
+    return _wo(p["wo"], o, a, impl, mesh, axis), cache
 
 
 # ---------------------------------------------------------------------------

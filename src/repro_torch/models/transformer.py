@@ -36,7 +36,7 @@ from repro_torch.models.layers import (init_mlp, init_norm, linear_apply,
                                        mlp_apply, norm_apply)
 from repro_torch.models.moe import init_moe, moe_apply
 from repro_torch.sharding.collectives import active, scoped
-from repro_torch.sharding.tp import local_attention
+from repro_torch.sharding.tp import local_attention, whole_heads
 
 
 def block_kinds(cfg: ModelConfig) -> list[dict]:
@@ -100,7 +100,9 @@ def init_group_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                      kv_dtype: Optional[str] = None, device=None,
                      block_table: Optional[torch.Tensor] = None) -> dict:
     """Caches for one group.  Attention blocks: contiguous (B, S, KH, D)
-    slabs (KH: this rank's kv heads under a model axis), or page pools +
+    slabs (KH: this rank's kv heads under a model axis, every kv head
+    where the axis does not divide them: ``tp.whole_heads``), or page
+    pools (this rank's kv heads) +
     a block table when ``paged`` (``block_table`` shares one table tensor
     across layers); ``kv_dtype`` overrides
     ``cfg.kv_cache_dtype`` (the paged engine prefills into a bf16 staging
@@ -115,7 +117,8 @@ def init_group_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                      dtype=kv_dtype or cfg.kv_cache_dtype,
                      style=cfg.kv_cache_style, page_size=page_size)
     cache = {}
-    a = local_attention(cfg)
+    a = cfg.attention if not paged and whole_heads(cfg) \
+        else local_attention(cfg)
     for i, bk in enumerate(block_kinds(cfg)):
         if bk["kind"] == "rwkv6":
             c = {"state": ssm_mod.init_rwkv6_state(batch, cfg.d_model,
@@ -137,29 +140,49 @@ def init_group_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 # decode)
 
 
-def _xattn_kv(p: dict, src: torch.Tensor, a, impl: str = "ref"):
-    """The source's K / V (B, T, KH, D): no RoPE, as in the reference."""
+def _attn_arm(cfg: ModelConfig):
+    """(attention config, mesh) of a rank's contiguous full-sequence
+    attention (and cross-attention): its own heads (mesh ``None``), or
+    under a tensor-parallel scope whose model axis does not divide the
+    heads every head, gathered whole (the whole-heads arm,
+    ``models.attention``: the scope's mesh)."""
+    tp = active()
+    if tp is not None and whole_heads(cfg):
+        return cfg.attention, tp.mesh
+    return local_attention(cfg), None
+
+
+def _xattn_kv(p: dict, src: torch.Tensor, a, impl: str = "ref", mesh=None):
+    """The source's K / V (B, T, KH, D): no RoPE, as in the reference;
+    ``mesh``: every kv head, gathered whole."""
     b, t, _ = src.shape
-    kvh = a.kv_heads_effective()
-    xk = linear_apply(p["wk"], src, impl).reshape(b, t, kvh, a.head_dim)
-    xv = linear_apply(p["wv"], src, impl).reshape(b, t, kvh, a.head_dim)
-    return xk, xv
+    kvh, hd = a.kv_heads_effective(), a.head_dim
+    if mesh is None:
+        xk, xv = (linear_apply(p[n], src, impl) for n in ("wk", "wv"))
+    else:
+        xk, xv = (attn_mod._whole_projection(p[n], src, kvh * hd, mesh,
+                                             "model", impl)
+                  for n in ("wk", "wv"))
+    return xk.reshape(b, t, kvh, hd), xv.reshape(b, t, kvh, hd)
 
 
 def _xattn_with_kv(p: dict, x: torch.Tensor, a, xk: torch.Tensor,
                    xv: torch.Tensor, impl: str = "ref",
-                   train: bool = False) -> torch.Tensor:
+                   train: bool = False, mesh=None) -> torch.Tensor:
     """x's queries (no RoPE) over every source position, no mask, through
     the attention's own dispatch (``_attend``): the flash kernel's
     non-causal path on CUDA tensors outside training (S != T: S the
     prompt at prefill, 1 at decode), the plain grouped ``sdpa`` on the
-    CPU and in training, as the reference computes it."""
+    CPU and in training, as the reference computes it.  ``mesh``: every
+    head (the whole-heads arm; ``xk`` / ``xv`` hold every kv head)."""
     b, s, _ = x.shape
-    q = linear_apply(p["wq"], x, impl).reshape(b, s, a.heads_padded,
-                                               a.head_dim)
+    hw = a.heads_padded * a.head_dim
+    q = linear_apply(p["wq"], x, impl) if mesh is None else \
+        attn_mod._whole_projection(p["wq"], x, hw, mesh, "model", impl)
+    q = q.reshape(b, s, a.heads_padded, a.head_dim)
     return attn_mod._attend(p, q, xk.to(x.dtype), xv.to(x.dtype),
                             _noncausal(a), False, impl, train=train,
-                            attn_impl="sdpa")
+                            attn_impl="sdpa", mesh=mesh)
 
 
 def group_forward(gp: dict, x: torch.Tensor, cfg: ModelConfig, *,
@@ -190,14 +213,17 @@ def group_forward(gp: dict, x: torch.Tensor, cfg: ModelConfig, *,
     MoE layers at their training capacity.  Returns ``(x, new cache, aux)``, ``aux`` the MoE layers'
     losses and dropped fractions summed over the group's blocks.  Under a
     model axis (``cfg.model_parallel`` > 1) attention runs this rank's
-    heads (``sharding.tp.local_attention``)."""
+    heads (``sharding.tp.local_attention``); where the axis does not
+    divide them, the contiguous prefill, the training forward and
+    cross-attention run every head (:func:`_attn_arm`), and the paged
+    paths and the eager decode refuse them (A8.8)."""
     # context-parallel decode (``decode_attn_impl="cp"``) under a model
     # axis: the projections are gathered whole, so the config's heads
     # need not divide over the axis
     tp = active()
     cp = mode == "decode" and cfg.decode_attn_impl == "cp" \
         and tp is not None
-    a = cfg.attention if cp else local_attention(cfg)
+    a, whole = _attn_arm(cfg)
     if train and (mode != "prefill" or cache is not None):
         raise ValueError("a training forward is a full sequence without a "
                          "cache (mode='prefill', cache=None)")
@@ -245,19 +271,21 @@ def group_forward(gp: dict, x: torch.Tensor, cfg: ModelConfig, *,
                 y = attn_mod.attention_forward(blk["attn"], h, a,
                                                use_flash=cfg.use_kernels,
                                                impl=impl, train=train,
-                                               **chunk_kw)
+                                               mesh=whole, **chunk_kw)
             elif "k_pages" in c["kv"]:
-                y, kv = attn_mod.attention_prefill_paged(blk["attn"], h, a,
-                                                         c["kv"], pos, impl)
+                y, kv = attn_mod.attention_prefill_paged(
+                    blk["attn"], h, local_attention(cfg), c["kv"], pos,
+                    impl)
                 new_cache[f"blk{i}"] = {"kv": kv}
             else:
                 y, kv = attn_mod.attention_prefill(
                     blk["attn"], h, a, c["kv"], use_flash=cfg.use_kernels,
-                    impl=impl, **chunk_kw)
+                    impl=impl, mesh=whole, **chunk_kw)
                 new_cache[f"blk{i}"] = {"kv": kv}
         elif mode == "verify":
             y, stage = attn_mod.attention_verify_paged(
-                blk["attn"], h, a, c["kv"], c["stage"], pos, impl)
+                blk["attn"], h, local_attention(cfg), c["kv"], c["stage"],
+                pos, impl)
             new_cache[f"blk{i}"] = {"stage": stage}
         else:
             if c is None:
@@ -268,7 +296,8 @@ def group_forward(gp: dict, x: torch.Tensor, cfg: ModelConfig, *,
                 # caches fall through to the eager decode, as in the
                 # reference
                 y, kv = attn_mod.attention_decode_cp(
-                    blk["attn"], h, a, c["kv"], pos, tp.mesh, impl=impl)
+                    blk["attn"], h, cfg.attention, c["kv"], pos, tp.mesh,
+                    impl=impl)
             else:
                 step = (attn_mod.attention_decode_paged
                         if "k_pages" in c["kv"]
@@ -289,11 +318,12 @@ def group_forward(gp: dict, x: torch.Tensor, cfg: ModelConfig, *,
                 if cross_src is None:
                     raise ValueError("cross-attention needs the source: "
                                      "pass modality_input")
-                xk, xv = _xattn_kv(blk["xattn"], cross_src, a, impl)
+                xk, xv = _xattn_kv(blk["xattn"], cross_src, a, impl, whole)
             else:
                 raise NotImplementedError("verify runs attention blocks "
                                           "without cross-attention only")
-            y = _xattn_with_kv(blk["xattn"], hx, a, xk, xv, impl, train)
+            y = _xattn_with_kv(blk["xattn"], hx, a, xk, xv, impl, train,
+                               whole)
             if c is not None:
                 new_cache[f"blk{i}"].update(xk=xk.to(torch.bfloat16),
                                             xv=xv.to(torch.bfloat16))
@@ -413,14 +443,18 @@ def encoder_forward(p: dict, frames: torch.Tensor, cfg: ModelConfig, *,
     non-causal path on CUDA tensors outside training, the reference's
     plain choice on the CPU and in training (``sdpa``, chunked from 2,048
     positions: the reference's encoder passes ``attention_forward``'s
-    defaults, not the config's chunk settings)."""
-    enc_attn = _noncausal(cfg.attention)
+    defaults, not the config's chunk settings).  Under a model axis a
+    rank runs its heads, or every head where the axis does not divide
+    them (:func:`_attn_arm`)."""
+    a, whole = _attn_arm(cfg)
+    enc_attn = _noncausal(a)
     impl = "train" if train else cfg.quant_matmul_impl
     x = frames
     for lp in p["layers"]:
         h = norm_apply(cfg.norm, lp["norm1"], x, cfg.norm_eps, train=train)
         x = x + attn_mod.attention_forward(lp["attn"], h, enc_attn,
-                                           impl=impl, train=train)
+                                           impl=impl, train=train,
+                                           mesh=whole)
         h = norm_apply(cfg.norm, lp["norm2"], x, cfg.norm_eps, train=train)
         x = x + mlp_apply(lp["mlp"], h, impl)
     return norm_apply(cfg.norm, p["final_norm"], x, cfg.norm_eps,

@@ -30,7 +30,7 @@ policy can keep its outputs (``models.transformer._save_products``):
 a recompute then makes no collective and counts none.
 
 Under autograd the sharded training forward goes through three pairs
-(Megatron's f / g, and FSDP's gather):
+(Megatron's f / g, and a gather over an axis):
   * :func:`copy_to_model`: identity forward, all-reduce SUM of the
     gradient over the model axis; on a whole activation entering
     column-split work, and (as :func:`replicated`, one all-reduce for
@@ -39,8 +39,12 @@ Under autograd the sharded training forward goes through three pairs
   * :func:`reduce_from_model`: all-reduce SUM forward, identity backward;
     what the row-split linears and the vocab-split lookups reduce
     through;
-  * :func:`fsdp_gather`: all-gather over the data axis forward,
-    reduce-scatter backward (all-reduce SUM, then this rank's piece).
+  * :func:`gather_from`: all-gather over an axis forward, reduce-scatter
+    backward (all-reduce SUM, then this rank's piece): FSDP's gather of
+    a leaf over the data axis (``train.loop.fsdp_leaf``), and the whole-heads
+    arm's gather of a column-split projection over the model axis
+    (``models.attention``), whose gradient is a partial on every rank
+    (each rank's ``wo`` reads only its rows of the whole output).
 Every reduction runs in fp32 and rounds once to the operand's dtype.
 Outside autograd (``no_grad`` serving) :func:`all_reduce` and
 :func:`all_gather` compute what they always did.
@@ -277,16 +281,16 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
-class _FsdpGather(torch.autograd.Function):
+class _Gather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, piece, dim, mesh):
-        ctx.dim, ctx.mesh = dim, mesh
-        return _call(piece, mesh, "gather", "data", dim)
+    def forward(ctx, piece, dim, mesh, axis):
+        ctx.dim, ctx.mesh, ctx.axis = dim, mesh, axis
+        return _call(piece, mesh, "gather", axis, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return _reduce_f32(g, ctx.mesh, "scatter", "data", ctx.dim), \
-            None, None
+        return _reduce_f32(g, ctx.mesh, "scatter", ctx.axis, ctx.dim), \
+            None, None, None
 
 
 class _CopyToModel(torch.autograd.Function):
@@ -333,11 +337,13 @@ def reduce_from_model(x: torch.Tensor, mesh) -> torch.Tensor:
     return _ReduceFromModel.apply(x, mesh)
 
 
-def fsdp_gather(piece: torch.Tensor, dim: int, mesh) -> torch.Tensor:
-    """The whole leaf from this rank's piece along ``dim`` over the data
-    axis; its gradient reduce-scattered back to the piece (summed over
-    the axis in fp32)."""
-    return _FsdpGather.apply(piece, dim, mesh)
+def gather_from(piece: torch.Tensor, dim: int, mesh,
+                axis: str = "model") -> torch.Tensor:
+    """The axis's pieces of ``piece`` joined along ``dim`` (as
+    :func:`all_gather`); its gradient, a partial on every rank, summed
+    over the axis in fp32 and cut back to this rank's piece (one
+    reduce-scatter, counted as ``reduce-scatter/<axis>``)."""
+    return _Gather.apply(piece, dim, mesh, axis)
 
 
 def column_input(x: torch.Tensor) -> torch.Tensor:

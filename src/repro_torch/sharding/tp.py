@@ -6,7 +6,12 @@ of every parameter that ``sharding.rules`` gives it and computes:
     on their local columns, bias slices added locally;
   * attention over its H/m query heads and KVH/m kv heads, on page pools
     that hold only those kv heads (:func:`local_attention` is the
-    attention config a rank runs and allocates with);
+    attention config a rank runs and allocates with); or, on the
+    contiguous full-sequence paths (prefill, training, the encoder,
+    cross-attention) where the axis does not divide the head counts,
+    over every head: the whole-heads arm (:func:`whole_heads`,
+    ``models.attention``), whose projections are gathered whole and
+    whose ``wo`` reads the rank's rows of the whole output;
   * the row-split linears (``wo``, ``down``) as an fp32 partial product
     over its slice of the contraction, all-reduced in fp32 and rounded
     once to the activation dtype, the bias added once after (the
@@ -30,15 +35,16 @@ there too (the reference accumulates them in fp32 only when serving).
 
 :func:`check_servable` and :func:`check_trainable` refuse, each with a
 message naming its ROADMAP item, what the port does not shard: head
-counts, widths or expert counts the axis does not divide and MLA (the
-reference replicates them), an odd K/m under int4, a narrowed KV-head
-style, the gather arm in training (A8.8), and in training Mamba /
-RWKV-6 blocks, cross-attention and encoders (A8.6).
+counts the axis does not divide in the engines (their page pools split
+kv heads) and in the paged or eager decode, widths or expert counts it
+does not divide, MLA, projections whose widths it does not divide, an
+odd K/m under int4, a narrowed KV-head style (A8.8), RWKV-6 blocks, and
+in training Mamba blocks, cross-attention and encoders (A8.6).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -47,13 +53,13 @@ from repro_torch.sharding.collectives import (all_gather, local_piece,
 
 #: the ROADMAP items that shard what the port still refuses
 A86 = ("ROADMAP A8.6 (Mamba / RWKV-6 blocks, cross-attention and encoders "
-       "under a model axis in training)")
+       "under a model axis in training, RWKV-6 blocks in serving too)")
 A87 = ("ROADMAP A8.7 (host decisions that read the wall clock under a "
        "model axis: rank 0's decisions broadcast to the group)")
 A88 = ("ROADMAP A8.8 (layouts a model axis does not split: MLA, head "
-       "counts, widths or expert counts it does not divide, an odd K/m "
-       "under int4, a narrowed kv_cache_style, the gather arm in "
-       "training)")
+       "counts it does not divide in the engines, widths or expert counts "
+       "it does not divide, an odd K/m under int4, a narrowed "
+       "kv_cache_style)")
 
 
 def local_attention(cfg):
@@ -71,8 +77,10 @@ def local_attention(cfg):
 
 def _heads_refusal(cfg) -> str:
     """Why the model axis cannot split ``cfg``'s attention heads ("" where
-    it can)."""
+    it can, and for a config without attention)."""
     a, m = cfg.attention, cfg.model_parallel
+    if a is None:
+        return ""
     kvh = a.kv_heads_effective()
     if a.kind == "mla" or a.heads_padded != a.num_heads \
             or a.num_heads % m or kvh % m:
@@ -81,6 +89,35 @@ def _heads_refusal(cfg) -> str:
                 f"heads (num_kv_heads) of a {a.kind} attention without "
                 "padded heads; the port refuses head counts the axis does "
                 f"not divide (the reference replicates them): {A88}")
+    return ""
+
+
+def whole_heads(cfg) -> bool:
+    """Whether a rank of ``cfg`` computes its full-sequence attention over
+    every head (the whole-heads arm): a model axis > 1 that does not
+    split the heads (:func:`_heads_refusal`) of an attention that is not
+    MLA.  The rules still split ``wq`` / ``wk`` / ``wv`` by columns and
+    ``wo`` by rows, which need not be whole heads."""
+    a = cfg.attention
+    return cfg.model_parallel > 1 and a is not None and a.kind != "mla" \
+        and bool(_heads_refusal(cfg))
+
+
+def _whole_refusal(cfg) -> str:
+    """Why a rank cannot compute every head of ``cfg`` ("" where it can):
+    MLA, or a projection width the axis does not divide (the gathered
+    columns and ``wo``'s rows must be the rules' even pieces)."""
+    a, m = cfg.attention, cfg.model_parallel
+    if a is None:
+        return ""
+    if a.kind == "mla":
+        return _heads_refusal(cfg)
+    widths = {a.heads_padded * a.head_dim, a.kv_heads_effective()
+              * a.head_dim}
+    if any(w % m for w in widths):
+        return (f"{cfg.name}: a model axis of {m} must divide the "
+                f"projections' widths {sorted(widths)} to compute every "
+                f"head on each rank: {A88}")
     return ""
 
 
@@ -143,22 +180,37 @@ def cp_decode(cfg) -> bool:
             and normalize_dtype(cfg.kv_cache_dtype) == "bfloat16")
 
 
-def check_servable(cfg, params, *, cp: bool = False) -> None:
+def check_servable(cfg, params, *, cell: Optional[str] = None) -> None:
     """Raise ``ValueError`` for a config or tree the port does not serve
     under a model axis of ``cfg.model_parallel`` > 1.  MoE layers (EP or
     the TP fallback), int8 / fp8 / int4 weights and PEFT adapters
-    (unmerged) are served.  ``cp=True`` is the context-parallel decode
-    step (``launch.steps``' decode cell): where :func:`cp_decode` holds,
-    head counts the axis does not divide are served too; the engines
-    never pass it, and keep refusing them (A8.8)."""
+    (unmerged) are served; RWKV-6 blocks are not (A8.6: the mix and the
+    WKV heads do not follow the rules' column split).  ``cell`` is the
+    mode of a dry-run cell (``launch.steps``): a ``"prefill"`` cell
+    computes head counts the axis does not divide over every head (the
+    whole-heads arm), and so does a ``"decode"`` cell whose
+    self-attention takes the context-parallel step (:func:`cp_decode`;
+    its cross-attention takes the whole-heads arm).  The engines pass no
+    cell and keep refusing such heads: their page pools split kv heads
+    (A8.8)."""
     from repro_torch.kvcache import cache_kv_heads
-    if not (cp and cp_decode(cfg)):
+    if "rwkv6" in cfg.block_pattern:
+        raise ValueError(f"{cfg.name}: RWKV-6 blocks under a model axis > "
+                         "1 are not sharded (the token mix, the WKV heads "
+                         "and wout do not follow the rules' placements): "
+                         f"{A86}")
+    if cell == "prefill" or (cell == "decode" and cp_decode(cfg)):
+        refusal = _whole_refusal(cfg)    # MLA, widths it does not divide
+        if refusal:
+            raise ValueError(refusal)
+    else:
         local_attention(cfg)             # refuses non-dividing heads, MLA
     refusal = _widths_refusal(cfg) or _tree_refusal(cfg, params)
     if refusal:
         raise ValueError(f"{refusal}: {A88}")
-    if cache_kv_heads(cfg.attention, cfg.kv_cache_style) \
-            != cfg.attention.kv_heads_effective():
+    a = cfg.attention
+    if a is not None and cache_kv_heads(a, cfg.kv_cache_style) \
+            != a.kv_heads_effective():
         raise ValueError(f"kv_cache_style {cfg.kv_cache_style!r} merges kv "
                          "heads; under a model axis > 1 the pools keep "
                          f"every kv head (kv_cache_style 'full'): {A88}")
@@ -168,25 +220,24 @@ def check_trainable(cfg, params) -> None:
     """Raise ``ValueError`` for a config or tree that training does not
     shard under a model axis of ``cfg.model_parallel`` > 1: blocks other
     than attention (Mamba, RWKV-6), cross-attention and encoders (A8.6),
-    the gather attention arm, and head counts, widths or expert counts
-    the axis does not divide (A8.8).  MoE layers, PEFT adapters and
-    int8 / int4 / fp8 bases train.  A data axis alone
-    (``model_parallel`` 1) refuses nothing."""
+    MLA, projection widths, widths or expert counts the axis does not
+    divide (A8.8).  Head counts it does not divide train through the
+    whole-heads arm (:func:`whole_heads`); MoE layers, PEFT adapters,
+    int8 / int4 / fp8 bases and either ``tp_attn_impl`` train (the
+    arms differ only on paged pools, which training never reads).  A data
+    axis alone (``model_parallel`` 1) refuses nothing."""
     m = cfg.model_parallel
     if m == 1:
         return
-    if cfg.attention is not None and _heads_refusal(cfg):
-        raise ValueError(_heads_refusal(cfg))
     if set(cfg.block_pattern) != {"attn"} or cfg.encoder is not None \
             or cfg.cross_attn_every:
         raise ValueError(f"{cfg.name}: training under a model axis > 1 "
                          "shards attention-only decoders; Mamba / RWKV-6 "
                          "blocks, cross-attention and encoders are not "
                          f"sharded yet: {A86}")
-    if cfg.tp_attn_impl != "kv_shard":
-        raise ValueError(f"tp_attn_impl {cfg.tp_attn_impl!r}: training "
-                         "under a model axis takes the kv_shard arm (the "
-                         f"gather arm's all-gathers have no gradient): {A88}")
+    refusal = _whole_refusal(cfg) if whole_heads(cfg) else _heads_refusal(cfg)
+    if refusal:
+        raise ValueError(refusal)
     refusal = _widths_refusal(cfg) or _tree_refusal(cfg, params)
     if refusal:
         raise ValueError(f"{refusal}: {A88}")

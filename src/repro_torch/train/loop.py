@@ -26,7 +26,7 @@ reference's single-device step:
   * every rank takes its rows of each global microbatch (``batch_spec``);
     its loss is its share of the global mean (``LM.loss(data=)``);
   * the leaves that ``"data"`` splits are gathered whole once a step
-    (``collectives.fsdp_gather``, the whole tree at once; gathering each
+    (``collectives.gather_from``, the whole tree at once; gathering each
     layer on use is a later optimisation) and their gradients come back
     reduce-scattered through its backward; the gradients of leaves
     whole over ``"data"`` are summed over the data axis (one fp32
@@ -58,7 +58,7 @@ from repro_torch.optim.adamw import (AdamWState, adamw_update,
                                      init_adamw)
 from repro_torch.optim.compress import compress_grads, init_error_feedback
 from repro_torch.sharding.collectives import (all_reduce, barrier,
-                                              fsdp_gather)
+                                              gather_from)
 from repro_torch.sharding.rules import (batch_spec, gather_leaf, local_leaf,
                                         make_param_specs, shard_params,
                                         split_axes)
@@ -107,6 +107,16 @@ def _data_dim(spec) -> "int | None":
     return None
 
 
+def fsdp_leaf(piece, spec, mesh):
+    """A leaf whole over the data axis: this rank's ``piece`` gathered
+    (``collectives.gather_from``, counted as ``all-gather/data``) where
+    its placement ``spec`` splits it over ``"data"``, else ``piece``.
+    The training step and the dry-run's serving cells gather through
+    it."""
+    dim = _data_dim(spec) if isinstance(piece, torch.Tensor) else None
+    return piece if dim is None else gather_from(piece, dim, mesh, "data")
+
+
 def _rank_rows(batch: dict, mesh, num_microbatches: int) -> dict:
     """This rank's rows of each microbatch of the global ``batch``: rows
     of global microbatch i, so that the microbatches group the rows as
@@ -139,10 +149,9 @@ def sharded_grads(lm, params, batch, mesh, specs,
         if not _is_float(p):
             return p
         t = p.detach().requires_grad_()
-        dim = _data_dim(spec)
-        whole_over_data.append(dim is None)
+        whole_over_data.append(_data_dim(spec) is None)
         tracked.append(t)
-        return t if dim is None else fsdp_gather(t, dim, mesh)
+        return fsdp_leaf(t, spec, mesh)
 
     with torch.enable_grad():
         live = tree_map(track, params, specs)

@@ -49,7 +49,8 @@ MESHES = {"16x16": {"data": 16, "model": 16},
 #: (arch, decode_attn_impl) whose placements are held
 PLACED = [("qwen2-1.5b", "cp"), ("qwen2-1.5b", "paged_pallas"),
           ("llama3.2-1b", "eager"), ("granite-moe-3b-a800m", "eager"),
-          ("jamba-1.5-large-398b", "eager")]
+          ("jamba-1.5-large-398b", "eager"),
+          ("llama4-scout-17b-a16e", "cp")]
 #: leaves whose rule tests ``shape[0]``: the reference's fault R12
 SHAPE0_LEAVES = ("/moe/gate_e", "/moe/up_e", "/moe/down_e",
                  "/mamba/conv_w", "/mamba/conv_b", "/mamba/A_log",
@@ -187,10 +188,34 @@ def test_reference_fault_r12_rules_read_the_group_dim(arch):
     assert n == g * (3 * moe + 5 * mamba)
 
 
+@pytest.mark.parametrize("mesh_name", sorted(MESHES))
+@pytest.mark.parametrize("arch", ["whisper-base", "llama-3.2-vision-11b"])
+def test_decode_cache_source_kv_placed_as_reference(arch, mesh_name):
+    """A cross-attention model's decode cell (the context-parallel decode,
+    as the dry-run picks it at 8 kv heads on 16) carries the source K / V
+    of each cross-attention block, placed as the reference's
+    ``cache_shardings`` places them: the batch over the data axes, no
+    model split (every other cache leaf too)."""
+    jcfg, tcfg = _configs(arch, "cp")
+    shape_j, shape_t = jconfigs.SHAPES["decode_32k"], \
+        tconfigs.SHAPES["decode_32k"]
+    jm, tm = _jmesh(MESHES[mesh_name]), abstract_mesh(MESHES[mesh_name])
+    want = _unstack(_jflat(jsteps.cache_shardings(
+        jspecs.input_specs(jcfg, shape_j)["cache"], jm, jcfg, shape_j)),
+        tcfg.num_groups, "")
+    got = _tflat(tsteps.cache_shardings(
+        tspecs.input_specs(tcfg, shape_t)["cache"], tm, tcfg, shape_t))
+    assert got == want
+    source = {k: v for k, v in got.items() if k.endswith(("/xk", "/xv"))}
+    assert source and all("model" not in str(v) and v[0] is not None
+                          for v in source.values())
+
+
 def test_abstract_inputs_match_reference_shapes():
     """``input_specs`` on meta has the reference's shapes and dtypes at
-    every arch and shape (the caches in the port's list layout, without
-    the cross-attention source K / V that only a prefill adds)."""
+    every arch and shape (the caches in the port's list layout; a decode
+    cache carries the cross-attention source K / V as the reference's
+    does, an empty prefill cache leaves them to the prefill)."""
     for arch in jconfigs.ARCH_IDS:
         for name in jconfigs.SHAPES:
             jcfg, tcfg = jconfigs.get_config(arch), \
@@ -202,12 +227,15 @@ def test_abstract_inputs_match_reference_shapes():
                 if key == "cache":
                     jl = jax.tree_util.tree_flatten_with_path(j[key])[0]
                     # a cross-attention block's source K / V join the
-                    # port's cache at prefill (none is held before there
-                    # is a source); the reference allocates them
+                    # port's prefill cache at prefill (none is held before
+                    # there is a source); the reference allocates them,
+                    # and the decode cell reads them
+                    source = () if jconfigs.SHAPES[name].mode == "decode" \
+                        else ("/xk", "/xv")
                     want = {jrules._keystr(p): (tuple(l.shape[1:]),
                                                 str(l.dtype)) for p, l in jl
-                            if not jrules._keystr(p).endswith(("/xk",
-                                                               "/xv"))}
+                            if not (source and jrules._keystr(p)
+                                    .endswith(source))}
                     got = {p.split("/", 1)[1]: (tuple(l.shape),
                                                 str(l.dtype)[6:])
                            for p, l in leaves_with_path(t[key])}
@@ -383,7 +411,7 @@ def test_dryrun_cli_writes_the_cell_and_the_skips(tmp_path, capsys):
                         "--out", str(tmp_path)]) == 0
     out = capsys.readouterr().out
     assert "[dryrun] qwen2-1.5b__decode_32k__pod16x16: OK" in out
-    assert "done: 1 ok, 0 skipped, 0 errors" in out
+    assert "done: 1 ok, 0 skipped, 0 refused, 0 errors" in out
     cell = json.loads((tmp_path / "qwen2-1.5b__decode_32k__pod16x16.json")
                       .read_text())
     assert cell["status"] == "ok" and cell["n_chips"] == 256

@@ -246,6 +246,66 @@ def test_chip_smoke_drives_the_cells_phase():
         assert tag in text, tag
 
 
+def test_chip_smoke_drives_the_whole_heads_phase():
+    """chip_smoke.py has a phase 28 that runs on phase 27 (b)'s four
+    ranks and weights: (a) the prefill cell of qwen2-1.5b (kv heads the
+    axis does not divide) with its launches, held kernel calls and
+    collectives against a prediction, logits against one rank's; (b) the
+    train cell's steps against one rank's losses and the float32
+    gradient gathered whole against one rank's."""
+    text = (ROOT / "chip_smoke.py").read_text()
+    tree = ast.parse(text)
+    funcs = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    reached, todo = set(), ["phase_cells", "_cp_rank"]
+    while todo:
+        name = todo.pop()
+        reached.add(name)
+        todo += [ast.unparse(c.func) for c in ast.walk(funcs[name])
+                 if isinstance(c, ast.Call) and ast.unparse(c.func) in funcs
+                 and ast.unparse(c.func) not in reached]
+    assert {"_whole_rank", "_whole_one_rank", "_whole_check",
+            "_wh_kernel_row", "_wh_held"} <= reached
+    body = "\n".join(ast.unparse(funcs[n]) for n in sorted(reached))
+    for needle in ("_wh_shape('prefill')", "_wh_shape('train')",
+                   "WH_PREDICTED", "WH_LAUNCHES", "sharded_grads",
+                   "gather_leaf", "loss_and_grads", "attention_ref",
+                   "rmsnorm_ref", "init_adamw", "max_memory_allocated"):
+        assert needle in body, needle
+    for tag in ("[28 whole_heads] (a)", "[28 whole_heads] (b)"):
+        assert tag in text, tag
+
+
+def test_model_axis_gather_counts_its_reduce_scatter():
+    """The whole-heads arm's gather over the model axis is counted by the
+    collective layer: an all-gather forward, and its backward one
+    reduce-scatter of the whole gradient (on an abstract mesh, meta
+    tensors under autograd)."""
+    from repro_torch.launch.mesh import abstract_mesh
+    from repro_torch.sharding.collectives import gather_from
+    mesh = abstract_mesh({"model": 4})
+    x = torch.empty((2, 8), device="meta", requires_grad=True)
+    y = gather_from(x, 1, mesh)
+    assert y.shape == (2, 32)
+    y.sum().backward()
+    assert x.grad.shape == (2, 8)
+    assert mesh.stats.count_by_op == {"all-gather/model": 1,
+                                      "reduce-scatter/model": 1}
+    assert mesh.stats.bytes_by_op == {"all-gather/model": 64.0,
+                                      "reduce-scatter/model": 256.0}
+
+
+def test_whole_heads_modules_import_neither_jax_nor_the_reference():
+    """The modules of the whole-heads arm and its test drive import
+    neither ``jax`` nor ``repro``."""
+    for rel in ("src/repro_torch/models/attention.py",
+                "src/repro_torch/models/transformer.py",
+                "src/repro_torch/sharding/tp.py",
+                "src/repro_torch/sharding/collectives.py",
+                "src/repro_torch/launch/steps.py",
+                "tests/_whole_heads_arms.py"):
+        assert not set(_imported_roots(ROOT / rel)) & FORBIDDEN, rel
+
+
 def test_chip_smoke_drives_the_spec_path():
     """chip_smoke.py has a speculative-decoding phase that its main runs:
     it serves through the port's SpecEngine (n-gram and draft arms), holds

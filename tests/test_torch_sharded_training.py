@@ -357,11 +357,12 @@ def test_world_checkpoint_resumes_on_one_rank(runs):
 
 def test_check_trainable_refusals_name_a83():
     """Under a model axis > 1 training takes MoE layers, PEFT adapters
-    and int8 / int4 / fp8 bases (A8.3, done); what it still refuses names
-    its own ROADMAP item and not A8.3: non-attention blocks (A8.6), heads
-    the axis does not divide, the gather arm, expert counts and widths
-    it divides neither, an int4 K/m that splits a packed pair (A8.8); a
-    data axis alone refuses nothing."""
+    and int8 / int4 / fp8 bases (A8.3, done), heads the axis does not
+    divide (the whole-heads arm) and the gather arm (A8.8, first part);
+    what it still refuses names its own ROADMAP item and not A8.3:
+    non-attention blocks, before any head count (A8.6), MLA, expert
+    counts and widths it divides neither, an int4 K/m that splits a
+    packed pair (A8.8); a data axis alone refuses nothing."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.model import LM
     from repro_torch.peft.lora import apply_peft
@@ -387,12 +388,15 @@ def test_check_trainable_refusals_name_a83():
     refused.append(e)
     odd = m2.with_(attention=dataclasses.replace(
         cfg.attention, num_heads=6, num_kv_heads=3))
-    with pytest.raises(ValueError,
-                       match="6 query heads.*3 kv heads.*A8.8") as e:
-        check_trainable(odd, {})
+    check_trainable(odd, {})
+    check_trainable(m2.with_(tp_attn_impl="gather"), {})
+    jamba = get_smoke_config("jamba-1.5-large-398b")
+    with pytest.raises(ValueError, match="Mamba / RWKV-6.*A8.6") as e:
+        check_trainable(jamba.with_(model_parallel=16), {})
     refused.append(e)
-    with pytest.raises(ValueError, match="gather.*A8.8") as e:
-        check_trainable(m2.with_(tp_attn_impl="gather"), {})
+    with pytest.raises(ValueError, match="mla attention.*A8.8") as e:
+        check_trainable(odd.with_(attention=dataclasses.replace(
+            odd.attention, kind="mla")), {})
     refused.append(e)
     narrow = granite.with_(model_parallel=2, moe=dataclasses.replace(
         granite.moe, d_ff=63))

@@ -375,7 +375,7 @@ def test_collective_layer_has_no_try_and_no_device_switch():
     pairs = {n.name: n for n in tree.body if isinstance(n, ast.ClassDef)
              and any(ast.unparse(b) == "torch.autograd.Function"
                      for b in n.bases)}
-    assert set(pairs) == {"_CopyToModel", "_ReduceFromModel", "_FsdpGather"}
+    assert set(pairs) == {"_CopyToModel", "_ReduceFromModel", "_Gather"}
     for cls in pairs.values():
         used = {ast.unparse(n.func) for n in ast.walk(cls)
                 if isinstance(n, ast.Call)}

@@ -243,8 +243,9 @@ def test_resume_is_bit_exact(tmp_path):
 def test_train_cli_on_the_cpu(tmp_path, monkeypatch, capsys):
     """``python -m repro_torch.launch.train --smoke --device cpu``: plain,
     with a checkpoint directory and a history file, and ``--autotune``
-    (the search at a small budget) applying c*; ``--model-parallel 2`` is
-    refused, naming A8."""
+    (the search at a small budget) applying c*; ``--model-parallel 2`` of
+    a layout the model axis does not shard (RWKV-6 blocks) is refused,
+    naming A8.6."""
     from repro_torch.core import tuner
     base = ["--arch", "llama3.2-1b", "--smoke", "--device", "cpu",
             "--seq-len", "32", "--global-batch", "2"]
@@ -263,9 +264,12 @@ def test_train_cli_on_the_cpu(tmp_path, monkeypatch, capsys):
     assert tcli.main(base + ["--steps", "2", "--autotune"]) == 0
     out = capsys.readouterr().out
     assert "AE-LLM selected" in out and "loss" in out
+    # llama3.2-1b's smoke heads, which 2 does not divide, now train (the
+    # whole-heads arm); RWKV-6 blocks under the axis stay refused
     with pytest.raises(SystemExit):
-        tcli.main(base + ["--model-parallel", "2"])
-    assert "A8" in capsys.readouterr().err
+        tcli.main(base[:1] + ["rwkv6-1.6b"] + base[2:]
+                  + ["--model-parallel", "2"])
+    assert "A8.6" in capsys.readouterr().err
 
 
 def test_reduce_config_matches_jax():
