@@ -326,13 +326,28 @@ Phases (each prints one line; any failure raises and exits non-zero):
                  within 1e-4 of one rank's, the loss within 1e-5; then
                  B3 at a rank's shape timed beside the plain version,
                  SDPA and the bound
+ 29. ssm_tp    — on the same four ranks after 28, rwkv6-1.6b at full
+                 width and depth over 8 WKV heads a rank and jamba's
+                 Mamba mixer over 4,096 channels a rank.  (a)
+                 launch.steps' prefill cell, 4 x 512, then 8 decode
+                 steps, bf16: logits within 2e-2 a row of one rank's (or
+                 2x its witness of rounding), B8 24 launches a prefill a
+                 rank with every call held, the collectives equal
+                 SSM_PREDICTED; float32 at 2 layers: logits within 1e-2
+                 (trap 6), states within 4x the TF32 witness; (b) the
+                 train cell, 2 steps: losses within 2e-2 of one rank's,
+                 the float32 gradient gathered whole within 1e-4 or 3x a
+                 one-rank summation-order floor; (c) the mixer, a 4 x 512
+                 prefill and 8 decode steps against one rank's, float32
+                 within 1e-5, 1 all-gather and 2 all-reduces a call; then
+                 B8 at a rank's shape timed beside the plain version
 B7 takes every RMSNorm of the qwen2-1.5b drives: 57 launches a forward
 (phases 5, 7, 9, 10), every one on its warp step.  Every B1 / B2 / B3
 launch of those drives (bf16 activations), every B4 and B5 launch of
 phase 9 and every B6 launch of phase 10 must take the tensor-core step:
 their tensor-core launch counts are printed beside the launch counts and
 must equal them.  Launch counts are
-zeroed just before each drive (phases 5, 7, 9, 10, 13-28) and read just
+zeroed just before each drive (phases 5, 7, 9, 10, 13-29) and read just
 after it; peak memory is read for the set-up and, restarted, for the
 drive.  Then one JSON
 line of kernel numbers, and last the result line ``{"ok": true,
@@ -3587,7 +3602,8 @@ def phase_cost(records: list) -> dict:
     return out
 
 
-SEARCH_REQUESTS = 2         # phase 18 (b), each arm: the first warms up
+SEARCH_REQUESTS = 1         # phase 18 (b), each arm (of more, the first
+                            # warms up)
 SEARCH_PROMPT, SEARCH_GEN = 512, 128    # the cost model's protocol
 #: the budget of the reference's tests/test_core_aellm.py::_small_tuner
 SEARCH_BUDGET = dict(n0=48, refine_iters=1, k_per_iter=8, pop_size=24,
@@ -3665,7 +3681,7 @@ def _search_drive(eng, tracer, prompts, tag: str, draft_norms: int) -> dict:
         raise AssertionError(f"{tag}: launches {launches} != {want} "
                              f"(dispatch rows {rows}, {d['verify']} verify "
                              f"rounds, {d['steps']} decode steps)")
-    tail = slice(1, None)                 # the first request warms up
+    tail = slice(1 if len(lat) > 1 else 0, None)    # the first warms up
     return {"latency_ms": statistics.median(lat[tail]) * 1e3,
             "ttft_ms": statistics.median(ttft[tail]) * 1e3,
             "latency_all_ms": [x * 1e3 for x in lat],
@@ -3697,7 +3713,7 @@ def _search_eager_drive(eng, tracer, prompts, tag: str) -> dict:
     ttft = [r["ttft_p50_s"] for r in runs]
     admits = sum(r["admissions"] for r in runs)
     steps = sum(r["decode_steps"] for r in runs)
-    tail = slice(1, None)                 # the first request warms up
+    tail = slice(1 if len(lat) > 1 else 0, None)    # the first warms up
     return {"latency_ms": statistics.median(lat[tail]) * 1e3,
             "ttft_ms": statistics.median(ttft[tail]) * 1e3,
             "latency_all_ms": [x * 1e3 for x in lat],
@@ -3871,7 +3887,9 @@ def phase_search(records: list, calibration: dict) -> dict:
           f"{score:.3f} | recalibrated from phase 17: lat shift "
           f"{shifts['lat']:+.4f}, energy shift {shifts['energy']:+.4f} "
           f"(log) | served {SEARCH_REQUESTS} x {SEARCH_PROMPT} + "
-          f"{SEARCH_GEN}, median of the last {SEARCH_REQUESTS - 1}: "
+          f"{SEARCH_GEN}, "
+          + (f"median of the last {SEARCH_REQUESTS - 1}: "
+             if SEARCH_REQUESTS > 1 else "no warm-up request: ") +
           f"{arm('default')}; "
           f"{arm('cstar')} | Default / c* latency: measured "
           f"{ratio['latency_measured']:.3f}, predicted "
@@ -3888,6 +3906,7 @@ DEEPSEEK = "deepseek-coder-33b"
 SCOUT_LAYERS = 8            # phase 19 (b): 8 of llama4-scout's 48 layers
 SCOUT_REQUESTS = 4          # two waves on its 2 slots
 MOE_Q_REQUESTS = 4          # phase 19 (a1), (a2), (a3) and (c)
+MOE_NEW = (16, 33)          # (a1), (a2): new tokens a request, [lo, hi)
 MOE_APPLY_TOKENS = 1024     # phase 19 (d): two routing groups of 512
 #: deepseek-coder-33b's linears (K, N): wq / wo, wk / wv, gate / up, down
 DEEPSEEK_QMM = [(7168, 7168), (7168, 1024), (7168, 19200), (19200, 7168)]
@@ -4073,7 +4092,7 @@ def _moe_granite() -> dict:
         for i, n in enumerate(plens)]
     hit0 = eng.stats.prefix_hit_tokens
     out["a1_sched"] = _moe_paged_drive(
-        eng, tracer, prompts, rng.integers(32, 65, MOE_Q_REQUESTS),
+        eng, tracer, prompts, rng.integers(*MOE_NEW, MOE_Q_REQUESTS),
         "moe granite sched")
     out["a1_sched"]["prefix_hit_tokens"] = eng.stats.prefix_hit_tokens - hit0
     if out["a1_sched"]["prefix_hit_tokens"] <= 0:
@@ -4114,7 +4133,7 @@ def _moe_granite() -> dict:
     prompts = [rng.integers(0, vocab, int(n))
                for n in rng.integers(600, 3001, MOE_Q_REQUESTS)]
     out["a2_paged_int8"] = _moe_paged_drive(
-        eng, tracer, prompts, rng.integers(32, 65, MOE_Q_REQUESTS),
+        eng, tracer, prompts, rng.integers(*MOE_NEW, MOE_Q_REQUESTS),
         "moe granite paged int8")
     del eng, qparams, qlm
     for k, gb in (("a1_sched", weights_gb), ("a3_spec", weights_gb),
@@ -4481,10 +4500,10 @@ def phase_moe(records: list) -> dict:
 # phase 20: training
 
 TRAIN_ARCH = "llama3.2-1b"     # the reference's default --arch for training
-TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 10, 8, 512
-TRAIN_CKPT_EVERY = 5
-RESUME_STEPS = 5               # (d): steps after the resume
-PEFT_STEPS, PEFT_RANK = 5, 16
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 6, 8, 512
+TRAIN_CKPT_EVERY = 6           # one checkpoint, the one (d) resumes from
+RESUME_STEPS = 2               # (d): steps after the resume
+PEFT_STEPS, PEFT_RANK = 3, 16
 PEFT_METHODS = ("lora", "qlora", "dora")
 TRAIN_GRAD_REL_L2 = 1e-4       # (b): smoke configs, card vs CPU, float32
 TRAIN_GRAD_B, TRAIN_GRAD_S = 2, 128
@@ -4510,7 +4529,8 @@ def _no_launches(tag: str) -> dict:
 
 def _train_cli(tmp: Path) -> dict:
     """(a) ``repro_torch.launch.train.main`` for llama3.2-1b at full width
-    and depth, bf16, 10 steps of 8 x 512 tokens, checkpoints every 5."""
+    and depth, bf16, TRAIN_STEPS steps of 8 x 512 tokens, a checkpoint
+    every TRAIN_CKPT_EVERY."""
     torch = _torch()
     from repro_torch.launch import train as train_cli
     hist = tmp / "a_history.json"
@@ -4888,8 +4908,9 @@ def phase_train(records: list, smi: str) -> dict:
               f"p50 {a['step_p50_s'] * 1e3:.1f} ms, "
               f"{a['tokens_per_s']:.0f} tokens/s, peak "
               f"{a['peak_gb']:.2f} GB, loss {a['losses'][0]:.4f} -> "
-              f"{a['losses'][-1]:.4f}, wall {a['wall_s']:.1f}s (2 "
-              f"checkpoints), kernel launches 0")
+              f"{a['losses'][-1]:.4f}, wall {a['wall_s']:.1f}s "
+              f"({TRAIN_STEPS // TRAIN_CKPT_EVERY} checkpoint(s)), kernel "
+              f"launches 0")
         out["b_grads"] = g = _grads_card_vs_cpu()
         print(f"[20 train] (b) {smi}: gradients card vs CPU (float32 smoke"
               f", limit {TRAIN_GRAD_REL_L2}): " + "; ".join(
@@ -5973,12 +5994,12 @@ def _tp_kernel_rows() -> dict:
 
 def _tp_prompts(vocab: int) -> tuple:
     """Phase 5's drive, from its seed: the warm-up prompt, the 12
-    prompts of 64-512 tokens and their 32-64 new tokens."""
+    prompts of 64-512 tokens and half their 32-64 new tokens (time)."""
     import numpy as np
     rng = np.random.default_rng(SEED)
     warm = rng.integers(0, vocab, (64,))
     plens = rng.integers(64, 513, 12)
-    max_new = rng.integers(32, 65, 12)
+    max_new = rng.integers(32, 65, 12) // 2
     return warm, [rng.integers(0, vocab, (int(n),)) for n in plens], max_new
 
 
@@ -6751,7 +6772,7 @@ TPM_F32_REL_L2 = 1e-3        # (a): float32 logits, 2 ranks vs one, a row
 #: 1.13-1.42 on the two seeds' prefill and decode logits
 TPM_SEEDS = (SEED, SEED + 1)
 TPM_WITNESS_FACTOR = 2.0
-TPM_Q_REQUESTS, TPM_Q_NEW = 4, 16    # (d)
+TPM_Q_REQUESTS, TPM_Q_NEW = 4, 4     # (d)
 TPM_LORA_RANK = 16           # (e)
 
 
@@ -6886,12 +6907,12 @@ def _fp8_calls_vs_plain(fn) -> tuple:
 
 def _tpm_prompts(vocab: int) -> tuple:
     """(a)'s drive: TPM_REQUESTS prompts of 64-512 tokens (phase 23's
-    lengths) and 16-32 new tokens, from their own seed."""
+    lengths) and 8-16 new tokens, from their own seed."""
     import numpy as np
     rng = np.random.default_rng(SEED + 25)
     plens = rng.integers(64, 513, TPM_REQUESTS)
     return ([rng.integers(0, vocab, (int(n),)) for n in plens],
-            rng.integers(16, 33, TPM_REQUESTS))
+            rng.integers(8, 17, TPM_REQUESTS))
 
 
 def _with_lora_b(tree, seed: int, scale: float):
@@ -7259,6 +7280,7 @@ TTP_RANKS = 2
 TTP_STEPS = 2
 TTP_PEFT = ("lora", "qlora")       # (a), rank PEFT_RANK
 TTP_GRANITE_LAYERS = 4             # (b): the first 4 of granite's 32
+TTP_LLAMA_LAYERS = 8               # (a): the first 8 of llama3.2-1b's 16
 TTP_F32_LAYERS = 2                 # (c)
 #: (c): a leaf's gradient is held within the larger of
 #: TRAIN_TP_GRAD_REL_L2 and this many times the distance a change of
@@ -7423,7 +7445,7 @@ def _ttp_rank(rank: int) -> dict:
     t_start = time.perf_counter()
     mesh = make_host_mesh(model=TTP_RANKS, device="cuda")
     out = {"mesh": mesh.describe()}
-    llama = _ttp_config(TRAIN_ARCH)
+    llama = _ttp_config(TRAIN_ARCH, TTP_LLAMA_LAYERS)
     for method in TTP_PEFT:
         out[method] = _ttp_train(llama, method, mesh)
     out["granite"] = _ttp_train(_ttp_config(GRANITE, TTP_GRANITE_LAYERS),
@@ -7438,13 +7460,13 @@ def _ttp_rank(rank: int) -> dict:
 
 
 def phase_train_tp_peft(smi: str) -> dict:
-    """Phase 26: LoRA / QLoRA on llama3.2-1b and granite's first 4 layers
-    trained by two ranks that share the card over gloo, against one rank
-    in this process."""
+    """Phase 26: LoRA / QLoRA on llama3.2-1b's first 8 layers and
+    granite's first 4 trained by two ranks that share the card over gloo,
+    against one rank in this process."""
     torch = _torch()
     from repro_torch.launch.mesh import spawn_world
     t_phase = time.perf_counter()
-    llama = _ttp_config(TRAIN_ARCH)
+    llama = _ttp_config(TRAIN_ARCH, TTP_LLAMA_LAYERS)
     one = {m: _ttp_train(llama, m) for m in TTP_PEFT}
     one["granite"] = _ttp_train(_ttp_config(GRANITE, TTP_GRANITE_LAYERS),
                                 "full")
@@ -7464,7 +7486,8 @@ def phase_train_tp_peft(smi: str) -> dict:
     for key, tag in (("lora", "(a) LoRA"), ("qlora", "(a) QLoRA"),
                      ("granite", f"(b) {GRANITE} first "
                                  f"{TTP_GRANITE_LAYERS} layers, full")):
-        arch = GRANITE if key == "granite" else f"{TRAIN_ARCH} 16L"
+        arch = GRANITE if key == "granite" \
+            else f"{TRAIN_ARCH} {TTP_LLAMA_LAYERS}L"
         print(f"[26 train_tp_peft] {tag} {smi}: {r0['mesh']}, {arch} bf16, "
               f"{TTP_STEPS} steps of {TRAIN_BATCH}x{TRAIN_SEQ}, "
               f"{r0[key]['trainable']} trainable elements: losses "
@@ -7509,7 +7532,7 @@ def phase_train_tp_peft(smi: str) -> dict:
 CELL_REPS = 3                   # (a): timed runs of each cell
 CELL_TRAIN_REPS = 1             # (a): timed steps of the train cell
 CELL_TRAIN_SEQ = 4096           # train_4k's rows
-CELL_TRAIN_ROWS = 4             # (a): the rows train_4k runs (time)
+CELL_TRAIN_ROWS = 2             # (a): the rows train_4k runs (time)
 CELL_MEM_SHARE = 0.9            # (a): of the card's memory for the rows
 CELL_PREFILL = (1, 32_768)      # prefill_32k cut from 32 rows to 1
 CELL_DECODE = (16, 32_768)      # decode_32k cut from 128 rows to 16
@@ -8086,8 +8109,13 @@ def _cp_rank(rank: int) -> dict:
         del params, cache
         torch.cuda.empty_cache()
     out["wall_s"] = time.perf_counter() - t0
-    # phase 28 on the same ranks and the same pieces of the weights
+    # phase 28 on the same ranks and the same pieces of the weights, then
+    # phase 29 on the same ranks (qwen2's pieces freed first)
     out["p28"] = _whole_rank(mesh, kept)
+    kept.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["p29"] = _ssm_rank(mesh)
     return out
 
 
@@ -8101,11 +8129,7 @@ def _cp_one_rank() -> dict:
     (where one rank rounds cuBLAS's bf16 product): a rank's arithmetic
     without the split, which leaves only the fp32 sums' order."""
     torch = _torch()
-    from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.models import model as model_mod
     from repro_torch.models.model import LM
-    one = make_host_mesh(device="cuda")
-    scope = model_mod.tensor_parallel
     out = {}
     for key, cfg in _cp_configs().items():
         lm = LM(cfg.with_(decode_attn_impl="eager"), device="cuda")
@@ -8116,14 +8140,9 @@ def _cp_one_rank() -> dict:
             lambda t, p: lm.decode_step(params, t, cache, p)[0], cfg)
         out[key]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         rank_math = LM(cfg, device="cuda")          # decode_attn_impl="cp"
-        model_mod.tensor_parallel = \
-            lambda mesh, impl="kv_shard": scope(one, impl)
-        try:
-            out[key]["witness"] = _cp_steps(
-                lambda t, p: rank_math.decode_step(params, t, cache, p)[0],
-                cfg)["logits"]
-        finally:
-            model_mod.tensor_parallel = scope
+        out[key]["witness"] = _as_one_rank(lambda: _cp_steps(
+            lambda t, p: rank_math.decode_step(params, t, cache, p)[0],
+            cfg)["logits"])
         del cache
         torch.cuda.empty_cache()
         # phase 28's single rank, on the same weights (without the
@@ -8236,11 +8255,11 @@ def _wh_prefill(cfg, params, mesh) -> dict:
     return out
 
 
-def _wh_train(cfg, params, mesh) -> dict:
+def _wh_train(cfg, params, mesh, steps: int = WH_TRAIN_STEPS) -> dict:
     """(b) on one rank of ``mesh`` (or the single rank): ``launch.steps``'
-    train cell of ``cfg`` at 4 x 512, WH_TRAIN_STEPS steps of the same
-    batch (the parameters and AdamW's state updated in place): each
-    step's loss and wall, the peak, and the collectives a step."""
+    train cell of ``cfg`` at 4 x 512, ``steps`` steps of the same batch
+    (the parameters and AdamW's state updated in place): each step's
+    loss and wall, the peak, and the collectives a step."""
     torch = _torch()
     from repro_torch.launch.steps import build_cell
     from repro_torch.optim.adamw import init_adamw
@@ -8253,7 +8272,7 @@ def _wh_train(cfg, params, mesh) -> dict:
     _reset_launches()
     before = mesh.stats.copy()
     losses, walls = [], []
-    for _ in range(WH_TRAIN_STEPS):
+    for _ in range(steps):
         (_, _, metrics), w = _cell_walls(
             lambda: cell.fn(params, opt, batch), 1)
         losses.append(float(metrics["loss"]))
@@ -8261,7 +8280,7 @@ def _wh_train(cfg, params, mesh) -> dict:
     calls = _wh_calls(mesh, before)
     return {"losses": losses, "walls": walls,
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "calls": {k: (n / WH_TRAIN_STEPS, b / WH_TRAIN_STEPS)
+            "calls": {k: (n / steps, b / steps)
                       for k, (n, b) in calls.items()},
             "launches": _no_launches("(b) a training rank")}
 
@@ -8372,6 +8391,627 @@ def _wh_kernel_row(records: list) -> dict:
     del copies
     torch.cuda.empty_cache()
     return {"row": row, "line": line}
+
+
+# ---------------------------------------------------------------------------
+# Phase 29: RWKV-6 blocks over a rank's heads and Mamba blocks over its
+# channels (ROADMAP A8.6, C.5), on 27 (b)'s four ranks
+
+
+SSM_ARCH = "rwkv6-1.6b"
+SSM_ROWS, SSM_SEQ = 4, 512      # (a) prefill, (b) train, (c) the mixer
+SSM_DECODE = 8                  # (a), (c): decode steps after the prefill
+SSM_TRAIN_STEPS = 2             # (b)
+SSM_REPS = 1                    # (a): timed prefill after the counted one
+SSM_F32_LAYERS = 2
+SSM_LOGIT_REL_L2 = 2e-2         # (a), (c) bf16 a row vs one rank's
+SSM_F32_REL_L2 = 1e-5           # (c) float32 output and state
+#: (a) float32 logits: ROADMAP C, trap 6 (the gate is rounded to bf16
+#: before wout, so a rounding-level change upstream moves what follows by
+#: up to a bf16 ulp), and B8's products are TF32 on the card
+SSM_F32_LOGIT_REL_L2 = 1e-2
+#: (a) float32 states: within SSM_F32_STATE_FACTOR x the TF32 witness
+#: (one rank's B8 against its plain fp32 WKV) or SSM_F32_REL_L2, the
+#: larger: a rank's other summation order re-rolls B8's TF32 roundings,
+#: and trap 6 carries a flip into the next layer's x_prev
+SSM_F32_STATE_FACTOR = 4.0
+SSM_FLOOR_FACTOR = 3.0          # (b) float32 gradients: trap 9
+#: (a): a rank's collectives a bf16 prefill and a decode step of 4 rows:
+#: the last token's logits gathered (16,384 fp32 a row; x_prev is whole
+#: on every rank, so no gather a layer); 24 x (wout, down) + the
+#: embedding's sum, each an fp32 partial of 4 x T x 2,048 (PERF.md §6)
+SSM_PREDICTED = {
+    "prefill": {"all-gather/model": (1, 262_144.0),
+                "all-reduce/model": (49, 822_083_584.0)},
+    "decode": {"all-gather/model": (1, 262_144.0),
+               "all-reduce/model": (49, 1_605_632.0)}}
+#: (a): a rank's launches a prefill (B8 a layer over the rank's 8 heads)
+#: and a decode step (none: the one-token WKV is plain torch, as in the
+#: reference); rwkv6-1.6b's norms are LayerNorms, plain in both packages,
+#: so B7 (RMSNorm) launches none
+SSM_LAUNCHES = {"prefill": {"wkv6": 24}, "decode": {}}
+#: (c): one jamba Mamba mixer (d 8,192, d_inner 16,384: 4,096 channels a
+#: rank): a rank's collectives a call, predicted in PERF.md §6 before the
+#: first run: in_proj's column piece gathered (4 x T x 8,192 bf16),
+#: x_proj's (4 x T x 544) and out_proj's (4 x T x 8,192) fp32 partials
+MIX_PREDICTED = {
+    "prefill": {"all-gather/model": (1, 33_554_432.0),
+                "all-reduce/model": (2, 71_565_312.0)},
+    "decode": {"all-gather/model": (1, 65_536.0),
+               "all-reduce/model": (2, 139_776.0)}}
+
+
+def _ssm_configs():
+    from repro_torch.configs import get_config
+    cfg = get_config(SSM_ARCH)
+    return {"bf16": cfg,
+            "f32": cfg.with_(dtype="float32", num_layers=SSM_F32_LAYERS)}
+
+
+def _ssm_shape(mode: str):
+    from repro_torch.configs import ShapeConfig
+    if mode == "decode":
+        return ShapeConfig("decode_32k", SSM_SEQ + SSM_DECODE, SSM_ROWS,
+                           "decode")
+    return _wh_shape(mode)
+
+
+def _ssm_inputs(cfg) -> tuple:
+    """(a)'s prompts (the rows of (b)'s batch) and decode tokens, from
+    SEED (the ranks and the single rank draw the same)."""
+    torch = _torch()
+    tokens, _ = _wh_tokens(cfg)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 50)
+    nxt = torch.randint(0, cfg.vocab_size, (SSM_DECODE, SSM_ROWS),
+                        generator=g, device="cuda").int()
+    return tokens, nxt
+
+
+def _ssm_states(cache) -> list:
+    """Every recurrent state leaf of a cache, on the host."""
+    return [{blk: {k: v.float().cpu() for k, v in node["state"].items()}
+             for blk, node in group.items()} for group in cache]
+
+
+def _ssm_pieces(cfg, mesh) -> dict:
+    """The whole model from SEED on the card, cut to this rank's pieces
+    of the prefill cell's placements."""
+    torch = _torch()
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models.model import LM
+    from repro_torch.sharding.rules import shard_params
+    cell = build_cell(cfg, _ssm_shape("prefill"), mesh)
+    whole = LM(cfg, device="cuda").init(SEED)
+    params = shard_params(whole, cell.in_shardings[0], mesh)
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    return params
+
+
+def _ssm_serve(cfg, params, mesh, *, counted: bool) -> dict:
+    """(a) on one rank of ``mesh`` (or the single rank, ``mesh`` of one):
+    ``launch.steps``' prefill cell of ``cfg`` at 4 x 512 on this rank's
+    pieces, then SSM_DECODE steps of the decode cell.  ``counted``: every
+    B8 call of the prefill held (phase 13's ``_wkv6_calls_vs_plain``), and
+    each call's collectives and launches.  The logits of the last prompt token and of
+    each step on the host; a float32 run also its states; bf16 the walls
+    of SSM_REPS more prefills and of each step."""
+    torch = _torch()
+    from repro_torch.launch.steps import build_cell
+    pre = build_cell(cfg, _ssm_shape("prefill"), mesh)
+    dec = build_cell(cfg, _ssm_shape("decode"), mesh)
+    tokens, nxt = _ssm_inputs(cfg)
+    bf16 = cfg.dtype == "bfloat16"
+
+    def prefill():
+        return pre.fn(params, tokens,
+                      pre.lm.init_cache(SSM_ROWS, SSM_SEQ + SSM_DECODE))
+    out = {"calls": [], "launches": []}
+    before = mesh.stats.copy()
+    _reset_launches()
+    if counted and bf16:
+        (logits, cache), n, out["held_worst"] = _wkv6_calls_vs_plain(
+            prefill)
+        out["held"] = {"wkv6": n}
+    else:
+        logits, cache = prefill()
+    torch.cuda.synchronize()
+    out["launches"].append({k: v for k, v in _read_launches().items() if v})
+    out["calls"].append(_wh_calls(mesh, before))
+    out["logits"] = [logits.float().cpu().numpy()]
+    out["states"] = [] if bf16 else [_ssm_states(cache)]
+    out["step_walls"] = []
+    for i in range(SSM_DECODE):
+        pos = torch.full((SSM_ROWS,), SSM_SEQ + i, dtype=torch.int32,
+                         device="cuda")
+        before = mesh.stats.copy()
+        _reset_launches()
+        (logits, cache), w = _cell_walls(
+            lambda: dec.fn(params, nxt[i], cache, pos), 1)
+        out["launches"].append({k: v for k, v in _read_launches().items()
+                                if v})
+        out["calls"].append(_wh_calls(mesh, before))
+        out["logits"].append(logits.float().cpu().numpy())
+        out["step_walls"] += w
+        if not bf16:
+            out["states"].append(_ssm_states(cache))
+    del cache
+    if bf16:
+        _, out["prefill_walls"] = _cell_walls(lambda: prefill()[0],
+                                              SSM_REPS)
+    return out
+
+
+def _one_mesh():
+    """A mesh of one rank that needs no process group (a rank's one-rank
+    arithmetic inside a world)."""
+    torch = _torch()
+    from repro_torch.launch.mesh import Mesh
+    return Mesh(shape={"data": 1, "model": 1},
+                coords={"data": 0, "model": 0}, device=torch.device("cuda"))
+
+
+def _as_one_rank(fn):
+    """``fn()`` with every ``LM`` forward under a tensor-parallel scope of
+    one rank: a rank's arithmetic (row-split linears as fp32 partials
+    rounded once) without the split (ROADMAP C, trap 10's witness)."""
+    from repro_torch.models import model as model_mod
+    scope, one = model_mod.tensor_parallel, _one_mesh()
+    model_mod.tensor_parallel = lambda mesh, impl="kv_shard": scope(one,
+                                                                     impl)
+    try:
+        return fn()
+    finally:
+        model_mod.tensor_parallel = scope
+
+
+def _ssm_grads(cfg, params, mesh, rank: int) -> dict:
+    """(b)'s float32 arm: the first batch's gradient of this rank's pieces
+    (``train.loop.sharded_grads`` on the train cell's placements),
+    gathered whole on every rank.  Rank 0 holds every leaf to one rank's
+    ``loss_and_grads`` on the whole weights within 1e-4, or
+    SSM_FLOOR_FACTOR x the larger of two summation-order floors
+    measured on one rank (trap 9): the gradient as the mask-weighted mean
+    of two half batches', and under one rank's tensor-parallel
+    arithmetic (RWKV-6 rounds its gate to bf16 before ``wout``, trap 6,
+    so an fp32 ulp there can move a gradient by more than 1e-4)."""
+    torch = _torch()
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models.model import LM
+    from repro_torch.sharding.rules import gather_leaf
+    from repro_torch.train.loop import loss_and_grads, sharded_grads
+    from repro_torch.tree import leaves_with_path, tree_map
+    cell = build_cell(cfg, _wh_shape("train"), mesh)
+    _, batch = _wh_tokens(cfg)
+    before = mesh.stats.copy()
+    pieces, metrics = sharded_grads(cell.lm, params, batch, mesh,
+                                    cell.in_shardings[0], local_batch=True)
+    calls = _wh_calls(mesh, before)
+    whole = tree_map(lambda g, s: None if g is None
+                     else gather_leaf(g, s, mesh), pieces,
+                     cell.in_shardings[0])
+    del pieces
+    if rank != 0:
+        return {"calls": calls}
+    lm = LM(cfg, device="cuda")
+    p1 = lm.init(SEED)
+    loss, _, want = loss_and_grads(lm, p1, batch)
+    n = batch["mask"].sum(1)
+    half = SSM_ROWS // 2
+    halves = [loss_and_grads(lm, p1, {k: v[i * half:(i + 1) * half]
+                                      for k, v in batch.items()})[2]
+              for i in range(2)]
+    w0, w1 = n[:half].sum() / n.sum(), n[half:].sum() / n.sum()
+    again = dict(leaves_with_path(tree_map(
+        lambda a, b: None if a is None else w0 * a.float() + w1 * b.float(),
+        *halves)))
+    witness = dict(leaves_with_path(_as_one_rank(
+        lambda: loss_and_grads(lm, p1, batch)[2])))
+    del halves, p1
+    want = dict(leaves_with_path(want))
+
+    def rel(g, w):
+        den = float(w.norm())
+        return float((g.float() - w).norm()) / den if den \
+            else float(g.float().norm())
+    errs, limits = {}, {}
+    for path, g in leaves_with_path(whole):
+        if g is None:
+            continue
+        w = want[path].float()
+        errs[path] = rel(g, w)
+        limits[path] = max(WH_F32_GRAD_REL_L2, SSM_FLOOR_FACTOR * max(
+            rel(again[path], w), rel(witness[path], w)))
+    share = {p: errs[p] / limits[p] for p in errs}
+    worst = max(share, key=share.get)
+    return {"calls": calls, "leaves": len(errs), "worst_leaf": worst,
+            "worst_rel_l2": errs[worst], "worst_limit": limits[worst],
+            "worst_share": share[worst],
+            "worst_any": max(errs.values()),
+            "above_1e-4": sum(e > WH_F32_GRAD_REL_L2 for e in errs.values()),
+            "loss": float(metrics["loss"]), "one_loss": float(loss)}
+
+
+def _mix_inputs(dt) -> tuple:
+    """(c)'s jamba mixer from SEED (every rank draws the same whole one),
+    its prompt (4 x 512) and decode steps' tokens, in ``dt``."""
+    torch = _torch()
+    from repro_torch.models import ssm
+    cfg = _jamba_config()
+    s, dm = cfg.ssm, cfg.d_model
+    g = torch.Generator(device="cuda").manual_seed(SEED + 223)
+    p = ssm.init_mamba(g, dm, s, dt, torch.device("cuda"))
+    x = torch.randn((SSM_ROWS, SSM_SEQ, dm), generator=g,
+                    device="cuda").to(dt)
+    xt = torch.randn((SSM_DECODE, SSM_ROWS, 1, dm), generator=g,
+                     device="cuda").to(dt)
+    return s, p, x, xt
+
+
+def _mix_run(p, s, x, xt, state, mesh=None) -> dict:
+    """A prefill of ``x`` then a decode step a token of ``xt``: outputs
+    and states (and, with ``mesh``, under its tensor-parallel scope: each
+    call's collectives and wall)."""
+    torch = _torch()
+    from repro_torch.models import ssm
+    from repro_torch.sharding.collectives import tensor_parallel
+    out = {"y": [], "states": [], "calls": [], "walls": []}
+    with torch.no_grad(), tensor_parallel(mesh):
+        for i in range(1 + SSM_DECODE):
+            before = mesh.stats.copy() if mesh is not None else None
+            fn = ssm.mamba_forward if i == 0 else ssm.mamba_decode
+            (y, state), w = _cell_walls(
+                lambda: fn(p, x if i == 0 else xt[i - 1], s, state), 1)
+            out["y"].append(y.float())
+            out["states"].append({k: v.float() for k, v in state.items()})
+            out["walls"] += w
+            if mesh is not None:
+                out["calls"].append(_wh_calls(mesh, before))
+    return out
+
+
+def _mix_rank(mesh) -> dict:
+    """(c) on one rank: jamba's Mamba mixer at full width over the rank's
+    4,096 channels, a 4 x 512 prefill and SSM_DECODE decode steps, in
+    bf16 and float32; held here against the whole mixer on one rank (and
+    bf16 against that rank's witness, its one-rank arithmetic under a
+    scope of one): outputs whole, states the rank's slice."""
+    torch = _torch()
+    from repro_torch.models import ssm
+    from repro_torch.sharding.rules import make_param_specs, shard_params
+    out = {}
+    for key, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        s, p, x, xt = _mix_inputs(dt)
+        tree = {"blk": {"mamba": p}}
+        local = shard_params(tree, make_param_specs(tree, mesh),
+                             mesh)["blk"]["mamba"]
+        b, dm = SSM_ROWS, x.shape[-1]
+        mine = _mix_run(local, s, x, xt,
+                        ssm.init_mamba_state(b, dm, s, "cuda", mesh.model),
+                        mesh)
+        one = _mix_run(p, s, x, xt, ssm.init_mamba_state(b, dm, s, "cuda"))
+        runs = {"rank": mine}
+        if key == "bf16":
+            runs["witness"] = _mix_run(
+                p, s, x, xt, ssm.init_mamba_state(b, dm, s, "cuda"),
+                _one_mesh())
+        n = mine["states"][0]["ssm"].shape[1]
+        lo = mesh.model_rank * n
+        # each run against one rank: outputs a row (token), states the
+        # rank's channels, relative L2
+        errs = {name: {"y": 0.0, "state": 0.0} for name in runs}
+        for name, run in runs.items():
+            for i in range(1 + SSM_DECODE):
+                y, want = run["y"][i], one["y"][i]
+                if not torch.isfinite(y).all() or y.shape != want.shape:
+                    raise AssertionError(f"[29] (c) {key} {name} call {i}: "
+                                         "output not finite or of shape "
+                                         f"{tuple(want.shape)}")
+                errs[name]["y"] = max(errs[name]["y"], float(
+                    ((y - want).flatten(0, -2).norm(dim=-1)
+                     / want.flatten(0, -2).norm(dim=-1)).max()))
+                for k, v in run["states"][i].items():
+                    w = one["states"][i][k]
+                    if v.shape != w.shape:
+                        w = w.narrow(-1 if k == "conv" else 1, lo, n)
+                    errs[name]["state"] = max(errs[name]["state"], float(
+                        (v - w).norm() / w.norm()))
+        out[key] = {"errs": errs, "calls": mine["calls"],
+                    "walls": mine["walls"], "one_walls": one["walls"]}
+        del p, local, x, xt, mine, one, runs
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _ssm_rank(mesh) -> dict:
+    """Phase 29 on one of 27 (b)'s four ranks (qwen2's pieces freed): (a)
+    rwkv6-1.6b's prefill and decode cells over the rank's 8 heads, (b)
+    its train cell and float32 gradient, (c) jamba's Mamba mixer over the
+    rank's channels."""
+    torch = _torch()
+    t0 = time.perf_counter()
+    cfgs = _ssm_configs()
+    out = {}
+    params = _ssm_pieces(cfgs["f32"], mesh)
+    out["a_f32"] = _ssm_serve(cfgs["f32"], params, mesh, counted=False)
+    out["b_f32"] = _ssm_grads(cfgs["f32"], params, mesh, mesh.model_rank)
+    del params
+    params = _ssm_pieces(cfgs["bf16"], mesh)
+    out["a"] = _ssm_serve(cfgs["bf16"], params, mesh, counted=True)
+    out["b"] = _wh_train(cfgs["bf16"], params, mesh, SSM_TRAIN_STEPS)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["c"] = _mix_rank(mesh)
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def _ssm_one_rank() -> dict:
+    """Phase 29's single rank in this process: (a)'s cells on the whole
+    rwkv6-1.6b (bf16 also under one rank's tensor-parallel arithmetic:
+    the witness of rounding, trap 10) and at 2 layers in float32 (also
+    with the plain fp32 WKV in place of B8: the witness of B8's TF32
+    rounding), and (b)'s bf16 train cell."""
+    torch = _torch()
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import LM
+    one = make_host_mesh(device="cuda")
+    out = {}
+    for key, cfg in _ssm_configs().items():
+        params = LM(cfg, device="cuda").init(SEED)
+        out[key] = {"a": _ssm_serve(cfg, params, one, counted=False)}
+        if key == "f32":
+            # B8 rounds its products' operands to TF32: how far that alone
+            # moves the float32 states (one rank, the plain fp32 WKV)
+            out[key]["plain_states"] = _swap_plain(lambda: _ssm_serve(
+                cfg, params, one, counted=False), ("wkv",))["states"]
+        if key == "bf16":
+            out[key]["witness"] = _as_one_rank(lambda: _ssm_serve(
+                cfg, params, one, counted=False))["logits"]
+            out[key]["b"] = _wh_train(cfg, params, one, SSM_TRAIN_STEPS)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _ssm_check(one: dict, ranks: list, smi: str) -> dict:
+    """Phase 29's bars over the four ranks' results against the single
+    rank's; raises on any failure."""
+    import numpy as np
+    o_bf, o_f32 = one["bf16"], one["f32"]
+    wit = max(_rel_l2_rows(a, b) for a, b in zip(o_bf["witness"],
+                                                 o_bf["a"]["logits"]))
+    bar = max(SSM_LOGIT_REL_L2, 2 * wit)
+
+    def state_dists(got_all, want_all, piece: int = -1):
+        """Relative L2 of each state leaf of each call (``piece``: the
+        rank whose heads ``got_all`` holds; its x_prev is whole)."""
+        for step, (mine, want) in enumerate(zip(got_all, want_all)):
+            for g, wg in zip(mine, want):
+                for blk, st in g.items():
+                    for k, v in st.items():
+                        w = wg[blk][k]
+                        if piece >= 0 and v.shape != w.shape:
+                            n = v.shape[1]          # wkv's heads
+                            w = w.narrow(1, piece * n, n)
+                        yield step, f"{blk}/{k}", float((v - w).norm()
+                                                        / w.norm())
+    # B8 multiplies in TF32 (10-bit mantissas) in float32 configs too, so
+    # an fp32 ulp of its input (a column split's other summation order)
+    # moves a state by what TF32 rounding does, and the bf16 gate turns
+    # that into a bf16 ulp downstream (trap 6): the float32 states are
+    # held to SSM_F32_STATE_FACTOR x the distance TF32 alone puts between
+    # one rank's B8 and its plain fp32 WKV
+    tf32 = max(d for _, _, d in state_dists(o_f32["plain_states"],
+                                            o_f32["a"]["states"]))
+    state_bar = max(SSM_F32_REL_L2, SSM_F32_STATE_FACTOR * tf32)
+    errs = {"bf16": 0.0, "bf16_vs_witness": 0.0, "f32": 0.0,
+            "f32_state": 0.0, "loss": 0.0}
+    for i, r in enumerate(ranks):
+        w = r["p29"]
+        for key, got_all, want_all, lim in (
+                ("bf16", w["a"]["logits"], o_bf["a"]["logits"], bar),
+                ("bf16_vs_witness", w["a"]["logits"], o_bf["witness"], bar),
+                ("f32", w["a_f32"]["logits"], o_f32["a"]["logits"],
+                 SSM_F32_LOGIT_REL_L2)):
+            for step, (got, want) in enumerate(zip(got_all, want_all)):
+                if not np.isfinite(got).all() or got.shape != want.shape:
+                    raise AssertionError(f"[29] (a) {key} rank {i} call "
+                                         f"{step}: logits not finite or of "
+                                         f"shape {want.shape}")
+                e = _rel_l2_rows(got, want)
+                errs[key] = max(errs[key], e)
+                if not e <= lim:
+                    raise AssertionError(f"[29] (a) {key} rank {i} call "
+                                         f"{step}: logits {e:.3e} > {lim:.3e}")
+        # float32 states: the rank's heads of wkv and the whole x_prev
+        for step, leaf, e in state_dists(w["a_f32"]["states"],
+                                         o_f32["a"]["states"], i):
+            errs["f32_state"] = max(errs["f32_state"], e)
+            if not e <= state_bar:
+                raise AssertionError(f"[29] (a) float32 rank {i} call "
+                                     f"{step} {leaf}: {e:.3e} > "
+                                     f"{state_bar:.3e}")
+        a = w["a"]
+        want_l = [SSM_LAUNCHES["prefill"]] + [SSM_LAUNCHES["decode"]] \
+            * SSM_DECODE
+        if a["launches"] != want_l \
+                or a["held"] != SSM_LAUNCHES["prefill"]:
+            raise AssertionError(f"[29] (a) rank {i}: launches "
+                                 f"{a['launches']}, held {a['held']} != "
+                                 f"{want_l}")
+        want_c = [SSM_PREDICTED["prefill"]] + [SSM_PREDICTED["decode"]] \
+            * SSM_DECODE
+        if a["calls"] != want_c:
+            raise AssertionError(f"[29] (a) rank {i}: collectives "
+                                 f"{a['calls'][:2]} != the prediction "
+                                 f"{SSM_PREDICTED}")
+        for step, (x, y) in enumerate(zip(w["b"]["losses"],
+                                          o_bf["b"]["losses"])):
+            e = abs(x - y) / abs(y)
+            errs["loss"] = max(errs["loss"], e)
+            if not (np.isfinite(x) and e <= WH_LOSS_RTOL):
+                raise AssertionError(f"[29] (b) rank {i} step {step + 1}: "
+                                     f"loss {x} vs one rank's {y}")
+        c = w["c"]
+        for key in ("bf16", "f32"):
+            ce = c[key]["errs"]
+            # bf16: the larger of the bar and twice the witness's distance
+            # (one rank's own arithmetic under a scope of one, trap 10)
+            lim = (max(SSM_LOGIT_REL_L2, 2 * max(ce["witness"].values()))
+                   if key == "bf16" else SSM_F32_REL_L2)
+            if not max(ce["rank"].values()) <= lim:
+                raise AssertionError(f"[29] (c) {key} rank {i}: output / "
+                                     f"state vs one rank's {ce['rank']} > "
+                                     f"{lim:.3e}")
+            counts = [{k: n for k, (n, _) in calls.items()}
+                      for calls in c[key]["calls"]]
+            if counts != [{"all-gather/model": 1, "all-reduce/model": 2}] \
+                    * (1 + SSM_DECODE):
+                raise AssertionError(f"[29] (c) {key} rank {i}: "
+                                     f"collectives {counts}")
+        if c["bf16"]["calls"] != [MIX_PREDICTED["prefill"]] \
+                + [MIX_PREDICTED["decode"]] * SSM_DECODE:
+            raise AssertionError(f"[29] (c) rank {i}: collectives "
+                                 f"{c['bf16']['calls'][:2]} != the "
+                                 f"prediction {MIX_PREDICTED}")
+    g = ranks[0]["p29"]["b_f32"]
+    if not (g["worst_share"] <= 1.0 and abs(g["loss"] - g["one_loss"])
+            <= WH_F32_LOSS_RTOL * abs(g["one_loss"])):
+        raise AssertionError(f"[29] (b) float32: gradient of "
+                             f"{g['worst_leaf']} {g['worst_rel_l2']:.3e} "
+                             f"(limit {g['worst_limit']:.3e}), loss "
+                             f"{g['loss']} vs {g['one_loss']}")
+    r0 = ranks[0]["p29"]
+    walls = [r["p29"]["wall_s"] for r in ranks]
+    out = {"errs": errs, "witness": wit, "bar": bar, "tf32_witness": tf32,
+           "state_bar": state_bar,
+           "a_calls": r0["a"]["calls"][:2],
+           "a_launches": r0["a"]["launches"][:2],
+           "a_held_worst": max(r["p29"]["a"]["held_worst"] for r in ranks),
+           "a_prefill_walls": [r["p29"]["a"]["prefill_walls"]
+                               for r in ranks],
+           "a_step_walls": [r["p29"]["a"]["step_walls"] for r in ranks],
+           "a_one_prefill_walls": o_bf["a"]["prefill_walls"],
+           "a_one_step_walls": o_bf["a"]["step_walls"],
+           "b": [{k: r["p29"]["b"][k] for k in ("losses", "walls",
+                                                "peak_gb", "calls")}
+                 for r in ranks],
+           "b_one": {k: o_bf["b"][k] for k in ("losses", "walls",
+                                              "peak_gb")},
+           "b_f32": g,
+           "c": [{k: {kk: r["p29"]["c"][k][kk]
+                      for kk in ("errs", "walls", "one_walls")}
+                  for k in ("bf16", "f32")} for r in ranks],
+           "c_calls": r0["c"]["bf16"]["calls"][:2],
+           "rank_wall_s": walls}
+    cfg = _ssm_configs()["bf16"]
+    print(f"[29 ssm_tp] (a) {smi}: {SSM_ARCH} {cfg.num_layers}L bf16 over "
+          f"{ranks[0]['mesh']} (32 WKV heads of 64: 8 a rank), "
+          f"launch.steps' prefill cell {SSM_ROWS} x {SSM_SEQ} then "
+          f"{SSM_DECODE} decode steps: logits vs one rank's LM.prefill / "
+          f"decode_step {errs['bf16']:.3e} a row, vs one rank with a "
+          f"rank's arithmetic {errs['bf16_vs_witness']:.3e}, that witness "
+          f"vs one rank {wit:.3e} (limit {bar:.3e}: the larger of "
+          f"{SSM_LOGIT_REL_L2} and 2x the witness); float32 "
+          f"{SSM_F32_LAYERS}L logits {errs['f32']:.3e} (limit "
+          f"{SSM_F32_LOGIT_REL_L2}), states {errs['f32_state']:.3e} (limit "
+          f"{state_bar:.3e}: {SSM_F32_STATE_FACTOR:g}x one rank's B8 "
+          f"against its plain fp32 WKV, {tf32:.3e}, B8's TF32 products); "
+          f"launches a prefill a rank "
+          f"{r0['a']['launches'][0]} (every call held, worst "
+          f"{out['a_held_worst']:.2f} of a limit; its LayerNorms launch no "
+          f"B7), a decode step {r0['a']['launches'][1]}; collectives a prefill a rank "
+          f"{r0['a']['calls'][0]}, a decode step {r0['a']['calls'][1]} (= "
+          f"the prediction); prefill wall "
+          + "; ".join(f"rank {i} {[round(x, 2) for x in r['p29']['a']['prefill_walls']]}"
+                      f" ms" for i, r in enumerate(ranks))
+          + f"; one rank {[round(x, 2) for x in o_bf['a']['prefill_walls']]}"
+          f" ms; decode step wall median a rank "
+          f"{[round(statistics.median(r['p29']['a']['step_walls']), 2) for r in ranks]}"
+          f" ms, one rank "
+          f"{statistics.median(o_bf['a']['step_walls']):.2f} ms")
+    print(f"[29 ssm_tp] (b) {smi}: the train cell {SSM_ROWS} x {SSM_SEQ}, "
+          f"{SSM_TRAIN_STEPS} steps: losses a rank "
+          f"{[[round(x, 5) for x in r['p29']['b']['losses']] for r in ranks]}"
+          f" vs one rank's {[round(x, 5) for x in o_bf['b']['losses']]} "
+          f"(worst {errs['loss']:.3e}, limit {WH_LOSS_RTOL}); step wall "
+          + "; ".join(f"rank {i} {[round(x, 1) for x in r['p29']['b']['walls']]}"
+                      f" ms, peak {r['p29']['b']['peak_gb']:.2f} GB"
+                      for i, r in enumerate(ranks))
+          + f"; one rank {[round(x, 1) for x in o_bf['b']['walls']]} ms, "
+          f"peak {o_bf['b']['peak_gb']:.2f} GB; collectives a step a rank "
+          f"{r0['b']['calls']}; kernel launches 0 (B8 has no backward: "
+          f"training runs the plain chunked WKV); float32 "
+          f"{SSM_F32_LAYERS}L: {g['leaves']} gradient leaves gathered "
+          f"whole, worst share of its limit {g['worst_share']:.3f} "
+          f"({g['worst_leaf']} {g['worst_rel_l2']:.3e} of "
+          f"{g['worst_limit']:.3e}: 1e-4 or {SSM_FLOOR_FACTOR:g}x the "
+          f"one-rank summation-order floor), worst leaf anywhere "
+          f"{g['worst_any']:.3e}, {g['above_1e-4']} leaves above 1e-4, "
+          f"loss {g['loss']:.7f} vs {g['one_loss']:.7f}, collectives "
+          f"{g['calls']}; phase wall a rank {[round(x, 1) for x in walls]} s")
+    c0 = r0["c"]
+    print(f"[29 ssm_tp] (c) {smi}: jamba's Mamba mixer (d 8192, d_inner "
+          f"16384: 4096 channels a rank, N 16) under the four ranks' scope, "
+          f"{SSM_ROWS} x {SSM_SEQ} prefill then {SSM_DECODE} decode steps: "
+          f"bf16 output / state vs one rank's "
+          f"{max(max(r['p29']['c']['bf16']['errs']['rank'].values()) for r in ranks):.3e}"
+          f" (the witness vs one rank {c0['bf16']['errs']['witness']}), "
+          f"float32 "
+          f"{max(max(r['p29']['c']['f32']['errs']['rank'].values()) for r in ranks):.3e}"
+          f" (limit {SSM_F32_REL_L2}); collectives a prefill "
+          f"{c0['bf16']['calls'][0]}, a decode step {c0['bf16']['calls'][1]}"
+          f" (= the prediction); wall a prefill / median decode step: rank "
+          f"0 {c0['bf16']['walls'][0]:.2f} / "
+          f"{statistics.median(c0['bf16']['walls'][1:]):.2f} ms, one rank "
+          f"{c0['bf16']['one_walls'][0]:.2f} / "
+          f"{statistics.median(c0['bf16']['one_walls'][1:]):.2f} ms")
+    return out
+
+
+def _ssm_kernel_row(records: list) -> dict:
+    """B8 at a phase 29 rank's shape (4 x 512, 8 heads of 64, bf16 r / k /
+    v from a zero state; row 8 is 1 x 2,048 over 32 heads): held, timed
+    beside the plain version and the bound."""
+    torch = _torch()
+    from repro_torch.kernels.wkv6 import ops
+    from repro_torch.kernels.wkv6.ref import wkv6_chunked_ref
+    g = torch.Generator(device="cuda").manual_seed(SEED + 51)
+    heads = WKV_H // CP_RANKS
+
+    def inputs():
+        r, k, v, lw, u, s0 = _wkv6_inputs(g, "cuda", SSM_ROWS, SSM_SEQ,
+                                          torch.bfloat16, 0.0)
+        return (r[:, :, :heads].contiguous(), k[:, :, :heads].contiguous(),
+                v[:, :, :heads].contiguous(), lw[:, :, :heads].contiguous(),
+                u[:heads].contiguous(), s0[:, :heads].contiguous())
+    args = inputs()
+    o, s_fin = ops.wkv6(*args)
+    r, k, v, lw, u, s0 = (x.float() for x in args)
+    o_ref, s_ref = wkv6_chunked_ref(r, k, v, lw, u, s0)
+    torch.cuda.synchronize()
+    worst = max(_check_rms("B8 4 x 512 H8 o", o, o_ref, WKV_ATOL),
+                _check_rms("B8 4 x 512 H8 s_final", s_fin, s_ref, WKV_ATOL))
+    copies = [inputs() for _ in range(8)]
+    nbytes, n_ops = wkv6_bytes_ops(copies[0])
+    row = {"shape": f"{SSM_ROWS} x {SSM_SEQ}, H{heads} D{WKV_D}, bf16",
+           "max_abs_err": (o.float() - o_ref).abs().max().item(),
+           "worst_share": worst,
+           "ms": time_ms(ops.wkv6, copies, reps=10),
+           "plain_ms": time_ms(lambda r, k, v, lw, u, s0: wkv6_chunked_ref(
+               r.float(), k.float(), v.float(), lw, u, s0), copies[:2],
+               reps=3, rounds=3),
+           "library_ms": None,
+           **dict(zip(("bound_ms", "bound_by"),
+                      bound(nbytes, n_ops, "tfloat32")))}
+    del copies
+    torch.cuda.empty_cache()
+    return row
 
 
 def _pipe_rank(rank: int) -> dict:
@@ -8553,6 +9193,7 @@ def _cp_and_pipe(smi: str) -> dict:
     torch = _torch()
     from repro_torch.launch.mesh import spawn_world
     one = _cp_one_rank()
+    one29 = _ssm_one_rank()
     ranks = spawn_world(_cp_rank, CP_RANKS, device="cuda")
     out = {"one": {k: {"walls": v["walls"], "peak_gb": v["peak_gb"]}
                    for k, v in one.items()}, "ranks": []}
@@ -8614,7 +9255,8 @@ def _cp_and_pipe(smi: str) -> dict:
           f"peak {one['bf16']['peak_gb']:.2f} GB; rank walls "
           f"{[round(r['wall_s'], 1) for r in ranks]} s")
     out["p28"] = _whole_check(one, ranks, smi)
-    del one, ranks
+    out["p29"] = _ssm_check(one29, ranks, smi)
+    del one, one29, ranks
     # (c)
     one = _pipe_one_rank()
     stages = spawn_world(_pipe_rank, PIPE_RANKS, device="cuda")
@@ -8661,7 +9303,9 @@ def _cp_and_pipe(smi: str) -> dict:
 def phase_cells(records: list, smi: str) -> dict:
     """Phase 27: (a) llama3.2-1b's dry-run cells on one rank, (b) the
     context-parallel decode on four ranks sharing the card, (c) a GPipe
-    pipeline of two stages."""
+    pipeline of two stages; phases 28 (heads the model axis does not
+    divide) and 29 (RWKV-6 over a rank's heads, Mamba over its channels)
+    run on (b)'s ranks."""
     t0 = time.perf_counter()
     out = {"a": _cells_one_rank(records, smi)}
     out.update(_cp_and_pipe(smi))
@@ -8685,6 +9329,21 @@ def phase_cells(records: list, smi: str) -> dict:
           f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
           f"({r['bound_by']}); phase 28 wall a rank "
           f"{[round(x, 1) for x in p28['rank_wall_s']]} s "
+          f"(+{time.perf_counter() - t0:.1f} s here)")
+    # phase 29 ran on (b)'s ranks too; B8's row at a rank's shape (8t)
+    t0 = time.perf_counter()
+    row = _ssm_kernel_row(records)
+    p29 = out["p29"]
+    for rec in records:
+        if rec["name"] == "wkv6":
+            rec["tp_prefill"] = {"launches_a_rank": p29["a_launches"][0][
+                "wkv6"], "ranks": CP_RANKS, **row}
+    print(f"[29 ssm_tp] {smi}: B8 at a rank's shape {row['shape']} held "
+          f"(worst element {row['worst_share']:.3f} of its limit, max abs "
+          f"err {row['max_abs_err']:.3e}): {row['ms']:.4f} ms, plain "
+          f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} "
+          f"({row['bound_by']}, TF32 rate), no library call; phase 29 wall "
+          f"a rank {[round(x, 1) for x in p29['rank_wall_s']]} s "
           f"(+{time.perf_counter() - t0:.1f} s here)")
     return out
 

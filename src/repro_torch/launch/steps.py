@@ -236,27 +236,44 @@ def _rank_cache_placement(c_sh: Any, cache_abs: Any, mesh, rank_cfg, *,
     cross-attention block's source K / V, split their kv heads over
     "model" (the port's rank writes and reads only its own kv heads, the
     layout its engines hold; the reference keeps every kv head on each
-    chip and lets GSPMD gather)."""
+    chip and lets GSPMD gather).  An RWKV-6 block's ``wkv`` state splits
+    its heads over "model" wherever the axis divides them (the rank's WKV
+    heads; the reference's rule, the first feature dim of at least 2m,
+    splits the same dim wherever H >= 2m), and its ``x_prev`` (B, d) is
+    whole on every rank (each rank's token shift reads all of it; the
+    reference's rule splits d)."""
     from repro_torch.sharding.tp import whole_heads
     model = mesh.shape.get("model", 1)
-    if model == 1 or whole_heads(rank_cfg):
+    if model == 1:
         return c_sh
+    kv_heads = not whole_heads(rank_cfg)
+
+    def over_model(spec, dim):
+        """``spec`` with "model" on ``dim`` alone (on none: ``None``)."""
+        dims = [tuple(a for a in _axes(e) if a != "model") or None
+                if e is not None else None for e in spec]
+        dims = [d[0] if isinstance(d, tuple) and len(d) == 1 else d
+                for d in dims]
+        if dim is not None:
+            dims[dim] = "model"
+        return tuple(dims)
 
     def leaf(path, spec):
+        if not isinstance(spec, tuple):
+            return spec
+        if path.endswith("/state/x_prev"):
+            return over_model(spec, None)
+        if path.endswith("/state/wkv"):
+            l = _at(cache_abs, path)
+            return spec if l.shape[1] % model else over_model(spec, 1)
         source = path.endswith(("/xk", "/xv"))
-        if not isinstance(spec, tuple) \
-                or not (source or ("/kv/" in path and not cp)) \
+        if not kv_heads or not (source or ("/kv/" in path and not cp)) \
                 or "pages" in path or path.endswith("block_table"):
             return spec
         l = _at(cache_abs, path)
         if l.ndim < 3 or l.shape[2] % model:
             return spec
-        dims = [tuple(a for a in _axes(e) if a != "model") or None
-                if e is not None else None for e in spec]
-        dims = [d[0] if isinstance(d, tuple) and len(d) == 1 else d
-                for d in dims]
-        dims[2] = "model"
-        return tuple(dims)
+        return over_model(spec, 2)
 
     return _map(leaf, c_sh)
 

@@ -57,8 +57,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import AttentionConfig
-from repro_torch.models.layers import apply_rope, init_linear, linear_apply
-from repro_torch.sharding.collectives import active, gather_from
+from repro_torch.models.layers import (apply_rope, init_linear, linear_apply,
+                                      whole_projection)
+from repro_torch.sharding.collectives import active
 
 NEG_INF = -1e30
 
@@ -298,25 +299,12 @@ def _attend(p: dict, q, k, v, a: AttentionConfig, use_flash: bool,
     return _wo(p["wo"], o, a, impl, mesh)
 
 
-def _whole_projection(p: dict, x: torch.Tensor, width: int, mesh,
-                      axis: str, impl: str) -> torch.Tensor:
-    """The (..., width) output of a column linear whole on every rank: the
-    rank's columns (its placement's slice) all-gathered over ``axis``
-    when the leaf is split, as GSPMD gathers a replicated operand.  The
-    gather's backward sums the gradient over the axis and keeps the
-    rank's columns (``collectives.gather_from``): each rank's ``wo``
-    reads only its rows of the output, so each holds a partial."""
-    y = linear_apply(p, x, impl)
-    return y if y.shape[-1] == width else gather_from(y, y.ndim - 1, mesh,
-                                                      axis)
-
-
 def _whole_qkv(p: dict, x: torch.Tensor, a: AttentionConfig, mesh,
                axis: str, impl: str) -> tuple:
     """q (..., Hp·D), k and v (..., KH·D) of ``x`` over every head, before
-    RoPE (:func:`_whole_projection` of ``wq`` / ``wk`` / ``wv``)."""
+    RoPE (``layers.whole_projection`` of ``wq`` / ``wk`` / ``wv``)."""
     kvh, hd = a.kv_heads_effective(), a.head_dim
-    return tuple(_whole_projection(p[n], x, h * hd, mesh, axis, impl)
+    return tuple(whole_projection(p[n], x, h * hd, mesh, axis, impl)
                  for n, h in (("wq", a.heads_padded), ("wk", kvh),
                               ("wv", kvh)))
 

@@ -13,7 +13,8 @@ import torch
 
 from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
-from repro_torch.sharding.collectives import active, column_input
+from repro_torch.sharding.collectives import (active, column_input,
+                                              gather_from)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
            "float32": torch.float32, "fp32": torch.float32,
@@ -89,19 +90,35 @@ def row_partial(p: dict, x: torch.Tensor, impl: str,
                 mesh) -> torch.Tensor:
     """This rank's fp32 partial of a row-split linear (no bias): ``x``
     (..., K/m) is the rank's slice of the contraction and ``p`` holds the
-    matching K/m rows (``qw``: ``quant.qops.row_partial``).  An adapter's
-    update goes into the rank's own columns of the partial
-    (``peft.lora.lora_row_partial``), so the linear's one all-reduce
-    carries it."""
+    matching K/m rows (``qw``: ``quant.qops.row_partial``).  The weight is
+    cast to ``x``'s dtype first, as :func:`linear_apply` casts it (the
+    reference's ``f32_accum`` product: RWKV-6's bf16 gate output meets a
+    float32 ``wout`` in float32 configs).  An adapter's update goes into
+    the rank's own columns of the partial (``peft.lora.lora_row_partial``),
+    so the linear's one all-reduce carries it."""
     if "qw" in p:
         from repro_torch.quant.qops import row_partial as quant_partial
         part = quant_partial(x, p, impl, mesh)
     else:
-        part = x.float() @ p["w"].float()
+        part = x.float() @ p["w"].to(x.dtype).float()
     if "lora" in p:
         from repro_torch.peft.lora import lora_row_partial
         part = lora_row_partial(p["lora"], x, part, mesh)
     return part
+
+
+def whole_projection(p: dict, x: torch.Tensor, width: int, mesh,
+                     axis: str, impl: str) -> torch.Tensor:
+    """The (..., width) output of a column linear whole on every rank: the
+    rank's columns (its placement's slice) all-gathered over ``axis``
+    when the leaf is split, as GSPMD gathers a replicated operand.  The
+    gather's backward sums the gradient over the axis and keeps the
+    rank's columns (``collectives.gather_from``): each rank reads only
+    its own part of the output (attention's ``wo`` its rows, a Mamba
+    block its channels), so each holds a partial."""
+    y = linear_apply(p, x, impl)
+    return y if y.shape[-1] == width else gather_from(y, y.ndim - 1, mesh,
+                                                      axis)
 
 
 # ---------------------------------------------------------------------------

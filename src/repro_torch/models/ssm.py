@@ -36,6 +36,28 @@ into ``max(1, S // 128)`` equal chunks and asserts that they divide S
 shorter, and the scan does not depend on where chunks break.  Under
 ``train=True`` each chunk step is checkpointed, as the reference's
 ``jax.checkpoint``, so backward keeps one (B, d_inner, N) carry a chunk.
+
+Under a tensor-parallel scope (``sharding.collectives.active()``, a model
+axis of m) a rank computes its piece of the one-device mixer on the
+pieces the placement rules give it (``sharding.rules``):
+  * RWKV-6 by heads: ``wr`` / ``wk`` / ``wv`` / ``wg`` hold d/m columns,
+    which are the rank's H/m WKV heads; the token shift and the five-stream
+    mix run on the whole activations, the rank takes its columns of
+    ``logw`` and ``ln_x`` and its heads of ``u`` (the whole leaves through
+    ``collectives.replicated`` in training, so their gradients are summed
+    over the axis), runs the WKV and the group norm over its heads, and
+    ``wout``'s rows give an fp32 partial summed once.  The state is the
+    rank's heads of ``wkv`` and the whole ``x_prev`` (the token shift of
+    every rank reads all of it; B x d in fp32, so no gather a step).
+  * Mamba by channels: ``in_proj``'s column piece is gathered whole
+    (``layers.whole_projection``) and the rank takes its
+    d_inner/m channels of x and of z; the conv, ``conv_b``, ``dt_bias``,
+    ``A_log``, ``D`` and ``dt_proj``'s columns are the rank's channels;
+    ``x_proj`` (row-split) gives an fp32 partial of (dt_rank + 2N) summed
+    once and whole on every rank (through ``copy_to_model`` in training:
+    it feeds only the rank's channels); ``out_proj`` is row-split.  The
+    state is the rank's channels of ``ssm`` and ``conv``.  A rank makes 1
+    all-gather and 2 all-reduces a layer.
 """
 from __future__ import annotations
 
@@ -48,7 +70,10 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import SSMConfig
 from repro_torch.kernels.wkv6 import ops as wkv_ops
 from repro_torch.kernels.wkv6.ref import DEFAULT_CHUNK, wkv6_chunked_ref
-from repro_torch.models.layers import init_linear, linear_apply
+from repro_torch.models.layers import (init_linear, linear_apply,
+                                       whole_projection)
+from repro_torch.sharding.collectives import (active, copy_to_model,
+                                              replicated)
 
 LORA_MIX = 32          # low-rank width of the five-stream lerp
 LORA_DECAY = 64        # low-rank width of the decay
@@ -90,12 +115,40 @@ def init_rwkv6(gen: torch.Generator, d_model: int, s: SSMConfig,
 
 
 def init_rwkv6_state(batch: int, d_model: int, s: SSMConfig,
-                     device=None) -> dict:
+                     device=None, model: int = 1) -> dict:
+    """Zero state; under a model axis of ``model`` a rank's piece: its
+    H/model heads of ``wkv``, and ``x_prev`` whole (every rank's token
+    shift reads all of it)."""
     hd = s.head_dim
     h = d_model // hd
     f32 = dict(dtype=torch.float32, device=device)
-    return {"wkv": torch.zeros((batch, h, hd, hd), **f32),
+    return {"wkv": torch.zeros((batch, h // model, hd, hd), **f32),
             "x_prev": torch.zeros((batch, d_model), **f32)}
+
+
+def _tp_mesh():
+    """The mesh of the enclosing tensor-parallel scope (``None`` outside
+    one)."""
+    tp = active()
+    return None if tp is None else tp.mesh
+
+
+def _rank_heads(p: dict, logw: torch.Tensor, width: int, hd: int, mesh):
+    """(logw, u, ln_x scale, ln_x bias) over the rank's ``width`` columns
+    (its heads) of the whole ``logw`` (B,S,d) and the whole leaves; all
+    of them where the rank computes every head.  The rank's ``logw`` is
+    made contiguous, as B8 takes it.  In a training forward the whole
+    tensors go through one ``replicated`` before they are cut, so their
+    gradients (each rank's covers its columns only) are summed over the
+    model axis."""
+    u, ln = p["u"], p["ln_x"]
+    if width == logw.shape[-1]:
+        return logw, u, ln["scale"], ln["bias"]
+    logw, u, scale, bias = replicated(logw, u, ln["scale"], ln["bias"])
+    lo = mesh.model_rank * width
+    return (logw.narrow(-1, lo, width).contiguous(),
+            u.narrow(0, lo // hd, width // hd),
+            scale.narrow(0, lo, width), bias.narrow(0, lo, width))
 
 
 def _rwkv6_mix(p: dict, x: torch.Tensor, x_prev_tok: torch.Tensor,
@@ -122,19 +175,21 @@ def _rwkv6_mix(p: dict, x: torch.Tensor, x_prev_tok: torch.Tensor,
     return r, k, v, g, logw
 
 
-def _rwkv6_out(p: dict, o: torch.Tensor, g: torch.Tensor, h: int, hd: int,
-               impl: str) -> torch.Tensor:
-    """Per-head group norm, gate, and the output projection on bf16."""
+def _rwkv6_out(p: dict, o: torch.Tensor, g: torch.Tensor, scale, bias,
+               h: int, hd: int, impl: str) -> torch.Tensor:
+    """Per-head group norm, gate, and the output projection on bf16
+    (``wout`` row-split under a tensor-parallel scope: ``h`` is the
+    rank's heads, ``scale`` / ``bias`` its columns of ``ln_x``)."""
     b, s_ = o.shape[:2]
     og = o.reshape(b, s_, h, hd).float()
     mu = og.mean(-1, keepdim=True)
     var = og.var(-1, keepdim=True, unbiased=False)
     og = (og - mu) * torch.rsqrt(var + GROUP_NORM_EPS)
-    of = og.reshape(b, s_, h * hd) * p["ln_x"]["scale"] + p["ln_x"]["bias"]
+    of = og.reshape(b, s_, h * hd) * scale + bias
     y = (of * g).to(torch.bfloat16)
     if o.dtype != torch.float32:
         y = y.to(o.dtype)
-    return linear_apply(p["wout"], y, impl)
+    return linear_apply(p["wout"], y, impl, row=True)
 
 
 def rwkv6_forward(p: dict, x: torch.Tensor, s: SSMConfig, state: dict, *,
@@ -146,18 +201,20 @@ def rwkv6_forward(p: dict, x: torch.Tensor, s: SSMConfig, state: dict, *,
     trains through its jnp form)."""
     b, sl, d = x.shape
     hd = s.head_dim
-    h = d // hd
+    mesh = _tp_mesh()
     x_prev_tok = torch.cat([state["x_prev"].to(x.dtype)[:, None],
                             x[:, :-1]], dim=1)
     r, k, v, g, logw = _rwkv6_mix(p, x, x_prev_tok, impl)
+    logw, u, scale, bias = _rank_heads(p, logw, r.shape[-1], hd, mesh)
+    h = r.shape[-1] // hd
     heads = [t.reshape(b, sl, h, hd) for t in (r, k, v, logw)]
     if train:
         o, wkv = wkv6_chunked_ref(*(t.float() for t in heads),
-                                  p["u"].float(), state["wkv"].float(),
+                                  u.float(), state["wkv"].float(),
                                   chunk=DEFAULT_CHUNK)
     else:
-        o, wkv = wkv_ops.wkv6(*heads, p["u"], state["wkv"])
-    y = _rwkv6_out(p, o.to(x.dtype), g, h, hd, impl)
+        o, wkv = wkv_ops.wkv6(*heads, u, state["wkv"])
+    y = _rwkv6_out(p, o.to(x.dtype), g, scale, bias, h, hd, impl)
     new_state = {"wkv": wkv, "x_prev": x[:, -1].to(state["x_prev"].dtype)}
     return y, new_state
 
@@ -167,9 +224,11 @@ def rwkv6_decode(p: dict, x: torch.Tensor, s: SSMConfig, state: dict, *,
     """x: (B,1,d) single token; state carries wkv + previous token."""
     b, _, d = x.shape
     hd = s.head_dim
-    h = d // hd
+    mesh = _tp_mesh()
     x_prev_tok = state["x_prev"].to(x.dtype)[:, None]
     r, k, v, g, logw = _rwkv6_mix(p, x, x_prev_tok, impl)
+    logw, u, scale, bias = _rank_heads(p, logw, r.shape[-1], hd, mesh)
+    h = r.shape[-1] // hd
     rh = r.reshape(b, h, hd).float()
     kh = k.reshape(b, h, hd).float()
     vh = v.reshape(b, h, hd).float()
@@ -177,9 +236,9 @@ def rwkv6_decode(p: dict, x: torch.Tensor, s: SSMConfig, state: dict, *,
     wkv = state["wkv"]
     # o = r·(S + u ⊙ k ⊗ v); S' = diag(w) S + k ⊗ v
     kv = kh[..., :, None] * vh[..., None, :]                     # (B,H,hd,hd)
-    o = torch.einsum("bhi,bhij->bhj", rh, wkv + p["u"][None, :, :, None] * kv)
+    o = torch.einsum("bhi,bhij->bhj", rh, wkv + u[None, :, :, None] * kv)
     new_wkv = w[..., None] * wkv + kv
-    y = _rwkv6_out(p, o.reshape(b, 1, h, hd), g, h, hd, impl)
+    y = _rwkv6_out(p, o.reshape(b, 1, h, hd), g, scale, bias, h, hd, impl)
     return y, {"wkv": new_wkv, "x_prev": x[:, -1].to(state["x_prev"].dtype)}
 
 
@@ -210,18 +269,42 @@ def init_mamba(gen: torch.Generator, d_model: int, s: SSMConfig,
 
 
 def init_mamba_state(batch: int, d_model: int, s: SSMConfig,
-                     device=None) -> dict:
-    di = s.expand * d_model
+                     device=None, model: int = 1) -> dict:
+    """Zero state; under a model axis of ``model`` a rank's d_inner/model
+    channels."""
+    di = s.expand * d_model // model
     f32 = dict(dtype=torch.float32, device=device)
     return {"ssm": torch.zeros((batch, di, s.d_state), **f32),
             "conv": torch.zeros((batch, s.d_conv - 1, di), **f32)}
 
 
+def _mamba_xz(p: dict, x: torch.Tensor, impl: str):
+    """``in_proj`` of x (..., d) -> (x, z) (..., di) each; under a
+    tensor-parallel scope the rank's di/m channels of each, taken from
+    the projection gathered whole (its column piece spans x or z, not
+    both halves' channels alike)."""
+    mesh = _tp_mesh()
+    if mesh is None:
+        return torch.chunk(linear_apply(p["in_proj"], x, impl), 2, dim=-1)
+    di = p["conv_w"].shape[0]                      # the rank's channels
+    half = di * mesh.model
+    xz = whole_projection(p["in_proj"], x, 2 * half, mesh, "model", impl)
+    lo = mesh.model_rank * di
+    return xz.narrow(-1, lo, di), xz.narrow(-1, half + lo, di)
+
+
 def _mamba_ssm_params(p: dict, xc: torch.Tensor, s: SSMConfig, impl: str):
     """xc (B,S,di) -> dt (B,S,di), A (di,N), B and C (B,S,N), all fp32.
-    ``dt_proj.w`` is read directly, as the reference reads it."""
+    ``dt_proj.w`` is read directly, as the reference reads it.  Under a
+    tensor-parallel scope ``x_proj`` is row-split: the rank's channels
+    give an fp32 partial, summed once; the whole (dt, B, C) feed only the
+    rank's channels, so in training their gradient is summed over the
+    axis (``copy_to_model``)."""
     dtr = p["dt_proj"]["w"].shape[0]
-    proj = linear_apply(p["x_proj"], xc, impl).float()
+    proj = linear_apply(p["x_proj"], xc, impl, row=True).float()
+    mesh = _tp_mesh()
+    if mesh is not None and torch.is_grad_enabled() and proj.requires_grad:
+        proj = copy_to_model(proj, mesh)
     dt, bmat, cmat = torch.split(proj, [dtr, s.d_state, s.d_state], dim=-1)
     dt = F.softplus(dt @ p["dt_proj"]["w"].float() + p["dt_bias"])
     a = -torch.exp(p["A_log"])
@@ -284,8 +367,7 @@ def mamba_scan_inputs(p: dict, x: torch.Tensor, s: SSMConfig, state: dict,
     x (B,S,d) -> (z (B,S,di) in x's dtype, then fp32 x (B,S,di), dt
     (B,S,di), A (di,N), B and C (B,S,N), and the new conv context)."""
     sl = x.shape[1]
-    xz = linear_apply(p["in_proj"], x, impl)
-    xi, z = torch.chunk(xz, 2, dim=-1)                           # (B,S,di)
+    xi, z = _mamba_xz(p, x, impl)                                # (B,S,di)
 
     # causal depthwise conv with carried context, summed in xi's dtype
     ctx = state["conv"].to(xi.dtype)                             # (B,k-1,di)
@@ -312,7 +394,7 @@ def mamba_forward(p: dict, x: torch.Tensor, s: SSMConfig, state: dict, *,
                            train=train)
     y = y + p["D"] * xf
     y = (y * F.silu(z.float())).to(x.dtype)
-    out = linear_apply(p["out_proj"], y, impl)
+    out = linear_apply(p["out_proj"], y, impl, row=True)
     return out, {"ssm": h_last.to(state["ssm"].dtype), "conv": new_conv}
 
 
@@ -320,8 +402,7 @@ def mamba_decode(p: dict, x: torch.Tensor, s: SSMConfig, state: dict, *,
                  impl: str = "ref") -> Tuple[torch.Tensor, dict]:
     """x: (B,1,d) single token; the state carries the SSM state and the
     conv's last ``d_conv - 1`` inputs."""
-    xz = linear_apply(p["in_proj"], x, impl)                     # (B,1,2di)
-    xi, z = torch.chunk(xz[:, 0], 2, dim=-1)                     # (B,di)
+    xi, z = (t[:, 0] for t in _mamba_xz(p, x, impl))             # (B,di)
 
     ctx = state["conv"].to(xi.dtype)                             # (B,k-1,di)
     window = torch.cat([ctx, xi[:, None]], dim=1)                # (B,k,di)
@@ -337,5 +418,5 @@ def mamba_decode(p: dict, x: torch.Tensor, s: SSMConfig, state: dict, *,
     h = da * state["ssm"].float() + dbx
     y = torch.einsum("bdn,bn->bd", h, cmat) + p["D"] * xf
     y = (y * F.silu(z.float())).to(x.dtype)
-    out = linear_apply(p["out_proj"], y[:, None], impl)
+    out = linear_apply(p["out_proj"], y[:, None], impl, row=True)
     return out, {"ssm": h.to(state["ssm"].dtype), "conv": new_conv}

@@ -33,7 +33,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (init_mlp, init_norm, linear_apply,
-                                       mlp_apply, norm_apply)
+                                       mlp_apply, norm_apply,
+                                       whole_projection)
 from repro_torch.models.moe import init_moe, moe_apply
 from repro_torch.sharding.collectives import active, scoped
 from repro_torch.sharding.tp import local_attention, whole_heads
@@ -109,9 +110,11 @@ def init_group_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     cache; MLA's latent ``{"c_kv", "k_pe"}`` is contiguous only).  RWKV-6
     blocks: ``{"state": {"wkv": (B,H,D,D), "x_prev": (B,d)}}``, Mamba
     blocks ``{"state": {"ssm": (B,di,N), "conv": (B,d_conv-1,di)}}``, in
-    fp32, position-free.  A cross-attention block's source K / V (``"xk"`` /
-    ``"xv"``, (B, T_src, KH, D) in bf16, position-free) join its node at
-    prefill, so none is held before there is a source."""
+    fp32, position-free; under a model axis of m a rank's H/m heads of
+    ``wkv`` (``x_prev`` whole) and di/m channels, as a cell places them.  A
+    cross-attention block's source K / V (``"xk"`` / ``"xv"``, (B, T_src,
+    KH, D) in bf16, position-free) join its node at prefill, so none is
+    held before there is a source."""
     from repro_torch.kvcache import CacheSpec, alloc_contiguous, alloc_paged
     spec = CacheSpec(layout="paged" if paged else "contiguous",
                      dtype=kv_dtype or cfg.kv_cache_dtype,
@@ -119,13 +122,14 @@ def init_group_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     cache = {}
     a = cfg.attention if not paged and whole_heads(cfg) \
         else local_attention(cfg)
+    m = cfg.model_parallel
     for i, bk in enumerate(block_kinds(cfg)):
         if bk["kind"] == "rwkv6":
             c = {"state": ssm_mod.init_rwkv6_state(batch, cfg.d_model,
-                                                   cfg.ssm, device)}
+                                                   cfg.ssm, device, m)}
         elif bk["kind"] == "mamba":
             c = {"state": ssm_mod.init_mamba_state(batch, cfg.d_model,
-                                                   cfg.ssm, device)}
+                                                   cfg.ssm, device, m)}
         elif paged:
             c = {"kv": alloc_paged(spec, a, batch, n_pages, pages_per_slot,
                                    device, block_table)}
@@ -160,9 +164,8 @@ def _xattn_kv(p: dict, src: torch.Tensor, a, impl: str = "ref", mesh=None):
     if mesh is None:
         xk, xv = (linear_apply(p[n], src, impl) for n in ("wk", "wv"))
     else:
-        xk, xv = (attn_mod._whole_projection(p[n], src, kvh * hd, mesh,
-                                             "model", impl)
-                  for n in ("wk", "wv"))
+        xk, xv = (whole_projection(p[n], src, kvh * hd, mesh, "model",
+                                   impl) for n in ("wk", "wv"))
     return xk.reshape(b, t, kvh, hd), xv.reshape(b, t, kvh, hd)
 
 
@@ -178,7 +181,7 @@ def _xattn_with_kv(p: dict, x: torch.Tensor, a, xk: torch.Tensor,
     b, s, _ = x.shape
     hw = a.heads_padded * a.head_dim
     q = linear_apply(p["wq"], x, impl) if mesh is None else \
-        attn_mod._whole_projection(p["wq"], x, hw, mesh, "model", impl)
+        whole_projection(p["wq"], x, hw, mesh, "model", impl)
     q = q.reshape(b, s, a.heads_padded, a.head_dim)
     return attn_mod._attend(p, q, xk.to(x.dtype), xv.to(x.dtype),
                             _noncausal(a), False, impl, train=train,
@@ -246,7 +249,8 @@ def group_forward(gp: dict, x: torch.Tensor, cfg: ModelConfig, *,
             raise NotImplementedError("verify runs attention blocks only")
         if bk["kind"] == "rwkv6":
             st = c["state"] if c is not None else ssm_mod.init_rwkv6_state(
-                x.shape[0], cfg.d_model, cfg.ssm, x.device)
+                x.shape[0], cfg.d_model, cfg.ssm, x.device,
+                cfg.model_parallel)
             if mode == "decode":
                 y, st2 = ssm_mod.rwkv6_decode(blk["rwkv"], h, cfg.ssm, st,
                                               impl=impl)
@@ -257,7 +261,8 @@ def group_forward(gp: dict, x: torch.Tensor, cfg: ModelConfig, *,
                 new_cache[f"blk{i}"] = {"state": st2}
         elif bk["kind"] == "mamba":
             st = c["state"] if c is not None else ssm_mod.init_mamba_state(
-                x.shape[0], cfg.d_model, cfg.ssm, x.device)
+                x.shape[0], cfg.d_model, cfg.ssm, x.device,
+                cfg.model_parallel)
             if mode == "decode":
                 y, st2 = ssm_mod.mamba_decode(blk["mamba"], h, cfg.ssm, st,
                                               impl=impl)

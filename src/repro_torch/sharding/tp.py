@@ -24,6 +24,9 @@ of every parameter that ``sharding.rules`` gives it and computes:
     activations, the rank's E/m experts (EP, where the axis divides the
     padded expert count) or every expert over its f/m slice of the
     hidden width (the TP fallback), one fp32 all-reduce a layer;
+  * RWKV-6 blocks over its H/m WKV heads and Mamba blocks over its
+    d_inner/m channels (``models.ssm``), their recurrent state the
+    rank's heads or channels;
   * a vocab-split embedding lookup (:func:`embed`) and vocab-split fp32
     logits, gathered before sampling.
 Activations stay whole between the blocks (the reference's
@@ -34,12 +37,13 @@ every rank the gradient of its slice; the row-split partials stay fp32
 there too (the reference accumulates them in fp32 only when serving).
 
 :func:`check_servable` and :func:`check_trainable` refuse, each with a
-message naming its ROADMAP item, what the port does not shard: head
-counts the axis does not divide in the engines (their page pools split
-kv heads) and in the paged or eager decode, widths or expert counts it
-does not divide, MLA, projections whose widths it does not divide, an
-odd K/m under int4, a narrowed KV-head style (A8.8), RWKV-6 blocks, and
-in training Mamba blocks, cross-attention and encoders (A8.6).
+message naming its ROADMAP item (A8.8), what the port does not shard:
+head counts the axis does not divide in the engines (their page pools
+split kv heads) and in the paged or eager decode, widths or expert
+counts it does not divide (RWKV-6 heads and Mamba's d_inner among
+them), MLA, projections whose widths it does not divide, an odd K/m
+under int4, quantized RWKV-6 / Mamba linears and a narrowed KV-head
+style.
 """
 from __future__ import annotations
 
@@ -52,13 +56,12 @@ from repro_torch.sharding.collectives import (all_gather, local_piece,
                                               reduce_from_model)
 
 #: the ROADMAP items that shard what the port still refuses
-A86 = ("ROADMAP A8.6 (Mamba / RWKV-6 blocks, cross-attention and encoders "
-       "under a model axis in training, RWKV-6 blocks in serving too)")
 A87 = ("ROADMAP A8.7 (host decisions that read the wall clock under a "
        "model axis: rank 0's decisions broadcast to the group)")
 A88 = ("ROADMAP A8.8 (layouts a model axis does not split: MLA, head "
-       "counts it does not divide in the engines, widths or expert counts "
-       "it does not divide, an odd K/m under int4, a narrowed "
+       "counts it does not divide in the engines, widths, expert counts, "
+       "RWKV-6 heads or Mamba channels it does not divide, an odd K/m "
+       "under int4, quantized RWKV-6 / Mamba linears, a narrowed "
        "kv_cache_style)")
 
 
@@ -129,6 +132,9 @@ def _widths_refusal(cfg) -> str:
     dense = moe is None or cfg.moe_every > 1
     if dense and cfg.d_ff % m:
         return f"{cfg.name}: a model axis of {m} must divide d_ff {cfg.d_ff}"
+    refusal = _ssm_refusal(cfg)
+    if refusal:
+        return refusal
     if moe is None:
         return ""
     if moe.padded_experts % m and moe.d_ff % m:
@@ -139,6 +145,23 @@ def _widths_refusal(cfg) -> str:
     if shared % m:
         return (f"{cfg.name}: a model axis of {m} must divide the shared "
                 f"experts' hidden width {shared}")
+    return ""
+
+
+def _ssm_refusal(cfg) -> str:
+    """Why the model axis cannot split ``cfg``'s RWKV-6 heads or Mamba
+    channels ("" where it can): a rank runs whole WKV heads (its d/m
+    columns of ``wr`` / ``wk`` / ``wv`` / ``wg``) and d_inner/m Mamba
+    channels."""
+    m, s = cfg.model_parallel, cfg.ssm
+    kinds = set(cfg.block_pattern)
+    if "rwkv6" in kinds and (cfg.d_model // s.head_dim) % m:
+        return (f"{cfg.name}: a model axis of {m} must divide the "
+                f"{cfg.d_model // s.head_dim} RWKV-6 heads (d_model / "
+                "head_dim)")
+    if "mamba" in kinds and (s.expand * cfg.d_model) % m:
+        return (f"{cfg.name}: a model axis of {m} must divide the Mamba "
+                f"blocks' d_inner {s.expand * cfg.d_model}")
     return ""
 
 
@@ -156,9 +179,13 @@ def _leaves(node, prefix=""):
 def _tree_refusal(cfg, params) -> str:
     """Why the model axis cannot split a leaf of ``params`` ("" where it
     can): a row-split int4 ``qw`` whose K/m is odd (a packed byte holds
-    two rows of K)."""
+    two rows of K), or a quantized RWKV-6 / Mamba linear (the rules
+    leave most of them whole)."""
     m = cfg.model_parallel
     for path, leaf in _leaves(params):
+        if path.endswith("/qw") and ("/rwkv/" in path or "/mamba/" in path):
+            return (f"{path}: quantized RWKV-6 / Mamba linears are not "
+                    f"split over a model axis of {m}")
         if path.endswith(("/down/qw", "/wo/qw")) \
                 and leaf.dtype == torch.uint8 and leaf.shape[0] % m:
             return (f"{path}: int4 packs two rows of K a byte, so a model "
@@ -183,9 +210,8 @@ def cp_decode(cfg) -> bool:
 def check_servable(cfg, params, *, cell: Optional[str] = None) -> None:
     """Raise ``ValueError`` for a config or tree the port does not serve
     under a model axis of ``cfg.model_parallel`` > 1.  MoE layers (EP or
-    the TP fallback), int8 / fp8 / int4 weights and PEFT adapters
-    (unmerged) are served; RWKV-6 blocks are not (A8.6: the mix and the
-    WKV heads do not follow the rules' column split).  ``cell`` is the
+    the TP fallback), RWKV-6 and Mamba blocks, int8 / fp8 / int4 weights
+    and PEFT adapters (unmerged) are served.  ``cell`` is the
     mode of a dry-run cell (``launch.steps``): a ``"prefill"`` cell
     computes head counts the axis does not divide over every head (the
     whole-heads arm), and so does a ``"decode"`` cell whose
@@ -194,11 +220,6 @@ def check_servable(cfg, params, *, cell: Optional[str] = None) -> None:
     cell and keep refusing such heads: their page pools split kv heads
     (A8.8)."""
     from repro_torch.kvcache import cache_kv_heads
-    if "rwkv6" in cfg.block_pattern:
-        raise ValueError(f"{cfg.name}: RWKV-6 blocks under a model axis > "
-                         "1 are not sharded (the token mix, the WKV heads "
-                         "and wout do not follow the rules' placements): "
-                         f"{A86}")
     if cell == "prefill" or (cell == "decode" and cp_decode(cfg)):
         refusal = _whole_refusal(cfg)    # MLA, widths it does not divide
         if refusal:
@@ -218,23 +239,17 @@ def check_servable(cfg, params, *, cell: Optional[str] = None) -> None:
 
 def check_trainable(cfg, params) -> None:
     """Raise ``ValueError`` for a config or tree that training does not
-    shard under a model axis of ``cfg.model_parallel`` > 1: blocks other
-    than attention (Mamba, RWKV-6), cross-attention and encoders (A8.6),
-    MLA, projection widths, widths or expert counts the axis does not
-    divide (A8.8).  Head counts it does not divide train through the
-    whole-heads arm (:func:`whole_heads`); MoE layers, PEFT adapters,
-    int8 / int4 / fp8 bases and either ``tp_attn_impl`` train (the
-    arms differ only on paged pools, which training never reads).  A data
-    axis alone (``model_parallel`` 1) refuses nothing."""
+    shard under a model axis of ``cfg.model_parallel`` > 1: MLA,
+    projection widths, widths, expert counts, RWKV-6 heads or Mamba
+    channels the axis does not divide (A8.8).  Head counts it does not
+    divide train through the whole-heads arm (:func:`whole_heads`); MoE
+    layers, RWKV-6 and Mamba blocks, encoders and cross-attention, PEFT
+    adapters, int8 / int4 / fp8 bases and either ``tp_attn_impl`` train
+    (the arms differ only on paged pools, which training never reads).
+    A data axis alone (``model_parallel`` 1) refuses nothing."""
     m = cfg.model_parallel
     if m == 1:
         return
-    if set(cfg.block_pattern) != {"attn"} or cfg.encoder is not None \
-            or cfg.cross_attn_every:
-        raise ValueError(f"{cfg.name}: training under a model axis > 1 "
-                         "shards attention-only decoders; Mamba / RWKV-6 "
-                         "blocks, cross-attention and encoders are not "
-                         f"sharded yet: {A86}")
     refusal = _whole_refusal(cfg) if whole_heads(cfg) else _heads_refusal(cfg)
     if refusal:
         raise ValueError(refusal)

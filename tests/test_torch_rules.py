@@ -275,6 +275,40 @@ def test_chip_smoke_drives_the_whole_heads_phase():
         assert tag in text, tag
 
 
+def test_chip_smoke_drives_the_ssm_tp_phase():
+    """chip_smoke.py has a phase 29 that runs on phase 27 (b)'s four
+    ranks after phase 28: (a) rwkv6-1.6b's prefill and decode cells over
+    the rank's heads, every B8 call held, launches and collectives against
+    a prediction, logits against one rank's (and its witness of
+    rounding), float32 states; (b) the train cell against one rank's
+    losses and the float32 gradient gathered whole against one rank's
+    within its summation-order floor; (c) jamba's Mamba mixer over the
+    rank's channels against one rank's, with its collectives; and B8's
+    row at a rank's shape."""
+    text = (ROOT / "chip_smoke.py").read_text()
+    tree = ast.parse(text)
+    funcs = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    reached, todo = set(), ["phase_cells", "_cp_rank"]
+    while todo:
+        name = todo.pop()
+        reached.add(name)
+        todo += [ast.unparse(c.func) for c in ast.walk(funcs[name])
+                 if isinstance(c, ast.Call) and ast.unparse(c.func) in funcs
+                 and ast.unparse(c.func) not in reached]
+    assert {"_ssm_rank", "_ssm_one_rank", "_ssm_check", "_ssm_serve",
+            "_ssm_grads", "_mix_rank", "_ssm_kernel_row", "_wh_train",
+            "_wkv6_calls_vs_plain", "_as_one_rank"} <= reached
+    body = "\n".join(ast.unparse(funcs[n]) for n in sorted(reached))
+    for needle in ("_ssm_shape('prefill')", "_ssm_shape('decode')",
+                   "SSM_PREDICTED", "SSM_LAUNCHES", "MIX_PREDICTED",
+                   "wkv6_chunked_ref", "sharded_grads", "gather_leaf",
+                   "loss_and_grads", "mamba_forward", "mamba_decode",
+                   "tensor_parallel", "init_mamba_state", "_check_rms"):
+        assert needle in body, needle
+    for tag in ("[29 ssm_tp] (a)", "[29 ssm_tp] (b)", "[29 ssm_tp] (c)"):
+        assert tag in text, tag
+
+
 def test_model_axis_gather_counts_its_reduce_scatter():
     """The whole-heads arm's gather over the model axis is counted by the
     collective layer: an all-gather forward, and its backward one
@@ -303,6 +337,15 @@ def test_whole_heads_modules_import_neither_jax_nor_the_reference():
                 "src/repro_torch/sharding/collectives.py",
                 "src/repro_torch/launch/steps.py",
                 "tests/_whole_heads_arms.py"):
+        assert not set(_imported_roots(ROOT / rel)) & FORBIDDEN, rel
+
+
+def test_ssm_tp_modules_import_neither_jax_nor_the_reference():
+    """The modules of the RWKV-6 / Mamba split and its test drive import
+    neither ``jax`` nor ``repro``."""
+    for rel in ("src/repro_torch/models/ssm.py",
+                "src/repro_torch/models/layers.py",
+                "tests/_ssm_tp_arms.py"):
         assert not set(_imported_roots(ROOT / rel)) & FORBIDDEN, rel
 
 

@@ -358,11 +358,12 @@ def test_world_checkpoint_resumes_on_one_rank(runs):
 def test_check_trainable_refusals_name_a83():
     """Under a model axis > 1 training takes MoE layers, PEFT adapters
     and int8 / int4 / fp8 bases (A8.3, done), heads the axis does not
-    divide (the whole-heads arm) and the gather arm (A8.8, first part);
-    what it still refuses names its own ROADMAP item and not A8.3:
-    non-attention blocks, before any head count (A8.6), MLA, expert
-    counts and widths it divides neither, an int4 K/m that splits a
-    packed pair (A8.8); a data axis alone refuses nothing."""
+    divide (the whole-heads arm) and the gather arm (A8.8, first part),
+    RWKV-6 and Mamba blocks, encoders and cross-attention (A8.6); what
+    it still refuses names its own ROADMAP item and not A8.3: RWKV-6
+    heads it does not divide, MLA, expert counts and widths it divides
+    neither, an int4 K/m that splits a packed pair (A8.8); a data axis
+    alone refuses nothing."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.model import LM
     from repro_torch.peft.lora import apply_peft
@@ -382,17 +383,21 @@ def test_check_trainable_refusals_name_a83():
     check_trainable(m2, apply_peft(quantize_tree(params, quant="int4"), 0,
                                    method="qlora"))
     refused = []
-    with pytest.raises(ValueError, match="Mamba / RWKV-6.*A8.6") as e:
-        check_trainable(get_smoke_config("rwkv6-1.6b").with_(
-            model_parallel=2), {})
+    rwkv = get_smoke_config("rwkv6-1.6b")
+    check_trainable(rwkv.with_(model_parallel=2), {})
+    with pytest.raises(ValueError, match="RWKV-6 heads.*A8.8") as e:
+        check_trainable(rwkv.with_(model_parallel=8), {})
     refused.append(e)
     odd = m2.with_(attention=dataclasses.replace(
         cfg.attention, num_heads=6, num_kv_heads=3))
     check_trainable(odd, {})
     check_trainable(m2.with_(tp_attn_impl="gather"), {})
     jamba = get_smoke_config("jamba-1.5-large-398b")
-    with pytest.raises(ValueError, match="Mamba / RWKV-6.*A8.6") as e:
-        check_trainable(jamba.with_(model_parallel=16), {})
+    check_trainable(jamba.with_(model_parallel=4), {})
+    for arch in ("whisper-base", "llama-3.2-vision-11b"):
+        check_trainable(get_smoke_config(arch).with_(model_parallel=2), {})
+    with pytest.raises(ValueError, match="widths.*A8.8") as e:
+        check_trainable(jamba.with_(model_parallel=3), {})
     refused.append(e)
     with pytest.raises(ValueError, match="mla attention.*A8.8") as e:
         check_trainable(odd.with_(attention=dataclasses.replace(

@@ -243,9 +243,10 @@ def test_resume_is_bit_exact(tmp_path):
 def test_train_cli_on_the_cpu(tmp_path, monkeypatch, capsys):
     """``python -m repro_torch.launch.train --smoke --device cpu``: plain,
     with a checkpoint directory and a history file, and ``--autotune``
-    (the search at a small budget) applying c*; ``--model-parallel 2`` of
-    a layout the model axis does not shard (RWKV-6 blocks) is refused,
-    naming A8.6."""
+    (the search at a small budget) applying c*; ``--model-parallel 2``
+    trains RWKV-6 blocks over the rank's heads, and ``--model-parallel
+    8`` of its 4 smoke heads, a layout the model axis does not split, is
+    refused, naming A8.8."""
     from repro_torch.core import tuner
     base = ["--arch", "llama3.2-1b", "--smoke", "--device", "cpu",
             "--seq-len", "32", "--global-batch", "2"]
@@ -264,12 +265,18 @@ def test_train_cli_on_the_cpu(tmp_path, monkeypatch, capsys):
     assert tcli.main(base + ["--steps", "2", "--autotune"]) == 0
     out = capsys.readouterr().out
     assert "AE-LLM selected" in out and "loss" in out
-    # llama3.2-1b's smoke heads, which 2 does not divide, now train (the
-    # whole-heads arm); RWKV-6 blocks under the axis stay refused
+    # llama3.2-1b's smoke heads, which 2 does not divide, train (the
+    # whole-heads arm); RWKV-6 blocks train over the rank's heads, where
+    # the axis divides them
+    rwkv = base[:1] + ["rwkv6-1.6b"] + base[2:]
+    assert tcli.main(rwkv + ["--steps", "2", "--model-parallel", "2",
+                             "--log-every", "1"]) == 0
+    out = capsys.readouterr().out
+    assert "mesh {'data': 1, 'model': 2} over 2 ranks (gloo, cpu)" in out
+    assert out.count("[train] rank ") == 2
     with pytest.raises(SystemExit):
-        tcli.main(base[:1] + ["rwkv6-1.6b"] + base[2:]
-                  + ["--model-parallel", "2"])
-    assert "A8.6" in capsys.readouterr().err
+        tcli.main(rwkv + ["--model-parallel", "8"])
+    assert "RWKV-6 heads" in capsys.readouterr().err
 
 
 def test_reduce_config_matches_jax():
