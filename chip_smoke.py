@@ -341,13 +341,32 @@ Phases (each prints one line; any failure raises and exits non-zero):
                  prefill and 8 decode steps against one rank's, float32
                  within 1e-5, 1 all-gather and 2 all-reduces a call; then
                  B8 at a rank's shape timed beside the plain version
+ 30. clock     — inside phase 23's two ranks (after its (c), and (c)
+                 after its (b)), rank 1's own host clock an hour ahead
+                 and 1.5x as fast: every decision reads rank 0's.  (a)
+                 qwen2-1.5b at full width through SchedEngine, EDF with
+                 admission control, TTFT / TPOT targets, the ladder,
+                 deadlines and the prefix cache, 8 requests open loop:
+                 every rank's streams, outcomes, first admissions, rung
+                 trace and drops equal, an EDF reorder, an admission
+                 drop, a rung above 0 and a preemption shown, B1 / B2 /
+                 B3 / B7 launches as the dispatches give them, syncs =
+                 dispatches + blocks, the clock's readings by the function
+                 that took them as predicted; (b) the n-gram SpecEngine
+                 under EDF with spec_slack_s and chaos (faults, mangled
+                 drafts): streams, outcomes, faults and verify rounds
+                 equal, B2 = L x (continuations + verify rounds); (c) (a)
+                 in float32 at 4 layers with chaos (page faults, dispatch
+                 faults), replayed on one rank in this process on rank
+                 0's recorded readings: the same streams, outcomes,
+                 syncs, rungs and faults
 B7 takes every RMSNorm of the qwen2-1.5b drives: 57 launches a forward
 (phases 5, 7, 9, 10), every one on its warp step.  Every B1 / B2 / B3
 launch of those drives (bf16 activations), every B4 and B5 launch of
 phase 9 and every B6 launch of phase 10 must take the tensor-core step:
 their tensor-core launch counts are printed beside the launch counts and
 must equal them.  Launch counts are
-zeroed just before each drive (phases 5, 7, 9, 10, 13-29) and read just
+zeroed just before each drive (phases 5, 7, 9, 10, 13-30) and read just
 after it; peak memory is read for the set-up and, restarted, for the
 drive.  Then one JSON
 line of kernel numbers, and last the result line ``{"ok": true,
@@ -3906,7 +3925,8 @@ DEEPSEEK = "deepseek-coder-33b"
 SCOUT_LAYERS = 8            # phase 19 (b): 8 of llama4-scout's 48 layers
 SCOUT_REQUESTS = 4          # two waves on its 2 slots
 MOE_Q_REQUESTS = 4          # phase 19 (a1), (a2), (a3) and (c)
-MOE_NEW = (16, 33)          # (a1), (a2): new tokens a request, [lo, hi)
+MOE_NEW = (8, 17)           # (a1), (a2): new tokens a request, [lo, hi)
+MOE_SPEC_NEW = 32           # (a3)
 MOE_APPLY_TOKENS = 1024     # phase 19 (d): two routing groups of 512
 #: deepseek-coder-33b's linears (K, N): wq / wo, wk / wv, gate / up, down
 DEEPSEEK_QMM = [(7168, 7168), (7168, 1024), (7168, 19200), (19200, 7168)]
@@ -4110,7 +4130,7 @@ def _moe_granite() -> dict:
     prompts = [passage_prompt(rng, vocab, int(n))
                for n in rng.integers(600, 3001, MOE_Q_REQUESTS)]
     out["a3_spec"] = _moe_paged_drive(eng, tracer, prompts,
-                                      [64] * MOE_Q_REQUESTS,
+                                      [MOE_SPEC_NEW] * MOE_Q_REQUESTS,
                                       "moe granite spec")
     if out["a3_spec"]["verify_rounds"] <= 0:
         raise AssertionError("moe granite spec: no verify round")
@@ -5897,6 +5917,7 @@ TP_HEADS = (6, 1, 128)      # qwen2-1.5b's heads on one of two ranks
 TP_F32_LAYERS = 4           # (b): phase 16's float32 depth
 TP_F32_REQUESTS = 2
 TP_SCHED_REQUESTS = 4       # (c): half behind a shared prefix
+TP_SCHED_NEW = 16           # (c): new tokens a request
 TP_Q_REQUESTS = 4           # (d), 8 new tokens each
 TP_Q_NEW = 8
 TP_GATHER_STEPS = 2         # (e)
@@ -6148,10 +6169,10 @@ def _tp_rank(rank: int) -> dict:
     """One of the two ranks of phase 23, on the card the parent holds:
     (a) qwen2-1.5b at full width through PagedEngine, phase 5's drive,
     and the logits of one admission and one decode step; (c) SchedEngine
-    and the n-gram SpecEngine; (e) the gather arm for two decode steps;
-    (d) int8 weights and int8 pools with every B4 / B5 call of one
-    admission and one decode step held bit for bit; (b) float32 at 4
-    layers."""
+    and the n-gram SpecEngine; phase 30 (a), (b) on the clock; (e) the
+    gather arm for two decode steps; (d) int8 weights and int8 pools with
+    every B4 / B5 call of one admission and one decode step held bit for
+    bit; (b) float32 at 4 layers, then phase 30 (c)."""
     torch = _torch()
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
@@ -6199,7 +6220,8 @@ def _tp_rank(rank: int) -> dict:
         tracer = Tracer(enabled=True)
         eng = cls(lm, params, tracer=tracer, **sched_kw, **kw)
         if name == "spec":
-            r = _spec_drive(eng, tracer, shared, [32] * len(shared),
+            r = _spec_drive(eng, tracer, shared,
+                            [TP_SCHED_NEW] * len(shared),
                             f"rank {rank} (c) spec")
         else:
             r = _tp_sched_drive(eng, tracer, shared, f"rank {rank} (c)")
@@ -6207,6 +6229,8 @@ def _tp_rank(rank: int) -> dict:
                         sorted(eng.registry.values(), key=lambda q: q.rid)]
         out["c"][name] = r
         del eng
+    # phase 30 (a), (b): decisions on the clock, rank 1's skewed
+    out["clk"] = _clk_rank(rank, lm, params, mesh)
     # (e)
     glm = LM(cfg.with_(tp_attn_impl="gather"), device="cuda")
     eng = PagedEngine(glm, params, decode_block=TP_GATHER_STEPS, **paged)
@@ -6240,14 +6264,18 @@ def _tp_rank(rank: int) -> dict:
     # (b)
     f32 = cfg.with_(num_layers=TP_F32_LAYERS, dtype="float32")
     flm = LM(f32, device="cuda")
-    eng = PagedEngine(flm, flm.init(SEED), decode_block=8, **paged)
+    fparams = flm.init(SEED)
+    eng = PagedEngine(flm, fparams, decode_block=8, **paged)
     out["b"] = {"streams": _tp_f32_streams(eng)}
+    del eng
+    # phase 30 (c): the float32 drive whose clock one rank replays
+    out["clk"]["c"] = _clk_f32(rank, flm, fparams, mesh)
     out["wall_s"] = time.perf_counter() - t_start
     return out
 
 
 def _tp_sched_drive(eng, tracer, prompts, tag: str) -> dict:
-    """(c)'s SchedEngine drive: 32 new tokens a request, in two waves
+    """(c)'s SchedEngine drive: TP_SCHED_NEW tokens a request, in two waves
     (the second behind the first's prefix: prefix-cache hits), the launch
     counts zeroed just before; B2 = L x continuation chunks, B3 = L x
     fresh chunks, B1 = L x decode steps."""
@@ -6258,7 +6286,7 @@ def _tp_sched_drive(eng, tracer, prompts, tag: str) -> dict:
     half = len(prompts) // 2
     for wave in (prompts[:half], prompts[half:]):
         for p in wave:
-            eng.submit(p, max_new_tokens=32)
+            eng.submit(p, max_new_tokens=TP_SCHED_NEW)
         eng.run_to_completion()
     torch.cuda.synchronize()
     launches = _read_launches()
@@ -6330,7 +6358,8 @@ def _rel_l2_rows(a, b) -> float:
 def phase_tp(records: list, e2e: dict, smi: str) -> dict:
     """Phase 23: qwen2-1.5b at full width served by two ranks that share
     the card over gloo (NCCL refuses two ranks on one device), against
-    the single rank in this process."""
+    the single rank in this process; and phase 30 on the same ranks, its
+    (c) replayed here on one rank."""
     torch = _torch()
     from repro_torch.launch.mesh import spawn_world
     t_phase = time.perf_counter()
@@ -6370,6 +6399,9 @@ def phase_tp(records: list, e2e: dict, smi: str) -> dict:
     # (b) float32 identity
     if r0["b"]["streams"] != single["b"]["streams"]:
         raise AssertionError("(b) float32 streams: 2 ranks differ from one")
+    # phase 30: the ranks' clock decisions, and (c) replayed on one rank
+    clk = _clk_check(r0["clk"], ranks,
+                     _clk_replay(r0["clk"]["c"]["readings"]), smi)
     # (e) the gather arm's all-gather bytes a decode step
     ag = {"kv_shard": r0["a"]["decode_collectives"]
           ["bytes_per_step_by_op"].get("all-gather/model", 0.0),
@@ -6388,11 +6420,14 @@ def phase_tp(records: list, e2e: dict, smi: str) -> dict:
             "e": r["e"], "wall_s": r["wall_s"], "mesh": r["mesh"],
             "probe": r["probe"], "local_heads": r["local_heads"]})
     out.update(logit_rel_l2=errs, equal_token_share=equal_share,
-               all_gather_bytes_per_step=ag)
+               all_gather_bytes_per_step=ag, clock=clk)
     for rec in records:
         if rec["name"] in r0["a"]["launches"]:
             rec.setdefault("launches_by_drive", {})["tp_rank0"] = \
                 r0["a"]["launches"][rec["name"]]
+        if rec["name"] in r0["clk"]["a"]["launches"]:
+            rec.setdefault("launches_by_drive", {})["clock_rank0"] = \
+                r0["clk"]["a"]["launches"][rec["name"]]
     rows = f["rows"]
     print(f"[23 tp] (f) {smi}: " + "; ".join(f["held"]) + "; " + "; ".join(
         f"{tag} {r['shape']}: ms {r['ms']:.4f} plain {r['plain_ms']:.4f} "
@@ -6452,6 +6487,400 @@ def phase_tp(records: list, e2e: dict, smi: str) -> dict:
     print(f"[23 tp] phase {out['phase_wall_s']:.1f}s (ranks "
           f"{[round(r['wall_s'], 1) for r in ranks]}s)")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 30: host decisions that read the clock, on phase 23's two ranks
+
+CLK_SKEW_S = 3600.0          # rank 1's own clock: an hour ahead and
+CLK_SKEW_RATE = 1.5          # running 1.5x as fast
+CLK_REPEATS = 2              # (a), (c): phase 23 (c)'s 4 prompts, twice
+CLK_NEW = 16                 # (a), (c): new tokens a request
+CLK_RATE = 20.0              # (a), (c): Poisson arrivals a second
+#: (a), (c): each arrival's TTFT target in turn: relaxed, relaxed, one
+#: no prefill meets (admission control drops it), one that EDF puts
+#: ahead of the relaxed ones queued before it
+CLK_SLOS = (60.0, 60.0, 1e-4, 20.0)
+CLK_SLO_TTFT = 1.0           # (a), (c): the ladder's TTFT target
+CLK_SLO_TPOT = 0.5
+CLK_MAX_REQUEST_S = 60.0
+CLK_SLOTS = 2
+CLK_PAGES = 5                # (a), (c): the null page and 4 of 256: a
+                             # 512- and a 768-token request that share
+                             # their prefix do not fit at once (preemption)
+CLK_SPEC_SLO_TTFT = 4.0      # (b): the engine's TTFT target, and the
+CLK_SPEC_SLACK_S = 2.0       # slack that turns speculation off
+CLK_SPEC_CHAOS = "seed=0,fault=0.1,draft=0.2"
+CLK_F32_CHAOS = "seed=0,oom=0.05,fault=0.1"
+CLK_RETRIES = 50             # (b), (c): faults are recovered, not failed
+CLK_RANK_S = 30.0            # phase 30's wall a rank
+
+
+def _clk_clock(rank: int):
+    """Rank 1's ``serve.engine.host_clock`` skewed (``CLK_SKEW_S`` ahead,
+    ``CLK_SKEW_RATE`` as fast); rank 0's recorded, each reading with the
+    host-loop function that took it.  Returns (readings, sites, the real
+    clock to put back)."""
+    from repro_torch.serve import engine as se
+    real = se.host_clock
+    readings, sites = [], []
+    if rank == 0:
+        def clock():
+            t = real()
+            f = sys._getframe(1)
+            while f.f_code.co_name in ("shared_clock", "_clock"):
+                f = f.f_back
+            readings.append(t)
+            sites.append(f.f_code.co_name)
+            return t
+    else:
+        t0 = real()
+
+        def clock():
+            return CLK_SKEW_S + t0 + CLK_SKEW_RATE * (real() - t0)
+    se.host_clock = clock
+    return readings, sites, real
+
+
+def _clk_prompts(vocab: int) -> list:
+    """(a), (c): phase 23 (c)'s shared-prefix prompts, ``CLK_REPEATS``
+    times over (the repeats hit the prefix cache)."""
+    return _tp_shared_prompts(vocab) * CLK_REPEATS
+
+
+def _clk_sched(lm, params, mesh, tracer, chaos=None):
+    """(a) / (c)'s SchedEngine: EDF with admission control, TTFT / TPOT
+    targets, the ladder, deadlines, the prefix cache, chunks of 512 and
+    blocks of 8, on a pool that a 512- and a 768-token request sharing
+    their prefix overflow."""
+    from repro_torch.resil import FaultInjector
+    from repro_torch.sched import SchedEngine
+    return SchedEngine(
+        lm, params, policy="edf", admission_control=True,
+        slo_ttft=CLK_SLO_TTFT, slo_tpot=CLK_SLO_TPOT, ladder=True,
+        max_request_s=CLK_MAX_REQUEST_S, prefix_cache=True,
+        prefill_chunk=512, decode_block=8, n_slots=CLK_SLOTS, max_len=1024,
+        page_size=256, n_pages=CLK_PAGES, seed=SEED, mesh=mesh,
+        tracer=tracer, max_retries=CLK_RETRIES,
+        injector=FaultInjector.from_spec(chaos))
+
+
+def _clk_open_loop(eng, tracer, prompts, tag: str, sites=None) -> dict:
+    """Serve ``prompts`` open loop (Poisson offsets from ``SEED + 30``)
+    with ``CLK_SLOS`` in turn, the launch counts zeroed just before and
+    read just after: the streams, outcomes, first admissions in order,
+    the ladder's rung after every tick, the dispatches and their
+    launches (B2 = L x continuation chunks, B3 = L x fresh chunks, B1 =
+    L x decode steps, B7 = (2L + 1) x forwards) and host syncs (the
+    dispatches plus the decode blocks), and the shared clock's readings
+    (on rank 0 by the function that took them)."""
+    torch = _torch()
+    import numpy as np
+    from repro_torch.serve.engine import run_open_loop
+    cfg = eng.lm.cfg
+    admits, rungs = [], []
+    admit_one, step, submit = eng._admit_one, eng.step, eng.submit
+    slos = iter(CLK_SLOS * len(prompts))
+
+    def admit(req, now):
+        ok = admit_one(req, now)
+        if ok:
+            admits.append(req.rid)
+        return ok
+
+    def tick():
+        out = step()
+        rungs.append(eng.ladder.rung)
+        return out
+
+    def submit_slo(p, **kw):
+        return submit(p, slo_ttft=next(slos), **kw)
+
+    recoveries = []
+
+    def counted(fn):
+        def recover(err, now):
+            recoveries.append(type(err).__name__)
+            return fn(err, now)
+        return recover
+    eng._admit_one, eng.step, eng.submit = admit, tick, submit_slo
+    eng._recover_transient = counted(eng._recover_transient)
+    eng._recover_oom = counted(eng._recover_oom)
+    base = _counts(eng, tracer, 0)
+    n_ev = len(tracer.events)
+    n_sites = len(sites) if sites is not None else 0
+    coll0 = eng.mesh.stats.copy() if eng.mesh is not None else None
+    offsets = np.cumsum(np.random.default_rng(SEED + 30).exponential(
+        1.0 / CLK_RATE, len(prompts)))
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    ids = run_open_loop(eng, prompts, offsets, max_new_tokens=CLK_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    now = _counts(eng, tracer, n_ev)
+    steps, blocks = now["steps"] - base["steps"], now["blocks"] - base[
+        "blocks"]
+    syncs = now["syncs"] - base["syncs"]
+    layers = cfg.num_layers
+    want = {"paged_prefix_extend": layers * now["cont"],
+            "flash_attention": layers * now["fresh"],
+            "paged_attention": layers * steps,
+            "rmsnorm": (2 * layers + 1) * (now["cont"] + now["fresh"]
+                                           + steps)}
+    got = {k: launches[k] for k in want}
+    if got != want or syncs != now["cont"] + now["fresh"] + blocks:
+        raise AssertionError(f"{tag}: launches {got} != {want}, or {syncs} "
+                             f"syncs != {now['cont']} + {now['fresh']} "
+                             f"chunks + {blocks} blocks")
+    reqs = [eng.registry[i] for i in ids]
+    for r in reqs:
+        if r.outcome == "ok" and (len(r.out_tokens) != CLK_NEW or not all(
+                0 <= t < cfg.vocab_size for t in r.out_tokens)):
+            raise AssertionError(f"{tag}: request {r.rid} ok with "
+                                 f"{len(r.out_tokens)} tokens, want "
+                                 f"{CLK_NEW}, or a token out of vocab")
+    ttft = [r.t_first - r.t_submit for r in reqs if r.t_first is not None]
+    out = {"streams": [list(r.out_tokens) for r in reqs],
+           "outcomes": [r.outcome for r in reqs],
+           "admits": admits, "rungs": rungs, "ticks": len(rungs),
+           "recoveries": len(recoveries),
+           "slo_rejected": eng.stats.slo_rejected,
+           "preemptions": eng.stats.preemptions,
+           "prefix_hit_tokens": eng.stats.prefix_hit_tokens,
+           "cont_dispatches": now["cont"], "fresh_dispatches": now["fresh"],
+           "decode_blocks": blocks, "decode_steps": steps, "syncs": syncs,
+           "launches": got, "wall_s": wall,
+           "tick_wall_ms": wall / max(len(rungs), 1) * 1e3,
+           "ttft_p50_s": statistics.median(ttft) if ttft else None,
+           "injected": (dict(eng.injector.counts)
+                        if eng.injector is not None else None)}
+    if coll0 is not None:
+        out["shared_readings"] = eng.mesh.stats.since(
+            coll0).count_by_op.get("broadcast/clock", 0)
+    if sites is not None:
+        mine = sites[n_sites:]
+        out["sites"] = {k: mine.count(k) for k in sorted(set(mine))}
+    return out
+
+
+def _clk_spec(lm, params, mesh, tracer, prompts, tag: str,
+              sites=None) -> dict:
+    """(b): the n-gram SpecEngine (k 4) under EDF with ``spec_slack_s``
+    and chaos (faults, mangled drafts), the prompts submitted at once on
+    two slots; streams, outcomes, injected faults, verify rounds and the
+    launches (B2 = L x (continuations + verify rounds), B3 = L x fresh
+    chunks, B1 = L x fallback decode steps, B7 = (2L + 1) x forwards)."""
+    torch = _torch()
+    from repro_torch.resil import FaultInjector
+    from repro_torch.spec import SpecEngine
+    eng = SpecEngine(lm, params, spec="ngram", draft_k=4, policy="edf",
+                     slo_ttft=CLK_SPEC_SLO_TTFT,
+                     spec_slack_s=CLK_SPEC_SLACK_S, prefix_cache=True,
+                     prefill_chunk=512, decode_block=8, n_slots=CLK_SLOTS,
+                     max_len=1024, page_size=256, seed=SEED, mesh=mesh,
+                     tracer=tracer, max_retries=CLK_RETRIES,
+                     injector=FaultInjector.from_spec(CLK_SPEC_CHAOS))
+    n_sites = len(sites) if sites is not None else 0
+    _reset_launches()
+    t0 = time.perf_counter()
+    ids = [eng.submit(p, max_new_tokens=CLK_NEW) for p in prompts]
+    eng.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    d = _spec_counts(eng, tracer, 0)
+    layers = eng.lm.cfg.num_layers
+    want = {"paged_prefix_extend": layers * (d["cont"] + d["verify"]),
+            "flash_attention": layers * d["fresh"],
+            "paged_attention": layers * d["steps"],
+            "rmsnorm": (2 * layers + 1) * (d["cont"] + d["fresh"]
+                                           + d["verify"] + d["steps"])}
+    got = {k: launches[k] for k in want}
+    if got != want or d["syncs"] != d["cont"] + d["fresh"] + d["verify"] \
+            + d["blocks"] or d["verify"] <= 0:
+        raise AssertionError(f"{tag}: launches {got} != {want}, or "
+                             f"{d['syncs']} syncs != chunks + verify rounds "
+                             f"+ blocks, or {d['verify']} verify rounds")
+    reqs = [eng.registry[i] for i in ids]
+    st = eng.spec_stats
+    out = {"streams": [list(r.out_tokens) for r in reqs],
+           "outcomes": [r.outcome for r in reqs],
+           "injected": dict(eng.injector.counts),
+           "verify_rounds": st.verify_steps,
+           "skipped_urgent": st.skipped_urgent,
+           "fallback_blocks": d["blocks"], "cont_dispatches": d["cont"],
+           "fresh_dispatches": d["fresh"], "syncs": d["syncs"],
+           "launches": got, "wall_s": wall}
+    if sites is not None:
+        mine = sites[n_sites:]
+        out["sites"] = {k: mine.count(k) for k in sorted(set(mine))}
+    return out
+
+
+def _clk_rank(rank: int, lm, params, mesh) -> dict:
+    """Phase 30 (a) and (b) in one rank of phase 23, at full width."""
+    from repro_torch.obs import Tracer
+    from repro_torch.serve import engine as se
+    t0 = time.perf_counter()
+    readings, sites, real = _clk_clock(rank)
+    try:
+        prompts = _clk_prompts(lm.cfg.vocab_size)
+        tracer = Tracer(enabled=True)
+        eng = _clk_sched(lm, params, mesh, tracer)
+        a = _clk_open_loop(eng, tracer, prompts, f"rank {rank} (a)",
+                           sites if rank == 0 else None)
+        a["readings"] = len(readings)
+        del eng
+        b = _clk_spec(lm, params, mesh, Tracer(enabled=True),
+                      prompts[:len(prompts) // CLK_REPEATS],
+                      f"rank {rank} (b)", sites if rank == 0 else None)
+    finally:
+        se.host_clock = real
+    return {"a": a, "b": b, "wall_s": time.perf_counter() - t0}
+
+
+def _clk_f32(rank, flm, fparams, mesh) -> dict:
+    """Phase 30 (c) in one rank: (a)'s drive at float32 and 4 layers,
+    with chaos; rank 0's readings kept for the replay on one rank."""
+    from repro_torch.obs import Tracer
+    from repro_torch.serve import engine as se
+    t0 = time.perf_counter()
+    readings, sites, real = _clk_clock(rank)
+    try:
+        tracer = Tracer(enabled=True)
+        eng = _clk_sched(flm, fparams, mesh, tracer, CLK_F32_CHAOS)
+        c = _clk_open_loop(eng, tracer, _clk_prompts(flm.cfg.vocab_size),
+                           f"rank {rank} (c)")
+    finally:
+        se.host_clock = real
+    c["readings"] = readings if rank == 0 else None
+    c["wall_s"] = time.perf_counter() - t0
+    return c
+
+
+def _clk_replay(readings: list) -> dict:
+    """Phase 30 (c) on one rank in this process, its ``host_clock``
+    returning rank 0's readings in order."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+    from repro_torch.obs import Tracer
+    from repro_torch.serve import engine as se
+    cfg = get_config("qwen2-1.5b").with_(num_layers=TP_F32_LAYERS,
+                                        dtype="float32")
+    flm = LM(cfg, device="cuda")
+    it = iter(readings)
+    real, used = se.host_clock, []
+
+    def replay():
+        t = next(it, None)
+        if t is None:
+            raise AssertionError(f"(c) the replay read the clock more than "
+                                 f"the {len(readings)} times rank 0 did")
+        used.append(t)
+        return t
+    se.host_clock = replay
+    try:
+        tracer = Tracer(enabled=True)
+        eng = _clk_sched(flm, flm.init(SEED), None, tracer, CLK_F32_CHAOS)
+        out = _clk_open_loop(eng, tracer, _clk_prompts(cfg.vocab_size),
+                             "one rank (c)")
+    finally:
+        se.host_clock = real
+    out["replayed"] = len(used)
+    return out
+
+
+def _clk_check(r0: dict, ranks: list, replay: dict, smi: str) -> dict:
+    """Phase 30's bars: every rank's (a), (b) and (c) equal rank 0's;
+    (a) shows an EDF reorder, an admission drop, a rung above 0 and a
+    timeout or a preemption, its launches as one rank's formulas, its
+    readings as predicted (one a request, a tick, a dispatch and an
+    open-loop iteration, every one shared); (c) replayed on one rank
+    equal to the ranks."""
+    same_a = ("streams", "outcomes", "admits", "rungs", "slo_rejected",
+              "preemptions", "syncs", "launches", "decode_steps",
+              "cont_dispatches", "fresh_dispatches", "shared_readings")
+    same_b = ("streams", "outcomes", "injected", "verify_rounds", "syncs",
+              "launches")
+    same_c = ("streams", "outcomes", "syncs", "rungs", "injected", "admits")
+    for i, r in enumerate(ranks[1:], 1):
+        for part, keys in (("a", same_a), ("b", same_b), ("c", same_c)):
+            diff = [k for k in keys if r["clk"][part][k] != r0[part][k]]
+            if diff:
+                raise AssertionError(f"[30] ({part}) rank {i}'s {diff} "
+                                     "differ from rank 0's")
+    diff = [k for k in same_c if replay[k] != r0["c"][k]]
+    if diff or replay["replayed"] != len(r0["c"]["readings"]):
+        raise AssertionError(f"[30] (c) one rank on rank 0's clock: {diff} "
+                             f"differ, {replay['replayed']} of "
+                             f"{len(r0['c']['readings'])} readings used")
+    a = r0["a"]
+    firsts = list(dict.fromkeys(a["admits"]))
+    shown = {"edf_reorder": firsts != sorted(firsts),
+             "admission_drop": a["slo_rejected"] > 0,
+             "rung_above_0": max(a["rungs"]) > 0,
+             "timeout_or_preemption": a["preemptions"] > 0
+             or "timed_out" in a["outcomes"]}
+    sites, n_req = a["sites"], len(a["streams"])
+    want = {"submit": n_req, "step": a["ticks"] + a["recoveries"],
+            "_dispatch_chunks": a["cont_dispatches"] + a["fresh_dispatches"],
+            "_dispatch_decode": a["decode_blocks"]}
+    walls = [round(r["clk"]["wall_s"] + r["clk"]["c"]["wall_s"], 1)
+             for r in ranks]
+    if max(walls) > CLK_RANK_S:
+        print(f"[30 clock] phase 30 took {walls}s a rank, over "
+              f"{CLK_RANK_S}s")
+    b = r0["b"]
+    print(f"[30 clock] (a) {smi}: qwen2-1.5b full width, 2 ranks, EDF + "
+          f"admission control + ladder + deadlines, {n_req} requests open "
+          f"loop at {CLK_RATE}/s: outcomes {a['outcomes']}, first "
+          f"admissions {firsts}, rungs {a['rungs']}, slo_rejected "
+          f"{a['slo_rejected']}, preemptions {a['preemptions']}; shown "
+          f"{shown}; equal on both ranks (rank 1 skewed {CLK_SKEW_S}s, "
+          f"x{CLK_SKEW_RATE}); {a['cont_dispatches']} + "
+          f"{a['fresh_dispatches']} chunks + {a['decode_blocks']} blocks = "
+          f"{a['syncs']} syncs; launches per rank "
+          f"{[r['clk']['a']['launches'] for r in ranks]}; readings {sites} "
+          f"= {a['readings']}, all shared, {a['readings'] / a['ticks']:.2f} "
+          f"a tick over {a['ticks']} ticks; tick wall " + ", ".join(
+              f"rank {i} {r['clk']['a']['tick_wall_ms']:.1f} ms TTFT p50 "
+              f"{r['clk']['a']['ttft_p50_s']:.4f}s" for i, r in
+              enumerate(ranks)))
+    print(f"[30 clock] (b) spec n-gram + EDF + spec_slack "
+          f"{CLK_SPEC_SLACK_S}s + chaos '{CLK_SPEC_CHAOS}': outcomes "
+          f"{b['outcomes']}, injected {b['injected']}, {b['verify_rounds']} "
+          f"verify rounds, {b['skipped_urgent']} urgent skips, "
+          f"{b['fallback_blocks']} fallback blocks, readings {b['sites']}; "
+          f"launches per rank {[r['clk']['b']['launches'] for r in ranks]}, "
+          "equal on both ranks")
+    c = r0["c"]
+    print(f"[30 clock] (c) float32 {TP_F32_LAYERS} layers + chaos "
+          f"'{CLK_F32_CHAOS}': outcomes {c['outcomes']}, injected "
+          f"{c['injected']}, rungs {c['rungs']}, {c['syncs']} syncs; one "
+          f"rank replaying rank 0's {len(c['readings'])} readings: the same "
+          f"streams, outcomes, syncs, rungs and faults; phase 30 {walls}s a "
+          "rank")
+    loops = sites.get("run_open_loop", 0)
+    if any(sites.get(k, 0) != v for k, v in want.items()) \
+            or loops < a["ticks"] + 1 \
+            or set(sites) - set(want) - {"run_open_loop"} \
+            or a["shared_readings"] != a["readings"]:
+        raise AssertionError(f"[30] (a) clock readings {sites} "
+                             f"({a['shared_readings']} shared of "
+                             f"{a['readings']}) != the prediction {want} + "
+                             f"run_open_loop >= {a['ticks'] + 1}")
+    if not all(shown.values()):
+        raise AssertionError(f"[30] (a) did not show {shown}")
+    return {"a": {k: v for k, v in a.items() if k != "streams"},
+            "b": {k: v for k, v in b.items() if k != "streams"},
+            "c": {k: v for k, v in c.items()
+                  if k not in ("streams", "readings")},
+            "shown": shown, "walls_s": walls,
+            "ranks": [{"a": {k: r["clk"]["a"][k] for k in
+                             ("tick_wall_ms", "ttft_p50_s", "wall_s")}}
+                      for r in ranks]}
 
 
 # ---------------------------------------------------------------------------

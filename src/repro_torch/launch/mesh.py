@@ -21,7 +21,8 @@ Backend rule (printed in every mesh line): ``nccl`` where every rank has
 a card of its own, ``gloo`` otherwise, so several ranks can share one
 card (gloo moves CUDA tensors through the host for ``broadcast`` and
 ``all_reduce``, the only two collectives the port calls) or run on the
-CPU.
+CPU.  The host clock the engines share travels as a CPU tensor over
+gloo whatever the backend (``Mesh.host_group``).
 
 :func:`abstract_mesh` is one rank's view of a mesh of any shape, the
 reference's production ``{"data": 16, "model": 16}`` and ``{"pod": 2,
@@ -78,6 +79,10 @@ class Mesh:
     stage_group: Any = None
     stage_ranks: Sequence[int] = (0,)
     abstract: bool = False
+    #: a gloo group over the model group's ranks, for host values sent as
+    #: CPU tensors (``collectives.broadcast_clock``): ``group`` itself
+    #: under gloo, a group of its own under nccl
+    host_group: Any = None
 
     @property
     def model(self) -> int:
@@ -173,9 +178,11 @@ def make_host_mesh(*, model: int = 1, stage: int = 1,
     """The mesh over the initialized world (a world of one when no
     process group is up): ``{"data": world // (stage * model), "model":
     model}``, with ``"stage": stage`` ahead of them when ``stage`` > 1.
-    Every rank must call it: it creates every model group, then every
-    data group, then every stage group, in one order on every rank (an
-    axis of one rank has no group)."""
+    Every rank must call it: it creates every model group (and, where
+    the world's backend is not gloo, a gloo group over each for host
+    values: ``Mesh.host_group``), then every data group, then every
+    stage group, in one order on every rank (an axis of one rank has no
+    group)."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
     if model < 1 or stage < 1 or world % (model * stage):
@@ -189,23 +196,29 @@ def make_host_mesh(*, model: int = 1, stage: int = 1,
         shape = {"stage": stage, **shape}
     coords = rank_coords(rank, shape)
     plane = data * model                  # the ranks of one stage
+    backend = dist.get_backend() if dist.is_initialized() else "none"
 
-    def groups(members_of, count, mine):
+    def groups(members_of, count, mine, backend=None):
         """Create ``count`` groups (every rank, in one order) and return
         this rank's (group, its members)."""
         out = (None, (rank,))
         for i in range(count):
             members = members_of(i)
-            g = dist.new_group(members)
+            g = dist.new_group(members, backend=backend)
             if i == mine:
                 out = (g, tuple(members))
         return out
 
-    group, ranks = None, (rank,)
+    group, ranks, host_group = None, (rank,), None
     if model > 1:
-        group, ranks = groups(
-            lambda i: list(range(i * model, (i + 1) * model)),
-            stage * data, coords.get("stage", 0) * data + coords["data"])
+        model_args = (lambda i: list(range(i * model, (i + 1) * model)),
+                      stage * data,
+                      coords.get("stage", 0) * data + coords["data"])
+        group, ranks = groups(*model_args)
+        host_group = group
+        if backend != "gloo":
+            # nccl takes no CPU tensor: the host clock gets gloo groups
+            host_group, _ = groups(*model_args, backend="gloo")
     data_group, data_ranks = None, (rank,)
     if data > 1:
         data_group, data_ranks = groups(
@@ -217,17 +230,16 @@ def make_host_mesh(*, model: int = 1, stage: int = 1,
         stage_group, stage_ranks = groups(
             lambda i: [i + k * plane for k in range(stage)],
             plane, coords["data"] * model + coords["model"])
-    backend = dist.get_backend() if dist.is_initialized() else "none"
     return Mesh(shape=shape, coords=coords,
                 device=_rank_device(device, rank, world), group=group,
                 ranks=ranks, backend=backend, data_group=data_group,
                 data_ranks=data_ranks, stage_group=stage_group,
-                stage_ranks=stage_ranks)
+                stage_ranks=stage_ranks, host_group=host_group)
 
 
 def _rank_main(fn, rank: int, world: int, init: str, backend: str,
                device: str, threads: Optional[int], out_dir: str,
-               args: tuple) -> None:
+               timeout_s: float, args: tuple) -> None:
     # the ranks talk over the loopback device only
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
     if threads:
@@ -237,8 +249,7 @@ def _rank_main(fn, rank: int, world: int, init: str, backend: str,
         torch.cuda.set_device(dev)
     dist.init_process_group(backend, init_method=init, world_size=world,
                             rank=rank,
-                            timeout=datetime.timedelta(
-                                seconds=WORLD_TIMEOUT_S))
+                            timeout=datetime.timedelta(seconds=timeout_s))
     result = fn(rank, *args)
     path = os.path.join(out_dir, f"rank{rank}.pkl")
     with open(path + ".tmp", "wb") as f:
@@ -248,7 +259,8 @@ def _rank_main(fn, rank: int, world: int, init: str, backend: str,
 
 
 def spawn_world(fn: Callable, world: int, *args, device="cuda",
-                threads: Optional[int] = None) -> list:
+                threads: Optional[int] = None,
+                timeout_s: float = WORLD_TIMEOUT_S) -> list:
     """Run ``fn(rank, *args)`` in ``world`` new processes joined in one
     process group, and return their results in rank order (``fn`` is
     importable and its result picklable).
@@ -258,8 +270,11 @@ def spawn_world(fn: Callable, world: int, *args, device="cuda",
     ``file://`` rendezvous in a fresh temporary directory, so concurrent
     worlds never compete for a port.  The backend follows
     :func:`backend_for`; ``threads`` sets each rank's torch thread
-    count.  A rank that fails stops the world: its traceback is on
-    stderr and this raises; every process is gone on return."""
+    count.  ``timeout_s`` bounds both the world's run and each
+    collective's wait (a rank left waiting in a collective whose peers
+    went another way raises there).  A rank that fails stops the world:
+    its traceback is on stderr and this raises; every process is gone on
+    return."""
     import multiprocessing as mp
     dev = torch.device(device)
     backend = backend_for(dev, world)
@@ -268,12 +283,12 @@ def spawn_world(fn: Callable, world: int, *args, device="cuda",
         init = "file://" + os.path.join(tmp, "rendezvous")
         procs = [ctx.Process(target=_rank_main,
                              args=(fn, r, world, init, backend, str(dev),
-                                   threads, tmp, args))
+                                   threads, tmp, timeout_s, args))
                  for r in range(world)]
         for p in procs:
             p.start()
         try:
-            deadline = time.monotonic() + WORLD_TIMEOUT_S
+            deadline = time.monotonic() + timeout_s
             pending = set(range(world))
             while pending:
                 for r in sorted(pending):
@@ -289,7 +304,7 @@ def spawn_world(fn: Callable, world: int, *args, device="cuda",
                 if pending and time.monotonic() > deadline:
                     raise TimeoutError(f"ranks {sorted(pending)} of {world} "
                                        f"still running after "
-                                       f"{WORLD_TIMEOUT_S}s")
+                                       f"{timeout_s}s")
         finally:
             for p in procs:
                 if p.is_alive():

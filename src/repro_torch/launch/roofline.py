@@ -53,10 +53,13 @@ class CollectiveStats:
         self.count_by_op[op] = self.count_by_op.get(op, 0) + 1
 
     def merge(self, other: "CollectiveStats") -> None:
-        for op, b in other.bytes_by_op.items():
-            self.bytes_by_op[op] = self.bytes_by_op.get(op, 0.0) + b
+        """Add ``other``'s calls and bytes; an op it holds no call of
+        (a :meth:`since` of a window that made none) adds no key."""
         for op, n in other.count_by_op.items():
-            self.count_by_op[op] = self.count_by_op.get(op, 0) + n
+            if n:
+                self.count_by_op[op] = self.count_by_op.get(op, 0) + n
+                self.bytes_by_op[op] = (self.bytes_by_op.get(op, 0.0)
+                                        + other.bytes_by_op.get(op, 0.0))
 
     def copy(self) -> "CollectiveStats":
         return CollectiveStats(dict(self.bytes_by_op), dict(self.count_by_op))

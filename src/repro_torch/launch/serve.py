@@ -65,6 +65,10 @@ ranks admissions by the cost model's remaining-service estimate (H100
 tier), and ``--admission-control`` drops EDF requests whose estimated
 prefill already overruns their TTFT deadline.  ``--arrival-rate``
 submits open loop (Poisson arrivals) instead of all at once.
+Under ``--model-parallel`` every rank runs the drive, and each decision
+that reads the clock (``--policy sjf|edf``, ``--admission-control``,
+``--degrade``, ``--max-request-s``, ``--chaos``, ``--spec-slack``,
+``--arrival-rate``) reads rank 0's, sent to the group.
 ``--profile`` times every dispatch (no extra host sync) and, with
 ``--calibration-out`` / ``--calibration-in``, fits the cost model's
 per-dispatch corrections and writes / seeds them; ``--metrics`` writes
@@ -255,10 +259,6 @@ def main(argv=None):
                  "the eager Engine")
     if args.model_parallel < 1:
         ap.error("--model-parallel must be >= 1")
-    if args.model_parallel > 1 and args.arrival_rate > 0:
-        ap.error("--arrival-rate submits by each rank's own clock; a "
-                 "sharded drive (--model-parallel > 1) submits everything "
-                 "up front")
     device = resolve_device(args.device)
     if args.model_parallel > 1:
         return _serve_sharded(args, device)
@@ -268,8 +268,9 @@ def main(argv=None):
 
 def _serve_sharded(args, device) -> int:
     """Start ``--model-parallel`` ranks on ``device``, each serving the
-    same drive on its slice (:func:`_serve_rank`); print rank 0's report
-    and fail if any rank's streams differ from rank 0's."""
+    same drive on its slice (:func:`_serve_rank`; every decision that
+    reads the clock reads rank 0's); print rank 0's report and fail if
+    any rank's streams or outcomes differ from rank 0's."""
     n = args.model_parallel
     threads = max(1, torch.get_num_threads() // n) \
         if device.type == "cpu" else None
@@ -277,9 +278,12 @@ def _serve_sharded(args, device) -> int:
                           threads=threads)
     print(results[0]["out"], end="")
     for rank, r in enumerate(results[1:], 1):
-        if r["streams"] != results[0]["streams"]:
-            raise RuntimeError(f"rank {rank}'s streams differ from rank 0's")
-    print(f"[serve] {n} ranks, every rank's streams equal")
+        for key in ("streams", "outcomes"):
+            if r["drive"][key] != results[0]["drive"][key]:
+                raise RuntimeError(f"rank {rank}'s {key} differ from rank "
+                                   "0's")
+    print(f"[serve] {n} ranks, every rank's streams equal, every rank's "
+          "outcomes equal")
     return 0
 
 
@@ -289,13 +293,13 @@ def _serve_rank(rank: int, args) -> dict:
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         print(f"[serve] {mesh.describe()}")
-        streams = _serve(args, mesh.device, mesh, artifacts=rank == 0)
-    return {"out": out.getvalue(), "streams": streams}
+        drive = _serve(args, mesh.device, mesh, artifacts=rank == 0)
+    return {"out": out.getvalue(), "drive": drive}
 
 
-def _serve(args, device, mesh=None, artifacts: bool = True):
+def _serve(args, device, mesh=None, artifacts: bool = True) -> dict:
     """One drive on ``device`` (one rank's, under ``mesh``): returns the
-    requests' token streams."""
+    requests' token streams and outcomes."""
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     sched = bool(args.policy) or args.spec != "none"
     eager = not (args.paged or sched or mesh is not None)
@@ -394,7 +398,8 @@ def _serve(args, device, mesh=None, artifacts: bool = True):
     finally:
         if artifacts:
             _write_artifacts(args, cfg, eng, tracer, profiler)
-    return [list(done[i].out_tokens) for i in ids]
+    return {"streams": [list(done[i].out_tokens) for i in ids],
+            "outcomes": [done[i].outcome for i in ids]}
 
 
 def _write_artifacts(args, cfg, eng, tracer, profiler):

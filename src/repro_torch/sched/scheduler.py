@@ -42,6 +42,11 @@ around them:
   the plain tick verbatim: same dispatches, same sync counts, same
   tokens.
 
+The decisions read one clock reading at the tick's start and one after
+each dispatch's sync (``serve.engine.shared_clock``: under a model axis
+> 1, the first rank's, where a policy, admission control or any of the
+three knobs reads it), so the ranks of a sharded engine decide alike.
+
 Telemetry (``stats``/``telemetry()``): admitted / preempted counts,
 prefill tokens actually computed vs. served from the prefix cache, and
 the per-request timestamps (``t_submit/t_admit/t_first/t_done``) that
@@ -62,7 +67,7 @@ from repro_torch.resil.errors import InjectedPageFault, TransientDispatchError
 from repro_torch.sched.policy import Policy, make_policy
 from repro_torch.sched.prefix import PrefixCache
 from repro_torch.serve.engine import (PagedEngine, Request, _pow2_bucket,
-                                      _sample_batch, same_decisions)
+                                      _sample_batch)
 from repro_torch.serve.paged import OutOfPagesError, set_block_table_rows
 
 
@@ -91,14 +96,6 @@ class SchedEngine(PagedEngine):
                  max_retries: int = 3, backoff_s: float = 0.05,
                  backoff_max_s: float = 1.0, **kw):
         super().__init__(lm, params, **kw)
-        if self.mesh is not None and (
-                admission_control or ladder is not None
-                or max_request_s is not None
-                or getattr(policy, "name", policy) != "fcfs"):
-            raise ValueError(same_decisions(
-                "the FCFS policy without admission control, a degradation "
-                "ladder or request deadlines (they read each rank's own "
-                "wall clock)"))
         self.admission_control = admission_control
         if prefill_chunk is None:
             prefill_chunk = 8 * self.page_size
@@ -165,6 +162,13 @@ class SchedEngine(PagedEngine):
         self.resilient = ((self.injector is not None
                            and self.injector.enabled)
                           or ladder is not None or max_request_s is not None)
+        # FCFS ranks by arrival order alone; every other policy, the
+        # feasibility drop and the recovery tick read the clock
+        self.clock_decides = (self.policy.name != "fcfs"
+                              or admission_control or self.resilient)
+        #: the tick's latest decision clock reading (its start, then after
+        #: each dispatch's sync)
+        self._now = 0.0
         if self.resilient:
             self._c_recovered = m.counter(
                 "resil_recovered_total",
@@ -231,7 +235,7 @@ class SchedEngine(PagedEngine):
     def _admit_new(self) -> None:
         if not self.queue:
             return
-        now = time.perf_counter()
+        now = self._now
         if self.ladder is not None and self.ladder.shed:
             self._shed_excess(now)
         if not (self.queue and self.free):
@@ -351,7 +355,7 @@ class SchedEngine(PagedEngine):
         preempted with backoff for a spurious injected fault, cancelled as
         ``failed`` for a genuine no-fit), so on return the slot has either
         grown or left active/_prefilling."""
-        now = time.perf_counter()
+        now = self._now
         if len(self.alloc.owned(slot)) + extra > self.alloc.max_pages_per_slot:
             if self.resilient:
                 self._c_failed.inc()
@@ -633,25 +637,26 @@ class SchedEngine(PagedEngine):
                                        args[5])
             tok = tok.cpu().numpy()          # <- sync (1 per chunk batch)
             self.sync_count += 1
-            now = time.perf_counter()
-            self.t_prefill_s += now - t0
+            t1 = time.perf_counter()
+            now = self._now = self._clock()
+            self.t_prefill_s += t1 - t0
             self.stats.chunks += 1
             self._c_prefill_disp.inc()
             tr = self.tracer
             n_ready = len(ready)
             if tr.enabled:
-                tr.complete("prefill_dispatch", 0, t0, now, pid=PID_ENGINE,
+                tr.complete("prefill_dispatch", 0, t0, t1, pid=PID_ENGINE,
                             args={"rows": n_ready, "cont": bool(cont),
                                   "tokens": int(clens[:n_ready].sum())})
             prof = self.profiler
             if prof.enabled:
-                prof.record("prefill_chunk" if cont else "admit", t0, now,
+                prof.record("prefill_chunk" if cont else "admit", t0, t1,
                             tokens=int(clens[:n_ready].sum()), rows=n_ready,
                             bucket=cpad, ctx=int(starts.max()) + cpad)
             for i, (slot, req, toks, clen) in enumerate(ready):
                 if tr.enabled:
                     tr.complete(
-                        "prefill_chunk", req.rid, t0, now,
+                        "prefill_chunk", req.rid, t0, t1,
                         args={"tokens": int(clen),
                               "start": int(req.progress),
                               "emitted": int(req.progress + clen
@@ -722,6 +727,7 @@ class SchedEngine(PagedEngine):
         propagating them; with all three knobs off this body is the plain
         tick verbatim."""
         emitted: List[tuple] = []
+        now = self._now = self._clock()
         if not self.resilient:
             self._admit_new()
             self._dispatch_chunks(emitted)
@@ -730,7 +736,6 @@ class SchedEngine(PagedEngine):
                 if self.active:
                     self._dispatch_decode(emitted)
             return emitted
-        now = time.perf_counter()
         if self.ladder is not None:
             self.ladder.update()
         if self.max_request_s is not None:
@@ -743,9 +748,11 @@ class SchedEngine(PagedEngine):
                 if self.active:
                     self._dispatch_decode(emitted)
         except TransientDispatchError as e:
-            self._recover_transient(e, time.perf_counter())
+            self._now = self._clock()
+            self._recover_transient(e, self._now)
         except OutOfPagesError as e:
-            self._recover_oom(e, time.perf_counter())
+            self._now = self._clock()
+            self._recover_oom(e, self._now)
         if not emitted and self.queue \
                 and not (self.active or self._prefilling):
             # every queued request is in recovery backoff: yield briefly

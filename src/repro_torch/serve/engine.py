@@ -27,6 +27,17 @@ Every engine takes an off-by-default ``DispatchProfiler``
 reads the engine already takes, the second after the host read that ends
 the dispatch, so profiling adds no sync.  ``run_open_loop`` drives an
 engine with open-loop arrivals.
+
+Two clocks: the stamps that only the tracer, the profiler and the phase
+walls read are this rank's ``time.perf_counter()``; every stamp a host
+decision reads (a request's ``t_submit`` / ``t_admit`` / ``t_first`` /
+``t_done``, a tick's ``now``, ``run_open_loop``'s arrivals) is
+:func:`shared_clock`'s.  Under a model axis > 1 each rank runs the same
+host loop, so where a decision of the engine reads the clock (SJF's
+aging, EDF, admission control, the degradation ladder, deadlines, chaos
+recovery's backoff, ``spec_slack_s``; ``clock_decides``) that clock is
+the first rank's reading, sent to the group, and every rank decides
+alike.  Elsewhere it is the rank's own ``host_clock()``.
 """
 from __future__ import annotations
 
@@ -47,17 +58,24 @@ from repro_torch.resil.errors import OUTCOMES
 from repro_torch.serve.paged import (PAGE, OutOfPagesError, PageAllocator,
                                      _attn_nodes, scatter_prefill_cache,
                                      set_block_table_rows)
-from repro_torch.sharding.collectives import all_reduce
+from repro_torch.sharding.collectives import all_reduce, broadcast_clock
 from repro_torch.sharding.tp import shard_model
 
-#: the start of a sharded engine's refusal of host decisions that read the
-#: wall clock (each rank's own; ranks that decide apart split the streams)
-def same_decisions(what: str) -> str:
-    """The refusal of a host decision that reads each rank's own wall
-    clock under a model axis, naming the ROADMAP item that lifts it."""
-    from repro_torch.sharding.tp import A87
-    return ("under a model axis > 1 every rank must take the same host "
-            f"decisions, so a sharded engine takes {what}: {A87}")
+
+def host_clock() -> float:
+    """This rank's reading of the host clock that decisions read."""
+    return time.perf_counter()
+
+
+def shared_clock(mesh=None) -> float:
+    """The clock a host decision reads: :func:`host_clock` with no mesh
+    (or a model axis of 1); under a model axis > 1 the first rank's
+    reading, sent to the group (``collectives.broadcast_clock``: a CPU
+    float64, no device sync).  A failed broadcast raises."""
+    if mesh is None or mesh.model == 1:
+        return host_clock()
+    return broadcast_clock(host_clock() if mesh.model_rank == 0 else 0.0,
+                           mesh)
 
 
 @dataclasses.dataclass
@@ -93,6 +111,9 @@ class _EngineBase:
 
     #: the KV layout the cost model prices for this engine
     kv_layout = "contiguous"
+    #: whether a host decision of this engine reads the clock (then a
+    #: sharded engine reads the first rank's: :meth:`_clock`)
+    clock_decides = False
 
     def __init__(self, lm, params, *, n_slots: int, max_len: int,
                  eos_id: int, metrics: Optional[MetricsRegistry] = None,
@@ -100,6 +121,8 @@ class _EngineBase:
                  profiler: Optional[DispatchProfiler] = None):
         self.lm = lm
         self.params = params
+        #: the mesh of a sharded LM (None on one rank)
+        self.mesh = getattr(lm, "mesh", None)
         self.n_slots = n_slots
         self.max_len = max_len
         self.eos = eos_id
@@ -149,6 +172,11 @@ class _EngineBase:
         m.gauge("serve_slots_active", "slots currently decoding",
                 fn=lambda: len(self.active))
 
+    def _clock(self) -> float:
+        """The clock of the stamps a decision reads: :func:`shared_clock`
+        over the mesh where ``clock_decides``, else :func:`host_clock`."""
+        return shared_clock(self.mesh if self.clock_decides else None)
+
     # ------------------------------------------------------------------
     # observability hooks (host clock only; no device reads)
 
@@ -193,8 +221,7 @@ class _EngineBase:
                 f"prompt of {len(prompt)} tokens >= max_len={self.max_len}")
         rid = self._next_rid
         self._next_rid += 1
-        req = Request(rid=rid, prompt=prompt,
-                      t_submit=time.perf_counter(), **kw)
+        req = Request(rid=rid, prompt=prompt, t_submit=self._clock(), **kw)
         self.queue.append(req)
         self.registry[rid] = req
         self._obs_submit(req)
@@ -394,12 +421,15 @@ def run_open_loop(eng, prompts, offsets, **submit_kw):
     """Submit ``prompts[i]`` at wall-clock offset ``offsets[i]`` seconds
     from now (open-loop arrivals), stepping the engine between arrivals
     and sleeping only when it is idle.  Returns the request ids in
-    prompt order; drive results out of ``eng.registry``."""
-    t0 = time.perf_counter()
+    prompt order; drive results out of ``eng.registry``.  The arrivals
+    read :func:`shared_clock` over the engine's mesh, so every rank of a
+    sharded engine submits at the same tick."""
+    mesh = eng.mesh
+    t0 = shared_clock(mesh)
     pending = sorted(zip(offsets, range(len(prompts))))
     ids: List[Optional[int]] = [None] * len(prompts)
     while pending or engine_busy(eng):
-        now = time.perf_counter() - t0
+        now = shared_clock(mesh) - t0
         while pending and pending[0][0] <= now:
             _, i = pending.pop(0)
             ids[i] = eng.submit(prompts[i], **submit_kw)
@@ -479,16 +509,16 @@ class PagedEngine(_EngineBase):
                              f"{cfg.name} through the eager Engine")
         # sharded serving: a mesh whose model axis is > 1 serves this
         # rank's slice of the weights and kv heads (repro_torch.sharding);
-        # every rank runs this host loop and makes the same decisions.
-        # mesh=None (or a model axis of 1) is the unsharded path
-        self.mesh = mesh if mesh is not None and mesh.model > 1 else None
-        if self.mesh is not None:
-            if injector is not None:
-                raise ValueError(same_decisions("no chaos injector"))
-            lm, params = shard_model(lm, params, self.mesh)
+        # every rank runs this host loop and makes the same decisions
+        # (the injector is seeded alike on every rank and draws in the
+        # same order).  mesh=None (or a model axis of 1) is the unsharded
+        # path
+        if mesh is not None and mesh.model > 1:
+            lm, params = shard_model(lm, params, mesh)
         super().__init__(lm, lm.prepare(params), n_slots=n_slots,
                          max_len=max_len, eos_id=eos_id, metrics=metrics,
                          tracer=tracer, profiler=profiler)
+        self.mesh = mesh if mesh is not None and mesh.model > 1 else None
         self.device = lm.device
         self.page_size = page_size
         self.decode_block = decode_block
@@ -655,6 +685,7 @@ class PagedEngine(_EngineBase):
     def _try_admit(self) -> List[Request]:
         """Pop queue entries into free slots while pages last."""
         admitted = []
+        now = self._clock()
         while self.queue and self.free:
             req = self.queue[0]
             plen = len(req.prompt)
@@ -670,8 +701,8 @@ class PagedEngine(_EngineBase):
             self.queue.popleft()
             self.free.popleft()
             req.slot = slot
-            req.t_admit = time.perf_counter()
-            self._obs_admit(req, req.t_admit, first=True,
+            req.t_admit = now
+            self._obs_admit(req, now, first=True,
                             pages=len(self.alloc.owned(slot)))
             admitted.append(req)
         return admitted
@@ -696,18 +727,19 @@ class PagedEngine(_EngineBase):
             self._gen_if(self.temps[slot_ids]))
         tok0 = tok0.cpu().numpy()                # <- sync (1 per admit batch)
         self.sync_count += 1
-        now = time.perf_counter()
-        self.t_prefill_s += now - t0
+        t1 = time.perf_counter()
+        now = self._clock()
+        self.t_prefill_s += t1 - t0
         self._c_prefill_disp.inc()
         self._c_tokens.inc(len(admitted))
         tr = self.tracer
         if tr.enabled:
-            tr.complete("prefill_dispatch", 0, t0, now, pid=PID_ENGINE,
+            tr.complete("prefill_dispatch", 0, t0, t1, pid=PID_ENGINE,
                         args={"rows": len(admitted),
                               "tokens": int(plens.sum())})
         prof = self.profiler
         if prof.enabled:
-            prof.record("admit", t0, now, tokens=int(plens.sum()),
+            prof.record("admit", t0, t1, tokens=int(plens.sum()),
                         rows=len(admitted), bucket=plen_pad, ctx=plen_pad)
         for i, req in enumerate(admitted):
             t = int(tok0[i])
@@ -715,7 +747,7 @@ class PagedEngine(_EngineBase):
             req.pos = int(plens[i])
             req.t_first = now
             if tr.enabled:
-                tr.complete("prefill", req.rid, t0, now,
+                tr.complete("prefill", req.rid, t0, t1,
                             args={"tokens": int(plens[i]), "emitted": 1})
             self._obs_first(req)
             self.active[req.slot] = req
@@ -753,7 +785,8 @@ class PagedEngine(_EngineBase):
                           last, lengths, active.to(torch.int32), remaining,
                           stats]).cpu().numpy()
         self.sync_count += 1
-        now = time.perf_counter()
+        t1 = time.perf_counter()
+        now = self._now = self._clock()
         n = k_blk * s_n
         toks = host[:n].reshape(k_blk, s_n)
         emits = host[n:2 * n].reshape(k_blk, s_n).astype(bool)
@@ -762,7 +795,7 @@ class PagedEngine(_EngineBase):
             for j in range(4))
         active = active.astype(bool)
         dstats = host[2 * n + 4 * s_n:]
-        self.t_decode_s += now - t0
+        self.t_decode_s += t1 - t0
         self.steps_dispatched += k_blk
         self.steps_run += n_steps
         self._c_decode_disp.inc()
@@ -772,23 +805,23 @@ class PagedEngine(_EngineBase):
         self._c_requant.inc(int(dstats[2]))
         prof = self.profiler
         if prof.enabled:
-            prof.record("decode_block", t0, now, tokens=int(dstats[0]),
+            prof.record("decode_block", t0, t1, tokens=int(dstats[0]),
                         rows=len(self.active), steps=k_blk, bucket=k_blk,
                         ctx=int(self.lengths.max()))
         tr = self.tracer
         if tr.enabled:
-            tr.complete("decode_block", 0, t0, now, pid=PID_ENGINE,
+            tr.complete("decode_block", 0, t0, t1, pid=PID_ENGINE,
                         args={"rows": len(self.active), "steps": k_blk,
                               "tokens": int(dstats[0])})
             tr.counter("utilization",
                        {"queue_depth": len(self.queue),
                         "slots_active": len(self.active),
                         "pages_used": self.alloc.n_pages
-                        - len(self.alloc.free)}, ts=now)
+                        - len(self.alloc.free)}, ts=t1)
             for slot, req in self.active.items():
                 n_tok = int(emits[:, slot].sum())
                 if n_tok:
-                    tr.complete("decode_block", req.rid, t0, now,
+                    tr.complete("decode_block", req.rid, t0, t1,
                                 args={"tokens": n_tok})
         for i in range(k_blk):
             for slot in list(self.active):

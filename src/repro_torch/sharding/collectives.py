@@ -29,6 +29,11 @@ operator (``repro_torch::collective``), so that a selective-checkpoint
 policy can keep its outputs (``models.transformer._save_products``):
 a recompute then makes no collective and counts none.
 
+:func:`broadcast_clock` is the engines' one host collective: the model
+group's first rank's reading of its host clock, sent as a CPU float64
+over the group's gloo group (``serve.engine.shared_clock``), so that
+every rank takes a decision that reads the clock alike.
+
 Under autograd the sharded training forward goes through three pairs
 (Megatron's f / g, and a gather over an axis):
   * :func:`copy_to_model`: identity forward, all-reduce SUM of the
@@ -260,6 +265,20 @@ def barrier(mesh) -> None:
     """Every rank of the world waits for the others (an all-reduce of
     one element)."""
     all_reduce(torch.zeros(1, device=mesh.device), "sum", mesh, "world")
+
+
+def broadcast_clock(t: float, mesh) -> float:
+    """The first rank of ``mesh``'s model group's reading ``t`` of its
+    host clock, on every rank of the group (the others' ``t`` is
+    ignored): one float64 broadcast as a CPU tensor over the group's host
+    group (``Mesh.host_group``, gloo), so it makes no device sync.
+    Counted as ``broadcast/clock``, apart from the model's collectives."""
+    if mesh.model == 1:
+        return t
+    buf = torch.tensor([t], dtype=torch.float64)
+    dist.broadcast(buf, src=mesh.ranks[0], group=mesh.host_group)
+    mesh.stats.add("broadcast/clock", buf.element_size())
+    return float(buf[0])
 
 
 def _reduce_f32(x: torch.Tensor, mesh, kind: str, axis: str,

@@ -55,9 +55,7 @@ import torch
 from repro_torch.sharding.collectives import (all_gather, local_piece,
                                               reduce_from_model)
 
-#: the ROADMAP items that shard what the port still refuses
-A87 = ("ROADMAP A8.7 (host decisions that read the wall clock under a "
-       "model axis: rank 0's decisions broadcast to the group)")
+#: the ROADMAP item that shards what the port still refuses
 A88 = ("ROADMAP A8.8 (layouts a model axis does not split: MLA, head "
        "counts it does not divide in the engines, widths, expert counts, "
        "RWKV-6 heads or Mamba channels it does not divide, an odd K/m "

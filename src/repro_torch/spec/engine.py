@@ -52,7 +52,7 @@ from repro_torch.obs.trace import PID_ENGINE
 from repro_torch.sched.policy import EDF
 from repro_torch.sched.scheduler import SchedEngine
 from repro_torch.serve.engine import (_gumbel_argmax, _pow2_bucket,
-                                      _scale_snapshot, same_decisions)
+                                      _scale_snapshot)
 from repro_torch.serve.paged import commit_spec_cache
 from repro_torch.sharding.tp import shard_model
 from repro_torch.spec.controller import AdaptiveDraftController
@@ -152,9 +152,7 @@ class SpecEngine(SchedEngine):
         if spec not in ("ngram", "draft"):
             raise ValueError(f"unknown spec arm {spec!r}")
         super().__init__(lm, params, tier=tier, **kw)
-        if self.mesh is not None and spec_slack_s is not None:
-            raise ValueError(same_decisions(
-                "no spec_slack_s (it reads each rank's own wall clock)"))
+        self.clock_decides = self.clock_decides or spec_slack_s is not None
         self.spec_arm = spec
         self.k_max = int(draft_k)
         self.w_max = self.k_max + 1
@@ -231,11 +229,11 @@ class SpecEngine(SchedEngine):
 
     def _spec_allowed(self) -> bool:
         """EDF urgency gate: don't gamble the decode budget on drafts
-        while a queued request's deadline is within ``spec_slack_s``."""
+        while a queued request's deadline is within ``spec_slack_s`` of
+        the tick's latest clock reading."""
         if self.spec_slack_s is None or not isinstance(self.policy, EDF):
             return True
-        now = time.perf_counter()
-        return all(self.policy.deadline(r) - now >= self.spec_slack_s
+        return all(self.policy.deadline(r) - self._now >= self.spec_slack_s
                    for r in self.queue)
 
     def _dispatch_decode(self, emitted: list) -> None:
@@ -326,8 +324,9 @@ class SpecEngine(SchedEngine):
         host = torch.cat([t.reshape(-1).to(torch.int32)
                           for t in out]).cpu().numpy()
         self.sync_count += 1
-        now = time.perf_counter()
-        self.t_decode_s += now - t0
+        t1 = time.perf_counter()
+        now = self._now = self._clock()
+        self.t_decode_s += t1 - t0
         s_n, w = self.n_slots, self.w_max
         y = host[:s_n * w].reshape(s_n, w)
         n_emit, n_match, last, lengths, active, remaining = (
@@ -335,7 +334,7 @@ class SpecEngine(SchedEngine):
             for i in range(6))
         nrq = int(host[-1])
         if prof.enabled:
-            prof.record("spec_round", t0, now, tokens=int(n_emit.sum()),
+            prof.record("spec_round", t0, t1, tokens=int(n_emit.sum()),
                         rows=len(reqs), bucket=self.w_max,
                         ctx=int(self.lengths.max()))
         self.spec_stats.verify_steps += 1
@@ -345,7 +344,7 @@ class SpecEngine(SchedEngine):
                                                        remaining)
         tr = self.tracer
         if tr.enabled:
-            tr.complete("spec_round", 0, t_round0, now, pid=PID_ENGINE,
+            tr.complete("spec_round", 0, t_round0, t1, pid=PID_ENGINE,
                         args={"rows": len(reqs),
                               "proposed": int(ndraft.sum()),
                               "tokens": int(n_emit.sum())})
@@ -363,7 +362,7 @@ class SpecEngine(SchedEngine):
             self.spec_stats.drafts_accepted += acc
             self.spec_stats.spec_tokens += ne
             if tr.enabled:
-                tr.complete("spec_round", req.rid, t_round0, now,
+                tr.complete("spec_round", req.rid, t_round0, t1,
                             args={"proposed": int(ndraft[slot]),
                                   "accepted": acc, "tokens": ne})
         for slot, _req in reqs:

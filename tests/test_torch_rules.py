@@ -349,6 +349,79 @@ def test_ssm_tp_modules_import_neither_jax_nor_the_reference():
         assert not set(_imported_roots(ROOT / rel)) & FORBIDDEN, rel
 
 
+def test_chip_smoke_drives_the_clock_phase():
+    """chip_smoke.py has a phase 30 inside phase 23's ranks
+    (``_tp_rank``): rank 1's host clock skewed, (a) the SchedEngine at
+    full width under EDF with admission control, the ladder and
+    deadlines, open loop, with its launches and the shared clock's
+    readings by site; (b) the n-gram SpecEngine under EDF with
+    ``spec_slack_s`` and chaos; (c) a float32 drive with chaos that one
+    rank replays on rank 0's readings."""
+    text = (ROOT / "chip_smoke.py").read_text()
+    tree = ast.parse(text)
+    funcs = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+
+    def reach(*roots):
+        reached, todo = set(), list(roots)
+        while todo:
+            name = todo.pop()
+            reached.add(name)
+            todo += [ast.unparse(c.func) for c in ast.walk(funcs[name])
+                     if isinstance(c, ast.Call)
+                     and ast.unparse(c.func) in funcs
+                     and ast.unparse(c.func) not in reached]
+        return reached
+    line = {ast.unparse(c.func): c.lineno
+            for c in ast.walk(funcs["_tp_rank"]) if isinstance(c, ast.Call)}
+    assert {"_clk_rank", "_clk_f32"} <= set(line)
+    # after phase 23 (c), before (e)
+    assert line["_tp_sched_drive"] < line["_clk_rank"] < line[
+        "_read_launches"]
+    assert {"_clk_replay", "_clk_check"} <= reach("phase_tp")
+    reached = reach("_tp_rank")
+    assert {"_clk_clock", "_clk_sched", "_clk_open_loop", "_clk_spec"} \
+        <= reached
+    body = "\n".join(ast.unparse(funcs[n]) for n in sorted(
+        reached | reach("phase_tp")))
+    for needle in ("CLK_SKEW_S", "CLK_SKEW_RATE", "rank == 0",
+                   "host_clock", "run_open_loop", "policy='edf'",
+                   "admission_control=True", "ladder=True", "max_request_s",
+                   "spec_slack_s", "CLK_SPEC_CHAOS", "CLK_F32_CHAOS",
+                   "broadcast/clock", "_reset_launches", "_read_launches",
+                   "TP_F32_LAYERS", "edf_reorder", "admission_drop",
+                   "rung_above_0", "timeout_or_preemption"):
+        assert needle in body, needle
+    for tag in ("[30 clock] (a)", "[30 clock] (b)", "[30 clock] (c)"):
+        assert tag in text, tag
+
+
+def test_the_wall_clock_refusal_is_gone():
+    """No sharded engine refuses a decision that reads the clock: the
+    refusal's helper ``same_decisions`` and its label ``A87`` are gone
+    from the port and from ``chip_smoke.py``."""
+    for f in _port_files():
+        text = f.read_text()
+        for word in ("same_decisions", "A87", "A8.7"):
+            assert word not in text, (str(f.relative_to(ROOT)), word)
+    from repro_torch.serve import engine
+    from repro_torch.sharding import tp
+    assert not hasattr(engine, "same_decisions") and not hasattr(tp, "A87")
+    assert callable(engine.shared_clock) and callable(engine.host_clock)
+
+
+def test_clock_modules_import_neither_jax_nor_the_reference():
+    """The modules of the shared clock and its test drive import neither
+    ``jax`` nor ``repro``."""
+    for rel in ("src/repro_torch/serve/engine.py",
+                "src/repro_torch/sched/scheduler.py",
+                "src/repro_torch/spec/engine.py",
+                "src/repro_torch/sharding/collectives.py",
+                "src/repro_torch/launch/mesh.py",
+                "src/repro_torch/launch/serve.py",
+                "tests/_host_decision_arms.py"):
+        assert not set(_imported_roots(ROOT / rel)) & FORBIDDEN, rel
+
+
 def test_chip_smoke_drives_the_spec_path():
     """chip_smoke.py has a speculative-decoding phase that its main runs:
     it serves through the port's SpecEngine (n-gram and draft arms), holds

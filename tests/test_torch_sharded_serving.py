@@ -169,12 +169,11 @@ def test_refusals_under_a_model_axis():
     fp8 / int4 weights and PEFT adapters are served since): heads the
     axis does not divide (both counts named) and MLA, expert counts and
     widths it divides neither, an int4 K/m that splits a packed pair, a
-    narrowed KV-head style (A8.8), and the host decisions that read each
-    rank's own wall clock (A8.7); none needs a process group to be
-    refused."""
+    narrowed KV-head style (A8.8); none needs a process group to be
+    refused.  (The host decisions that read the clock are served since:
+    ``test_torch_host_decisions.py``.)"""
     import dataclasses
     from repro_torch.quant import quantize_tree
-    from repro_torch.resil import FaultInjector
     from repro_torch.sharding.tp import check_servable
     cfg = get_smoke_config("qwen2-1.5b")
     odd = cfg.with_(attention=dataclasses.replace(
@@ -196,12 +195,6 @@ def test_refusals_under_a_model_axis():
                                  quant="int4"))
     with pytest.raises(ValueError, match="kv_cache_style 'mqa'.*A8.8"):
         _build(cfg.with_(kv_cache_style="mqa"))
-    with pytest.raises(ValueError, match="same host decisions.*A8.7"):
-        _build(cfg, injector=FaultInjector.from_spec("seed=0,fault=0.1"))
-    for kw in ({"policy": "edf"}, {"admission_control": True},
-               {"max_request_s": 1.0}):
-        with pytest.raises(ValueError, match="FCFS.*A8.7"):
-            _build(cfg, cls=arms.SchedEngine, prefill_chunk=8, **kw)
     with pytest.raises(ValueError, match="model_parallel"):
         LM(cfg, device="cpu", mesh=_mesh2())
 
